@@ -1,0 +1,76 @@
+"""Gather and aggregation primitives over flat disjoint batches; counterpart
+of ``gcnn_keras_tpu/layers/aggr.py``.
+
+Messages flow sender -> receiver; edges are sorted by receiver, so every sum
+onto nodes or graphs runs on the sorted segment-sum kernel, and every node
+gather with a known sort order has that kernel as its transpose. Padding
+edges target the dead padding node, so sums need no masking.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..batch import GraphBatch
+from ..ops.cuda.fused_aggregate import gather_with_sorted_transpose
+from ..ops.segment import segment_ops_by_name
+
+Tensor = torch.Tensor
+
+
+def gather_nodes(values: Tensor, indices: Tensor) -> Tensor:
+    """Edge-wise gather ``values[(N, ...)][indices (E,)] -> (E, ...)`` by
+    plain indexing (indices of unknown order)."""
+    return values.index_select(0, indices)
+
+
+def gather_sender_nodes(batch: GraphBatch, values: Tensor) -> Tensor:
+    """Sender-side gather whose transpose runs on the sorted segment-sum
+    through the build-time ``sender_perm``; a plain gather when the batch
+    has none."""
+    perm = batch.edges.get("sender_perm")
+    if perm is None:
+        return gather_nodes(values, batch.senders)
+    return gather_with_sorted_transpose(values, batch.senders, perm)
+
+
+def gather_receiver_nodes(batch: GraphBatch, values: Tensor) -> Tensor:
+    """Receiver-side gather; receivers are already sorted, so its
+    transpose needs no permutation."""
+    return gather_with_sorted_transpose(values, batch.receivers, None)
+
+
+def pool_edges_to_nodes(batch: GraphBatch, edge_values: Tensor,
+                        mode: str = "sum",
+                        pooling_method: Optional[str] = None) -> Tensor:
+    """Aggregate edge messages ``(E, ...)`` onto receiving nodes ``(N, ...)``.
+    ``pooling_method`` is an alias for ``mode``."""
+    mode = pooling_method or mode
+    return segment_ops_by_name(mode, edge_values, batch.receivers, batch.n_node,
+                               indices_are_sorted=True)
+
+
+def gather_mul_pool_edges(batch: GraphBatch, nodes: Tensor,
+                          edge_filter: Tensor, mode: str = "sum",
+                          fused: bool = False) -> Tensor:
+    """``out[r] = sum_e nodes[senders[e]] * edge_filter[e]``, the cfconv
+    chain, unfused: a sender gather, a multiply and a sorted sum."""
+    if fused:
+        raise NotImplementedError(
+            "gather_mul_pool_edges(fused=True) needs the fused "
+            "gather-multiply-segment-sum kernel (TPU kernel #2, "
+            "ops/pallas/fused_aggregate.py _fused_gather_mul_segsum), "
+            "which is not ported yet")
+    xj = gather_sender_nodes(batch, nodes)
+    return pool_edges_to_nodes(batch, xj * edge_filter, mode=mode)
+
+
+def pool_nodes_to_graph(batch: GraphBatch, node_values: Tensor,
+                        mode: str = "sum",
+                        pooling_method: Optional[str] = None) -> Tensor:
+    """Whole-graph readout ``(N, ...) -> (G, ...)``. Padding nodes all live
+    in the padding graph slot, so no masking is needed."""
+    mode = pooling_method or mode
+    return segment_ops_by_name(mode, node_values, batch.graph_id,
+                               batch.n_graphs, indices_are_sorted=True)

@@ -1,12 +1,13 @@
 """Host-side graph preprocessing (numpy); counterpart of
 ``gcnn_keras_tpu/graph/preprocess.py``.
 
-Only the dense cutoff neighbour list is carried so far. The C++ cell-list
-backend of the JAX package (``native/neighborlist.cpp``) is a later slice.
+Carried so far: the dense cutoff neighbour list (``set_range``) and the
+node-triple angle list (``set_angle``). The C++ cell-list backend of the JAX
+package (``native/neighborlist.cpp``) is a later slice.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -50,4 +51,43 @@ def set_range(graph: Dict[str, np.ndarray], max_distance: float = 4.0,
     out = dict(graph)
     out["range_indices"] = np.stack([recv, send], axis=1).astype(np.int64)
     out["range_attributes"] = attr[:, None]
+    return out
+
+
+def set_angle(graph: Dict[str, np.ndarray], range_indices: str = "range_indices",
+              allow_multi_edges: bool = False,
+              max_angles: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Angle triples (i, j, k): for every central node i, the ordered pairs
+    of distinct neighbours j != k -> ``angle_indices_nodes`` (A, 3), in the
+    JAX package's order (centres ascending, then ``j``'s and ``k``'s
+    positions in the centre's neighbour list)."""
+    ei = np.asarray(graph[range_indices])
+    if len(ei) == 0:
+        angles = np.zeros((0, 3), dtype=np.int64)
+    else:
+        recv, send = ei[:, 0], ei[:, 1]
+        # within a group of m neighbours, pair p -> (a, b) with
+        # a = p // (m-1), b' = p % (m-1), b = b' + (b' >= a)
+        order = np.argsort(recv, kind="stable")
+        recv_s, send_s = recv[order], send[order]
+        uniq, starts, counts = np.unique(recv_s, return_index=True,
+                                         return_counts=True)
+        pairs_per = counts * (counts - 1)
+        total = int(pairs_per.sum())
+        grp = np.repeat(np.arange(len(uniq)), pairs_per)
+        p = np.arange(total) - np.repeat(np.cumsum(pairs_per) - pairs_per,
+                                         pairs_per)
+        m_g = counts[grp]
+        a = p // (m_g - 1)
+        b = p % (m_g - 1)
+        b = b + (b >= a)
+        base = starts[grp]
+        angles = np.stack([uniq[grp], send_s[base + a], send_s[base + b]],
+                          axis=1).astype(np.int64)
+        if not allow_multi_edges:
+            angles = angles[angles[:, 1] != angles[:, 2]]
+    if max_angles is not None and len(angles) > max_angles:
+        angles = angles[:max_angles]
+    out = dict(graph)
+    out["angle_indices_nodes"] = angles.astype(np.int64)
     return out

@@ -1,9 +1,12 @@
-"""Dense and MLP modules; counterpart of ``gcnn_keras_tpu/layers/mlp.py``.
+"""Dense, MLP and per-relation MLP modules; counterpart of
+``gcnn_keras_tpu/layers/mlp.py``.
 
 Weights start as the JAX package's do: glorot-uniform kernels and zero
 biases, drawn from an explicit ``torch.Generator`` on the CPU so that one
-seed gives the same weights whatever the device. ``weight`` is stored
+seed gives the same weights whatever the device. ``Dense.weight`` is stored
 ``(out, in)`` as in ``nn.Linear``; the flax kernel is ``(in, out)``.
+``RelationalDense`` keeps the flax layout, ``kernel`` (R, in, out) and
+``bias`` (R, out).
 """
 from __future__ import annotations
 
@@ -78,4 +81,85 @@ class MLP(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         for layer in self.children():
             x = layer(x)
+        return x
+
+
+class RelationalDense(nn.Module):
+    """Per-relation dense layer: one weight set per relation (element type),
+    chosen per row by ``relations``. A relation outside
+    ``[0, num_relations)`` selects no weights (the one-hot row of the JAX
+    package is zero), so its row is the activation of 0.
+
+    The kernel starts as flax's ``glorot_uniform(in_axis=-2, out_axis=-1)``
+    draws it for a (R, in, out) shape, whose fans count the relation axis:
+    limit ``sqrt(6 / (R * (in + out)))``.
+
+    Up to ``dense_relation_threshold`` relations, ``x @ W_r`` is one matmul
+    over all of them, then each row picks its own; above it, as in the JAX
+    package, only the relations the rows hold are multiplied, one matmul
+    each over their rows.
+    """
+
+    def __init__(self, in_features: int, units: int, num_relations: int,
+                 activation: Any = "linear", use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 dense_relation_threshold: int = 16):
+        super().__init__()
+        self.num_relations = num_relations
+        self.dense_relation_threshold = dense_relation_threshold
+        limit = math.sqrt(6.0 / (num_relations * (in_features + units)))
+        self.kernel = nn.Parameter(nn.init.uniform_(
+            torch.empty(num_relations, in_features, units), -limit, limit,
+            generator=generator))
+        self.register_parameter(
+            "bias", nn.Parameter(torch.zeros(num_relations, units))
+            if use_bias else None)
+        self._act = get_activation(activation)
+
+    def forward(self, x: Tensor, relations: Tensor) -> Tensor:
+        n, (r, fi, fo) = x.shape[0], self.kernel.shape
+        rel = relations.long()
+        valid = (rel >= 0) & (rel < r)
+        if r > self.dense_relation_threshold:
+            # rows of an invalid relation stay 0
+            y = x.new_zeros(n, fo)
+            for rid in torch.unique(rel[valid]).tolist():
+                rows = (rel == rid).nonzero()[:, 0]
+                y_r = x[rows] @ self.kernel[rid]
+                if self.bias is not None:
+                    y_r = y_r + self.bias[rid]
+                y = y.index_copy(0, rows, y_r)
+            return self._act(y)
+        rel = rel.clamp(0, r - 1)
+        # x @ W_r for every r as one matmul, then each row's own relation
+        y_all = (x @ self.kernel.permute(1, 0, 2).reshape(fi, r * fo)).reshape(n, r, fo)
+        y = y_all.gather(1, rel[:, None, None].expand(n, 1, fo))[:, 0]
+        if self.bias is not None:
+            y = y + self.bias[rel]
+        return self._act(y * valid.to(x.dtype)[:, None])
+
+
+class RelationalMLP(nn.Module):
+    """Stack of RelationalDense layers ``rel_dense_0 ...``: the per-element
+    atomic networks of HDNNP."""
+
+    def __init__(self, in_features: int, units: Union[int, Sequence[int]],
+                 num_relations: int, activation: Any = "linear",
+                 use_bias: Any = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        units = list(units) if isinstance(units, (list, tuple)) else [units]
+        depth = len(units)
+        fan_in = in_features
+        for i, (u, a, b) in enumerate(zip(units, _as_list(activation, depth),
+                                          _as_list(use_bias, depth))):
+            self.add_module(f"rel_dense_{i}", RelationalDense(
+                fan_in, u, num_relations, activation=a, use_bias=b,
+                generator=generator))
+            fan_in = u
+        self.out_features = fan_in
+
+    def forward(self, x: Tensor, relations: Tensor) -> Tensor:
+        for layer in self.children():
+            x = layer(x, relations)
         return x

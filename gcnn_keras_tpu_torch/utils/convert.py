@@ -2,10 +2,12 @@
 
 The port names its submodules after the flax parameter tree, so a module at
 ``interaction_0.cfconv.filter_1`` takes ``interaction_0/cfconv/filter_1``.
-Two node types carry weights:
+Three node types carry weights:
 
 - ``Dense``: ``<path>/Dense_0/kernel`` (in, out), transposed into
   ``weight`` (out, in), and ``<path>/Dense_0/bias``;
+- ``RelationalDense``: ``<path>/kernel`` (R, in, out) and ``<path>/bias``
+  (R, out), as they are;
 - ``OptionalInputEmbedding``: ``<path>/Embed_0/embedding``; its flax name
   is ``OptionalInputEmbedding_0`` where the port says ``embedding``.
 """
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..layers.mlp import Dense
+from ..layers.mlp import Dense, RelationalDense
 from ..models.common import OptionalInputEmbedding
 
 _FLAX_NAMES = {"embedding": "OptionalInputEmbedding_0"}
@@ -64,6 +66,10 @@ def params_from_jax(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
             take(f"{base}/Dense_0/kernel", module.weight, transpose=True)
             if module.bias is not None:
                 take(f"{base}/Dense_0/bias", module.bias)
+        elif isinstance(module, RelationalDense):
+            take(f"{base}/kernel", module.kernel)
+            if module.bias is not None:
+                take(f"{base}/bias", module.bias)
         elif isinstance(module, OptionalInputEmbedding):
             take(f"{base}/Embed_0/embedding", module.weight)
     left = sorted(set(flat) - used)

@@ -89,3 +89,187 @@ def test_gather_transpose_runs_on_the_kernel(cuda_device):
     assert kseg.launches == before + 1
     ref = torch.zeros(100, 16, device=cuda_device).index_add_(0, s, ct)
     assert (grad - ref).abs().max().item() <= TOL * (1.0 + ref.abs().max().item())
+
+
+# ------------------------------------------------------------ ACSF G2/G4
+
+# the HDNNP2nd serving tables (elements H, C, N, O, F): R*m = 20 and 120
+ACSF_ELEMENTS = [1, 6, 7, 8, 9]
+G2_KW = dict(eta=[0.0, 0.3], rs=[0.0, 3.0], rc=4.0)
+G4_KW = dict(eta=[0.0, 0.3], zeta=[1.0, 8.0], lamda=[-1.0, 1.0], rc=4.0,
+             multiplicity=2.0)
+# max|kernel - plain| <= tol * (1 + max|plain|): the forward sums in
+# another order (shared-memory atomics); the force pass adds terms of both
+# signs with float atomics, in an order that varies from run to run
+ACSF_FWD_TOL, ACSF_VJP_TOL = 1e-5, 1e-4
+
+
+def _acsf_graphs(seed, n_mols, elements=(1, 6, 7, 8, 9)):
+    from gcnn_keras_tpu_torch.graph.preprocess import set_angle, set_range
+    rs = np.random.RandomState(seed)
+    graphs = []
+    for n in rs.randint(3, 21, size=n_mols):
+        g = {"node_number": rs.choice(list(elements), size=n),
+             "node_coordinates": (rs.randn(n, 3) * 2.0).astype(np.float32)}
+        g = set_range(g, max_distance=4.0, max_neighbours=25)
+        g["edge_indices"] = g.pop("range_indices")
+        graphs.append(set_angle(g, range_indices="edge_indices"))
+    return graphs
+
+
+def _acsf_layers():
+    from gcnn_keras_tpu_torch.layers.conv.acsf import ACSFG2, ACSFG4
+    return (ACSFG2(**ACSFG2.make_param_table(**G2_KW, elements=ACSF_ELEMENTS)),
+            ACSFG4(**ACSFG4.make_param_table(**G4_KW, elements=ACSF_ELEMENTS)))
+
+
+def _acsf_args(name, b):
+    pos = b.nodes["node_coordinates"]
+    z = b.nodes["node_number"].to(torch.int32)
+    if name.startswith("g4"):
+        return pos, z, b.angles, b.angle_mask
+    return pos, z, b.senders, b.receivers, b.edge_mask
+
+
+def _acsf_check(name, b, st, ct_seed=0):
+    """Launch kernel ``name`` once on batch ``b`` and hold it against its
+    plain version; returns the kernel's output."""
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    kernel, plain = {"g2_fwd": (ka.g2_forward, ka.g2_forward_plain),
+                     "g4_fwd": (ka.g4_forward, ka.g4_forward_plain),
+                     "g2_vjp": (ka.g2_vjp, ka.g2_vjp_plain),
+                     "g4_vjp": (ka.g4_vjp, ka.g4_vjp_plain)}[name]
+    args = _acsf_args(name, b)
+    if name.endswith("vjp"):
+        width = st.num_rel * (len(st.eta_inv) if name.startswith("g4") else len(st.sets))
+        gen = torch.Generator(device=b.senders.device).manual_seed(ct_seed)
+        ct = torch.randn(b.n_node, width, generator=gen, device=b.senders.device)
+        args = args + (ct,)
+    before = dict(ka.launches)
+    out = kernel(*args, st)
+    torch.cuda.synchronize()
+    assert ka.launches[name] == before[name] + 1
+    ref = plain(*args, st)
+    tol = ACSF_VJP_TOL if name.endswith("vjp") else ACSF_FWD_TOL
+    scale = 1.0 + (ref.abs().max().item() if ref.numel() else 0.0)
+    err = (out - ref).abs().max().item() if ref.numel() else 0.0
+    assert out.shape == ref.shape and err <= tol * scale, (name, err, scale)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp"])
+def test_acsf_kernel_matches_plain(cuda_device, name):
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    b = batch_graphs(_acsf_graphs(0, 96), device=cuda_device)
+    g2, g4 = _acsf_layers()
+    _acsf_check(name, b, (g4 if name.startswith("g4") else g2)._static)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp"])
+def test_acsf_kernel_edge_cases(cuda_device, name):
+    """A collinear triple (the clamped cosine derivative), an atom with one
+    neighbour and one with none (no angles), elements outside the table
+    (S, Cl), all rows masked, and no rows at all."""
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    from gcnn_keras_tpu_torch.graph.preprocess import set_angle
+    graphs = [
+        {"node_number": np.array([6, 6, 6]),
+         "node_coordinates": np.array([[0, 0, 0], [1.0, 0, 0], [-2.0, 0, 0]], np.float32),
+         "edge_indices": np.array([[0, 1], [0, 2], [1, 0], [2, 0]])},
+        {"node_number": np.array([1, 8, 16]),
+         "node_coordinates": np.array([[0, 0, 0], [0.9, 0, 0], [9.0, 9, 9]], np.float32),
+         "edge_indices": np.array([[0, 1], [1, 0]])},
+        {"node_number": np.array([17, 6, 1, 16]),
+         "node_coordinates": np.array([[0, 0, 0], [1.5, 0, 0], [0, 1.2, 0],
+                                       [0, 0, 1.8]], np.float32),
+         "edge_indices": np.array([[i, j] for i in range(4) for j in range(4) if i != j])},
+    ]
+    graphs = [set_angle(g, range_indices="edge_indices") for g in graphs]
+    b = batch_graphs(graphs, device=cuda_device, n_angle_pad=64, n_edge_pad=64)
+    g2, g4 = _acsf_layers()
+    st = (g4 if name.startswith("g4") else g2)._static
+    out = _acsf_check(name, b, st)
+    assert torch.isfinite(out).all()
+    if name.endswith("fwd"):
+        assert not out[b.n_node - 1].any()  # the dead node gets nothing
+    masked = b.replace(angle_mask=torch.zeros_like(b.angle_mask),
+                       edge_mask=torch.zeros_like(b.edge_mask))
+    assert not _acsf_check(name, masked, st).any()
+    dev = cuda_device
+    empty = b.replace(angles=torch.zeros(0, 3, dtype=torch.int32, device=dev),
+                      angle_mask=torch.zeros(0, dtype=torch.bool, device=dev),
+                      senders=torch.zeros(0, dtype=torch.int32, device=dev),
+                      receivers=torch.zeros(0, dtype=torch.int32, device=dev),
+                      edge_mask=torch.zeros(0, dtype=torch.bool, device=dev))
+    assert not _acsf_check(name, empty, st).any()
+
+
+@pytest.mark.cuda
+def test_acsf_layers_run_the_kernels_forward_and_backward(cuda_device):
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    graphs = _acsf_graphs(1, 32)
+    layers = _acsf_layers()
+    for layer, fwd, vjp in zip(layers, ("g2_fwd", "g4_fwd"), ("g2_vjp", "g4_vjp")):
+        outs = []
+        for dev in (cuda_device, torch.device("cpu")):
+            b = batch_graphs(graphs, device=dev)
+            pos = b.nodes["node_coordinates"].clone().requires_grad_(True)
+            before = dict(ka.launches)
+            out = layer(b, positions=pos)
+            (g,) = torch.autograd.grad(out.sum(), pos)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                assert ka.launches[fwd] == before[fwd] + 1
+                assert ka.launches[vjp] == before[vjp] + 1
+            outs.append((out.detach().cpu(), g.cpu()))
+        (o, g), (ro, rg) = outs
+        assert (o - ro).abs().max().item() <= ACSF_FWD_TOL * (1 + ro.abs().max().item())
+        assert (g - rg).abs().max().item() <= ACSF_VJP_TOL * (1 + rg.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_acsf_kernels_reject_what_they_cannot_take(cuda_device):
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    b = batch_graphs(_acsf_graphs(2, 4), device=cuda_device)
+    _, g4 = _acsf_layers()
+    pos, z, angles, mask = _acsf_args("g4_fwd", b)
+    with pytest.raises(TypeError):
+        ka.g4_forward(pos.double(), z, angles, mask, g4._static)
+    with pytest.raises(TypeError):
+        ka.g4_forward(pos, z, angles.long(), mask, g4._static)
+    with pytest.raises(ValueError):
+        ka.g4_forward(pos, z, angles, mask.cpu(), g4._static)
+
+
+@pytest.mark.cuda
+def test_hdnnp2nd_serving_on_the_card_matches_the_cpu(cuda_device):
+    import functools
+    from gcnn_keras_tpu_torch.graph.preprocess import set_angle
+    from gcnn_keras_tpu_torch.model.force import EnergyForceModel
+    from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
+    from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    kw = dict(g2_kwargs=dict(G2_KW, elements=ACSF_ELEMENTS),
+              g4_kwargs=dict(G4_KW, elements=ACSF_ELEMENTS),
+              mlp_kwargs={"units": [64, 64, 1], "num_relations": 10,
+                          "activation": ["swish", "swish", "linear"]})
+    frames = [{k: g[k] for k in ("node_number", "node_coordinates", "edge_indices")}
+              for g in _acsf_graphs(3, 16)]
+    pre = [functools.partial(set_angle, range_indices="edge_indices")]
+    answers = []
+    for dev in (cuda_device, torch.device("cpu")):
+        before = dict(ka.launches)
+        model = make_model_behler(device=dev, **kw)
+        answers.append(MolDynamicsModelPredictor(
+            EnergyForceModel(model, device=dev), graph_preprocessors=pre, device=dev)(frames))
+        launched = {k: v - before[k] for k, v in ka.launches.items()}
+        assert launched == dict.fromkeys(ka.KERNELS, 1 if dev.type == "cuda" else 0)
+    gpu, cpu = answers
+    for key in ("energy", "force"):
+        a = np.concatenate([r[key] for r in gpu])
+        b = np.concatenate([r[key] for r in cpu])
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()

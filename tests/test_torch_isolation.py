@@ -13,6 +13,7 @@ import torch
 
 from gcnn_keras_tpu_torch.batch import batch_graphs
 from gcnn_keras_tpu_torch.model.force import EnergyForceModel
+from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
 from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
 from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
 
@@ -54,7 +55,8 @@ def test_scan_sees_the_package():
 
 
 @pytest.mark.parametrize("entry", ["batch_graphs", "make_model", "make_crystal_model",
-                                   "EnergyForceModel", "MolDynamicsModelPredictor"])
+                                   "make_model_behler", "EnergyForceModel",
+                                   "MolDynamicsModelPredictor"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     graph = {"node_number": [1, 8], "node_coordinates": [[0, 0, 0], [0, 0, 1.0]],
@@ -63,6 +65,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
         "batch_graphs": lambda **kw: batch_graphs([graph], **kw),
         "make_model": lambda **kw: make_model(depth=1, **kw),
         "make_crystal_model": lambda **kw: make_crystal_model(depth=1, **kw),
+        "make_model_behler": lambda **kw: make_model_behler(**kw),
         "EnergyForceModel": lambda **kw: EnergyForceModel(
             make_model(device="cpu", depth=1), **kw),
         "MolDynamicsModelPredictor": lambda **kw: MolDynamicsModelPredictor(

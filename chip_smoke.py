@@ -23,6 +23,18 @@ order, each raising on a failed check:
    configuration, with ``set_angle`` as the graph preprocessor, answers the
    same 3 requests, checked as in phase 4, with every kernel's launch count
    per evaluation held to its derived value.
+7. SPD solve kernel: the batched Gauss-Jordan solve against its plain
+   version on the Qeq system that ``CENTCharge`` assembles from the first
+   HDNNP4th request, with times and bounds, and at edge cases (G = 1,
+   M = 1, M at the shared-memory gate, K = 1, the padding graph's identity
+   system, an empty graph whose bordered corner is 1).
+8. HDNNP4th serving: the flagship HDNNP4th of the JAX package's bench
+   configuration with ESP coupling answers the same 3 requests, each
+   molecule given an ESP, its gradient and a total charge of -1, 0 or +1;
+   charges, energies and forces are checked (finite, charges summing to the
+   total charge, forces summing to 0 where the ESP gradient is 0, equal to
+   the same predictor on the CPU), with every kernel's launch count per
+   evaluation held to its derived value.
 
 Prints ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` gives them, and last the line
@@ -79,13 +91,36 @@ HDNNP_SHAPES = (8192, 54784, 417024, 513)  # N, E, A, G of the seed-0 request
 # segment-sum); the force pass runs the G4 and G2 vjp kernels, and the
 # backward of the pool is a gather, which launches nothing
 HDNNP_LAUNCHES = {"g2_fwd": 1, "g4_fwd": 1, "g4_vjp": 1, "g2_vjp": 1,
-                  "sorted_segment_sum": 1}
+                  "sorted_segment_sum": 1, "spd_solve": 0}
 # the TPU kernel each ACSF kernel replaces (its pl.pallas_call line)
 ACSF_REPLACES = {"g2_fwd": "gcnn_keras_tpu/ops/pallas/fused_g4.py:1088",
                  "g4_fwd": "gcnn_keras_tpu/ops/pallas/fused_g4.py:660",
                  "g4_vjp": "gcnn_keras_tpu/ops/pallas/fused_g4.py:729",
                  "g2_vjp": "gcnn_keras_tpu/ops/pallas/fused_g4.py:1147"}
 FORCE_SUM_TOL = 1e-5  # |sum_i F_i| <= FORCE_SUM_TOL * n_atoms * max_i |F_i|
+# the JAX package's flagship HDNNP4th bench configuration (bench.py
+# bench_hdnnp4th_model), written out: the ACSF tables of HDNNP2ND_KW, a
+# [64, 64, 1] network per atomic number for chi and for the local energies,
+# fixed physical Qeq tables, the default dense Cholesky (Schur) Qeq solve
+HDNNP4TH_KW = dict(
+    g2_kwargs=HDNNP2ND_KW["g2_kwargs"], g4_kwargs=HDNNP2ND_KW["g4_kwargs"],
+    mlp_charge_kwargs=HDNNP2ND_KW["mlp_kwargs"], mlp_local_kwargs=HDNNP2ND_KW["mlp_kwargs"],
+    electrostatic_kwargs={"param_trainable": False})
+# kernel launches per HDNNP4th energy+force evaluation (see PERF.md): the
+# energy pass runs the G2 and G4 forward kernels, the Qeq solve (one
+# spd_solve with K = 2) and three sorted sums over graph_id (the self
+# energy, the QM/MM energy and the short-range pool; the pair energy is an
+# unsorted sum over edge_graph_id); the force pass runs the G4 and G2 vjp
+# kernels, the adjoint Qeq solve (one spd_solve) and the transposes of the
+# receiver and sender gathers of the [pos|sigma|q] table (two sorted sums)
+HDNNP4TH_LAUNCHES = {"g2_fwd": 1, "g4_fwd": 1, "g4_vjp": 1, "g2_vjp": 1,
+                     "sorted_segment_sum": 5, "spd_solve": 2}
+HDNNP4TH_M = 20  # max_nodes of the three requests: the Qeq systems are 20 x 20
+# SPD solve: max|kernel - plain| <= SPD_TOL * (1 + max|plain|) and
+# max|A x - b| <= SPD_RESIDUAL_TOL * (1 + max|b|)
+SPD_TOL, SPD_RESIDUAL_TOL = 1e-5, 1e-4
+# charges of a molecule sum to its total charge within CHARGE_TOL * (1 + sum|q|)
+CHARGE_TOL = 1e-4
 
 
 def log(*args):
@@ -242,9 +277,9 @@ def check_request(results, graphs, label):
         raise AssertionError(f"{label}: forces do not sum to 0 ({worst:.3g} x tol)")
 
 
-def compare_gpu_cpu(gpu, cpu):
+def compare_gpu_cpu(gpu, cpu, keys=("energy", "force")):
     errs = {}
-    for key in ("energy", "force"):
+    for key in keys:
         a = np.concatenate([r[key] for r in gpu])
         b = np.concatenate([r[key] for r in cpu])
         err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
@@ -493,18 +528,25 @@ def make_hdnnp_predictor(device):
 def hdnnp_counts():
     from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
     from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
-    return dict(ka.launches, sorted_segment_sum=ss.launches)
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    return dict(ka.launches, sorted_segment_sum=ss.launches, spd_solve=ks.launches)
 
 
 def reset_counts():
     from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
     from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
     ss.launches = 0
+    ks.launches = 0
     for k in ka.launches:
         ka.launches[k] = 0
 
 
-def phase_hdnnp_serving(gpu, requests, batch0, smi):
+def phase_hdnnp_serving(gpu, requests, batch0, smi, name="hdnnp2nd",
+                        make_cpu=make_hdnnp_predictor, expected=HDNNP_LAUNCHES,
+                        check=check_request, keys=("energy", "force")):
+    """Serving phase of an ACSF model (HDNNP2nd, or HDNNP4th with the
+    arguments of phase 8)."""
     # the main path: every count set to 0 just before, read just after
     reset_counts()
     answers, per_request = [], []
@@ -515,23 +557,23 @@ def phase_hdnnp_serving(gpu, requests, batch0, smi):
         per_request.append({k: v - before[k] for k, v in hdnnp_counts().items()})
     main_launches = hdnnp_counts()
     for (label, graphs), res, counts in zip(requests, answers, per_request):
-        check_request(res, graphs, "hdnnp2nd " + label)
-        if counts != HDNNP_LAUNCHES:
-            raise AssertionError(f"hdnnp2nd {label}: launches {counts}, "
-                                 f"expected {HDNNP_LAUNCHES}")
-        log(f"hdnnp2nd serving {label}: ok, launches {json.dumps(counts)}")
+        check(res, graphs, f"{name} {label}")
+        if counts != expected:
+            raise AssertionError(f"{name} {label}: launches {counts}, "
+                                 f"expected {expected}")
+        log(f"{name} serving {label}: ok, launches {json.dumps(counts)}")
 
-    cpu = make_hdnnp_predictor("cpu")
-    for (name, wg), (_, wc) in zip(gpu.model.energy_model.state_dict().items(),
-                                   cpu.model.energy_model.state_dict().items()):
+    cpu = make_cpu("cpu")
+    for (wname, wg), (_, wc) in zip(gpu.model.energy_model.state_dict().items(),
+                                    cpu.model.energy_model.state_dict().items()):
         if not torch.equal(wg.cpu(), wc):
-            raise AssertionError(f"weights differ between devices: {name}")
+            raise AssertionError(f"weights differ between devices: {wname}")
     t0 = time.perf_counter()
     cpu_answer = cpu(requests[0][1])
     cpu_s = time.perf_counter() - t0
-    check_request(cpu_answer, requests[0][1], "hdnnp2nd cpu " + requests[0][0])
-    errs = compare_gpu_cpu(answers[0], cpu_answer)
-    log(f"hdnnp2nd serving gpu vs cpu ({requests[0][0]}, cpu {cpu_s:.2f} s): "
+    check(cpu_answer, requests[0][1], f"{name} cpu {requests[0][0]}")
+    errs = compare_gpu_cpu(answers[0], cpu_answer, keys)
+    log(f"{name} serving gpu vs cpu ({requests[0][0]}, cpu {cpu_s:.2f} s): "
         + json.dumps(errs))
 
     # time one energy+force evaluation on the prepared full-width batch
@@ -548,8 +590,9 @@ def phase_hdnnp_serving(gpu, requests, batch0, smi):
         model(batch0)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    if hdnnp_counts() != {k: reps * v for k, v in HDNNP_LAUNCHES.items()}:
-        raise AssertionError(f"timed loop: launches {hdnnp_counts()} for {reps} evaluations")
+    if hdnnp_counts() != {k: reps * v for k, v in expected.items()}:
+        raise AssertionError(f"{name} timed loop: launches {hdnnp_counts()} "
+                             f"for {reps} evaluations")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     req_times, batch_times = [], []
     for _ in range(5):
@@ -570,9 +613,160 @@ def phase_hdnnp_serving(gpu, requests, batch0, smi):
                "angles_per_s": real_angles / (ms * 1e-3),
                "ms_per_request": float(np.median(req_times)),
                "ms_make_batch": float(np.median(batch_times)),
-               "peak_mem_mb": peak_mb, "launches_per_eval": HDNNP_LAUNCHES, "card": smi}
-    log("hdnnp2nd serving timing: " + json.dumps(serving))
+               "max_nodes": batch0.max_nodes, "peak_mem_mb": peak_mb,
+               "launches_per_eval": expected, "card": smi}
+    log(f"{name} serving timing: " + json.dumps(serving))
     return main_launches
+
+
+def with_esp(graphs, seed, zero_esp_grad=False):
+    """HDNNP4th request fields for the molecules of ``qm9_like_mols``: an
+    ESP and its gradient drawn as ``bench.py`` ``_mols`` draws them, from
+    their own ``RandomState(100 + seed)`` so that the geometry is the same,
+    and total charges -1, 0, +1 in turn. ``zero_esp_grad``: no external
+    field gradient, so that the forces of each molecule sum to 0."""
+    rs = np.random.RandomState(100 + seed)
+    out = []
+    for i, g in enumerate(graphs):
+        n = len(g["node_number"])
+        esp = (rs.randn(n) * 0.02).astype(np.float32)
+        esp_grad = (rs.randn(n, 3) * 0.02).astype(np.float32)
+        out.append(dict(g, esp=esp,
+                        esp_grad=np.zeros_like(esp_grad) if zero_esp_grad else esp_grad,
+                        total_charge=np.array([float(i % 3 - 1)], np.float32)))
+    return out
+
+
+def make_hdnnp4th_predictor(device):
+    """HDNNP4th serving at the bench width with ESP coupling and weights
+    from seed 0; angles come from ``set_angle`` as a graph preprocessor."""
+    from gcnn_keras_tpu_torch.graph.preprocess import set_angle
+    from gcnn_keras_tpu_torch.model.force import EnergyForceModel
+    from gcnn_keras_tpu_torch.models.hdnnp4th import make_model_behler
+    from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
+    model = make_model_behler(device=device, generator=torch.Generator().manual_seed(0),
+                              **HDNNP4TH_KW)
+    return MolDynamicsModelPredictor(
+        EnergyForceModel(model, use_esp_coupling=True, device=device),
+        graph_preprocessors=[functools.partial(set_angle, range_indices="edge_indices")],
+        device=device)
+
+
+def check_charged_request(results, graphs, label):
+    """Shapes, finite values, the Qeq constraint on every molecule, and the
+    force sum where no molecule has an ESP gradient (the ESP coupling force
+    is external)."""
+    if len(results) != len(graphs):
+        raise AssertionError(f"{label}: {len(results)} results for {len(graphs)} graphs")
+    worst_q = 0.0
+    for r, g in zip(results, graphs):
+        n = len(g["node_number"])
+        if (r["force"].shape, r["energy"].shape, r["charge"].shape) != ((n, 3), (1,), (n,)):
+            raise AssertionError(f"{label}: shapes {r['force'].shape} {r['energy'].shape} "
+                                 f"{r['charge'].shape}")
+        if not all(np.isfinite(r[k]).all() for k in ("force", "energy", "charge")):
+            raise AssertionError(f"{label}: non-finite output")
+        dq = abs(float(r["charge"].sum()) - float(g["total_charge"][0]))
+        worst_q = max(worst_q, dq / (CHARGE_TOL * (1.0 + np.abs(r["charge"]).sum())))
+    if worst_q > 1.0:
+        raise AssertionError(f"{label}: charges miss the total charge ({worst_q:.3g} x tol)")
+    if not any(np.asarray(g["esp_grad"]).any() for g in graphs):
+        worst = max_force_sum_violation(results)
+        if worst > 1.0:
+            raise AssertionError(f"{label}: forces do not sum to 0 ({worst:.3g} x tol)")
+
+
+def spd_work(g, m, k):
+    """Bytes (a and b read once, x written once) and float32 operations of
+    the elimination on the columns it updates; ``(bytes, bound_ms, bound_by)``."""
+    nbytes = 4 * g * (m * m + 2 * m * k)
+    ops = g * sum(1 + (2 * (m - 1) + 1) * (m + k - s - 1) for s in range(m))
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    return nbytes, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_spd(a, b, label, timed):
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    x = ks.spd_solve(a, b)
+    torch.cuda.synchronize()
+    plain = ks.spd_solve_plain(a, b)
+    scale = 1.0 + plain.abs().max().item()
+    err = (x - plain).abs().max().item()
+    resid = (a @ x - b).abs().max().item()
+    rscale = 1.0 + b.abs().max().item()
+    if not (torch.isfinite(x).all() and err <= SPD_TOL * scale
+            and resid <= SPD_RESIDUAL_TOL * rscale):
+        raise AssertionError(f"spd_solve {label}: max|k-p|={err} (tol {SPD_TOL}*{scale}), "
+                             f"max|Ax-b|={resid} (tol {SPD_RESIDUAL_TOL}*{rscale})")
+    g, m, _ = a.shape
+    k = b.shape[2]
+    rec = {"case": label, "G": g, "M": m, "K": k, "max_abs_err": err, "residual": resid}
+    if timed:
+        flush = torch.empty(L2_FLUSH_BYTES // 4, device=a.device)
+        nbytes, bound_ms, bound_by = spd_work(g, m, k)
+        rec.update(
+            ms=cuda_median_ms(lambda: ks.spd_solve(a, b), 50, flush),
+            ms_warm=cuda_median_ms(lambda: ks.spd_solve(a, b), 50),
+            plain_ms=cuda_median_ms(lambda: ks.spd_solve_plain(a, b), 20, flush),
+            library_ms=cuda_median_ms(lambda: torch.linalg.solve(a, b), 50, flush),
+            cholesky_ms=cuda_median_ms(
+                lambda: torch.cholesky_solve(b, torch.linalg.cholesky(a)), 50, flush),
+            bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"kernel spd_solve {label}: " + json.dumps(rec))
+    return rec
+
+
+def random_spd(g, m, k, seed, dev):
+    """Well-conditioned SPD systems: B B^T + 2 I with B ~ N(0, 1/m)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    half = torch.randn(g, m, m, generator=gen, device=dev) / m ** 0.5
+    a = half @ half.transpose(1, 2) + 2.0 * torch.eye(m, device=dev)
+    return a.contiguous(), torch.randn(g, m, k, generator=gen, device=dev)
+
+
+def phase_spd_kernel(model, batch):
+    """The SPD kernel against its plain version on the Qeq system that
+    ``CENTCharge`` assembles from ``batch`` (timed), and at edge cases."""
+    from gcnn_keras_tpu_torch.layers.conv.qeq_solver import solve_qeq_dense_cholesky
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    dev = batch.senders.device
+    with torch.no_grad():
+        rep, esp, z = model.representation(batch)
+        chi = model.mlp_charge(rep, z)[:, 0] + esp
+        a, mask, b, qtot, corner = model.cent_electrostatic.cent_charge.assemble(batch, chi)
+    rhs = torch.stack([b, mask], dim=-1).contiguous()
+    if a.shape != (batch.n_graphs, HDNNP4TH_M, HDNNP4TH_M):
+        raise AssertionError(f"unexpected Qeq shape {tuple(a.shape)}")
+    eye = torch.eye(HDNNP4TH_M, device=dev)
+    if not torch.equal(a[-1], eye):
+        raise AssertionError("the padding graph's Qeq system is not the identity")
+    m_gate = ks.max_kernel_m(2)
+    recs = [check_spd(a, rhs, "Qeq of the HDNNP4th serving request, 512 mols", True),
+            check_spd(a[:1].contiguous(), rhs[:1].contiguous(), "G=1", False),
+            check_spd(*random_spd(7, 1, 2, 1, dev), "M=1", False),
+            check_spd(*random_spd(4, m_gate, 2, 2, dev), f"M={m_gate} at the gate", False),
+            check_spd(a, rhs[..., :1].contiguous(), "K=1", False)]
+    ident = check_spd(a[-1:].contiguous(), torch.randn(1, HDNNP4TH_M, 2, device=dev),
+                      "the padding graph's identity system", False)
+    if ident["max_abs_err"] != 0.0:
+        raise AssertionError("the identity system changed its right-hand side")
+    recs.append(ident)
+    # an empty graph beside a real one: identity rows, zero right-hand side,
+    # bordered corner 1, so its charges are 0 and lambda stays finite
+    a2 = torch.stack([a[0], eye])
+    mask2 = torch.stack([mask[0], torch.zeros_like(mask[0])])
+    b2 = torch.stack([b[0], torch.zeros_like(b[0])])
+    before = ks.launches
+    q2 = solve_qeq_dense_cholesky(a2, mask2, b2, qtot[:2], torch.tensor([0.0, 1.0], device=dev))
+    torch.cuda.synchronize()
+    if ks.launches != before + 1 or not torch.isfinite(q2).all() or q2[1].any():
+        raise AssertionError(f"empty graph: charges {q2[1].tolist()}")
+    dq = abs(q2[0].sum().item() - qtot[0].item())
+    if dq > CHARGE_TOL * (1.0 + q2[0].abs().sum().item()):
+        raise AssertionError(f"empty graph case: charges sum off by {dq}")
+    recs.append(check_spd(a2.contiguous(), torch.stack([b2, mask2], -1).contiguous(),
+                          "an empty graph, bordered corner 1", False))
+    return recs
 
 
 def main():
@@ -600,14 +794,31 @@ def main():
     acsf_recs = phase_acsf_kernel(hbatch0, hgpu.model.energy_model)
     hlaunches = phase_hdnnp_serving(hgpu, requests, hbatch0, smi)
 
+    qgpu = make_hdnnp4th_predictor("cuda")
+    qrequests = [("seed 0, 512 mols", with_esp(requests[0][1], 0)),
+                 ("seed 1, 512 mols", with_esp(requests[1][1], 1)),
+                 ("seed 2, 64 mols, no ESP gradient", with_esp(requests[2][1], 2, True))]
+    _, qbatch0 = qgpu.make_batch(qrequests[0][1])
+    shapes = (qbatch0.n_node, qbatch0.n_edge, qbatch0.angles.shape[0], qbatch0.n_graphs)
+    if shapes != HDNNP_SHAPES or qbatch0.max_nodes != HDNNP4TH_M:
+        raise AssertionError(f"unexpected HDNNP4th full-width shapes {shapes}, "
+                             f"M={qbatch0.max_nodes}")
+    spd_recs = phase_spd_kernel(qgpu.model.energy_model, qbatch0)
+    qlaunches = phase_hdnnp_serving(
+        qgpu, qrequests, qbatch0, smi, name="hdnnp4th", make_cpu=make_hdnnp4th_predictor,
+        expected=HDNNP4TH_LAUNCHES, check=check_charged_request,
+        keys=("energy", "force", "charge"))
+
     main_rec = recs[0]
     kernels = [{
         "name": "sorted_segment_sum", "route": "cuda",
         "source": "gcnn_keras_tpu_torch/csrc/segment_sum.cu",
         "replaces": "gcnn_keras_tpu/ops/pallas/segment_sum.py:182",
-        "launches": launches + hlaunches["sorted_segment_sum"],
+        "launches": launches + hlaunches["sorted_segment_sum"]
+        + qlaunches["sorted_segment_sum"],
         "launches_by_path": {"schnet_serving": launches,
-                             "hdnnp2nd_serving": hlaunches["sorted_segment_sum"]},
+                             "hdnnp2nd_serving": hlaunches["sorted_segment_sum"],
+                             "hdnnp4th_serving": qlaunches["sorted_segment_sum"]},
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
@@ -620,12 +831,25 @@ def main():
             "name": f"acsf_{name}", "route": "cuda",
             "source": "gcnn_keras_tpu_torch/csrc/acsf.cu",
             "replaces": ACSF_REPLACES[name],
-            "launches": hlaunches[name],
-            "launches_by_path": {"hdnnp2nd_serving": hlaunches[name]},
+            "launches": hlaunches[name] + qlaunches[name],
+            "launches_by_path": {"hdnnp2nd_serving": hlaunches[name],
+                                 "hdnnp4th_serving": qlaunches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": None, "shapes": rs})
+    main_rec = spd_recs[0]
+    kernels.append({
+        "name": "spd_solve", "route": "cuda",
+        "source": "gcnn_keras_tpu_torch/csrc/spd_solve.cu",
+        "replaces": "gcnn_keras_tpu/ops/pallas/spd_solve.py:95",
+        "launches": hlaunches["spd_solve"] + qlaunches["spd_solve"],
+        "launches_by_path": {"hdnnp2nd_serving": hlaunches["spd_solve"],
+                             "hdnnp4th_serving": qlaunches["spd_solve"]},
+        "max_abs_err": max(r["max_abs_err"] for r in spd_recs),
+        "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+        "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+        "library_ms": main_rec["library_ms"], "shapes": spd_recs})
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on the main path")

@@ -457,3 +457,42 @@ def _infer_num_nodes(g: Dict[str, np.ndarray], edge_index_key: str) -> int:
             return int(np.asarray(g[key]).shape[0])
     ei = np.asarray(g[edge_index_key])
     return int(ei.max()) + 1 if ei.size else 0
+
+
+# ---------------------------------------------------------------------------
+# Device-side helpers
+# ---------------------------------------------------------------------------
+
+def flat_to_padded(values: Tensor, batch: GraphBatch, fill: float = 0.0) -> Tensor:
+    """Scatter flat node values ``(N, ...)`` to per-graph padded
+    ``(G, M, ...)`` with ``M = max(batch.max_nodes, 1)``. Padding nodes of
+    the padding graph may lie beyond M; they are clipped into a scratch row
+    ``M`` and dropped."""
+    G, M = batch.n_graphs, max(batch.max_nodes, 1)
+    out = values.new_full((G, M + 1) + tuple(values.shape[1:]), fill)
+    loc = batch.node_loc.clamp_max(M).long()
+    src = torch.where(_bcast(batch.node_mask, values), values,
+                      values.new_full((), fill))
+    # (graph_id, loc) is unique except in the scratch row, where every
+    # value written is ``fill``
+    out = out.index_put((batch.graph_id.long(), loc), src)
+    return out[:, :M]
+
+
+def padded_to_flat(padded: Tensor, batch: GraphBatch) -> Tensor:
+    """Gather per-graph padded ``(G, M, ...)`` back to flat ``(N, ...)``;
+    padding nodes get 0."""
+    M = padded.shape[1]
+    loc = batch.node_loc.clamp_max(M - 1).long()
+    vals = padded[batch.graph_id.long(), loc]
+    return torch.where(_bcast(batch.node_mask, vals), vals, vals.new_zeros(()))
+
+
+def graph_psum(batch: GraphBatch, per_graph: Tensor) -> Tensor:
+    """The global per-graph value of a per-graph reduction. The identity:
+    the port's batch holds whole graphs (no ``part_axis``)."""
+    return per_graph
+
+
+def _bcast(mask: Tensor, ref: Tensor) -> Tensor:
+    return mask.reshape(tuple(mask.shape) + (1,) * (ref.dim() - mask.dim()))

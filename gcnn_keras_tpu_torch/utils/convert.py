@@ -2,7 +2,7 @@
 
 The port names its submodules after the flax parameter tree, so a module at
 ``interaction_0.cfconv.filter_1`` takes ``interaction_0/cfconv/filter_1``.
-Three node types carry weights:
+Three node types carry weights in their own layout:
 
 - ``Dense``: ``<path>/Dense_0/kernel`` (in, out), transposed into
   ``weight`` (out, in), and ``<path>/Dense_0/bias``;
@@ -10,6 +10,10 @@ Three node types carry weights:
   (R, out), as they are;
 - ``OptionalInputEmbedding``: ``<path>/Embed_0/embedding``; its flax name
   is ``OptionalInputEmbedding_0`` where the port says ``embedding``.
+
+Any other module's own parameters are bare flax leaves of the same name,
+``<path>/<name>``, as they are: the per-element tables ``hardness_j`` and
+``sigma`` of the HDNNP4th electrostatics.
 """
 from __future__ import annotations
 
@@ -72,6 +76,9 @@ def params_from_jax(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
                 take(f"{base}/bias", module.bias)
         elif isinstance(module, OptionalInputEmbedding):
             take(f"{base}/Embed_0/embedding", module.weight)
+        else:
+            for pname, p in module.named_parameters(recurse=False):
+                take(f"{base}/{pname}" if base else pname, p)
     left = sorted(set(flat) - used)
     if left:
         raise KeyError(f"flax parameters with no port counterpart: {left}")

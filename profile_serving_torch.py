@@ -1,12 +1,15 @@
 """Where the time of one full-width energy+force evaluation goes on a CUDA
 card, for the PyTorch port.
 
-    python3 profile_serving_torch.py [--model schnet|hdnnp2nd] [--evals 10]
+    python3 profile_serving_torch.py [--model schnet|hdnnp2nd|hdnnp4th]
+                                     [--evals 10]
                                      [--trace chiprun_out/serving_trace.json]
 
 Builds the serving batch of ``chip_smoke.py`` (512 QM9-like molecules,
-weights from seed 0; SchNet defaults, or the HDNNP2nd bench configuration
-with ``set_angle`` as the graph preprocessor), warms up, and runs
+weights from seed 0; SchNet defaults, or the HDNNP2nd or HDNNP4th bench
+configuration with ``set_angle`` as the graph preprocessor, HDNNP4th with
+the ESP, its gradient and total charges of ``chip_smoke.with_esp``), warms
+up, and runs
 ``--evals`` evaluations under ``torch.profiler``. Prints the device time by
 kernel, the device busy share of the wall time, and one JSON summary line
 with the time and calls of each of the port's own kernels; writes a Chrome
@@ -24,12 +27,13 @@ import chip_smoke
 
 # the port's hand-written kernels, by the names of their CUDA functions
 PORT_KERNELS = ("sorted_segment_sum", "g2_fwd_kernel", "g4_fwd_kernel",
-                "g4_vjp_kernel", "g2_vjp_kernel")
+                "g4_vjp_kernel", "g2_vjp_kernel", "spd_solve_gj_kernel")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("schnet", "hdnnp2nd"), default="schnet")
+    ap.add_argument("--model", choices=("schnet", "hdnnp2nd", "hdnnp4th"),
+                    default="schnet")
     ap.add_argument("--evals", type=int, default=10)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
@@ -39,9 +43,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke.nvidia_smi()
     make = {"schnet": chip_smoke.make_predictor,
-            "hdnnp2nd": chip_smoke.make_hdnnp_predictor}[args.model]
+            "hdnnp2nd": chip_smoke.make_hdnnp_predictor,
+            "hdnnp4th": chip_smoke.make_hdnnp4th_predictor}[args.model]
     gpu = make("cuda")
-    _, batch = gpu.make_batch(chip_smoke.qm9_like_mols(0, 512))
+    mols = chip_smoke.qm9_like_mols(0, 512)
+    if args.model == "hdnnp4th":
+        mols = chip_smoke.with_esp(mols, 0)
+    _, batch = gpu.make_batch(mols)
     model = gpu.model
     for _ in range(3):
         model(batch)

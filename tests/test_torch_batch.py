@@ -149,3 +149,25 @@ def test_set_range_native_raises():
     g = {"node_coordinates": np.zeros((3, 3), np.float32)}
     with pytest.raises(NotImplementedError):
         tpre.set_range(g, backend="native")
+
+
+@pytest.mark.parametrize("pads", [{}, dict(n_node_pad=512, n_graph_pad=9, max_nodes=14)],
+                         ids=["default", "padding-beyond-max-nodes"])
+@pytest.mark.parametrize("trailing", [(), (3,)], ids=["scalar", "vector"])
+def test_flat_padded_round_trip_matches_jax(pads, trailing):
+    """Padding nodes of the padding graph beyond M fall into the dropped
+    scratch row; ``graph_psum`` is the identity on whole graphs."""
+    import jax.numpy as jnp
+    graphs = _mols(7, 5)
+    jb = jbatch.batch_graphs(graphs, **pads)
+    tb = tbatch.batch_graphs(graphs, device="cpu", **pads)
+    vals = np.random.RandomState(8).randn(jb.n_node, *trailing).astype(np.float32)
+    ref = np.asarray(jbatch.flat_to_padded(jnp.asarray(vals), jb, fill=-1.0))
+    out = tbatch.flat_to_padded(torch.from_numpy(vals), tb, fill=-1.0)
+    assert out.shape == ref.shape and np.array_equal(out.numpy(), ref)
+    back = tbatch.padded_to_flat(out, tb)
+    assert np.array_equal(back.numpy(),
+                          np.asarray(jbatch.padded_to_flat(jnp.asarray(ref), jb)))
+    mask = tb.node_mask.numpy()
+    assert np.array_equal(back.numpy()[mask], vals[mask]) and not back.numpy()[~mask].any()
+    assert tbatch.graph_psum(tb, out) is out

@@ -273,3 +273,129 @@ def test_hdnnp2nd_serving_on_the_card_matches_the_cpu(cuda_device):
         a = np.concatenate([r[key] for r in gpu])
         b = np.concatenate([r[key] for r in cpu])
         assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+
+
+# ------------------------------------------------------------ SPD solve
+
+# max|kernel - plain| <= SPD_TOL * (1 + max|plain|) and
+# max|A x - b| <= SPD_RESIDUAL_TOL * (1 + max|b|); the kernel does the
+# plain version's arithmetic, rounded the same way
+SPD_TOL, SPD_RESIDUAL_TOL = 1e-5, 1e-4
+
+
+def _random_spd(g, m, k, seed, dev):
+    gen = torch.Generator().manual_seed(seed)
+    half = torch.randn(g, m, m, generator=gen) / m ** 0.5
+    a = half @ half.transpose(1, 2) + 2.0 * torch.eye(m)
+    return a.to(dev), torch.randn(g, m, k, generator=gen).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,m,k", [(513, 20, 2), (1, 20, 2), (7, 1, 2), (4, 239, 2),
+                                   (3, 20, 1), (2, 100, 5), (2, 239, 1)])
+def test_spd_kernel_matches_plain(cuda_device, g, m, k):
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    assert ks.fits_shared_memory(m, k)
+    a, b = _random_spd(g, m, k, g + m + k, cuda_device)
+    before = ks.launches
+    x = ks.spd_solve(a, b)
+    torch.cuda.synchronize()
+    assert ks.launches == before + 1
+    plain = ks.spd_solve_plain(a, b)
+    assert (x - plain).abs().max().item() <= SPD_TOL * (1 + plain.abs().max().item())
+    assert (a @ x - b).abs().max().item() <= SPD_RESIDUAL_TOL * (1 + b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_spd_gate_beyond_shared_memory(cuda_device):
+    """Beyond the gate the kernel refuses, and the Qeq solve takes the
+    Cholesky path without a launch."""
+    from gcnn_keras_tpu_torch.layers.conv.qeq_solver import solve_qeq_dense_cholesky
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    m = ks.max_kernel_m(2) + 1
+    a, b = _random_spd(2, m, 2, 0, cuda_device)
+    with pytest.raises(ValueError, match="shared"):
+        ks.spd_solve(a, b)
+    mask = torch.ones(2, m, device=cuda_device)
+    qtot = torch.tensor([0.0, 1.0], device=cuda_device)
+    corner = torch.zeros(2, device=cuda_device)
+    before = ks.launches
+    q = solve_qeq_dense_cholesky(a, mask, b[..., 0], qtot, corner)
+    torch.cuda.synchronize()
+    assert ks.launches == before
+    ref = solve_qeq_dense_cholesky(a.cpu(), mask.cpu(), b[..., 0].cpu(), qtot.cpu(),
+                                   corner.cpu())
+    assert (q.cpu() - ref).abs().max().item() <= 1e-4 * (1 + ref.abs().max().item())
+    assert (q.sum(1) - qtot).abs().max().item() <= 1e-4 * (1 + q.abs().sum().item())
+
+
+@pytest.mark.cuda
+def test_spd_gradients_on_the_card_match_the_cpu(cuda_device):
+    """First and second derivatives of sum(sin(x)) through a symmetric A(p):
+    each backward is a kernel launch on the card."""
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    a0, b0 = _random_spd(16, 20, 2, 3, "cpu")
+    p0 = 0.05 * torch.randn(16, 20, 20, generator=torch.Generator().manual_seed(4))
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        p = p0.to(dev).requires_grad_(True)
+        b = b0.to(dev).requires_grad_(True)
+        before = ks.launches
+        x = ks.SPDSolve.apply(a0.to(dev) + p + p.transpose(1, 2), b)
+        gp, gb = torch.autograd.grad(torch.sin(x).sum(), (p, b), create_graph=True)
+        (hp,) = torch.autograd.grad((gp ** 2).sum() + (gb ** 2).sum(), p)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert ks.launches - before >= 4
+        results.append([t.detach().cpu() for t in (x, gp, gb, hp)])
+    for k, c in zip(*results):
+        assert (k - c).abs().max().item() <= 1e-4 * (1 + c.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_hdnnp4th_serving_on_the_card_matches_the_cpu(cuda_device):
+    import functools
+    from gcnn_keras_tpu_torch.graph.preprocess import set_angle
+    from gcnn_keras_tpu_torch.model.force import EnergyForceModel
+    from gcnn_keras_tpu_torch.models.hdnnp4th import make_model_behler
+    from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    mlp = {"units": [64, 64, 1], "num_relations": 10,
+           "activation": ["swish", "swish", "linear"]}
+    kw = dict(g2_kwargs=dict(G2_KW, elements=ACSF_ELEMENTS),
+              g4_kwargs=dict(G4_KW, elements=ACSF_ELEMENTS),
+              mlp_charge_kwargs=mlp, mlp_local_kwargs=mlp,
+              electrostatic_kwargs={"param_trainable": False})
+    rs = np.random.RandomState(5)
+    frames = []
+    for i, g in enumerate(_acsf_graphs(4, 16)):
+        n = len(g["node_number"])
+        frames.append({"node_number": g["node_number"],
+                       "node_coordinates": g["node_coordinates"],
+                       "edge_indices": g["edge_indices"],
+                       "esp": (rs.randn(n) * 0.02).astype(np.float32),
+                       "esp_grad": (rs.randn(n, 3) * 0.02).astype(np.float32),
+                       "total_charge": np.array([float(i % 3 - 1)], np.float32)})
+    pre = [functools.partial(set_angle, range_indices="edge_indices")]
+    expected = {"g2_fwd": 1, "g4_fwd": 1, "g4_vjp": 1, "g2_vjp": 1,
+                "sorted_segment_sum": 5, "spd_solve": 2}
+    answers = []
+    for dev in (cuda_device, torch.device("cpu")):
+        def counts():
+            return dict(ka.launches, sorted_segment_sum=kseg.launches, spd_solve=ks.launches)
+        before = counts()
+        model = make_model_behler(device=dev, **kw)
+        answers.append(MolDynamicsModelPredictor(
+            EnergyForceModel(model, use_esp_coupling=True, device=dev),
+            graph_preprocessors=pre, device=dev)(frames))
+        launched = {k: v - before[k] for k, v in counts().items()}
+        assert launched == (expected if dev.type == "cuda" else dict.fromkeys(expected, 0))
+    gpu, cpu = answers
+    for key in ("energy", "force", "charge"):
+        a = np.concatenate([r[key] for r in gpu])
+        b = np.concatenate([r[key] for r in cpu])
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max(), key
+    for r, f in zip(gpu, frames):
+        assert abs(r["charge"].sum() - f["total_charge"][0]) <= 1e-4 * (
+            1 + np.abs(r["charge"]).sum())

@@ -13,6 +13,7 @@ import torch
 
 from gcnn_keras_tpu_torch.batch import batch_graphs
 from gcnn_keras_tpu_torch.model.force import EnergyForceModel
+from gcnn_keras_tpu_torch.models import hdnnp4th
 from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
 from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
 from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
@@ -56,7 +57,9 @@ def test_scan_sees_the_package():
 
 @pytest.mark.parametrize("entry", ["batch_graphs", "make_model", "make_crystal_model",
                                    "make_model_behler", "EnergyForceModel",
-                                   "MolDynamicsModelPredictor"])
+                                   "MolDynamicsModelPredictor", "hdnnp4th.make_model_behler",
+                                   "hdnnp4th.make_model_rep", "hdnnp4th.make_model_learn",
+                                   "hdnnp4th.make_model_behler_charge_separat"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     graph = {"node_number": [1, 8], "node_coordinates": [[0, 0, 0], [0, 0, 1.0]],
@@ -70,6 +73,11 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
             make_model(device="cpu", depth=1), **kw),
         "MolDynamicsModelPredictor": lambda **kw: MolDynamicsModelPredictor(
             EnergyForceModel(make_model(device="cpu", depth=1), device="cpu"), **kw),
+        "hdnnp4th.make_model_behler": lambda **kw: hdnnp4th.make_model_behler(**kw),
+        "hdnnp4th.make_model_rep": lambda **kw: hdnnp4th.make_model_rep(**kw),
+        "hdnnp4th.make_model_learn": lambda **kw: hdnnp4th.make_model_learn(**kw),
+        "hdnnp4th.make_model_behler_charge_separat":
+            lambda **kw: hdnnp4th.make_model_behler_charge_separat(**kw),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

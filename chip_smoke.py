@@ -35,12 +35,31 @@ order, each raising on a failed check:
    total charge, forces summing to 0 where the ESP gradient is 0, equal to
    the same predictor on the CPU), with every kernel's launch count per
    evaluation held to its derived value.
+9. ACSF JVP kernels: the G4 and G2 jvp kernels (the force loss's second
+   reverse pass) against their plain versions at the HDNNP2nd serving shapes
+   and at edge cases, with times and bounds; and the second-order pattern
+   of ``tests/test_fused_g4.py`` (a derivative through the force pass), the
+   kernel path against the plain path on the card.
+10. training: for SchNet, HDNNP2nd and HDNNP4th, the JAX package's bench
+   training step (``bench.py``: its batch, loss and ``adam(1e-3)``) through
+   ``Trainer`` over ``EnergyForceModel.apply(create_graph=True)``. The first
+   step's loss and parameter gradients on a 64-molecule batch equal the same
+   step on the CPU; every kernel call of a step on the full-width batch is
+   held against its plain version on the same inputs (the first call of
+   each kernel timed, with its bound); then 5 steps on the full-width
+   batch, each loss finite and the fifth below the first, with every
+   kernel's launch count per step held to its derived value, the time per
+   step and the peak memory.
+
+Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
+its timed check at the shapes of the first path that launched it.
 
 Prints ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` gives them, and last the line
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 1 and prints
 no result.
 """
+import contextlib
 import functools
 import json
 import shutil
@@ -71,10 +90,14 @@ SERVE_TOL = 1e-4   # max|gpu - cpu| <= SERVE_TOL * max|cpu|, per output
 # ACSF kernels: max|kernel - plain| <= tol * (1 + max|plain|), and in the
 # forward pass also, for each set s, max|kernel - plain| over its columns
 # <= tol * max|plain| over them. The forward sums each output in another
-# order than index_add_ (shared-memory atomics); the force pass adds terms
-# of both signs with float atomics, in an order that varies from run to run
+# order than index_add_ (shared-memory atomics); the force (vjp) and tangent
+# (jvp) passes add terms of both signs with atomics, in an order that varies
+# from run to run, and share ACSF_VJP_TOL
 ACSF_FWD_TOL = 1e-5
 ACSF_VJP_TOL = 1e-4
+# the second-order pattern: |kernel - plain| <= tol * max(|plain|, 1), the
+# tolerance of tests/test_fused_g4.py
+SECOND_ORDER_TOL = 1e-3
 # the JAX package's HDNNP2nd bench configuration (bench.py
 # bench_hdnnp2nd_model), written out: G2 4 sets x 5 elements, G4 8 sets x 15
 # element pairs, a [64, 64, 1] network per atomic number
@@ -91,12 +114,14 @@ HDNNP_SHAPES = (8192, 54784, 417024, 513)  # N, E, A, G of the seed-0 request
 # segment-sum); the force pass runs the G4 and G2 vjp kernels, and the
 # backward of the pool is a gather, which launches nothing
 HDNNP_LAUNCHES = {"g2_fwd": 1, "g4_fwd": 1, "g4_vjp": 1, "g2_vjp": 1,
-                  "sorted_segment_sum": 1, "spd_solve": 0}
+                  "g4_jvp": 0, "g2_jvp": 0, "sorted_segment_sum": 1, "spd_solve": 0}
 # the TPU kernel each ACSF kernel replaces (its pl.pallas_call line)
 ACSF_REPLACES = {"g2_fwd": "gcnn_keras_tpu/ops/pallas/fused_g4.py:1088",
                  "g4_fwd": "gcnn_keras_tpu/ops/pallas/fused_g4.py:660",
                  "g4_vjp": "gcnn_keras_tpu/ops/pallas/fused_g4.py:729",
-                 "g2_vjp": "gcnn_keras_tpu/ops/pallas/fused_g4.py:1147"}
+                 "g2_vjp": "gcnn_keras_tpu/ops/pallas/fused_g4.py:1147",
+                 "g4_jvp": "gcnn_keras_tpu/ops/pallas/fused_g4.py:691",
+                 "g2_jvp": "gcnn_keras_tpu/ops/pallas/fused_g4.py:1106"}
 FORCE_SUM_TOL = 1e-5  # |sum_i F_i| <= FORCE_SUM_TOL * n_atoms * max_i |F_i|
 # the JAX package's flagship HDNNP4th bench configuration (bench.py
 # bench_hdnnp4th_model), written out: the ACSF tables of HDNNP2ND_KW, a
@@ -114,13 +139,55 @@ HDNNP4TH_KW = dict(
 # kernels, the adjoint Qeq solve (one spd_solve) and the transposes of the
 # receiver and sender gathers of the [pos|sigma|q] table (two sorted sums)
 HDNNP4TH_LAUNCHES = {"g2_fwd": 1, "g4_fwd": 1, "g4_vjp": 1, "g2_vjp": 1,
-                     "sorted_segment_sum": 5, "spd_solve": 2}
+                     "g4_jvp": 0, "g2_jvp": 0, "sorted_segment_sum": 5, "spd_solve": 2}
 HDNNP4TH_M = 20  # max_nodes of the three requests: the Qeq systems are 20 x 20
 # SPD solve: max|kernel - plain| <= SPD_TOL * (1 + max|plain|) and
 # max|A x - b| <= SPD_RESIDUAL_TOL * (1 + max|b|)
 SPD_TOL, SPD_RESIDUAL_TOL = 1e-5, 1e-4
 # charges of a molecule sum to its total charge within CHARGE_TOL * (1 + sum|q|)
 CHARGE_TOL = 1e-4
+# The training paths: the JAX package's bench training steps (bench.py
+# bench_schnet_setup, sec_hdnnp2nd with _ef_train_step, _hdnnp_setup): the
+# batch _mols(RandomState(seed), n_mols, with_esp), the loss
+# charge_weight * q_MAE + E_MAE + force_weight * F_MAE, adam(1e-3).
+# Kernel launches per step (see PERF.md): the evaluation of serving with
+# create_graph=True, then the loss's reverse pass along the parameters:
+# - SchNet (10 + 9): the transposes of the sender gathers of interactions
+#   0-3 (the energy term reaches the embedding), and, through the force
+#   pass, the transposes of the gathers that are the backward of the four
+#   edge pools and of the graph pool (the output MLP after the pool makes
+#   the pooled cotangent depend on the parameters);
+# - HDNNP2nd (5 + 2): the G4 and G2 jvp kernels, the backward of the vjp
+#   Functions; the pool's backward gathers a constant cotangent, so its
+#   transpose is not needed;
+# - HDNNP4th (11 + 6): the jvp kernels; two solves (the backward of the Qeq
+#   solve, and the backward of the adjoint solve that the force pass made);
+#   the transposes of the receiver and sender gathers of the [pos|sigma|q]
+#   table (the energy term along q).
+TRAIN_PATHS = {
+    "schnet_train": dict(model="schnet", seed=0, n_mols=512, with_esp=False,
+                         global_keys=("energy",), force_weight=100.0, charge_weight=0.0,
+                         launches={"g2_fwd": 0, "g4_fwd": 0, "g4_vjp": 0, "g2_vjp": 0,
+                                   "g4_jvp": 0, "g2_jvp": 0, "sorted_segment_sum": 19,
+                                   "spd_solve": 0}),
+    "hdnnp2nd_train": dict(model="hdnnp2nd", seed=5, n_mols=1024, with_esp=True,
+                           global_keys=("energy",), force_weight=100.0, charge_weight=0.0,
+                           launches={"g2_fwd": 1, "g4_fwd": 1, "g4_vjp": 1, "g2_vjp": 1,
+                                     "g4_jvp": 1, "g2_jvp": 1, "sorted_segment_sum": 1,
+                                     "spd_solve": 0}),
+    "hdnnp4th_train": dict(model="hdnnp4th", seed=1, n_mols=128, with_esp=True,
+                           global_keys=("energy", "total_charge"), force_weight=200.0,
+                           charge_weight=50.0,
+                           launches={"g2_fwd": 1, "g4_fwd": 1, "g4_vjp": 1, "g2_vjp": 1,
+                                     "g4_jvp": 1, "g2_jvp": 1, "sorted_segment_sum": 7,
+                                     "spd_solve": 4}),
+}
+TRAIN_STEPS = 5
+# the first step on the card against the CPU, on _mols(RandomState(2), 64):
+# |loss_gpu - loss_cpu| <= TRAIN_TOL * |loss_cpu|, and for each parameter
+# max|grad_gpu - grad_cpu| <= TRAIN_TOL * max|grad_cpu|: float32 sums in
+# other orders (atomics among them) through two reverse passes
+TRAIN_TOL = 1e-4
 
 
 def log(*args):
@@ -133,21 +200,36 @@ def nvidia_smi():
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
-def qm9_like_mols(seed, n_mols):
-    """The JAX package's ``bench.py`` ``_mols`` draws, request fields only."""
-    from gcnn_keras_tpu_torch.graph.preprocess import set_range
+def labelled_mols(seed, n_mols, with_esp=False):
+    """The JAX package's ``bench.py`` ``_mols(RandomState(seed), n_mols,
+    with_esp)``, draw for draw: QM9-like molecules with an energy and force
+    labels, and with ``with_esp`` their angles, an ESP, its gradient, a
+    total charge of 0 and charge labels."""
+    from gcnn_keras_tpu_torch.graph.preprocess import set_angle, set_range
     rs = np.random.RandomState(seed)
     graphs = []
     for _ in range(n_mols):
         n = rs.randint(12, 21)
         g = {"node_number": rs.choice([1, 6, 7, 8, 9], size=n),
-             "node_coordinates": (rs.randn(n, 3) * 2.0).astype(np.float32)}
-        rs.randn()  # the energy label
+             "node_coordinates": (rs.randn(n, 3) * 2.0).astype(np.float32),
+             "energy": np.array([rs.randn()], dtype=np.float32)}
         g = set_range(g, max_distance=4.0, max_neighbours=25)
         g["edge_indices"] = g.pop("range_indices")
-        rs.randn(n, 3)  # the force label
+        g["force"] = (rs.randn(n, 3) * 0.1).astype(np.float32)
+        if with_esp:
+            g = set_angle(g, range_indices="edge_indices")
+            g["esp"] = (rs.randn(n) * 0.02).astype(np.float32)
+            g["esp_grad"] = (rs.randn(n, 3) * 0.02).astype(np.float32)
+            g["total_charge"] = np.zeros((1,), dtype=np.float32)
+            g["charge"] = (rs.randn(n) * 0.1).astype(np.float32)
         graphs.append(g)
     return graphs
+
+
+def qm9_like_mols(seed, n_mols):
+    """The molecules of :func:`labelled_mols`, request fields only."""
+    return [{k: v for k, v in g.items() if k not in ("energy", "force")}
+            for g in labelled_mols(seed, n_mols)]
 
 
 def cuda_median_ms(fn, reps, flush=None, before=None):
@@ -289,14 +371,27 @@ def compare_gpu_cpu(gpu, cpu, keys=("energy", "force")):
     return errs
 
 
+def energy_force_model(kind, device):
+    """The full-width ``EnergyForceModel`` of ``kind`` with weights from seed
+    0: SchNet ``make_model()`` defaults, or the HDNNP2nd or HDNNP4th bench
+    configuration (HDNNP4th with ESP coupling)."""
+    from gcnn_keras_tpu_torch.model.force import EnergyForceModel
+    from gcnn_keras_tpu_torch.models import hdnnp2nd, hdnnp4th, schnet
+    gen = torch.Generator().manual_seed(0)
+    if kind == "schnet":
+        return EnergyForceModel(schnet.make_model(device=device, generator=gen),
+                                device=device)
+    if kind == "hdnnp2nd":
+        return EnergyForceModel(hdnnp2nd.make_model_behler(
+            device=device, generator=gen, **HDNNP2ND_KW), device=device)
+    return EnergyForceModel(hdnnp4th.make_model_behler(
+        device=device, generator=gen, **HDNNP4TH_KW), use_esp_coupling=True, device=device)
+
+
 def make_predictor(device):
     """The serving stack at full SchNet width with weights from seed 0."""
-    from gcnn_keras_tpu_torch.model.force import EnergyForceModel
-    from gcnn_keras_tpu_torch.models.schnet import make_model
     from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
-    model = make_model(device=device, generator=torch.Generator().manual_seed(0))
-    return MolDynamicsModelPredictor(EnergyForceModel(model, device=device),
-                                     device=device)
+    return MolDynamicsModelPredictor(energy_force_model("schnet", device), device=device)
 
 
 def phase_serving(gpu, requests, batch0, smi):
@@ -371,37 +466,45 @@ def acsf_work(name, st, n_node, n_rows, n_real):
     the ``n_real`` unmasked rows its float32 adds and multiplies (an FMA is
     2) and its special-function results. Those are, per row, one rsqrt per
     distance (it gives r and 1/r); per unique eta one exp; per unique
-    (zeta, lambda) one log2 and one exp2 for the power, and in the force
-    pass one more exp2 for its derivative (the log2 is shared); per unique
-    r_c and distance one cos, and in the force pass one sin. Returns
-    ``(bytes, bound_ms, bound_by)``."""
-    g4, fwd = name.startswith("g4"), name.endswith("fwd")
+    (zeta, lambda) one log2 and one exp2 for the power, and in the force and
+    tangent passes one more exp2 for its derivative (the log2 is shared);
+    per unique r_c and distance one cos, and in the force and tangent passes
+    one sin. Returns ``(bytes, bound_ms, bound_by)``."""
+    g4, kind = name.startswith("g4"), name[3:]
     m = len(st.eta_inv) if g4 else len(st.sets)
     width = st.num_rel * m
     nbytes = (n_node * (3 * 4 + 4)                    # positions, atomic numbers
               + n_rows * ((3 if g4 else 2) * 4 + 1)   # index rows, mask
-              + n_node * width * 4                    # G written, or ct read
-              + (0 if fwd else n_node * 3 * 4))       # dpos written
+              + n_node * width * 4                    # G or dG written, or ct read
+              + (0 if kind == "fwd" else n_node * 3 * 4))  # dpos written or read
     if g4:
         # geometry: 3 difference vectors (9), 3 squared norms and a dot (20),
         # r = r^2 rsqrt (3), cos (2), s^2 (2)
         ne, nz, nr = len(st.uniq_eta), len(st.uniq_zl), len(st.uniq_rc)
-        if fwd:
+        if kind == "fwd":
             sfu = 3 + ne + 2 * nz + 3 * nr
             ops = 36 + ne + 4 * nz + 11 * nr + 3 * m
-        else:
+        elif kind == "vjp":
             # 5 geometry cotangents accumulated per set, then 3 vector
             # cotangents and their 3 scatters (about 72)
             sfu = 3 + ne + 3 * nz + 6 * nr
             ops = 108 + 2 * ne + 6 * nz + 19 * nr + 13 * m
+        else:
+            # the tangents of the geometry: 3 difference vectors, 3 dots and
+            # 3 products (27), ds2 (6), dcos (18); 3 products and 6 FMAs a set
+            sfu = 3 + ne + 3 * nz + 6 * nr
+            ops = 87 + 2 * ne + 6 * nz + 19 * nr + 18 * m
     else:
         nr = len({s[2] for s in st.sets})
-        if fwd:
+        if kind == "fwd":
             sfu = 1 + m + nr
             ops = 9 + 5 * m + 3 * nr
-        else:
+        elif kind == "vjp":
             sfu = 1 + m + 2 * nr
             ops = 19 + 10 * m + 4 * nr
+        else:
+            sfu = 1 + m + 2 * nr
+            ops = 18 + 11 * m + 4 * nr
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = max(n_real * ops / H100_F32_OPS_PER_S, n_real * sfu / H100_SFU_PER_S)
     return nbytes, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -416,17 +519,27 @@ def acsf_args(name, batch):
 
 
 def check_acsf(name, st, batch, label, timed):
-    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
-    kernel, plain = {"g2_fwd": (ka.g2_forward, ka.g2_forward_plain),
-                     "g4_fwd": (ka.g4_forward, ka.g4_forward_plain),
-                     "g4_vjp": (ka.g4_vjp, ka.g4_vjp_plain),
-                     "g2_vjp": (ka.g2_vjp, ka.g2_vjp_plain)}[name]
+    """ACSF kernel ``name`` against its plain version on ``batch``, with a
+    random cotangent (vjp) or position tangent (jvp)."""
     args, mask = acsf_args(name, batch)
+    gen = torch.Generator(device=mask.device).manual_seed(1)
     if name.endswith("vjp"):
         m = len(st.eta_inv) if name.startswith("g4") else len(st.sets)
-        gen = torch.Generator(device=mask.device).manual_seed(1)
         args = args + (torch.randn(batch.n_node, st.num_rel * m, generator=gen,
                                    device=mask.device),)
+    elif name.endswith("jvp"):
+        args = args + (torch.randn(batch.n_node, 3, generator=gen, device=mask.device),)
+    return check_acsf_call(name, args + (st,), label, timed)
+
+
+def check_acsf_call(name, args, label, timed):
+    """ACSF kernel ``name`` against its plain version on the wrapper's
+    arguments ``args`` (positions first, the static tables last)."""
+    mod, attr, plain = kernel_wrappers()[name]
+    kernel = getattr(mod, attr)
+    *args, st = args
+    mask = args[3 if name.startswith("g4") else 4]
+    n_node = args[0].shape[0]
     out = kernel(*args, st)
     torch.cuda.synchronize()
     ref = plain(*args, st)
@@ -436,8 +549,8 @@ def check_acsf(name, st, batch, label, timed):
     if out.shape != ref.shape or not torch.isfinite(out).all() or not err <= tol * scale:
         raise AssertionError(f"{name} {label}: max|k-p|={err} > {tol}*{scale}")
     n_rows, n_real = mask.shape[0], int(mask.sum().item())
-    rec = {"case": label, "N": batch.n_node, "rows": n_rows, "real_rows": n_real,
-           "max_abs_err": err}
+    rec = {"case": label, "N": n_node, "rows": n_rows, "real_rows": n_real,
+           "max_abs_err": err, "max_abs_plain": scale - 1.0}
     if name.endswith("fwd") and ref.numel():
         # each set's columns against their own largest value, so that small
         # sets are held as tightly as the largest: every term of a forward
@@ -452,7 +565,7 @@ def check_acsf(name, st, batch, label, timed):
         rec["max_rel_err_per_set"] = rel
     if timed:
         flush = torch.empty(L2_FLUSH_BYTES // 4, device=mask.device)
-        nbytes, bound_ms, bound_by = acsf_work(name, st, batch.n_node, n_rows, n_real)
+        nbytes, bound_ms, bound_by = acsf_work(name, st, n_node, n_rows, n_real)
         rec.update(
             ms=cuda_median_ms(lambda: kernel(*args, st), 50, flush),
             ms_warm=cuda_median_ms(lambda: kernel(*args, st), 50),
@@ -484,9 +597,9 @@ def acsf_edge_batch(dev):
     return batch_graphs(graphs, device=dev, n_angle_pad=64, n_edge_pad=64)
 
 
-def phase_acsf_kernel(batch, model):
-    """Each ACSF kernel against its plain version at the full-width shapes
-    of ``batch`` (timed) and at edge cases."""
+def phase_acsf_kernel(batch, model, names=("g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp")):
+    """Each ACSF kernel of ``names`` against its plain version at the
+    full-width shapes of ``batch`` (timed) and at edge cases."""
     dev = batch.senders.device
     statics = {"g2": model.acsf_g2._static, "g4": model.acsf_g4._static}
     edge = acsf_edge_batch(dev)
@@ -498,7 +611,7 @@ def phase_acsf_kernel(batch, model):
                         receivers=torch.zeros(0, dtype=torch.int32, device=dev),
                         edge_mask=torch.zeros(0, dtype=torch.bool, device=dev))
     recs = {}
-    for name in ("g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp"):
+    for name in names:
         st = statics[name[:2]]
         recs[name] = [check_acsf(name, st, batch, "HDNNP2nd serving, 512 mols", True),
                       check_acsf(name, st, edge, "collinear, no angles, unknown element",
@@ -514,13 +627,9 @@ def make_hdnnp_predictor(device):
     """HDNNP2nd serving at the bench width with weights from seed 0;
     angles come from ``set_angle`` as a graph preprocessor."""
     from gcnn_keras_tpu_torch.graph.preprocess import set_angle
-    from gcnn_keras_tpu_torch.model.force import EnergyForceModel
-    from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
     from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
-    model = make_model_behler(device=device, generator=torch.Generator().manual_seed(0),
-                              **HDNNP2ND_KW)
     return MolDynamicsModelPredictor(
-        EnergyForceModel(model, device=device),
+        energy_force_model("hdnnp2nd", device),
         graph_preprocessors=[functools.partial(set_angle, range_indices="edge_indices")],
         device=device)
 
@@ -530,6 +639,45 @@ def hdnnp_counts():
     from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
     from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
     return dict(ka.launches, sorted_segment_sum=ss.launches, spd_solve=ks.launches)
+
+
+def kernel_wrappers():
+    """Each kernel's wrapper, as ``(module, attribute)``, and its plain
+    version, by the kernel's name in the launch counts."""
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    table = {"sorted_segment_sum": (ss, "segment_sum", ss.segment_sum_plain),
+             "spd_solve": (ks, "spd_solve", ks.spd_solve_plain)}
+    for kind in ("g2", "g4"):
+        table[f"{kind}_fwd"] = (ka, f"{kind}_forward", getattr(ka, f"{kind}_forward_plain"))
+        for d in ("vjp", "jvp"):
+            table[f"{kind}_{d}"] = (ka, f"{kind}_{d}", getattr(ka, f"{kind}_{d}_plain"))
+    return table
+
+
+@contextlib.contextmanager
+def captured_calls():
+    """Inside the block each kernel wrapper keeps a copy of the arguments of
+    every call before it runs; yields ``{name: [args, ...]}``. The autograd
+    Functions look their wrapper up by name at each call, so they call the
+    recording one."""
+    table = kernel_wrappers()
+    calls = {name: [] for name in table}
+    originals = {name: getattr(mod, attr) for name, (mod, attr, _) in table.items()}
+
+    def recording(name):
+        def wrapper(*args):
+            calls[name].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            return originals[name](*args)
+        return wrapper
+    for name, (mod, attr, _) in table.items():
+        setattr(mod, attr, recording(name))
+    try:
+        yield calls
+    finally:
+        for name, (mod, attr, _) in table.items():
+            setattr(mod, attr, originals[name])
 
 
 def reset_counts():
@@ -641,13 +789,9 @@ def make_hdnnp4th_predictor(device):
     """HDNNP4th serving at the bench width with ESP coupling and weights
     from seed 0; angles come from ``set_angle`` as a graph preprocessor."""
     from gcnn_keras_tpu_torch.graph.preprocess import set_angle
-    from gcnn_keras_tpu_torch.model.force import EnergyForceModel
-    from gcnn_keras_tpu_torch.models.hdnnp4th import make_model_behler
     from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
-    model = make_model_behler(device=device, generator=torch.Generator().manual_seed(0),
-                              **HDNNP4TH_KW)
     return MolDynamicsModelPredictor(
-        EnergyForceModel(model, use_esp_coupling=True, device=device),
+        energy_force_model("hdnnp4th", device),
         graph_preprocessors=[functools.partial(set_angle, range_indices="edge_indices")],
         device=device)
 
@@ -769,6 +913,183 @@ def phase_spd_kernel(model, batch):
     return recs
 
 
+def check_second_order(kind, st, batch):
+    """The second-order pattern of ``tests/test_fused_g4.py``: the derivative
+    along a scale c of sum(g * g), g = d/dpos (sum(G(pos) * ct) * c), through
+    the kernel Functions (the fwd, vjp and jvp kernels, one launch each)
+    against autograd through the plain forward, on the card."""
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    (pos0, *rest), _ = acsf_args(f"{kind}_fwd", batch)
+    fn, plain = {"g4": (ka.G4Fn.apply, ka.g4_forward_plain),
+                 "g2": (ka.G2Fn.apply, ka.g2_forward_plain)}[kind]
+    width = st.num_rel * (len(st.eta_inv) if kind == "g4" else len(st.sets))
+    gen = torch.Generator(device=pos0.device).manual_seed(2)
+    ct = torch.randn(batch.n_node, width, generator=gen, device=pos0.device)
+
+    def second_order(f):
+        c = torch.tensor(1.2, device=pos0.device, requires_grad=True)
+        p = pos0.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad((f(p, *rest, st) * ct).sum() * c, p, create_graph=True)
+        (dc,) = torch.autograd.grad((g * g).sum(), c)
+        return dc.item()
+
+    before = hdnnp_counts()
+    kernel_value = second_order(fn)
+    launched = {k: v - before[k] for k, v in hdnnp_counts().items() if v != before[k]}
+    expected = {f"{kind}_fwd": 1, f"{kind}_vjp": 1, f"{kind}_jvp": 1}
+    if launched != expected:
+        raise AssertionError(f"second-order pattern {kind}: launches {launched}, "
+                             f"expected {expected}")
+    plain_value = second_order(plain)
+    err = abs(kernel_value - plain_value)
+    if not err <= SECOND_ORDER_TOL * max(abs(plain_value), 1.0):
+        raise AssertionError(f"second-order pattern {kind}: kernel {kernel_value}, "
+                             f"plain {plain_value}")
+    rec = {"case": f"second-order pattern, {kind}, HDNNP2nd serving batch",
+           "kernel": kernel_value, "plain": plain_value, "abs_err": err}
+    log("kernel pair: " + json.dumps(rec))
+    return rec
+
+
+def phase_jvp_kernels(batch, model):
+    """Phase 9: the jvp kernels against their plain versions, and the pair's
+    second-order pattern."""
+    recs = phase_acsf_kernel(batch, model, names=("g4_jvp", "g2_jvp"))
+    second = {f"{kind}_jvp": check_second_order(kind, getattr(model, f"acsf_{kind}")._static,
+                                                batch)
+              for kind in ("g4", "g2")}
+    return recs, second
+
+
+def ef_loss_fn(fmodel, force_weight, charge_weight=0.0):
+    """``bench.py``'s training loss, ``charge_weight * q_MAE + E_MAE +
+    force_weight * F_MAE``, with the forces taken with ``create_graph=True``."""
+    from gcnn_keras_tpu_torch.training.losses import masked_graph_mae, masked_node_mae
+
+    def loss_fn(b):
+        out = fmodel.apply(b, create_graph=True)
+        loss = (masked_graph_mae(out["energy"], b.globals["energy"], b.globals["graph_mask"])
+                + force_weight * masked_node_mae(out["force"], b.nodes["force"], b.node_mask))
+        if charge_weight:
+            loss = charge_weight * masked_node_mae(out["charge"], b.nodes["charge"],
+                                                   b.node_mask) + loss
+        return loss, {}
+    return loss_fn
+
+
+def train_batch(path, seed, n_mols, device):
+    """A labelled batch of ``path``'s kind: ``bench.py`` ``_mols(RandomState(
+    seed), n_mols, with_esp)``."""
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    cfg = TRAIN_PATHS[path]
+    return batch_graphs(labelled_mols(seed, n_mols, cfg["with_esp"]),
+                        global_keys=cfg["global_keys"], device=device)
+
+
+def make_trainer(path, device):
+    """``(EnergyForceModel, Trainer, TrainState)`` of a training path:
+    weights from seed 0, ``torch.optim.Adam(lr=1e-3)`` for ``optax.adam(1e-3)``."""
+    from gcnn_keras_tpu_torch.training import Trainer
+    cfg = TRAIN_PATHS[path]
+    fm = energy_force_model(cfg["model"], device)
+    trainer = Trainer(ef_loss_fn(fm, cfg["force_weight"], cfg["charge_weight"]),
+                      functools.partial(torch.optim.Adam, lr=1e-3))
+    return fm, trainer, trainer.init_state(fm.energy_model.parameters())
+
+
+def check_kernel_call(name, args, label, timed):
+    """Kernel ``name`` against its plain version on one call's arguments."""
+    if name == "sorted_segment_sum":
+        return check_segment_sum(*args, label, timed)
+    if name == "spd_solve":
+        return check_spd(*args, label, timed)
+    return check_acsf_call(name, args, label, timed)
+
+
+def check_training_kernels(path, batch):
+    """Every kernel call of one step of ``path`` on its full-width ``batch``
+    (a trainer of its own, before the main path), each against its plain
+    version on the same inputs; the first call of each kernel is timed.
+    Returns ``{name: [record, ...]}``."""
+    cfg = TRAIN_PATHS[path]
+    _, trainer, state = make_trainer(path, "cuda")
+    with captured_calls() as calls:
+        trainer.step_fn()(state, batch)
+    del trainer, state
+    counts = {name: len(c) for name, c in calls.items() if c}
+    if counts != {k: v for k, v in cfg["launches"].items() if v}:
+        raise AssertionError(f"{path}: kernel calls {counts}, expected {cfg['launches']}")
+    recs = {}
+    for name, arg_list in calls.items():
+        recs[name] = [
+            dict(check_kernel_call(name, args, f"{path}, call {i + 1} of {len(arg_list)}",
+                                   timed=i == 0), path=path)
+            for i, args in enumerate(arg_list)]
+    return recs
+
+
+def phase_training(path, smi):
+    """Phase 10 for one path: the first step against the CPU; each kernel
+    call of a step on the full-width batch against its plain version; then
+    the main path, ``TRAIN_STEPS`` steps on that batch. Returns the main
+    path's launch counts and the kernel records."""
+    cfg = TRAIN_PATHS[path]
+    first = {}
+    for dev in ("cuda", "cpu"):
+        fm, trainer, state = make_trainer(path, dev)
+        state, metrics = trainer.step_fn()(state, train_batch(path, 2, 64, dev))
+        first[dev] = (float(metrics["loss"]),
+                      {n: p.grad.detach().cpu() for n, p in fm.energy_model.named_parameters()})
+    (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = first["cuda"], first["cpu"]
+    if not abs(loss_gpu - loss_cpu) <= TRAIN_TOL * abs(loss_cpu):
+        raise AssertionError(f"{path}: first loss {loss_gpu} on the card, {loss_cpu} on the CPU")
+    worst_rel = 0.0
+    for name, ref in grads_cpu.items():
+        err, scale = (grads_gpu[name] - ref).abs().max().item(), ref.abs().max().item()
+        if not err <= TRAIN_TOL * scale:
+            raise AssertionError(f"{path}: gradient of {name}: max|gpu-cpu|={err} > "
+                                 f"{TRAIN_TOL}*{scale}")
+        worst_rel = max(worst_rel, err / max(scale, 1e-30))
+    log(f"{path} first step gpu vs cpu (64 mols, seed 2): " + json.dumps(
+        {"loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "params": len(grads_cpu),
+         "max_rel_grad_err": worst_rel}))
+
+    batch = train_batch(path, cfg["seed"], cfg["n_mols"], "cuda")
+    kernel_recs = check_training_kernels(path, batch)
+    fm, trainer, state = make_trainer(path, "cuda")
+    step = trainer.step_fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: every count set to 0 just before, read just after
+    reset_counts()
+    losses, times, per_step = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = hdnnp_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(metrics["loss"]))
+        per_step.append({k: v - before[k] for k, v in hdnnp_counts().items()})
+    main_launches = hdnnp_counts()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{path}: losses {losses}")
+    for i, counts in enumerate(per_step):
+        if counts != cfg["launches"]:
+            raise AssertionError(f"{path} step {i}: launches {counts}, "
+                                 f"expected {cfg['launches']}")
+    rec = {"path": path, "n_mols": cfg["n_mols"], "seed": cfg["seed"],
+           "N_pad": batch.n_node, "E_pad": batch.n_edge,
+           "A_pad": 0 if batch.angles is None else batch.angles.shape[0],
+           "G": batch.n_graphs, "real_edges": int(batch.edge_mask.sum().item()),
+           "real_angles": 0 if batch.angles is None else int(batch.angle_mask.sum().item()),
+           "losses": losses, "ms_per_step": float(np.median(times[1:])),
+           "ms_first_step": times[0], "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
+           "launches_per_step": cfg["launches"], "card": smi}
+    log(f"{path} timing: " + json.dumps(rec))
+    return main_launches, kernel_recs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
@@ -809,50 +1130,49 @@ def main():
         expected=HDNNP4TH_LAUNCHES, check=check_charged_request,
         keys=("energy", "force", "charge"))
 
-    main_rec = recs[0]
-    kernels = [{
-        "name": "sorted_segment_sum", "route": "cuda",
-        "source": "gcnn_keras_tpu_torch/csrc/segment_sum.cu",
-        "replaces": "gcnn_keras_tpu/ops/pallas/segment_sum.py:182",
-        "launches": launches + hlaunches["sorted_segment_sum"]
-        + qlaunches["sorted_segment_sum"],
-        "launches_by_path": {"schnet_serving": launches,
-                             "hdnnp2nd_serving": hlaunches["sorted_segment_sum"],
-                             "hdnnp4th_serving": qlaunches["sorted_segment_sum"]},
-        "max_abs_err": max(r["max_abs_err"] for r in recs),
-        "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": main_rec["library_ms"],
-        "shapes": recs,
-    }]
-    for name, rs in acsf_recs.items():
-        main_rec = rs[0]
+    jvp_recs, second_order = phase_jvp_kernels(hbatch0, hgpu.model.energy_model)
+    # the timed checks at serving shapes, by the path whose batch they used
+    for r in recs[:3]:
+        r["path"] = "schnet_serving"
+    for rs in (*acsf_recs.values(), *jvp_recs.values()):
+        rs[0]["path"] = "hdnnp2nd_serving"
+    spd_recs[0]["path"] = "hdnnp4th_serving"
+    records = {"sorted_segment_sum": recs, **acsf_recs, **jvp_recs, "spd_solve": spd_recs}
+    by_path = {"schnet_serving": {"sorted_segment_sum": launches},
+               "hdnnp2nd_serving": hlaunches, "hdnnp4th_serving": qlaunches}
+    for path in TRAIN_PATHS:
+        by_path[path], train_recs = phase_training(path, smi)
+        for name, rs in train_recs.items():
+            records[name] += rs
+
+    def main_record(name):
+        """The timed check of kernel ``name`` at the shapes of the first path
+        (in the order of ``by_path``) that launched it."""
+        for path, counts in by_path.items():
+            if counts.get(name, 0):
+                return next(r for r in records[name] if r.get("path") == path and "ms" in r)
+        raise AssertionError(f"{name} was not launched on the main path")
+
+    sources = {
+        "sorted_segment_sum": ("sorted_segment_sum", "segment_sum.cu",
+                               "gcnn_keras_tpu/ops/pallas/segment_sum.py:182"),
+        **{name: (f"acsf_{name}", "acsf.cu", replaces)
+           for name, replaces in ACSF_REPLACES.items()},
+        "spd_solve": ("spd_solve", "spd_solve.cu", "gcnn_keras_tpu/ops/pallas/spd_solve.py:95")}
+    kernels = []
+    for name, rs in records.items():
+        counts = {path: c.get(name, 0) for path, c in by_path.items()}
+        label, source, replaces = sources[name]
+        main_rec = main_record(name)
         kernels.append({
-            "name": f"acsf_{name}", "route": "cuda",
-            "source": "gcnn_keras_tpu_torch/csrc/acsf.cu",
-            "replaces": ACSF_REPLACES[name],
-            "launches": hlaunches[name] + qlaunches[name],
-            "launches_by_path": {"hdnnp2nd_serving": hlaunches[name],
-                                 "hdnnp4th_serving": qlaunches[name]},
+            "name": label, "route": "cuda", "source": f"gcnn_keras_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": sum(counts.values()), "launches_by_path": counts,
             "max_abs_err": max(r["max_abs_err"] for r in rs),
-            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
-            "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-            "library_ms": None, "shapes": rs})
-    main_rec = spd_recs[0]
-    kernels.append({
-        "name": "spd_solve", "route": "cuda",
-        "source": "gcnn_keras_tpu_torch/csrc/spd_solve.cu",
-        "replaces": "gcnn_keras_tpu/ops/pallas/spd_solve.py:95",
-        "launches": hlaunches["spd_solve"] + qlaunches["spd_solve"],
-        "launches_by_path": {"hdnnp2nd_serving": hlaunches["spd_solve"],
-                             "hdnnp4th_serving": qlaunches["spd_solve"]},
-        "max_abs_err": max(r["max_abs_err"] for r in spd_recs),
-        "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": main_rec["library_ms"], "shapes": spd_recs})
-    for k in kernels:
-        if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} was not launched on the main path")
+            "ms": main_rec["ms"], "ms_warm": main_rec["ms_warm"],
+            "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
+            "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
+            "timed_at": main_rec["case"], "shapes": rs,
+            **({"second_order": second_order[name]} if name in second_order else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,10 @@
 // ACSF G2 (radial) and G4 (angular) descriptors for Hopper (sm_90a): the
-// forward pass and the force pass (the adjoint with respect to positions).
+// forward pass, the force pass (the adjoint with respect to positions) and
+// the tangent pass (the derivative along a position tangent), six kernels:
+//
+//   g4_fwd_kernel  pos -> G4 (N, R*m)      g2_fwd_kernel  pos -> G2
+//   g4_vjp_kernel  ct (N, R*m) -> dpos     g2_vjp_kernel  ct -> dpos
+//   g4_jvp_kernel  dpos (N, 3) -> dG4      g2_jvp_kernel  dpos -> dG2
 //
 //   G2[i, slot(z_j)*m + s]    += exp(-eta_s (r_ij - rs_s)^2) fc(r_ij; rc_s)
 //   G4[i, rel(z_j,z_k)*m + s] += 2^(1-zeta_s) max(1 + lambda_s cos, 1e-30)^zeta_s
@@ -11,10 +16,11 @@
 // atomic numbers (N,), int32 indices, bool masks.
 //
 // Replaces the TPU kernels of gcnn_keras_tpu/ops/pallas/fused_g4.py:
-// _g4_fwd (fused_g4.py:660), _g4_vjp (:729), _g2_fwd (:1088) and _g2_vjp
-// (:1147). Those gather positions with one-hot matmuls from a 3x128-row node
-// window, keep per-angle scalars on 128-lane rows and pool through an (8, N)
-// transposed table, all for the MXU and VPU. Here the function is kept and
+// _g4_fwd (fused_g4.py:660), _g4_jvp (:691), _g4_vjp (:729), _g2_fwd (:1088),
+// _g2_jvp (:1106) and _g2_vjp (:1147). Those gather positions with one-hot
+// matmuls from a 3x128-row node window, keep per-angle scalars on 128-lane
+// rows and pool through an (8, N) transposed table, all for the MXU and
+// VPU. Here the function is kept and
 // the layout dropped: one warp owns one centre (receiver) node, finds the
 // node's contiguous range of sorted angles (edges) by binary search, and its
 // lanes walk that range, one angle (edge) per lane, with plain loads.
@@ -30,26 +36,34 @@
 //   (summed over the warp at the end) and adds the neighbours' shares to
 //   dpos with float atomics: the neighbours j, k are not sorted. dpos must
 //   be zero on entry.
+// - tangent pass: the forward pass's structure with a gathered tangent:
+//   each lane also loads dpos of i, j, k, forms the tangents of the
+//   geometry (dr_ij, dr_ik, dr_jk, ds2, dcos; fused_g4.py:495-503) and the
+//   derivative tables of the force pass, and adds the m set tangents into
+//   the node's row in shared memory. The output is per centre, so no global
+//   atomics are needed; the warp writes the whole row.
 //
 // Masked rows (padding points at the dead node, i = j = k) are skipped, not
-// multiplied by zero. Atomics make the order of each float32 sum vary from
-// run to run, so results differ from run to run in the last bits.
+// multiplied by zero. Atomics, in shared memory (forward and tangent pass)
+// or in global memory (force pass), make the order of each float32 sum vary
+// from run to run, so results differ from run to run in the last bits.
 //
 // Bound: at the HDNNP2nd serving shapes (N = 8192, A = 417024, R*m = 120 for
-// G4; E = 54784, R*m = 20 for G2) the bytes dominate all four: each call
+// G4; E = 54784, R*m = 20 for G2) the bytes dominate all six: each call
 // must read its index rows and mask (5.4 MB for G4, 0.5 MB for G2) and
-// write (or, in the force pass, read) the (N, R*m) descriptors once: about
-// 9.5 MB, 2.8-2.9 us at 3.35 TB/s for G4, 1.3 MB, 0.4 us for G2. The
-// special-function results the G4 function needs (an rsqrt per distance,
-// an exp per unique eta, a log2 and an exp2 per unique (zeta, lambda) plus
-// an exp2 for the derivative, a cos and in the force pass a sin per
-// distance and unique r_c) number 16 an angle in the forward pass and 23
-// in the force pass: 1.6 and 2.3 us at 16 a clock per SM. This kernel
-// issues more (a sqrt and a reciprocal apiece, a powf for c and another
-// for dc). This first version is not tuned: lanes of a warp diverge over
-// ranges of unequal length, lanes that share a relation contend for the
-// same shared words, and the per-set tables live in local memory. Its
-// times against these bounds are in PERF.md (chip_smoke.py).
+// write (or, in the force pass, read) the (N, R*m) descriptors once, and
+// the tangent pass reads dpos besides: about 9.5 MB, 2.8-2.9 us at 3.35
+// TB/s for G4, 1.3 MB, 0.4 us for G2. The special-function results the G4
+// function needs (an rsqrt per distance, an exp per unique eta, a log2 and
+// an exp2 per unique (zeta, lambda) plus an exp2 for the derivative, a cos
+// and in the force and tangent passes a sin per distance and unique r_c)
+// number 16 an angle in the forward pass and 23 in the force and tangent
+// passes: 1.6 and 2.3 us at 16 a clock per SM. These kernels issue more (a
+// sqrt and a reciprocal apiece, a powf for c and another for dc). This
+// first version is not tuned: lanes of a warp diverge over ranges of
+// unequal length, lanes that share a relation contend for the same shared
+// words, and the per-set tables live in local memory. Its times against
+// these bounds are in PERF.md (chip_smoke.py).
 
 #include <cuda_runtime.h>
 
@@ -162,6 +176,49 @@ __device__ __forceinline__ int g4_relation(const AcsfG4Params& p, int zj,
   return (sj < 0 || sk < 0) ? 0 : p.pair_rel[sj * p.num_el + sk];
 }
 
+// an angle's unique transcendentals and their derivatives, the tables of
+// the force and tangent passes
+struct AngleTables {
+  float e[kMaxUniq], de[kMaxUniq], c[kMaxUniq], dc[kMaxUniq];
+  float f[kMaxUniq], df_ij[kMaxUniq], df_ik[kMaxUniq], df_jk[kMaxUniq];
+};
+
+__device__ __forceinline__ void derivative_tables(const AcsfG4Params& p,
+                                                  const Angle& g,
+                                                  AngleTables* t) {
+  const float s2 = g.rij * g.rij + g.rik * g.rik + g.rjk * g.rjk;
+  for (int u = 0; u < p.n_eta; ++u) {
+    t->e[u] = expf(-p.eta[u] * s2);
+    t->de[u] = -p.eta[u] * t->e[u];
+  }
+  for (int u = 0; u < p.n_zl; ++u) {
+    const float raw = g.cos * p.lam[u] + 1.0f;
+    const float base = fmaxf(raw, 1e-30f);
+    t->c[u] = p.pow2[u] * powf(base, p.zeta[u]);
+    // zero on the clamped branch (exactly collinear angles)
+    t->dc[u] = raw > 1e-30f
+        ? p.pow2[u] * p.zeta[u] * p.lam[u] * powf(base, p.zeta[u] - 1.0f) : 0.0f;
+  }
+  for (int u = 0; u < p.n_rc; ++u) {
+    const float rc = p.rc[u], w = p.pi_rc[u];
+    const float fij = cutoff(g.rij, rc, w), fik = cutoff(g.rik, rc, w);
+    const float fjk = cutoff(g.rjk, rc, w);
+    t->f[u] = fij * fik * fjk;
+    t->df_ij[u] = cutoff_d(g.rij, rc, w) * fik * fjk;
+    t->df_ik[u] = fij * cutoff_d(g.rik, rc, w) * fjk;
+    t->df_jk[u] = fij * fik * cutoff_d(g.rjk, rc, w);
+  }
+}
+
+// d rep_s / d r of G2 set s at distance r
+__device__ __forceinline__ float g2_drep_dr(const AcsfG2Params& p, int s,
+                                            float r) {
+  const float dr = r - p.rs[s];
+  const float g = expf(-p.eta[s] * (dr * dr));
+  return -2.0f * p.eta[s] * dr * g * cutoff(r, p.rc[s], p.pi_rc[s])
+         + g * cutoff_d(r, p.rc[s], p.pi_rc[s]);
+}
+
 __global__ void __launch_bounds__(kWarps * 32) g4_fwd_kernel(
     const float* __restrict__ pos, const int* __restrict__ z,
     const int* __restrict__ angles, const bool* __restrict__ mask,
@@ -232,41 +289,19 @@ __global__ void __launch_bounds__(kWarps * 32) g4_vjp_kernel(
     const int k = __ldg(angles + 3LL * a + 2);
     Angle g;
     angle_geometry(pos, pi, j, k, &g);
-    const float s2 = g.rij * g.rij + g.rik * g.rik + g.rjk * g.rjk;
-    float e[kMaxUniq], de[kMaxUniq], c[kMaxUniq], dc[kMaxUniq];
-    float f[kMaxUniq], df_ij[kMaxUniq], df_ik[kMaxUniq], df_jk[kMaxUniq];
-    for (int u = 0; u < p.n_eta; ++u) {
-      e[u] = expf(-p.eta[u] * s2);
-      de[u] = -p.eta[u] * e[u];
-    }
-    for (int u = 0; u < p.n_zl; ++u) {
-      const float raw = g.cos * p.lam[u] + 1.0f;
-      const float base = fmaxf(raw, 1e-30f);
-      c[u] = p.pow2[u] * powf(base, p.zeta[u]);
-      // zero on the clamped branch (exactly collinear angles)
-      dc[u] = raw > 1e-30f
-          ? p.pow2[u] * p.zeta[u] * p.lam[u] * powf(base, p.zeta[u] - 1.0f) : 0.0f;
-    }
-    for (int u = 0; u < p.n_rc; ++u) {
-      const float rc = p.rc[u], w = p.pi_rc[u];
-      const float fij = cutoff(g.rij, rc, w), fik = cutoff(g.rik, rc, w);
-      const float fjk = cutoff(g.rjk, rc, w);
-      f[u] = fij * fik * fjk;
-      df_ij[u] = cutoff_d(g.rij, rc, w) * fik * fjk;
-      df_ik[u] = fij * cutoff_d(g.rik, rc, w) * fjk;
-      df_jk[u] = fij * fik * cutoff_d(g.rjk, rc, w);
-    }
+    AngleTables t;
+    derivative_tables(p, g, &t);
     const float* ctr = row + g4_relation(p, __ldg(z + j), __ldg(z + k)) * m;
     float a_cos = 0.0f, a_s2 = 0.0f, a_rij = 0.0f, a_rik = 0.0f, a_rjk = 0.0f;
     for (int s = 0; s < m; ++s) {
       const int ue = p.eta_inv[s], uz = p.zl_inv[s], ur = p.rc_inv[s];
       const float cts = ctr[s] * p.scale;
-      const float ce = cts * c[uz] * e[ue];
-      a_cos += cts * dc[uz] * e[ue] * f[ur];
-      a_s2 += cts * c[uz] * de[ue] * f[ur];
-      a_rij += ce * df_ij[ur];
-      a_rik += ce * df_ik[ur];
-      a_rjk += ce * df_jk[ur];
+      const float ce = cts * t.c[uz] * t.e[ue];
+      a_cos += cts * t.dc[uz] * t.e[ue] * t.f[ur];
+      a_s2 += cts * t.c[uz] * t.de[ue] * t.f[ur];
+      a_rij += ce * t.df_ij[ur];
+      a_rik += ce * t.df_ik[ur];
+      a_rjk += ce * t.df_jk[ur];
     }
     const float inv_ij = 1.0f / g.rij, inv_ik = 1.0f / g.rik;
     const float inv_jk = 1.0f / g.rjk;
@@ -288,6 +323,64 @@ __global__ void __launch_bounds__(kWarps * 32) g4_vjp_kernel(
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) atomicAdd(dpos + 3LL * node + d, v);
   }
+}
+
+__global__ void __launch_bounds__(kWarps * 32) g4_jvp_kernel(
+    const float* __restrict__ pos, const int* __restrict__ z,
+    const int* __restrict__ angles, const bool* __restrict__ mask,
+    const float* __restrict__ dpos, float* __restrict__ out, int n_node,
+    int n_angle, const __grid_constant__ AcsfG4Params p) {
+  extern __shared__ float rows[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int node = blockIdx.x * kWarps + warp;
+  if (node >= n_node) return;
+  const int m = p.m;
+  const int width = p.num_rel * m;
+  float* row = rows + warp * width;
+  for (int c = lane; c < width; c += 32) row[c] = 0.0f;
+  int begin, end;
+  warp_range(angles, 3, n_angle, node, lane, &begin, &end);
+  __syncwarp();
+  float pi[3], dpi[3];
+  load3(pos, node, pi);
+  load3(dpos, node, dpi);
+  for (int a = begin + lane; a < end; a += 32) {
+    if (!mask[a]) continue;
+    const int j = __ldg(angles + 3LL * a + 1);
+    const int k = __ldg(angles + 3LL * a + 2);
+    Angle g;
+    angle_geometry(pos, pi, j, k, &g);
+    float dpj[3], dpk[3], dvij[3], dvik[3], dvjk[3];
+    load3(dpos, j, dpj);
+    load3(dpos, k, dpk);
+    for (int d = 0; d < 3; ++d) {
+      dvij[d] = dpj[d] - dpi[d];
+      dvik[d] = dpk[d] - dpi[d];
+      dvjk[d] = dpk[d] - dpj[d];
+    }
+    const float drij = dot3(g.vij, dvij) / g.rij;
+    const float drik = dot3(g.vik, dvik) / g.rik;
+    const float drjk = dot3(g.vjk, dvjk) / g.rjk;
+    const float ds2 = 2.0f * (g.rij * drij + g.rik * drik + g.rjk * drjk);
+    const float dcos = (dot3(dvij, g.vik) + dot3(g.vij, dvik)) / (g.rij * g.rik)
+                       - g.cos * (drij / g.rij + drik / g.rik);
+    AngleTables t;
+    derivative_tables(p, g, &t);
+    float* dst = row + g4_relation(p, __ldg(z + j), __ldg(z + k)) * m;
+    for (int s = 0; s < m; ++s) {
+      const int ue = p.eta_inv[s], uz = p.zl_inv[s], ur = p.rc_inv[s];
+      const float ce = t.c[uz] * t.e[ue];
+      const float d = t.dc[uz] * t.e[ue] * t.f[ur] * dcos
+                      + t.c[uz] * t.de[ue] * t.f[ur] * ds2
+                      + ce * (t.df_ij[ur] * drij + t.df_ik[ur] * drik
+                              + t.df_jk[ur] * drjk);
+      atomicAdd(dst + s, d * p.scale);
+    }
+  }
+  __syncwarp();
+  float* o = out + static_cast<long long>(node) * width;
+  for (int c = lane; c < width; c += 32) o[c] = row[c];
 }
 
 __global__ void __launch_bounds__(kWarps * 32) g2_fwd_kernel(
@@ -359,12 +452,7 @@ __global__ void __launch_bounds__(kWarps * 32) g2_vjp_kernel(
     const float r = sqrtf(fmaxf(dot3(v, v), kEps));
     const float* ctr = row + p.slot_of_z[z_index(__ldg(z + j))] * m;
     float a_r = 0.0f;
-    for (int s = 0; s < m; ++s) {
-      const float dr = r - p.rs[s];
-      const float g = expf(-p.eta[s] * (dr * dr));
-      a_r += ctr[s] * (-2.0f * p.eta[s] * dr * g * cutoff(r, p.rc[s], p.pi_rc[s])
-                       + g * cutoff_d(r, p.rc[s], p.pi_rc[s]));
-    }
+    for (int s = 0; s < m; ++s) a_r += ctr[s] * g2_drep_dr(p, s, r);
     for (int d = 0; d < 3; ++d) {
       const float dv = a_r * v[d] / r;
       d_center[d] -= dv;
@@ -376,6 +464,47 @@ __global__ void __launch_bounds__(kWarps * 32) g2_vjp_kernel(
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) atomicAdd(dpos + 3LL * node + d, v);
   }
+}
+
+__global__ void __launch_bounds__(kWarps * 32) g2_jvp_kernel(
+    const float* __restrict__ pos, const int* __restrict__ z,
+    const int* __restrict__ senders, const int* __restrict__ receivers,
+    const bool* __restrict__ mask, const float* __restrict__ dpos,
+    float* __restrict__ out, int n_node, int n_edge,
+    const __grid_constant__ AcsfG2Params p) {
+  extern __shared__ float rows[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int node = blockIdx.x * kWarps + warp;
+  if (node >= n_node) return;
+  const int m = p.m;
+  const int width = p.num_rel * m;
+  float* row = rows + warp * width;
+  for (int c = lane; c < width; c += 32) row[c] = 0.0f;
+  int begin, end;
+  warp_range(receivers, 1, n_edge, node, lane, &begin, &end);
+  __syncwarp();
+  float pi[3], dpi[3];
+  load3(pos, node, pi);
+  load3(dpos, node, dpi);
+  for (int e = begin + lane; e < end; e += 32) {
+    if (!mask[e]) continue;
+    const int j = __ldg(senders + e);
+    float pj[3], dpj[3], v[3], dv[3];
+    load3(pos, j, pj);
+    load3(dpos, j, dpj);
+    for (int d = 0; d < 3; ++d) {
+      v[d] = pj[d] - pi[d];
+      dv[d] = dpj[d] - dpi[d];
+    }
+    const float r = sqrtf(fmaxf(dot3(v, v), kEps));
+    const float dr = dot3(v, dv) / r;
+    float* dst = row + p.slot_of_z[z_index(__ldg(z + j))] * m;
+    for (int s = 0; s < m; ++s) atomicAdd(dst + s, g2_drep_dr(p, s, r) * dr);
+  }
+  __syncwarp();
+  float* o = out + static_cast<long long>(node) * width;
+  for (int c = lane; c < width; c += 32) o[c] = row[c];
 }
 
 bool g4_params_ok(const AcsfG4Params* p) {
@@ -398,8 +527,8 @@ size_t shared_bytes(int width) { return sizeof(float) * kWarps * width; }
 
 // Each entry point launches on `stream` and returns cudaGetLastError() (0 on
 // success), or cudaErrorInvalidValue for parameters outside the kernel's
-// limits. The fwd outputs are (n_node, num_rel * m); the vjp outputs dpos
-// (n_node, 3) must be zero on entry.
+// limits. The fwd and jvp outputs are (n_node, num_rel * m), every row
+// written; the vjp outputs dpos (n_node, 3) must be zero on entry.
 
 extern "C" int gcnn_acsf_g4_fwd_f32(const float* pos, const int* z,
                                     const int* angles, const bool* mask,
@@ -426,6 +555,19 @@ extern "C" int gcnn_acsf_g4_vjp_f32(const float* pos, const int* z,
   return static_cast<int>(cudaGetLastError());
 }
 
+extern "C" int gcnn_acsf_g4_jvp_f32(const float* pos, const int* z,
+                                    const int* angles, const bool* mask,
+                                    const float* dpos, float* out, int n_node,
+                                    int n_angle, const AcsfG4Params* p,
+                                    void* stream) {
+  if (!g4_params_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_node <= 0) return static_cast<int>(cudaSuccess);
+  g4_jvp_kernel<<<grid_for(n_node), kWarps * 32, shared_bytes(p->num_rel * p->m),
+                  static_cast<cudaStream_t>(stream)>>>(pos, z, angles, mask, dpos,
+                                                       out, n_node, n_angle, *p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int gcnn_acsf_g2_fwd_f32(const float* pos, const int* z,
                                     const int* senders, const int* receivers,
                                     const bool* mask, float* out, int n_node,
@@ -449,6 +591,20 @@ extern "C" int gcnn_acsf_g2_vjp_f32(const float* pos, const int* z,
   g2_vjp_kernel<<<grid_for(n_node), kWarps * 32, shared_bytes(p->num_rel * p->m),
                   static_cast<cudaStream_t>(stream)>>>(pos, z, senders, receivers,
                                                        mask, ct, dpos, n_node,
+                                                       n_edge, *p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gcnn_acsf_g2_jvp_f32(const float* pos, const int* z,
+                                    const int* senders, const int* receivers,
+                                    const bool* mask, const float* dpos,
+                                    float* out, int n_node, int n_edge,
+                                    const AcsfG2Params* p, void* stream) {
+  if (!g2_params_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_node <= 0) return static_cast<int>(cudaSuccess);
+  g2_jvp_kernel<<<grid_for(n_node), kWarps * 32, shared_bytes(p->num_rel * p->m),
+                  static_cast<cudaStream_t>(stream)>>>(pos, z, senders, receivers,
+                                                       mask, dpos, out, n_node,
                                                        n_edge, *p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,6 +5,11 @@ Per-graph energies are scalars, so one reverse pass over ``sum_g E_g``
 yields all forces at once. With ``use_esp_coupling`` the ESP force term
 ``F_i += -(dE/dPhi_i) * dPhi_i/dr_i`` is added, the ESP gradient being a
 node input.
+
+Training a force loss differentiates the forces along the parameters
+(``apply(batch, create_graph=True)``, then ``torch.autograd.grad(loss,
+parameters)``). Ask for the parameters' gradients alone: through the ACSF
+kernels a derivative along the coordinates raises (``ops/cuda/acsf.py``).
 """
 from __future__ import annotations
 
@@ -40,8 +45,11 @@ class EnergyForceModel:
         self.use_esp_coupling = use_esp_coupling
         self.sign = -1.0 if is_physical_force else 1.0
 
-    def apply(self, batch: GraphBatch) -> Dict[str, Tensor]:
-        """Energies and forces, without a graph through the forces (serving)."""
+    def apply(self, batch: GraphBatch, create_graph: bool = False) -> Dict[str, Tensor]:
+        """Energies and forces. ``create_graph=False`` (serving) takes the
+        forces without a graph through them; ``True`` (training) keeps the
+        graph through ``dE/dr`` and ``dE/dPhi``, so that a loss on the forces
+        can be differentiated along the parameters."""
         use_esp = self.use_esp_coupling and self.esp_key in batch.nodes
         with torch.enable_grad():
             coords = batch.nodes[self.coordinates_key].detach().requires_grad_(True)
@@ -55,7 +63,8 @@ class EnergyForceModel:
             e = out[self.energy_output_key]
             gmask = batch.globals["graph_mask"].to(e.dtype)
             total_e = torch.sum(e * gmask.reshape(gmask.shape + (1,) * (e.dim() - 1)))
-            grads = torch.autograd.grad(total_e, wrt, allow_unused=True)
+            grads = torch.autograd.grad(total_e, wrt, allow_unused=True,
+                                        create_graph=create_graph)
         de_dr = grads[0] if grads[0] is not None else torch.zeros_like(coords)
         force = self.sign * de_dr
         if use_esp and grads[1] is not None:

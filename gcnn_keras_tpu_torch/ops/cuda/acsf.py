@@ -2,13 +2,16 @@
 versions and their autograd Functions; counterpart of
 ``gcnn_keras_tpu/ops/pallas/fused_g4.py``.
 
-Four kernels (``csrc/acsf.cu``) replace the four TPU kernels that energy and
-force serving run:
+Six kernels (``csrc/acsf.cu``) replace the six TPU kernels that energy and
+force serving and force training run:
 
 - ``g4_fwd``  (``_g4_fwd``):  pos -> G4 (N, R*m) over centre-sorted angles;
 - ``g4_vjp``  (``_g4_vjp``):  ct (N, R*m) -> dpos (N, 3), the force pass;
+- ``g4_jvp``  (``_g4_jvp``):  dpos (N, 3) -> dG (N, R*m), the force loss's
+  second reverse pass;
 - ``g2_fwd``  (``_g2_fwd``):  pos -> G2 (N, R*m) over receiver-sorted edges;
-- ``g2_vjp``  (``_g2_vjp``):  ct -> dpos.
+- ``g2_vjp``  (``_g2_vjp``):  ct -> dpos;
+- ``g2_jvp``  (``_g2_jvp``):  dpos -> dG.
 
 Column ``rel * m + s`` of the output holds set ``s`` of relation ``rel``:
 the sender's element slot for G2, the (j, k) element pair for G4. The
@@ -18,14 +21,19 @@ in G2 and pair relation 0 in G4, and ordered pairs (``keep_pair_order``)
 take relation ``slot_k * n_el + slot_j``.
 
 ``G4Fn``/``G2Fn`` run the fwd kernel; their backward is ``G4VjpFn``/
-``G2VjpFn``, whose forward is the vjp kernel. The JVP kernels (#9 ``_g4_jvp``
-and #12 ``_g2_jvp``) that a second reverse pass needs come with the training
-slice, so the backward of a ``*VjpFn`` raises.
+``G2VjpFn`` (the vjp kernel), whose backward is ``G4JvpFn``/``G2JvpFn`` (the
+jvp kernel), whose backward is the ``*VjpFn`` again: the pair is linear in
+its tensor argument and differentiable to any order in it, the counterpart
+of the JAX package's ``custom_jvp`` + ``linear_call(jvp_fn, vjp_fn)``.
+Positions are a constant of the pair, as ``linear_call``'s residual is: the
+derivative of the force pass along positions (a position Hessian) is not
+computed, and asking for it raises ``NotImplementedError``; derivatives
+along everything else (a force loss's parameter gradients) work.
 
 A CPU tensor takes the plain version (the closed forms of
-``_rep_coeffs``/``_dv_from_coeffs`` and ``_g2_drep_dr``, not autograd); a
-CUDA tensor launches the kernel or raises. ``launches[name]`` counts the
-launches of each kernel and nothing else.
+``_rep_coeffs``/``_dv_from_coeffs``, ``_drep_rows`` and ``_g2_drep_dr``, not
+autograd); a CUDA tensor launches the kernel or raises. ``launches[name]``
+counts the launches of each kernel and nothing else.
 """
 from __future__ import annotations
 
@@ -41,7 +49,7 @@ from .build import load_library
 
 Tensor = torch.Tensor
 
-KERNELS = ("g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp")
+KERNELS = ("g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp", "g4_jvp", "g2_jvp")
 launches = dict.fromkeys(KERNELS, 0)
 
 # limits of the kernels' own design (csrc/acsf.cu): per-set and unique-value
@@ -269,6 +277,35 @@ def g4_vjp_plain(pos: Tensor, z: Tensor, angles: Tensor, angle_mask: Tensor,
     return dpos.index_add_(0, k, d_vik + d_vjk)
 
 
+def g4_jvp_plain(pos: Tensor, z: Tensor, angles: Tensor, angle_mask: Tensor,
+                 dpos: Tensor, st: G4Static) -> Tensor:
+    """The G4 jvp kernel's plain PyTorch version: dpos (N, 3) -> dG (N, R*m),
+    the tangents of the per-set terms (``_drep_rows``) pooled as the forward
+    pools the terms."""
+    n, m = pos.shape[0], len(st.eta_inv)
+    i, j, k, vij, vik, vjk, rij, rik, rjk, cos = _g4_geometry(pos, angles)
+    dvij, dvik, dvjk = dpos[j] - dpos[i], dpos[k] - dpos[i], dpos[k] - dpos[j]
+    drij = (vij * dvij).sum(-1) / rij
+    drik = (vik * dvik).sum(-1) / rik
+    drjk = (vjk * dvjk).sum(-1) / rjk
+    ds2 = 2.0 * (rij * drij + rik * drik + rjk * drjk)
+    dcos = (((dvij * vik).sum(-1) + (vij * dvik).sum(-1)) / (rij * rik)
+            - cos * (drij / rij + drik / rik))
+    tabs = _g4_tables(st, rij, rik, rjk, cos, with_derivs=True)
+    kk = tabs["k"]
+    zl, et, rc = kk["zl_inv"], kk["eta_inv"], kk["rc_inv"]
+    c, e, f = tabs["c"][:, zl], tabs["e"][:, et], tabs["f"][:, rc]
+    drep = (tabs["dc"][:, zl] * e * f * dcos[:, None]
+            + c * tabs["de"][:, et] * f * ds2[:, None]
+            + c * e * (tabs["df_ij"][:, rc] * drij[:, None]
+                       + tabs["df_ik"][:, rc] * drik[:, None]
+                       + tabs["df_jk"][:, rc] * drjk[:, None])) * st.scale
+    drep = drep * angle_mask[:, None].to(drep.dtype)
+    rel = g4_relation(z[j], z[k], st)
+    out = torch.zeros(n * st.num_rel, m, dtype=pos.dtype, device=pos.device)
+    return out.index_add_(0, i * st.num_rel + rel, drep).reshape(n, st.num_rel * m)
+
+
 def _g2_geometry(pos: Tensor, senders: Tensor, receivers: Tensor):
     recv, send = receivers.long(), senders.long()
     vij = pos[send] - pos[recv]
@@ -298,21 +335,39 @@ def g2_forward_plain(pos: Tensor, z: Tensor, senders: Tensor, receivers: Tensor,
     return out.index_add_(0, recv * st.num_rel + rel, rep).reshape(n, st.num_rel * m)
 
 
+def _g2_drep_dr(st: G2Static, r: Tensor) -> Tensor:
+    """(E, m) d rep_s / d r at the distances ``r`` (E, 1)."""
+    eta, rs, rc, pi_rc = _g2_consts(st, r)
+    g = torch.exp(-eta * (r - rs) ** 2)
+    return -2.0 * eta * (r - rs) * g * _cutoff(r, rc, pi_rc) + g * _cutoff_d(r, rc, pi_rc)
+
+
 def g2_vjp_plain(pos: Tensor, z: Tensor, senders: Tensor, receivers: Tensor,
                  edge_mask: Tensor, ct: Tensor, st: G2Static) -> Tensor:
     """The G2 vjp kernel's plain PyTorch version: ct -> dpos (N, 3)."""
     n, m = pos.shape[0], len(st.sets)
     recv, send, vij, r = _g2_geometry(pos, senders, receivers)
-    eta, rs, rc, pi_rc = _g2_consts(st, pos)
     r = r[:, None]
-    g = torch.exp(-eta * (r - rs) ** 2)
-    drep = -2.0 * eta * (r - rs) * g * _cutoff(r, rc, pi_rc) + g * _cutoff_d(r, rc, pi_rc)
     ctr = ct.reshape(n, st.num_rel, m)[recv, g2_relation(z[send], st)]
     ctr = ctr * edge_mask[:, None].to(ctr.dtype)
-    d = (ctr * drep).sum(1)[:, None] * vij / r
+    d = (ctr * _g2_drep_dr(st, r)).sum(1)[:, None] * vij / r
     dpos = torch.zeros(n, 3, dtype=pos.dtype, device=pos.device)
     dpos.index_add_(0, recv, -d)
     return dpos.index_add_(0, send, d)
+
+
+def g2_jvp_plain(pos: Tensor, z: Tensor, senders: Tensor, receivers: Tensor,
+                 edge_mask: Tensor, dpos: Tensor, st: G2Static) -> Tensor:
+    """The G2 jvp kernel's plain PyTorch version: dpos (N, 3) -> dG (N, R*m),
+    ``d rep_s / d r * dr`` pooled as the forward pools ``rep_s``."""
+    n, m = pos.shape[0], len(st.sets)
+    recv, send, vij, r = _g2_geometry(pos, senders, receivers)
+    dr = ((vij * (dpos[send] - dpos[recv])).sum(-1) / r)[:, None]
+    drep = _g2_drep_dr(st, r[:, None]) * dr
+    drep = drep * edge_mask[:, None].to(drep.dtype)
+    rel = g2_relation(z[send], st)
+    out = torch.zeros(n * st.num_rel, m, dtype=pos.dtype, device=pos.device)
+    return out.index_add_(0, recv * st.num_rel + rel, drep).reshape(n, st.num_rel * m)
 
 
 # ------------------------------------------------------------ kernels
@@ -406,8 +461,8 @@ def _g2_params(st: G2Static) -> _G2Params:
 
 
 _SIGNATURES = {
-    # pos, z, index rows, mask, [ct,] out, n_node, n_rows, params, stream
-    "g4_fwd": 4, "g4_vjp": 5, "g2_fwd": 5, "g2_vjp": 6,
+    # pos, z, index rows, mask, [ct or dpos,] out, n_node, n_rows, params, stream
+    "g4_fwd": 4, "g4_vjp": 5, "g4_jvp": 5, "g2_fwd": 5, "g2_vjp": 6, "g2_jvp": 6,
 }
 
 
@@ -424,14 +479,15 @@ def _entry(name: str):
     return fn
 
 
-def _check(pos: Tensor, z: Tensor, rows, mask: Tensor, width: int, ct=None) -> None:
+def _check(pos: Tensor, z: Tensor, rows, mask: Tensor, width: int, ct=None,
+           dpos=None) -> None:
     """Shapes and devices; ``rows`` is ``(angles,)`` (A, 3) or ``(senders,
-    receivers)`` (E,) each, and ``ct`` is (N, width)."""
+    receivers)`` (E,) each, ``ct`` is (N, width) and ``dpos`` (N, 3)."""
     if pos.dim() != 2 or pos.shape[1] != 3:
         raise ValueError(f"pos must be (N, 3), got {tuple(pos.shape)}")
     if z.shape != pos.shape[:1]:
         raise ValueError(f"z must be ({pos.shape[0]},), got {tuple(z.shape)}")
-    for t in (z, *rows, mask) + (() if ct is None else (ct,)):
+    for t in (z, *rows, mask) + tuple(t for t in (ct, dpos) if t is not None):
         if t.device != pos.device:
             raise ValueError(f"inputs on {t.device} and {pos.device}")
     n_rows = rows[0].shape[0]
@@ -443,6 +499,8 @@ def _check(pos: Tensor, z: Tensor, rows, mask: Tensor, width: int, ct=None) -> N
         raise ValueError(f"mask must be ({n_rows},), got {tuple(mask.shape)}")
     if ct is not None and tuple(ct.shape) != (pos.shape[0], width):
         raise ValueError(f"ct must be ({pos.shape[0]}, {width}), got {tuple(ct.shape)}")
+    if dpos is not None and dpos.shape != pos.shape:
+        raise ValueError(f"dpos must be {tuple(pos.shape)}, got {tuple(dpos.shape)}")
 
 
 def _width(st) -> int:
@@ -451,25 +509,26 @@ def _width(st) -> int:
 
 
 def _launch(name: str, st, pos: Tensor, z: Tensor, ints, mask: Tensor,
-            ct=None) -> Tensor:
-    """Launch kernel ``name`` on the card; returns its output."""
+            extra=None) -> Tensor:
+    """Launch kernel ``name`` on the card; ``extra`` is the cotangent (vjp)
+    or the position tangent (jvp). Returns the kernel's output."""
     if pos.device.type != "cuda":
         raise ValueError(f"no ACSF kernel for device {pos.device}")
-    if pos.dtype != torch.float32 or (ct is not None and ct.dtype != torch.float32):
-        raise TypeError("the ACSF kernels take float32 positions and cotangents")
+    if pos.dtype != torch.float32 or (extra is not None and extra.dtype != torch.float32):
+        raise TypeError("the ACSF kernels take float32 positions, cotangents and tangents")
     if z.dtype != torch.int32 or any(t.dtype != torch.int32 for t in ints):
         raise TypeError("the ACSF kernels take int32 atomic numbers and indices")
     if mask.dtype != torch.bool:
         raise TypeError(f"the mask must be bool, got {mask.dtype}")
-    tensors = (pos, z, *ints, mask) + (() if ct is None else (ct,))
+    tensors = (pos, z, *ints, mask) + (() if extra is None else (extra,))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the ACSF kernels take contiguous tensors")
     params = _g4_params(st) if name.startswith("g4") else _g2_params(st)
     n = pos.shape[0]
-    if name.endswith("fwd"):
-        out = torch.empty(n, _width(st), dtype=torch.float32, device=pos.device)
-    else:
+    if name.endswith("vjp"):  # the kernel adds onto dpos
         out = torch.zeros(n, 3, dtype=torch.float32, device=pos.device)
+    else:  # the kernel writes every row
+        out = torch.empty(n, _width(st), dtype=torch.float32, device=pos.device)
     if n == 0:
         return out
     fn = _entry(name)
@@ -502,6 +561,15 @@ def g4_vjp(pos: Tensor, z: Tensor, angles: Tensor, angle_mask: Tensor,
     return _launch("g4_vjp", st, pos, z, (angles,), angle_mask, ct)
 
 
+def g4_jvp(pos: Tensor, z: Tensor, angles: Tensor, angle_mask: Tensor,
+           dpos: Tensor, st: G4Static) -> Tensor:
+    """Position tangent (N, 3) -> tangent (N, R*m) of :func:`g4_forward`."""
+    _check(pos, z, (angles,), angle_mask, _width(st), dpos=dpos)
+    if pos.device.type == "cpu":
+        return g4_jvp_plain(pos, z, angles, angle_mask, dpos, st)
+    return _launch("g4_jvp", st, pos, z, (angles,), angle_mask, dpos)
+
+
 def g2_forward(pos: Tensor, z: Tensor, senders: Tensor, receivers: Tensor,
                edge_mask: Tensor, st: G2Static) -> Tensor:
     """G2 descriptors (N, R*m) over RECEIVER-SORTED edges; masked edges
@@ -521,14 +589,59 @@ def g2_vjp(pos: Tensor, z: Tensor, senders: Tensor, receivers: Tensor,
     return _launch("g2_vjp", st, pos, z, (senders, receivers), edge_mask, ct)
 
 
-# ------------------------------------------------------------ autograd
+def g2_jvp(pos: Tensor, z: Tensor, senders: Tensor, receivers: Tensor,
+           edge_mask: Tensor, dpos: Tensor, st: G2Static) -> Tensor:
+    """Position tangent (N, 3) -> tangent (N, R*m) of :func:`g2_forward`."""
+    _check(pos, z, (senders, receivers), edge_mask, _width(st), dpos=dpos)
+    if pos.device.type == "cpu":
+        return g2_jvp_plain(pos, z, senders, receivers, edge_mask, dpos, st)
+    return _launch("g2_jvp", st, pos, z, (senders, receivers), edge_mask, dpos)
 
-_NO_JVP = ("the second derivative of the {} descriptors needs the JVP kernel "
-           "#{} ({}), which comes with the training slice and is not ported yet")
+
+# ------------------------------------------------------------ autograd
+#
+# G*Fn: pos -> G, backward G*VjpFn.
+# G*VjpFn: ct -> dpos, linear in ct, backward G*JvpFn.
+# G*JvpFn: dpos -> dG, linear in dpos, backward G*VjpFn.
+#
+# Each Function of the pair takes ``pos`` as an input so that its backward
+# can mark positions constant again, and returns no gradient for it: the
+# derivative along positions is what ``_held_constant`` refuses.
+
+_POSITION_HESSIAN = (
+    "the ACSF kernels' autograd Functions hold positions constant, as the JAX "
+    "package's linear_call holds its residual: the derivative of the force pass "
+    "(or of its transpose) along positions, a position Hessian, is not computed. "
+    "Ask for gradients along parameters only (torch.autograd.grad(loss, "
+    "parameters)), or build the ACSF layer with fused=False")
+
+
+class _PositionsHeldConstant(torch.autograd.Function):
+    """A zero on ``pos`` whose backward raises ``NotImplementedError``."""
+
+    @staticmethod
+    def forward(ctx, pos):
+        return pos.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(_POSITION_HESSIAN)
+
+
+def _held_constant(out: Tensor, pos: Tensor) -> Tensor:
+    """``out``; in a graph that records derivatives, plus a zero node on
+    ``pos`` whose backward raises. A gradient along parameters alone never
+    runs that node: the autograd engine runs only the nodes on a path to the
+    inputs it was asked for. A derivative along positions runs it."""
+    if torch.is_grad_enabled() and pos.requires_grad:
+        return out + _PositionsHeldConstant.apply(pos)
+    return out
 
 
 class G4Fn(torch.autograd.Function):
-    """pos (N, 3) -> G4 (N, R*m); backward on the vjp kernel."""
+    """pos (N, 3) -> G4 (N, R*m); backward :class:`G4VjpFn` (the vjp
+    kernel). Differentiable to any order along its cotangents; a second
+    derivative along positions raises (see ``_POSITION_HESSIAN``)."""
 
     @staticmethod
     def forward(ctx, pos, z, angles, angle_mask, st):
@@ -539,25 +652,47 @@ class G4Fn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         pos, z, angles, angle_mask = ctx.saved_tensors
-        return (G4VjpFn.apply(ct.contiguous(), pos, z, angles, angle_mask, ctx.st),
-                None, None, None, None)
+        dpos = G4VjpFn.apply(ct.contiguous(), pos, z, angles, angle_mask, ctx.st)
+        return _held_constant(dpos, pos), None, None, None, None
 
 
 class G4VjpFn(torch.autograd.Function):
-    """ct (N, R*m) -> dpos (N, 3); differentiating it again raises."""
+    """ct (N, R*m) -> dpos (N, 3) at constant ``pos``; backward
+    :class:`G4JvpFn` (the jvp kernel)."""
 
     @staticmethod
     def forward(ctx, ct, pos, z, angles, angle_mask, st):
+        ctx.save_for_backward(pos, z, angles, angle_mask)
+        ctx.st = st
         return g4_vjp(pos, z, angles, angle_mask, ct, st)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(_NO_JVP.format(
-            "G4", 9, "gcnn_keras_tpu/ops/pallas/fused_g4.py _g4_jvp"))
+        pos, z, angles, angle_mask = ctx.saved_tensors
+        dct = G4JvpFn.apply(grad.contiguous(), pos, z, angles, angle_mask, ctx.st)
+        return _held_constant(dct, pos), None, None, None, None, None
+
+
+class G4JvpFn(torch.autograd.Function):
+    """dpos (N, 3) -> dG (N, R*m) at constant ``pos``; backward
+    :class:`G4VjpFn` (the vjp kernel)."""
+
+    @staticmethod
+    def forward(ctx, dpos, pos, z, angles, angle_mask, st):
+        ctx.save_for_backward(pos, z, angles, angle_mask)
+        ctx.st = st
+        return g4_jvp(pos, z, angles, angle_mask, dpos, st)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pos, z, angles, angle_mask = ctx.saved_tensors
+        ddpos = G4VjpFn.apply(grad.contiguous(), pos, z, angles, angle_mask, ctx.st)
+        return _held_constant(ddpos, pos), None, None, None, None, None
 
 
 class G2Fn(torch.autograd.Function):
-    """pos (N, 3) -> G2 (N, R*m); backward on the vjp kernel."""
+    """pos (N, 3) -> G2 (N, R*m); backward :class:`G2VjpFn`, as
+    :class:`G4Fn`."""
 
     @staticmethod
     def forward(ctx, pos, z, senders, receivers, edge_mask, st):
@@ -568,19 +703,42 @@ class G2Fn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         pos, z, senders, receivers, edge_mask = ctx.saved_tensors
-        return (G2VjpFn.apply(ct.contiguous(), pos, z, senders, receivers,
-                              edge_mask, ctx.st),
-                None, None, None, None, None)
+        dpos = G2VjpFn.apply(ct.contiguous(), pos, z, senders, receivers,
+                             edge_mask, ctx.st)
+        return _held_constant(dpos, pos), None, None, None, None, None
 
 
 class G2VjpFn(torch.autograd.Function):
-    """ct (N, R*m) -> dpos (N, 3); differentiating it again raises."""
+    """ct (N, R*m) -> dpos (N, 3) at constant ``pos``; backward
+    :class:`G2JvpFn`."""
 
     @staticmethod
     def forward(ctx, ct, pos, z, senders, receivers, edge_mask, st):
+        ctx.save_for_backward(pos, z, senders, receivers, edge_mask)
+        ctx.st = st
         return g2_vjp(pos, z, senders, receivers, edge_mask, ct, st)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(_NO_JVP.format(
-            "G2", 12, "gcnn_keras_tpu/ops/pallas/fused_g4.py _g2_jvp"))
+        pos, z, senders, receivers, edge_mask = ctx.saved_tensors
+        dct = G2JvpFn.apply(grad.contiguous(), pos, z, senders, receivers,
+                            edge_mask, ctx.st)
+        return _held_constant(dct, pos), None, None, None, None, None, None
+
+
+class G2JvpFn(torch.autograd.Function):
+    """dpos (N, 3) -> dG (N, R*m) at constant ``pos``; backward
+    :class:`G2VjpFn`."""
+
+    @staticmethod
+    def forward(ctx, dpos, pos, z, senders, receivers, edge_mask, st):
+        ctx.save_for_backward(pos, z, senders, receivers, edge_mask)
+        ctx.st = st
+        return g2_jvp(pos, z, senders, receivers, edge_mask, dpos, st)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pos, z, senders, receivers, edge_mask = ctx.saved_tensors
+        ddpos = G2VjpFn.apply(grad.contiguous(), pos, z, senders, receivers,
+                              edge_mask, ctx.st)
+        return _held_constant(ddpos, pos), None, None, None, None, None, None

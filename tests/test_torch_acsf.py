@@ -1,15 +1,18 @@
 """The port's ACSF G2/G4 descriptors (``gcnn_keras_tpu_torch.ops.cuda.acsf``
 and ``layers/conv/acsf.py``) against the JAX package, on the CPU.
 
-The plain forward and the closed-form VJP of each kernel are held against
+The plain forward and the closed-form VJP and JVP of each kernel are held
+against
 
-- the JAX package's unfused ``ACSFG2``/``ACSFG4`` (forward, and ``jax.grad``
-  of ``sum(out * ct)``): forward within ``1e-5 * (1 + max|ref|)``, VJP within
-  ``1e-4 * (1 + max|ref|)``; both sides compute in float32 and differ in the
-  order of their sums and in the VJP's closed form against autodiff;
+- the JAX package's unfused ``ACSFG2``/``ACSFG4`` (forward, ``jax.grad`` of
+  ``sum(out * ct)``, and ``jax.jvp``): forward within
+  ``1e-5 * (1 + max|ref|)``, VJP and JVP within ``1e-4 * (1 + max|ref|)``;
+  both sides compute in float32 and differ in the order of their sums and
+  in the closed forms against autodiff;
 - the JAX package's fused kernels run in interpret mode, at the JAX tests'
-  own tolerances (``2e-5`` forward, ``1e-4`` VJP);
-- torch autograd through the plain forward.
+  own tolerances (``2e-5`` forward, ``1e-4`` VJP and JVP);
+- torch autograd through the plain forward, and float64 ``gradcheck``/
+  ``gradgradcheck`` of the autograd Functions.
 
 The same inputs, made from a numpy seed, go to both packages.
 """
@@ -77,8 +80,8 @@ def _g4_kwargs(elements=(1, 6, 8), keep_pair_order=False, **kw):
     return kwargs
 
 
-def _jax_layer(layer, jb):
-    """Forward and VJP of a JAX layer on the batch's own positions."""
+def _jax_layer(layer, jb, with_jvp=False):
+    """Forward and VJP (and JVP) of a JAX layer on the batch's own positions."""
     params = layer.init(jax.random.PRNGKey(0), jb)
     pos0 = jb.nodes["node_coordinates"]
 
@@ -88,7 +91,10 @@ def _jax_layer(layer, jb):
     def vjp(ct):
         return np.asarray(jax.grad(lambda p: jnp.sum(fwd(p) * ct))(pos0))
 
-    return np.asarray(fwd(pos0)), vjp
+    def jvp(dpos):
+        return np.asarray(jax.jvp(fwd, (pos0,), (jnp.asarray(dpos),))[1])
+
+    return (np.asarray(fwd(pos0)), vjp) + ((jvp,) if with_jvp else ())
 
 
 def _ct(shape, seed=7):
@@ -130,6 +136,14 @@ def _g4_static(kwargs):
 
 def _g2_static(kwargs):
     return kacsf.make_static_g2(kwargs["eta_rs_rc"], kwargs["element_mapping"])
+
+
+def _jvp_port(kind, tb, st, dpos):
+    pos, z = _inputs(tb)
+    dpos = torch.from_numpy(dpos)
+    if kind == "g4":
+        return kacsf.g4_jvp_plain(pos, z, tb.angles, tb.angle_mask, dpos, st)
+    return kacsf.g2_jvp_plain(pos, z, tb.senders, tb.receivers, tb.edge_mask, dpos, st)
 
 
 # ------------------------------------------------------------ G4
@@ -198,17 +212,163 @@ def test_plain_vjp_matches_autograd(kind):
     torch.testing.assert_close(closed, auto, rtol=1e-9, atol=1e-9)
 
 
+@pytest.mark.parametrize("elements,keep_pair_order", [
+    ((1, 6, 8), False), ((1, 6, 8), True), ((1, 6, 7, 8, 9, 16), False)],
+    ids=["unordered", "ordered", "21-pair-relations"])
+def test_g4_jvp_plain_matches_jax(elements, keep_pair_order):
+    """Against ``jax.jvp`` of the unfused layer and the JVP kernel
+    ``_g4_jvp`` in interpret mode."""
+    graphs = _mols(seed=17, elements=elements)
+    jb = jbatch_graphs(graphs)
+    # the TPU kernels take R*m <= 128: 21 pair relations get 4 sets, not 8
+    kwargs = _g4_kwargs(elements, keep_pair_order,
+                        **({"eta": [0.3]} if len(elements) == 6 else {}))
+    st = _g4_static(kwargs)
+    dpos = _ct((jb.n_node, 3), seed=18)
+    out = _jvp_port("g4", batch_graphs(graphs, device="cpu"), st, dpos)
+    _, _, ref_jvp = _jax_layer(JACSFG4(**kwargs), jb, with_jvp=True)
+    _tol(out, ref_jvp(dpos), 1e-4)
+    jst = jfused.make_static(np.asarray(kwargs["eta_zeta_lambda_rc"], np.float32),
+                             kwargs["element_mapping"], keep_pair_order, 2.0)
+    ref = jfused._g4_jvp(jb.nodes["node_coordinates"],
+                         jb.nodes["node_number"].astype(jnp.int32), jb.angles,
+                         jb.angle_mask, jnp.asarray(dpos), jst, jb.n_node, jb.max_nodes,
+                         st.num_rel * len(st.eta_inv), interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+def test_g2_jvp_plain_matches_jax():
+    """Against ``jax.jvp`` of the unfused layer and the JVP kernel
+    ``_g2_jvp`` in interpret mode."""
+    graphs = _mols(seed=21)
+    jb = jbatch_graphs(graphs)
+    kwargs = JACSFG2.make_param_table(**G2_KW, elements=[1, 6, 8])
+    st = _g2_static(kwargs)
+    dpos = _ct((jb.n_node, 3), seed=22)
+    out = _jvp_port("g2", batch_graphs(graphs, device="cpu"), st, dpos)
+    _, _, ref_jvp = _jax_layer(JACSFG2(**kwargs), jb, with_jvp=True)
+    _tol(out, ref_jvp(dpos), 1e-4)
+    jst = jfused.make_static_g2(np.asarray(kwargs["eta_rs_rc"], np.float32),
+                                kwargs["element_mapping"])
+    ref = jfused._g2_jvp(jb.nodes["node_coordinates"],
+                         jb.nodes["node_number"].astype(jnp.int32), jb.senders,
+                         jb.receivers, jb.edge_mask, jnp.asarray(dpos), jst, jb.n_node,
+                         jb.max_nodes, st.num_rel * len(st.sets), interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["g2", "g4"])
+def test_plain_jvp_matches_autograd(kind):
+    tb = batch_graphs(_mols(seed=23), device="cpu")
+    pos, z = _inputs(tb)
+    pos = pos.double()
+    if kind == "g4":
+        st = _g4_static(_g4_kwargs())
+
+        def fwd(p):
+            return kacsf.g4_forward_plain(p, z, tb.angles, tb.angle_mask, st)
+    else:
+        st = _g2_static(JACSFG2.make_param_table(**G2_KW, elements=[1, 6, 8]))
+
+        def fwd(p):
+            return kacsf.g2_forward_plain(p, z, tb.senders, tb.receivers, tb.edge_mask, st)
+    dpos = _ct(tuple(pos.shape), seed=24).astype(np.float64)
+    _, auto = torch.autograd.functional.jvp(fwd, (pos,), (torch.from_numpy(dpos),))
+    tb64 = tb.replace_nodes(node_coordinates=pos)
+    torch.testing.assert_close(_jvp_port(kind, tb64, st, dpos), auto, rtol=1e-9, atol=1e-9)
+
+
+def _pair(kind, tb):
+    """(G*Fn, G*VjpFn, G*JvpFn, index rows, mask, static table, width)."""
+    if kind == "g4":
+        st = _g4_static(_g4_kwargs())
+        return (kacsf.G4Fn, kacsf.G4VjpFn, kacsf.G4JvpFn, (tb.angles,), tb.angle_mask,
+                st, st.num_rel * len(st.eta_inv))
+    st = _g2_static(JACSFG2.make_param_table(**G2_KW, elements=[1, 6, 8]))
+    return (kacsf.G2Fn, kacsf.G2VjpFn, kacsf.G2JvpFn, (tb.senders, tb.receivers),
+            tb.edge_mask, st, st.num_rel * len(st.sets))
+
+
+@pytest.mark.parametrize("kind", ["g2", "g4"])
+def test_pair_gradcheck_and_gradgradcheck(kind):
+    """float64 gradcheck and gradgradcheck of the Functions: the descriptors
+    along positions, the force pass along its cotangent (its backward is the
+    JVP Function, whose backward is the VJP Function), the JVP Function along
+    its tangent, and the force pass taken through G*Fn's own backward."""
+    graphs = _mols(seed=25, n_mols=2)
+    tb = batch_graphs(graphs, device="cpu",
+                      n_node_pad=sum(len(g["node_number"]) for g in graphs) + 1)
+    fn, vjp_fn, jvp_fn, rows, mask, st, width = _pair(kind, tb)
+    pos = tb.nodes["node_coordinates"].double()
+    z = tb.nodes["node_number"].to(torch.int32)
+    gen = torch.Generator().manual_seed(26)
+    ct = torch.randn(tb.n_node, width, dtype=torch.float64, generator=gen, requires_grad=True)
+    dpos = torch.randn(tb.n_node, 3, dtype=torch.float64, generator=gen, requires_grad=True)
+
+    def descriptors(p):
+        return fn.apply(p, z, *rows, mask, st)
+
+    def force_pass(c):
+        return vjp_fn.apply(c, pos, z, *rows, mask, st)
+
+    def tangent(d):
+        return jvp_fn.apply(d, pos, z, *rows, mask, st)
+
+    def force_through_fn(c):
+        p = pos.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad((descriptors(p) * c).sum(), p, create_graph=True)
+        return g
+
+    assert torch.autograd.gradcheck(descriptors, (pos.clone().requires_grad_(True),),
+                                    fast_mode=True)
+    for f, x in ((force_pass, ct), (tangent, dpos), (force_through_fn, ct)):
+        assert torch.autograd.gradcheck(f, (x,), fast_mode=True)
+        assert torch.autograd.gradgradcheck(f, (x,), fast_mode=True)
+
+
+@pytest.mark.parametrize("kind", ["g2", "g4"])
+def test_position_hessian_raises_while_parameter_gradients_work(kind):
+    """A force loss through the kernel path: its gradient along a weight on
+    the descriptors equals the plain path's (autograd through the unfused
+    layer), and its derivative along positions raises."""
+    tb = batch_graphs(_mols(seed=27, n_mols=3), device="cpu")
+    if kind == "g2":
+        kwargs = JACSFG2.make_param_table(**G2_KW, elements=[1, 6, 8])
+        layer, plain = ACSFG2(**kwargs), ACSFG2(**kwargs, fused=False)
+    else:
+        layer, plain = ACSFG4(**_g4_kwargs()), ACSFG4(**_g4_kwargs(), fused=False)
+    w0 = torch.from_numpy(_ct((tb.n_node, layer.out_features), seed=28))
+    grads = []
+    for lay in (layer, plain):
+        w = w0.clone().requires_grad_(True)
+        pos = tb.nodes["node_coordinates"].clone().requires_grad_(True)
+        energy = (torch.tanh(lay(tb, positions=pos)) * w).sum()
+        (force,) = torch.autograd.grad(energy, pos, create_graph=True)
+        loss = (force ** 2).sum()
+        (gw,) = torch.autograd.grad(loss, w, retain_graph=True)
+        grads.append(gw)
+        if lay is layer:
+            with pytest.raises(NotImplementedError, match="hold positions constant"):
+                torch.autograd.grad(loss, pos)
+        else:  # the plain path has the position Hessian
+            assert torch.autograd.grad(loss, pos)[0].abs().max() > 0
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-5)
+
+
 def test_g4_collinear_triple_has_zero_cosine_derivative():
     # j and k on either side of the centre: cos = -1 exactly, so
     # 1 + lambda cos = 0 is clamped for lambda = 1
     graphs = [_graph([6, 6, 6], [[0.0, 0, 0], [1.0, 0, 0], [-2.0, 0, 0]])]
     kwargs = _g4_kwargs((6,), eta=[0.3], zeta=[1.0], lamda=[1.0])
     jb = jbatch_graphs(graphs)
-    ref, ref_vjp = _jax_layer(JACSFG4(**kwargs), jb)
+    ref, ref_vjp, ref_jvp = _jax_layer(JACSFG4(**kwargs), jb, with_jvp=True)
     ct = np.ones_like(ref)
-    out, dpos = _g4_port(batch_graphs(graphs, device="cpu"), _g4_static(kwargs), ct)
+    tb = batch_graphs(graphs, device="cpu")
+    out, dpos = _g4_port(tb, _g4_static(kwargs), ct)
     _tol(out, ref, 1e-5)
     _tol(dpos, ref_vjp(ct), 1e-4)
+    tangent = _ct((tb.n_node, 3), seed=29)
+    _tol(_jvp_port("g4", tb, _g4_static(kwargs), tangent), ref_jvp(tangent), 1e-4)
     jst = jfused.make_static(np.asarray(kwargs["eta_zeta_lambda_rc"], np.float32),
                              kwargs["element_mapping"], False, 2.0)
     fused_vjp = jax.grad(lambda p: jnp.sum(jfused.acsf_g4_fused(
@@ -225,16 +385,20 @@ def test_unknown_element_matches_unfused_jax(kind):
     tb = batch_graphs(graphs, device="cpu")
     if kind == "g2":
         kwargs = JACSFG2.make_param_table(**G2_KW, elements=[1, 6, 8])
-        ref, ref_vjp = _jax_layer(JACSFG2(**kwargs), jb)
+        ref, ref_vjp, ref_jvp = _jax_layer(JACSFG2(**kwargs), jb, with_jvp=True)
         ct = _ct(ref.shape)
-        out, dpos = _g2_port(tb, _g2_static(kwargs), ct)
+        st = _g2_static(kwargs)
+        out, dpos = _g2_port(tb, st, ct)
     else:
         kwargs = _g4_kwargs()
-        ref, ref_vjp = _jax_layer(JACSFG4(**kwargs), jb)
+        ref, ref_vjp, ref_jvp = _jax_layer(JACSFG4(**kwargs), jb, with_jvp=True)
         ct = _ct(ref.shape)
-        out, dpos = _g4_port(tb, _g4_static(kwargs), ct)
+        st = _g4_static(kwargs)
+        out, dpos = _g4_port(tb, st, ct)
     _tol(out, ref, 1e-5)
     _tol(dpos, ref_vjp(ct), 1e-4)
+    tangent = _ct((tb.n_node, 3), seed=30)
+    _tol(_jvp_port(kind, tb, st, tangent), ref_jvp(tangent), 1e-4)
 
 
 # ------------------------------------------------------------ G2
@@ -403,14 +567,16 @@ def test_uncovered_configuration_on_the_card_raises():
 
 @pytest.mark.parametrize("kind", ["g2", "g4"])
 def test_vjp_double_backward_raises(kind):
+    """The second derivative along positions through the kernel Functions
+    (a position Hessian) raises: positions are a constant of the pair."""
     tb = batch_graphs(_mols(seed=15, n_mols=2), device="cpu")
     if kind == "g2":
-        layer, jvp = ACSFG2(**JACSFG2.make_param_table(**G2_KW, elements=[1, 6, 8])), "#12"
+        layer = ACSFG2(**JACSFG2.make_param_table(**G2_KW, elements=[1, 6, 8]))
     else:
-        layer, jvp = ACSFG4(**_g4_kwargs()), "#9"
+        layer = ACSFG4(**_g4_kwargs())
     pos = tb.nodes["node_coordinates"].clone().requires_grad_(True)
     (g,) = torch.autograd.grad(layer(tb, positions=pos).sum(), pos, create_graph=True)
-    with pytest.raises(NotImplementedError, match=jvp):
+    with pytest.raises(NotImplementedError, match="position Hessian"):
         torch.autograd.grad((g * g).sum(), pos)
 
 
@@ -429,6 +595,10 @@ def test_wrappers_check_shapes():
         kacsf.g2_forward(pos, z, tb.senders, tb.receivers, tb.edge_mask[1:], st2)
     ct = torch.zeros(tb.n_node, st2.num_rel * len(st2.sets))
     assert kacsf.g2_vjp(pos, z, tb.senders, tb.receivers, tb.edge_mask, ct, st2).shape == pos.shape
+    with pytest.raises(ValueError, match="dpos must be"):
+        kacsf.g4_jvp(pos, z, tb.angles, tb.angle_mask, torch.zeros(tb.n_node, 2), st4)
+    assert kacsf.g2_jvp(pos, z, tb.senders, tb.receivers, tb.edge_mask,
+                        torch.zeros_like(pos), st2).shape == ct.shape
 
 
 def test_const_normalization():

@@ -99,9 +99,10 @@ G2_KW = dict(eta=[0.0, 0.3], rs=[0.0, 3.0], rc=4.0)
 G4_KW = dict(eta=[0.0, 0.3], zeta=[1.0, 8.0], lamda=[-1.0, 1.0], rc=4.0,
              multiplicity=2.0)
 # max|kernel - plain| <= tol * (1 + max|plain|): the forward sums in
-# another order (shared-memory atomics); the force pass adds terms of both
-# signs with float atomics, in an order that varies from run to run
+# another order (shared-memory atomics); the force and tangent passes add
+# terms of both signs with atomics, in an order that varies from run to run
 ACSF_FWD_TOL, ACSF_VJP_TOL = 1e-5, 1e-4
+ACSF_NAMES = ["g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp", "g4_jvp", "g2_jvp"]
 
 
 def _acsf_graphs(seed, n_mols, elements=(1, 6, 7, 8, 9)):
@@ -138,19 +139,22 @@ def _acsf_check(name, b, st, ct_seed=0):
     kernel, plain = {"g2_fwd": (ka.g2_forward, ka.g2_forward_plain),
                      "g4_fwd": (ka.g4_forward, ka.g4_forward_plain),
                      "g2_vjp": (ka.g2_vjp, ka.g2_vjp_plain),
-                     "g4_vjp": (ka.g4_vjp, ka.g4_vjp_plain)}[name]
+                     "g4_vjp": (ka.g4_vjp, ka.g4_vjp_plain),
+                     "g2_jvp": (ka.g2_jvp, ka.g2_jvp_plain),
+                     "g4_jvp": (ka.g4_jvp, ka.g4_jvp_plain)}[name]
     args = _acsf_args(name, b)
+    gen = torch.Generator(device=b.senders.device).manual_seed(ct_seed)
     if name.endswith("vjp"):
         width = st.num_rel * (len(st.eta_inv) if name.startswith("g4") else len(st.sets))
-        gen = torch.Generator(device=b.senders.device).manual_seed(ct_seed)
-        ct = torch.randn(b.n_node, width, generator=gen, device=b.senders.device)
-        args = args + (ct,)
+        args = args + (torch.randn(b.n_node, width, generator=gen, device=b.senders.device),)
+    elif name.endswith("jvp"):
+        args = args + (torch.randn(b.n_node, 3, generator=gen, device=b.senders.device),)
     before = dict(ka.launches)
     out = kernel(*args, st)
     torch.cuda.synchronize()
     assert ka.launches[name] == before[name] + 1
     ref = plain(*args, st)
-    tol = ACSF_VJP_TOL if name.endswith("vjp") else ACSF_FWD_TOL
+    tol = ACSF_FWD_TOL if name.endswith("fwd") else ACSF_VJP_TOL
     scale = 1.0 + (ref.abs().max().item() if ref.numel() else 0.0)
     err = (out - ref).abs().max().item() if ref.numel() else 0.0
     assert out.shape == ref.shape and err <= tol * scale, (name, err, scale)
@@ -158,7 +162,7 @@ def _acsf_check(name, b, st, ct_seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp"])
+@pytest.mark.parametrize("name", ACSF_NAMES)
 def test_acsf_kernel_matches_plain(cuda_device, name):
     from gcnn_keras_tpu_torch.batch import batch_graphs
     b = batch_graphs(_acsf_graphs(0, 96), device=cuda_device)
@@ -167,7 +171,7 @@ def test_acsf_kernel_matches_plain(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp"])
+@pytest.mark.parametrize("name", ACSF_NAMES)
 def test_acsf_kernel_edge_cases(cuda_device, name):
     """A collinear triple (the clamped cosine derivative), an atom with one
     neighbour and one with none (no angles), elements outside the table
@@ -192,7 +196,7 @@ def test_acsf_kernel_edge_cases(cuda_device, name):
     st = (g4 if name.startswith("g4") else g2)._static
     out = _acsf_check(name, b, st)
     assert torch.isfinite(out).all()
-    if name.endswith("fwd"):
+    if not name.endswith("vjp"):
         assert not out[b.n_node - 1].any()  # the dead node gets nothing
     masked = b.replace(angle_mask=torch.zeros_like(b.angle_mask),
                        edge_mask=torch.zeros_like(b.edge_mask))
@@ -228,6 +232,73 @@ def test_acsf_layers_run_the_kernels_forward_and_backward(cuda_device):
         (o, g), (ro, rg) = outs
         assert (o - ro).abs().max().item() <= ACSF_FWD_TOL * (1 + ro.abs().max().item())
         assert (g - rg).abs().max().item() <= ACSF_VJP_TOL * (1 + rg.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_acsf_force_loss_gradient_on_the_card_matches_the_cpu(cuda_device):
+    """A loss on the force pass, differentiated along a weight on the
+    descriptors: the vjp kernels' backward launches the jvp kernels once
+    each; a derivative along positions raises."""
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    graphs = _acsf_graphs(5, 32)
+    layers = _acsf_layers()
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        b = batch_graphs(graphs, device=dev)
+        before = dict(ka.launches)
+        grads, hessians = [], []
+        for layer in layers:
+            w = torch.from_numpy(np.random.RandomState(6).randn(
+                b.n_node, layer.out_features).astype(np.float32)).to(dev).requires_grad_(True)
+            pos = b.nodes["node_coordinates"].clone().requires_grad_(True)
+            energy = (torch.tanh(layer(b, positions=pos)) * w).sum()
+            (force,) = torch.autograd.grad(energy, pos, create_graph=True)
+            loss = (force ** 2).sum()
+            (gw,) = torch.autograd.grad(loss, w, retain_graph=True)
+            grads.append(gw.cpu())
+            hessians.append((loss, pos))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert {k: v - before[k] for k, v in ka.launches.items()} == dict.fromkeys(
+                ka.KERNELS, 1)
+        for loss, pos in hessians:
+            with pytest.raises(NotImplementedError, match="position Hessian"):
+                torch.autograd.grad(loss, pos)
+        results.append(grads)
+    for g, ref in zip(*results):
+        assert (g - ref).abs().max().item() <= ACSF_VJP_TOL * (1 + ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["schnet_train", "hdnnp2nd_train", "hdnnp4th_train"])
+def test_training_step_on_the_card_matches_the_cpu(cuda_device, path):
+    """One full-width training step of ``chip_smoke.py`` on 16 molecules:
+    the loss and every parameter gradient equal the CPU's, and each kernel
+    launches as often as ``TRAIN_PATHS`` derives."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+
+    def counts():
+        return dict(ka.launches, sorted_segment_sum=kseg.launches, spd_solve=ks.launches)
+
+    results = []
+    for dev in ("cuda", "cpu"):
+        fm, trainer, state = chip_smoke.make_trainer(path, dev)
+        batch = chip_smoke.train_batch(path, 7, 16, dev)
+        before = counts()
+        state, metrics = trainer.step_fn()(state, batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in counts().items()}
+            assert launched == chip_smoke.TRAIN_PATHS[path]["launches"]
+        results.append((metrics["loss"].item(),
+                        [p.grad.cpu() for p in fm.energy_model.parameters()]))
+    (loss, grads), (ref_loss, ref_grads) = results
+    assert abs(loss - ref_loss) <= chip_smoke.TRAIN_TOL * abs(ref_loss)
+    for g, ref in zip(grads, ref_grads):
+        assert (g - ref).abs().max().item() <= chip_smoke.TRAIN_TOL * ref.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -267,7 +338,9 @@ def test_hdnnp2nd_serving_on_the_card_matches_the_cpu(cuda_device):
         answers.append(MolDynamicsModelPredictor(
             EnergyForceModel(model, device=dev), graph_preprocessors=pre, device=dev)(frames))
         launched = {k: v - before[k] for k, v in ka.launches.items()}
-        assert launched == dict.fromkeys(ka.KERNELS, 1 if dev.type == "cuda" else 0)
+        # serving runs no tangent pass
+        assert launched == {k: int(dev.type == "cuda" and not k.endswith("jvp"))
+                            for k in ka.KERNELS}
     gpu, cpu = answers
     for key in ("energy", "force"):
         a = np.concatenate([r[key] for r in gpu])
@@ -378,8 +451,8 @@ def test_hdnnp4th_serving_on_the_card_matches_the_cpu(cuda_device):
                        "esp_grad": (rs.randn(n, 3) * 0.02).astype(np.float32),
                        "total_charge": np.array([float(i % 3 - 1)], np.float32)})
     pre = [functools.partial(set_angle, range_indices="edge_indices")]
-    expected = {"g2_fwd": 1, "g4_fwd": 1, "g4_vjp": 1, "g2_vjp": 1,
-                "sorted_segment_sum": 5, "spd_solve": 2}
+    expected = {"g2_fwd": 1, "g4_fwd": 1, "g4_vjp": 1, "g2_vjp": 1, "g4_jvp": 0,
+                "g2_jvp": 0, "sorted_segment_sum": 5, "spd_solve": 2}
     answers = []
     for dev in (cuda_device, torch.device("cpu")):
         def counts():

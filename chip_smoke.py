@@ -50,6 +50,27 @@ order, each raising on a failed check:
    batch, each loss finite and the fifth below the first, with every
    kernel's launch count per step held to its derived value, the time per
    step and the peak memory.
+11. SchNet MD kernels: the gather-multiply-segment-sum (``fused_aggregate``)
+   and the fused cfconv (``accurate_cfconv``) against their plain versions
+   at the SchNet serving shapes of the seed-0 request (the fused cfconv
+   also against its plain version in float64), with times, bounds and the
+   time of the unfused PyTorch chain, and at edge cases (no edges, rows
+   without edges, F or U 3 and 200, one edge, padding edges).
+12. SchNet serving in the MD modes: ``make_model()`` with
+   ``interaction_args={"fused_aggregate": True}``, then with
+   ``{"accurate_cfconv": True}``, answers the 3 requests of phase 4,
+   checked as there, against the same predictor on the CPU and against
+   phase 4's unfused answers, with every kernel's launch count per
+   evaluation held to its derived value and the time per evaluation.
+13. The grad-of-grad pattern of ``tests/test_bilinear_family.py`` on the
+   card: GMS against the plain chain.
+14. MD: (a) ``bench.py`` ``sec_md_single`` (a 21-atom molecule, velocity
+   Verlet) in each mode, each kernel call of an evaluation against its
+   plain version, the time per MD step; (b) ``sec_md_ensemble`` (64
+   replicas through ``ScannedMD``), the time per replica-step; (c) the NVE
+   drift of ``tools/nve_drift_tpu.py``'s tethered 64-atom system in each
+   mode, under ``tests/test_nve_conservation.py``'s bounds. Launches per
+   step held in each; the modes' energies against the unfused ones.
 
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it.
@@ -80,10 +101,11 @@ L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2, so each timed launch starts cold
 # ~0.1 ms of device sleep before each timed launch: the host queues the
 # launch meanwhile, so the timed interval holds no host-side gap
 HEAD_START_CYCLES = 200_000
-# kernel launches per energy+force evaluation at depth 4 (see PERF.md):
-# energy pass 4 pool_edges_to_nodes + 1 pool_nodes_to_graph; force pass the
-# transposes of pos_j and pos_i in edge_vectors and of gather_sender_nodes in
-# interactions 1-3 (interaction 0's input does not depend on coordinates)
+# segment-sum launches per energy+force evaluation at depth 4 (see
+# schnet_launches): energy pass 4 pool_edges_to_nodes + 1
+# pool_nodes_to_graph; force pass the transposes of pos_j and pos_i in
+# edge_vectors and of gather_sender_nodes in interactions 1-3 (interaction
+# 0's input does not depend on coordinates)
 LAUNCHES_PER_EVAL = 10
 KERNEL_TOL = 1e-5  # max|kernel - plain| <= KERNEL_TOL * (1 + max|plain|)
 SERVE_TOL = 1e-4   # max|gpu - cpu| <= SERVE_TOL * max|cpu|, per output
@@ -109,12 +131,68 @@ HDNNP2ND_KW = dict(
     mlp_kwargs={"units": [64, 64, 1], "num_relations": 10,
                 "activation": ["swish", "swish", "linear"]})
 HDNNP_SHAPES = (8192, 54784, 417024, 513)  # N, E, A, G of the seed-0 request
+# every kernel of the port, by its name in the launch counts
+KERNEL_NAMES = ("g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp", "g4_jvp", "g2_jvp",
+                "sorted_segment_sum", "spd_solve", "gather_mul_segsum", "fused_cfconv")
+
+
+def launch_counts(**nonzero):
+    """A launch count for every kernel: ``nonzero``, the others 0."""
+    unknown = set(nonzero) - set(KERNEL_NAMES)
+    if unknown:
+        raise KeyError(f"unknown kernels {sorted(unknown)}")
+    return {**dict.fromkeys(KERNEL_NAMES, 0), **nonzero}
+
+
+# SchNet's execution modes (interaction_args) on one parameter set
+SCHNET_MODES = {"unfused": {}, "fused": {"fused_aggregate": True},
+                "accurate": {"accurate_cfconv": True}}
+
+
+def schnet_launches(mode, depth=4):
+    """Kernel launches per SchNet energy+force evaluation of ``depth``
+    interactions (see PERF.md). The energy pass sums onto the receivers in
+    each interaction (unfused: a segment-sum; fused: the gms kernel;
+    accurate: the fused cfconv kernel) and pools onto the graphs (a
+    segment-sum). The force pass runs the transposes of pos_j and pos_i in
+    ``edge_vectors`` (2 segment-sums) and, in interactions 1 to depth-1,
+    the cotangent of the node features by sender (a segment-sum: the
+    transpose of the sender gather, or GMS's ct_x); interaction 0's node
+    features do not depend on the coordinates. GMS's ct_m and the fused
+    cfconv's backward are gathers and matmuls, no kernel."""
+    per_interaction = {"unfused": "sorted_segment_sum", "fused": "gather_mul_segsum",
+                       "accurate": "fused_cfconv"}[mode]
+    counts = launch_counts(sorted_segment_sum=1 + 2 + depth - 1)
+    counts[per_interaction] += depth
+    return counts
+
+
+# MD (bench.py sec_md_single, sec_md_ensemble; tools/nve_drift_tpu.py), see
+# PERF.md for the cuts: velocity Verlet at dt 5e-4 on 21-atom molecules,
+# the time per step the smallest slope between MD_STEPS (bench: 50 and 400)
+# over MD_PAIRS interleaved pairs; the ensemble of 64 replicas through
+# ScannedMD, one segment to warm up, then ENSEMBLE_SEGMENTS timed (bench: 4
+# of 500 steps); the NVE drift of the 64-atom tethered system at dt 0.01
+# over NVE_STEPS (the tool: 5000), held to tests/test_nve_conservation.py's
+# bounds
+MD_DT = 5e-4
+MD_STEPS = (50, 200)
+MD_PAIRS = 4
+ENSEMBLE_REPLICAS = 64
+ENSEMBLE_SEGMENT_STEPS = 100
+ENSEMBLE_SEGMENTS = 2
+NVE_STEPS = 600
+NVE_BOUNDS = {"rel_drift": 2e-4, "rel_drift_per_step": 1e-7}
+# the energies of one trajectory in two modes (same weights, same start):
+# max|e_mode - e_unfused| <= MD_TOL * max|e_unfused|
+MD_TOL = 1e-4
+
+
 # kernel launches per HDNNP2nd energy+force evaluation: the energy pass runs
 # the G2 and G4 forward kernels and pools atoms to molecules (one
 # segment-sum); the force pass runs the G4 and G2 vjp kernels, and the
 # backward of the pool is a gather, which launches nothing
-HDNNP_LAUNCHES = {"g2_fwd": 1, "g4_fwd": 1, "g4_vjp": 1, "g2_vjp": 1,
-                  "g4_jvp": 0, "g2_jvp": 0, "sorted_segment_sum": 1, "spd_solve": 0}
+HDNNP_LAUNCHES = launch_counts(g2_fwd=1, g4_fwd=1, g4_vjp=1, g2_vjp=1, sorted_segment_sum=1)
 # the TPU kernel each ACSF kernel replaces (its pl.pallas_call line)
 ACSF_REPLACES = {"g2_fwd": "gcnn_keras_tpu/ops/pallas/fused_g4.py:1088",
                  "g4_fwd": "gcnn_keras_tpu/ops/pallas/fused_g4.py:660",
@@ -138,8 +216,8 @@ HDNNP4TH_KW = dict(
 # unsorted sum over edge_graph_id); the force pass runs the G4 and G2 vjp
 # kernels, the adjoint Qeq solve (one spd_solve) and the transposes of the
 # receiver and sender gathers of the [pos|sigma|q] table (two sorted sums)
-HDNNP4TH_LAUNCHES = {"g2_fwd": 1, "g4_fwd": 1, "g4_vjp": 1, "g2_vjp": 1,
-                     "g4_jvp": 0, "g2_jvp": 0, "sorted_segment_sum": 5, "spd_solve": 2}
+HDNNP4TH_LAUNCHES = launch_counts(g2_fwd=1, g4_fwd=1, g4_vjp=1, g2_vjp=1,
+                                  sorted_segment_sum=5, spd_solve=2)
 HDNNP4TH_M = 20  # max_nodes of the three requests: the Qeq systems are 20 x 20
 # SPD solve: max|kernel - plain| <= SPD_TOL * (1 + max|plain|) and
 # max|A x - b| <= SPD_RESIDUAL_TOL * (1 + max|b|)
@@ -167,20 +245,17 @@ CHARGE_TOL = 1e-4
 TRAIN_PATHS = {
     "schnet_train": dict(model="schnet", seed=0, n_mols=512, with_esp=False,
                          global_keys=("energy",), force_weight=100.0, charge_weight=0.0,
-                         launches={"g2_fwd": 0, "g4_fwd": 0, "g4_vjp": 0, "g2_vjp": 0,
-                                   "g4_jvp": 0, "g2_jvp": 0, "sorted_segment_sum": 19,
-                                   "spd_solve": 0}),
+                         launches=launch_counts(sorted_segment_sum=19)),
     "hdnnp2nd_train": dict(model="hdnnp2nd", seed=5, n_mols=1024, with_esp=True,
                            global_keys=("energy",), force_weight=100.0, charge_weight=0.0,
-                           launches={"g2_fwd": 1, "g4_fwd": 1, "g4_vjp": 1, "g2_vjp": 1,
-                                     "g4_jvp": 1, "g2_jvp": 1, "sorted_segment_sum": 1,
-                                     "spd_solve": 0}),
+                           launches=launch_counts(g2_fwd=1, g4_fwd=1, g4_vjp=1, g2_vjp=1,
+                                                  g4_jvp=1, g2_jvp=1, sorted_segment_sum=1)),
     "hdnnp4th_train": dict(model="hdnnp4th", seed=1, n_mols=128, with_esp=True,
                            global_keys=("energy", "total_charge"), force_weight=200.0,
                            charge_weight=50.0,
-                           launches={"g2_fwd": 1, "g4_fwd": 1, "g4_vjp": 1, "g2_vjp": 1,
-                                     "g4_jvp": 1, "g2_jvp": 1, "sorted_segment_sum": 7,
-                                     "spd_solve": 4}),
+                           launches=launch_counts(g2_fwd=1, g4_fwd=1, g4_vjp=1, g2_vjp=1,
+                                                  g4_jvp=1, g2_jvp=1, sorted_segment_sum=7,
+                                                  spd_solve=4)),
 }
 TRAIN_STEPS = 5
 # the first step on the card against the CPU, on _mols(RandomState(2), 64):
@@ -359,28 +434,38 @@ def check_request(results, graphs, label):
         raise AssertionError(f"{label}: forces do not sum to 0 ({worst:.3g} x tol)")
 
 
-def compare_gpu_cpu(gpu, cpu, keys=("energy", "force")):
+def compare_answers(got, ref, keys=("energy", "force")):
+    """Two predictors' answers to one request, within SERVE_TOL of the
+    reference's largest value per output."""
     errs = {}
     for key in keys:
-        a = np.concatenate([r[key] for r in gpu])
-        b = np.concatenate([r[key] for r in cpu])
+        a = np.concatenate([r[key] for r in got])
+        b = np.concatenate([r[key] for r in ref])
         err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
         if not err <= SERVE_TOL * scale:
-            raise AssertionError(f"gpu vs cpu {key}: max|d|={err} > {SERVE_TOL}*{scale}")
+            raise AssertionError(f"{key}: max|d|={err} > {SERVE_TOL}*{scale}")
         errs[key] = {"max_abs_err": err, "max_abs_cpu": scale}
     return errs
 
 
-def energy_force_model(kind, device):
+def schnet_model(mode, device, **kwargs):
+    """SchNet ``make_model()`` defaults updated by ``kwargs``, in ``mode``
+    (``SCHNET_MODES``), weights from seed 0: every mode has the same."""
+    from gcnn_keras_tpu_torch.models import schnet
+    inter = {**kwargs.pop("interaction_args", {}), **SCHNET_MODES[mode]}
+    return schnet.make_model(device=device, generator=torch.Generator().manual_seed(0),
+                             interaction_args=inter, **kwargs)
+
+
+def energy_force_model(kind, device, mode="unfused"):
     """The full-width ``EnergyForceModel`` of ``kind`` with weights from seed
-    0: SchNet ``make_model()`` defaults, or the HDNNP2nd or HDNNP4th bench
-    configuration (HDNNP4th with ESP coupling)."""
+    0: SchNet ``make_model()`` defaults in ``mode``, or the HDNNP2nd or
+    HDNNP4th bench configuration (HDNNP4th with ESP coupling)."""
     from gcnn_keras_tpu_torch.model.force import EnergyForceModel
-    from gcnn_keras_tpu_torch.models import hdnnp2nd, hdnnp4th, schnet
+    from gcnn_keras_tpu_torch.models import hdnnp2nd, hdnnp4th
     gen = torch.Generator().manual_seed(0)
     if kind == "schnet":
-        return EnergyForceModel(schnet.make_model(device=device, generator=gen),
-                                device=device)
+        return EnergyForceModel(schnet_model(mode, device), device=device)
     if kind == "hdnnp2nd":
         return EnergyForceModel(hdnnp2nd.make_model_behler(
             device=device, generator=gen, **HDNNP2ND_KW), device=device)
@@ -388,10 +473,12 @@ def energy_force_model(kind, device):
         device=device, generator=gen, **HDNNP4TH_KW), use_esp_coupling=True, device=device)
 
 
-def make_predictor(device):
-    """The serving stack at full SchNet width with weights from seed 0."""
+def make_predictor(device, mode="unfused"):
+    """The serving stack at full SchNet width in ``mode`` with weights from
+    seed 0."""
     from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
-    return MolDynamicsModelPredictor(energy_force_model("schnet", device), device=device)
+    return MolDynamicsModelPredictor(energy_force_model("schnet", device, mode),
+                                     device=device)
 
 
 def phase_serving(gpu, requests, batch0, smi):
@@ -422,7 +509,7 @@ def phase_serving(gpu, requests, batch0, smi):
     cpu_answer = cpu(requests[0][1])
     cpu_s = time.perf_counter() - t0
     check_request(cpu_answer, requests[0][1], "cpu " + requests[0][0])
-    errs = compare_gpu_cpu(answers[0], cpu_answer)
+    errs = compare_answers(answers[0], cpu_answer)
     log(f"serving gpu vs cpu ({requests[0][0]}, cpu {cpu_s:.2f} s): " + json.dumps(errs))
 
     # time one energy+force evaluation on the prepared full-width batch
@@ -457,7 +544,7 @@ def phase_serving(gpu, requests, batch0, smi):
                "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
                "launches_per_eval": LAUNCHES_PER_EVAL, "card": smi}
     log("serving timing: " + json.dumps(serving))
-    return main_launches
+    return main_launches, answers
 
 
 def acsf_work(name, st, n_node, n_rows, n_real):
@@ -634,21 +721,30 @@ def make_hdnnp_predictor(device):
         device=device)
 
 
-def hdnnp_counts():
+def kernel_counts():
+    """Every kernel's launch count, by the names of ``KERNEL_NAMES``."""
     from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    from gcnn_keras_tpu_torch.ops.cuda import fused_aggregate as fa
+    from gcnn_keras_tpu_torch.ops.cuda import fused_cfconv as fc
     from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
     from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
-    return dict(ka.launches, sorted_segment_sum=ss.launches, spd_solve=ks.launches)
+    return dict(ka.launches, sorted_segment_sum=ss.launches, spd_solve=ks.launches,
+                gather_mul_segsum=fa.launches, fused_cfconv=fc.launches)
 
 
 def kernel_wrappers():
     """Each kernel's wrapper, as ``(module, attribute)``, and its plain
     version, by the kernel's name in the launch counts."""
     from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    from gcnn_keras_tpu_torch.ops.cuda import fused_aggregate as fa
+    from gcnn_keras_tpu_torch.ops.cuda import fused_cfconv as fc
     from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
     from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
     table = {"sorted_segment_sum": (ss, "segment_sum", ss.segment_sum_plain),
-             "spd_solve": (ks, "spd_solve", ks.spd_solve_plain)}
+             "spd_solve": (ks, "spd_solve", ks.spd_solve_plain),
+             "gather_mul_segsum": (fa, "fused_gather_mul_segsum_kernel",
+                                   fa.fused_gather_mul_segsum_plain),
+             "fused_cfconv": (fc, "fused_cfconv_kernel", fc.fused_cfconv_plain)}
     for kind in ("g2", "g4"):
         table[f"{kind}_fwd"] = (ka, f"{kind}_forward", getattr(ka, f"{kind}_forward_plain"))
         for d in ("vjp", "jvp"):
@@ -682,28 +778,34 @@ def captured_calls():
 
 def reset_counts():
     from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    from gcnn_keras_tpu_torch.ops.cuda import fused_aggregate as fa
+    from gcnn_keras_tpu_torch.ops.cuda import fused_cfconv as fc
     from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
     from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
-    ss.launches = 0
-    ks.launches = 0
+    for mod in (ss, ks, fa, fc):
+        mod.launches = 0
     for k in ka.launches:
         ka.launches[k] = 0
 
 
-def phase_hdnnp_serving(gpu, requests, batch0, smi, name="hdnnp2nd",
+def phase_model_serving(gpu, requests, batch0, smi, name="hdnnp2nd",
                         make_cpu=make_hdnnp_predictor, expected=HDNNP_LAUNCHES,
-                        check=check_request, keys=("energy", "force")):
-    """Serving phase of an ACSF model (HDNNP2nd, or HDNNP4th with the
-    arguments of phase 8)."""
+                        check=check_request, keys=("energy", "force"), reference=None):
+    """Serving phase of a model (HDNNP2nd; HDNNP4th with the arguments of
+    phase 8; SchNet in the modes of phase 12): the requests with every
+    kernel's launches per request held to ``expected``, the first request
+    against the same predictor on the CPU and, given ``reference`` (another
+    predictor's answers to the same requests), every request against it;
+    then the time per evaluation."""
     # the main path: every count set to 0 just before, read just after
     reset_counts()
     answers, per_request = [], []
     for label, graphs in requests:
-        before = hdnnp_counts()
+        before = kernel_counts()
         answers.append(gpu(graphs))
         torch.cuda.synchronize()
-        per_request.append({k: v - before[k] for k, v in hdnnp_counts().items()})
-    main_launches = hdnnp_counts()
+        per_request.append({k: v - before[k] for k, v in kernel_counts().items()})
+    main_launches = kernel_counts()
     for (label, graphs), res, counts in zip(requests, answers, per_request):
         check(res, graphs, f"{name} {label}")
         if counts != expected:
@@ -720,9 +822,12 @@ def phase_hdnnp_serving(gpu, requests, batch0, smi, name="hdnnp2nd",
     cpu_answer = cpu(requests[0][1])
     cpu_s = time.perf_counter() - t0
     check(cpu_answer, requests[0][1], f"{name} cpu {requests[0][0]}")
-    errs = compare_gpu_cpu(answers[0], cpu_answer, keys)
+    errs = compare_answers(answers[0], cpu_answer, keys)
     log(f"{name} serving gpu vs cpu ({requests[0][0]}, cpu {cpu_s:.2f} s): "
         + json.dumps(errs))
+    for (label, _), res, ref in zip(requests, answers, reference or ()):
+        log(f"{name} serving against unfused ({label}): "
+            + json.dumps(compare_answers(res, ref, keys)))
 
     # time one energy+force evaluation on the prepared full-width batch
     model = gpu.model
@@ -738,8 +843,8 @@ def phase_hdnnp_serving(gpu, requests, batch0, smi, name="hdnnp2nd",
         model(batch0)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    if hdnnp_counts() != {k: reps * v for k, v in expected.items()}:
-        raise AssertionError(f"{name} timed loop: launches {hdnnp_counts()} "
+    if kernel_counts() != {k: reps * v for k, v in expected.items()}:
+        raise AssertionError(f"{name} timed loop: launches {kernel_counts()} "
                              f"for {reps} evaluations")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     req_times, batch_times = [], []
@@ -748,21 +853,24 @@ def phase_hdnnp_serving(gpu, requests, batch0, smi, name="hdnnp2nd",
         gpu(requests[0][1])
         req_times.append(1e3 * (time.perf_counter() - t0))
         t0 = time.perf_counter()
-        gpu.make_batch(requests[0][1])  # set_angle and batching, on the host
+        gpu.make_batch(requests[0][1])  # preprocessing and batching, on the host
         torch.cuda.synchronize()
         batch_times.append(1e3 * (time.perf_counter() - t0))
     ms = float(np.median(times))
-    real_angles = int(batch0.angle_mask.sum().item())
+    real_edges = int(batch0.edge_mask.sum().item())
     serving = {"n_mols": len(requests[0][1]), "N_pad": batch0.n_node,
-               "E_pad": batch0.n_edge, "A_pad": batch0.angles.shape[0],
-               "G": batch0.n_graphs, "real_edges": int(batch0.edge_mask.sum().item()),
-               "real_angles": real_angles, "ms_per_eval": ms,
-               "ms_per_eval_min": float(np.min(times)),
-               "angles_per_s": real_angles / (ms * 1e-3),
+               "E_pad": batch0.n_edge, "G": batch0.n_graphs, "real_edges": real_edges,
+               "ms_per_eval": ms, "ms_per_eval_min": float(np.min(times)),
                "ms_per_request": float(np.median(req_times)),
                "ms_make_batch": float(np.median(batch_times)),
                "max_nodes": batch0.max_nodes, "peak_mem_mb": peak_mb,
                "launches_per_eval": expected, "card": smi}
+    if batch0.angles is None:
+        serving["edges_per_s"] = real_edges / (ms * 1e-3)
+    else:
+        real_angles = int(batch0.angle_mask.sum().item())
+        serving.update(A_pad=batch0.angles.shape[0], real_angles=real_angles,
+                       angles_per_s=real_angles / (ms * 1e-3))
     log(f"{name} serving timing: " + json.dumps(serving))
     return main_launches
 
@@ -933,9 +1041,9 @@ def check_second_order(kind, st, batch):
         (dc,) = torch.autograd.grad((g * g).sum(), c)
         return dc.item()
 
-    before = hdnnp_counts()
+    before = kernel_counts()
     kernel_value = second_order(fn)
-    launched = {k: v - before[k] for k, v in hdnnp_counts().items() if v != before[k]}
+    launched = {k: v - before[k] for k, v in kernel_counts().items() if v != before[k]}
     expected = {f"{kind}_fwd": 1, f"{kind}_vjp": 1, f"{kind}_jvp": 1}
     if launched != expected:
         raise AssertionError(f"second-order pattern {kind}: launches {launched}, "
@@ -1003,6 +1111,10 @@ def check_kernel_call(name, args, label, timed):
         return check_segment_sum(*args, label, timed)
     if name == "spd_solve":
         return check_spd(*args, label, timed)
+    if name == "gather_mul_segsum":
+        return check_gms(*args, label, timed)
+    if name == "fused_cfconv":
+        return check_fused_cfconv(*args, label, timed)
     return check_acsf_call(name, args, label, timed)
 
 
@@ -1064,14 +1176,14 @@ def phase_training(path, smi):
     reset_counts()
     losses, times, per_step = [], [], []
     for _ in range(TRAIN_STEPS):
-        before = hdnnp_counts()
+        before = kernel_counts()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(metrics["loss"]))
-        per_step.append({k: v - before[k] for k, v in hdnnp_counts().items()})
-    main_launches = hdnnp_counts()
+        per_step.append({k: v - before[k] for k, v in kernel_counts().items()})
+    main_launches = kernel_counts()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{path}: losses {losses}")
     for i, counts in enumerate(per_step):
@@ -1090,6 +1202,545 @@ def phase_training(path, smi):
     return main_launches, kernel_recs
 
 
+# ------------------------------------------------- phases 11-14: SchNet MD
+
+
+def gms_work(n_x, e, f, n):
+    """Bytes (x, filt, senders and receivers read once, out written once)
+    and float32 operations (an FMA per edge and column) of the gather-
+    multiply-segment-sum; ``(bytes, bound_ms, bound_by)``."""
+    nbytes = 4 * (e * f + n_x * f + 2 * e + n * f)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 2 * e * f / H100_F32_OPS_PER_S
+    return nbytes, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def cfconv_work(e, b, u, n):
+    """Bytes (basis, xj, receivers and the weights read once, out written
+    once), float32 operations (the two filter matmuls, the two biases and
+    the message FMA per edge: 2 E (B U + U U + 2 U)) and special functions
+    (one exp and one log1p per hidden value) of the fused cfconv;
+    ``(bytes, bound_ms, bound_by)``."""
+    nbytes = 4 * (e * b + e * u + e + b * u + u * u + 2 * u + n * u)
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = max(2 * e * (b * u + u * u + 2 * u) / H100_F32_OPS_PER_S,
+                2 * e * u / H100_SFU_PER_S)
+    return nbytes, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_gms(x, filt, senders, receivers, n, label, timed):
+    """The gather-multiply-segment-sum kernel against its plain version;
+    timed, also the unfused chain of the JAX package's default path
+    (index_select, multiply, index_add_) and the port's own unfused chain
+    (index_select, multiply, the sorted segment-sum kernel)."""
+    from gcnn_keras_tpu_torch.ops.cuda import fused_aggregate as fa
+    from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
+    out = fa.fused_gather_mul_segsum_kernel(x, filt, senders, receivers, n)
+    torch.cuda.synchronize()
+    plain = fa.fused_gather_mul_segsum_plain(x, filt, senders, receivers, n)
+    scale = 1.0 + (plain.abs().max().item() if plain.numel() else 0.0)
+    err = (out - plain).abs().max().item() if out.numel() else 0.0
+    if out.shape != plain.shape or not err <= KERNEL_TOL * scale:
+        raise AssertionError(f"gather_mul_segsum {label}: max|k-p|={err} > {KERNEL_TOL}*{scale}")
+    e, f = filt.shape
+    rec = {"case": label, "N": n, "E": e, "F": f, "max_abs_err": err,
+           "max_abs_plain": scale - 1.0}
+    if timed:
+        flush = torch.empty(L2_FLUSH_BYTES // 4, device=x.device)
+        lib_out = torch.zeros(n, f, device=x.device)
+        nbytes, bound_ms, bound_by = gms_work(x.shape[0], e, f, n)
+        rec.update(
+            ms=cuda_median_ms(lambda: fa.fused_gather_mul_segsum_kernel(
+                x, filt, senders, receivers, n), 50, flush),
+            ms_warm=cuda_median_ms(lambda: fa.fused_gather_mul_segsum_kernel(
+                x, filt, senders, receivers, n), 50),
+            plain_ms=cuda_median_ms(lambda: fa.fused_gather_mul_segsum_plain(
+                x, filt, senders, receivers, n), 50, flush),
+            library_ms=None,
+            unfused_chain_ms=cuda_median_ms(
+                lambda: lib_out.index_add_(0, receivers, x.index_select(0, senders) * filt),
+                50, flush, before=lib_out.zero_),
+            unfused_port_ms=cuda_median_ms(
+                lambda: ss.segment_sum(x.index_select(0, senders) * filt, receivers, n),
+                50, flush),
+            bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"kernel gather_mul_segsum {label}: " + json.dumps(rec))
+    return rec
+
+
+def check_fused_cfconv(basis, xj, receivers, n, w1, b1, w2, b2, label, timed):
+    """The fused cfconv kernel against its plain version, and each against
+    the plain version in float64 on the card (the accuracy of the mode);
+    timed, also the unfused chain (two Linear, ssp, multiply, index_add_)."""
+    import torch.nn.functional as F
+    from gcnn_keras_tpu_torch.ops.activ import shifted_softplus
+    from gcnn_keras_tpu_torch.ops.cuda import fused_cfconv as fc
+    args = (basis, xj, receivers, n, w1, b1, w2, b2)
+    out = fc.fused_cfconv_kernel(*args)
+    torch.cuda.synchronize()
+    plain = fc.fused_cfconv_plain(*args)
+    plain64 = fc.fused_cfconv_plain(*(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                                      else a for a in args))
+    scale = 1.0 + (plain.abs().max().item() if plain.numel() else 0.0)
+
+    def maxdiff(a, b):
+        return (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+
+    err = maxdiff(out, plain)
+    if (out.shape != plain.shape or not torch.isfinite(out).all()
+            or not err <= KERNEL_TOL * scale):
+        raise AssertionError(f"fused_cfconv {label}: max|k-p|={err} > {KERNEL_TOL}*{scale}")
+    e, b = basis.shape
+    u = xj.shape[1]
+    rec = {"case": label, "N": n, "E": e, "B": b, "U": u, "max_abs_err": err,
+           "max_abs_plain": scale - 1.0, "kernel_max_abs_err_vs_f64": maxdiff(out, plain64),
+           "plain_max_abs_err_vs_f64": maxdiff(plain, plain64)}
+    if timed:
+        flush = torch.empty(L2_FLUSH_BYTES // 4, device=basis.device)
+        lib_out = torch.zeros(n, u, device=basis.device)
+        w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+
+        def unfused():
+            f = F.linear(shifted_softplus(F.linear(basis, w1t, b1)), w2t, b2)
+            lib_out.index_add_(0, receivers, xj * f)
+        nbytes, bound_ms, bound_by = cfconv_work(e, b, u, n)
+        rec.update(
+            ms=cuda_median_ms(lambda: fc.fused_cfconv_kernel(*args), 50, flush),
+            ms_warm=cuda_median_ms(lambda: fc.fused_cfconv_kernel(*args), 50),
+            plain_ms=cuda_median_ms(lambda: fc.fused_cfconv_plain(*args), 50, flush),
+            library_ms=None,
+            unfused_chain_ms=cuda_median_ms(unfused, 50, flush, before=lib_out.zero_),
+            bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"kernel fused_cfconv {label}: " + json.dumps(rec))
+    return rec
+
+
+def edge_case_graphs(dev, seed=3):
+    """``(label, E, N, F, receivers, senders)`` of the edge cases of phase
+    11: no edges; rows without edges (every other row) at F 3; F 200 (not a
+    multiple of 32); one edge; padding edges, which sum onto the dead last
+    node."""
+    rs = np.random.RandomState(seed)
+    cases = []
+    for label, e, n, f, pad in (("E=0", 0, 9, 16, 0),
+                                ("rows without edges, F=3", 300, 64, 3, 0),
+                                ("F=200", 500, 40, 200, 0),
+                                ("one edge", 1, 6, 128, 0),
+                                ("padding edges", 400, 50, 128, 37)):
+        recv = np.sort(rs.choice(np.arange(0, n - 1, 2), size=e - pad))
+        send = rs.randint(0, n - 1, size=e - pad)
+        recv = np.concatenate([recv, np.full(pad, n - 1)]).astype(np.int32)
+        send = np.concatenate([send, np.full(pad, n - 1)]).astype(np.int32)
+        cases.append((label, e, n, f, torch.from_numpy(recv).to(dev),
+                      torch.from_numpy(send).to(dev)))
+    return cases
+
+
+def gms_edge_cases(dev):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    return [check_gms(torch.randn(n, f, generator=gen, device=dev),
+                      torch.randn(e, f, generator=gen, device=dev), send, recv, n, label, False)
+            for label, e, n, f, recv, send in edge_case_graphs(dev)]
+
+
+def cfconv_edge_cases(dev, b=20):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    recs = []
+    for label, e, n, u, recv, _ in edge_case_graphs(dev):
+        recs.append(check_fused_cfconv(
+            torch.rand(e, b, generator=gen, device=dev), torch.randn(e, u, generator=gen, device=dev),
+            recv, n, torch.randn(b, u, generator=gen, device=dev) / b ** 0.5,
+            torch.randn(u, generator=gen, device=dev) * 0.1,
+            torch.randn(u, u, generator=gen, device=dev) / u ** 0.5,
+            torch.randn(u, generator=gen, device=dev) * 0.1, label.replace("F=", "U="), False))
+    return recs
+
+
+def phase_schnet_kernels(batch, model):
+    """Phase 11: the gms and fused cfconv kernels against their plain
+    versions at the SchNet serving shapes of ``batch`` (its senders,
+    receivers and Gaussian basis; random node features and filters; the
+    filter weights of ``model``'s first interaction), timed, and at the edge
+    cases."""
+    from gcnn_keras_tpu_torch.layers.geometry import edge_distances, gauss_basis
+    dev = batch.senders.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, e = batch.n_node, batch.n_edge
+    units = model.config["interaction_args"]["units"]
+    with torch.no_grad():
+        basis = gauss_basis(edge_distances(batch), **model.config["gauss_args"])
+        basis = (basis * batch.edge_mask[:, None].to(basis.dtype)).contiguous()
+        cf = model.interaction_0.cfconv
+        weights = (cf.filter_1.weight.t().contiguous(), cf.filter_1.bias,
+                   cf.filter_2.weight.t().contiguous(), cf.filter_2.bias)
+    x = torch.randn(n, units, generator=gen, device=dev)
+    filt = torch.randn(e, units, generator=gen, device=dev)
+    xj = torch.randn(e, units, generator=gen, device=dev)
+    label = "SchNet serving, 512 mols"
+    gms = [check_gms(x, filt, batch.senders, batch.receivers, n, label, True)]
+    gms += gms_edge_cases(dev)
+    cfconv = [check_fused_cfconv(basis, xj, batch.receivers, n, *weights, label, True)]
+    cfconv += cfconv_edge_cases(dev)
+    gms[0]["path"], cfconv[0]["path"] = "schnet_fused_serving", "schnet_accurate_serving"
+    return {"gather_mul_segsum": gms, "fused_cfconv": cfconv}
+
+
+def bilinear_family_graph():
+    """``tests/test_bilinear_family.py``'s ``_random_graph(RandomState(0))``:
+    receiver-sorted edges of 5 graphs of up to 7 nodes, 3 padding edges at a
+    dead last node; ``(n, send, recv, perm, f)``."""
+    rs = np.random.RandomState(0)
+    sizes = rs.randint(2, 8, 5)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    n = int(offs[-1]) + 1
+    send, recv = [], []
+    for g in range(5):
+        for i in range(sizes[g]):
+            for j in range(sizes[g]):
+                if i != j and rs.rand() < 0.7:
+                    send.append(offs[g] + j)
+                    recv.append(offs[g] + i)
+    send, recv = np.asarray(send + [n - 1] * 3, np.int32), np.asarray(recv + [n - 1] * 3, np.int32)
+    order = np.argsort(recv, kind="stable")
+    send, recv = send[order], recv[order]
+    return n, send, recv, np.argsort(send, kind="stable").astype(np.int32), 4
+
+
+def gms_second_order(device, fused):
+    """The grad-of-grad pattern of ``tests/test_bilinear_family.py``
+    (``_force_training_setup``): a two-layer energy through the bilinear
+    op, force = d energy / d r, loss = energy + sum(sin(force)^2); returns
+    the loss's gradients along theta and r, through GMS (``fused``) or the
+    plain chain."""
+    from gcnn_keras_tpu_torch.ops.cuda.bilinear import bilinear_gather_mul_segsum
+    n, send, recv, perm, f = bilinear_family_graph()
+    rs = np.random.RandomState(3)
+    x0, theta, r = (torch.from_numpy(a.astype(np.float32)).to(device)
+                    for a in (rs.randn(n, f), rs.randn(f, f), rs.randn(len(send), f)))
+    ts, tr, tp = (torch.from_numpy(a).to(device) for a in (send, recv, perm))
+
+    def bil(x, m):
+        if fused:
+            return bilinear_gather_mul_segsum(x, m, ts, tr, tp)
+        return torch.zeros(n, f, device=device).index_add_(0, tr, x.index_select(0, ts) * m)
+
+    def energy(theta, r):
+        m = torch.tanh(r @ theta)
+        return (bil(torch.tanh(bil(x0 @ theta, m)), m * 2.0) ** 2).sum()
+
+    theta.requires_grad_(True)
+    r.requires_grad_(True)
+    (force,) = torch.autograd.grad(energy(theta, r), r, create_graph=True)
+    return torch.autograd.grad(energy(theta, r) + (torch.sin(force) ** 2).sum(), (theta, r))
+
+
+def phase_gms_second_order(device="cuda"):
+    """Phase 13: the grad-of-grad pattern on the card, GMS against the
+    plain chain; the kernel launches on the 4 forward applications only."""
+    before = kernel_counts()
+    fused = gms_second_order(device, True)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in kernel_counts().items() if v != before[k]}
+    plain = gms_second_order(device, False)
+    recs = []
+    for name, g, p in zip(("theta", "r"), fused, plain):
+        err, scale = (g - p).abs().max().item(), p.abs().max().item()
+        if not err <= SECOND_ORDER_TOL * max(scale, 1.0):
+            raise AssertionError(f"gms second-order pattern d/d{name}: max|k-p|={err}, "
+                                 f"max|p|={scale}")
+        recs.append({"wrt": name, "max_abs_err": err, "max_abs_plain": scale})
+    if launched.get("gather_mul_segsum") != 4:
+        raise AssertionError(f"gms second-order pattern: launches {launched}")
+    rec = {"case": "second-order pattern of tests/test_bilinear_family.py", "grads": recs,
+           "launches": launched}
+    log("kernel gms pair: " + json.dumps(rec))
+    return rec
+
+
+def md_system(rs, n, t):
+    """``bench.py`` ``_md_system``: a helical chain of ``n`` atoms."""
+    pos = np.stack([t, 1.5 * np.sin(t * 0.9), 1.5 * np.cos(t * 0.7)], axis=1)
+    return {"node_number": rs.choice([1, 6, 7, 8], size=n),
+            "node_coordinates": (pos + rs.randn(n, 3) * 0.1).astype(np.float32)}
+
+
+def md_batch(device):
+    """``bench.py`` ``sec_md_single``'s 21-atom molecule, neighbours within
+    4 A (at most 25), as one batch."""
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    from gcnn_keras_tpu_torch.graph.preprocess import set_range
+    n = 21
+    g = md_system(np.random.RandomState(7), n, np.arange(n) * 1.2)
+    g["energy"] = np.array([0.0], dtype=np.float32)
+    g = set_range(g, max_distance=4.0, max_neighbours=25)
+    g["edge_indices"] = g.pop("range_indices")
+    return batch_graphs([g], global_keys=("energy",), device=device)
+
+
+def check_captured(calls, label):
+    """Every kernel call recorded by ``captured_calls`` against its plain
+    version."""
+    return {name: [check_kernel_call(name, args, f"{label}, call {i + 1} of {len(arg_list)}",
+                                     False) for i, args in enumerate(arg_list)]
+            for name, arg_list in calls.items() if arg_list}
+
+
+def phase_md_single(smi, device="cuda"):
+    """Phase 14 (a): ``bench.py`` ``sec_md_single`` in each SchNet mode:
+    velocity Verlet from rest, masses 12, dt 5e-4; each kernel call of one
+    evaluation against its plain version; launches per step; the time per
+    step as the smallest slope between the two trajectory lengths over
+    interleaved pairs; the modes' energies against the unfused ones."""
+    from gcnn_keras_tpu_torch.moldyn.integrate import make_energy_force_fn, velocity_verlet
+    batch = md_batch(device)
+    pos0 = batch.nodes["node_coordinates"]
+    vel0 = torch.zeros_like(pos0)
+    masses = torch.full((batch.n_node,), 12.0, device=pos0.device)
+    fns = {mode: make_energy_force_fn(schnet_model(mode, device), batch)
+           for mode in SCHNET_MODES}
+    recs = {}
+    for mode, fn in fns.items():
+        with captured_calls() as calls:
+            e0, f0 = fn(pos0)
+        recs[mode] = check_captured(calls, f"MD 21 atoms, {mode}")
+        if not (torch.isfinite(f0).all() and f0.sum(0).abs().max().item()
+                <= FORCE_SUM_TOL * batch.n_node * f0.abs().max().item()):
+            raise AssertionError(f"MD {mode}: forces not finite or not summing to 0")
+
+    def run(mode, steps):
+        return velocity_verlet(fns[mode], pos0, vel0, masses, MD_DT, steps,
+                               node_mask=batch.node_mask)
+
+    def wall(mode, steps):
+        t0 = time.perf_counter()
+        run(mode, steps)  # returns after the series reached the host
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    short, long = MD_STEPS
+    # the main path: every count set to 0 just before, read just after
+    reset_counts()
+    trajs = {}
+    for mode in SCHNET_MODES:
+        before = kernel_counts()
+        trajs[mode] = run(mode, short)
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in kernel_counts().items()}
+        want = {k: (short + 1) * v for k, v in schnet_launches(mode).items()}
+        if got != want:
+            raise AssertionError(f"MD {mode}: launches {got} in {short} steps, expected {want}")
+        run(mode, long)
+    slopes = {mode: [] for mode in SCHNET_MODES}
+    for _ in range(MD_PAIRS):
+        for mode in SCHNET_MODES:
+            slopes[mode].append((wall(mode, long) - wall(mode, short)) / (long - short))
+    main_launches = kernel_counts()
+    ref = trajs["unfused"]["e_pot"]
+    out = {"atoms": int(batch.node_mask.sum().item()), "N_pad": batch.n_node,
+           "E_pad": batch.n_edge, "real_edges": int(batch.edge_mask.sum().item()),
+           "steps": MD_STEPS, "pairs": MD_PAIRS, "card": smi}
+    for mode, traj in trajs.items():
+        if not np.isfinite(traj["e_pot"]).all():
+            raise AssertionError(f"MD {mode}: non-finite energies")
+        err = float(np.abs(traj["e_pot"] - ref).max())
+        if not err <= MD_TOL * float(np.abs(ref).max()):
+            raise AssertionError(f"MD {mode}: e_pot off the unfused one by {err}")
+        out[mode] = {"us_per_md_step": 1e6 * min(slopes[mode]),
+                     "us_per_md_step_slopes": [1e6 * v for v in slopes[mode]],
+                     "e_pot_max_abs_err_vs_unfused": err,
+                     "launches_per_step": schnet_launches(mode)}
+    log("md single: " + json.dumps(out))
+    return main_launches, recs
+
+
+def phase_md_ensemble(smi, device="cuda"):
+    """Phase 14 (b): ``bench.py`` ``sec_md_ensemble`` in each SchNet mode:
+    64 replicas of the 21-atom molecule through ``ScannedMD``, one segment
+    to warm up, then ``ENSEMBLE_SEGMENTS`` timed; the time per replica-step;
+    launches per step; the modes' energies against the unfused ones."""
+    from gcnn_keras_tpu_torch.moldyn.trajectory import ScannedMD
+    n = 21
+    t = np.arange(n) * 1.2
+    systems = [md_system(np.random.RandomState(100 + s), n, t) for s in range(ENSEMBLE_REPLICAS)]
+    runs = {mode: ScannedMD(schnet_model(mode, device), dt=MD_DT,
+                            segment_steps=ENSEMBLE_SEGMENT_STEPS, max_distance=4.0,
+                            max_neighbours=25, device=device) for mode in SCHNET_MODES}
+    for md in runs.values():
+        md.run_ensemble(systems, 1)
+    torch.cuda.synchronize()
+    # the main path: every count set to 0 just before, read just after
+    reset_counts()
+    outs, stats = {}, {}
+    for mode, md in runs.items():
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        outs[mode] = md.run_ensemble(systems, ENSEMBLE_SEGMENTS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        steps = ENSEMBLE_SEGMENTS * ENSEMBLE_SEGMENT_STEPS
+        got = {k: v - before[k] for k, v in kernel_counts().items()}
+        evals = ENSEMBLE_SEGMENTS * (ENSEMBLE_SEGMENT_STEPS + 1)
+        want = {k: evals * v for k, v in schnet_launches(mode).items()}
+        if got != want:
+            raise AssertionError(f"ensemble {mode}: launches {got}, expected {want}")
+        stats[mode] = {"us_per_replica_step": 1e6 * seconds / steps / ENSEMBLE_REPLICAS,
+                       "ms_per_step": 1e3 * seconds / steps}
+    main_launches = kernel_counts()
+    ref = outs["unfused"]["e_pot"]
+    for mode, out in outs.items():
+        if out["e_pot"].shape != (ENSEMBLE_SEGMENTS * ENSEMBLE_SEGMENT_STEPS, ENSEMBLE_REPLICAS) \
+                or not np.isfinite(out["e_pot"]).all() or not np.isfinite(out["e_kin"]).all():
+            raise AssertionError(f"ensemble {mode}: e_pot {out['e_pot'].shape}, or not finite")
+        err = float(np.abs(out["e_pot"] - ref).max())
+        if not err <= MD_TOL * float(np.abs(ref).max()):
+            raise AssertionError(f"ensemble {mode}: e_pot off the unfused one by {err}")
+        stats[mode].update(e_pot_max_abs_err_vs_unfused=err, edge_counts=out["edge_counts"])
+    log("md ensemble: " + json.dumps({"replicas": ENSEMBLE_REPLICAS,
+                                      "segment_steps": ENSEMBLE_SEGMENT_STEPS,
+                                      "segments": ENSEMBLE_SEGMENTS, **stats, "card": smi}))
+    return main_launches
+
+
+def nve_system(device):
+    """``tools/nve_drift_tpu.py``'s 64-atom cluster: a 4x4x4 grid at 1.6 A
+    jittered by 0.05 A, elements H, C, O, neighbours within 6 A (at most
+    25); its masses (padding atoms 1) and starting velocities, drawn as the
+    tool draws them."""
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    from gcnn_keras_tpu_torch.graph.preprocess import set_range
+    n = 64
+    rs = np.random.RandomState(0)
+    grid = np.stack(np.meshgrid(*[np.arange(4) * 1.6] * 3), -1).reshape(-1, 3)
+    pos = (grid[:n] + rs.randn(n, 3) * 0.05).astype(np.float32)
+    g = {"node_number": rs.choice([1, 6, 8], size=n), "node_coordinates": pos}
+    g = set_range(g, max_distance=6.0, max_neighbours=25)
+    g["edge_indices"] = g.pop("range_indices")
+    batch = batch_graphs([g], device=device)
+    mass_tab = np.array([0, 1.0, 0, 0, 0, 0, 12.0, 14.0, 16.0, 19.0])
+    z = np.clip(batch.nodes["node_number"].cpu().numpy().astype(int), 0, 9)
+    masses = np.where(batch.node_mask.cpu().numpy(), mass_tab[z], 1.0).astype(np.float32)
+    vel0 = (rs.randn(batch.n_node, 3) * 0.02).astype(np.float32)
+    return batch, torch.from_numpy(masses).to(device), torch.from_numpy(vel0).to(device)
+
+
+def phase_nve(smi, device="cuda"):
+    """Phase 14 (c): the NVE drift of ``tools/nve_drift_tpu.py``'s tethered
+    64-atom system (SchNet depth 2, 32 units, 16 bins to 6 A) in each mode,
+    under ``tests/test_nve_conservation.py``'s bounds."""
+    from gcnn_keras_tpu_torch.moldyn.integrate import (
+        make_energy_force_fn, nve_drift, velocity_verlet)
+    batch, masses, vel0 = nve_system(device)
+    pos0 = batch.nodes["node_coordinates"]
+    kw = dict(depth=2, interaction_args={"units": 32},
+              gauss_args={"bins": 16, "distance_max": 6.0, "sigma": 0.4},
+              last_mlp={"units": [32, 16], "activation": ["shifted_softplus"] * 2},
+              output_mlp={"units": [16, 1], "activation": ["shifted_softplus", "linear"]})
+    # the main path: every count set to 0 just before, read just after
+    reset_counts()
+    out = {"atoms": int(batch.node_mask.sum().item()),
+           "edges": int(batch.edge_mask.sum().item()), "steps": NVE_STEPS, "dt": 0.01,
+           "card": smi}
+    for mode in SCHNET_MODES:
+        base = make_energy_force_fn(schnet_model(mode, device, **kw), batch)
+
+        def tethered(p, base=base):
+            e, f = base(p)
+            d = p - pos0
+            return e + 0.25 * (d * d).sum(), f - 0.5 * d
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        traj = velocity_verlet(tethered, pos0, vel0, masses, 0.01, NVE_STEPS,
+                               node_mask=batch.node_mask)
+        seconds = time.perf_counter() - t0
+        got = {k: v - before[k] for k, v in kernel_counts().items()}
+        want = {k: (NVE_STEPS + 1) * v for k, v in schnet_launches(mode, depth=2).items()}
+        if got != want:
+            raise AssertionError(f"NVE {mode}: launches {got}, expected {want}")
+        drift = nve_drift(traj)
+        for key, bound in NVE_BOUNDS.items():
+            if not drift[key] < bound:
+                raise AssertionError(f"NVE {mode}: {key} {drift[key]} >= {bound}")
+        out[mode] = {**drift, "ms_per_step": 1e3 * seconds / NVE_STEPS}
+    log("md nve drift: " + json.dumps(out))
+    return kernel_counts()
+
+
+def phase_schnet_md(gpu, requests, batch0, smi, unfused_answers):
+    """Phases 11-14; returns the kernel records and the launches of each
+    main path."""
+    records = phase_schnet_kernels(batch0, gpu.model.energy_model)
+    by_path = {}
+    for mode in ("fused", "accurate"):
+        mgpu = make_predictor("cuda", mode)
+        by_path[f"schnet_{mode}_serving"] = phase_model_serving(
+            mgpu, requests, batch0, smi, name=f"schnet {mode}",
+            make_cpu=functools.partial(make_predictor, mode=mode),
+            expected=schnet_launches(mode), reference=unfused_answers)
+    second_order = phase_gms_second_order()
+    by_path["md_single"], md_calls = phase_md_single(smi)
+    by_path["md_ensemble"] = phase_md_ensemble(smi)
+    by_path["md_nve"] = phase_nve(smi)
+    for calls in md_calls.values():
+        for name, rs in calls.items():
+            records.setdefault(name, []).extend(dict(r, path="md_single") for r in rs)
+    return records, by_path, second_order
+
+
+def kernels_line(records, by_path, second_order):
+    """The ``kernels`` entries of the result line: each kernel's source, the
+    TPU kernel it replaces, its launches on each main path, its largest
+    error, and the time, bound and plain time of its timed check at the
+    shapes of the first path (in the order of ``by_path``) that launched
+    it; ``records`` holds each kernel's checks, ``second_order`` the
+    pattern checks by kernel."""
+    def main_record(name):
+        """The timed check of kernel ``name`` at the shapes of the first path
+        (in the order of ``by_path``) that launched it."""
+        for path, counts in by_path.items():
+            if counts.get(name, 0):
+                return next(r for r in records[name] if r.get("path") == path and "ms" in r)
+        raise AssertionError(f"{name} was not launched on the main path")
+
+    sources = {
+        "sorted_segment_sum": ("sorted_segment_sum", "segment_sum.cu",
+                               "gcnn_keras_tpu/ops/pallas/segment_sum.py:182"),
+        **{name: (f"acsf_{name}", "acsf.cu", replaces)
+           for name, replaces in ACSF_REPLACES.items()},
+        "spd_solve": ("spd_solve", "spd_solve.cu", "gcnn_keras_tpu/ops/pallas/spd_solve.py:95"),
+        "gather_mul_segsum": ("gather_mul_segsum", "fused_aggregate.cu",
+                              "gcnn_keras_tpu/ops/pallas/fused_aggregate.py:188"),
+        "fused_cfconv": ("fused_cfconv", "fused_cfconv.cu",
+                         "gcnn_keras_tpu/ops/pallas/fused_cfconv.py:157")}
+
+    def captured(rs):
+        """The checks of recorded main-path calls (phases 10 and 14), by path:
+        their number and largest error."""
+        out = {}
+        for r in rs:
+            if "path" in r and "ms" not in r:
+                n, err = out.get(r["path"], (0, 0.0))
+                out[r["path"]] = (n + 1, max(err, r["max_abs_err"]))
+        return {p: {"calls": n, "max_abs_err": err} for p, (n, err) in out.items()}
+
+    kernels = []
+    for name, rs in records.items():
+        counts = {path: c.get(name, 0) for path, c in by_path.items()}
+        label, source, replaces = sources[name]
+        main_rec = main_record(name)
+        kernels.append({
+            "name": label, "route": "cuda", "source": f"gcnn_keras_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": sum(counts.values()), "launches_by_path": counts,
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": main_rec["ms"], "ms_warm": main_rec["ms_warm"],
+            "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
+            "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
+            **{k: main_rec[k] for k in ("unfused_chain_ms", "unfused_port_ms") if k in main_rec},
+            "timed_at": main_rec["case"],
+            "shapes": [r for r in rs if "ms" in r or "path" not in r],
+            "captured_calls": captured(rs),
+            **({"second_order": second_order[name]} if name in second_order else {})})
+    return kernels
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
@@ -1105,7 +1756,7 @@ def main():
         raise AssertionError(f"unexpected full-width shapes {batch0.n_node} "
                              f"{batch0.n_edge} {batch0.n_graphs}")
     recs = phase_kernel(batch0)
-    launches = phase_serving(gpu, requests, batch0, smi)
+    launches, unfused_answers = phase_serving(gpu, requests, batch0, smi)
 
     hgpu = make_hdnnp_predictor("cuda")
     _, hbatch0 = hgpu.make_batch(requests[0][1])
@@ -1113,7 +1764,7 @@ def main():
     if shapes != HDNNP_SHAPES:
         raise AssertionError(f"unexpected HDNNP2nd full-width shapes {shapes}")
     acsf_recs = phase_acsf_kernel(hbatch0, hgpu.model.energy_model)
-    hlaunches = phase_hdnnp_serving(hgpu, requests, hbatch0, smi)
+    hlaunches = phase_model_serving(hgpu, requests, hbatch0, smi)
 
     qgpu = make_hdnnp4th_predictor("cuda")
     qrequests = [("seed 0, 512 mols", with_esp(requests[0][1], 0)),
@@ -1125,7 +1776,7 @@ def main():
         raise AssertionError(f"unexpected HDNNP4th full-width shapes {shapes}, "
                              f"M={qbatch0.max_nodes}")
     spd_recs = phase_spd_kernel(qgpu.model.energy_model, qbatch0)
-    qlaunches = phase_hdnnp_serving(
+    qlaunches = phase_model_serving(
         qgpu, qrequests, qbatch0, smi, name="hdnnp4th", make_cpu=make_hdnnp4th_predictor,
         expected=HDNNP4TH_LAUNCHES, check=check_charged_request,
         keys=("energy", "force", "charge"))
@@ -1143,36 +1794,14 @@ def main():
     for path in TRAIN_PATHS:
         by_path[path], train_recs = phase_training(path, smi)
         for name, rs in train_recs.items():
-            records[name] += rs
+            records.setdefault(name, []).extend(rs)
+    md_recs, md_paths, gms_pair = phase_schnet_md(gpu, requests, batch0, smi, unfused_answers)
+    for name, rs in md_recs.items():
+        records.setdefault(name, []).extend(rs)
+    by_path.update(md_paths)
+    second_order["gather_mul_segsum"] = gms_pair
 
-    def main_record(name):
-        """The timed check of kernel ``name`` at the shapes of the first path
-        (in the order of ``by_path``) that launched it."""
-        for path, counts in by_path.items():
-            if counts.get(name, 0):
-                return next(r for r in records[name] if r.get("path") == path and "ms" in r)
-        raise AssertionError(f"{name} was not launched on the main path")
-
-    sources = {
-        "sorted_segment_sum": ("sorted_segment_sum", "segment_sum.cu",
-                               "gcnn_keras_tpu/ops/pallas/segment_sum.py:182"),
-        **{name: (f"acsf_{name}", "acsf.cu", replaces)
-           for name, replaces in ACSF_REPLACES.items()},
-        "spd_solve": ("spd_solve", "spd_solve.cu", "gcnn_keras_tpu/ops/pallas/spd_solve.py:95")}
-    kernels = []
-    for name, rs in records.items():
-        counts = {path: c.get(name, 0) for path, c in by_path.items()}
-        label, source, replaces = sources[name]
-        main_rec = main_record(name)
-        kernels.append({
-            "name": label, "route": "cuda", "source": f"gcnn_keras_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": sum(counts.values()), "launches_by_path": counts,
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
-            "ms": main_rec["ms"], "ms_warm": main_rec["ms_warm"],
-            "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
-            "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
-            "timed_at": main_rec["case"], "shapes": rs,
-            **({"second_order": second_order[name]} if name in second_order else {})})
+    kernels = kernels_line(records, by_path, second_order)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

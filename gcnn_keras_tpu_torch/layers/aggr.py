@@ -13,7 +13,9 @@ from typing import Optional
 import torch
 
 from ..batch import GraphBatch
-from ..ops.cuda.fused_aggregate import gather_with_sorted_transpose
+from ..ops.cuda.bilinear import bilinear_gather_mul_segsum
+from ..ops.cuda.fused_aggregate import (gather_mul_segsum_auto,
+                                       gather_with_sorted_transpose)
 from ..ops.segment import segment_ops_by_name
 
 Tensor = torch.Tensor
@@ -53,15 +55,29 @@ def pool_edges_to_nodes(batch: GraphBatch, edge_values: Tensor,
 
 def gather_mul_pool_edges(batch: GraphBatch, nodes: Tensor,
                           edge_filter: Tensor, mode: str = "sum",
-                          fused: bool = False) -> Tensor:
+                          fused=False) -> Tensor:
     """``out[r] = sum_e nodes[senders[e]] * edge_filter[e]``, the cfconv
-    chain, unfused: a sender gather, a multiply and a sorted sum."""
-    if fused:
-        raise NotImplementedError(
-            "gather_mul_pool_edges(fused=True) needs the fused "
-            "gather-multiply-segment-sum kernel (TPU kernel #2, "
-            "ops/pallas/fused_aggregate.py _fused_gather_mul_segsum), "
-            "which is not ported yet")
+    chain.
+
+    ``fused=True`` with a ``sender_perm``, 2-D inputs and ``mode="sum"``
+    takes the AD-closed fused kernel (``ops/cuda/bilinear.py`` ``GMS``:
+    the kernel forward, the unfused sorted-segment-sum backward, any
+    order). ``fused="vjp"``, or a batch without a perm, takes
+    ``gather_mul_segsum_auto`` (the custom-VJP route). A batch without a
+    perm was built unsorted, so its receivers are not taken as sorted there
+    (the JAX package passes them as sorted). The default is unfused: a
+    sender gather, a multiply and a sorted sum."""
+    perm = batch.edges.get("sender_perm")
+    if fused and mode == "sum":
+        if fused != "vjp" and perm is not None and nodes.dim() == 2 \
+                and edge_filter.dim() == 2:
+            return bilinear_gather_mul_segsum(
+                nodes, edge_filter, batch.senders, batch.receivers, perm,
+                batch.max_nodes)
+        return gather_mul_segsum_auto(
+            nodes, edge_filter, batch.senders, batch.receivers, batch.n_node,
+            batch.max_nodes, indices_are_sorted=perm is not None,
+            sender_perm=perm)
     xj = gather_sender_nodes(batch, nodes)
     return pool_edges_to_nodes(batch, xj * edge_filter, mode=mode)
 

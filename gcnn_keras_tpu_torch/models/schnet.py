@@ -1,5 +1,7 @@
 """SchNet model; counterpart of ``gcnn_keras_tpu/models/schnet.py`` on the
-flat path.
+flat path. ``interaction_args`` selects the CFconv's execution mode
+(``fused_aggregate``, ``accurate_cfconv``; ``layers/conv/schnet.py``); every
+mode keeps the default parameter tree.
 
 Periodic support is implicit: a batch that carries ``edges['range_image']``
 and ``globals['graph_lattice']`` gets the lattice shift in its edge vectors.
@@ -65,9 +67,12 @@ class Schnet(nn.Module):
         self.embed_to_units = Dense(emb["output_dim"], units, activation="linear",
                                     generator=generator)
         in_basis = cfg["gauss_args"]["bins"] if cfg["expand_distance"] else 1
+        inter_args = dict(cfg["interaction_args"])
+        if inter_args.get("fused_chain"):
+            inter_args["gauss_args"] = cfg["gauss_args"]  # SchNetInteraction raises
         for i in range(cfg["depth"]):
             self.add_module(f"interaction_{i}", SchNetInteraction(
-                **cfg["interaction_args"], in_basis=in_basis, generator=generator))
+                **inter_args, in_basis=in_basis, generator=generator))
         self.last_mlp = MLP(units, cfg["last_mlp"]["units"],
                             activation=cfg["last_mlp"]["activation"],
                             generator=generator)

@@ -1,22 +1,27 @@
-"""Where the time of one full-width energy+force evaluation, or of one
-training step, goes on a CUDA card, for the PyTorch port.
+"""Where the time of one full-width energy+force evaluation, of one
+training step or of one MD step goes on a CUDA card, for the PyTorch port.
 
     python3 profile_serving_torch.py [--model schnet|hdnnp2nd|hdnnp4th]
-                                     [--train] [--evals 10]
+                                     [--mode unfused|fused|accurate]
+                                     [--train | --md] [--evals 10]
                                      [--trace chiprun_out/serving_trace.json]
 
 Builds the serving batch of ``chip_smoke.py`` (512 QM9-like molecules,
-weights from seed 0; SchNet defaults, or the HDNNP2nd or HDNNP4th bench
-configuration with ``set_angle`` as the graph preprocessor, HDNNP4th with
-the ESP, its gradient and total charges of ``chip_smoke.with_esp``), or with
-``--train`` the model's training path of ``chip_smoke.TRAIN_PATHS`` (its
-labelled batch, loss and Adam), warms up, and runs ``--evals`` evaluations
-or steps under ``torch.profiler``. Prints the device time by kernel, the
+weights from seed 0; SchNet defaults in ``--mode`` (``interaction_args``
+``fused_aggregate`` or ``accurate_cfconv``), or the HDNNP2nd or HDNNP4th
+bench configuration with ``set_angle`` as the graph preprocessor, HDNNP4th
+with the ESP, its gradient and total charges of ``chip_smoke.with_esp``);
+with ``--train`` the model's training path of ``chip_smoke.TRAIN_PATHS``
+(its labelled batch, loss and Adam); with ``--md`` velocity-Verlet steps
+of ``bench.py``'s 21-atom molecule (SchNet in ``--mode``, masses 12, dt
+5e-4, ``chip_smoke.md_batch``). Warms up, and runs ``--evals``
+evaluations or steps under ``torch.profiler``. Prints the device time by kernel, the
 device busy share of the wall time, and one JSON summary line with the time
 and calls of each of the port's own kernels; writes a Chrome trace when
 ``--trace`` is given. Needs one CUDA card.
 """
 import argparse
+import functools
 import json
 import time
 
@@ -29,11 +34,11 @@ import chip_smoke
 # the port's hand-written kernels, by the names of their CUDA functions
 PORT_KERNELS = ("sorted_segment_sum", "g2_fwd_kernel", "g4_fwd_kernel",
                 "g4_vjp_kernel", "g2_vjp_kernel", "g4_jvp_kernel", "g2_jvp_kernel",
-                "spd_solve_gj_kernel")
+                "spd_solve_gj_kernel", "gms_fwd_kernel", "fused_cfconv_kernel")
 
 
-def serving_run(name):
-    make = {"schnet": chip_smoke.make_predictor,
+def serving_run(name, mode):
+    make = {"schnet": functools.partial(chip_smoke.make_predictor, mode=mode),
             "hdnnp2nd": chip_smoke.make_hdnnp_predictor,
             "hdnnp4th": chip_smoke.make_hdnnp4th_predictor}[name]
     gpu = make("cuda")
@@ -44,7 +49,24 @@ def serving_run(name):
     return lambda: gpu.model(batch)
 
 
-def training_run(name):
+def md_run(name, mode):
+    """One velocity-Verlet step of the 21-atom molecule per call, from rest."""
+    from gcnn_keras_tpu_torch.moldyn.integrate import make_energy_force_fn, verlet_step
+    if name != "schnet":
+        raise SystemExit("profile_serving_torch: --md runs SchNet")
+    batch = chip_smoke.md_batch("cuda")
+    fn = make_energy_force_fn(chip_smoke.schnet_model(mode, "cuda"), batch)
+    pos = batch.nodes["node_coordinates"]
+    m = torch.full((batch.n_node, 1), 12.0, device=pos.device)
+    mask = batch.node_mask[:, None].to(pos.dtype)
+    state = [pos, torch.zeros_like(pos), fn(pos)[1] * mask]
+
+    def run():
+        state[:3] = verlet_step(fn, *state, m, mask, chip_smoke.MD_DT)[:3]
+    return run
+
+
+def training_run(name, mode):
     path = f"{name}_train"
     cfg = chip_smoke.TRAIN_PATHS[path]
     _, trainer, state = chip_smoke.make_trainer(path, "cuda")
@@ -61,8 +83,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("schnet", "hdnnp2nd", "hdnnp4th"),
                     default="schnet")
-    ap.add_argument("--train", action="store_true",
-                    help="profile training steps instead of serving evaluations")
+    ap.add_argument("--mode", choices=tuple(chip_smoke.SCHNET_MODES), default="unfused",
+                    help="SchNet's execution mode")
+    kind = ap.add_mutually_exclusive_group()
+    kind.add_argument("--train", action="store_true",
+                      help="profile training steps instead of serving evaluations")
+    kind.add_argument("--md", action="store_true",
+                      help="profile MD steps of a 21-atom molecule instead")
     ap.add_argument("--evals", type=int, default=10)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
@@ -71,7 +98,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke.nvidia_smi()
-    run = (training_run if args.train else serving_run)(args.model)
+    if args.mode != "unfused" and (args.train or args.model != "schnet"):
+        raise SystemExit("profile_serving_torch: --mode is SchNet's, for serving and --md")
+    run = (training_run if args.train else md_run if args.md else serving_run)(
+        args.model, args.mode)
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -93,14 +123,15 @@ def main():
     kernels.sort(key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.evals
     n_kernels = sum(e.count for e in kernels) / args.evals
-    unit = "step" if args.train else "eval"
+    unit = "step" if args.train or args.md else "eval"
     print(f"card: {smi}")
     print(f"{'device ms/' + unit:>14} {'calls/' + unit:>10}  kernel")
     for e in kernels[:25]:
         print(f"{e.self_device_time_total / 1e3 / args.evals:14.4f} "
               f"{e.count / args.evals:10.1f}  {e.key[:100]}")
     summary = {
-        "card": smi, "model": args.model, "train": args.train, "evals": args.evals,
+        "card": smi, "model": args.model, "mode": args.mode, "train": args.train,
+        "md": args.md, "evals": args.evals,
         f"wall_ms_per_{unit}_profiled": wall_ms,
         f"device_ms_per_{unit}": dev_ms,
         "device_busy_share": dev_ms / wall_ms,

@@ -277,21 +277,16 @@ def test_training_step_on_the_card_matches_the_cpu(cuda_device, path):
     the loss and every parameter gradient equal the CPU's, and each kernel
     launches as often as ``TRAIN_PATHS`` derives."""
     import chip_smoke
-    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
-    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
-
-    def counts():
-        return dict(ka.launches, sorted_segment_sum=kseg.launches, spd_solve=ks.launches)
 
     results = []
     for dev in ("cuda", "cpu"):
         fm, trainer, state = chip_smoke.make_trainer(path, dev)
         batch = chip_smoke.train_batch(path, 7, 16, dev)
-        before = counts()
+        before = chip_smoke.kernel_counts()
         state, metrics = trainer.step_fn()(state, batch)
         if dev == "cuda":
             torch.cuda.synchronize()
-            launched = {k: v - before[k] for k, v in counts().items()}
+            launched = {k: v - before[k] for k, v in chip_smoke.kernel_counts().items()}
             assert launched == chip_smoke.TRAIN_PATHS[path]["launches"]
         results.append((metrics["loss"].item(),
                         [p.grad.cpu() for p in fm.energy_model.parameters()]))
@@ -472,3 +467,86 @@ def test_hdnnp4th_serving_on_the_card_matches_the_cpu(cuda_device):
     for r, f in zip(gpu, frames):
         assert abs(r["charge"].sum() - f["total_charge"][0]) <= 1e-4 * (
             1 + np.abs(r["charge"]).sum())
+
+
+# ------------------------------------------------------------ SchNet MD kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gather_mul_segsum", "fused_cfconv"])
+def test_md_kernels_match_plain_at_the_edge_cases(cuda_device, kernel):
+    """Each kernel against its plain version at ``chip_smoke.py`` phase 11's
+    edge cases (no edges, rows without edges, F or U 3 and 200, one edge,
+    padding edges), one launch each (with no edges it writes the zero rows)."""
+    import chip_smoke
+    before = chip_smoke.kernel_counts()[kernel]
+    cases = {"gather_mul_segsum": chip_smoke.gms_edge_cases,
+             "fused_cfconv": chip_smoke.cfconv_edge_cases}[kernel](cuda_device)
+    assert chip_smoke.kernel_counts()[kernel] == before + len(cases)
+
+
+@pytest.mark.cuda
+def test_md_kernels_match_plain_at_the_serving_shapes(cuda_device):
+    import chip_smoke
+    from gcnn_keras_tpu_torch.models.schnet import make_model
+    gpu = chip_smoke.make_predictor(cuda_device)
+    _, batch = gpu.make_batch(chip_smoke.qm9_like_mols(0, 512))
+    recs = chip_smoke.phase_schnet_kernels(batch, make_model(device=cuda_device))
+    assert recs["gather_mul_segsum"][0]["bound_by"] == "bytes"
+    assert recs["fused_cfconv"][0]["bound_by"] == "operations"
+
+
+@pytest.mark.cuda
+def test_gms_second_order_pattern_on_the_card(cuda_device):
+    import chip_smoke
+    rec = chip_smoke.phase_gms_second_order()
+    # the 4 forward applications; the backward runs on the segment-sum
+    assert rec["launches"]["gather_mul_segsum"] == 4
+
+
+@pytest.mark.cuda
+def test_md_kernel_wrappers_reject_what_they_cannot_take(cuda_device):
+    from gcnn_keras_tpu_torch.ops.cuda import fused_aggregate as fa
+    from gcnn_keras_tpu_torch.ops.cuda import fused_cfconv as fc
+    ids = torch.zeros(5, dtype=torch.int32, device=cuda_device)
+    x = torch.zeros(4, 3, device=cuda_device)
+    with pytest.raises(TypeError):
+        fa.fused_gather_mul_segsum_kernel(x.double(), torch.zeros(5, 3, device=cuda_device),
+                                          ids, ids, 4)
+    with pytest.raises(ValueError):
+        fa.fused_gather_mul_segsum_kernel(x, torch.zeros(3, 5, device=cuda_device).t(),
+                                          ids, ids, 4)
+    import ctypes
+    from gcnn_keras_tpu_torch.ops.cuda.build import load_library
+    smem = load_library("fused_cfconv").gcnn_fused_cfconv_smem_bytes
+    smem.restype = ctypes.c_longlong
+    for b, u in ((20, 128), (20, 200), (8, 3), (20, 256)):  # the gate's formula is the source's
+        assert smem(b, u) == fc.shared_memory_bytes(b, u)
+    u = 256  # W2 alone is 256 KB: beyond a block's shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        fc.fused_cfconv_kernel(torch.zeros(5, 20, device=cuda_device),
+                               torch.zeros(5, u, device=cuda_device), ids, 4,
+                               torch.zeros(20, u, device=cuda_device),
+                               torch.zeros(u, device=cuda_device),
+                               torch.zeros(u, u, device=cuda_device),
+                               torch.zeros(u, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fused", "accurate"])
+def test_schnet_md_mode_serving_on_the_card_matches_the_cpu(cuda_device, mode):
+    """Full-width SchNet in each MD mode on 16 molecules: the card against
+    the CPU and against the unfused model on the card, with the launches
+    per evaluation of ``chip_smoke.schnet_launches``."""
+    import chip_smoke
+    frames = chip_smoke.qm9_like_mols(9, 16)
+    answers = {}
+    for key, dev, m in (("gpu", "cuda", mode), ("cpu", "cpu", mode), ("unfused", "cuda", "unfused")):
+        before = chip_smoke.kernel_counts()
+        answers[key] = chip_smoke.make_predictor(dev, m)(frames)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in chip_smoke.kernel_counts().items()}
+        assert launched == (chip_smoke.schnet_launches(m) if dev == "cuda"
+                            else chip_smoke.launch_counts())
+    chip_smoke.compare_answers(answers["gpu"], answers["cpu"])
+    chip_smoke.compare_answers(answers["gpu"], answers["unfused"])

@@ -17,6 +17,7 @@ from gcnn_keras_tpu_torch.models import hdnnp4th
 from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
 from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
 from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
+from gcnn_keras_tpu_torch.moldyn.trajectory import ScannedMD
 
 torch.set_num_threads(1)
 
@@ -59,7 +60,7 @@ def test_scan_sees_the_package():
                                    "make_model_behler", "EnergyForceModel",
                                    "MolDynamicsModelPredictor", "hdnnp4th.make_model_behler",
                                    "hdnnp4th.make_model_rep", "hdnnp4th.make_model_learn",
-                                   "hdnnp4th.make_model_behler_charge_separat"])
+                                   "hdnnp4th.make_model_behler_charge_separat", "ScannedMD"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     graph = {"node_number": [1, 8], "node_coordinates": [[0, 0, 0], [0, 0, 1.0]],
@@ -78,6 +79,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
         "hdnnp4th.make_model_learn": lambda **kw: hdnnp4th.make_model_learn(**kw),
         "hdnnp4th.make_model_behler_charge_separat":
             lambda **kw: hdnnp4th.make_model_behler_charge_separat(**kw),
+        "ScannedMD": lambda **kw: ScannedMD(make_model(device="cpu", depth=1), dt=1e-3, **kw),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

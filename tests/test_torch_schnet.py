@@ -22,7 +22,7 @@ from gcnn_keras_tpu.models.schnet import make_model as jmake_model
 from gcnn_keras_tpu.moldyn.base import MolDynamicsModelPredictor as JPredictor
 from gcnn_keras_tpu_torch.batch import batch_graphs
 from gcnn_keras_tpu_torch.graph.preprocess import set_range
-from gcnn_keras_tpu_torch.layers import aggr, geometry
+from gcnn_keras_tpu_torch.layers import geometry
 from gcnn_keras_tpu_torch.layers.mlp import MLP
 from gcnn_keras_tpu_torch.model.force import EnergyForceModel
 from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
@@ -189,8 +189,6 @@ def test_geometry_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(interaction_args={"fused_aggregate": True}),
-    dict(interaction_args={"accurate_cfconv": True}),
     dict(interaction_args={"fused_chain": True}),
     dict(dense_block=True), dict(remat=True), dict(dtype="bfloat16"),
 ])
@@ -200,10 +198,8 @@ def test_unported_modes_raise(kw):
 
 
 def test_unported_options_raise():
-    tb = batch_graphs(_mols(8, 2), device="cpu")
-    x = torch.zeros(tb.n_node, 4)
-    with pytest.raises(NotImplementedError):
-        aggr.gather_mul_pool_edges(tb, x, torch.zeros(tb.n_edge, 4), fused=True)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        make_model(device="cpu", interaction_args={"fused_chain": True})
     with pytest.raises(NotImplementedError):
         MLP(4, [4, 4], use_normalization=True)
 

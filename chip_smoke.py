@@ -71,6 +71,18 @@ order, each raising on a failed check:
    drift of ``tools/nve_drift_tpu.py``'s tethered 64-atom system in each
    mode, under ``tests/test_nve_conservation.py``'s bounds. Launches per
    step held in each; the modes' energies against the unfused ones.
+15. Fused-chain kernels (run before phase 10, whose ``schnet_chain_train``
+   path launches them): the fused interaction chain's forward, VJP and
+   second-reverse kernels against their plain versions at the
+   ``schnet_train`` shapes (its seed-0 batch and positions, the weights of
+   the first interaction, random node features, cotangents and tangents),
+   with times, bounds, the plain versions' times and the port's unfused
+   chain for the same function, and at edge cases (no edges, all padding,
+   one edge, rows without edges, coincident positions, senders 1000 rows
+   away, N not a multiple of a block, U 3 and U at the shared-memory gate).
+16. SchNet serving with ``fused_chain=True``: the 3 requests of phase 4,
+   checked as there, against the CPU and phase 4's unfused answers.
+   ``SCHNET_MODES``, which phase 14 runs, leaves this mode out.
 
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it.
@@ -133,7 +145,8 @@ HDNNP2ND_KW = dict(
 HDNNP_SHAPES = (8192, 54784, 417024, 513)  # N, E, A, G of the seed-0 request
 # every kernel of the port, by its name in the launch counts
 KERNEL_NAMES = ("g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp", "g4_jvp", "g2_jvp",
-                "sorted_segment_sum", "spd_solve", "gather_mul_segsum", "fused_cfconv")
+                "sorted_segment_sum", "spd_solve", "gather_mul_segsum", "fused_cfconv",
+                "cf_fwd", "cf_vjp", "cf_hesjvp")
 
 
 def launch_counts(**nonzero):
@@ -144,9 +157,11 @@ def launch_counts(**nonzero):
     return {**dict.fromkeys(KERNEL_NAMES, 0), **nonzero}
 
 
-# SchNet's execution modes (interaction_args) on one parameter set
+# SchNet's execution modes (interaction_args) on one parameter set: the MD
+# modes, which phase 14 runs, and the fused-chain training mode
 SCHNET_MODES = {"unfused": {}, "fused": {"fused_aggregate": True},
                 "accurate": {"accurate_cfconv": True}}
+MODE_ARGS = {**SCHNET_MODES, "chain": {"fused_chain": True}}
 
 
 def schnet_launches(mode, depth=4):
@@ -159,7 +174,12 @@ def schnet_launches(mode, depth=4):
     the cotangent of the node features by sender (a segment-sum: the
     transpose of the sender gather, or GMS's ct_x); interaction 0's node
     features do not depend on the coordinates. GMS's ct_m and the fused
-    cfconv's backward are gathers and matmuls, no kernel."""
+    cfconv's backward are gathers and matmuls, no kernel. The fused chain
+    (``chain``) computes no edge vectors: each interaction runs cf_fwd in
+    the energy pass and cf_vjp in the force pass, and the graph pool is the
+    one segment-sum (its backward is a gather)."""
+    if mode == "chain":
+        return launch_counts(cf_fwd=depth, cf_vjp=depth, sorted_segment_sum=1)
     per_interaction = {"unfused": "sorted_segment_sum", "fused": "gather_mul_segsum",
                        "accurate": "fused_cfconv"}[mode]
     counts = launch_counts(sorted_segment_sum=1 + 2 + depth - 1)
@@ -241,11 +261,21 @@ CHARGE_TOL = 1e-4
 # - HDNNP4th (11 + 6): the jvp kernels; two solves (the backward of the Qeq
 #   solve, and the backward of the adjoint solve that the force pass made);
 #   the transposes of the receiver and sender gathers of the [pos|sigma|q]
-#   table (the energy term along q).
+#   table (the energy term along q);
+# - SchNet with fused_chain=True (4 + 4 + 1, then 4 + 4 + 1): in each
+#   interaction, the loss's reverse pass runs CF's backward once with the
+#   summed cotangent (cf_vjp) and BWD's backward once (cf_hesjvp); the
+#   transpose of the graph pool's backward gather is the second segment-sum.
+#   Its kernels are timed in phase 15 on the same batch.
 TRAIN_PATHS = {
     "schnet_train": dict(model="schnet", seed=0, n_mols=512, with_esp=False,
                          global_keys=("energy",), force_weight=100.0, charge_weight=0.0,
                          launches=launch_counts(sorted_segment_sum=19)),
+    "schnet_chain_train": dict(model="schnet", mode="chain", seed=0, n_mols=512,
+                               with_esp=False, global_keys=("energy",), force_weight=100.0,
+                               charge_weight=0.0, time_calls=False,
+                               launches=launch_counts(cf_fwd=4, cf_vjp=8, cf_hesjvp=4,
+                                                      sorted_segment_sum=2)),
     "hdnnp2nd_train": dict(model="hdnnp2nd", seed=5, n_mols=1024, with_esp=True,
                            global_keys=("energy",), force_weight=100.0, charge_weight=0.0,
                            launches=launch_counts(g2_fwd=1, g4_fwd=1, g4_vjp=1, g2_vjp=1,
@@ -450,9 +480,9 @@ def compare_answers(got, ref, keys=("energy", "force")):
 
 def schnet_model(mode, device, **kwargs):
     """SchNet ``make_model()`` defaults updated by ``kwargs``, in ``mode``
-    (``SCHNET_MODES``), weights from seed 0: every mode has the same."""
+    (``MODE_ARGS``), weights from seed 0: every mode has the same."""
     from gcnn_keras_tpu_torch.models import schnet
-    inter = {**kwargs.pop("interaction_args", {}), **SCHNET_MODES[mode]}
+    inter = {**kwargs.pop("interaction_args", {}), **MODE_ARGS[mode]}
     return schnet.make_model(device=device, generator=torch.Generator().manual_seed(0),
                              interaction_args=inter, **kwargs)
 
@@ -726,10 +756,11 @@ def kernel_counts():
     from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
     from gcnn_keras_tpu_torch.ops.cuda import fused_aggregate as fa
     from gcnn_keras_tpu_torch.ops.cuda import fused_cfconv as fc
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
     from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
     from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
     return dict(ka.launches, sorted_segment_sum=ss.launches, spd_solve=ks.launches,
-                gather_mul_segsum=fa.launches, fused_cfconv=fc.launches)
+                gather_mul_segsum=fa.launches, fused_cfconv=fc.launches, **fi.launches)
 
 
 def kernel_wrappers():
@@ -738,6 +769,7 @@ def kernel_wrappers():
     from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
     from gcnn_keras_tpu_torch.ops.cuda import fused_aggregate as fa
     from gcnn_keras_tpu_torch.ops.cuda import fused_cfconv as fc
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
     from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
     from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
     table = {"sorted_segment_sum": (ss, "segment_sum", ss.segment_sum_plain),
@@ -745,6 +777,8 @@ def kernel_wrappers():
              "gather_mul_segsum": (fa, "fused_gather_mul_segsum_kernel",
                                    fa.fused_gather_mul_segsum_plain),
              "fused_cfconv": (fc, "fused_cfconv_kernel", fc.fused_cfconv_plain)}
+    for name in fi.KERNELS:
+        table[name] = (fi, name, getattr(fi, f"{name}_plain"))
     for kind in ("g2", "g4"):
         table[f"{kind}_fwd"] = (ka, f"{kind}_forward", getattr(ka, f"{kind}_forward_plain"))
         for d in ("vjp", "jvp"):
@@ -780,12 +814,14 @@ def reset_counts():
     from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
     from gcnn_keras_tpu_torch.ops.cuda import fused_aggregate as fa
     from gcnn_keras_tpu_torch.ops.cuda import fused_cfconv as fc
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
     from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
     from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
     for mod in (ss, ks, fa, fc):
         mod.launches = 0
-    for k in ka.launches:
-        ka.launches[k] = 0
+    for counts in (ka.launches, fi.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def phase_model_serving(gpu, requests, batch0, smi, name="hdnnp2nd",
@@ -1099,7 +1135,7 @@ def make_trainer(path, device):
     weights from seed 0, ``torch.optim.Adam(lr=1e-3)`` for ``optax.adam(1e-3)``."""
     from gcnn_keras_tpu_torch.training import Trainer
     cfg = TRAIN_PATHS[path]
-    fm = energy_force_model(cfg["model"], device)
+    fm = energy_force_model(cfg["model"], device, cfg.get("mode", "unfused"))
     trainer = Trainer(ef_loss_fn(fm, cfg["force_weight"], cfg["charge_weight"]),
                       functools.partial(torch.optim.Adam, lr=1e-3))
     return fm, trainer, trainer.init_state(fm.energy_model.parameters())
@@ -1115,14 +1151,17 @@ def check_kernel_call(name, args, label, timed):
         return check_gms(*args, label, timed)
     if name == "fused_cfconv":
         return check_fused_cfconv(*args, label, timed)
+    if name in CHAIN_REPLACES:
+        return check_chain(name, args, label, timed)
     return check_acsf_call(name, args, label, timed)
 
 
 def check_training_kernels(path, batch):
     """Every kernel call of one step of ``path`` on its full-width ``batch``
     (a trainer of its own, before the main path), each against its plain
-    version on the same inputs; the first call of each kernel is timed.
-    Returns ``{name: [record, ...]}``."""
+    version on the same inputs; the first call of each kernel is timed,
+    unless the path's kernels are timed in a phase of their own. Returns
+    ``{name: [record, ...]}``."""
     cfg = TRAIN_PATHS[path]
     _, trainer, state = make_trainer(path, "cuda")
     with captured_calls() as calls:
@@ -1135,7 +1174,7 @@ def check_training_kernels(path, batch):
     for name, arg_list in calls.items():
         recs[name] = [
             dict(check_kernel_call(name, args, f"{path}, call {i + 1} of {len(arg_list)}",
-                                   timed=i == 0), path=path)
+                                   timed=i == 0 and cfg.get("time_calls", True)), path=path)
             for i, args in enumerate(arg_list)]
     return recs
 
@@ -1224,6 +1263,47 @@ def cfconv_work(e, b, u, n):
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = max(2 * e * (b * u + u * u + 2 * u) / H100_F32_OPS_PER_S,
                 2 * e * u / H100_SFU_PER_S)
+    return nbytes, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def chain_work(name, n, e, e_real, b, u):
+    """What the function of fused-chain kernel ``name`` needs on these
+    inputs: the bytes of each input read once (the edge arrays of all ``e``
+    edges) and each output written once, and for each of the ``e_real``
+    real edges its float32 operations (an FMA is 2) and special-function
+    results. Returns ``(bytes, bound_ms, bound_by)``."""
+    weights = b * u + u * u + 2 * u
+    # every kernel: |v|^2 and r (9), the basis (3 a bin, and an exp)
+    ops, sfu = 9 + 3 * b, b
+    if name == "cf_fwd":
+        # the filter MLP 2 (B U + U U), its biases and the message 4 U,
+        # ssp 4 U (an exp and a log1p)
+        ops += 2 * (b * u + u * u) + 4 * u + 4 * u
+        sfu += 2 * u
+        floats = (n * u + 3 * n + weights) + n * u
+    elif name == "cf_vjp":
+        # the MLP again with ssp and its sigmoid (3 special functions a
+        # unit) 2 (B U + U U) + 4 U + 7 U; ct_x, a and the b2 and b1 sums
+        # 5 U; the W2 sum and W2 a 4 U U; dz U; the W1 sum and W1^T (b g)
+        # 4 B U, b g 3 B; the r cotangent 2 U; dv and its two sides 10
+        ops += 2 * (b * u + u * u) + 11 * u + 5 * u + 4 * u * u + u + 4 * b * u + 3 * b \
+            + 2 * u + 10
+        sfu += 3 * u
+        floats = (2 * n * u + 3 * n + weights) + (n * u + 3 * n + weights)
+    else:
+        # z 2 B U and its tangent 4 B U, F 2 U U and dF 4 U U, the biases
+        # 4 U; ssp, sigmoid and dh 8 U; Ju 4 U, w_x 2 U, a and q 2 U; the
+        # W2 sum 4 U U, W2 a and uW2 a + W2 q 6 U U; dzbar and zbar 6 U, the
+        # b1 and b2 sums 2 U; the W1 sum 4 B U and three sums over the bins
+        # 6 B U, with b g, b g dr and b (g^2 + 2 gamma) 6 B; the two r
+        # cotangents 6 U; du and dr 9; wv and its two sides 30
+        ops += (6 * b * u + 6 * u * u + 4 * u + 8 * u + 8 * u + 10 * u * u + 8 * u
+                + 10 * b * u + 6 * b + 6 * u + 9 + 30)
+        sfu += 3 * u
+        floats = (3 * n * u + 6 * n + 2 * weights) + (2 * n * u + 3 * n + weights)
+    nbytes = 4 * floats + e * (4 + 4 + 1)
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = max(e_real * ops / H100_F32_OPS_PER_S, e_real * sfu / H100_SFU_PER_S)
     return nbytes, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1685,6 +1765,207 @@ def phase_schnet_md(gpu, requests, batch0, smi, unfused_answers):
     return records, by_path, second_order
 
 
+# ------------------------------------ phases 15-16: the fused interaction chain
+
+# the TPU kernel each fused-chain kernel replaces (its pl.pallas_call line)
+CHAIN_REPLACES = {"cf_fwd": "gcnn_keras_tpu/ops/pallas/fused_interaction.py:471",
+                  "cf_vjp": "gcnn_keras_tpu/ops/pallas/fused_interaction.py:531",
+                  "cf_hesjvp": "gcnn_keras_tpu/ops/pallas/fused_interaction.py:594"}
+# each output of a fused-chain kernel: max|kernel - plain| <= tol * (1 +
+# max|plain|), KERNEL_TOL for the forward (sums in edge order); the VJP and
+# the second reverse pass add the sender sides and the weight sums with
+# atomics, in an order that varies from run to run
+CHAIN_VJP_TOL = 1e-4
+
+
+def unfused_chain(x, pos, w1, b1, w2, b2, senders, receivers, edge_mask, st, perm):
+    """The port's unfused path for the chain's function: the position and
+    sender gathers (their transposes on the segment-sum kernel), the
+    Gaussian basis, two ``Linear`` with ssp, the mask and the segment-sum
+    kernel onto the receivers."""
+    import torch.nn.functional as F
+    from gcnn_keras_tpu_torch.layers.geometry import gauss_basis
+    from gcnn_keras_tpu_torch.ops.activ import shifted_softplus
+    from gcnn_keras_tpu_torch.ops.cuda.fused_aggregate import gather_with_sorted_transpose
+    from gcnn_keras_tpu_torch.ops.segment import segment_sum
+    vec = (gather_with_sorted_transpose(pos, receivers)
+           - gather_with_sorted_transpose(pos, senders, perm))
+    d2 = torch.sum(vec * vec, dim=-1, keepdim=True)
+    d = torch.where(d2 > 1e-12, torch.sqrt(d2.clamp_min(1e-12)), torch.full_like(d2, 1e-6))
+    basis = gauss_basis(d, bins=st.bins, distance_max=st.distance_max, offset=st.offset,
+                        sigma=st.sigma)
+    f = F.linear(shifted_softplus(F.linear(basis, w1.t(), b1)), w2.t(), b2)
+    m = gather_with_sorted_transpose(x, senders, perm) * f * edge_mask[:, None].to(f.dtype)
+    return segment_sum(m, receivers, x.shape[0], indices_are_sorted=True)
+
+
+def chain_unfused_run(name, args, perm):
+    """A call of the port's unfused chain that computes what kernel ``name``
+    computes from ``args``: the forward; the forward and its reverse pass
+    pulled back from ct; those with the graph kept, then the reverse pass
+    of that along u (which gives J u and the second-order terms)."""
+    *args, st = args
+    edges = args[-3:]
+    res, rest = args[:6], args[6:-3]
+
+    def run():
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(True) for t in res]
+            y = unfused_chain(*xs, *edges, st, perm)
+            if name == "cf_fwd":
+                return y
+            ct = rest[0].detach().requires_grad_(name == "cf_hesjvp")
+            grads = torch.autograd.grad(y, xs, ct, create_graph=name == "cf_hesjvp")
+            if name == "cf_vjp":
+                return grads
+            return torch.autograd.grad(grads, xs + [ct], rest[1:], allow_unused=True)
+    return run
+
+
+def check_chain(name, args, label, timed, perm=None):
+    """Fused-chain kernel ``name`` against its plain version on the
+    wrapper's arguments ``args`` (the static configuration last), each
+    output; timed (given the batch's ``sender_perm``), also the port's
+    unfused chain for the same function."""
+    mod, attr, plain = kernel_wrappers()[name]
+    kernel = getattr(mod, attr)
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    outs, refs = ((out,), (ref,)) if name == "cf_fwd" else (out, ref)
+    tol = KERNEL_TOL if name == "cf_fwd" else CHAIN_VJP_TOL
+    errs, worst = [], 0.0
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        scale = 1.0 + (r.abs().max().item() if r.numel() else 0.0)
+        err = (o - r).abs().max().item() if r.numel() else 0.0
+        if o.shape != r.shape or not torch.isfinite(o).all() or not err <= tol * scale:
+            raise AssertionError(f"{name} {label}, output {i}: max|k-p|={err} > {tol}*{scale}")
+        errs.append(err)
+        worst = max(worst, err / scale)
+    x, mask, st = args[0], args[-2], args[-1]
+    n, e, e_real = x.shape[0], mask.shape[0], int(mask.sum().item())
+    rec = {"case": label, "N": n, "E": e, "real_edges": e_real, "U": st.units, "B": st.bins,
+           "max_abs_err": max(errs, default=0.0), "max_abs_err_by_output": errs,
+           "max_err_over_tol_scale": worst}
+    if timed:
+        flush = torch.empty(L2_FLUSH_BYTES // 4, device=x.device)
+        nbytes, bound_ms, bound_by = chain_work(name, n, e, e_real, st.bins, st.units)
+        rec.update(
+            ms=cuda_median_ms(lambda: kernel(*args), 30, flush),
+            ms_warm=cuda_median_ms(lambda: kernel(*args), 30),
+            plain_ms=cuda_median_ms(lambda: plain(*args), 10, flush),
+            library_ms=None,
+            unfused_chain_ms=cuda_median_ms(chain_unfused_run(name, args, perm), 20, flush),
+            bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"kernel {name} {label}: " + json.dumps(rec))
+    return rec
+
+
+def chain_args(name, x, pos, weights, ct, tangents, edges, st):
+    """The wrapper arguments of fused-chain kernel ``name``."""
+    if name == "cf_fwd":
+        return (x, pos, *weights, *edges, st)
+    if name == "cf_vjp":
+        return (x, pos, *weights, ct, *edges, st)
+    return (x, pos, *weights, ct, *tangents, *edges, st)
+
+
+def chain_inputs(n, u, b, seed, dev, pos=None):
+    """Random node features, positions (given, or N(0, 1.5^2)), filter
+    weights, cotangent and tangents for the fused-chain kernels."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+    x = rnd(n, u)
+    pos = rnd(n, 3, scale=1.5) if pos is None else pos
+    weights = (rnd(b, u, scale=b ** -0.5), rnd(u, scale=0.1), rnd(u, u, scale=u ** -0.5),
+               rnd(u, scale=0.1))
+    tangents = tuple(rnd(*t.shape) for t in (x, pos, *weights))
+    return x, pos, weights, rnd(n, u), tangents
+
+
+def chain_edge_cases(dev, seed=8):
+    """``(label, n, u, b, receivers, senders, mask, pos)`` of the edge cases
+    of phase 15; ``pos`` None draws random positions."""
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
+    rs = np.random.RandomState(seed)
+    gate = max(u for u in range(1, 512) if fi.fits_shared_memory(20, u))
+    cases = []
+
+    def add(label, n, u, b, recv, send, mask, pos=None):
+        cases.append((label, n, u, b, *(torch.from_numpy(np.asarray(a, t)).to(dev)
+                                        for a, t in ((recv, np.int32), (send, np.int32),
+                                                     (mask, bool))), pos))
+
+    add("no edges", 9, 16, 8, [], [], [])
+    add("all padding", 50, 32, 8, [49] * 40, [49] * 40, [False] * 40)
+    add("one edge", 6, 128, 20, [2], [4], [True])
+    recv = np.sort(rs.choice(np.arange(0, 63, 2), 300))
+    add("rows without edges, 10% masked", 64, 32, 8, recv, rs.randint(0, 63, 300),
+        rs.rand(300) > 0.1)
+    # pairs of atoms at one position, edges within each pair and self-edges
+    half = rs.randn(20, 3).astype(np.float32) * 1.5
+    pos = torch.from_numpy(np.repeat(half, 2, axis=0)).to(dev)
+    recv = np.sort(np.concatenate([np.arange(40), np.arange(40), rs.randint(0, 40, 120)]))
+    send = np.where(np.arange(200) % 3 == 0, recv ^ 1, np.where(np.arange(200) % 3 == 1, recv,
+                                                                 rs.randint(0, 40, 200)))
+    add("coincident positions", 40, 16, 8, recv, send, np.ones(200, bool), pos)
+    recv = np.sort(rs.randint(0, 3000, 2000))
+    add("senders 1000-2000 rows away", 3000, 32, 8, recv,
+        (recv + 1000 + rs.randint(0, 1000, 2000)) % 3000, np.ones(2000, bool))
+    recv = np.concatenate([np.sort(rs.randint(0, 1000, 3800)), np.full(200, 1000)])
+    send = np.concatenate([rs.randint(0, 1000, 3800), np.full(200, 1000)])
+    add("N 1001, not a multiple of a block; padding edges", 1001, 64, 20, recv, send,
+        np.arange(4000) < 3800)
+    recv = np.sort(rs.randint(0, 100, 400))
+    add("U=3", 100, 3, 20, recv, rs.randint(0, 100, 400), np.ones(400, bool))
+    recv = np.sort(rs.randint(0, 300, 1500))
+    add(f"U={gate}, the shared-memory gate", 300, gate, 20, recv, rs.randint(0, 300, 1500),
+        np.ones(1500, bool))
+    return cases
+
+
+def chain_edge_case_checks(dev):
+    """Each fused-chain kernel against its plain version at each edge case;
+    with no real edges every output is exactly 0."""
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
+    recs = {name: [] for name in fi.KERNELS}
+    for i, (label, n, u, b, recv, send, mask, pos) in enumerate(chain_edge_cases(dev)):
+        st = fi.CFStatic(bins=b, distance_max=4.0, offset=0.0, sigma=0.4, units=u)
+        x, pos, weights, ct, tangents = chain_inputs(n, u, b, 20 + i, dev, pos)
+        for name in fi.KERNELS:
+            rec = check_chain(name, chain_args(name, x, pos, weights, ct, tangents,
+                                               (send, recv, mask), st), label, False)
+            if not mask.any() and rec["max_abs_err"] != 0.0:
+                raise AssertionError(f"{name} {label}: output without real edges")
+            recs[name].append(rec)
+    return recs
+
+
+def phase_chain_kernels(batch, model):
+    """Phase 15: the three fused-chain kernels against their plain versions
+    at the shapes of ``batch`` (its edges and positions, the filter weights
+    of ``model``'s first interaction, random node features, cotangent and
+    tangents), timed, and at the edge cases."""
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
+    cf = model.interaction_0.cfconv
+    st = cf.chain_static
+    dev = batch.senders.device
+    x, pos, _, ct, tangents = chain_inputs(batch.n_node, st.units, st.bins, 9, dev,
+                                           batch.nodes["node_coordinates"])
+    with torch.no_grad():
+        weights = tuple(t.contiguous() for t in cf.filter_weights())
+    edges = (batch.senders, batch.receivers, batch.edge_mask)
+    perm = batch.edges["sender_perm"]
+    recs = chain_edge_case_checks(dev)
+    for name in fi.KERNELS:
+        rec = check_chain(name, chain_args(name, x, pos, weights, ct, tangents, edges, st),
+                          f"schnet_train batch, {batch.n_graphs - 1} mols", True, perm)
+        recs[name].insert(0, dict(rec, path="schnet_chain_train"))
+    return recs
+
+
 def kernels_line(records, by_path, second_order):
     """The ``kernels`` entries of the result line: each kernel's source, the
     TPU kernel it replaces, its launches on each main path, its largest
@@ -1709,7 +1990,9 @@ def kernels_line(records, by_path, second_order):
         "gather_mul_segsum": ("gather_mul_segsum", "fused_aggregate.cu",
                               "gcnn_keras_tpu/ops/pallas/fused_aggregate.py:188"),
         "fused_cfconv": ("fused_cfconv", "fused_cfconv.cu",
-                         "gcnn_keras_tpu/ops/pallas/fused_cfconv.py:157")}
+                         "gcnn_keras_tpu/ops/pallas/fused_cfconv.py:157"),
+        **{name: (name, "fused_interaction.cu", replaces)
+           for name, replaces in CHAIN_REPLACES.items()}}
 
     def captured(rs):
         """The checks of recorded main-path calls (phases 10 and 14), by path:
@@ -1791,6 +2074,9 @@ def main():
     records = {"sorted_segment_sum": recs, **acsf_recs, **jvp_recs, "spd_solve": spd_recs}
     by_path = {"schnet_serving": {"sorted_segment_sum": launches},
                "hdnnp2nd_serving": hlaunches, "hdnnp4th_serving": qlaunches}
+    # phase 15 before the training path that launches its kernels
+    records.update(phase_chain_kernels(
+        train_batch("schnet_chain_train", 0, 512, "cuda"), schnet_model("chain", "cuda")))
     for path in TRAIN_PATHS:
         by_path[path], train_recs = phase_training(path, smi)
         for name, rs in train_recs.items():
@@ -1800,6 +2086,10 @@ def main():
         records.setdefault(name, []).extend(rs)
     by_path.update(md_paths)
     second_order["gather_mul_segsum"] = gms_pair
+    by_path["schnet_chain_serving"] = phase_model_serving(
+        make_predictor("cuda", "chain"), requests, batch0, smi, name="schnet chain",
+        make_cpu=functools.partial(make_predictor, mode="chain"),
+        expected=schnet_launches("chain"), reference=unfused_answers)
 
     kernels = kernels_line(records, by_path, second_order)
     print(json.dumps({"kernels": kernels}))

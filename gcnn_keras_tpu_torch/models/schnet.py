@@ -1,7 +1,10 @@
 """SchNet model; counterpart of ``gcnn_keras_tpu/models/schnet.py`` on the
 flat path. ``interaction_args`` selects the CFconv's execution mode
-(``fused_aggregate``, ``accurate_cfconv``; ``layers/conv/schnet.py``); every
-mode keeps the default parameter tree.
+(``fused_aggregate``, ``accurate_cfconv``, ``fused_chain``;
+``layers/conv/schnet.py``); every mode keeps the default parameter tree.
+With ``fused_chain`` the interactions recompute the Gaussian basis from the
+positions, so the model needs ``make_distance`` and ``expand_distance`` and
+computes the edge basis only when a batch takes the default path.
 
 Periodic support is implicit: a batch that carries ``edges['range_image']``
 and ``globals['graph_lattice']`` gets the lattice shift in its edge vectors.
@@ -69,7 +72,12 @@ class Schnet(nn.Module):
         in_basis = cfg["gauss_args"]["bins"] if cfg["expand_distance"] else 1
         inter_args = dict(cfg["interaction_args"])
         if inter_args.get("fused_chain"):
-            inter_args["gauss_args"] = cfg["gauss_args"]  # SchNetInteraction raises
+            # the kernels recompute the basis from the positions: only valid
+            # when the basis really is gauss(distance(positions))
+            if not (cfg["make_distance"] and cfg["expand_distance"]):
+                raise ValueError("fused_chain requires make_distance and "
+                                 "expand_distance")
+            inter_args["gauss_args"] = cfg["gauss_args"]
         for i in range(cfg["depth"]):
             self.add_module(f"interaction_{i}", SchNetInteraction(
                 **inter_args, in_basis=in_basis, generator=generator))
@@ -84,15 +92,18 @@ class Schnet(nn.Module):
         cfg = self.config
         z = batch.nodes.get("node_attributes", batch.nodes.get("node_number"))
         n = self.embedding(z)
-        ed = edge_distances(batch) if cfg["make_distance"] \
-            else batch.edges["edge_distance"]
-        if cfg["expand_distance"]:
-            ed = gauss_basis(ed, **cfg["gauss_args"])
-        # zero the basis on padding edges so filters see exact zeros
-        ed = ed * batch.edge_mask[:, None].to(ed.dtype)
+        interactions = [getattr(self, f"interaction_{i}") for i in range(cfg["depth"])]
+        ed = None  # the fused chain computes its own basis
+        if not all(inter.cfconv.takes_chain(batch) for inter in interactions):
+            ed = edge_distances(batch) if cfg["make_distance"] \
+                else batch.edges["edge_distance"]
+            if cfg["expand_distance"]:
+                ed = gauss_basis(ed, **cfg["gauss_args"])
+            # zero the basis on padding edges so filters see exact zeros
+            ed = ed * batch.edge_mask[:, None].to(ed.dtype)
         n = self.embed_to_units(n)
-        for i in range(cfg["depth"]):
-            n = getattr(self, f"interaction_{i}")(batch, n, ed)
+        for inter in interactions:
+            n = inter(batch, n, ed)
         n = self.last_mlp(n)
         if cfg["output_embedding"] == "graph":
             out = n * batch.node_mask[:, None].to(n.dtype)

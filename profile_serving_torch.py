@@ -2,17 +2,18 @@
 training step or of one MD step goes on a CUDA card, for the PyTorch port.
 
     python3 profile_serving_torch.py [--model schnet|hdnnp2nd|hdnnp4th]
-                                     [--mode unfused|fused|accurate]
+                                     [--mode unfused|fused|accurate|chain]
                                      [--train | --md] [--evals 10]
                                      [--trace chiprun_out/serving_trace.json]
 
 Builds the serving batch of ``chip_smoke.py`` (512 QM9-like molecules,
 weights from seed 0; SchNet defaults in ``--mode`` (``interaction_args``
-``fused_aggregate`` or ``accurate_cfconv``), or the HDNNP2nd or HDNNP4th
+``fused_aggregate``, ``accurate_cfconv`` or ``fused_chain``), or the HDNNP2nd or HDNNP4th
 bench configuration with ``set_angle`` as the graph preprocessor, HDNNP4th
 with the ESP, its gradient and total charges of ``chip_smoke.with_esp``);
 with ``--train`` the model's training path of ``chip_smoke.TRAIN_PATHS``
-(its labelled batch, loss and Adam); with ``--md`` velocity-Verlet steps
+(its labelled batch, loss and Adam; SchNet's ``schnet_chain_train`` with
+``--mode chain``); with ``--md`` velocity-Verlet steps
 of ``bench.py``'s 21-atom molecule (SchNet in ``--mode``, masses 12, dt
 5e-4, ``chip_smoke.md_batch``). Warms up, and runs ``--evals``
 evaluations or steps under ``torch.profiler``. Prints the device time by kernel, the
@@ -34,7 +35,8 @@ import chip_smoke
 # the port's hand-written kernels, by the names of their CUDA functions
 PORT_KERNELS = ("sorted_segment_sum", "g2_fwd_kernel", "g4_fwd_kernel",
                 "g4_vjp_kernel", "g2_vjp_kernel", "g4_jvp_kernel", "g2_jvp_kernel",
-                "spd_solve_gj_kernel", "gms_fwd_kernel", "fused_cfconv_kernel")
+                "spd_solve_gj_kernel", "gms_fwd_kernel", "fused_cfconv_kernel",
+                "cf_fwd_kernel", "cf_vjp_kernel", "cf_hesjvp_kernel")
 
 
 def serving_run(name, mode):
@@ -67,7 +69,7 @@ def md_run(name, mode):
 
 
 def training_run(name, mode):
-    path = f"{name}_train"
+    path = "schnet_chain_train" if mode == "chain" else f"{name}_train"
     cfg = chip_smoke.TRAIN_PATHS[path]
     _, trainer, state = chip_smoke.make_trainer(path, "cuda")
     batch = chip_smoke.train_batch(path, cfg["seed"], cfg["n_mols"], "cuda")
@@ -83,7 +85,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("schnet", "hdnnp2nd", "hdnnp4th"),
                     default="schnet")
-    ap.add_argument("--mode", choices=tuple(chip_smoke.SCHNET_MODES), default="unfused",
+    ap.add_argument("--mode", choices=tuple(chip_smoke.MODE_ARGS), default="unfused",
                     help="SchNet's execution mode")
     kind = ap.add_mutually_exclusive_group()
     kind.add_argument("--train", action="store_true",
@@ -98,8 +100,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke.nvidia_smi()
-    if args.mode != "unfused" and (args.train or args.model != "schnet"):
-        raise SystemExit("profile_serving_torch: --mode is SchNet's, for serving and --md")
+    if args.mode != "unfused" and args.model != "schnet":
+        raise SystemExit("profile_serving_torch: --mode is SchNet's")
+    if args.train and args.mode not in ("unfused", "chain"):
+        raise SystemExit("profile_serving_torch: --train runs SchNet unfused or chain")
     run = (training_run if args.train else md_run if args.md else serving_run)(
         args.model, args.mode)
     for _ in range(3):

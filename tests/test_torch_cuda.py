@@ -271,7 +271,8 @@ def test_acsf_force_loss_gradient_on_the_card_matches_the_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["schnet_train", "hdnnp2nd_train", "hdnnp4th_train"])
+@pytest.mark.parametrize("path", ["schnet_train", "hdnnp2nd_train", "hdnnp4th_train",
+                                  "schnet_chain_train"])
 def test_training_step_on_the_card_matches_the_cpu(cuda_device, path):
     """One full-width training step of ``chip_smoke.py`` on 16 molecules:
     the loss and every parameter gradient equal the CPU's, and each kernel
@@ -533,9 +534,10 @@ def test_md_kernel_wrappers_reject_what_they_cannot_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["fused", "accurate"])
+@pytest.mark.parametrize("mode", ["fused", "accurate", "chain"])
 def test_schnet_md_mode_serving_on_the_card_matches_the_cpu(cuda_device, mode):
-    """Full-width SchNet in each MD mode on 16 molecules: the card against
+    """Full-width SchNet in each MD mode, and with the fused chain, on 16
+    molecules: the card against
     the CPU and against the unfused model on the card, with the launches
     per evaluation of ``chip_smoke.schnet_launches``."""
     import chip_smoke
@@ -550,3 +552,76 @@ def test_schnet_md_mode_serving_on_the_card_matches_the_cpu(cuda_device, mode):
                             else chip_smoke.launch_counts())
     chip_smoke.compare_answers(answers["gpu"], answers["cpu"])
     chip_smoke.compare_answers(answers["gpu"], answers["unfused"])
+
+
+# ------------------------------------------------ the fused interaction chain
+
+
+def _chain_case(n, e, u, b, seed, dev, window=40):
+    """Receiver-sorted edges with senders within ``window`` rows, 10%
+    masked, and the inputs of ``chip_smoke.chain_inputs``."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
+    rs = np.random.RandomState(seed)
+    recv = np.sort(rs.randint(0, n, e))
+    send = np.clip(recv + rs.randint(-window, window + 1, e), 0, n - 1)
+    edges = tuple(torch.from_numpy(a).to(dev) for a in (
+        send.astype(np.int32), recv.astype(np.int32), rs.rand(e) > 0.1))
+    st = fi.CFStatic(bins=b, distance_max=4.0, offset=0.0, sigma=0.4, units=u)
+    return chip_smoke.chain_inputs(n, u, b, seed, dev), edges, st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,u,b", [(150, 600, 16, 8), (8192, 54784, 128, 20)])
+def test_chain_kernels_match_plain(cuda_device, n, e, u, b):
+    """The three fused-chain kernels against their plain versions, one
+    launch each, within ``chip_smoke.check_chain``'s tolerances."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
+    (x, pos, weights, ct, tangents), edges, st = _chain_case(n, e, u, b, n, cuda_device)
+    for name in fi.KERNELS:
+        before = fi.launches[name]
+        chip_smoke.check_chain(name, chip_smoke.chain_args(name, x, pos, weights, ct, tangents,
+                                                           edges, st), f"N={n}", False)
+        assert fi.launches[name] == before + 1
+
+
+@pytest.mark.cuda
+def test_chain_kernels_match_plain_at_the_edge_cases(cuda_device):
+    """Each fused-chain kernel at ``chip_smoke.py`` phase 15's edge cases,
+    one launch each."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
+    before = dict(fi.launches)
+    recs = chip_smoke.chain_edge_case_checks(cuda_device)
+    assert {k: v - before[k] for k, v in fi.launches.items()} == {
+        k: len(recs[k]) for k in fi.KERNELS}
+
+
+@pytest.mark.cuda
+def test_chain_shared_memory_gate(cuda_device):
+    """The gate's formula is the source's, and beyond it the wrapper raises."""
+    import ctypes
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
+    from gcnn_keras_tpu_torch.ops.cuda.build import load_library
+    smem = load_library("fused_interaction").gcnn_cf_smem_bytes
+    smem.restype = ctypes.c_longlong
+    for kind, name in enumerate(fi.KERNELS):
+        for b, u in ((20, 128), (8, 3), (20, 148), (20, 200)):
+            assert smem(kind, b, u) == fi.shared_memory_bytes(name, b, u)
+    (x, pos, weights, ct, tangents), edges, st = _chain_case(40, 100, 200, 20, 0, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        fi.cf_hesjvp(x, pos, *weights, ct, *tangents, *edges, st)
+
+
+@pytest.mark.cuda
+def test_chain_third_derivative_raises_on_the_card(cuda_device):
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
+    (x, pos, weights, ct, _), edges, st = _chain_case(60, 200, 16, 8, 1, cuda_device)
+    pos = pos.clone().requires_grad_(True)
+    w1 = weights[0].clone().requires_grad_(True)
+    y = fi.cfconv_fused_chain(x, pos, w1, *weights[1:], *edges, st)
+    (g,) = torch.autograd.grad((y * ct).sum(), pos, create_graph=True)
+    (h,) = torch.autograd.grad((g * g).sum(), w1, create_graph=True)
+    with pytest.raises(RuntimeError, match="third derivative"):
+        torch.autograd.grad(h.sum(), w1)

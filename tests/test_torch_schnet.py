@@ -188,18 +188,13 @@ def test_geometry_matches_jax():
            jgeo.gauss_basis(jgeo.edge_distances(jb), bins=7, offset=0.2, sigma=0.3))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(interaction_args={"fused_chain": True}),
-    dict(dense_block=True), dict(remat=True), dict(dtype="bfloat16"),
-])
+@pytest.mark.parametrize("kw", [dict(dense_block=True), dict(remat=True), dict(dtype="bfloat16")])
 def test_unported_modes_raise(kw):
     with pytest.raises(NotImplementedError):
         make_model(device="cpu", **kw)
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        make_model(device="cpu", interaction_args={"fused_chain": True})
     with pytest.raises(NotImplementedError):
         MLP(4, [4, 4], use_normalization=True)
 

@@ -157,11 +157,6 @@ def test_modes_share_one_parameter_tree():
             assert n == n0 and torch.equal(p, p0)
 
 
-def test_fused_chain_still_raises():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        make_model(device="cpu", **dict(SMALL, interaction_args={"fused_chain": True}))
-
-
 def test_chip_smoke_md_phases_run_on_the_cpu(monkeypatch):
     """``chip_smoke.py`` phases 13 and 14 at a few steps on the CPU, each
     kernel wrapper call counted as the card counts its launches: the

@@ -368,11 +368,13 @@ def phase_device():
     return smi
 
 
-def phase_build():
+def phase_build(names=None):
+    """A fresh build of the named sources of ``csrc/`` (all by default),
+    with each kernel's registers as ptxas reports them."""
     from gcnn_keras_tpu_torch.ops.cuda import build
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)  # always a fresh build
     t0 = time.perf_counter()
-    logs = build.build()
+    logs = build.build(names)
     log(f"build: {len(logs)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
     for name, out in logs.items():
         for line in out.splitlines():
@@ -425,10 +427,23 @@ def phase_kernel(batch):
     ]
     recs = [check_segment_sum(v, i, m, label, timed=True) for label, v, i, m in shapes]
     # edge cases: empty segments (every third row), all edges in one
-    # segment, F = 1 and F = 5, no edges at all
+    # segment, F = 1, 4, 5 and 130 (the kernel's layouts split at F <= 8 and
+    # F a multiple of 4), ids from row 1000 of 2000 (empty rows at both
+    # ends), one row of 5000 edges among short rows, no edges at all
     few = torch.sort(torch.randint(0, 300, (4000,), generator=gen, device=dev))[0]
     few = (few - few % 3).to(torch.int32)
+    late = torch.sort(torch.randint(1000, 1900, (6000,), generator=gen, device=dev))[0]
+    late = late.to(torch.int32)
+    long_row = torch.sort(torch.cat([
+        torch.randint(0, 300, (2000,), generator=gen, device=dev),
+        torch.full((5000,), 150, device=dev, dtype=torch.int64)]))[0].to(torch.int32)
     edge_cases = [
+        ("F=4", torch.randn(e, 4, generator=gen, device=dev), batch.receivers, n),
+        ("F=130", torch.randn(4000, 130, generator=gen, device=dev), few, 301),
+        *((f"ids from row 1000 of 2000, F={f}", torch.randn(6000, f, generator=gen, device=dev),
+           late, 2000) for f in (3, 128)),
+        *((f"one row of 5000 edges, F={f}", torch.randn(7000, f, generator=gen, device=dev),
+           long_row, 300) for f in (3, 64)),
         ("empty segments", torch.randn(4000, 16, generator=gen, device=dev), few, 301),
         ("one segment", torch.randn(4000, 7, generator=gen, device=dev),
          torch.zeros(4000, dtype=torch.int32, device=dev), 5),
@@ -1926,15 +1941,17 @@ def chain_edge_cases(dev, seed=8):
     return cases
 
 
-def chain_edge_case_checks(dev):
-    """Each fused-chain kernel against its plain version at each edge case;
-    with no real edges every output is exactly 0."""
+def chain_edge_case_checks(dev, names=None):
+    """Each fused-chain kernel of ``names`` (all by default) against its
+    plain version at each edge case; with no real edges every output is
+    exactly 0."""
     from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
-    recs = {name: [] for name in fi.KERNELS}
+    names = fi.KERNELS if names is None else names
+    recs = {name: [] for name in names}
     for i, (label, n, u, b, recv, send, mask, pos) in enumerate(chain_edge_cases(dev)):
         st = fi.CFStatic(bins=b, distance_max=4.0, offset=0.0, sigma=0.4, units=u)
         x, pos, weights, ct, tangents = chain_inputs(n, u, b, 20 + i, dev, pos)
-        for name in fi.KERNELS:
+        for name in names:
             rec = check_chain(name, chain_args(name, x, pos, weights, ct, tangents,
                                                (send, recv, mask), st), label, False)
             if not mask.any() and rec["max_abs_err"] != 0.0:
@@ -1943,26 +1960,31 @@ def chain_edge_case_checks(dev):
     return recs
 
 
-def phase_chain_kernels(batch, model):
-    """Phase 15: the three fused-chain kernels against their plain versions
-    at the shapes of ``batch`` (its edges and positions, the filter weights
-    of ``model``'s first interaction, random node features, cotangent and
-    tangents), timed, and at the edge cases."""
-    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
+def chain_timed_check(name, batch, model):
+    """Fused-chain kernel ``name`` against its plain version at the shapes
+    of ``batch`` (its edges and positions, the filter weights of ``model``'s
+    first interaction, random node features, cotangent and tangents), timed."""
     cf = model.interaction_0.cfconv
     st = cf.chain_static
-    dev = batch.senders.device
-    x, pos, _, ct, tangents = chain_inputs(batch.n_node, st.units, st.bins, 9, dev,
+    x, pos, _, ct, tangents = chain_inputs(batch.n_node, st.units, st.bins, 9,
+                                           batch.senders.device,
                                            batch.nodes["node_coordinates"])
     with torch.no_grad():
         weights = tuple(t.contiguous() for t in cf.filter_weights())
     edges = (batch.senders, batch.receivers, batch.edge_mask)
-    perm = batch.edges["sender_perm"]
-    recs = chain_edge_case_checks(dev)
+    rec = check_chain(name, chain_args(name, x, pos, weights, ct, tangents, edges, st),
+                      f"schnet_train batch, {batch.n_graphs - 1} mols", True,
+                      batch.edges["sender_perm"])
+    return dict(rec, path="schnet_chain_train")
+
+
+def phase_chain_kernels(batch, model):
+    """Phase 15: the three fused-chain kernels at the edge cases, then timed
+    at the shapes of ``batch`` (:func:`chain_timed_check`)."""
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
+    recs = chain_edge_case_checks(batch.senders.device)
     for name in fi.KERNELS:
-        rec = check_chain(name, chain_args(name, x, pos, weights, ct, tangents, edges, st),
-                          f"schnet_train batch, {batch.n_graphs - 1} mols", True, perm)
-        recs[name].insert(0, dict(rec, path="schnet_chain_train"))
+        recs[name].insert(0, chain_timed_check(name, batch, model))
     return recs
 
 

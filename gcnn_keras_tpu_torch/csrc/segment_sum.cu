@@ -5,60 +5,230 @@
 // Replaces the TPU kernel gcnn_keras_tpu/ops/pallas/segment_sum.py
 // (_sorted_segment_sum_pallas / _v2 / _v3: one-hot matmuls on the MXU over
 // receiver-sorted edge chunks). Here the sortedness is used directly: each
-// output row owns the contiguous edge range [lower_bound(r), lower_bound(r+1)),
-// found by a binary search over ids, and is summed in a float32 register in
-// edge order: deterministic, no atomics, no one-hot work.
+// output row owns the contiguous edge range of its id and is summed in float32
+// registers in edge order: deterministic, no atomics, no one-hot work.
 //
-// Bound: the call must read values (E*F*4 bytes) and ids (E*4) once and write
-// out (N*F*4) once; it does E*F adds, far below the card's float32 rate, so it
-// is bound by memory bytes. At E=54784, F=128, N=8192: 28.0 + 0.2 + 4.2 MB,
-// about 9.7 us at 3.35 TB/s. Calls with F=3 are bound by launch latency.
+// What bounds it. The call must read values (E*F*4 bytes) and ids (E*4) once
+// and write out (N*F*4) once; its E*F adds are far below the card's float32
+// rate. At F = 128 (E 54784, N 8192) that is 28.0 + 0.2 + 4.2 MB, about 9.7 us
+// at 3.35 TB/s: bytes. At F = 3 the 0.98 MB take 0.3 us, and the call is bound
+// by latency: the launch, then each round of dependent loads (ids, then the
+// values they locate) costs a trip to memory.
 //
-// Layout: a block is a tile of ROWS output rows x TF feature columns
-// (TF*ROWS = 256 threads). threadIdx.x walks neighbouring features, so the
-// loads of one edge row by a warp coalesce. One thread per row finds the
-// edge range and shares it through shared memory.
+// The design keeps that chain two rounds long:
+// - Rows owned by edge ranges, without a search. Block b reads the ids of its
+//   edge range [eb0, eb1) (and one before, and kAhead after) into shared
+//   memory in one round of independent loads. It owns the rows whose first
+//   edge lies in its range: rows ids[eb0-1]+1 .. ids[eb1-1], and for the last
+//   block every row to N - 1, empty rows included. Edge e starts rows
+//   ids[e-1]+1 .. ids[e]; one scan of the range writes each owned row's first
+//   edge to shared memory. The last owned row may run past eb1: its end is
+//   the first id above it among the kAhead ids read ahead (or, for a longer
+//   row, found by a warp 32 ids at a time). A variant that gave each block a
+//   fixed run of rows and found its edge range by two 32-ary searches over
+//   all ids ran 8 dependent loads before the first value in its one-warp
+//   blocks at F = 3, and was no faster there than a search per row
+//   (0.0163 ms against 0.0160 on an NVIDIA H100 80GB HBM3 at 700 W).
+// - A layout chosen by F in the launcher:
+//   - F <= 8: one thread per row, summing all F columns of each edge (no idle
+//     lanes at F = 1..8);
+//   - F a multiple of 4 (16-byte aligned values): float4 loads, up to 32 lanes
+//     (128 columns) per row, a second grid dimension beyond;
+//   - any other F: one scalar column per lane, 32 lanes per row.
+//   Each thread issues the loads of kInFlight edges at once (those past the
+//   row's end read as 0) and adds them in edge order, so that a row of up to
+//   kInFlight edges costs one trip to memory.
+// - Enough blocks: threads per block is the largest of 256, 128, 64, 32 that
+//   still gives every SM two blocks of rows at the mean edges per row (the
+//   graph readout's 513 rows take blocks of one warp).
+//
+// Registers (ptxas, sm_90a): 29-40 a thread, no spills; 9.4 KB of static
+// shared memory a block, so 8 blocks of 256 threads fit an SM.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;  // threads, and row slots, of the largest block
+constexpr int kMaxEdges = 2048;   // edges of a block's range, at most
+constexpr int kAhead = 32;        // ids read past the range, for its last row's end
+constexpr int kInFlight = 8;      // edges whose loads a thread issues together
+constexpr int kStage = 8;         // ids a thread loads together into shared memory
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPastEnd = 0x7fffffff;  // the id read past the last edge
 
-__device__ __forceinline__ int lower_bound(const int* __restrict__ ids, int n,
-                                           int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = lo + ((hi - lo) >> 1);
-    if (__ldg(ids + mid) < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
+struct Shared {
+  int ids[kMaxEdges + 1 + kAhead];  // ids[eb0 - 1 + k]; -1 before edge 0
+  int start[kMaxThreads + 1];       // the first edge of each row of a chunk, and its end
+};
 
-__global__ void sorted_segment_sum_kernel(const float* __restrict__ values,
-                                          const int* __restrict__ ids,
-                                          float* __restrict__ out, int E, int F,
-                                          int num_segments) {
-  extern __shared__ int bounds[];  // [2 * blockDim.y]: begin, end per row
-  const int row = blockIdx.x * blockDim.y + threadIdx.y;
-  if (threadIdx.x == 0) {
-    int begin = 0, end = 0;
-    if (row < num_segments) {
-      begin = lower_bound(ids, E, row);
-      end = lower_bound(ids, E, row + 1);
+// Calls row_sum(base, cend, start) for each chunk of at most `slots` rows
+// [base, cend) that the block owns: row base + k has the edge range
+// [start[k], start[k + 1]). The block's edge range is [blockIdx.x * EB, + EB).
+// Contains barriers: called by the whole block.
+template <typename RowSum>
+__device__ __forceinline__ void owned_rows(const int* __restrict__ ids, int E, int N, int EB,
+                                           int slots, Shared& sh, RowSum row_sum) {
+  const int eb0 = blockIdx.x * EB, eb1 = min(eb0 + EB, E), n = eb1 - eb0;
+  const bool last = eb1 == E;
+  // kStage loads in flight per thread before their stores
+  for (int k0 = threadIdx.x; k0 < n + 1 + kAhead; k0 += kStage * blockDim.x) {
+    int v[kStage];
+#pragma unroll
+    for (int q = 0; q < kStage; ++q) {
+      const int e = eb0 - 1 + k0 + q * blockDim.x;
+      v[q] = e < 0 ? -1 : e < E ? __ldg(ids + e) : kPastEnd;
     }
-    bounds[2 * threadIdx.y] = begin;
-    bounds[2 * threadIdx.y + 1] = end;
+#pragma unroll
+    for (int q = 0; q < kStage; ++q) {
+      const int k = k0 + q * blockDim.x;
+      if (k < n + 1 + kAhead) sh.ids[k] = v[q];
+    }
   }
   __syncthreads();
-  const int f = blockIdx.y * blockDim.x + threadIdx.x;
-  if (row >= num_segments || f >= F) return;
-  const int begin = bounds[2 * threadIdx.y];
-  const int end = bounds[2 * threadIdx.y + 1];
-  float acc = 0.0f;
-  const float* p = values + static_cast<long long>(begin) * F + f;
-  for (int e = begin; e < end; ++e, p += F) acc += __ldg(p);
-  out[static_cast<long long>(row) * F + f] = acc;
+  const int rlo = max(sh.ids[0] + 1, 0);
+  const int rhi = last ? N - 1 : min(sh.ids[n], N - 1);
+  if (rlo > rhi) return;  // the range lies inside one row, owned by an earlier block
+  // Row rhi runs past eb1: its end is the first edge after eb1 with a larger
+  // id, found by warp 0 (thread 0 keeps it)
+  const bool runs_on = !last && sh.ids[n] == rhi && sh.ids[n + 1] == rhi;
+  int end_of_last = E;
+  if (runs_on && threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    unsigned hit = __ballot_sync(kFull, sh.ids[n + 1 + lane] > rhi);
+    int e = eb1;
+    while (hit == 0) {
+      e = e == eb1 ? eb1 + kAhead : e + 32;
+      hit = __ballot_sync(kFull, e + lane >= E || __ldg(ids + e + lane) > rhi);
+    }
+    end_of_last = e + __ffs(hit) - 1;
+  }
+  for (int base = rlo; base <= rhi; base += slots) {
+    const int cend = min(base + slots, rhi + 1);  // this chunk's rows: [base, cend)
+    // edge eb0 + j (j = n: the edge after the range) starts rows prev+1 .. cur
+    for (int j = threadIdx.x; j <= n; j += blockDim.x) {
+      const int lo = max(sh.ids[j] + 1, base), hi = min(sh.ids[j + 1], cend);
+      for (int r = lo; r <= hi; ++r) sh.start[r - base] = eb0 + j;
+    }
+    if (runs_on && cend == rhi + 1 && threadIdx.x == 0) sh.start[cend - base] = end_of_last;
+    __syncthreads();
+    row_sum(base, cend, sh.start);
+    __syncthreads();  // the next chunk rewrites start
+  }
+}
+
+// F <= 8: one thread per row, all F columns.
+template <int F>
+__global__ void sorted_segment_sum_rows_kernel(const float* __restrict__ values,
+                                               const int* __restrict__ ids,
+                                               float* __restrict__ out, int E, int N, int EB) {
+  __shared__ Shared sh;
+  owned_rows(ids, E, N, EB, blockDim.x, sh, [&](int base, int cend, const int* start) {
+    const int slot = threadIdx.x, row = base + slot;
+    if (row >= cend) return;
+    const int end = start[slot + 1];
+    float acc[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+    for (int e = start[slot]; e < end; e += kInFlight) {
+      const float* p = values + static_cast<long long>(e) * F;
+      float v[kInFlight * F];
+#pragma unroll
+      for (int q = 0; q < kInFlight; ++q)
+#pragma unroll
+        for (int f = 0; f < F; ++f) v[q * F + f] = e + q < end ? __ldg(p + q * F + f) : 0.0f;
+#pragma unroll
+      for (int q = 0; q < kInFlight; ++q)
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] += v[q * F + f];
+    }
+    float* o = out + static_cast<long long>(row) * F;
+#pragma unroll
+    for (int f = 0; f < F; ++f) o[f] = acc[f];
+  });
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// F > 8: `lanes` threads per row (a power of two up to 32, so a row lies in
+// one warp), each owning V neighbouring columns (V = 4: one float4), columns
+// from blockIdx.y * lanes * V; blockDim.x / lanes row slots.
+template <int V>
+__global__ void sorted_segment_sum_cols_kernel(const float* __restrict__ values,
+                                               const int* __restrict__ ids,
+                                               float* __restrict__ out, int E, int F, int N,
+                                               int EB, int lanes) {
+  __shared__ Shared sh;
+  owned_rows(ids, E, N, EB, blockDim.x / lanes, sh, [&](int base, int cend, const int* start) {
+    const int slot = threadIdx.x / lanes, row = base + slot;
+    const int col = (blockIdx.y * lanes + threadIdx.x % lanes) * V;
+    if (row >= cend || col >= F) return;
+    const int end = start[slot + 1];
+    if constexpr (V == 4) {
+      const int ld = F / 4;  // float4s per edge row
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int e = start[slot]; e < end; e += kInFlight) {
+        const float4* p =
+            reinterpret_cast<const float4*>(values + static_cast<long long>(e) * F + col);
+        float4 v[kInFlight];
+#pragma unroll
+        for (int q = 0; q < kInFlight; ++q)
+          v[q] = e + q < end ? __ldg(p + q * ld) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int q = 0; q < kInFlight; ++q) add4(acc, v[q]);
+      }
+      *reinterpret_cast<float4*>(out + static_cast<long long>(row) * F + col) = acc;
+    } else {
+      float acc = 0.0f;
+      for (int e = start[slot]; e < end; e += kInFlight) {
+        const float* p = values + static_cast<long long>(e) * F + col;
+        float v[kInFlight];
+#pragma unroll
+        for (int q = 0; q < kInFlight; ++q) v[q] = e + q < end ? __ldg(p + q * F) : 0.0f;
+#pragma unroll
+        for (int q = 0; q < kInFlight; ++q) acc += v[q];
+      }
+      out[static_cast<long long>(row) * F + col] = acc;
+    }
+  });
+}
+
+int sm_count() {
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return sms;
+}
+
+// threads per block: the most of 256, 128, 64, 32 that still gives every SM
+// two blocks of N rows at `lanes` threads a row
+int threads_for(int N, int lanes, int sms) {
+  int t = kMaxThreads;
+  while (t > 32 && (N + t / lanes - 1) / (t / lanes) < 2 * sms) t >>= 1;
+  return t;
+}
+
+// edges per block: `slots` rows at the mean edges per row, in [1, kMaxEdges]
+int edges_for(int E, int N, int slots) {
+  const long long eb = static_cast<long long>(slots) * E / N;
+  return static_cast<int>(eb < 1 ? 1 : eb > kMaxEdges ? kMaxEdges : eb);
+}
+
+int blocks_for(int E, int EB) { return E == 0 ? 1 : (E + EB - 1) / EB; }
+
+template <int F>
+void launch_rows(const float* values, const int* ids, float* out, int E, int N, int t,
+                 cudaStream_t stream) {
+  const int eb = edges_for(E, N, t);
+  sorted_segment_sum_rows_kernel<F><<<blocks_for(E, eb), t, 0, stream>>>(values, ids, out, E,
+                                                                          N, eb);
 }
 
 }  // namespace
@@ -68,14 +238,31 @@ extern "C" int gcnn_sorted_segment_sum_f32(const float* values, const int* ids,
                                            float* out, int E, int F,
                                            int num_segments, void* stream) {
   if (num_segments <= 0 || F <= 0) return static_cast<int>(cudaSuccess);
-  // feature tile: the smallest of 32, 64, 128 that covers F (128 for wider)
-  int tf = 32;
-  while (tf < F && tf < 128) tf *= 2;
-  const int rows = kThreads / tf;
-  dim3 block(tf, rows);
-  dim3 grid((num_segments + rows - 1) / rows, (F + tf - 1) / tf);
-  sorted_segment_sum_kernel<<<grid, block, 2 * rows * sizeof(int),
-                              static_cast<cudaStream_t>(stream)>>>(
-      values, ids, out, E, F, num_segments);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = num_segments, sms = sm_count();
+  if (F <= 8) {
+    const int t = threads_for(n, 1, sms);
+    switch (F) {
+      case 1: launch_rows<1>(values, ids, out, E, n, t, s); break;
+      case 2: launch_rows<2>(values, ids, out, E, n, t, s); break;
+      case 3: launch_rows<3>(values, ids, out, E, n, t, s); break;
+      case 4: launch_rows<4>(values, ids, out, E, n, t, s); break;
+      case 5: launch_rows<5>(values, ids, out, E, n, t, s); break;
+      case 6: launch_rows<6>(values, ids, out, E, n, t, s); break;
+      case 7: launch_rows<7>(values, ids, out, E, n, t, s); break;
+      default: launch_rows<8>(values, ids, out, E, n, t, s); break;
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int v = F % 4 == 0 && reinterpret_cast<std::uintptr_t>(values) % 16 == 0 ? 4 : 1;
+  int lanes = 1;
+  while (lanes < 32 && lanes * v < F) lanes <<= 1;
+  const int t = threads_for(n, lanes, sms);
+  const int eb = edges_for(E, n, t / lanes);
+  const dim3 grid(blocks_for(E, eb), (F + lanes * v - 1) / (lanes * v));
+  if (v == 4)
+    sorted_segment_sum_cols_kernel<4><<<grid, t, 0, s>>>(values, ids, out, E, F, n, eb, lanes);
+  else
+    sorted_segment_sum_cols_kernel<1><<<grid, t, 0, s>>>(values, ids, out, E, F, n, eb, lanes);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,6 +5,7 @@ training step or of one MD step goes on a CUDA card, for the PyTorch port.
                                      [--mode unfused|fused|accurate|chain]
                                      [--train | --md] [--evals 10]
                                      [--trace chiprun_out/serving_trace.json]
+    python3 profile_serving_torch.py --kernel sorted_segment_sum|cf_vjp
 
 Builds the serving batch of ``chip_smoke.py`` (512 QM9-like molecules,
 weights from seed 0; SchNet defaults in ``--mode`` (``interaction_args``
@@ -19,7 +20,18 @@ of ``bench.py``'s 21-atom molecule (SchNet in ``--mode``, masses 12, dt
 evaluations or steps under ``torch.profiler``. Prints the device time by kernel, the
 device busy share of the wall time, and one JSON summary line with the time
 and calls of each of the port's own kernels; writes a Chrome trace when
-``--trace`` is given. Needs one CUDA card.
+``--trace`` is given.
+
+``--kernel`` is the kernel-only timing mode, seconds long where a whole
+``chip_smoke.py`` takes minutes: it builds the kernel's source afresh
+(printing ptxas's registers and spills), builds the main-path batch and runs
+``chip_smoke.py``'s own checks of that kernel, each against its plain
+version and each printed as a JSON record: ``sorted_segment_sum``, phase
+3's three timed shapes of the SchNet serving batch and its edge cases;
+``cf_vjp``, phase 15's edge cases and its timed check at the
+``schnet_train`` batch (with the plain version's and the port's unfused
+chain's times). The last line is one JSON summary of the timed records.
+Needs one CUDA card.
 """
 import argparse
 import functools
@@ -81,6 +93,20 @@ def training_run(name, mode):
     return run
 
 
+def kernel_records(name):
+    """``chip_smoke.py``'s checks of kernel ``name`` at its main-path shapes
+    and edge cases, after a fresh build of its source."""
+    chip_smoke.phase_build([{"sorted_segment_sum": "segment_sum",
+                             "cf_vjp": "fused_interaction"}[name]])
+    if name == "sorted_segment_sum":
+        _, batch = chip_smoke.make_predictor("cuda").make_batch(chip_smoke.qm9_like_mols(0, 512))
+        return chip_smoke.phase_kernel(batch)
+    batch = chip_smoke.train_batch("schnet_chain_train", 0, 512, "cuda")
+    recs = chip_smoke.chain_edge_case_checks(batch.senders.device, ("cf_vjp",))["cf_vjp"]
+    return [chip_smoke.chain_timed_check(name, batch, chip_smoke.schnet_model("chain", "cuda"))
+            ] + recs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("schnet", "hdnnp2nd", "hdnnp4th"),
@@ -92,6 +118,8 @@ def main():
                       help="profile training steps instead of serving evaluations")
     kind.add_argument("--md", action="store_true",
                       help="profile MD steps of a 21-atom molecule instead")
+    kind.add_argument("--kernel", choices=("sorted_segment_sum", "cf_vjp"),
+                      help="time one kernel at its main-path shapes instead")
     ap.add_argument("--evals", type=int, default=10)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
@@ -100,6 +128,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke.nvidia_smi()
+    if args.kernel:
+        timed = [r for r in kernel_records(args.kernel) if "ms" in r]
+        print(json.dumps({"card": smi, "kernel": args.kernel, "timed": timed}))
+        return
     if args.mode != "unfused" and args.model != "schnet":
         raise SystemExit("profile_serving_torch: --mode is SchNet's")
     if args.train and args.mode not in ("unfused", "chain"):

@@ -26,19 +26,31 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _sorted_case(seed, e, n, f):
+def _sorted_case(seed, e, n, f, layout="every third row empty"):
+    """Ascending ids over n rows: every third row empty; or from row n / 2
+    on, with empty rows at both ends; or one row of 5000 of the e edges."""
     rs = np.random.RandomState(seed)
-    allowed = np.array([r for r in range(n - 1) if r % 3])  # empty segments
-    ids = np.sort(rs.choice(allowed, size=e)).astype(np.int32)
-    return rs.randn(e, f).astype(np.float32), ids
+    if layout == "every third row empty":
+        allowed = np.array([r for r in range(n - 1) if r % 3])
+        ids = rs.choice(allowed, size=e)
+    elif layout == "from row n / 2":
+        ids = rs.randint(n // 2, n - n // 20, size=e)
+    else:
+        ids = np.concatenate([rs.randint(0, n, size=e - 5000), np.full(5000, n // 2)])
+    return rs.randn(e, f).astype(np.float32), np.sort(ids).astype(np.int32)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("e,n,f", [(54784, 8192, 128), (54784, 8192, 3),
-                                   (8192, 513, 64), (1000, 50, 1), (1000, 50, 5),
-                                   (1000, 50, 300)])
-def test_kernel_matches_plain(cuda_device, e, n, f):
-    vals, ids = _sorted_case(e + f, e, n, f)
+@pytest.mark.parametrize("e,n,f,layout", [
+    (54784, 8192, 128, "every third row empty"), (54784, 8192, 3, "every third row empty"),
+    (8192, 513, 64, "every third row empty"), (1000, 50, 1, "every third row empty"),
+    (1000, 50, 5, "every third row empty"), (1000, 50, 300, "every third row empty"),
+    (54784, 8192, 4, "every third row empty"), (1000, 50, 130, "every third row empty"),
+    (6000, 2000, 3, "from row n / 2"), (6000, 2000, 128, "from row n / 2"),
+    (7000, 300, 3, "one long row"), (7000, 300, 64, "one long row"),
+    (7000, 300, 130, "one long row")])
+def test_kernel_matches_plain(cuda_device, e, n, f, layout):
+    vals, ids = _sorted_case(e + f, e, n, f, layout)
     v = torch.from_numpy(vals).to(cuda_device)
     i = torch.from_numpy(ids).to(cuda_device)
     before = kseg.launches

@@ -34,20 +34,39 @@ def _sorted_case(seed, e, n, f, empty_every=3):
     return vals, ids
 
 
-@pytest.mark.parametrize("f", [3, 64, 128])
-def test_sorted_segment_sum_matches_jax(f):
-    vals, ids = _sorted_case(f, 3000, 700, f)
-    ref = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(ids), 700,
+def _hold_to_jax(vals, ids, n):
+    """SortedSegmentSum against ``jax.ops.segment_sum`` and the Pallas kernel
+    in interpret mode; returns the port's sum."""
+    ref = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(ids), n,
                                          indices_are_sorted=True))
     pallas = np.asarray(_sorted_segment_sum_pallas_v2(
-        jnp.asarray(vals), jnp.asarray(ids), 700, exact=True, interpret=True))
+        jnp.asarray(vals), jnp.asarray(ids), n, exact=True, interpret=True))
     out = kseg.SortedSegmentSum.apply(torch.from_numpy(vals), torch.from_numpy(ids),
-                                      700).numpy()
-    assert out.shape == (700, f)
+                                      n).numpy()
+    assert out.shape == (n, vals.shape[1])
     scale = 1.0 + np.abs(ref).max()
     assert np.abs(out - ref).max() <= 1e-6 * scale
     assert np.abs(out - pallas).max() <= 1e-6 * scale
+    return out
+
+
+# the kernel's layouts split at F <= 8 (a thread a row) and F a multiple of 4
+# (float4 columns); 130 takes scalar columns
+@pytest.mark.parametrize("f", [1, 3, 4, 5, 64, 128, 130])
+def test_sorted_segment_sum_matches_jax(f):
+    vals, ids = _sorted_case(f, 3000, 700, f)
+    out = _hold_to_jax(vals, ids, 700)
     assert not out[0].any() and not out[699].any()  # empty segments are 0
+
+
+@pytest.mark.parametrize("f", [3, 128])
+def test_sorted_segment_sum_ids_above_zero_matches_jax(f):
+    """Ids from row 1000 of 2000: the first 1000 rows and the last 100 are
+    empty."""
+    rs = np.random.RandomState(f + 11)
+    ids = np.sort(rs.randint(1000, 1900, size=3000)).astype(np.int32)
+    out = _hold_to_jax(rs.randn(3000, f).astype(np.float32), ids, 2000)
+    assert not out[:1000].any() and not out[1900:].any()
 
 
 @pytest.mark.parametrize("shape", [(40,), (40, 2, 3)])

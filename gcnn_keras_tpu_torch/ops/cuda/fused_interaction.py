@@ -53,9 +53,10 @@ launches = dict.fromkeys(KERNELS, 0)
 
 EPS = 1e-12
 SHARED_MEMORY_BYTES = 232448  # the dynamic shared memory a Hopper block may take
-# kEdgesFwd, kEdges, kSlots and kMisc of csrc/fused_interaction.cu: edges per
-# chunk of cf_fwd and of the other two, float slots per edge, spare ints
-_EDGES_FWD, _EDGES_BWD, _EDGE_SLOTS, _MISC_INTS = 16, 8, 13, 4
+# kEdgesFwd, kEdgesTile, kEdges, kSlots and kMisc of csrc/fused_interaction.cu:
+# edges per chunk of cf_fwd, cf_vjp and cf_hesjvp, float slots per edge, spare
+# ints
+_EDGES_FWD, _EDGES_VJP, _EDGES_BWD, _EDGE_SLOTS, _MISC_INTS = 16, 32, 8, 13, 4
 
 
 class CFStatic(NamedTuple):
@@ -143,17 +144,21 @@ def shared_memory_bytes(kind: str, b: int, u: int) -> int:
         e = _EDGES_FWD
         floats = e * ((u + 3) // 4 * 4) + u * u + b * u + b + e * b + e
         return 4 * (floats + 3 * e + _MISC_INTS)
-    # W2 with its rows padded to U + 1, its cotangent sum, the centres, the
-    # chunk's basis rows and per-edge scalars; cf_vjp: W1 and its sum, the
-    # chunk's hidden rows and F cotangents, one block-sum scratch row a
-    # warp; cf_hesjvp: W1, u_W1 and the sum, hidden rows, their tangents
-    # and two cotangent rows an edge, two scratch rows a warp; 4 ints an edge
-    e, warps = _EDGES_BWD, (u + 31) // 32
-    floats = u * (u + 1) + u * u + b + e * b + _EDGE_SLOTS * e
     if kind == "cf_vjp":
-        floats += 2 * b * u + 2 * e * u + warps * e
-    else:
-        floats += 3 * b * u + 4 * e * u + 2 * warps * e
+        # W2 and W1 with U padded to a multiple of 32, the W1 sum, the
+        # chunk's hidden, F-cotangent and z-cotangent rows, its basis rows,
+        # the centres and per-edge scalars; 4 ints an edge (the W2 sum lives
+        # in registers)
+        e, p = _EDGES_VJP, (u + 31) // 32 * 32
+        floats = p * p + 2 * b * p + 3 * e * p + e * b + b + _EDGE_SLOTS * e
+        return 4 * (floats + 4 * e + _MISC_INTS)
+    # cf_hesjvp: W2 with its rows padded to U + 1, its cotangent sum, the
+    # centres, the chunk's basis rows and per-edge scalars, W1, u_W1 and the
+    # W1 sum, hidden rows, their tangents and two cotangent rows an edge, two
+    # block-sum scratch rows a warp; 4 ints an edge
+    e, warps = _EDGES_BWD, (u + 31) // 32
+    floats = (u * (u + 1) + u * u + b + e * b + _EDGE_SLOTS * e + 3 * b * u + 4 * e * u
+              + 2 * warps * e)
     return 4 * (floats + 4 * e + _MISC_INTS)
 
 

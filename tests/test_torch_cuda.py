@@ -569,28 +569,31 @@ def test_schnet_md_mode_serving_on_the_card_matches_the_cpu(cuda_device, mode):
 # ------------------------------------------------ the fused interaction chain
 
 
-def _chain_case(n, e, u, b, seed, dev, window=40):
-    """Receiver-sorted edges with senders within ``window`` rows, 10%
-    masked, and the inputs of ``chip_smoke.chain_inputs``."""
+def _chain_case(n, e, u, b, seed, dev, window=40, masked=0.1):
+    """Receiver-sorted edges with senders within ``window`` rows, a share
+    ``masked`` of them masked, and the inputs of ``chip_smoke.chain_inputs``."""
     import chip_smoke
     from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
     rs = np.random.RandomState(seed)
     recv = np.sort(rs.randint(0, n, e))
     send = np.clip(recv + rs.randint(-window, window + 1, e), 0, n - 1)
     edges = tuple(torch.from_numpy(a).to(dev) for a in (
-        send.astype(np.int32), recv.astype(np.int32), rs.rand(e) > 0.1))
+        send.astype(np.int32), recv.astype(np.int32), rs.rand(e) >= masked))
     st = fi.CFStatic(bins=b, distance_max=4.0, offset=0.0, sigma=0.4, units=u)
     return chip_smoke.chain_inputs(n, u, b, seed, dev), edges, st
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,e,u,b", [(150, 600, 16, 8), (8192, 54784, 128, 20)])
-def test_chain_kernels_match_plain(cuda_device, n, e, u, b):
+@pytest.mark.parametrize("n,e,u,b,masked", [(150, 600, 16, 8, 0.1), (8192, 54784, 128, 20, 0.1),
+                                             (8192, 54784, 128, 20, 0.0)])
+def test_chain_kernels_match_plain(cuda_device, n, e, u, b, masked):
     """The three fused-chain kernels against their plain versions, one
-    launch each, within ``chip_smoke.check_chain``'s tolerances."""
+    launch each, within ``chip_smoke.check_chain``'s tolerances; at full
+    width also with every edge real."""
     import chip_smoke
     from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
-    (x, pos, weights, ct, tangents), edges, st = _chain_case(n, e, u, b, n, cuda_device)
+    (x, pos, weights, ct, tangents), edges, st = _chain_case(n, e, u, b, n, cuda_device,
+                                                             masked=masked)
     for name in fi.KERNELS:
         before = fi.launches[name]
         chip_smoke.check_chain(name, chip_smoke.chain_args(name, x, pos, weights, ct, tangents,

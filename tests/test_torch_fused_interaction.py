@@ -523,3 +523,18 @@ def test_wrappers_refuse_what_they_cannot_take():
     with pytest.raises(ValueError, match=r"ct must be"):
         fi.cf_vjp(*res, res[0][:3], *edges, st)
     assert fi.fits_shared_memory(20, 128) and not fi.fits_shared_memory(20, 200)
+
+
+def test_vjp_shared_memory_is_the_tiled_layout_and_the_gate_stays():
+    """cf_vjp's block at B 20, U 128: W2 and W1 once, the W1 sum, the
+    chunk's h, a and dz rows (32 edges of U), its basis rows, the centres and
+    the per-edge scalars; the W2 sum lives in registers. One block a SM
+    takes it. The shared-memory gate stays cf_hesjvp's: U 148 at B 20."""
+    up, e, b = 128, 32, 20
+    floats = up * up + 2 * b * up + 3 * e * up + e * b + b + 13 * e
+    need = fi.shared_memory_bytes("cf_vjp", 20, 128)
+    assert need == 4 * (floats + 4 * e + 4) == 140000
+    assert fi.SHARED_MEMORY_BYTES // 2 < need <= fi.SHARED_MEMORY_BYTES
+    assert fi.fits_shared_memory(20, 148) and not fi.fits_shared_memory(20, 149)
+    assert (fi.shared_memory_bytes("cf_vjp", 20, 149) <= fi.SHARED_MEMORY_BYTES
+            < fi.shared_memory_bytes("cf_hesjvp", 20, 149))

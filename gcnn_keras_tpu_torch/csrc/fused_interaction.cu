@@ -655,6 +655,7 @@ __global__ void __launch_bounds__(NT, 1)
       for (int ei = 0; ei < EW; ++ei)
 #pragma unroll
         for (int j = 0; j < G; ++j) f[ei][j] = b2v[j];
+#pragma unroll 2
       for (int t = 0; t < up; t += 4) {
         float4 h4[EW];
 #pragma unroll
@@ -696,6 +697,7 @@ __global__ void __launch_bounds__(NT, 1)
       for (int ei = 0; ei < EW; ++ei)
 #pragma unroll
         for (int j = 0; j < G; ++j) d[ei][j] = zero4;
+#pragma unroll 2
       for (int t = 0; t < up; t += 4) {
         float4 a4[EW];
 #pragma unroll
@@ -769,6 +771,7 @@ __global__ void __launch_bounds__(NT, 1)
         if (!gok[j]) continue;
         float* p = s_gw1 + k * up + 4 * gs[j];
         float4 g = ld4(p);
+#pragma unroll 8
         for (int e = 0; e < n; ++e) fma4(g, s_b[e * B + k], ld4(s_dz + e * up + 4 * gs[j]));
         st4(p, g);
       }

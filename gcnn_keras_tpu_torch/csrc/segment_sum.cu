@@ -41,14 +41,18 @@
 //   leaves a block for at least a quarter of the SMs; a block's edge range
 //   holds about 3/4 of its row slots' worth of mean rows, so that its rows
 //   mostly fit one pass.
-// What was measured on an NVIDIA H100 80GB HBM3 at 700 W (profile_serving_torch.py
-// --kernel, and probes beside it): a fixed run of rows per block with two
-// 32-ary searches over all ids (8 dependent loads before the first value in
-// one-warp blocks) was no faster at F = 3 than a search per row (0.0163 ms
-// against 0.0160); rows owned by edge ranges but values read from device
-// memory per row spent most of their time in the row sums; staging the
-// values gave 0.0138 ms at F = 3 in blocks of one warp, and blocks of 128
-// threads 0.0096 (index_add_ 0.0082).
+// What was measured on an NVIDIA H100 80GB HBM3 at 700 W, L2-cold:
+// - a fixed run of rows per block with two 32-ary searches over all ids
+//   (8 dependent loads before the first value in one-warp blocks) was no
+//   faster at F = 3 than a search per row: 0.0163 ms against 0.0160
+//   (profile_serving_torch.py --kernel);
+// - rows owned by edge ranges, values read from device memory per row:
+//   0.0183 ms at F = 3, most of it in the row sums (the same);
+// - with the values staged, blocks that give every SM two took 0.0137 ms at
+//   F = 3 and 0.0108 at the readout; blocks for a quarter of the SMs 0.0094
+//   and 0.0087, index_add_ 0.0084 and 0.0101 in the same call; a launch
+//   with no edges takes 0.0061 ms, 0.0012 more than the search-per-row
+//   kernel's (probe_kernel_variants.py).
 //
 // Registers (ptxas, sm_90a): 32-64 a thread, no spills; 9.4 KB of static
 // shared memory a block and the staged values (at most kStaged floats).

@@ -9,8 +9,11 @@ which compute the same function and differ only in their DMA schedule.
 Bound on the H100: memory bytes. Each call reads ``values`` and ``ids``
 once and writes ``out`` once; at the SchNet serving shapes (E=54784,
 F=128, N=8192) that is 28.0 + 0.2 + 4.2 MB, about 9.7 us at 3.35 TB/s.
-The design answers it by reading each value once, in coalesced rows, and
-summing in registers with no atomics; the F=3 calls are launch-bound.
+The design answers it by giving each block the rows whose first edge lies
+in its edge range (no search over the ids), staging that range's ids and
+values in shared memory with coalesced loads, and summing each row in edge
+order with no atomics, in a layout chosen by F (the source's header). At
+F = 3 most of a call is the launch itself.
 
 A CPU tensor takes :func:`segment_sum_plain`; a CUDA tensor launches the
 kernel or raises. ``launches`` counts kernel launches and nothing else.

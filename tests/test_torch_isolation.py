@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``gcnn_keras_tpu_torch`` nor its
-scripts (``chip_smoke.py``, ``profile_serving_torch.py``) imports JAX, flax, optax or the JAX package, and its entry
+scripts (``chip_smoke.py``, ``profile_serving_torch.py``,
+``probe_kernel_variants.py``) imports JAX, flax, optax or the JAX package, and its entry
 points refuse to fall back to the CPU unasked.
 
 The scan reads the sources' ASTs rather than ``sys.modules``: the test
@@ -24,7 +25,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gcnn_keras_tpu")
 SOURCES = sorted((ROOT / "gcnn_keras_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "profile_serving_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "profile_serving_torch.py", ROOT / "probe_kernel_variants.py"]
 
 
 def _imported_modules(source):

@@ -54,8 +54,9 @@ order, each raising on a failed check:
    and the fused cfconv (``accurate_cfconv``) against their plain versions
    at the SchNet serving shapes of the seed-0 request (the fused cfconv
    also against its plain version in float64), with times, bounds and the
-   time of the unfused PyTorch chain, and at edge cases (no edges, rows
-   without edges, F or U 3 and 200, one edge, padding edges).
+   time of the unfused PyTorch chain, the fused cfconv also timed at the MD
+   step's shape (phase 14's 21-atom molecule), and at edge cases (no edges,
+   rows without edges, F or U 3 and 200, one edge, padding edges).
 12. SchNet serving in the MD modes: ``make_model()`` with
    ``interaction_args={"fused_aggregate": True}``, then with
    ``{"accurate_cfconv": True}``, answers the 3 requests of phase 4,
@@ -80,6 +81,9 @@ order, each raising on a failed check:
    chain for the same function, and at edge cases (no edges, all padding,
    one edge, rows without edges, coincident positions, senders 1000 rows
    away, N not a multiple of a block, U 3 and U at the shared-memory gate).
+   The second-reverse kernel is held in both of its variants: as a force
+   loss calls it (the weight tangents absent; its time is the ``kernels``
+   line's) and with every tangent.
 16. SchNet serving with ``fused_chain=True``: the 3 requests of phase 4,
    checked as there, against the CPU and phase 4's unfused answers.
    ``SCHNET_MODES``, which phase 14 runs, leaves this mode out.
@@ -378,7 +382,8 @@ def phase_build(names=None):
     log(f"build: {len(logs)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
     for name, out in logs.items():
         for line in out.splitlines():
-            if "ptxas info" in line:
+            # "ptxas info" lines, and the stack and spill line of each kernel
+            if "ptxas info" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
 
@@ -1281,12 +1286,14 @@ def cfconv_work(e, b, u, n):
     return nbytes, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def chain_work(name, n, e, e_real, b, u):
+def chain_work(name, n, e, e_real, b, u, weight_tangents=True):
     """What the function of fused-chain kernel ``name`` needs on these
     inputs: the bytes of each input read once (the edge arrays of all ``e``
     edges) and each output written once, and for each of the ``e_real``
     real edges its float32 operations (an FMA is 2) and special-function
-    results. Returns ``(bytes, bound_ms, bound_by)``."""
+    results; for cf_hesjvp without ``weight_tangents`` (a force loss's
+    call) the terms of u_W1, u_b1, u_W2 and u_b2 are not needed. Returns
+    ``(bytes, bound_ms, bound_by)``."""
     weights = b * u + u * u + 2 * u
     # every kernel: |v|^2 and r (9), the basis (3 a bin, and an exp)
     ops, sfu = 9 + 3 * b, b
@@ -1316,6 +1323,11 @@ def chain_work(name, n, e, e_real, b, u):
                 + 10 * b * u + 6 * b + 6 * u + 9 + 30)
         sfu += 3 * u
         floats = (3 * n * u + 6 * n + 2 * weights) + (2 * n * u + 3 * n + weights)
+        if not weight_tangents:
+            # b u_W1 and u_W1^T (b g) 4 B U, h u_W2 and u_W2 a 4 U U, u_b1
+            # and u_b2 2 U, the third r-cotangent term 2 U; the tangents unread
+            ops -= 4 * b * u + 4 * u * u + 4 * u
+            floats -= weights
     nbytes = 4 * floats + e * (4 + 4 + 1)
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = max(e_real * ops / H100_F32_OPS_PER_S, e_real * sfu / H100_SFU_PER_S)
@@ -1450,12 +1462,12 @@ def cfconv_edge_cases(dev, b=20):
     return recs
 
 
-def phase_schnet_kernels(batch, model):
-    """Phase 11: the gms and fused cfconv kernels against their plain
-    versions at the SchNet serving shapes of ``batch`` (its senders,
-    receivers and Gaussian basis; random node features and filters; the
-    filter weights of ``model``'s first interaction), timed, and at the edge
-    cases."""
+def phase_schnet_kernels(batch, model, names=("gather_mul_segsum", "fused_cfconv")):
+    """Phase 11: the gms and fused cfconv kernels (those of ``names``)
+    against their plain versions at the SchNet serving shapes of ``batch``
+    (its senders, receivers and Gaussian basis; random node features and
+    filters; the filter weights of ``model``'s first interaction), timed,
+    the fused cfconv also at the MD step's shape, and at the edge cases."""
     from gcnn_keras_tpu_torch.layers.geometry import edge_distances, gauss_basis
     dev = batch.senders.device
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1471,12 +1483,25 @@ def phase_schnet_kernels(batch, model):
     filt = torch.randn(e, units, generator=gen, device=dev)
     xj = torch.randn(e, units, generator=gen, device=dev)
     label = "SchNet serving, 512 mols"
-    gms = [check_gms(x, filt, batch.senders, batch.receivers, n, label, True)]
-    gms += gms_edge_cases(dev)
+    out = {}
+    if "gather_mul_segsum" in names:
+        gms = [check_gms(x, filt, batch.senders, batch.receivers, n, label, True)]
+        gms += gms_edge_cases(dev)
+        gms[0]["path"] = "schnet_fused_serving"
+        out["gather_mul_segsum"] = gms
+    if "fused_cfconv" not in names:
+        return out
     cfconv = [check_fused_cfconv(basis, xj, batch.receivers, n, *weights, label, True)]
+    md = md_batch(dev)  # the MD step's shape: few rows, few edges
+    with torch.no_grad():
+        md_basis = gauss_basis(edge_distances(md), **model.config["gauss_args"])
+        md_basis = (md_basis * md.edge_mask[:, None].to(md_basis.dtype)).contiguous()
+    cfconv.append(check_fused_cfconv(
+        md_basis, torch.randn(md.n_edge, units, generator=gen, device=dev), md.receivers,
+        md.n_node, *weights, f"MD shape, 21 atoms (N {md.n_node}, E {md.n_edge})", True))
     cfconv += cfconv_edge_cases(dev)
-    gms[0]["path"], cfconv[0]["path"] = "schnet_fused_serving", "schnet_accurate_serving"
-    return {"gather_mul_segsum": gms, "fused_cfconv": cfconv}
+    cfconv[0]["path"] = "schnet_accurate_serving"
+    return dict(out, fused_cfconv=cfconv)
 
 
 def bilinear_family_graph():
@@ -1833,7 +1858,9 @@ def chain_unfused_run(name, args, perm):
             grads = torch.autograd.grad(y, xs, ct, create_graph=name == "cf_hesjvp")
             if name == "cf_vjp":
                 return grads
-            return torch.autograd.grad(grads, xs + [ct], rest[1:], allow_unused=True)
+            given = [(g, t) for g, t in zip(grads, rest[1:]) if t is not None]
+            return torch.autograd.grad([g for g, _ in given], xs + [ct],
+                                       [t for _, t in given], allow_unused=True)
     return run
 
 
@@ -1862,9 +1889,12 @@ def check_chain(name, args, label, timed, perm=None):
     rec = {"case": label, "N": n, "E": e, "real_edges": e_real, "U": st.units, "B": st.bins,
            "max_abs_err": max(errs, default=0.0), "max_abs_err_by_output": errs,
            "max_err_over_tol_scale": worst}
+    if name == "cf_hesjvp":
+        rec["weight_tangents"] = any(t is not None for t in args[9:13])
     if timed:
         flush = torch.empty(L2_FLUSH_BYTES // 4, device=x.device)
-        nbytes, bound_ms, bound_by = chain_work(name, n, e, e_real, st.bins, st.units)
+        nbytes, bound_ms, bound_by = chain_work(name, n, e, e_real, st.bins, st.units,
+                                                rec.get("weight_tangents", True))
         rec.update(
             ms=cuda_median_ms(lambda: kernel(*args), 30, flush),
             ms_warm=cuda_median_ms(lambda: kernel(*args), 30),
@@ -1876,13 +1906,27 @@ def check_chain(name, args, label, timed, perm=None):
     return rec
 
 
-def chain_args(name, x, pos, weights, ct, tangents, edges, st):
-    """The wrapper arguments of fused-chain kernel ``name``."""
+def chain_args(name, x, pos, weights, ct, tangents, edges, st, training=False):
+    """The wrapper arguments of fused-chain kernel ``name``; for cf_hesjvp
+    with ``training``, those of a force loss's call: the weight tangents
+    absent (``None``)."""
     if name == "cf_fwd":
         return (x, pos, *weights, *edges, st)
     if name == "cf_vjp":
         return (x, pos, *weights, ct, *edges, st)
+    if training:
+        tangents = (*tangents[:2], None, None, None, None)
     return (x, pos, *weights, ct, *tangents, *edges, st)
+
+
+def chain_calls(name):
+    """The calls of kernel ``name`` that phase 15 checks, as the
+    ``training`` flag of :func:`chain_args` and a label: cf_hesjvp is held
+    both as a force loss calls it (its weight tangents absent; the call the
+    training step makes) and with every tangent."""
+    if name == "cf_hesjvp":
+        return ((True, "force-loss tangents"), (False, "all tangents"))
+    return ((False, None),)
 
 
 def chain_inputs(n, u, b, seed, dev, pos=None):
@@ -1952,18 +1996,22 @@ def chain_edge_case_checks(dev, names=None):
         st = fi.CFStatic(bins=b, distance_max=4.0, offset=0.0, sigma=0.4, units=u)
         x, pos, weights, ct, tangents = chain_inputs(n, u, b, 20 + i, dev, pos)
         for name in names:
-            rec = check_chain(name, chain_args(name, x, pos, weights, ct, tangents,
-                                               (send, recv, mask), st), label, False)
-            if not mask.any() and rec["max_abs_err"] != 0.0:
-                raise AssertionError(f"{name} {label}: output without real edges")
-            recs[name].append(rec)
+            for training, call in chain_calls(name):
+                rec = check_chain(name, chain_args(name, x, pos, weights, ct, tangents,
+                                                   (send, recv, mask), st, training),
+                                  label if call is None else f"{label}, {call}", False)
+                if not mask.any() and rec["max_abs_err"] != 0.0:
+                    raise AssertionError(f"{name} {label}: output without real edges")
+                recs[name].append(rec)
     return recs
 
 
 def chain_timed_check(name, batch, model):
     """Fused-chain kernel ``name`` against its plain version at the shapes
     of ``batch`` (its edges and positions, the filter weights of ``model``'s
-    first interaction, random node features, cotangent and tangents), timed."""
+    first interaction, random node features, cotangent and tangents), timed,
+    for each call of :func:`chain_calls`: the first is the training step's,
+    whose time the ``kernels`` line reports."""
     cf = model.interaction_0.cfconv
     st = cf.chain_static
     x, pos, _, ct, tangents = chain_inputs(batch.n_node, st.units, st.bins, 9,
@@ -1972,10 +2020,12 @@ def chain_timed_check(name, batch, model):
     with torch.no_grad():
         weights = tuple(t.contiguous() for t in cf.filter_weights())
     edges = (batch.senders, batch.receivers, batch.edge_mask)
-    rec = check_chain(name, chain_args(name, x, pos, weights, ct, tangents, edges, st),
-                      f"schnet_train batch, {batch.n_graphs - 1} mols", True,
-                      batch.edges["sender_perm"])
-    return dict(rec, path="schnet_chain_train")
+    label = f"schnet_train batch, {batch.n_graphs - 1} mols"
+    return [dict(check_chain(name, chain_args(name, x, pos, weights, ct, tangents, edges, st,
+                                              training),
+                             label if call is None else f"{label}, {call}", True,
+                             batch.edges["sender_perm"]), path="schnet_chain_train")
+            for training, call in chain_calls(name)]
 
 
 def phase_chain_kernels(batch, model):
@@ -1984,7 +2034,7 @@ def phase_chain_kernels(batch, model):
     from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
     recs = chain_edge_case_checks(batch.senders.device)
     for name in fi.KERNELS:
-        recs[name].insert(0, chain_timed_check(name, batch, model))
+        recs[name][:0] = chain_timed_check(name, batch, model)
     return recs
 
 

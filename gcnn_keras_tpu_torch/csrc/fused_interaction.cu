@@ -38,7 +38,9 @@
 //
 // Bound (chip_smoke.py chain_work): float32 operations. Per real edge, cf_fwd
 // does 2 (B U + U U) + 4 U (the filter MLP and the message) besides the basis;
-// cf_vjp about 3 times that, cf_hesjvp about 8 times (16 U^2 + 16 B U). The
+// cf_vjp about 3 times that, cf_hesjvp about 8 times (16 U^2 + 16 B U), or 6
+// times (12 U^2 + 12 B U) when the weight tangents are absent (a force
+// loss's call: 0.189 ms at the schnet_train batch, 0.251 with them). The
 // (E, U) filter, its tangents and cotangents never reach memory.
 //
 // What every kernel shares: a block owns a run of receiver rows and their
@@ -54,14 +56,29 @@
 // block-width window at a time. Everything is float32 FMA on the CUDA cores:
 // no TF32, no tensor cores.
 //
-// cf_fwd and cf_hesjvp (as csrc/fused_cfconv.cu): thread u owns unit u;
-// per-edge scalars (r, its cotangents) are block sums over the units in a
-// fixed order. W1 and W2 sit in shared memory, W2 with its rows padded to
-// U + 1 so that both a column (thread u reading W2[t, u]) and a row (thread t
-// reading W2[t, u]) are free of bank conflicts; cf_hesjvp reads uW2 from
-// global memory (L2), by columns from uW2 and by rows from its transpose,
-// both coalesced; its weight sums sit in shared memory (each thread its own
-// column).
+// cf_fwd and cf_hesjvp_wide_kernel (U above 128; as the fused cfconv's wide
+// kernel): thread u owns unit u; per-edge scalars (r, its cotangents) are
+// block sums over the units in a fixed order. W1 and W2 sit in shared
+// memory, W2 with its rows padded to U + 1 so that both a column (thread u
+// reading W2[t, u]) and a row (thread t reading W2[t, u]) are free of bank
+// conflicts; cf_hesjvp_wide_kernel reads uW2 from global memory (L2), by
+// columns from uW2 and by rows from its transpose, both coalesced; its
+// weight sums sit in shared memory (each thread its own column).
+//
+// cf_hesjvp_kernel (U <= 128) runs on cf_vjp's layout below: its products
+// are F = h W2 and dF = dh W2 (+ h uW2) in one pass over W2, abar = W2 a and
+// hbar = W2 q (+ uW2 a) in another, and the W2 sum dh^T a + h^T q in
+// registers: 6 U x U products an edge without weight tangents, 8 with. The
+// section above the kernel has its phases. Shared memory at U 128, B 20:
+// 183008 bytes (W2 64 KB; W1, uW1 and the W1 sum 30 KB; the chunk's h, dh,
+// a, q and m rows 80 KB; basis rows and per-edge scalars), one block a SM.
+// Registers (ptxas, sm_90a): 255 a thread in both variants, no spills (0
+// bytes stack). On an NVIDIA H100 80GB HBM3 at 700 W, at the schnet_train
+// batch (chip_smoke.py phase 15, L2-cold): 0.754 ms without weight tangents
+// (the training step's call; 4.0x its bound), 1.210 ms with every tangent
+// (4.8x); the kernel it replaced (now cf_hesjvp_wide_kernel) took 2.825.
+// Product loops unrolled by one instead of two: 241 / 254 registers, 0.760
+// and 1.220 ms in the same call (probe_kernel_variants.py).
 //
 // cf_vjp is bound by its three U x U products per edge (F = h W2, W2 a and
 // the W2 sum h^T a: 3 x 16384 FMA at U 128). Its layout keeps them off
@@ -90,13 +107,14 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
 
 namespace {
 
 constexpr int kRowsFwd = 16;   // receiver rows per block of cf_fwd
 constexpr int kMinRows = 16;   // fewest receiver rows per block of cf_vjp, cf_hesjvp
 constexpr int kEdgesFwd = 16;  // edges per chunk of cf_fwd
-constexpr int kEdges = 8;      // edges per chunk of cf_hesjvp
+constexpr int kEdges = 8;      // edges per chunk of cf_hesjvp_wide_kernel
 constexpr int kStage = 16;     // loads in flight per thread while staging weights
 constexpr float kLog2 = 0.6931471805599453f;
 constexpr float kEps = 1e-12f;
@@ -373,6 +391,7 @@ __global__ void cf_fwd_kernel(const float* __restrict__ x, const float* __restri
 
 constexpr int kEdgesTile = 32;   // edges per chunk of cf_vjp
 constexpr int kThreadsVjp = 256; // threads of a cf_vjp block (one block per SM)
+constexpr int kTiledUnits = 128; // U up to which cf_hesjvp takes the tiled kernel
 
 __host__ __device__ __forceinline__ int units_padded(int U) { return (U + 31) & ~31; }
 
@@ -842,8 +861,478 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 // --------------------------------------------------------------- cf_hesjvp
+//
+// The tiled kernel (U <= kTiledUnits), on cf_vjp's layout: one block of
+// kThreadsVjp = 256 threads per SM, 32-edge chunks, warp w on edges
+// 4 w .. 4 w + 3, lane l on units 4 l .. 4 l + 3, each U x U product as
+// 4 x 4 register tiles fed by float4 shared loads from the swizzled W2.
+// WT says whether the weight tangents uW1, ub1, uW2, ub2 are present; with
+// WT false (a force loss: they are absent) every term of theirs is left
+// out, not multiplied by zero. Per chunk:
+//   phase 0: geometry (with dr) and basis; z = b W1 + b1, s1 = (b g) W1 and
+//     [WT] b uW1 in one loop over the bins; dz = dr s1 (+ b uW1 + ub1),
+//     h, sig, dh = sig dz; rows h and dh to shared; c = ct[i], x[j], ux[j]
+//     by the lane that owns the units; rows a = c x[j] and q = c ux[j] to
+//     shared; the b2 sum += q in registers.
+//   phase 1: F = h W2 + b2 and dF = dh W2 (+ h uW2 + ub2) in one pass over
+//     W2; w_x[j] += c dF (atomics); the message rows m = dF x[j] + F ux[j]
+//     to shared; the W2 sum += dh (x) a + h (x) q in registers. After a
+//     barrier, threads u < U sweep the m rows in edge order into Ju, each
+//     row written once.
+//   phase 2: abar = W2 a and hbar = W2 q (+ uW2 a) in one pass over W2;
+//     z, s1, s2 = (b (g^2 + 2 gamma)) W1 and [WT] s3 = (b g) uW1, b uW1
+//     recomputed from the basis rows (cheaper in registers than carrying
+//     sig and dz from phase 0); dzbar = abar sig, zbar = hbar sig +
+//     abar sig (1 - sig) dz to the rows of h and dh; the b1 sum += zbar;
+//     drbar = sum_u dzbar s1 and rbar = sum_u dr dzbar s2 (+ dzbar s3) +
+//     zbar s1, each a warp sum (a warp holds every unit of its edges).
+//   then the W1 sum += (b g dr) (x) dzbar + b (x) zbar (shared, each thread
+//   its own entries), wv onto the sender (atomics) and the receiver (the
+//   sweep). Barriers: 9 per chunk (three in next_real).
+// uW2 (WT only) is read from device memory as float4 rows: uw2 in phase 1,
+// its transpose uw2t in phase 2, both coalesced (64 KB, L2-resident).
 
-__global__ void cf_hesjvp_kernel(
+template <bool WT>
+__global__ void __launch_bounds__(kThreadsVjp, 1)
+    cf_hesjvp_kernel(const float* __restrict__ x, const float* __restrict__ pos,
+                     const float* __restrict__ w1, const float* __restrict__ b1,
+                     const float* __restrict__ w2, const float* __restrict__ b2,
+                     const float* __restrict__ ct, const float* __restrict__ ux,
+                     const float* __restrict__ upos, const float* __restrict__ uw1,
+                     const float* __restrict__ ub1, const float* __restrict__ uw2,
+                     const float* __restrict__ ub2, const float* __restrict__ uw2t,
+                     const int* __restrict__ send, const int* __restrict__ recv,
+                     const unsigned char* __restrict__ mask, float* __restrict__ ju,
+                     float* __restrict__ w_x, float* __restrict__ pos_send,
+                     float* __restrict__ ww1, float* __restrict__ wb1,
+                     float* __restrict__ ww2, float* __restrict__ wb2,
+                     float* __restrict__ pos_recv, int N, int E, int B, int U, int rows,
+                     double dmax, double offset, float gamma, int vec) {
+  constexpr int NT = kThreadsVjp, KE = kEdgesTile, NW = NT / 32, EW = KE / NW;
+  constexpr int TI = kTiledUnits / NW;  // rows of the W2 sum a thread holds
+  extern __shared__ float4 smem4[];
+  const int up = units_padded(U), ngroups = up >> 2;
+  float* s_w2 = reinterpret_cast<float*>(smem4);  // [up][up], swizzled
+  float* s_w1 = s_w2 + up * up;                   // [B][up]
+  float* s_uw1 = s_w1 + B * up;                   // [B][up], staged if WT
+  float* s_gw1 = s_uw1 + B * up;                  // [B][up]: the W1 sum
+  float* s_h = s_gw1 + B * up;                    // [KE][up]: h, then dzbar
+  float* s_dh = s_h + KE * up;                    // [KE][up]: dh, then zbar
+  float* s_a = s_dh + KE * up;                    // [KE][up]
+  float* s_q = s_a + KE * up;                     // [KE][up]
+  float* s_m = s_q + KE * up;                     // [KE][up]: the rows of Ju
+  float* s_b = s_m + KE * up;                     // [KE][B]
+  float* s_shift = s_b + KE * B;                  // [B]
+  float* s_ef = s_shift + B;                      // [kSlots][KE]
+  int* s_ei = reinterpret_cast<int*>(s_ef + kSlots * KE);  // [kISlots][KE]
+  int* s_misc = s_ei + kISlots * KE;                       // [kMisc]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * rows;
+  const int r1 = min(r0 + rows, N);
+  if (tid == 0) s_misc[0] = lower_bound(recv, E, r0);
+  if (tid == 32) s_misc[1] = lower_bound(recv, E, r1);
+  stage_swizzled(s_w2, w2, U, up);
+  stage_padded(s_w1, w1, B, U, up);
+  if (WT) stage_padded(s_uw1, uw1, B, U, up);
+  fill_shifts(s_shift, B, dmax, offset);
+  fill(s_gw1, B * up, 0.0f);
+  // slots of a chunk that hold no edge are read: keep them finite
+  fill(s_h, 5 * KE * up + KE * B, 0.0f);
+  __syncthreads();
+  const int e0 = s_misc[0], e1 = s_misc[1];
+
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int u = 4 * lane;             // this lane's units u .. u + 3
+  const bool gok = lane < ngroups;    // which are not all padding
+  const float4 b1v = load_units(b1, u, U, false), b2v = load_units(b2, u, U, false);
+  const float4 ub1v = WT ? load_units(ub1, u, U, false) : zero4;
+  const float4 ub2v = WT ? load_units(ub2, u, U, false) : zero4;
+  float4 wb1v = zero4, wb2v = zero4;
+  float sw2[TI][4];  // the W2 sum: rows warp * TI + i, units u .. u + 3
+#pragma unroll
+  for (int i = 0; i < TI; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) sw2[i][k] = 0.0f;
+  const bool w2_rows = warp * TI < up;
+  const float two_gamma = 2.0f * gamma;
+  float acc = 0.0f;   // threads tid < U: unit tid of Ju's row cur
+  int cur = r0;
+  float pacc = 0.0f;  // threads 0-2: component tid of w_pos's receiver row pcur
+  int pcur = r0;
+  for (int c = next_real(mask, e0, e1, s_misc + 2); c < e1;
+       c = next_real(mask, c, e1, s_misc + 2)) {
+    const int n = min(KE, e1 - c);
+    chunk_geometry<KE>(pos, upos, send, recv, mask, c, n, s_ef, s_ei);
+    __syncthreads();
+    basis(s_b, s_ef + R * KE, s_shift, KE, B, gamma);
+    __syncthreads();
+    const bool edges = warp * EW < n;  // this warp's slots hold edges
+
+    // phase 0: h, dh, a = c x[j], q = c ux[j] to shared
+    if (edges && gok) {
+      float4 cv[EW], xv[EW], uxv[EW], z[EW], s1[EW], bu[EW];
+      float re[EW];
+#pragma unroll
+      for (int ei = 0; ei < EW; ++ei) {
+        const int e = warp * EW + ei;
+        const bool real = s_ei[REAL * KE + e];
+        const long long si = s_ei[SEND * KE + e], ri = s_ei[RECV * KE + e];
+        cv[ei] = real ? load_units(ct + ri * U, u, U, vec) : zero4;
+        xv[ei] = real ? load_units(x + si * U, u, U, vec) : zero4;
+        uxv[ei] = real ? load_units(ux + si * U, u, U, vec) : zero4;
+        re[ei] = s_ef[R * KE + e];
+        z[ei] = b1v;
+        s1[ei] = zero4;
+        bu[ei] = ub1v;
+      }
+      for (int k = 0; k < B; ++k) {
+        const float sk = s_shift[k];
+        const float4 w = ld4(s_w1 + k * up + u);
+        const float4 uw = WT ? ld4(s_uw1 + k * up + u) : zero4;
+#pragma unroll
+        for (int ei = 0; ei < EW; ++ei) {
+          const float bk = s_b[(warp * EW + ei) * B + k];
+          fma4(z[ei], bk, w);
+          fma4(s1[ei], bk * (two_gamma * (re[ei] - sk)), w);
+          if (WT) fma4(bu[ei], bk, uw);
+        }
+      }
+#pragma unroll
+      for (int ei = 0; ei < EW; ++ei) {
+        const int e = warp * EW + ei;
+        const float dr = s_ef[DR * KE + e];
+        float4 h, sig;
+        hidden(z[ei].x, h.x, sig.x);
+        hidden(z[ei].y, h.y, sig.y);
+        hidden(z[ei].z, h.z, sig.z);
+        hidden(z[ei].w, h.w, sig.w);
+        const float4 dh = make_float4(sig.x * fmaf(dr, s1[ei].x, bu[ei].x),
+                                      sig.y * fmaf(dr, s1[ei].y, bu[ei].y),
+                                      sig.z * fmaf(dr, s1[ei].z, bu[ei].z),
+                                      sig.w * fmaf(dr, s1[ei].w, bu[ei].w));
+        const float4 q = make_float4(cv[ei].x * uxv[ei].x, cv[ei].y * uxv[ei].y,
+                                     cv[ei].z * uxv[ei].z, cv[ei].w * uxv[ei].w);
+        st4(s_h + e * up + u, h);
+        st4(s_dh + e * up + u, dh);
+        st4(s_a + e * up + u, make_float4(cv[ei].x * xv[ei].x, cv[ei].y * xv[ei].y,
+                                          cv[ei].z * xv[ei].z, cv[ei].w * xv[ei].w));
+        st4(s_q + e * up + u, q);
+        wb2v.x += q.x;
+        wb2v.y += q.y;
+        wb2v.z += q.z;
+        wb2v.w += q.w;
+      }
+    }
+    __syncthreads();
+
+    // phase 1: F and dF, then w_x and the message rows m
+    if (edges && gok) {
+      float4 f[EW], df[EW];
+#pragma unroll
+      for (int ei = 0; ei < EW; ++ei) {
+        f[ei] = b2v;
+        df[ei] = ub2v;
+      }
+#pragma unroll 2
+      for (int t = 0; t < up; t += 4) {
+        float4 h4[EW], dh4[EW];
+#pragma unroll
+        for (int ei = 0; ei < EW; ++ei) {
+          h4[ei] = ld4(s_h + (warp * EW + ei) * up + t);
+          dh4[ei] = ld4(s_dh + (warp * EW + ei) * up + t);
+        }
+        const float4 wa = ld4(s_w2 + swz(t, lane, up));
+        const float4 wb = ld4(s_w2 + swz(t + 1, lane, up));
+        const float4 wc = ld4(s_w2 + swz(t + 2, lane, up));
+        const float4 wd = ld4(s_w2 + swz(t + 3, lane, up));
+#pragma unroll
+        for (int ei = 0; ei < EW; ++ei) {
+          fma4(f[ei], h4[ei].x, wa);
+          fma4(f[ei], h4[ei].y, wb);
+          fma4(f[ei], h4[ei].z, wc);
+          fma4(f[ei], h4[ei].w, wd);
+          fma4(df[ei], dh4[ei].x, wa);
+          fma4(df[ei], dh4[ei].y, wb);
+          fma4(df[ei], dh4[ei].z, wc);
+          fma4(df[ei], dh4[ei].w, wd);
+        }
+        if (WT) {
+          // rows t .. t + 3 of uW2 (zero at U and beyond)
+          const float4 ua = t < U ? load_units(uw2 + t * U, u, U, vec) : zero4;
+          const float4 ub = t + 1 < U ? load_units(uw2 + (t + 1) * U, u, U, vec) : zero4;
+          const float4 uc = t + 2 < U ? load_units(uw2 + (t + 2) * U, u, U, vec) : zero4;
+          const float4 ud = t + 3 < U ? load_units(uw2 + (t + 3) * U, u, U, vec) : zero4;
+#pragma unroll
+          for (int ei = 0; ei < EW; ++ei) {
+            fma4(df[ei], h4[ei].x, ua);
+            fma4(df[ei], h4[ei].y, ub);
+            fma4(df[ei], h4[ei].z, uc);
+            fma4(df[ei], h4[ei].w, ud);
+          }
+        }
+      }
+      // c, x[j] and ux[j] again (L2-hot since phase 0), not held in registers
+#pragma unroll
+      for (int ei = 0; ei < EW; ++ei) {
+        const int e = warp * EW + ei;
+        const bool real = s_ei[REAL * KE + e];
+        const long long si = s_ei[SEND * KE + e], ri = s_ei[RECV * KE + e];
+        const float4 xv = real ? load_units(x + si * U, u, U, vec) : zero4;
+        const float4 uxv = real ? load_units(ux + si * U, u, U, vec) : zero4;
+        st4(s_m + e * up + u, make_float4(fmaf(df[ei].x, xv.x, f[ei].x * uxv.x),
+                                          fmaf(df[ei].y, xv.y, f[ei].y * uxv.y),
+                                          fmaf(df[ei].z, xv.z, f[ei].z * uxv.z),
+                                          fmaf(df[ei].w, xv.w, f[ei].w * uxv.w)));
+        if (!real) continue;
+        const float4 cv = load_units(ct + ri * U, u, U, vec);
+        float* row = w_x + si * U;
+        if (u < U) atomicAdd(row + u, cv.x * df[ei].x);
+        if (u + 1 < U) atomicAdd(row + u + 1, cv.y * df[ei].y);
+        if (u + 2 < U) atomicAdd(row + u + 2, cv.z * df[ei].z);
+        if (u + 3 < U) atomicAdd(row + u + 3, cv.w * df[ei].w);
+      }
+    }
+
+    // the W2 sum += dh (x) a + h (x) q over the chunk's edges: rows
+    // warp * TI .. + TI
+    if (w2_rows && gok) {
+      for (int e = 0; e < n; ++e) {
+        const float4 av = ld4(s_a + e * up + u), qv = ld4(s_q + e * up + u);
+#pragma unroll
+        for (int i = 0; i < TI; i += 4) {
+          const float4 h4 = ld4(s_h + e * up + warp * TI + i);
+          const float4 dh4 = ld4(s_dh + e * up + warp * TI + i);
+          const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+          const float dhv[4] = {dh4.x, dh4.y, dh4.z, dh4.w};
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) {
+            sw2[i + ii][0] = fmaf(dhv[ii], av.x, fmaf(hv[ii], qv.x, sw2[i + ii][0]));
+            sw2[i + ii][1] = fmaf(dhv[ii], av.y, fmaf(hv[ii], qv.y, sw2[i + ii][1]));
+            sw2[i + ii][2] = fmaf(dhv[ii], av.z, fmaf(hv[ii], qv.z, sw2[i + ii][2]));
+            sw2[i + ii][3] = fmaf(dhv[ii], av.w, fmaf(hv[ii], qv.w, sw2[i + ii][3]));
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // Ju: the m rows onto the receivers in edge order, each row written once
+    if (tid < U) {
+      for (int e = 0; e < n; ++e) {
+        const int r = s_ei[RECV * KE + e];
+        for (; cur < r; ++cur) {
+          ju[static_cast<long long>(cur) * U + tid] = acc;
+          acc = 0.0f;
+        }
+        acc += s_m[e * up + tid];
+      }
+    }
+
+    // phase 2: abar, hbar, dzbar and zbar (to the rows of h and dh), the b1
+    // sum, drbar and rbar
+    if (edges) {
+      float pd[EW], pr[EW];
+#pragma unroll
+      for (int ei = 0; ei < EW; ++ei) pd[ei] = pr[ei] = 0.0f;
+      if (gok) {
+        float4 ab[EW], hb[EW];
+#pragma unroll
+        for (int ei = 0; ei < EW; ++ei) ab[ei] = hb[ei] = zero4;
+#pragma unroll 2
+        for (int t = 0; t < up; t += 4) {
+          float4 a4[EW], q4[EW];
+#pragma unroll
+          for (int ei = 0; ei < EW; ++ei) {
+            a4[ei] = ld4(s_a + (warp * EW + ei) * up + t);
+            q4[ei] = ld4(s_q + (warp * EW + ei) * up + t);
+          }
+          const float4 va = ld4(s_w2 + swz(u, t >> 2, up));
+          const float4 vb = ld4(s_w2 + swz(u + 1, t >> 2, up));
+          const float4 vc = ld4(s_w2 + swz(u + 2, t >> 2, up));
+          const float4 vd = ld4(s_w2 + swz(u + 3, t >> 2, up));
+#pragma unroll
+          for (int ei = 0; ei < EW; ++ei) {
+            ab[ei].x += dot4(va, a4[ei]);
+            ab[ei].y += dot4(vb, a4[ei]);
+            ab[ei].z += dot4(vc, a4[ei]);
+            ab[ei].w += dot4(vd, a4[ei]);
+            hb[ei].x += dot4(va, q4[ei]);
+            hb[ei].y += dot4(vb, q4[ei]);
+            hb[ei].z += dot4(vc, q4[ei]);
+            hb[ei].w += dot4(vd, q4[ei]);
+          }
+          if (WT) {
+            // rows t .. t + 3 of uW2^T: uW2[u .. u + 3][t + i]
+            const float4 ta = t < U ? load_units(uw2t + t * U, u, U, vec) : zero4;
+            const float4 tb = t + 1 < U ? load_units(uw2t + (t + 1) * U, u, U, vec) : zero4;
+            const float4 tc = t + 2 < U ? load_units(uw2t + (t + 2) * U, u, U, vec) : zero4;
+            const float4 td = t + 3 < U ? load_units(uw2t + (t + 3) * U, u, U, vec) : zero4;
+#pragma unroll
+            for (int ei = 0; ei < EW; ++ei) {
+              fma4(hb[ei], a4[ei].x, ta);
+              fma4(hb[ei], a4[ei].y, tb);
+              fma4(hb[ei], a4[ei].z, tc);
+              fma4(hb[ei], a4[ei].w, td);
+            }
+          }
+        }
+        // z, s1, s2 and [WT] s3 and b uW1 again over the bins
+        float4 z[EW], s1[EW], s2[EW], s3[EW], bu[EW];
+        float re[EW];
+#pragma unroll
+        for (int ei = 0; ei < EW; ++ei) {
+          re[ei] = s_ef[R * KE + warp * EW + ei];
+          z[ei] = b1v;
+          s1[ei] = s2[ei] = s3[ei] = zero4;
+          bu[ei] = ub1v;
+        }
+        for (int k = 0; k < B; ++k) {
+          const float sk = s_shift[k];
+          const float4 w = ld4(s_w1 + k * up + u);
+          const float4 uw = WT ? ld4(s_uw1 + k * up + u) : zero4;
+#pragma unroll
+          for (int ei = 0; ei < EW; ++ei) {
+            const float bk = s_b[(warp * EW + ei) * B + k];
+            const float gk = two_gamma * (re[ei] - sk);
+            const float bg = bk * gk;
+            fma4(z[ei], bk, w);
+            fma4(s1[ei], bg, w);
+            fma4(s2[ei], bk * fmaf(gk, gk, two_gamma), w);
+            if (WT) {
+              fma4(s3[ei], bg, uw);
+              fma4(bu[ei], bk, uw);
+            }
+          }
+        }
+#pragma unroll
+        for (int ei = 0; ei < EW; ++ei) {
+          const int e = warp * EW + ei;
+          const float dr = s_ef[DR * KE + e];
+          const float zv[4] = {z[ei].x, z[ei].y, z[ei].z, z[ei].w};
+          const float av[4] = {ab[ei].x, ab[ei].y, ab[ei].z, ab[ei].w};
+          const float hv[4] = {hb[ei].x, hb[ei].y, hb[ei].z, hb[ei].w};
+          const float s1v[4] = {s1[ei].x, s1[ei].y, s1[ei].z, s1[ei].w};
+          const float buv[4] = {bu[ei].x, bu[ei].y, bu[ei].z, bu[ei].w};
+          float dzb[4], zb[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float h, sig;
+            hidden(zv[k], h, sig);
+            const float dz = fmaf(dr, s1v[k], buv[k]);
+            dzb[k] = av[k] * sig;
+            zb[k] = fmaf(hv[k], sig, dzb[k] * (1.0f - sig) * dz);
+          }
+          const float4 dzb4 = make_float4(dzb[0], dzb[1], dzb[2], dzb[3]);
+          const float4 zb4 = make_float4(zb[0], zb[1], zb[2], zb[3]);
+          st4(s_h + e * up + u, dzb4);
+          st4(s_dh + e * up + u, zb4);
+          wb1v.x += zb4.x;
+          wb1v.y += zb4.y;
+          wb1v.z += zb4.z;
+          wb1v.w += zb4.w;
+          pd[ei] = dot4(dzb4, s1[ei]);
+          pr[ei] = fmaf(dr, dot4(dzb4, s2[ei]), dot4(zb4, s1[ei]));
+          if (WT) pr[ei] += dot4(dzb4, s3[ei]);
+        }
+      }
+#pragma unroll
+      for (int ei = 0; ei < EW; ++ei) {
+        const float d = warp_sum(pd[ei]), r = warp_sum(pr[ei]);
+        if (lane == 0) {
+          s_ef[DRBAR * KE + warp * EW + ei] = d;
+          s_ef[RBAR * KE + warp * EW + ei] = r;
+        }
+      }
+    }
+    __syncthreads();
+
+    // the W1 sum += (b g dr) (x) dzbar + b (x) zbar: each thread its own
+    // entries (rows k = warp mod NW)
+    if (gok) {
+      for (int k = warp; k < B; k += NW) {
+        const float sk = s_shift[k];
+        float* p = s_gw1 + k * up + u;
+        float4 g = ld4(p);
+#pragma unroll 4
+        for (int e = 0; e < n; ++e) {
+          const float bk = s_b[e * B + k];
+          const float bgdr = bk * (two_gamma * (s_ef[R * KE + e] - sk)) * s_ef[DR * KE + e];
+          fma4(g, bgdr, ld4(s_h + e * up + u));
+          fma4(g, bk, ld4(s_dh + e * up + u));
+        }
+        st4(p, g);
+      }
+    }
+    // wv = rbar v / r + drbar (du - dr v / r) / r onto the sender (atomics)
+    // and the receiver (the sweep)
+    if (tid < n) {
+      const int j = tid;
+      const bool live = s_ei[LIVE * KE + j];
+      const float rinv = 1.0f / s_ef[R * KE + j];
+      const float rbar = s_ef[RBAR * KE + j], drbar = s_ef[DRBAR * KE + j];
+      const float dr = s_ef[DR * KE + j];
+      const int si = s_ei[SEND * KE + j];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float vh = s_ef[(V + q) * KE + j] * rinv;
+        const float wv =
+            live ? rbar * vh + drbar * (s_ef[(DU + q) * KE + j] - dr * vh) * rinv : 0.0f;
+        if (live) atomicAdd(pos_send + 3 * si + q, wv);
+        s_ef[(DV + q) * KE + j] = wv;
+      }
+    }
+    __syncthreads();
+    if (tid < 3) receiver_sweep<KE>(s_ef, s_ei, n, pos_recv, pacc, pcur);
+    c += n;
+    // next_real's first barrier orders this chunk's reads before the next
+    // chunk's writes
+  }
+  if (tid < U) {
+    for (; cur < r1; ++cur) {
+      ju[static_cast<long long>(cur) * U + tid] = acc;
+      acc = 0.0f;
+    }
+  }
+  if (tid < 3) {
+    for (; pcur < r1; ++pcur) {
+      pos_recv[3 * pcur + tid] = pacc;
+      pacc = 0.0f;
+    }
+  }
+  if (w2_rows && gok) {
+#pragma unroll
+    for (int i = 0; i < TI; ++i) {
+      const int t = warp * TI + i;
+      if (t >= U) break;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (u + k < U) atomicAdd(ww2 + t * U + u + k, sw2[i][k]);
+    }
+  }
+  if (gok) {
+    const float sb1[4] = {wb1v.x, wb1v.y, wb1v.z, wb1v.w};
+    const float sb2[4] = {wb2v.x, wb2v.y, wb2v.z, wb2v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (u + k < U) {
+        atomicAdd(wb1 + u + k, sb1[k]);
+        atomicAdd(wb2 + u + k, sb2[k]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < B * U; i += NT) {
+    const int k = i / U;
+    atomicAdd(ww1 + i, s_gw1[k * up + i - k * U]);
+  }
+}
+
+// The kernel of U above kTiledUnits (the chain's gate is U 148 at B 20):
+// thread u owns unit u over 8-edge chunks, per-edge scalars are block sums,
+// W2 sits in shared memory with its rows padded to U + 1, the W2 and W1 sums
+// in shared memory; every weight tangent is read (absent ones as zeros).
+__global__ void cf_hesjvp_wide_kernel(
     const float* __restrict__ x, const float* __restrict__ pos,
     const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ w2, const float* __restrict__ b2,
@@ -1130,6 +1619,14 @@ extern "C" long long gcnn_cf_smem_bytes(int kind, int B, int U) {
     const long long floats = p * p + 2 * b * p + 3 * e * p + e * b + b + kSlots * e;
     return 4 * (floats + kISlots * e + kMisc);
   }
+  if (U <= kTiledUnits) {
+    // the tiled kernel: W2 (swizzled), W1, uW1 and the W1 sum padded to up
+    // units, the chunk's h, dh, a, q and m rows, its basis rows, the centres
+    // and per-edge scalars; 4 ints an edge (the W2 sum lives in registers)
+    const long long e = kEdgesTile, p = units_padded(U);
+    const long long floats = p * p + 3 * b * p + 5 * e * p + e * b + b + kSlots * e;
+    return 4 * (floats + kISlots * e + kMisc);
+  }
   const long long e = kEdges;
   const long long floats = u * (u + 1) + u * u + b + e * b + kSlots * e + 3 * b * u
                            + 4 * e * u + 2 * nw * e;
@@ -1188,14 +1685,34 @@ extern "C" int gcnn_cf_hesjvp_f32(
     float* wb2, float* pos_recv, int N, int E, int B, int U, double dmax, double offset,
     double gamma, void* stream) {
   if (N <= 0 || U <= 0) return static_cast<int>(cudaSuccess);
+  // the weight tangents uw1, ub1, uw2 (with uw2t, its transpose) and ub2 are
+  // all given, or all null (absent: the tiled kernel leaves their terms out)
+  const bool wt = uw1 != nullptr;
+  if ((ub1 != nullptr) != wt || (uw2 != nullptr) != wt || (ub2 != nullptr) != wt
+      || (uw2t != nullptr) != wt || (!wt && U > kTiledUnits))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = gcnn_cf_smem_bytes(2, B, U);
-  cudaError_t err = allow_smem(cf_hesjvp_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = rows_for(N);
-  cf_hesjvp_kernel<<<(N + rows - 1) / rows, threads_for(U), smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      x, pos, w1, b1, w2, b2, ct, ux, upos, uw1, ub1, uw2, ub2, uw2t, send, recv, mask,
-      ju, w_x, pos_send, ww1, wb1, ww2, wb2, pos_recv, N, E, B, U, rows, dmax, offset,
-      static_cast<float>(gamma));
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (U > kTiledUnits) {
+    cudaError_t err = allow_smem(cf_hesjvp_wide_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cf_hesjvp_wide_kernel<<<(N + rows - 1) / rows, threads_for(U), smem, s>>>(
+        x, pos, w1, b1, w2, b2, ct, ux, upos, uw1, ub1, uw2, ub2, uw2t, send, recv, mask,
+        ju, w_x, pos_send, ww1, wb1, ww2, wb2, pos_recv, N, E, B, U, rows, dmax, offset,
+        static_cast<float>(gamma));
+    return static_cast<int>(cudaGetLastError());
+  }
+  auto kernel = wt ? cf_hesjvp_kernel<true> : cf_hesjvp_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // float4 loads of the (N, U) and (U, U) rows where they are 16-byte aligned
+  bool vec = U % 4 == 0;
+  for (const float* p : {x, ct, ux, uw2, uw2t})
+    vec = vec && reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+  kernel<<<(N + rows - 1) / rows, kThreadsVjp, smem, s>>>(
+      x, pos, w1, b1, w2, b2, ct, ux, upos, uw1, ub1, uw2, ub2, uw2t, send, recv, mask, ju,
+      w_x, pos_send, ww1, wb1, ww2, wb2, pos_recv, N, E, B, U, rows, dmax, offset,
+      static_cast<float>(gamma), vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,7 +18,9 @@ onto the dead node instead; real nodes agree). Three kernels
   the four weights (the weights' summed over every edge);
 - ``cf_hesjvp`` (``_cf_hesjvp``): (ct, u) -> J u (N, U) and the gradient of
   <ct, J(res) u> along res = (x, pos, W1, b1, W2, b2): the second reverse
-  pass through the force pass.
+  pass through the force pass. A tangent may be ``None`` (zero); a force
+  loss gives none for the weights, and then the kernel leaves their terms
+  out.
 
 :class:`CF` runs ``cf_fwd``; its backward is :class:`BWD`, which runs
 ``cf_vjp``; ``BWD``'s backward runs ``cf_hesjvp``. That is reverse over
@@ -54,9 +56,10 @@ launches = dict.fromkeys(KERNELS, 0)
 EPS = 1e-12
 SHARED_MEMORY_BYTES = 232448  # the dynamic shared memory a Hopper block may take
 # kEdgesFwd, kEdgesTile, kEdges, kSlots and kMisc of csrc/fused_interaction.cu:
-# edges per chunk of cf_fwd, cf_vjp and cf_hesjvp, float slots per edge, spare
-# ints
+# edges per chunk of cf_fwd, of cf_vjp and the tiled cf_hesjvp, and of the
+# wide cf_hesjvp, float slots per edge, spare ints
 _EDGES_FWD, _EDGES_VJP, _EDGES_BWD, _EDGE_SLOTS, _MISC_INTS = 16, 32, 8, 13, 4
+TILED_UNITS = 128  # kTiledUnits: cf_hesjvp's tiled kernel up to this U, the wide one above
 
 
 class CFStatic(NamedTuple):
@@ -116,10 +119,11 @@ def cf_vjp_plain(x, pos, w1, b1, w2, b2, ct, senders, receivers, edge_mask, st):
 def cf_hesjvp_plain(x, pos, w1, b1, w2, b2, ct, u_x, u_pos, u_w1, u_b1, u_w2, u_b2,
                     senders, receivers, edge_mask, st):
     """Kernel #7's plain version: J u by ``torch.func.jvp`` of
-    :func:`cf_fwd_plain` along ``u``, then the gradient of <ct, J u> along
-    ``(x, pos, w1, b1, w2, b2)``. Returns ``(J u, w_x, w_pos, w_w1, w_b1,
-    w_w2, w_b2)``."""
-    u = (u_x, u_pos, u_w1, u_b1, u_w2, u_b2)
+    :func:`cf_fwd_plain` along ``u`` (a tangent that is ``None`` is zero),
+    then the gradient of <ct, J u> along ``(x, pos, w1, b1, w2, b2)``.
+    Returns ``(J u, w_x, w_pos, w_w1, w_b1, w_w2, w_b2)``."""
+    u = tuple(torch.zeros_like(r) if t is None else t for t, r in zip(
+        (u_x, u_pos, u_w1, u_b1, u_w2, u_b2), (x, pos, w1, b1, w2, b2)))
 
     def fwd(*res):
         return cf_fwd_plain(*res, senders, receivers, edge_mask, st)
@@ -152,10 +156,17 @@ def shared_memory_bytes(kind: str, b: int, u: int) -> int:
         e, p = _EDGES_VJP, (u + 31) // 32 * 32
         floats = p * p + 2 * b * p + 3 * e * p + e * b + b + _EDGE_SLOTS * e
         return 4 * (floats + 4 * e + _MISC_INTS)
-    # cf_hesjvp: W2 with its rows padded to U + 1, its cotangent sum, the
-    # centres, the chunk's basis rows and per-edge scalars, W1, u_W1 and the
-    # W1 sum, hidden rows, their tangents and two cotangent rows an edge, two
-    # block-sum scratch rows a warp; 4 ints an edge
+    if u <= TILED_UNITS:
+        # the tiled cf_hesjvp: W2, W1, u_W1 and the W1 sum padded as cf_vjp's,
+        # the chunk's h, dh, a, q and m rows, its basis rows, the centres and
+        # per-edge scalars; 4 ints an edge (the W2 sum lives in registers)
+        e, p = _EDGES_VJP, (u + 31) // 32 * 32
+        floats = p * p + 3 * b * p + 5 * e * p + e * b + b + _EDGE_SLOTS * e
+        return 4 * (floats + 4 * e + _MISC_INTS)
+    # the wide cf_hesjvp: W2 with its rows padded to U + 1, its cotangent sum,
+    # the centres, the chunk's basis rows and per-edge scalars, W1, u_W1 and
+    # the W1 sum, hidden rows, their tangents and two cotangent rows an edge,
+    # two block-sum scratch rows a warp; 4 ints an edge
     e, warps = _EDGES_BWD, (u + 31) // 32
     floats = (u * (u + 1) + u * u + b + e * b + _EDGE_SLOTS * e + 3 * b * u + 4 * e * u
               + 2 * warps * e)
@@ -223,15 +234,17 @@ def _check(kind, x, pos, weights, tensors, senders, receivers, edge_mask, st):
 
 
 def _launch(kind, ins, outs, n, e, st):
-    """Launch ``kind`` on the current stream with ``ins`` (made contiguous),
-    then the contiguous ``outs``; raise on a refused launch."""
+    """Launch ``kind`` on the current stream with ``ins`` (made contiguous;
+    ``None`` is a null pointer), then the contiguous ``outs``; raise on a
+    refused launch."""
     fn = _kernel(kind)
-    ins = [t.contiguous() for t in ins]
+    ins = [None if t is None else t.contiguous() for t in ins]
     dev = ins[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(t.data_ptr() for t in (*ins, *outs)), n, e, st.bins, st.units,
-                float(st.distance_max), float(st.offset), float(st.gamma), stream)
+        rc = fn(*(None if t is None else t.data_ptr() for t in (*ins, *outs)), n, e,
+                st.bins, st.units, float(st.distance_max), float(st.offset),
+                float(st.gamma), stream)
     if rc != 0:
         raise RuntimeError(f"{kind} kernel launch failed: CUDA error {rc}")
     launches[kind] += 1
@@ -280,13 +293,15 @@ def cf_vjp(x, pos, w1, b1, w2, b2, ct, senders, receivers, edge_mask, st: CFStat
 def cf_hesjvp(x, pos, w1, b1, w2, b2, ct, u_x, u_pos, u_w1, u_b1, u_w2, u_b2,
               senders, receivers, edge_mask, st: CFStatic):
     """Kernel #7 on a CUDA tensor, its plain version on a CPU tensor:
-    ``(J u, w_x, w_pos, w_w1, w_b1, w_w2, w_b2)``."""
+    ``(J u, w_x, w_pos, w_w1, w_b1, w_w2, w_b2)``. Any tangent may be
+    ``None`` (zero)."""
     weights = (w1, b1, w2, b2)
     tangents = (u_x, u_pos, u_w1, u_b1, u_w2, u_b2)
     _check("cf_hesjvp", x, pos, weights,
            (("ct", ct, tuple(x.shape)),) + tuple(
                (f"u_{name}", t, tuple(ref.shape)) for name, t, ref in zip(
-                   ("x", "pos", "w1", "b1", "w2", "b2"), tangents, (x, pos, *weights))),
+                   ("x", "pos", "w1", "b1", "w2", "b2"), tangents, (x, pos, *weights))
+               if t is not None),
            senders, receivers, edge_mask, st)
     if x.device.type == "cpu":
         return cf_hesjvp_plain(x, pos, *weights, ct, *tangents, senders, receivers,
@@ -297,8 +312,16 @@ def cf_hesjvp(x, pos, w1, b1, w2, b2, ct, u_x, u_pos, u_w1, u_b1, u_w2, u_b2,
     if n == 0:
         return (ju, *outs)
     pos_recv = torch.empty_like(outs[1])
-    # u_w2 is read by rows and by columns: the kernel takes both layouts
-    _launch("cf_hesjvp", (x, pos, *weights, ct, *tangents, u_w2.t(), senders, receivers,
+    # an absent u_x or u_pos is zeros; absent weight tangents are null
+    # pointers if all four are absent and the tiled kernel runs (it leaves
+    # their terms out), zeros otherwise. u_w2 is read by rows and by columns:
+    # the kernel takes both layouts.
+    u_x, u_pos = (torch.zeros_like(r) if t is None else t for t, r in ((u_x, x), (u_pos, pos)))
+    wt = list(tangents[2:])
+    if any(t is not None for t in wt) or st.units > TILED_UNITS:
+        wt = [torch.zeros_like(r) if t is None else t for t, r in zip(wt, weights)]
+    u_w2t = None if wt[2] is None else wt[2].t()
+    _launch("cf_hesjvp", (x, pos, *weights, ct, u_x, u_pos, *wt, u_w2t, senders, receivers,
                           edge_mask), [ju] + outs + [pos_recv], n, e, st)
     outs[1] += pos_recv
     return (ju, *outs)
@@ -331,17 +354,22 @@ class BWD(torch.autograd.Function):
     def forward(ctx, ct, x, pos, w1, b1, w2, b2, senders, receivers, edge_mask, st):
         ctx.save_for_backward(ct, x, pos, w1, b1, w2, b2, senders, receivers, edge_mask)
         ctx.st = st
+        # an output nobody differentiated reaches backward as None, not as
+        # zeros: a force loss leaves the weight cotangents' tangents absent
+        ctx.set_materialize_grads(False)
         return cf_vjp(x, pos, w1, b1, w2, b2, ct, senders, receivers, edge_mask, st)
 
     @staticmethod
     def backward(ctx, *u):
+        if all(t is None for t in u):
+            return (None,) * 11
         saved = ctx.saved_tensors
         ct, x, pos, w1, b1, w2, b2, senders, receivers, edge_mask = saved
         ju, *w = cf_hesjvp(x, pos, w1, b1, w2, b2, ct, *u, senders, receivers, edge_mask,
                            ctx.st)
         grads = [ju, *w]
         if torch.is_grad_enabled():  # the caller records a graph through this backward
-            deps = [t for t in (*u, *saved) if t.is_floating_point()]
+            deps = [t for t in (*u, *saved) if t is not None and t.is_floating_point()]
             grads = [SecondOrderOnly.apply(t, *deps) for t in grads]
         return (*grads, None, None, None, None)
 

@@ -14,7 +14,10 @@ held against the plain version:
 
 - ``sorted_segment_sum``: phase 3's three timed shapes of the SchNet serving
   batch and a launch with no edges (the floor), each beside ``index_add_``;
-- ``cf_vjp``: phase 15's timed check at the ``schnet_train`` batch.
+- ``cf_vjp``, ``cf_hesjvp``: phase 15's timed checks at the ``schnet_train``
+  batch (``cf_hesjvp`` as a force loss calls it and with every tangent);
+- ``fused_cfconv``: phase 11's timed checks at the serving and MD shapes
+  (its edge cases checked too).
 
 Prints one JSON line per timing. Needs one CUDA card.
 """
@@ -30,7 +33,8 @@ import torch
 import chip_smoke
 from gcnn_keras_tpu_torch.ops.cuda import build
 
-SOURCES = {"sorted_segment_sum": "segment_sum", "cf_vjp": "fused_interaction"}
+SOURCES = {"sorted_segment_sum": "segment_sum", "cf_vjp": "fused_interaction",
+           "cf_hesjvp": "fused_interaction", "fused_cfconv": "fused_cfconv"}
 OUT_DIR = build.BUILD_DIR / "variants"
 
 
@@ -102,15 +106,31 @@ def segment_sum_timings(libs, order):
                 "case", "ms", "ms_warm", "library_ms", "bound_ms")}}))
 
 
-def cf_vjp_timings(libs, order):
-    """phase 15's timed check of cf_vjp, each variant loaded in its turn."""
+def chain_timings(kernel, libs, order):
+    """phase 15's timed checks of cf_vjp or cf_hesjvp, each variant loaded
+    in its turn."""
     batch = chip_smoke.train_batch("schnet_chain_train", 0, 512, "cuda")
     model = chip_smoke.schnet_model("chain", "cuda")
     for name in order:
         build._loaded["fused_interaction"] = libs[name]
-        rec = chip_smoke.chain_timed_check("cf_vjp", batch, model)
-        print(json.dumps({"variant": name, **{k: rec[k] for k in (
-            "case", "ms", "ms_warm", "bound_ms", "max_err_over_tol_scale")}}))
+        for rec in chip_smoke.chain_timed_check(kernel, batch, model):
+            print(json.dumps({"variant": name, **{k: rec[k] for k in (
+                "case", "ms", "ms_warm", "bound_ms", "max_err_over_tol_scale")}}))
+
+
+def fused_cfconv_timings(libs, order):
+    """phase 11's timed checks of the fused cfconv (serving and MD shapes),
+    each variant loaded in its turn."""
+    _, batch = chip_smoke.make_predictor("cuda").make_batch(chip_smoke.qm9_like_mols(0, 512))
+    model = chip_smoke.schnet_model("unfused", "cuda")
+    for name in order:
+        build._loaded["fused_cfconv"] = libs[name]
+        recs = chip_smoke.phase_schnet_kernels(batch, model, ("fused_cfconv",))["fused_cfconv"]
+        for rec in recs:
+            if "ms" in rec:
+                print(json.dumps({"variant": name, **{k: rec[k] for k in (
+                    "case", "ms", "ms_warm", "plain_ms", "unfused_chain_ms", "bound_ms",
+                    "max_abs_err")}}))
 
 
 def main():
@@ -123,7 +143,12 @@ def main():
     print(json.dumps({"card": chip_smoke.nvidia_smi(), "kernel": kernel}))
     libs = build_variants(variant_sources(kernel, sys.argv[2:]))
     order = list(libs) + list(libs)[::-1]
-    (segment_sum_timings if kernel == "sorted_segment_sum" else cf_vjp_timings)(libs, order)
+    if kernel == "sorted_segment_sum":
+        segment_sum_timings(libs, order)
+    elif kernel == "fused_cfconv":
+        fused_cfconv_timings(libs, order)
+    else:
+        chain_timings(kernel, libs, order)
 
 
 if __name__ == "__main__":

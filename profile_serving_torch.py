@@ -5,7 +5,7 @@ training step or of one MD step goes on a CUDA card, for the PyTorch port.
                                      [--mode unfused|fused|accurate|chain]
                                      [--train | --md] [--evals 10]
                                      [--trace chiprun_out/serving_trace.json]
-    python3 profile_serving_torch.py --kernel sorted_segment_sum|cf_vjp
+    python3 profile_serving_torch.py --kernel sorted_segment_sum|cf_vjp|cf_hesjvp|fused_cfconv
 
 Builds the serving batch of ``chip_smoke.py`` (512 QM9-like molecules,
 weights from seed 0; SchNet defaults in ``--mode`` (``interaction_args``
@@ -28,10 +28,12 @@ and calls of each of the port's own kernels; writes a Chrome trace when
 ``chip_smoke.py``'s own checks of that kernel, each against its plain
 version and each printed as a JSON record: ``sorted_segment_sum``, phase
 3's three timed shapes of the SchNet serving batch and its edge cases;
-``cf_vjp``, phase 15's edge cases and its timed check at the
-``schnet_train`` batch (with the plain version's and the port's unfused
-chain's times). The last line is one JSON summary of the timed records.
-Needs one CUDA card.
+``cf_vjp`` and ``cf_hesjvp``, phase 15's edge cases and the timed checks at
+the ``schnet_train`` batch (with the plain version's and the port's unfused
+chain's times; ``cf_hesjvp`` as a force loss calls it and with every
+tangent); ``fused_cfconv``, phase 11's timed checks at the serving and MD
+shapes (with the unfused chain's time) and its edge cases. The last line is
+one JSON summary of the timed records. Needs one CUDA card.
 """
 import argparse
 import functools
@@ -48,7 +50,8 @@ import chip_smoke
 PORT_KERNELS = ("sorted_segment_sum", "g2_fwd_kernel", "g4_fwd_kernel",
                 "g4_vjp_kernel", "g2_vjp_kernel", "g4_jvp_kernel", "g2_jvp_kernel",
                 "spd_solve_gj_kernel", "gms_fwd_kernel", "fused_cfconv_kernel",
-                "cf_fwd_kernel", "cf_vjp_kernel", "cf_hesjvp_kernel")
+                "fused_cfconv_wide_kernel", "cf_fwd_kernel", "cf_vjp_kernel",
+                "cf_hesjvp_kernel", "cf_hesjvp_wide_kernel")
 
 
 def serving_run(name, mode):
@@ -93,18 +96,25 @@ def training_run(name, mode):
     return run
 
 
+# the source of each kernel that --kernel takes
+KERNEL_SOURCES = {"sorted_segment_sum": "segment_sum", "cf_vjp": "fused_interaction",
+                  "cf_hesjvp": "fused_interaction", "fused_cfconv": "fused_cfconv"}
+
+
 def kernel_records(name):
     """``chip_smoke.py``'s checks of kernel ``name`` at its main-path shapes
     and edge cases, after a fresh build of its source."""
-    chip_smoke.phase_build([{"sorted_segment_sum": "segment_sum",
-                             "cf_vjp": "fused_interaction"}[name]])
-    if name == "sorted_segment_sum":
+    chip_smoke.phase_build([KERNEL_SOURCES[name]])
+    if name in ("sorted_segment_sum", "fused_cfconv"):
         _, batch = chip_smoke.make_predictor("cuda").make_batch(chip_smoke.qm9_like_mols(0, 512))
-        return chip_smoke.phase_kernel(batch)
+        if name == "sorted_segment_sum":
+            return chip_smoke.phase_kernel(batch)
+        return chip_smoke.phase_schnet_kernels(
+            batch, chip_smoke.schnet_model("unfused", "cuda"), (name,))[name]
     batch = chip_smoke.train_batch("schnet_chain_train", 0, 512, "cuda")
-    recs = chip_smoke.chain_edge_case_checks(batch.senders.device, ("cf_vjp",))["cf_vjp"]
-    return [chip_smoke.chain_timed_check(name, batch, chip_smoke.schnet_model("chain", "cuda"))
-            ] + recs
+    recs = chip_smoke.chain_edge_case_checks(batch.senders.device, (name,))[name]
+    return chip_smoke.chain_timed_check(name, batch,
+                                        chip_smoke.schnet_model("chain", "cuda")) + recs
 
 
 def main():
@@ -118,7 +128,7 @@ def main():
                       help="profile training steps instead of serving evaluations")
     kind.add_argument("--md", action="store_true",
                       help="profile MD steps of a 21-atom molecule instead")
-    kind.add_argument("--kernel", choices=("sorted_segment_sum", "cf_vjp"),
+    kind.add_argument("--kernel", choices=tuple(KERNEL_SOURCES),
                       help="time one kernel at its main-path shapes instead")
     ap.add_argument("--evals", type=int, default=10)
     ap.add_argument("--trace", default=None)

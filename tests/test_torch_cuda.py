@@ -510,6 +510,27 @@ def test_md_kernels_match_plain_at_the_serving_shapes(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("u", [128, 200])
+def test_fused_cfconv_matches_plain_at_the_serving_shape(cuda_device, u):
+    """The tiled kernel (U 128) and the wide one (U 200) at the serving shape
+    (E 54784 receiver-sorted edges onto 8192 rows, B 20), one launch each."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.ops.cuda import fused_cfconv as fc
+    n, e, b = 8192, 54784, 20
+    _, ids = _sorted_case(u, e, n, 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(u)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=cuda_device) * scale
+    before = fc.launches
+    chip_smoke.check_fused_cfconv(
+        torch.rand(e, b, generator=gen, device=cuda_device), rnd(e, u),
+        torch.from_numpy(ids).to(cuda_device), n, rnd(b, u, scale=b ** -0.5),
+        rnd(u, scale=0.1), rnd(u, u, scale=u ** -0.5), rnd(u, scale=0.1), f"U={u}", False)
+    assert fc.launches == before + 1
+
+
+@pytest.mark.cuda
 def test_gms_second_order_pattern_on_the_card(cuda_device):
     import chip_smoke
     rec = chip_smoke.phase_gms_second_order()
@@ -599,6 +620,23 @@ def test_chain_kernels_match_plain(cuda_device, n, e, u, b, masked):
         chip_smoke.check_chain(name, chip_smoke.chain_args(name, x, pos, weights, ct, tangents,
                                                            edges, st), f"N={n}", False)
         assert fi.launches[name] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,u,b", [(150, 600, 16, 8), (8192, 54784, 128, 20)])
+@pytest.mark.parametrize("training", [True, False])
+def test_hesjvp_variants_match_plain(cuda_device, n, e, u, b, training):
+    """The second-reverse kernel as a force loss calls it (its weight
+    tangents absent: the variant that leaves their terms out) and with every
+    tangent, against its plain version, one launch each."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
+    (x, pos, weights, ct, tangents), edges, st = _chain_case(n, e, u, b, n + 1, cuda_device)
+    before = fi.launches["cf_hesjvp"]
+    rec = chip_smoke.check_chain("cf_hesjvp", chip_smoke.chain_args(
+        "cf_hesjvp", x, pos, weights, ct, tangents, edges, st, training), f"N={n}", False)
+    assert rec["weight_tangents"] is not training
+    assert fi.launches["cf_hesjvp"] == before + 1
 
 
 @pytest.mark.cuda

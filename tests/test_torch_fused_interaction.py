@@ -157,6 +157,44 @@ def test_hesjvp_plain_matches_the_pallas_kernel():
         _close(g / scale, np.asarray(w) / scale, 3e-4, 3e-4)
 
 
+def test_hesjvp_plain_without_weight_tangents_matches_the_pallas_kernel():
+    """The call a force loss makes: ``u_w1`` .. ``u_b2`` absent (``None``)
+    against ``_cf_hesjvp`` in interpret mode with those tangents zero."""
+    case = _case(seed=2, n_node=90, n_edge=300)
+    st, x, pos, w1, b1, w2, b2, send, recv, mask = case
+    ct, (ux, upos, *weight_tangents) = _draws(case, 12)
+    zeros = [np.zeros_like(t) for t in weight_tangents]
+    w1a, w2a = jfi._augment(w1, b1, w2, b2, st)
+    uw1a, uw2a = jfi._augment(*zeros, st)
+    ju, w_x, w_pos, ww1a, ww2a = jfi._cf_hesjvp(
+        x, pos, w1a, w2a, ct, ux, upos, uw1a, uw2a, send, recv, mask, st, x.shape[0],
+        interpret=True)
+    tst, res, edges = _torch_case(case)
+    got = fi.cf_hesjvp_plain(*res, _t(ct), _t(ux), _t(upos), None, None, None, None,
+                             *edges, tst)
+    for g, w in zip(got, (ju, w_x, w_pos, *_slices(st, ww1a, ww2a))):
+        scale = max(1.0, float(np.abs(np.asarray(w)).max()))
+        _close(g / scale, np.asarray(w) / scale, 3e-4, 3e-4)
+
+
+@pytest.mark.parametrize("absent", [("w1", "b1", "w2", "b2"), ("x", "w1", "b1", "w2", "b2"),
+                                    ("pos",), ("x", "b2")])
+def test_an_absent_tangent_is_zero(absent):
+    """The wrapper (on the CPU, the plain version) gives, for a tangent that
+    is ``None``, exactly what it gives for zeros."""
+    st, res, edges = _double_case(seed=7, n=20, e=80, u=6, b=5)
+    res = [t.detach().float() for t in res]
+    rs = np.random.RandomState(8)
+    ct = torch.from_numpy(rs.randn(*res[0].shape).astype(np.float32))
+    names = ("x", "pos", "w1", "b1", "w2", "b2")
+    tangents = [torch.from_numpy(rs.randn(*t.shape).astype(np.float32)) for t in res]
+    zeros = [torch.zeros_like(t) if n in absent else t for n, t in zip(names, tangents)]
+    nones = [None if n in absent else t for n, t in zip(names, tangents)]
+    for g, w in zip(fi.cf_hesjvp(*res, ct, *nones, *edges, st),
+                    fi.cf_hesjvp(*res, ct, *zeros, *edges, st)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 def test_plain_versions_match_jax_autodiff_with_far_senders():
     """Senders 100-200 rows from their receivers, where the Pallas kernels'
     windows do not reach: all three plain versions against JAX's autodiff
@@ -224,6 +262,43 @@ def test_functions_reverse_over_reverse_match_jax():
     loss = 0.1 * e + ((-de - _t(f_tgt)) ** 2).sum()
     got = torch.autograd.grad(loss, params)
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=2e-4)
+    for g, w in zip(got, want):
+        scale = max(1.0, float(np.abs(np.asarray(w)).max()))
+        _close(g / scale, np.asarray(w) / scale, 3e-4, 3e-4)
+
+
+def test_force_loss_reaches_the_second_reverse_pass_without_weight_tangents(monkeypatch):
+    """``BWD`` under ``set_materialize_grads(False)``: a force loss uses
+    only ``BWD``'s position cotangent, so kernel #7 is called once with
+    ``u_pos`` and every other tangent absent (a counting patch on the
+    wrapper), and the parameter gradients equal ``jax.grad`` of the JAX
+    fused chain's force loss."""
+    case = _case(seed=3, n_node=90, n_edge=300)
+    st, x, pos, w1, b1, w2, b2, send, recv, mask = case
+    f_tgt = np.random.RandomState(13).randn(*pos.shape).astype(np.float32)
+
+    def jloss(x_, w1_, b1_, w2_, b2_):
+        def e_fn(p):
+            y = jfi.cfconv_fused_chain(x_, p, w1_, b1_, w2_, b2_, send, recv, mask, st,
+                                       x.shape[0], interpret=True)
+            return jnp.sum(y * y)
+        return jnp.sum((-jax.grad(e_fn)(pos) - f_tgt) ** 2)
+
+    want = jax.grad(jloss, argnums=tuple(range(5)))(x, w1, b1, w2, b2)
+    calls = []
+    original = fi.cf_hesjvp
+
+    def counting(*args):
+        calls.append(["absent" if a is None else "given" for a in args[7:13]])
+        return original(*args)
+    monkeypatch.setattr(fi, "cf_hesjvp", counting)
+    tst, (tx, tpos, *tw), edges = _torch_case(case)
+    params = [t.requires_grad_(True) for t in (tx, *tw)]
+    p = tpos.requires_grad_(True)
+    y = fi.cfconv_fused_chain(params[0], p, *params[1:], *edges, tst)
+    (de,) = torch.autograd.grad((y * y).sum(), p, create_graph=True)
+    got = torch.autograd.grad(((-de - _t(f_tgt)) ** 2).sum(), params)
+    assert calls == [["absent", "given", "absent", "absent", "absent", "absent"]]
     for g, w in zip(got, want):
         scale = max(1.0, float(np.abs(np.asarray(w)).max()))
         _close(g / scale, np.asarray(w) / scale, 3e-4, 3e-4)
@@ -529,12 +604,25 @@ def test_vjp_shared_memory_is_the_tiled_layout_and_the_gate_stays():
     """cf_vjp's block at B 20, U 128: W2 and W1 once, the W1 sum, the
     chunk's h, a and dz rows (32 edges of U), its basis rows, the centres and
     the per-edge scalars; the W2 sum lives in registers. One block a SM
-    takes it. The shared-memory gate stays cf_hesjvp's: U 148 at B 20."""
+    takes it. cf_hesjvp's tiled kernel (U up to 128) adds u_W1 and the
+    chunk's dh, q and m rows. The shared-memory gate stays that of
+    cf_hesjvp's wide kernel (U above 128): U 148 at B 20."""
     up, e, b = 128, 32, 20
     floats = up * up + 2 * b * up + 3 * e * up + e * b + b + 13 * e
     need = fi.shared_memory_bytes("cf_vjp", 20, 128)
     assert need == 4 * (floats + 4 * e + 4) == 140000
     assert fi.SHARED_MEMORY_BYTES // 2 < need <= fi.SHARED_MEMORY_BYTES
+    # W2, W1, u_W1, the W1 sum; the h, dh, a, q and m rows; basis rows,
+    # centres, per-edge scalars; 4 ints an edge and 4 spare
+    floats = up * up + 3 * b * up + 5 * e * up + e * b + b + 13 * e
+    need = fi.shared_memory_bytes("cf_hesjvp", 20, 128)
+    assert need == 4 * (floats + 4 * e + 4) == 183008
+    assert fi.SHARED_MEMORY_BYTES // 2 < need <= fi.SHARED_MEMORY_BYTES
+    assert fi.TILED_UNITS == 128
+    # the wide kernel from U 129: W2 rows padded to U + 1, its sum, ...
+    u, e, warps = 129, 8, 5
+    floats = u * (u + 1) + u * u + b + e * b + 13 * e + 3 * b * u + 4 * e * u + 2 * warps * e
+    assert fi.shared_memory_bytes("cf_hesjvp", 20, 129) == 4 * (floats + 4 * e + 4)
     assert fi.fits_shared_memory(20, 148) and not fi.fits_shared_memory(20, 149)
     assert (fi.shared_memory_bytes("cf_vjp", 20, 149) <= fi.SHARED_MEMORY_BYTES
             < fi.shared_memory_bytes("cf_hesjvp", 20, 149))

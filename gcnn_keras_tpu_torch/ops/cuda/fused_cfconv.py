@@ -7,8 +7,10 @@ the flax layout (in, out). The kernel (``csrc/fused_cfconv.cu``) replaces
 the TPU kernel ``_fused_cfconv_impl``: the filter MLP in float32 FMA (no
 TF32), recomputed per edge so that the (E, U) filter never reaches memory.
 Its header gives the bound (float32 operations: 31 us at the SchNet serving
-shapes on the H100). It keeps the weights in one block's shared memory:
-:func:`fits_shared_memory` is its one gate (U up to about 230 at B 20).
+shapes on the H100). Two kernels, both hand-written: a tiled one for U up
+to 128 (SchNet's widths), a wide one above. Each keeps the weights in one
+block's shared memory: :func:`fits_shared_memory` is the one gate (U up
+to 222 at B 20).
 
 :class:`FusedCfconv` is first-order only, as the JAX package's
 ``custom_vjp`` is: its backward recomputes the filter in PyTorch (the
@@ -43,7 +45,9 @@ Tensor = torch.Tensor
 launches = 0
 
 SHARED_MEMORY_BYTES = 232448  # the dynamic shared memory a Hopper block may take
-_EDGES_PER_CHUNK = 16         # kEdges of csrc/fused_cfconv.cu
+# kEdgesTile, kEdges and kTiledUnits of csrc/fused_cfconv.cu: edges per chunk
+# of the tiled and of the wide kernel, and the U up to which the tiled runs
+_EDGES_TILE, _EDGES_PER_CHUNK, TILED_UNITS = 32, 16, 128
 
 
 def fused_cfconv_plain(basis: Tensor, xj: Tensor, receivers: Tensor, num_nodes: int,
@@ -56,9 +60,14 @@ def fused_cfconv_plain(basis: Tensor, xj: Tensor, receivers: Tensor, num_nodes: 
 
 
 def shared_memory_bytes(b: int, u: int) -> int:
-    """What one block of the kernel takes: the hidden rows of a chunk, W2,
-    W1, b1, b2, the chunk's basis rows and receivers
-    (``gcnn_fused_cfconv_smem_bytes`` in the source)."""
+    """What one block of the kernel that takes B bins and U units needs
+    (``gcnn_fused_cfconv_smem_bytes`` in the source): the tiled kernel W2
+    and W1 padded to a multiple of 32 units, a chunk's hidden and message
+    rows, its basis rows, receivers and the edge range; the wide one a
+    chunk's hidden rows, W2, W1, b1, b2, its basis rows and receivers."""
+    if u <= TILED_UNITS:
+        e, p = _EDGES_TILE, (u + 31) // 32 * 32
+        return 4 * (p * p + b * p + 2 * e * p + e * b) + 4 * (e + 2)
     uh = (u + 3) // 4 * 4
     floats = _EDGES_PER_CHUNK * uh + u * u + b * u + 2 * u + _EDGES_PER_CHUNK * b
     return 4 * (floats + _EDGES_PER_CHUNK + 2)

@@ -136,10 +136,19 @@ def test_wrapper_checks_and_shared_memory_gate():
         fc.fused_cfconv_kernel(tb, tx, tr, N, tw2, tb1, tw2, tb2)
     with pytest.raises(TypeError):
         fc.fused_cfconv_kernel(tb, tx, tr.long(), N, tw1, tb1, tw2, tb2)
-    # 16 hidden rows of U, W2, W1, the biases, 16 basis rows, 16 receivers, 2
-    assert fc.shared_memory_bytes(20, 128) == 4 * (16 * 128 + 128 * 128 + 20 * 128
-                                                   + 2 * 128 + 16 * 20 + 16 + 2)
+    # the tiled kernel (U up to 128): W2 and W1 padded to 128 units, 32 hidden
+    # and 32 message rows, 32 basis rows, 32 receivers and the edge range;
+    # two blocks a SM
+    assert fc.TILED_UNITS == 128
+    assert fc.shared_memory_bytes(20, 128) == 4 * (128 * 128 + 20 * 128 + 2 * 32 * 128
+                                                   + 32 * 20) + 4 * (32 + 2) == 111240
+    assert 2 * fc.shared_memory_bytes(20, 128) <= fc.SHARED_MEMORY_BYTES
+    # the wide kernel above: 16 hidden rows of U (rounded up to 4), W2, W1,
+    # the biases, 16 basis rows, 16 receivers, 2
+    assert fc.shared_memory_bytes(20, 200) == 4 * (16 * 200 + 200 * 200 + 20 * 200
+                                                   + 2 * 200 + 16 * 20 + 16 + 2)
     assert fc.fits_shared_memory(20, 128) and fc.fits_shared_memory(20, 200)
+    assert fc.fits_shared_memory(20, 222) and not fc.fits_shared_memory(20, 223)
     assert not fc.fits_shared_memory(20, 256)
 
 

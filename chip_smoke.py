@@ -1921,12 +1921,13 @@ def chain_args(name, x, pos, weights, ct, tangents, edges, st, training=False):
 
 def chain_calls(name):
     """The calls of kernel ``name`` that phase 15 checks, as the
-    ``training`` flag of :func:`chain_args` and a label: cf_hesjvp is held
-    both as a force loss calls it (its weight tangents absent; the call the
-    training step makes) and with every tangent."""
+    ``training`` flag of :func:`chain_args` and a suffix of the case's
+    label: cf_hesjvp is held both as a force loss calls it (its weight
+    tangents absent; the call the training step makes) and with every
+    tangent."""
     if name == "cf_hesjvp":
-        return ((True, "force-loss tangents"), (False, "all tangents"))
-    return ((False, None),)
+        return ((True, ", force-loss tangents"), (False, ", all tangents"))
+    return ((False, ""),)
 
 
 def chain_inputs(n, u, b, seed, dev, pos=None):
@@ -1996,10 +1997,10 @@ def chain_edge_case_checks(dev, names=None):
         st = fi.CFStatic(bins=b, distance_max=4.0, offset=0.0, sigma=0.4, units=u)
         x, pos, weights, ct, tangents = chain_inputs(n, u, b, 20 + i, dev, pos)
         for name in names:
-            for training, call in chain_calls(name):
+            for training, suffix in chain_calls(name):
                 rec = check_chain(name, chain_args(name, x, pos, weights, ct, tangents,
                                                    (send, recv, mask), st, training),
-                                  label if call is None else f"{label}, {call}", False)
+                                  label + suffix, False)
                 if not mask.any() and rec["max_abs_err"] != 0.0:
                     raise AssertionError(f"{name} {label}: output without real edges")
                 recs[name].append(rec)
@@ -2023,9 +2024,9 @@ def chain_timed_check(name, batch, model):
     label = f"schnet_train batch, {batch.n_graphs - 1} mols"
     return [dict(check_chain(name, chain_args(name, x, pos, weights, ct, tangents, edges, st,
                                               training),
-                             label if call is None else f"{label}, {call}", True,
-                             batch.edges["sender_perm"]), path="schnet_chain_train")
-            for training, call in chain_calls(name)]
+                             label + suffix, True, batch.edges["sender_perm"]),
+                 path="schnet_chain_train")
+            for training, suffix in chain_calls(name)]
 
 
 def phase_chain_kernels(batch, model):

@@ -361,8 +361,6 @@ class BWD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *u):
-        if all(t is None for t in u):
-            return (None,) * 11
         saved = ctx.saved_tensors
         ct, x, pos, w1, b1, w2, b2, senders, receivers, edge_mask = saved
         ju, *w = cf_hesjvp(x, pos, w1, b1, w2, b2, ct, *u, senders, receivers, edge_mask,

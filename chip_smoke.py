@@ -1466,8 +1466,9 @@ def phase_schnet_kernels(batch, model, names=("gather_mul_segsum", "fused_cfconv
     """Phase 11: the gms and fused cfconv kernels (those of ``names``)
     against their plain versions at the SchNet serving shapes of ``batch``
     (its senders, receivers and Gaussian basis; random node features and
-    filters; the filter weights of ``model``'s first interaction), timed,
-    the fused cfconv also at the MD step's shape, and at the edge cases."""
+    filters; the filter weights of ``model``'s first interaction) and at
+    the MD step's shape (``md_batch``, where an MD step launches each 4
+    times), timed, and at the edge cases."""
     from gcnn_keras_tpu_torch.layers.geometry import edge_distances, gauss_basis
     dev = batch.senders.device
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1483,22 +1484,27 @@ def phase_schnet_kernels(batch, model, names=("gather_mul_segsum", "fused_cfconv
     filt = torch.randn(e, units, generator=gen, device=dev)
     xj = torch.randn(e, units, generator=gen, device=dev)
     label = "SchNet serving, 512 mols"
+    md = md_batch(dev)  # the MD step's shape: few rows, few edges
+    md_label = f"MD shape, 21 atoms (N {md.n_node}, E {md.n_edge})"
     out = {}
     if "gather_mul_segsum" in names:
-        gms = [check_gms(x, filt, batch.senders, batch.receivers, n, label, True)]
+        md_gen = torch.Generator(device=dev).manual_seed(7)
+        gms = [check_gms(x, filt, batch.senders, batch.receivers, n, label, True),
+               check_gms(torch.randn(md.n_node, units, generator=md_gen, device=dev),
+                         torch.randn(md.n_edge, units, generator=md_gen, device=dev),
+                         md.senders, md.receivers, md.n_node, md_label, True)]
         gms += gms_edge_cases(dev)
         gms[0]["path"] = "schnet_fused_serving"
         out["gather_mul_segsum"] = gms
     if "fused_cfconv" not in names:
         return out
     cfconv = [check_fused_cfconv(basis, xj, batch.receivers, n, *weights, label, True)]
-    md = md_batch(dev)  # the MD step's shape: few rows, few edges
     with torch.no_grad():
         md_basis = gauss_basis(edge_distances(md), **model.config["gauss_args"])
         md_basis = (md_basis * md.edge_mask[:, None].to(md_basis.dtype)).contiguous()
     cfconv.append(check_fused_cfconv(
         md_basis, torch.randn(md.n_edge, units, generator=gen, device=dev), md.receivers,
-        md.n_node, *weights, f"MD shape, 21 atoms (N {md.n_node}, E {md.n_edge})", True))
+        md.n_node, *weights, md_label, True))
     cfconv += cfconv_edge_cases(dev)
     cfconv[0]["path"] = "schnet_accurate_serving"
     return dict(out, fused_cfconv=cfconv)

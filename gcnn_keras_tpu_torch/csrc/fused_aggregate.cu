@@ -3,74 +3,402 @@
 // for ascending int32 receivers, int32 senders, float32 x (N_x, F) and
 // filt (E, F) row-major, out (N, F). Rows without edges get 0; padding edges
 // (sender == receiver == the dead last node) sum onto that node, as on the
-// unfused path.
+// unfused path. Each row is summed in float32 FMA in edge order:
+// deterministic, no atomics. The (E, F) gathered rows and products never
+// reach memory.
 //
 // Replaces the TPU kernel gcnn_keras_tpu/ops/pallas/fused_aggregate.py
 // (_fused_gather_mul_segsum), which the gms primitive of ops/pallas/bilinear.py
 // binds. The TPU has no gather, so that kernel DMAs a window of max_nodes
 // rows of x around each 128-row block and gathers with a one-hot matmul. A
 // Hopper thread gathers its x row directly (through L2), so there is no
-// window and no max_nodes bound here. The layout is that of
-// csrc/segment_sum.cu: each output row owns the contiguous edge range
-// [lower_bound(r), lower_bound(r + 1)), found by a binary search, and is
-// summed in a float32 register in edge order (float32 FMA): deterministic,
-// no atomics. The (E, F) gathered rows and products never reach memory.
+// window and no max_nodes bound here.
 //
 // Bound: the call must read filt (E*F*4 bytes), x (N_x*F*4), senders and
 // receivers (E*8) once and write out (N*F*4) once; its E*F FMAs are far below
 // the card's float32 rate, so it is bound by memory bytes. At the SchNet
 // serving shapes (N 8192, E 54784, F 128): 28.0 + 4.2 + 0.4 + 4.2 MB, about
-// 11.0 us at 3.35 TB/s.
+// 11.0 us at 3.35 TB/s. At the MD step's (N 128, E 128) it is a launch and a
+// few dependent trips to memory.
 //
-// Block: ROWS output rows x TF feature columns (TF * ROWS = 256 threads);
-// threadIdx.x walks neighbouring features, so a warp's loads of one filter
-// row and of one gathered x row coalesce.
+// The layout is the sorted segment-sum's (csrc/segment_sum.cu), with the
+// senders and the x gather added; this file keeps its own copy of the
+// helpers, so that the build's hash of the source covers them:
+// - Rows owned by edge ranges, without a search. Block b reads the receiver
+//   ids of its edge range [eb0, eb1) (and one before, and kAhead after) and
+//   the senders of its staged window into shared memory in one round of
+//   independent loads. It owns the rows whose first edge lies in its range
+//   (for the last block every row to N - 1, empty rows included); one scan
+//   of the range writes each owned row's first edge to shared memory. The
+//   last owned row may run past eb1: its end is the first id above it among
+//   the kAhead ids read ahead (or, for a longer row, found by a warp 32 ids
+//   at a time).
+// - filt staged. The block copies the filt rows of its range and of up to
+//   two mean rows after it (its columns of them) into shared memory with
+//   coalesced loads, 32 floats or 8 float4s in flight a thread, before the
+//   first barrier.
+// - The row sum reads the senders from shared memory and issues kInFlight
+//   independent gathers of x[send] before their FMAs, so no dependent chain
+//   reaches device memory (x, 4.2 MB at the serving shape, stays in L2). A
+//   row longer than the staged window reads the rest from device memory,
+//   kInFlight edges a round: senders and filt together, then the gathers.
+// - A layout chosen by F in the launcher:
+//   - F <= 8: one thread per row, summing all F columns of each edge;
+//   - F a multiple of 4 (16-byte aligned x and filt): float4 columns, up to
+//     32 lanes (128 columns) per row, a second grid dimension beyond;
+//   - any other F: one scalar column per lane, 32 lanes per row.
+// - Block sizes as the segment-sum's: threads per block is the largest of
+//   256, 128, 64, 32 that leaves a block for at least a quarter of the SMs;
+//   a block's edge range holds about 3/4 of its row slots' worth of mean
+//   rows, so that its rows mostly fit one pass.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;     // threads of a block
+constexpr int kMaxEdges = 1024;   // edges of a block's range, at most
+constexpr int kAhead = 32;        // ids read past the range, for its last row's end
+constexpr int kStaged = 8192;     // filt values a block stages in shared memory, at most
+constexpr int kInFlight = 8;      // edges whose loads a thread issues together
+constexpr int kStage = 8;         // ids a thread loads together into shared memory
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPastEnd = 0x7fffffff;  // the id read past the last edge
 
-__device__ __forceinline__ int lower_bound(const int* __restrict__ ids, int n,
-                                           int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = lo + ((hi - lo) >> 1);
-    if (__ldg(ids + mid) < key) lo = mid + 1; else hi = mid;
+struct Shared {
+  int ids[kMaxEdges + 1 + kAhead];  // ids[eb0 - 1 + k]; -1 before edge 0
+  int first[kMaxEdges + 1];         // each owned row's first edge (offset from eb0), then its end
+  int warp_count[kThreads / 32];    // a scan's count of rows a warp
+};
+
+// s_vals[w * C + c] = values[(eb0 + w) * F + col0 + c] for w < W (0 past edge
+// E), c < C; V = 4 copies float4s (C a multiple of 4, rows 16-byte aligned).
+// 32 / V loads in flight per thread before their stores.
+template <int V>
+__device__ __forceinline__ void stage_values(const float* __restrict__ values, int E, int F,
+                                             int eb0, int W, int col0, int C, float* s_vals) {
+  using T = typename std::conditional<V == 4, float4, float>::type;
+  constexpr int kDepth = 32 / V;
+  const int cv = C / V, n = W * cv;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kDepth * blockDim.x) {
+    T v[kDepth];
+#pragma unroll
+    for (int q = 0; q < kDepth; ++q) {
+      const int i = i0 + q * blockDim.x, w = i / cv, c = i - w * cv;
+      if (i < n && eb0 + w < E)
+        v[q] = __ldg(reinterpret_cast<const T*>(values + static_cast<long long>(eb0 + w) * F
+                                                + col0) + c);
+      else
+        v[q] = T{};
+    }
+#pragma unroll
+    for (int q = 0; q < kDepth; ++q) {
+      const int i = i0 + q * blockDim.x;
+      if (i < n) reinterpret_cast<T*>(s_vals)[i] = v[q];
+    }
   }
-  return lo;
 }
 
-__global__ void gms_fwd_kernel(const float* __restrict__ x,
-                               const float* __restrict__ filt,
-                               const int* __restrict__ send,
-                               const int* __restrict__ recv,
-                               float* __restrict__ out, int E, int F,
-                               int num_segments) {
-  extern __shared__ int bounds[];  // [2 * blockDim.y]: begin, end per row
-  const int row = blockIdx.x * blockDim.y + threadIdx.y;
-  if (threadIdx.x == 0) {
-    int begin = 0, end = 0;
-    if (row < num_segments) {
-      begin = lower_bound(recv, E, row);
-      end = lower_bound(recv, E, row + 1);
+// s_send[w] = send[eb0 + w] for w < W (0 past edge E), kStage loads in
+// flight per thread
+__device__ __forceinline__ void stage_senders(const int* __restrict__ send, int E, int eb0,
+                                              int W, int* s_send) {
+  for (int w0 = threadIdx.x; w0 < W; w0 += kStage * blockDim.x) {
+    int v[kStage];
+#pragma unroll
+    for (int q = 0; q < kStage; ++q) {
+      const int w = w0 + q * blockDim.x;
+      v[q] = w < W && eb0 + w < E ? __ldg(send + eb0 + w) : 0;
     }
-    bounds[2 * threadIdx.y] = begin;
-    bounds[2 * threadIdx.y + 1] = end;
+#pragma unroll
+    for (int q = 0; q < kStage; ++q) {
+      const int w = w0 + q * blockDim.x;
+      if (w < W) s_send[w] = v[q];
+    }
+  }
+}
+
+// The rows that block blockIdx.x owns, for its edge range [eb0, eb1) =
+// [blockIdx.x * EB, + EB): before the first barrier it calls stage(eb0);
+// then, for each owned row without edges, zero(row, lane) by one warp; then,
+// for the m-th owned row with edges, row_sum(eb0,
+// row, start, end) by the threads of slot m % slots (the caller's `slot`),
+// its edges [start, end). Contains barriers: called by the whole block.
+template <typename Stage, typename Zero, typename RowSum>
+__device__ __forceinline__ void owned_rows(const int* __restrict__ ids, int E, int N, int EB,
+                                           int slot, int slots, Shared& sh, Stage stage,
+                                           Zero zero, RowSum row_sum) {
+  const int eb0 = blockIdx.x * EB, eb1 = min(eb0 + EB, E), n = eb1 - eb0;
+  const bool last = eb1 == E;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  stage(eb0);
+  for (int k0 = threadIdx.x; k0 < n + 1 + kAhead; k0 += kStage * blockDim.x) {
+    int v[kStage];
+#pragma unroll
+    for (int q = 0; q < kStage; ++q) {
+      const int e = eb0 - 1 + k0 + q * blockDim.x;
+      v[q] = e < 0 ? -1 : e < E ? __ldg(ids + e) : kPastEnd;
+    }
+#pragma unroll
+    for (int q = 0; q < kStage; ++q) {
+      const int k = k0 + q * blockDim.x;
+      if (k < n + 1 + kAhead) sh.ids[k] = v[q];
+    }
   }
   __syncthreads();
-  const int f = blockIdx.y * blockDim.x + threadIdx.x;
-  if (row >= num_segments || f >= F) return;
-  const int begin = bounds[2 * threadIdx.y];
-  const int end = bounds[2 * threadIdx.y + 1];
-  float acc = 0.0f;
-  const float* p = filt + static_cast<long long>(begin) * F + f;
-  for (int e = begin; e < end; ++e, p += F) {
-    const long long s = __ldg(send + e);
-    acc = fmaf(__ldg(x + s * F + f), __ldg(p), acc);
+  const int rlo = max(sh.ids[0] + 1, 0);
+  const int rhi = last ? N - 1 : min(sh.ids[n], N - 1);
+  if (rlo > rhi) return;  // the range lies inside one row, owned by an earlier block
+  // first[m]: edge eb0 + k starts the m-th owned row with edges where
+  // ids[k + 1] != ids[k] (a scan of the range, blockDim.x edges a round)
+  int count = 0;
+  for (int k0 = 0; k0 < n; k0 += blockDim.x) {
+    const int k = k0 + threadIdx.x;
+    const bool starts = k < n && sh.ids[k + 1] != sh.ids[k];
+    const unsigned b = __ballot_sync(kFull, starts);
+    if (lane == 0) sh.warp_count[warp] = __popc(b);
+    __syncthreads();
+    int pos = count + __popc(b & ((1u << lane) - 1));
+    for (int w = 0; w < nw; ++w) {
+      const int c = sh.warp_count[w];
+      if (w < warp) pos += c;
+      count += c;
+    }
+    if (starts) sh.first[pos] = k;
+    __syncthreads();  // the next round rewrites warp_count
   }
-  out[static_cast<long long>(row) * F + f] = acc;
+  // The last owned row ends at eb1, or runs past it: then its end is the
+  // first edge after eb1 with a larger id, found by warp 0
+  if (warp == 0) {
+    int end = eb1;
+    if (!last && sh.ids[n] == rhi && sh.ids[n + 1] == rhi) {
+      unsigned hit = __ballot_sync(kFull, sh.ids[n + 1 + lane] > rhi);
+      int e = eb1;
+      while (hit == 0) {
+        e = e == eb1 ? eb1 + kAhead : e + 32;
+        hit = __ballot_sync(kFull, e + lane >= E || __ldg(ids + e + lane) > rhi);
+      }
+      end = e + __ffs(hit) - 1;
+    }
+    if (lane == 0) sh.first[count] = end - eb0;
+  }
+  // Owned rows without edges, ids[k] < row < ids[k + 1] for k <= n (k = n:
+  // after the last edge, in the last block): every warp finds each run, and
+  // warp w zeroes its rows w, w + nw, ...
+  for (int k0 = 0; k0 <= n; k0 += 32) {
+    const int k = k0 + lane;
+    const int lo = k <= n ? max(sh.ids[k] + 1, rlo) : 0;
+    const int hi = k <= n ? min(sh.ids[k + 1], rhi + 1) : 0;
+    unsigned runs = __ballot_sync(kFull, lo < hi);
+    while (runs) {
+      const int b = __ffs(runs) - 1;
+      runs &= runs - 1;
+      const int end = __shfl_sync(kFull, hi, b);
+      for (int r = __shfl_sync(kFull, lo, b) + warp; r < end; r += nw) zero(r, lane);
+    }
+  }
+  __syncthreads();  // first[count] is written
+  for (int m = slot; m < count; m += slots)
+    row_sum(eb0, sh.ids[sh.first[m] + 1], eb0 + sh.first[m], eb0 + sh.first[m + 1]);
+}
+
+// F <= 8: one thread per row, all F columns; the block's W staged edges
+// (filt rows and senders) in shared memory, later edges of a long row from
+// device memory.
+template <int F>
+__global__ void gms_rows_kernel(const float* __restrict__ x, const float* __restrict__ filt,
+                                const int* __restrict__ send, const int* __restrict__ recv,
+                                float* __restrict__ out, int E, int N, int EB, int W) {
+  __shared__ Shared sh;
+  extern __shared__ float4 smem4[];
+  float* s_vals = reinterpret_cast<float*>(smem4);  // [W][F]
+  int* s_send = reinterpret_cast<int*>(s_vals + W * F);  // [W]
+  owned_rows(
+      recv, E, N, EB, threadIdx.x, blockDim.x, sh,
+      [&](int eb0) {
+        stage_values<1>(filt, E, F, eb0, W, 0, F, s_vals);
+        stage_senders(send, E, eb0, W, s_send);
+      },
+      [&](int row, int lane) {
+        if (lane < F) out[static_cast<long long>(row) * F + lane] = 0.0f;
+      },
+      [&](int eb0, int row, int start, int end) {
+        const int staged = min(end, eb0 + W);
+        float acc[F];
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+        for (int e = start; e < staged; e += kInFlight) {
+          float v[kInFlight * F];
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) {
+            const bool in = e + q < staged;
+            const float* p = x + static_cast<long long>(in ? s_send[e + q - eb0] : 0) * F;
+#pragma unroll
+            for (int f = 0; f < F; ++f) v[q * F + f] = in ? __ldg(p + f) : 0.0f;
+          }
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) {
+            if (e + q >= staged) continue;
+#pragma unroll
+            for (int f = 0; f < F; ++f)
+              acc[f] = fmaf(v[q * F + f], s_vals[(e + q - eb0) * F + f], acc[f]);
+          }
+        }
+        for (int e = staged; e < end; e += kInFlight) {
+          int s[kInFlight];
+          float w[kInFlight * F];
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) {
+            const bool in = e + q < end;
+            s[q] = in ? __ldg(send + e + q) : 0;
+            const float* p = filt + static_cast<long long>(e + q) * F;
+#pragma unroll
+            for (int f = 0; f < F; ++f) w[q * F + f] = in ? __ldg(p + f) : 0.0f;
+          }
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) {
+            if (e + q >= end) continue;
+            const float* p = x + static_cast<long long>(s[q]) * F;
+#pragma unroll
+            for (int f = 0; f < F; ++f) acc[f] = fmaf(__ldg(p + f), w[q * F + f], acc[f]);
+          }
+        }
+        float* o = out + static_cast<long long>(row) * F;
+#pragma unroll
+        for (int f = 0; f < F; ++f) o[f] = acc[f];
+      });
+}
+
+// a += v * w, each component
+__device__ __forceinline__ void fma4(float4& a, const float4& v, const float4& w) {
+  a.x = fmaf(v.x, w.x, a.x);
+  a.y = fmaf(v.y, w.y, a.y);
+  a.z = fmaf(v.z, w.z, a.z);
+  a.w = fmaf(v.w, w.w, a.w);
+}
+
+// F > 8: `lanes` threads per row (a power of two up to 32, so a row lies in
+// one warp), each owning V neighbouring columns (V = 4: one float4), columns
+// col0 = blockIdx.y * lanes * V onwards; blockDim.x / lanes row slots; the
+// block's W staged edges (their C columns of filt, and their senders) in
+// shared memory.
+template <int V>
+__global__ void gms_cols_kernel(const float* __restrict__ x, const float* __restrict__ filt,
+                                const int* __restrict__ send, const int* __restrict__ recv,
+                                float* __restrict__ out, int E, int F, int N, int EB, int W,
+                                int lanes) {
+  using T = typename std::conditional<V == 4, float4, float>::type;
+  __shared__ Shared sh;
+  extern __shared__ float4 smem4[];
+  float* s_vals = reinterpret_cast<float*>(smem4);  // [W][C]
+  const int col0 = blockIdx.y * lanes * V, C = min(F - col0, lanes * V);
+  int* s_send = reinterpret_cast<int*>(s_vals + W * C);  // [W]
+  const int c = (threadIdx.x % lanes) * V;  // this thread's columns col0 + c ..
+  owned_rows(
+      recv, E, N, EB, threadIdx.x / lanes, blockDim.x / lanes, sh,
+      [&](int eb0) {
+        stage_values<V>(filt, E, F, eb0, W, col0, C, s_vals);
+        stage_senders(send, E, eb0, W, s_send);
+      },
+      [&](int row, int lane) {
+        for (int j = lane * V; j < C; j += 32 * V)
+          *reinterpret_cast<T*>(out + static_cast<long long>(row) * F + col0 + j) = T{};
+      },
+      [&](int eb0, int row, int start, int end) {
+        if (c >= C) return;
+        const int staged = min(end, eb0 + W);
+        const float* xc = x + col0 + c;
+        const float* fc = filt + col0 + c;
+        const T zero{};
+        T acc{};
+        for (int e = start; e < staged; e += kInFlight) {
+          T v[kInFlight];
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q)
+            v[q] = e + q < staged
+                       ? __ldg(reinterpret_cast<const T*>(
+                             xc + static_cast<long long>(s_send[e + q - eb0]) * F))
+                       : zero;
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) {
+            if (e + q >= staged) continue;
+            const T w = *reinterpret_cast<const T*>(s_vals + (e + q - eb0) * C + c);
+            if constexpr (V == 4) fma4(acc, v[q], w); else acc = fmaf(v[q], w, acc);
+          }
+        }
+        int s[kInFlight];
+#pragma unroll
+        for (int q = 0; q < kInFlight; ++q) s[q] = staged + q < end ? __ldg(send + staged + q) : 0;
+        for (int e = staged; e < end; e += kInFlight) {
+          T w[kInFlight], v[kInFlight];
+          int sn[kInFlight];
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) {
+            const bool in = e + q < end;
+            w[q] = in ? __ldg(reinterpret_cast<const T*>(fc + static_cast<long long>(e + q) * F))
+                      : zero;
+            v[q] = in ? __ldg(reinterpret_cast<const T*>(xc + static_cast<long long>(s[q]) * F))
+                      : zero;
+            sn[q] = e + kInFlight + q < end ? __ldg(send + e + kInFlight + q) : 0;
+          }
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) {
+            if (e + q >= end) continue;
+            if constexpr (V == 4) fma4(acc, v[q], w[q]); else acc = fmaf(v[q], w[q], acc);
+          }
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) s[q] = sn[q];
+        }
+        *reinterpret_cast<T*>(out + static_cast<long long>(row) * F + col0 + c) = acc;
+      });
+}
+
+// The block's edge range EB and its staged edges W (EB and up to two rows'
+// worth of edges after it, for the row that runs past it) for `slots` rows a
+// chunk and C staged columns: EB holds 3/4 of `slots` rows at the mean edges
+// per row, so that the rows a block owns mostly fit one chunk; W C values fit
+// kStaged.
+struct Ranges {
+  int EB, W;
+};
+
+Ranges ranges_for(int E, int N, int slots, int C) {
+  const long long mean = (static_cast<long long>(E) + N - 1) / N;
+  const int ahead = static_cast<int>(mean * 2 < kAhead ? mean * 2 : kAhead);
+  long long eb = static_cast<long long>(slots) * 3 * E / (4LL * N);
+  const long long most = kStaged / C - ahead;
+  if (eb > most) eb = most;
+  if (eb > kMaxEdges) eb = kMaxEdges;
+  if (eb < 1) eb = 1;
+  return {static_cast<int>(eb), static_cast<int>(eb) + ahead};
+}
+
+int blocks_for(int E, int EB) { return E == 0 ? 1 : (E + EB - 1) / EB; }
+
+// dynamic shared memory of a block: W staged rows of C filt columns, W senders
+int smem_for(const Ranges& r, int C) { return r.W * (C + 1) * 4; }
+
+// Opts the kernel in to `bytes` of dynamic shared memory where they exceed
+// what a block may take without (48 KB with the static Shared).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes + static_cast<int>(sizeof(Shared)) <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int F>
+cudaError_t launch_rows(const float* x, const float* filt, const int* send, const int* recv,
+                        float* out, int E, int N, cudaStream_t stream) {
+  const Ranges r = ranges_for(E, N, kThreads, F);
+  const int smem = smem_for(r, F);
+  const cudaError_t err = allow_smem(gms_rows_kernel<F>, smem);
+  if (err != cudaSuccess) return err;
+  gms_rows_kernel<F><<<blocks_for(E, r.EB), kThreads, smem, stream>>>(x, filt, send, recv, out,
+                                                                      E, N, r.EB, r.W);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -81,14 +409,33 @@ extern "C" int gcnn_gather_mul_segsum_f32(const float* x, const float* filt,
                                           float* out, int E, int F,
                                           int num_segments, void* stream) {
   if (num_segments <= 0 || F <= 0) return static_cast<int>(cudaSuccess);
-  // feature tile: the smallest of 32, 64, 128 that covers F (128 for wider)
-  int tf = 32;
-  while (tf < F && tf < 128) tf *= 2;
-  const int rows = kThreads / tf;
-  dim3 block(tf, rows);
-  dim3 grid((num_segments + rows - 1) / rows, (F + tf - 1) / tf);
-  gms_fwd_kernel<<<grid, block, 2 * rows * sizeof(int),
-                   static_cast<cudaStream_t>(stream)>>>(
-      x, filt, send, recv, out, E, F, num_segments);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = num_segments;
+  if (F <= 8) {
+    cudaError_t err;
+    switch (F) {
+      case 1: err = launch_rows<1>(x, filt, send, recv, out, E, n, s); break;
+      case 2: err = launch_rows<2>(x, filt, send, recv, out, E, n, s); break;
+      case 3: err = launch_rows<3>(x, filt, send, recv, out, E, n, s); break;
+      case 4: err = launch_rows<4>(x, filt, send, recv, out, E, n, s); break;
+      case 5: err = launch_rows<5>(x, filt, send, recv, out, E, n, s); break;
+      case 6: err = launch_rows<6>(x, filt, send, recv, out, E, n, s); break;
+      case 7: err = launch_rows<7>(x, filt, send, recv, out, E, n, s); break;
+      default: err = launch_rows<8>(x, filt, send, recv, out, E, n, s); break;
+    }
+    return static_cast<int>(err);
+  }
+  const int v = F % 4 == 0 && reinterpret_cast<std::uintptr_t>(filt) % 16 == 0
+                && reinterpret_cast<std::uintptr_t>(x) % 16 == 0 ? 4 : 1;
+  int lanes = 1;
+  while (lanes < 32 && lanes * v < F) lanes <<= 1;
+  const int c = F < lanes * v ? F : lanes * v;  // staged columns of a block
+  const Ranges r = ranges_for(E, n, kThreads / lanes, c);
+  const int smem = smem_for(r, c);
+  const dim3 grid(blocks_for(E, r.EB), (F + lanes * v - 1) / (lanes * v));
+  auto kernel = v == 4 ? gms_cols_kernel<4> : gms_cols_kernel<1>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, smem, s>>>(x, filt, send, recv, out, E, F, n, r.EB, r.W, lanes);
   return static_cast<int>(cudaGetLastError());
 }

@@ -281,6 +281,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (tid == 0) s_range[0] = lower_bound(recv, E, r0);
   if (tid == 32) s_range[1] = lower_bound(recv, E, r1);
   stage_padded(s_w2, w2, U, U, up);
+  // W2's padded rows are read by the product: zero them
+  for (int i = U * up + tid; i < up * up; i += kThreads) s_w2[i] = 0.0f;
   stage_padded(s_w1, w1, B, U, up);
   // rows of a chunk that hold no edge are read: keep them finite
   for (int i = tid; i < 2 * KE * up + KE * B; i += kThreads) s_h[i] = 0.0f;

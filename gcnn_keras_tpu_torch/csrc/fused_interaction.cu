@@ -111,9 +111,9 @@
 
 namespace {
 
-constexpr int kRowsFwd = 16;   // receiver rows per block of cf_fwd
-constexpr int kMinRows = 16;   // fewest receiver rows per block of cf_vjp, cf_hesjvp
-constexpr int kEdgesFwd = 16;  // edges per chunk of cf_fwd
+constexpr int kRowsFwd = 16;   // receiver rows per block of cf_fwd_wide_kernel
+constexpr int kMinRows = 16;   // fewest receiver rows per block of the other kernels
+constexpr int kEdgesFwd = 16;  // edges per chunk of cf_fwd_wide_kernel
 constexpr int kEdges = 8;      // edges per chunk of cf_hesjvp_wide_kernel
 constexpr int kStage = 16;     // loads in flight per thread while staging weights
 constexpr float kLog2 = 0.6931471805599453f;
@@ -262,17 +262,17 @@ __device__ __forceinline__ void edge_geometry(
       live ? (v[0] * du[0] + v[1] * du[1] + v[2] * du[2]) / r : 0.0f;
 }
 
-// ------------------------------------------------------------------ cf_fwd
+// ------------------------------------------------------- cf_fwd (U above 128)
 
 __host__ __device__ __forceinline__ int hidden_stride(int U) { return (U + 3) & ~3; }
 
-__global__ void cf_fwd_kernel(const float* __restrict__ x, const float* __restrict__ pos,
-                              const float* __restrict__ w1, const float* __restrict__ b1,
-                              const float* __restrict__ w2, const float* __restrict__ b2,
-                              const int* __restrict__ send, const int* __restrict__ recv,
-                              const unsigned char* __restrict__ mask,
-                              float* __restrict__ out, int N, int E, int B, int U,
-                              double dmax, double offset, float gamma) {
+__global__ void cf_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ pos,
+                                   const float* __restrict__ w1, const float* __restrict__ b1,
+                                   const float* __restrict__ w2, const float* __restrict__ b2,
+                                   const int* __restrict__ send, const int* __restrict__ recv,
+                                   const unsigned char* __restrict__ mask,
+                                   float* __restrict__ out, int N, int E, int B, int U,
+                                   double dmax, double offset, float gamma) {
   extern __shared__ float4 smem4[];
   const int uh = hidden_stride(U);
   float* s_h = reinterpret_cast<float*>(smem4);  // [kEdgesFwd][uh]
@@ -389,9 +389,9 @@ __global__ void cf_fwd_kernel(const float* __restrict__ x, const float* __restri
 // unit groups g = l + 32 j (units 4 g .. 4 g + 3, j < G). Units are padded to
 // up = U rounded up to 32; padded weights are 0, so padded units carry 0.
 
-constexpr int kEdgesTile = 32;   // edges per chunk of cf_vjp
-constexpr int kThreadsVjp = 256; // threads of a cf_vjp block (one block per SM)
-constexpr int kTiledUnits = 128; // U up to which cf_hesjvp takes the tiled kernel
+constexpr int kEdgesTile = 32;   // edges per chunk of cf_vjp, the tiled cf_fwd and cf_hesjvp
+constexpr int kThreadsVjp = 256; // threads of their blocks
+constexpr int kTiledUnits = 128; // U up to which cf_fwd and cf_hesjvp take the tiled kernel
 
 __host__ __device__ __forceinline__ int units_padded(int U) { return (U + 31) & ~31; }
 
@@ -512,6 +512,140 @@ __device__ __forceinline__ void chunk_geometry(
     s_ef[(DU + q) * KE + j] = du[q];
   }
   s_ef[DR * KE + j] = live ? (v[0] * du[0] + v[1] * du[1] + v[2] * du[2]) / r : 0.0f;
+}
+
+// ------------------------------------------------------- cf_fwd (U <= 128)
+//
+// kThreadsVjp threads, two blocks a SM, each over `rows` receiver rows. Per
+// chunk of 32 edges: geometry and basis; warp w takes edges 4 w .. 4 w + 3,
+// lane l the units 4 l .. 4 l + 3; z = b W1 + b1 gives h = ssp(z) in a
+// shared row that only the warp reads back; F = h W2 + b2 runs as 4 x 4
+// register tiles (W2 row-major, rows padded to up: read only by rows, so no
+// swizzle); m = x[j] F goes to a shared row. After a barrier, threads u < U
+// add the chunk's real m rows in edge order onto the receiver rows.
+
+__global__ void __launch_bounds__(kThreadsVjp, 2)
+    cf_fwd_kernel(const float* __restrict__ x, const float* __restrict__ pos,
+                  const float* __restrict__ w1, const float* __restrict__ b1,
+                  const float* __restrict__ w2, const float* __restrict__ b2,
+                  const int* __restrict__ send, const int* __restrict__ recv,
+                  const unsigned char* __restrict__ mask, float* __restrict__ out, int N,
+                  int E, int B, int U, int rows, double dmax, double offset, float gamma,
+                  int vec) {
+  constexpr int KE = kEdgesTile, NW = kThreadsVjp / 32, EW = KE / NW;
+  extern __shared__ float4 smem4[];
+  const int up = units_padded(U);
+  float* s_w2 = reinterpret_cast<float*>(smem4);  // [up][up]
+  float* s_w1 = s_w2 + up * up;                   // [B][up]
+  float* s_h = s_w1 + B * up;                     // [KE][up]
+  float* s_m = s_h + KE * up;                     // [KE][up]
+  float* s_b = s_m + KE * up;                     // [KE][B]
+  float* s_shift = s_b + KE * B;                  // [B]
+  float* s_ef = s_shift + B;                      // [kSlots][KE]
+  int* s_ei = reinterpret_cast<int*>(s_ef + kSlots * KE);  // [kISlots][KE]
+  int* s_misc = s_ei + kISlots * KE;                       // [kMisc]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * rows;
+  const int r1 = min(r0 + rows, N);
+  if (tid == 0) s_misc[0] = lower_bound(recv, E, r0);
+  if (tid == 32) s_misc[1] = lower_bound(recv, E, r1);
+  stage_padded(s_w2, w2, U, U, up);
+  fill(s_w2 + U * up, (up - U) * up, 0.0f);  // the padded rows, read by the product
+  stage_padded(s_w1, w1, B, U, up);
+  fill_shifts(s_shift, B, dmax, offset);
+  // rows of a chunk that hold no edge are read: keep them finite
+  fill(s_h, 2 * KE * up, 0.0f);
+  __syncthreads();
+  const int e0 = s_misc[0], e1 = s_misc[1];
+
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int u = 4 * lane;   // this lane's units u .. u + 3
+  const bool gok = u < up;  // which are not all padding
+  const float4 b1v = load_units(b1, u, U, false), b2v = load_units(b2, u, U, false);
+  float acc = 0.0f;  // threads tid < U: unit tid of row cur
+  int cur = r0;
+  for (int c = next_real(mask, e0, e1, s_misc + 2); c < e1;
+       c = next_real(mask, c, e1, s_misc + 2)) {
+    const int n = min(KE, e1 - c);
+    chunk_geometry<KE>(pos, nullptr, send, recv, mask, c, n, s_ef, s_ei);
+    __syncthreads();
+    basis(s_b, s_ef + R * KE, s_shift, KE, B, gamma);
+    __syncthreads();
+    if (warp * EW < n) {  // this warp's slots hold edges
+      float4 xv[EW];
+      if (gok) {
+        float4 z[EW];
+#pragma unroll
+        for (int ei = 0; ei < EW; ++ei) {
+          const int e = warp * EW + ei;
+          xv[ei] = s_ei[REAL * KE + e]
+                       ? load_units(x + static_cast<long long>(s_ei[SEND * KE + e]) * U, u, U,
+                                    vec)
+                       : zero4;
+          z[ei] = b1v;
+        }
+        for (int k = 0; k < B; ++k) {
+          const float4 w = ld4(s_w1 + k * up + u);
+#pragma unroll
+          for (int ei = 0; ei < EW; ++ei) fma4(z[ei], s_b[(warp * EW + ei) * B + k], w);
+        }
+#pragma unroll
+        for (int ei = 0; ei < EW; ++ei)
+          st4(s_h + (warp * EW + ei) * up + u,
+              make_float4(ssp(z[ei].x), ssp(z[ei].y), ssp(z[ei].z), ssp(z[ei].w)));
+      }
+      __syncwarp();  // the warp reads back only its own h rows
+      if (gok) {
+        float4 f[EW];
+#pragma unroll
+        for (int ei = 0; ei < EW; ++ei) f[ei] = b2v;
+#pragma unroll 2
+        for (int t = 0; t < up; t += 4) {
+          float4 h4[EW];
+#pragma unroll
+          for (int ei = 0; ei < EW; ++ei) h4[ei] = ld4(s_h + (warp * EW + ei) * up + t);
+          const float4 wa = ld4(s_w2 + t * up + u);
+          const float4 wb = ld4(s_w2 + (t + 1) * up + u);
+          const float4 wc = ld4(s_w2 + (t + 2) * up + u);
+          const float4 wd = ld4(s_w2 + (t + 3) * up + u);
+#pragma unroll
+          for (int ei = 0; ei < EW; ++ei) {
+            fma4(f[ei], h4[ei].x, wa);
+            fma4(f[ei], h4[ei].y, wb);
+            fma4(f[ei], h4[ei].z, wc);
+            fma4(f[ei], h4[ei].w, wd);
+          }
+        }
+#pragma unroll
+        for (int ei = 0; ei < EW; ++ei)
+          st4(s_m + (warp * EW + ei) * up + u,
+              make_float4(xv[ei].x * f[ei].x, xv[ei].y * f[ei].y, xv[ei].z * f[ei].z,
+                          xv[ei].w * f[ei].w));
+      }
+    }
+    __syncthreads();
+    if (tid < U) {
+      for (int e = 0; e < n; ++e) {
+        if (!s_ei[REAL * KE + e]) continue;
+        const int r = s_ei[RECV * KE + e];
+        for (; cur < r; ++cur) {
+          out[static_cast<long long>(cur) * U + tid] = acc;
+          acc = 0.0f;
+        }
+        acc += s_m[e * up + tid];
+      }
+    }
+    c += n;
+    // next_real's first barrier orders this chunk's reads before the next
+    // chunk's writes
+  }
+  if (tid < U) {
+    for (; cur < r1; ++cur) {
+      out[static_cast<long long>(cur) * U + tid] = acc;
+      acc = 0.0f;
+    }
+  }
 }
 
 // Receiver side of the position cotangent for the chunk's edges j < n, by
@@ -1586,12 +1720,13 @@ __global__ void cf_hesjvp_wide_kernel(
 
 int threads_for(int U) { return ((U + 31) / 32) * 32; }
 
-// receiver rows per block of cf_vjp and cf_hesjvp: one block per SM
-int rows_for(int N) {
+// receiver rows per block for `per_sm` blocks a SM (cf_vjp and cf_hesjvp
+// one, the tiled cf_fwd two), at least kMinRows
+int rows_for(int N, int per_sm = 1) {
   int device = 0, sms = 132;
   if (cudaGetDevice(&device) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int rows = (N + sms - 1) / sms;
+  const int rows = (N + per_sm * sms - 1) / (per_sm * sms);
   return rows > kMinRows ? rows : kMinRows;
 }
 
@@ -1607,6 +1742,13 @@ cudaError_t allow_smem(Kernel kernel, long long smem) {
 // 2 cf_hesjvp) for (B, U), in bytes.
 extern "C" long long gcnn_cf_smem_bytes(int kind, int B, int U) {
   const long long b = B, u = U, nw = threads_for(U) / 32;
+  if (kind == 0 && U <= kTiledUnits) {
+    // the tiled kernel: W2 and W1 padded to up units, the chunk's h and m
+    // rows, its basis rows, the centres and per-edge scalars; 4 ints an edge
+    const long long e = kEdgesTile, p = units_padded(U);
+    const long long floats = p * p + b * p + 2 * e * p + e * b + b + kSlots * e;
+    return 4 * (floats + kISlots * e + kMisc);
+  }
   if (kind == 0) {
     const long long e = kEdgesFwd;
     const long long floats = e * hidden_stride(U) + u * u + b * u + b + e * b + e;
@@ -1643,12 +1785,26 @@ extern "C" int gcnn_cf_fwd_f32(const float* x, const float* pos, const float* w1
                                void* stream) {
   if (N <= 0 || U <= 0) return static_cast<int>(cudaSuccess);
   const long long smem = gcnn_cf_smem_bytes(0, B, U);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (U > kTiledUnits) {
+    cudaError_t err = allow_smem(cf_fwd_wide_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cf_fwd_wide_kernel<<<(N + kRowsFwd - 1) / kRowsFwd, threads_for(U), smem, s>>>(
+        x, pos, w1, b1, w2, b2, send, recv, mask, out, N, E, B, U, dmax, offset,
+        static_cast<float>(gamma));
+    return static_cast<int>(cudaGetLastError());
+  }
   cudaError_t err = allow_smem(cf_fwd_kernel, smem);
+  if (err == cudaSuccess)  // room for two blocks a SM
+    err = cudaFuncSetAttribute(cf_fwd_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cf_fwd_kernel<<<(N + kRowsFwd - 1) / kRowsFwd, threads_for(U), smem,
-                  static_cast<cudaStream_t>(stream)>>>(
-      x, pos, w1, b1, w2, b2, send, recv, mask, out, N, E, B, U, dmax, offset,
-      static_cast<float>(gamma));
+  // float4 loads of x rows where they are 16-byte aligned
+  const int vec = U % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+  const int rows = rows_for(N, 2);
+  cf_fwd_kernel<<<(N + rows - 1) / rows, kThreadsVjp, smem, s>>>(
+      x, pos, w1, b1, w2, b2, send, recv, mask, out, N, E, B, U, rows, dmax, offset,
+      static_cast<float>(gamma), vec);
   return static_cast<int>(cudaGetLastError());
 }
 

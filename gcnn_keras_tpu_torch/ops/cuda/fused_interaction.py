@@ -56,10 +56,11 @@ launches = dict.fromkeys(KERNELS, 0)
 EPS = 1e-12
 SHARED_MEMORY_BYTES = 232448  # the dynamic shared memory a Hopper block may take
 # kEdgesFwd, kEdgesTile, kEdges, kSlots and kMisc of csrc/fused_interaction.cu:
-# edges per chunk of cf_fwd, of cf_vjp and the tiled cf_hesjvp, and of the
-# wide cf_hesjvp, float slots per edge, spare ints
+# edges per chunk of the wide cf_fwd, of cf_vjp and the tiled cf_fwd and
+# cf_hesjvp, and of the wide cf_hesjvp, float slots per edge, spare ints
 _EDGES_FWD, _EDGES_VJP, _EDGES_BWD, _EDGE_SLOTS, _MISC_INTS = 16, 32, 8, 13, 4
-TILED_UNITS = 128  # kTiledUnits: cf_hesjvp's tiled kernel up to this U, the wide one above
+# kTiledUnits: cf_fwd's and cf_hesjvp's tiled kernels up to this U, the wide ones above
+TILED_UNITS = 128
 
 
 class CFStatic(NamedTuple):
@@ -142,9 +143,17 @@ def cf_hesjvp_plain(x, pos, w1, b1, w2, b2, ct, u_x, u_pos, u_w1, u_b1, u_w2, u_
 def shared_memory_bytes(kind: str, b: int, u: int) -> int:
     """What one block of kernel ``kind`` takes for B bins and U units
     (``gcnn_cf_smem_bytes`` in the source)."""
+    if kind == "cf_fwd" and u <= TILED_UNITS:
+        # the tiled cf_fwd: W2 and W1 with U padded to a multiple of 32, the
+        # chunk's hidden and message rows, its basis rows, the centres and
+        # per-edge scalars; 4 ints an edge
+        e, p = _EDGES_VJP, (u + 31) // 32 * 32
+        floats = p * p + b * p + 2 * e * p + e * b + b + _EDGE_SLOTS * e
+        return 4 * (floats + 4 * e + _MISC_INTS)
     if kind == "cf_fwd":
-        # a chunk's hidden rows (U rounded up to 4), W2, W1, the Gaussian
-        # centres, the chunk's basis rows and distances; 3 ints an edge
+        # the wide cf_fwd: a chunk's hidden rows (U rounded up to 4), W2, W1,
+        # the Gaussian centres, the chunk's basis rows and distances; 3 ints
+        # an edge
         e = _EDGES_FWD
         floats = e * ((u + 3) // 4 * 4) + u * u + b * u + b + e * b + e
         return 4 * (floats + 3 * e + _MISC_INTS)

@@ -14,10 +14,11 @@ held against the plain version:
 
 - ``sorted_segment_sum``: phase 3's three timed shapes of the SchNet serving
   batch and a launch with no edges (the floor), each beside ``index_add_``;
-- ``cf_vjp``, ``cf_hesjvp``: phase 15's timed checks at the ``schnet_train``
-  batch (``cf_hesjvp`` as a force loss calls it and with every tangent);
-- ``fused_cfconv``: phase 11's timed checks at the serving and MD shapes
-  (its edge cases checked too).
+- ``cf_fwd``, ``cf_vjp``, ``cf_hesjvp``: phase 15's timed checks at the
+  ``schnet_train`` batch (``cf_hesjvp`` as a force loss calls it and with
+  every tangent);
+- ``gather_mul_segsum``, ``fused_cfconv``: phase 11's timed checks at the
+  serving and MD shapes (their edge cases checked too).
 
 Prints one JSON line per timing. Needs one CUDA card.
 """
@@ -33,8 +34,9 @@ import torch
 import chip_smoke
 from gcnn_keras_tpu_torch.ops.cuda import build
 
-SOURCES = {"sorted_segment_sum": "segment_sum", "cf_vjp": "fused_interaction",
-           "cf_hesjvp": "fused_interaction", "fused_cfconv": "fused_cfconv"}
+SOURCES = {"sorted_segment_sum": "segment_sum", "gather_mul_segsum": "fused_aggregate",
+           "fused_cfconv": "fused_cfconv", "cf_fwd": "fused_interaction",
+           "cf_vjp": "fused_interaction", "cf_hesjvp": "fused_interaction"}
 OUT_DIR = build.BUILD_DIR / "variants"
 
 
@@ -107,8 +109,8 @@ def segment_sum_timings(libs, order):
 
 
 def chain_timings(kernel, libs, order):
-    """phase 15's timed checks of cf_vjp or cf_hesjvp, each variant loaded
-    in its turn."""
+    """phase 15's timed checks of cf_fwd, cf_vjp or cf_hesjvp, each variant
+    loaded in its turn."""
     batch = chip_smoke.train_batch("schnet_chain_train", 0, 512, "cuda")
     model = chip_smoke.schnet_model("chain", "cuda")
     for name in order:
@@ -118,14 +120,14 @@ def chain_timings(kernel, libs, order):
                 "case", "ms", "ms_warm", "bound_ms", "max_err_over_tol_scale")}}))
 
 
-def fused_cfconv_timings(libs, order):
-    """phase 11's timed checks of the fused cfconv (serving and MD shapes),
-    each variant loaded in its turn."""
+def schnet_kernel_timings(kernel, libs, order):
+    """phase 11's timed checks of the gms kernel or the fused cfconv
+    (serving and MD shapes), each variant loaded in its turn."""
     _, batch = chip_smoke.make_predictor("cuda").make_batch(chip_smoke.qm9_like_mols(0, 512))
     model = chip_smoke.schnet_model("unfused", "cuda")
     for name in order:
-        build._loaded["fused_cfconv"] = libs[name]
-        recs = chip_smoke.phase_schnet_kernels(batch, model, ("fused_cfconv",))["fused_cfconv"]
+        build._loaded[SOURCES[kernel]] = libs[name]
+        recs = chip_smoke.phase_schnet_kernels(batch, model, (kernel,))[kernel]
         for rec in recs:
             if "ms" in rec:
                 print(json.dumps({"variant": name, **{k: rec[k] for k in (
@@ -145,8 +147,8 @@ def main():
     order = list(libs) + list(libs)[::-1]
     if kernel == "sorted_segment_sum":
         segment_sum_timings(libs, order)
-    elif kernel == "fused_cfconv":
-        fused_cfconv_timings(libs, order)
+    elif kernel in ("gather_mul_segsum", "fused_cfconv"):
+        schnet_kernel_timings(kernel, libs, order)
     else:
         chain_timings(kernel, libs, order)
 

@@ -5,7 +5,9 @@ training step or of one MD step goes on a CUDA card, for the PyTorch port.
                                      [--mode unfused|fused|accurate|chain]
                                      [--train | --md] [--evals 10]
                                      [--trace chiprun_out/serving_trace.json]
-    python3 profile_serving_torch.py --kernel sorted_segment_sum|cf_vjp|cf_hesjvp|fused_cfconv
+    python3 profile_serving_torch.py --kernel KERNEL
+        (KERNEL: sorted_segment_sum, gather_mul_segsum, fused_cfconv, cf_fwd,
+         cf_vjp or cf_hesjvp)
 
 Builds the serving batch of ``chip_smoke.py`` (512 QM9-like molecules,
 weights from seed 0; SchNet defaults in ``--mode`` (``interaction_args``
@@ -28,12 +30,13 @@ and calls of each of the port's own kernels; writes a Chrome trace when
 ``chip_smoke.py``'s own checks of that kernel, each against its plain
 version and each printed as a JSON record: ``sorted_segment_sum``, phase
 3's three timed shapes of the SchNet serving batch and its edge cases;
-``cf_vjp`` and ``cf_hesjvp``, phase 15's edge cases and the timed checks at
-the ``schnet_train`` batch (with the plain version's and the port's unfused
-chain's times; ``cf_hesjvp`` as a force loss calls it and with every
-tangent); ``fused_cfconv``, phase 11's timed checks at the serving and MD
-shapes (with the unfused chain's time) and its edge cases. The last line is
-one JSON summary of the timed records. Needs one CUDA card.
+``cf_fwd``, ``cf_vjp`` and ``cf_hesjvp``, phase 15's edge cases and the
+timed checks at the ``schnet_train`` batch (with the plain version's and
+the port's unfused chain's times; ``cf_hesjvp`` as a force loss calls it
+and with every tangent); ``gather_mul_segsum`` and ``fused_cfconv``, phase
+11's timed checks at the serving and MD shapes (with the unfused chains'
+times) and their edge cases. The last line is one JSON summary of the
+timed records. Needs one CUDA card.
 """
 import argparse
 import functools
@@ -49,8 +52,9 @@ import chip_smoke
 # the port's hand-written kernels, by the names of their CUDA functions
 PORT_KERNELS = ("sorted_segment_sum", "g2_fwd_kernel", "g4_fwd_kernel",
                 "g4_vjp_kernel", "g2_vjp_kernel", "g4_jvp_kernel", "g2_jvp_kernel",
-                "spd_solve_gj_kernel", "gms_fwd_kernel", "fused_cfconv_kernel",
-                "fused_cfconv_wide_kernel", "cf_fwd_kernel", "cf_vjp_kernel",
+                "spd_solve_gj_kernel", "gms_rows_kernel", "gms_cols_kernel",
+                "fused_cfconv_kernel", "fused_cfconv_wide_kernel", "cf_fwd_kernel",
+                "cf_fwd_wide_kernel", "cf_vjp_kernel",
                 "cf_hesjvp_kernel", "cf_hesjvp_wide_kernel")
 
 
@@ -97,15 +101,16 @@ def training_run(name, mode):
 
 
 # the source of each kernel that --kernel takes
-KERNEL_SOURCES = {"sorted_segment_sum": "segment_sum", "cf_vjp": "fused_interaction",
-                  "cf_hesjvp": "fused_interaction", "fused_cfconv": "fused_cfconv"}
+KERNEL_SOURCES = {"sorted_segment_sum": "segment_sum", "gather_mul_segsum": "fused_aggregate",
+                  "fused_cfconv": "fused_cfconv", "cf_fwd": "fused_interaction",
+                  "cf_vjp": "fused_interaction", "cf_hesjvp": "fused_interaction"}
 
 
 def kernel_records(name):
     """``chip_smoke.py``'s checks of kernel ``name`` at its main-path shapes
     and edge cases, after a fresh build of its source."""
     chip_smoke.phase_build([KERNEL_SOURCES[name]])
-    if name in ("sorted_segment_sum", "fused_cfconv"):
+    if name in ("sorted_segment_sum", "gather_mul_segsum", "fused_cfconv"):
         _, batch = chip_smoke.make_predictor("cuda").make_batch(chip_smoke.qm9_like_mols(0, 512))
         if name == "sorted_segment_sum":
             return chip_smoke.phase_kernel(batch)

@@ -507,6 +507,10 @@ def test_md_kernels_match_plain_at_the_serving_shapes(cuda_device):
     recs = chip_smoke.phase_schnet_kernels(batch, make_model(device=cuda_device))
     assert recs["gather_mul_segsum"][0]["bound_by"] == "bytes"
     assert recs["fused_cfconv"][0]["bound_by"] == "operations"
+    # both also timed at the MD step's shape, where an MD step launches each 4 times
+    for kernel in ("gather_mul_segsum", "fused_cfconv"):
+        md = [r for r in recs[kernel] if r["case"].startswith("MD shape") and "ms" in r]
+        assert len(md) == 1 and md[0]["N"] == 128
 
 
 @pytest.mark.cuda
@@ -528,6 +532,28 @@ def test_fused_cfconv_matches_plain_at_the_serving_shape(cuda_device, u):
         torch.from_numpy(ids).to(cuda_device), n, rnd(b, u, scale=b ** -0.5),
         rnd(u, scale=0.1), rnd(u, u, scale=u ** -0.5), rnd(u, scale=0.1), f"U={u}", False)
     assert fc.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [3, 128, 200])
+def test_gms_matches_plain_past_the_staged_window(cuda_device, f):
+    """The gms kernel against its plain version, one launch: 3000 rows, one
+    of them 3000 edges long (past a block's staged window, so its sum reads
+    the rest from device memory), senders 1000-2000 rows from their
+    receivers."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.ops.cuda import fused_aggregate as fa
+    n, e, long_row = 3000, 9000, 3000
+    rs = np.random.RandomState(f)
+    recv = np.sort(np.concatenate([rs.randint(0, n, e - long_row), np.full(long_row, n // 2)]))
+    send = (recv + 1000 + rs.randint(0, 1000, e)) % n
+    recv, send = (torch.from_numpy(a.astype(np.int32)).to(cuda_device) for a in (recv, send))
+    gen = torch.Generator(device=cuda_device).manual_seed(f)
+    before = fa.launches
+    chip_smoke.check_gms(torch.randn(n, f, generator=gen, device=cuda_device),
+                         torch.randn(e, f, generator=gen, device=cuda_device), send, recv, n,
+                         f"F={f}, a row of {long_row} edges", False)
+    assert fa.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -606,11 +632,13 @@ def _chain_case(n, e, u, b, seed, dev, window=40, masked=0.1):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,e,u,b,masked", [(150, 600, 16, 8, 0.1), (8192, 54784, 128, 20, 0.1),
-                                             (8192, 54784, 128, 20, 0.0)])
+                                             (8192, 54784, 128, 20, 0.0),
+                                             (600, 3000, 136, 20, 0.1)])
 def test_chain_kernels_match_plain(cuda_device, n, e, u, b, masked):
     """The three fused-chain kernels against their plain versions, one
     launch each, within ``chip_smoke.check_chain``'s tolerances; at full
-    width also with every edge real."""
+    width also with every edge real; at U 136 cf_fwd's and cf_hesjvp's wide
+    kernels."""
     import chip_smoke
     from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
     (x, pos, weights, ct, tangents), edges, st = _chain_case(n, e, u, b, n, cuda_device,

@@ -605,9 +605,22 @@ def test_vjp_shared_memory_is_the_tiled_layout_and_the_gate_stays():
     chunk's h, a and dz rows (32 edges of U), its basis rows, the centres and
     the per-edge scalars; the W2 sum lives in registers. One block a SM
     takes it. cf_hesjvp's tiled kernel (U up to 128) adds u_W1 and the
-    chunk's dh, q and m rows. The shared-memory gate stays that of
-    cf_hesjvp's wide kernel (U above 128): U 148 at B 20."""
+    chunk's dh, q and m rows. cf_fwd's tiled kernel keeps W2, W1 and the
+    chunk's h and m rows, and two of its blocks fit an SM. The shared-memory
+    gate stays that of cf_hesjvp's wide kernel (U above 128): U 148 at B 20."""
     up, e, b = 128, 32, 20
+    # W2, W1; the h and m rows; basis rows, centres, per-edge scalars; 4
+    # ints an edge and 4 spare
+    floats = up * up + b * up + 2 * e * up + e * b + b + 13 * e
+    need = fi.shared_memory_bytes("cf_fwd", 20, 128)
+    assert need == 4 * (floats + 4 * e + 4) == 113376
+    # two blocks, each with the 1 KB the card reserves a block, in the SM's 228 KB
+    assert 2 * (need + 1024) <= 228 * 1024
+    # the wide cf_fwd from U 129: 16-edge chunks of hidden rows (U rounded up
+    # to 4), W2, W1, the centres, basis rows and distances; 3 ints an edge
+    u, e16 = 129, 16
+    floats = e16 * 132 + u * u + b * u + b + e16 * b + e16
+    assert fi.shared_memory_bytes("cf_fwd", 20, 129) == 4 * (floats + 3 * e16 + 4)
     floats = up * up + 2 * b * up + 3 * e * up + e * b + b + 13 * e
     need = fi.shared_memory_bytes("cf_vjp", 20, 128)
     assert need == 4 * (floats + 4 * e + 4) == 140000

@@ -68,11 +68,13 @@ constexpr int kStage = 8;         // ids a thread loads together into shared mem
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPastEnd = 0x7fffffff;  // the id read past the last edge
 
-struct Shared {
-  int ids[kMaxEdges + 1 + kAhead];  // ids[eb0 - 1 + k]; -1 before edge 0
+struct alignas(16) Shared {
+  int ids[kMaxEdges + 1 + kAhead];  // ids[eb0 - 1 + k]; -1 before edge 0; then the
+                                    // partial sums of a row's tail (gms_cols_kernel)
   int first[kMaxEdges + 1];         // each owned row's first edge (offset from eb0), then its end
   int warp_count[kThreads / 32];    // a scan's count of rows a warp
 };
+static_assert(kMaxEdges + 1 + kAhead >= 4 * kThreads, "ids hold a tail's partial sums");
 
 // s_vals[w * C + c] = values[(eb0 + w) * F + col0 + c] for w < W (0 past edge
 // E), c < C; V = 4 copies float4s (C a multiple of 4, rows 16-byte aligned).
@@ -280,6 +282,13 @@ __device__ __forceinline__ void fma4(float4& a, const float4& v, const float4& w
   a.w = fmaf(v.w, w.w, a.w);
 }
 
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
 // F > 8: `lanes` threads per row (a power of two up to 32, so a row lies in
 // one warp), each owning V neighbouring columns (V = 4: one float4), columns
 // col0 = blockIdx.y * lanes * V onwards; blockDim.x / lanes row slots; the
@@ -297,30 +306,31 @@ __global__ void gms_cols_kernel(const float* __restrict__ x, const float* __rest
   const int col0 = blockIdx.y * lanes * V, C = min(F - col0, lanes * V);
   int* s_send = reinterpret_cast<int*>(s_vals + W * C);  // [W]
   const int c = (threadIdx.x % lanes) * V;  // this thread's columns col0 + c ..
+  const T zero{};
+  __shared__ int s_tail[3];  // the row that runs past the window, its tail's edges
+  T head{};                  // that row's threads: the sum of its staged edges
+  bool mine = false;         // whether this thread's row is that row
   owned_rows(
       recv, E, N, EB, threadIdx.x / lanes, blockDim.x / lanes, sh,
       [&](int eb0) {
         stage_values<V>(filt, E, F, eb0, W, col0, C, s_vals);
         stage_senders(send, E, eb0, W, s_send);
+        if (threadIdx.x == 0) s_tail[0] = -1;
       },
       [&](int row, int lane) {
         for (int j = lane * V; j < C; j += 32 * V)
-          *reinterpret_cast<T*>(out + static_cast<long long>(row) * F + col0 + j) = T{};
+          *reinterpret_cast<T*>(out + static_cast<long long>(row) * F + col0 + j) = zero;
       },
       [&](int eb0, int row, int start, int end) {
-        if (c >= C) return;
         const int staged = min(end, eb0 + W);
-        const float* xc = x + col0 + c;
-        const float* fc = filt + col0 + c;
-        const T zero{};
         T acc{};
-        for (int e = start; e < staged; e += kInFlight) {
+        for (int e = start; e < staged && c < C; e += kInFlight) {
           T v[kInFlight];
 #pragma unroll
           for (int q = 0; q < kInFlight; ++q)
             v[q] = e + q < staged
                        ? __ldg(reinterpret_cast<const T*>(
-                             xc + static_cast<long long>(s_send[e + q - eb0]) * F))
+                             x + static_cast<long long>(s_send[e + q - eb0]) * F + col0 + c))
                        : zero;
 #pragma unroll
           for (int q = 0; q < kInFlight; ++q) {
@@ -329,31 +339,55 @@ __global__ void gms_cols_kernel(const float* __restrict__ x, const float* __rest
             if constexpr (V == 4) fma4(acc, v[q], w); else acc = fmaf(v[q], w, acc);
           }
         }
-        int s[kInFlight];
-#pragma unroll
-        for (int q = 0; q < kInFlight; ++q) s[q] = staged + q < end ? __ldg(send + staged + q) : 0;
-        for (int e = staged; e < end; e += kInFlight) {
-          T w[kInFlight], v[kInFlight];
-          int sn[kInFlight];
-#pragma unroll
-          for (int q = 0; q < kInFlight; ++q) {
-            const bool in = e + q < end;
-            w[q] = in ? __ldg(reinterpret_cast<const T*>(fc + static_cast<long long>(e + q) * F))
-                      : zero;
-            v[q] = in ? __ldg(reinterpret_cast<const T*>(xc + static_cast<long long>(s[q]) * F))
-                      : zero;
-            sn[q] = e + kInFlight + q < end ? __ldg(send + e + kInFlight + q) : 0;
+        if (staged < end) {  // the last row, past the window: its tail below
+          head = acc;
+          mine = true;
+          if (c == 0) {
+            s_tail[0] = row;
+            s_tail[1] = staged;
+            s_tail[2] = end;
           }
-#pragma unroll
-          for (int q = 0; q < kInFlight; ++q) {
-            if (e + q >= end) continue;
-            if constexpr (V == 4) fma4(acc, v[q], w[q]); else acc = fmaf(v[q], w[q], acc);
-          }
-#pragma unroll
-          for (int q = 0; q < kInFlight; ++q) s[q] = sn[q];
+        } else if (c < C) {
+          *reinterpret_cast<T*>(out + static_cast<long long>(row) * F + col0 + c) = acc;
         }
-        *reinterpret_cast<T*>(out + static_cast<long long>(row) * F + col0 + c) = acc;
       });
+  __syncthreads();  // the row sums are done (sh is free) and s_tail is written
+  const int row = s_tail[0];
+  if (row < 0) return;
+  // The tail of the row that runs past the window: group g of `lanes`
+  // threads sums the kInFlight-edge rounds g, g + groups, ... (senders and
+  // filt, then the gathers), then the row's threads add the groups' sums to
+  // head in group order.
+  const int ts = s_tail[1], te = s_tail[2], g = threadIdx.x / lanes, groups = blockDim.x / lanes;
+  T acc{};
+  for (int e = ts + g * kInFlight; e < te && c < C; e += groups * kInFlight) {
+    int s[kInFlight];
+    T w[kInFlight];
+#pragma unroll
+    for (int q = 0; q < kInFlight; ++q) {
+      const bool in = e + q < te;
+      s[q] = in ? __ldg(send + e + q) : 0;
+      w[q] = in ? __ldg(reinterpret_cast<const T*>(filt + static_cast<long long>(e + q) * F
+                                                   + col0 + c))
+                : zero;
+    }
+#pragma unroll
+    for (int q = 0; q < kInFlight; ++q) {
+      if (e + q >= te) continue;
+      const T v = __ldg(reinterpret_cast<const T*>(x + static_cast<long long>(s[q]) * F + col0
+                                                   + c));
+      if constexpr (V == 4) fma4(acc, v, w[q]); else acc = fmaf(v, w[q], acc);
+    }
+  }
+  float* part = reinterpret_cast<float*>(sh.ids);  // [groups][C]
+  if (c < C) *reinterpret_cast<T*>(part + g * C + c) = acc;
+  __syncthreads();
+  if (!mine || c >= C) return;
+  for (int k = 0; k < groups; ++k) {
+    const T p = *reinterpret_cast<const T*>(part + k * C + c);
+    if constexpr (V == 4) add4(head, p); else head += p;
+  }
+  *reinterpret_cast<T*>(out + static_cast<long long>(row) * F + col0 + c) = head;
 }
 
 // The block's edge range EB and its staged edges W (EB and up to two rows'

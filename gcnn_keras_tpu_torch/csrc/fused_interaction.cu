@@ -600,7 +600,7 @@ __global__ void __launch_bounds__(kThreadsVjp, 2)
         float4 f[EW];
 #pragma unroll
         for (int ei = 0; ei < EW; ++ei) f[ei] = b2v;
-#pragma unroll 2
+#pragma unroll 4
         for (int t = 0; t < up; t += 4) {
           float4 h4[EW];
 #pragma unroll

@@ -27,30 +27,49 @@
 // - Rows owned by edge ranges, without a search. Block b reads the receiver
 //   ids of its edge range [eb0, eb1) (and one before, and kAhead after) and
 //   the senders of its staged window into shared memory in one round of
-//   independent loads. It owns the rows whose first edge lies in its range
-//   (for the last block every row to N - 1, empty rows included); one scan
-//   of the range writes each owned row's first edge to shared memory. The
-//   last owned row may run past eb1: its end is the first id above it among
-//   the kAhead ids read ahead (or, for a longer row, found by a warp 32 ids
-//   at a time).
+//   independent loads. It owns the rows whose first edge lies in its range,
+//   and the rows without edges before them (for the last block every row to
+//   N - 1). A scan of the range lists the owned rows' first edges; every warp
+//   zeroes its share of the rows without edges; each row with edges is summed
+//   by one slot of threads. The last owned row may run past eb1: its end is
+//   the first id above it among the kAhead ids read ahead (or, for a longer
+//   row, found by a warp 32 ids at a time).
 // - filt staged. The block copies the filt rows of its range and of up to
 //   two mean rows after it (its columns of them) into shared memory with
 //   coalesced loads, 32 floats or 8 float4s in flight a thread, before the
 //   first barrier.
 // - The row sum reads the senders from shared memory and issues kInFlight
 //   independent gathers of x[send] before their FMAs, so no dependent chain
-//   reaches device memory (x, 4.2 MB at the serving shape, stays in L2). A
-//   row longer than the staged window reads the rest from device memory,
-//   kInFlight edges a round: senders and filt together, then the gathers.
+//   reaches device memory (x, 4.2 MB at the serving shape, stays in L2).
+//   Only the last owned row can run past the staged window (the dead node's
+//   padding edges: 88 at the serving shape, 52 of the MD step's 128); in
+//   gms_cols_kernel the block's thread groups share its tail, kInFlight edges
+//   a round (senders and filt, then the gathers), and its threads add the
+//   groups' sums to the staged part in group order: deterministic, though
+//   not edge order for that row. gms_rows_kernel's thread reads the tail
+//   itself.
 // - A layout chosen by F in the launcher:
 //   - F <= 8: one thread per row, summing all F columns of each edge;
 //   - F a multiple of 4 (16-byte aligned x and filt): float4 columns, up to
 //     32 lanes (128 columns) per row, a second grid dimension beyond;
 //   - any other F: one scalar column per lane, 32 lanes per row.
-// - Block sizes as the segment-sum's: threads per block is the largest of
-//   256, 128, 64, 32 that leaves a block for at least a quarter of the SMs;
-//   a block's edge range holds about 3/4 of its row slots' worth of mean
-//   rows, so that its rows mostly fit one pass.
+// - Blocks of 256 threads; a block's edge range holds about 3/4 of its row
+//   slots' worth of mean rows, so that its rows mostly fit one pass.
+// What was measured on an NVIDIA H100 80GB HBM3 at 700 W, L2-cold
+// (probe_kernel_variants.py, each design in turns with the kernel it
+// replaced, a search per row and a dependent chain send[e] -> x[s]; serving
+// shape, then the MD step's):
+// - owned rows in chunks of row slots, the segment-sum's block sizes (64
+//   threads at the MD shape): 0.047 and 0.037 ms against 0.054 and 0.016;
+// - rows without edges zeroed by every warp, outside the chunks: 0.038 and
+//   0.019; blocks of 256 threads at the MD shape too: 0.038 and 0.0157
+//   against 0.053 and 0.0155;
+// - the last row's tail shared by the block (this kernel): 0.0340 and 0.0112
+//   against 0.0533 and 0.0156 (L2-warm 0.0266 and 0.0104 against 0.0436 and
+//   0.0101).
+// Registers (ptxas, sm_90a): gms_cols_kernel 56 (float4) and 64, the rows
+// kernels 40-96, no spills; 8384 bytes of static shared memory a block and
+// the staged window.
 
 #include <cuda_runtime.h>
 

@@ -56,9 +56,28 @@
 // block-width window at a time. Everything is float32 FMA on the CUDA cores:
 // no TF32, no tensor cores.
 //
-// cf_fwd and cf_hesjvp_wide_kernel (U above 128; as the fused cfconv's wide
-// kernel): thread u owns unit u; per-edge scalars (r, its cotangents) are
-// block sums over the units in a fixed order. W1 and W2 sit in shared
+// cf_fwd_kernel (U <= 128) runs on the fused cfconv's tiled layout
+// (csrc/fused_cfconv.cu): 256 threads, two blocks a SM (__launch_bounds__(256,
+// 2)), each over max(16, N / (2 SMs)) receiver rows, so that W1 and W2 are
+// staged about twice per SM per call (the layout it replaced, one block per
+// 16 rows, staged them 512 times at N 8192); 32-edge chunks reached through
+// next_real, their geometry and basis rows as cf_vjp's; the products in 4 x 4
+// register tiles over a row-major W2 with rows padded to 32 units (read only
+// by rows: no swizzle). The section above the kernel has its phases. Shared
+// memory at U 128, B 20: 113376 bytes (W2 64 KB, W1 10 KB, the chunk's h and
+// m rows 32 KB, basis rows and per-edge scalars): two blocks fit the SM's 228
+// KB. Registers (ptxas, sm_90a): 119, no spills. On an NVIDIA H100 80GB HBM3
+// at 700 W, at the schnet_train batch (chip_smoke.py phase 15, L2-cold):
+// 0.164 ms (5.2x its bound), the layout it replaced (now cf_fwd_wide_kernel)
+// 0.299 in the same call. Measured against it in turns
+// (probe_kernel_variants.py): rows for one block a SM 0.211 ms; each warp
+// computing its own edges' geometry and basis rows, two block barriers a
+// chunk fewer, 0.165 (no faster); the product loop unrolled by two 0.165,
+// by four 0.160 (kept).
+//
+// cf_fwd_wide_kernel and cf_hesjvp_wide_kernel (U above 128; as the fused
+// cfconv's wide kernel): thread u owns unit u; per-edge scalars (r, its
+// cotangents) are block sums over the units in a fixed order. W1 and W2 sit in shared
 // memory, W2 with its rows padded to U + 1 so that both a column (thread u
 // reading W2[t, u]) and a row (thread t reading W2[t, u]) are free of bank
 // conflicts; cf_hesjvp_wide_kernel reads uW2 from global memory (L2), by

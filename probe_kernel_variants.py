@@ -33,10 +33,8 @@ import torch
 
 import chip_smoke
 from gcnn_keras_tpu_torch.ops.cuda import build
+from profile_serving_torch import KERNEL_SOURCES as SOURCES
 
-SOURCES = {"sorted_segment_sum": "segment_sum", "gather_mul_segsum": "fused_aggregate",
-           "fused_cfconv": "fused_cfconv", "cf_fwd": "fused_interaction",
-           "cf_vjp": "fused_interaction", "cf_hesjvp": "fused_interaction"}
 OUT_DIR = build.BUILD_DIR / "variants"
 
 

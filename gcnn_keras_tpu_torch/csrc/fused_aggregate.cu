@@ -3,9 +3,12 @@
 // for ascending int32 receivers, int32 senders, float32 x (N_x, F) and
 // filt (E, F) row-major, out (N, F). Rows without edges get 0; padding edges
 // (sender == receiver == the dead last node) sum onto that node, as on the
-// unfused path. Each row is summed in float32 FMA in edge order:
-// deterministic, no atomics. The (E, F) gathered rows and products never
-// reach memory.
+// unfused path. Sums are float32 FMA, deterministic, with no atomics. Each
+// row is summed in edge order, except the one row of a block that runs past
+// its staged window (below): that row's staged edges are summed in edge
+// order, its tail in rounds shared by the block's thread groups, and the
+// groups' partial sums are added in group order. The (E, F) gathered rows
+// and products never reach memory.
 //
 // Replaces the TPU kernel gcnn_keras_tpu/ops/pallas/fused_aggregate.py
 // (_fused_gather_mul_segsum), which the gms primitive of ops/pallas/bilinear.py
@@ -42,17 +45,19 @@
 //   independent gathers of x[send] before their FMAs, so no dependent chain
 //   reaches device memory (x, 4.2 MB at the serving shape, stays in L2).
 //   Only the last owned row can run past the staged window (the dead node's
-//   padding edges: 88 at the serving shape, 52 of the MD step's 128); in
-//   gms_cols_kernel the block's thread groups share its tail, kInFlight edges
-//   a round (senders and filt, then the gathers), and its threads add the
-//   groups' sums to the staged part in group order: deterministic, though
-//   not edge order for that row. gms_rows_kernel's thread reads the tail
-//   itself.
-// - A layout chosen by F in the launcher:
-//   - F <= 8: one thread per row, summing all F columns of each edge;
-//   - F a multiple of 4 (16-byte aligned x and filt): float4 columns, up to
-//     32 lanes (128 columns) per row, a second grid dimension beyond;
-//   - any other F: one scalar column per lane, 32 lanes per row.
+//   padding edges: 88 at the serving shape, 52 of the MD step's 128; a
+//   receiver with more neighbours than the window, about 54 edges at the
+//   serving shape). The block's thread groups share its tail, kInFlight
+//   edges a round (senders and filt, then the gathers), and its threads add
+//   the groups' sums to the staged part in group order: deterministic, though
+//   not edge order for that row.
+// - One layout, its width chosen by F in the launcher: `lanes` threads a row
+//   (the least power of two up to 32 that covers F), each with
+//   - float4 columns where F is a multiple of 4 (16-byte aligned x and filt):
+//     up to 32 lanes (128 columns) per row, a second grid dimension beyond;
+//   - one scalar column otherwise.
+//   F <= 8, which no path of the port gives, takes 1 to 8 lanes a row: #1's
+//   thread-per-row layout is left out until such a path exists.
 // - Blocks of 256 threads; a block's edge range holds about 3/4 of its row
 //   slots' worth of mean rows, so that its rows mostly fit one pass.
 // What was measured on an NVIDIA H100 80GB HBM3 at 700 W, L2-cold
@@ -67,9 +72,8 @@
 // - the last row's tail shared by the block (this kernel): 0.0340 and 0.0112
 //   against 0.0533 and 0.0156 (L2-warm 0.0266 and 0.0104 against 0.0436 and
 //   0.0101).
-// Registers (ptxas, sm_90a): gms_cols_kernel 56 (float4) and 64, the rows
-// kernels 40-96, no spills; 8384 bytes of static shared memory a block and
-// the staged window.
+// Registers (ptxas, sm_90a): gms_cols_kernel 56 (float4) and 64, no spills;
+// 8384 bytes of static shared memory a block and the staged window.
 
 #include <cuda_runtime.h>
 
@@ -226,73 +230,6 @@ __device__ __forceinline__ void owned_rows(const int* __restrict__ ids, int E, i
     row_sum(eb0, sh.ids[sh.first[m] + 1], eb0 + sh.first[m], eb0 + sh.first[m + 1]);
 }
 
-// F <= 8: one thread per row, all F columns; the block's W staged edges
-// (filt rows and senders) in shared memory, later edges of a long row from
-// device memory.
-template <int F>
-__global__ void gms_rows_kernel(const float* __restrict__ x, const float* __restrict__ filt,
-                                const int* __restrict__ send, const int* __restrict__ recv,
-                                float* __restrict__ out, int E, int N, int EB, int W) {
-  __shared__ Shared sh;
-  extern __shared__ float4 smem4[];
-  float* s_vals = reinterpret_cast<float*>(smem4);  // [W][F]
-  int* s_send = reinterpret_cast<int*>(s_vals + W * F);  // [W]
-  owned_rows(
-      recv, E, N, EB, threadIdx.x, blockDim.x, sh,
-      [&](int eb0) {
-        stage_values<1>(filt, E, F, eb0, W, 0, F, s_vals);
-        stage_senders(send, E, eb0, W, s_send);
-      },
-      [&](int row, int lane) {
-        if (lane < F) out[static_cast<long long>(row) * F + lane] = 0.0f;
-      },
-      [&](int eb0, int row, int start, int end) {
-        const int staged = min(end, eb0 + W);
-        float acc[F];
-#pragma unroll
-        for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-        for (int e = start; e < staged; e += kInFlight) {
-          float v[kInFlight * F];
-#pragma unroll
-          for (int q = 0; q < kInFlight; ++q) {
-            const bool in = e + q < staged;
-            const float* p = x + static_cast<long long>(in ? s_send[e + q - eb0] : 0) * F;
-#pragma unroll
-            for (int f = 0; f < F; ++f) v[q * F + f] = in ? __ldg(p + f) : 0.0f;
-          }
-#pragma unroll
-          for (int q = 0; q < kInFlight; ++q) {
-            if (e + q >= staged) continue;
-#pragma unroll
-            for (int f = 0; f < F; ++f)
-              acc[f] = fmaf(v[q * F + f], s_vals[(e + q - eb0) * F + f], acc[f]);
-          }
-        }
-        for (int e = staged; e < end; e += kInFlight) {
-          int s[kInFlight];
-          float w[kInFlight * F];
-#pragma unroll
-          for (int q = 0; q < kInFlight; ++q) {
-            const bool in = e + q < end;
-            s[q] = in ? __ldg(send + e + q) : 0;
-            const float* p = filt + static_cast<long long>(e + q) * F;
-#pragma unroll
-            for (int f = 0; f < F; ++f) w[q * F + f] = in ? __ldg(p + f) : 0.0f;
-          }
-#pragma unroll
-          for (int q = 0; q < kInFlight; ++q) {
-            if (e + q >= end) continue;
-            const float* p = x + static_cast<long long>(s[q]) * F;
-#pragma unroll
-            for (int f = 0; f < F; ++f) acc[f] = fmaf(__ldg(p + f), w[q * F + f], acc[f]);
-          }
-        }
-        float* o = out + static_cast<long long>(row) * F;
-#pragma unroll
-        for (int f = 0; f < F; ++f) o[f] = acc[f];
-      });
-}
-
 // a += v * w, each component
 __device__ __forceinline__ void fma4(float4& a, const float4& v, const float4& w) {
   a.x = fmaf(v.x, w.x, a.x);
@@ -308,8 +245,8 @@ __device__ __forceinline__ void add4(float4& a, const float4& b) {
   a.w += b.w;
 }
 
-// F > 8: `lanes` threads per row (a power of two up to 32, so a row lies in
-// one warp), each owning V neighbouring columns (V = 4: one float4), columns
+// `lanes` threads per row (a power of two up to 32, so a row lies in one
+// warp), each owning V neighbouring columns (V = 4: one float4), columns
 // col0 = blockIdx.y * lanes * V onwards; blockDim.x / lanes row slots; the
 // block's W staged edges (their C columns of filt, and their senders) in
 // shared memory.
@@ -442,18 +379,6 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int F>
-cudaError_t launch_rows(const float* x, const float* filt, const int* send, const int* recv,
-                        float* out, int E, int N, cudaStream_t stream) {
-  const Ranges r = ranges_for(E, N, kThreads, F);
-  const int smem = smem_for(r, F);
-  const cudaError_t err = allow_smem(gms_rows_kernel<F>, smem);
-  if (err != cudaSuccess) return err;
-  gms_rows_kernel<F><<<blocks_for(E, r.EB), kThreads, smem, stream>>>(x, filt, send, recv, out,
-                                                                      E, N, r.EB, r.W);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
@@ -464,20 +389,6 @@ extern "C" int gcnn_gather_mul_segsum_f32(const float* x, const float* filt,
   if (num_segments <= 0 || F <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = num_segments;
-  if (F <= 8) {
-    cudaError_t err;
-    switch (F) {
-      case 1: err = launch_rows<1>(x, filt, send, recv, out, E, n, s); break;
-      case 2: err = launch_rows<2>(x, filt, send, recv, out, E, n, s); break;
-      case 3: err = launch_rows<3>(x, filt, send, recv, out, E, n, s); break;
-      case 4: err = launch_rows<4>(x, filt, send, recv, out, E, n, s); break;
-      case 5: err = launch_rows<5>(x, filt, send, recv, out, E, n, s); break;
-      case 6: err = launch_rows<6>(x, filt, send, recv, out, E, n, s); break;
-      case 7: err = launch_rows<7>(x, filt, send, recv, out, E, n, s); break;
-      default: err = launch_rows<8>(x, filt, send, recv, out, E, n, s); break;
-    }
-    return static_cast<int>(err);
-  }
   const int v = F % 4 == 0 && reinterpret_cast<std::uintptr_t>(filt) % 16 == 0
                 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0 ? 4 : 1;
   int lanes = 1;

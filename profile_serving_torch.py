@@ -52,7 +52,7 @@ import chip_smoke
 # the port's hand-written kernels, by the names of their CUDA functions
 PORT_KERNELS = ("sorted_segment_sum", "g2_fwd_kernel", "g4_fwd_kernel",
                 "g4_vjp_kernel", "g2_vjp_kernel", "g4_jvp_kernel", "g2_jvp_kernel",
-                "spd_solve_gj_kernel", "gms_rows_kernel", "gms_cols_kernel",
+                "spd_solve_gj_kernel", "gms_cols_kernel",
                 "fused_cfconv_kernel", "fused_cfconv_wide_kernel", "cf_fwd_kernel",
                 "cf_fwd_wide_kernel", "cf_vjp_kernel",
                 "cf_hesjvp_kernel", "cf_hesjvp_wide_kernel")

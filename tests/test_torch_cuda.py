@@ -706,3 +706,89 @@ def test_chain_third_derivative_raises_on_the_card(cuda_device):
     (h,) = torch.autograd.grad((g * g).sum(), w1, create_graph=True)
     with pytest.raises(RuntimeError, match="third derivative"):
         torch.autograd.grad(h.sum(), w1)
+
+
+# A kernel that leaves NaN in every word of shared memory that a block can
+# take, on every SM: the tiled kernels must read no word they did not write.
+_NAN_FILL_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void fill_shared_nan(int n) {
+  extern __shared__ float s[];
+  volatile float* v = s;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) v[i] = __int_as_float(0x7fc00000);
+}
+extern "C" int fill_shared_nan_on_every_sm(void* stream) {
+  int dev, bytes, sms;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(fill_shared_nan, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  fill_shared_nan<<<4 * sms, 1024, bytes, static_cast<cudaStream_t>(stream)>>>(bytes / 4);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def fill_shared_nan(tmp_path_factory):
+    """Fills each SM's shared memory with NaN on the current stream."""
+    import ctypes
+    import subprocess
+    from gcnn_keras_tpu_torch.ops.cuda import build
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    d = tmp_path_factory.mktemp("nan_fill")
+    (d / "fill.cu").write_text(_NAN_FILL_SOURCE)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(d / "libfill.so"),
+                    str(d / "fill.cu")], check=True, capture_output=True)
+    fill = ctypes.CDLL(str(d / "libfill.so")).fill_shared_nan_on_every_sm
+    fill.argtypes = [ctypes.c_void_p]
+
+    def run():
+        assert fill(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)) == 0
+    return run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u", [3, 40])
+@pytest.mark.parametrize("kernel", ["fused_cfconv", "cf_fwd"])
+def test_tiled_kernels_read_no_unwritten_shared_memory(cuda_device, fill_shared_nan, kernel, u):
+    """The tiled fused cfconv and cf_fwd at U not a multiple of 32 (W2's
+    rows padded in shared memory), launched once (which loads the kernel's
+    module), then right after a kernel that left NaN in all of every SM's
+    shared memory: finite, and within the kernel's tolerance of its plain
+    version, both times."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.ops.cuda import fused_cfconv as fc
+    from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
+    n, e, b = 300, 1500, 20
+    if kernel == "cf_fwd":
+        (x, pos, weights, ct, tangents), edges, st = _chain_case(n, e, u, b, u, cuda_device)
+        args = chip_smoke.chain_args("cf_fwd", x, pos, weights, ct, tangents, edges, st)
+
+        def check(label):
+            chip_smoke.check_chain("cf_fwd", args, label, False)
+
+        def count():
+            return fi.launches["cf_fwd"]
+    else:
+        _, ids = _sorted_case(u, e, n, 1)
+        gen = torch.Generator(device=cuda_device).manual_seed(u)
+
+        def rnd(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen, device=cuda_device) * scale
+        args = (torch.rand(e, b, generator=gen, device=cuda_device), rnd(e, u),
+                torch.from_numpy(ids).to(cuda_device), n, rnd(b, u, scale=b ** -0.5),
+                rnd(u, scale=0.1), rnd(u, u, scale=u ** -0.5), rnd(u, scale=0.1))
+
+        def check(label):
+            chip_smoke.check_fused_cfconv(*args, label, False)
+
+        def count():
+            return fc.launches
+    before = count()
+    check(f"U={u}")
+    torch.cuda.synchronize()
+    fill_shared_nan()
+    check(f"U={u} after NaN")
+    assert count() == before + 2

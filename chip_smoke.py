@@ -17,8 +17,10 @@ order, each raising on a failed check:
    predictor on the CPU), the kernel launch count per evaluation is held to
    its derived value, and the time per evaluation is measured.
 5. ACSF kernels: the four G2/G4 kernels (forward and force pass) against
-   their plain versions at the HDNNP2nd serving shapes and at edge cases,
-   with times and bounds.
+   their plain versions at the HDNNP2nd serving shapes and at edge cases
+   (``acsf_edge_batch``: the G4 fwd and jvp kernels' block layout, a
+   collinear triple, atoms without angles, unknown elements; all rows
+   masked; no rows), with times and bounds.
 6. HDNNP2nd serving: the Behler-mode HDNNP2nd of the JAX package's bench
    configuration, with ``set_angle`` as the graph preprocessor, answers the
    same 3 requests, checked as in phase 4, with every kernel's launch count
@@ -99,6 +101,7 @@ no result.
 import contextlib
 import functools
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -128,9 +131,10 @@ SERVE_TOL = 1e-4   # max|gpu - cpu| <= SERVE_TOL * max|cpu|, per output
 # ACSF kernels: max|kernel - plain| <= tol * (1 + max|plain|), and in the
 # forward pass also, for each set s, max|kernel - plain| over its columns
 # <= tol * max|plain| over them. The forward sums each output in another
-# order than index_add_ (shared-memory atomics); the force (vjp) and tangent
-# (jvp) passes add terms of both signs with atomics, in an order that varies
-# from run to run, and share ACSF_VJP_TOL
+# order than index_add_ (G4 in a fixed order, G2 with shared-memory
+# atomics); the force (vjp) and tangent (jvp) passes add terms of both signs
+# (the force passes and the G2 tangent pass with atomics, in an order that
+# varies from run to run) and share ACSF_VJP_TOL
 ACSF_FWD_TOL = 1e-5
 ACSF_VJP_TOL = 1e-4
 # the second-order pattern: |kernel - plain| <= tol * max(|plain|, 1), the
@@ -655,9 +659,9 @@ def acsf_args(name, batch):
     return (pos, z, batch.senders, batch.receivers, batch.edge_mask), batch.edge_mask
 
 
-def check_acsf(name, st, batch, label, timed):
-    """ACSF kernel ``name`` against its plain version on ``batch``, with a
-    random cotangent (vjp) or position tangent (jvp)."""
+def acsf_call_args(name, st, batch):
+    """The wrapper arguments of ACSF kernel ``name`` on ``batch``, with a
+    random cotangent (vjp) or position tangent (jvp) from seed 1."""
     args, mask = acsf_args(name, batch)
     gen = torch.Generator(device=mask.device).manual_seed(1)
     if name.endswith("vjp"):
@@ -666,7 +670,12 @@ def check_acsf(name, st, batch, label, timed):
                                    device=mask.device),)
     elif name.endswith("jvp"):
         args = args + (torch.randn(batch.n_node, 3, generator=gen, device=mask.device),)
-    return check_acsf_call(name, args + (st,), label, timed)
+    return args + (st,)
+
+
+def check_acsf(name, st, batch, label, timed):
+    """ACSF kernel ``name`` against its plain version on ``batch``."""
+    return check_acsf_call(name, acsf_call_args(name, st, batch), label, timed)
 
 
 def check_acsf_call(name, args, label, timed):
@@ -712,13 +721,53 @@ def check_acsf_call(name, args, label, timed):
     return rec
 
 
+def star_degrees(n_angles):
+    """Neighbour counts d of star molecules whose d (d - 1) angles add up
+    to ``n_angles`` (even), the largest first."""
+    degrees = []
+    while n_angles > 0:
+        d = int((1 + math.sqrt(1 + 4 * n_angles)) / 2)
+        while d * (d - 1) > n_angles:
+            d -= 1
+        degrees.append(d)
+        n_angles -= d * (d - 1)
+    return degrees
+
+
 def acsf_edge_batch(dev):
-    """A collinear triple (1 + cos = 0: the clamped cosine derivative), an
-    atom with one neighbour and one with none (no angles), and atomic
-    numbers outside the table (S, Cl), with padding rows."""
+    """The G4 fwd and jvp kernels' layout cases, then the ACSF edge cases.
+    Stars whose centres' angles fill the G4 kernels' first block range
+    (``g4_range()`` angles, read from the built kernels), their leaves
+    between them rows without angles; then a compact 40-atom cluster
+    within r_c, whose first centre's first
+    angle is the second block's first angle and each of whose centres has
+    1482 angles, spanning three or more blocks; then a collinear triple
+    (1 + cos = 0: the clamped cosine derivative), an atom with one
+    neighbour and one with none (no angles), and atomic numbers outside
+    the table (S, Cl); padding rows and rows without angles after the last
+    angle, in the last block."""
     from gcnn_keras_tpu_torch.batch import batch_graphs
     from gcnn_keras_tpu_torch.graph.preprocess import set_angle
-    graphs = [
+    from gcnn_keras_tpu_torch.ops.cuda.acsf import g4_range
+    rs = np.random.RandomState(11)
+    graphs = []
+    for d in star_degrees(g4_range()):
+        # leaves 1.2 apart from the centre, on a Fibonacci sphere
+        q = np.arange(d) + 0.5
+        theta, phi = np.arccos(1 - 2 * q / d), np.pi * (1 + 5 ** 0.5) * q
+        leaves = 1.2 * np.stack([np.cos(phi) * np.sin(theta), np.sin(phi) * np.sin(theta),
+                                 np.cos(theta)], 1)
+        graphs.append({"node_number": rs.choice(HDNNP_ELEMENTS, size=d + 1),
+                       "node_coordinates": np.concatenate([np.zeros((1, 3)), leaves]
+                                                          ).astype(np.float32),
+                       "edge_indices": np.array([[0, j] for j in range(1, d + 1)]
+                                                + [[j, 0] for j in range(1, d + 1)])})
+    # every distance below 2.2 sqrt(3) = 3.81 < r_c
+    graphs.append({"node_number": rs.choice(HDNNP_ELEMENTS, size=40),
+                   "node_coordinates": rs.uniform(0.0, 2.2, (40, 3)).astype(np.float32),
+                   "edge_indices": np.array([[i, j] for i in range(40) for j in range(40)
+                                             if i != j])})
+    graphs += [
         {"node_number": np.array([6, 6, 6]),
          "node_coordinates": np.array([[0, 0, 0], [1.0, 0, 0], [-2.0, 0, 0]], np.float32),
          "edge_indices": np.array([[0, 1], [0, 2], [1, 0], [2, 0]])},
@@ -731,7 +780,9 @@ def acsf_edge_batch(dev):
          "edge_indices": np.array([[i, j] for i in range(4) for j in range(4) if i != j])},
     ]
     graphs = [set_angle(g, range_indices="edge_indices") for g in graphs]
-    return batch_graphs(graphs, device=dev, n_angle_pad=64, n_edge_pad=64)
+    n_angle = sum(len(g["angle_indices_nodes"]) for g in graphs)
+    n_edge = sum(len(g["edge_indices"]) for g in graphs)
+    return batch_graphs(graphs, device=dev, n_angle_pad=n_angle + 64, n_edge_pad=n_edge + 64)
 
 
 def phase_acsf_kernel(batch, model, names=("g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp")):
@@ -751,8 +802,8 @@ def phase_acsf_kernel(batch, model, names=("g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp
     for name in names:
         st = statics[name[:2]]
         recs[name] = [check_acsf(name, st, batch, "HDNNP2nd serving, 512 mols", True),
-                      check_acsf(name, st, edge, "collinear, no angles, unknown element",
-                                 False),
+                      check_acsf(name, st, edge, "block layout, collinear, no angles, "
+                                 "unknown element", False),
                       check_acsf(name, st, masked, "all rows masked", False),
                       check_acsf(name, st, none, "no rows", False)]
         if recs[name][2]["max_abs_err"] != 0.0 or recs[name][3]["max_abs_err"] != 0.0:

@@ -20,33 +20,55 @@
 // _g2_jvp (:1106) and _g2_vjp (:1147). Those gather positions with one-hot
 // matmuls from a 3x128-row node window, keep per-angle scalars on 128-lane
 // rows and pool through an (8, N) transposed table, all for the MXU and
-// VPU. Here the function is kept and
-// the layout dropped: one warp owns one centre (receiver) node, finds the
-// node's contiguous range of sorted angles (edges) by binary search, and its
-// lanes walk that range, one angle (edge) per lane, with plain loads.
+// VPU. Here the function is kept and the layout dropped.
 //
-// - forward: each lane computes every unique transcendental of its angle
-//   once (exp per unique eta, pow per unique (zeta, lambda), the cutoff
-//   product per unique rc) and adds the m set values into the node's output
-//   row, kept in shared memory, with shared-memory atomics; the warp then
-//   writes the whole row, so the output needs no zeroing.
+// G4 forward and tangent pass (g4_fwd_kernel, g4_jvp_kernel): rows owned by
+// angle ranges, no search, no atomics, deterministic.
+// - Block b (256 threads) takes the angles [224 b, 224 b + 224) and owns the
+//   centres whose first angle lies there, and the centres without angles
+//   between them (the last block also those after the last angle, to N).
+//   The centre ids are angles[:, 0]; a block's rows are found from the ids
+//   it loads anyway, so no search is needed. A row that runs past the range
+//   is finished by its owner in further rounds of 256 angles (1482 angles
+//   for a centre of a 40-atom cluster within r_c: the blocks it spans own
+//   nothing).
+// - A round: every thread computes one angle (skipped where masked) into
+//   shared memory: its m set values (with the tangent pass, its m set
+//   tangents along dpos; the geometry tangents of fused_g4.py:495-503). The
+//   unique transcendentals stay in registers, in arrays sized at compile
+//   time: exact counts for the HDNNP tables (2 eta, 4 (zeta, lambda), 1
+//   r_c), else kMaxUniq (8) of each; each set picks its factors by compare
+//   and select. r and 1/r come from one rsqrt, the cutoff and its
+//   derivative from one __sincosf, the power from exp2(zeta __log2f(base)),
+//   and dc = c zeta lambda / base.
+// - Then each warp sums its own 32 angles (its slice), row by row: the
+//   angles of each relation grouped by __match_any_sync, each (group, set)
+//   pair summed by one lane in lane order. A row within the slice is
+//   written out whole; the slice's first row, if it began before, and its
+//   last, if it goes on, are kept in shared memory, and the warp of the
+//   slice where such a row starts adds the slices' parts in slice order
+//   (after the carried sum of a row from the last round), then writes the
+//   row out or carries it into the next round.
+// So every output row is written once, and every sum is taken in an order
+// fixed by the input: the same inputs give the same bits from run to run.
+//
+// G4 force pass (g4_vjp_kernel) and the G2 kernels: one warp owns one
+// centre (receiver) node, finds the node's contiguous range of sorted
+// angles (edges) by binary search, and its lanes walk that range, one angle
+// (edge) per lane, with plain loads.
 // - force pass: the warp stages the node's cotangent row in shared memory;
 //   each lane forms the five geometry cotangents (cos, s2, r_ij, r_ik, r_jk)
 //   and the three vector cotangents, keeps the centre's share in registers
 //   (summed over the warp at the end) and adds the neighbours' shares to
 //   dpos with float atomics: the neighbours j, k are not sorted. dpos must
 //   be zero on entry.
-// - tangent pass: the forward pass's structure with a gathered tangent:
-//   each lane also loads dpos of i, j, k, forms the tangents of the
-//   geometry (dr_ij, dr_ik, dr_jk, ds2, dcos; fused_g4.py:495-503) and the
-//   derivative tables of the force pass, and adds the m set tangents into
-//   the node's row in shared memory. The output is per centre, so no global
-//   atomics are needed; the warp writes the whole row.
-//
+// - G2: each lane adds the m set values (tangents) of its edge into the
+//   node's row in shared memory with shared-memory atomics; the warp then
+//   writes the whole row.
 // Masked rows (padding points at the dead node, i = j = k) are skipped, not
-// multiplied by zero. Atomics, in shared memory (forward and tangent pass)
-// or in global memory (force pass), make the order of each float32 sum vary
-// from run to run, so results differ from run to run in the last bits.
+// multiplied by zero. The atomics of these four make the order of each
+// float32 sum vary from run to run, so their results differ from run to run
+// in the last bits.
 //
 // Bound: at the HDNNP2nd serving shapes (N = 8192, A = 417024, R*m = 120 for
 // G4; E = 54784, R*m = 20 for G2) the bytes dominate all six: each call
@@ -58,14 +80,14 @@
 // an exp2 per unique (zeta, lambda) plus an exp2 for the derivative, a cos
 // and in the force and tangent passes a sin per distance and unique r_c)
 // number 16 an angle in the forward pass and 23 in the force and tangent
-// passes: 1.6 and 2.3 us at 16 a clock per SM. These kernels issue more (a
-// sqrt and a reciprocal apiece, a powf for c and another for dc). This
-// first version is not tuned: lanes of a warp diverge over ranges of
-// unequal length, lanes that share a relation contend for the same shared
-// words, and the per-set tables live in local memory. Its times against
-// these bounds are in PERF.md (chip_smoke.py).
+// passes: 1.6 and 2.3 us at 16 a clock per SM. The G4 fwd and jvp kernels
+// wait on chains of shared-memory and global loads between their block
+// barriers; their times against these bounds, and the designs tried, are
+// in PERF.md (probe_kernel_variants.py).
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -74,7 +96,15 @@ constexpr int kMaxUniq = 8;
 constexpr int kMaxElements = 16;
 constexpr int kMaxZ = 96;
 constexpr int kMaxColumns = 2048;
-constexpr int kWarps = 4;  // centre nodes per block
+constexpr int kWarps = 4;  // centre (receiver) nodes per block: g4_vjp and G2
+constexpr int kG4Threads = 256;  // G4 fwd and jvp: threads of a block, angles of a round
+constexpr int kG4Warps = kG4Threads / 32;
+constexpr int kValStride = kG4Threads + 1;  // a round's values of one set, padded
+constexpr int kG4Range = 224;    // angles of a block's range
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kG4Range <= kG4Threads, "round 0 covers a block's range");
+constexpr float kPi = 3.14159265358979323f;
+constexpr float kInvPi = 0.318309886183790672f;
 constexpr float kEps = 1e-12f;
 
 }  // namespace
@@ -219,48 +249,6 @@ __device__ __forceinline__ float g2_drep_dr(const AcsfG2Params& p, int s,
          + g * cutoff_d(r, p.rc[s], p.pi_rc[s]);
 }
 
-__global__ void __launch_bounds__(kWarps * 32) g4_fwd_kernel(
-    const float* __restrict__ pos, const int* __restrict__ z,
-    const int* __restrict__ angles, const bool* __restrict__ mask,
-    float* __restrict__ out, int n_node, int n_angle,
-    const __grid_constant__ AcsfG4Params p) {
-  extern __shared__ float rows[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int node = blockIdx.x * kWarps + warp;
-  if (node >= n_node) return;  // the whole warp leaves together
-  const int m = p.m;
-  const int width = p.num_rel * m;
-  float* row = rows + warp * width;
-  for (int c = lane; c < width; c += 32) row[c] = 0.0f;
-  int begin, end;
-  warp_range(angles, 3, n_angle, node, lane, &begin, &end);
-  __syncwarp();
-  float pi[3];
-  load3(pos, node, pi);
-  for (int a = begin + lane; a < end; a += 32) {
-    if (!mask[a]) continue;
-    const int j = __ldg(angles + 3LL * a + 1);
-    const int k = __ldg(angles + 3LL * a + 2);
-    Angle g;
-    angle_geometry(pos, pi, j, k, &g);
-    const float s2 = g.rij * g.rij + g.rik * g.rik + g.rjk * g.rjk;
-    float e[kMaxUniq], c[kMaxUniq], f[kMaxUniq];
-    for (int u = 0; u < p.n_eta; ++u) e[u] = expf(-p.eta[u] * s2);
-    for (int u = 0; u < p.n_zl; ++u)
-      c[u] = p.pow2[u] * powf(fmaxf(g.cos * p.lam[u] + 1.0f, 1e-30f), p.zeta[u]);
-    for (int u = 0; u < p.n_rc; ++u)
-      f[u] = cutoff(g.rij, p.rc[u], p.pi_rc[u]) * cutoff(g.rik, p.rc[u], p.pi_rc[u])
-             * cutoff(g.rjk, p.rc[u], p.pi_rc[u]);
-    float* dst = row + g4_relation(p, __ldg(z + j), __ldg(z + k)) * m;
-    for (int s = 0; s < m; ++s)
-      atomicAdd(dst + s, c[p.zl_inv[s]] * e[p.eta_inv[s]] * f[p.rc_inv[s]] * p.scale);
-  }
-  __syncwarp();
-  float* o = out + static_cast<long long>(node) * width;
-  for (int c = lane; c < width; c += 32) o[c] = row[c];
-}
-
 __global__ void __launch_bounds__(kWarps * 32) g4_vjp_kernel(
     const float* __restrict__ pos, const int* __restrict__ z,
     const int* __restrict__ angles, const bool* __restrict__ mask,
@@ -325,33 +313,69 @@ __global__ void __launch_bounds__(kWarps * 32) g4_vjp_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32) g4_jvp_kernel(
-    const float* __restrict__ pos, const int* __restrict__ z,
-    const int* __restrict__ angles, const bool* __restrict__ mask,
-    const float* __restrict__ dpos, float* __restrict__ out, int n_node,
-    int n_angle, const __grid_constant__ AcsfG4Params p) {
-  extern __shared__ float rows[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int node = blockIdx.x * kWarps + warp;
-  if (node >= n_node) return;
-  const int m = p.m;
-  const int width = p.num_rel * m;
-  float* row = rows + warp * width;
-  for (int c = lane; c < width; c += 32) row[c] = 0.0f;
-  int begin, end;
-  warp_range(angles, 3, n_angle, node, lane, &begin, &end);
-  __syncwarp();
-  float pi[3], dpi[3];
-  load3(pos, node, pi);
-  load3(dpos, node, dpi);
-  for (int a = begin + lane; a < end; a += 32) {
-    if (!mask[a]) continue;
-    const int j = __ldg(angles + 3LL * a + 1);
-    const int k = __ldg(angles + 3LL * a + 2);
-    Angle g;
-    angle_geometry(pos, pi, j, k, &g);
-    float dpj[3], dpk[3], dvij[3], dvik[3], dvjk[3];
+// ---------------------------------------------------------------- G4 fwd and jvp
+// Rows owned by angle ranges (see the header): block b takes the angles
+// [b * kG4Range, + kG4Range) and owns the centres whose first angle lies
+// there, and the centres without angles before them.
+
+// t[u] for a runtime u < NU, by compare and select (no local memory)
+// fc = (cos(pi x) + 1) / 2 and s = sin(pi x) at x = r / rc, both 0 from x =
+// 1 on (d fc / d r = -(pi / rc) s / 2). __sincosf on [0, pi] is within
+// 2^-21.4 of both.
+__device__ __forceinline__ void cutoff_sin(float x, float* fc, float* s) {
+  float sn, cs;
+  __sincosf(kPi * fminf(x, 1.0f), &sn, &cs);
+  *fc = x < 1.0f ? 0.5f * (cs + 1.0f) : 0.0f;
+  *s = x < 1.0f ? sn : 0.0f;
+}
+
+template <int N>
+__device__ __forceinline__ float pick(const float (&t)[N], int u) {
+  float x = t[0];
+#pragma unroll
+  for (int q = 1; q < N; ++q) x = u == q ? t[q] : x;
+  return x;
+}
+
+// The m set values of angle a (with kJvp its m set tangents along dpos),
+// times the scale, into vals[s * kValStride]; returns its relation (slot
+// and pair_rel: p.slot_of_z and p.pair_rel in shared memory). The unique
+// transcendentals of the angle stay in registers: NE, NZ and NR cover the
+// unique counts of eta, (zeta, lambda) and r_c.
+template <bool kJvp, int NE, int NZ, int NR>
+__device__ __forceinline__ int angle_sets(const float* __restrict__ pos,
+                                          const int* __restrict__ z,
+                                          const int* __restrict__ angles,
+                                          const float* __restrict__ dpos, int a,
+                                          const AcsfG4Params& p, const int* slot,
+                                          const int* pair_rel, float* vals) {
+  const int i = __ldg(angles + 3LL * a);
+  const int j = __ldg(angles + 3LL * a + 1);
+  const int k = __ldg(angles + 3LL * a + 2);
+  float pi[3], pj[3], pk[3];
+  load3(pos, i, pi);
+  load3(pos, j, pj);
+  load3(pos, k, pk);
+  // the geometry of angle_geometry, with r = d2 rsqrt(d2) and 1 / r = rsqrt(d2)
+  Angle g;
+  for (int d = 0; d < 3; ++d) {
+    g.vij[d] = pj[d] - pi[d];
+    g.vik[d] = pk[d] - pi[d];
+    g.vjk[d] = pk[d] - pj[d];
+  }
+  const float dij = fmaxf(dot3(g.vij, g.vij), kEps), dik = fmaxf(dot3(g.vik, g.vik), kEps);
+  const float djk = fmaxf(dot3(g.vjk, g.vjk), kEps);
+  const float inv_ij = rsqrtf(dij), inv_ik = rsqrtf(dik), inv_jk = rsqrtf(djk);
+  g.rij = dij * inv_ij;
+  g.rik = dik * inv_ik;
+  g.rjk = djk * inv_jk;
+  g.cos = dot3(g.vij, g.vik) * inv_ij * inv_ik;
+  const float s2 = dij + dik + djk;
+  // the tangents of the geometry (fused_g4.py:495-503)
+  float drij = 0.0f, drik = 0.0f, drjk = 0.0f, ds2 = 0.0f, dcos = 0.0f;
+  if (kJvp) {
+    float dpi[3], dpj[3], dpk[3], dvij[3], dvik[3], dvjk[3];
+    load3(dpos, i, dpi);
     load3(dpos, j, dpj);
     load3(dpos, k, dpk);
     for (int d = 0; d < 3; ++d) {
@@ -359,28 +383,265 @@ __global__ void __launch_bounds__(kWarps * 32) g4_jvp_kernel(
       dvik[d] = dpk[d] - dpi[d];
       dvjk[d] = dpk[d] - dpj[d];
     }
-    const float drij = dot3(g.vij, dvij) / g.rij;
-    const float drik = dot3(g.vik, dvik) / g.rik;
-    const float drjk = dot3(g.vjk, dvjk) / g.rjk;
-    const float ds2 = 2.0f * (g.rij * drij + g.rik * drik + g.rjk * drjk);
-    const float dcos = (dot3(dvij, g.vik) + dot3(g.vij, dvik)) / (g.rij * g.rik)
-                       - g.cos * (drij / g.rij + drik / g.rik);
-    AngleTables t;
-    derivative_tables(p, g, &t);
-    float* dst = row + g4_relation(p, __ldg(z + j), __ldg(z + k)) * m;
-    for (int s = 0; s < m; ++s) {
-      const int ue = p.eta_inv[s], uz = p.zl_inv[s], ur = p.rc_inv[s];
-      const float ce = t.c[uz] * t.e[ue];
-      const float d = t.dc[uz] * t.e[ue] * t.f[ur] * dcos
-                      + t.c[uz] * t.de[ue] * t.f[ur] * ds2
-                      + ce * (t.df_ij[ur] * drij + t.df_ik[ur] * drik
-                              + t.df_jk[ur] * drjk);
-      atomicAdd(dst + s, d * p.scale);
+    drij = dot3(g.vij, dvij) * inv_ij;
+    drik = dot3(g.vik, dvik) * inv_ik;
+    drjk = dot3(g.vjk, dvjk) * inv_jk;
+    ds2 = 2.0f * (g.rij * drij + g.rik * drik + g.rjk * drjk);
+    dcos = (dot3(dvij, g.vik) + dot3(g.vij, dvik)) * inv_ij * inv_ik
+           - g.cos * (drij * inv_ij + drik * inv_ik);
+  }
+  // per unique value: e = exp(-eta s2), c = 2^(1-zeta) base^zeta, f the
+  // cutoff product; with kJvp de, dc and df, each times its geometry tangent
+  float e[NE], de[NE], c[NZ], dc[NZ], f[NR], df[NR];
+#pragma unroll
+  for (int u = 0; u < NE; ++u) {
+    e[u] = de[u] = 0.0f;
+    if (u < p.n_eta) {
+      e[u] = expf(-p.eta[u] * s2);
+      if (kJvp) de[u] = -p.eta[u] * e[u] * ds2;
     }
   }
-  __syncwarp();
-  float* o = out + static_cast<long long>(node) * width;
-  for (int c = lane; c < width; c += 32) o[c] = row[c];
+#pragma unroll
+  for (int u = 0; u < NZ; ++u) {
+    c[u] = dc[u] = 0.0f;
+    if (u < p.n_zl) {
+      const float raw = fmaf(g.cos, p.lam[u], 1.0f);
+      const float base = fmaxf(raw, 1e-30f);
+      // __log2f is within 2^-22 of log2 on [0.5, 2] (2 ulp elsewhere): c
+      // within about 1e-6 of its value at zeta 8
+      c[u] = p.pow2[u] * exp2f(p.zeta[u] * __log2f(base));
+      // d c / d cos = c zeta lambda / base (base <= 2, so __fdividef is
+      // exact to 2 ulp); zero on the clamped branch (exactly collinear)
+      if (kJvp)
+        dc[u] = raw > 1e-30f ? __fdividef(c[u] * (p.zeta[u] * p.lam[u]), base) * dcos : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < NR; ++u) {
+    f[u] = df[u] = 0.0f;
+    if (u < p.n_rc) {
+      const float w = p.pi_rc[u] * kInvPi;  // 1 / rc
+      float fij, sij, fik, sik, fjk, sjk;
+      cutoff_sin(g.rij * w, &fij, &sij);
+      cutoff_sin(g.rik * w, &fik, &sik);
+      cutoff_sin(g.rjk * w, &fjk, &sjk);
+      f[u] = fij * fik * fjk;
+      if (kJvp)
+        df[u] = -0.5f * p.pi_rc[u]
+                * (sij * drij * fik * fjk + fij * sik * drik * fjk + fij * fik * sjk * drjk);
+    }
+  }
+  for (int s = 0; s < p.m; ++s) {
+    const int ue = p.eta_inv[s], uz = p.zl_inv[s], ur = p.rc_inv[s];
+    const float ce = pick(c, uz) * pick(e, ue);
+    float v;
+    if (kJvp)
+      v = pick(f, ur) * (pick(dc, uz) * pick(e, ue) + pick(c, uz) * pick(de, ue))
+          + ce * pick(df, ur);
+    else
+      v = ce * pick(f, ur);
+    vals[s * kValStride] = v * p.scale;
+  }
+  const int sj = slot[z_index(__ldg(z + j))], sk = slot[z_index(__ldg(z + k))];
+  return sj < 0 || sk < 0 ? 0 : pair_rel[sj * p.num_el + sk];
+}
+
+// a[first set bit of b], and that bit cleared; 0 when b is 0
+__device__ __forceinline__ float take(const float* a, unsigned& b) {
+  if (!b) return 0.0f;
+  const float x = a[__ffs(b) - 1];
+  b &= b - 1;
+  return x;
+}
+
+// id (the centre) of angle a if the block computes it, else -1: the angles
+// of [ab0, ab1) after those of the row that began before ab0 (id_before),
+// and past ab1 those of the block's last row (id_last), if it began in the
+// range
+__device__ __forceinline__ int computed_id(int id, int a, int n_angle, int ab1, int id_before,
+                                           int id_last) {
+  if (a >= n_angle) return -1;
+  return (a < ab1 ? id != id_before : id == id_last && id_last != id_before) ? id : -1;
+}
+
+// rows lo..hi-1 of out zeroed by one warp, or by warp w of kG4Warps warps
+// (rows lo + w, lo + w + kG4Warps, ...)
+__device__ __forceinline__ void zero_rows(float* __restrict__ out, int lo, int hi, int width,
+                                          int first, int step, int lane) {
+  for (int r = lo + first; r < hi; r += step)
+    for (int c = lane; c < width; c += 32) out[static_cast<long long>(r) * width + c] = 0.0f;
+}
+
+template <bool kJvp, int NE, int NZ, int NR>
+__device__ __forceinline__ void g4_owned_rows(const float* __restrict__ pos,
+                                              const int* __restrict__ z,
+                                              const int* __restrict__ angles,
+                                              const bool* __restrict__ mask,
+                                              const float* __restrict__ dpos,
+                                              float* __restrict__ out, int n_node, int n_angle,
+                                              const AcsfG4Params& p) {
+  extern __shared__ float smem[];
+  __shared__ int sid[kG4Threads + 2];     // rows of angles base - 1 .. base + kG4Threads
+                                          // that the block computes, else -1
+  __shared__ int srel[kG4Threads];        // relation of each angle of a round, -1 if masked
+  __shared__ int rid[kG4Threads + 1];     // ids of angles ab0 - 1 .. ab0 + kG4Threads - 1
+  __shared__ int gkey[kG4Warps][32];      // a warp's groups: (ordinal of its row) * 256 + relation,
+  __shared__ unsigned gmask[kG4Warps][32];  // and lanes
+  __shared__ int ords[kG4Warps];          // rows of a warp's angles (its slice)
+  __shared__ bool open_right[kG4Warps];   // the slice's last row goes on past it
+  __shared__ int slot[kMaxZ];             // p.slot_of_z
+  __shared__ int pair_rel[kMaxElements * kMaxElements];  // p.pair_rel
+  const int m = p.m, width = p.num_rel * m;
+  float* svals = smem;                         // m x kValStride set values of a round
+  float* part = svals + m * kValStride;        // 2 rows a warp: its slice's first and last
+  float* carry = part + 2 * kG4Warps * width;  // a row that runs into the next round, 2 x
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the (group, set) pairs of a row: lane_g + per_pass k, set lane_s
+  const int per_pass = 32 / m, lane_g = lane / m, lane_s = lane % m;
+  const int ab0 = blockIdx.x * kG4Range, ab1 = min(ab0 + kG4Range, n_angle);
+  const bool last = ab1 >= n_angle;
+  for (int k = tid; k < kMaxZ; k += kG4Threads) slot[k] = p.slot_of_z[k];
+  for (int k = tid; k < p.num_el * p.num_el; k += kG4Threads) pair_rel[k] = p.pair_rel[k];
+  __syncthreads();  // the tables, before the first angle's relation
+  const int id_before = ab0 > 0 ? __ldg(angles + 3LL * (ab0 - 1)) : -1;
+  const int id_last = ab1 > ab0 ? __ldg(angles + 3LL * (ab1 - 1)) : -1;
+  for (int base = ab0, round = 0;; base += kG4Threads, ++round) {
+    // every thread computes one angle's m set values into shared memory
+    const int a = base + tid;
+    const int raw = a < n_angle ? __ldg(angles + 3LL * a) : -1;
+    const int id = computed_id(raw, a, n_angle, ab1, id_before, id_last);
+    sid[tid + 1] = id;
+    if (round == 0) rid[tid + 1] = raw;
+    if (round == 0 && tid == 0) rid[0] = id_before;
+    if (tid == 0) sid[0] = round > 0 ? __ldg(angles + 3LL * (base - 1)) : -1;
+    if (tid == kG4Threads - 1)
+      sid[kG4Threads + 1] = computed_id(a + 1 < n_angle ? __ldg(angles + 3LL * (a + 1)) : -1,
+                                        a + 1, n_angle, ab1, id_before, id_last);
+    srel[tid] = id >= 0 && mask[a] ? angle_sets<kJvp, NE, NZ, NR>(pos, z, angles, dpos, a, p, slot,
+                                                                  pair_rel, svals + tid)
+                                   : -1;
+    __syncthreads();
+    const bool more = sid[kG4Threads + 1] >= 0;
+    if (round == 0) {
+      // Rows without angles: those between the rows of angles a - 1 and a,
+      // for a in [ab0, ab1), each run zeroed by the warp of a; in the last
+      // block also those after the last angle, by every warp
+      const int lo = ab0 + tid < ab1 ? rid[tid] + 1 : 0;
+      const int hi = ab0 + tid < ab1 ? min(rid[tid + 1], n_node) : 0;
+      for (unsigned runs = __ballot_sync(kFull, lo < hi); runs; runs &= runs - 1) {
+        const int b = __ffs(runs) - 1;
+        zero_rows(out, __shfl_sync(kFull, lo, b), __shfl_sync(kFull, hi, b), width, 0, 1, lane);
+      }
+      if (last) zero_rows(out, max(id_last, id_before) + 1, n_node, width, warp, kG4Warps, lane);
+    }
+    // Each warp sums its own 32 angles (its slice), row by row: the angles
+    // of each relation grouped by __match_any_sync, each (group, set) pair
+    // summed by one lane, in lane order (32 / m groups at a time). A row that lies within the slice
+    // is written out; the slice's first row, if it began before the slice,
+    // and its last, if it goes on past it, stay in part for the second step.
+    const int t = warp * 32 + lane;
+    const int row = sid[t + 1];
+    const unsigned starts = __ballot_sync(kFull, row >= 0 && sid[t] != row);
+    const bool open_left = sid[warp * 32 + 1] >= 0 && !(starts & 1u);
+    const int n_rows = __popc(starts) + open_left;
+    const int ord = __popc(starts & ((2u << lane) - 1)) - 1 + open_left;
+    const int first_row = __shfl_sync(kFull, row, 0), last_row = __shfl_sync(kFull, row, 31);
+    const bool goes_on = last_row >= 0 && sid[warp * 32 + 33] == last_row;
+    const int key = row >= 0 && srel[t] >= 0 ? ord * 256 + srel[t] : -1;
+    const unsigned grp = __match_any_sync(kFull, key);
+    const bool leads = key >= 0 && lane == __ffs(grp) - 1;
+    const unsigned leaders = __ballot_sync(kFull, leads);
+    if (leads) {
+      const int g = __popc(leaders & ((1u << lane) - 1));
+      gkey[warp][g] = key;
+      gmask[warp][g] = grp;
+    }
+    if (lane == 0) {
+      ords[warp] = n_rows;
+      open_right[warp] = goes_on;
+    }
+    __syncwarp();
+    const int n_groups = __popc(leaders);
+    for (int o = 0; o < n_rows; ++o) {
+      float* buf = part + (2 * warp + (o > 0)) * width;
+      for (int c = lane; c < width; c += 32) buf[c] = 0.0f;
+      // this row's groups, g_lo .. g_hi - 1 in leader order
+      const unsigned mine = __ballot_sync(kFull, lane < n_groups && gkey[warp][lane] >> 8 == o);
+      const int g_lo = __ffs(mine) - 1, g_hi = g_lo + __popc(mine);
+      __syncwarp();
+      for (int g = g_lo + lane_g; lane_g < per_pass && g < g_hi; g += per_pass) {
+        const float* v = svals + lane_s * kValStride + warp * 32;
+        unsigned b = gmask[warp][g];
+        float acc = 0.0f;
+        while (b) {
+          const float x0 = take(v, b), x1 = take(v, b), x2 = take(v, b), x3 = take(v, b);
+          acc = acc + x0 + x1 + x2 + x3;
+        }
+        buf[(gkey[warp][g] & 255) * m + lane_s] = acc;
+      }
+      __syncwarp();
+      if (!(o == 0 && open_left) && !(o == n_rows - 1 && goes_on)) {
+        // the row lies within the slice: written out whole
+        const unsigned lanes = __ballot_sync(kFull, row >= 0 && ord == o);
+        const int r = __shfl_sync(kFull, row, __ffs(lanes) - 1);
+        float* dst = out + static_cast<long long>(r) * width;
+        if (r < n_node)
+          for (int c = lane; c < width; c += 32) dst[c] = buf[c];
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    // Rows across slices: the warp of the slice where a row starts (in this
+    // round) adds its parts in slice order, after the carried sum of a row
+    // that began in an earlier round (warp 0, slot 0); then carries the sum
+    // into the next round, or writes the row out. No barrier follows: the
+    // next round's first step writes none of what this step reads, and its
+    // barrier comes before its warps write part.
+    for (int pass = 0; pass < 2; ++pass) {
+      int w0 = -1;
+      if (pass == 0 && warp == 0 && open_left) w0 = 0;   // carried in
+      if (pass == 1 && goes_on && n_rows > open_left) w0 = warp;
+      if (w0 < 0) continue;
+      const int r = pass == 0 ? first_row : last_row;
+      const bool carried_in = pass == 0;
+      // the row goes on past slice w: it is the slice's last row (its only
+      // one past w0) and that goes on
+      auto goes_past = [&](int w) {
+        return open_right[w] && ((pass == 1 && w == w0) || ords[w] == 1);
+      };
+      int w1 = w0;
+      while (w1 < kG4Warps - 1 && goes_past(w1)) ++w1;
+      const bool carried_out = goes_past(w1);
+      const float* prev = carry + ((round + 1) & 1) * width;
+      float* dst = carried_out ? carry + (round & 1) * width
+                   : r < n_node ? out + static_cast<long long>(r) * width : nullptr;
+      for (int c = lane; c < width; c += 32) {
+        float acc = carried_in ? prev[c] : 0.0f;
+        for (int w = w0; w <= w1; ++w)
+          acc += part[(2 * w + (w == w0 && pass == 1 && ords[w] > 1)) * width + c];
+        if (dst) dst[c] = acc;
+      }
+    }
+    if (!more) break;
+  }
+}
+
+template <int NE, int NZ, int NR>
+__global__ void __launch_bounds__(kG4Threads) g4_fwd_kernel(
+    const float* __restrict__ pos, const int* __restrict__ z,
+    const int* __restrict__ angles, const bool* __restrict__ mask,
+    float* __restrict__ out, int n_node, int n_angle,
+    const __grid_constant__ AcsfG4Params p) {
+  g4_owned_rows<false, NE, NZ, NR>(pos, z, angles, mask, nullptr, out, n_node, n_angle, p);
+}
+
+template <int NE, int NZ, int NR>
+__global__ void __launch_bounds__(kG4Threads) g4_jvp_kernel(
+    const float* __restrict__ pos, const int* __restrict__ z,
+    const int* __restrict__ angles, const bool* __restrict__ mask,
+    const float* __restrict__ dpos, float* __restrict__ out, int n_node,
+    int n_angle, const __grid_constant__ AcsfG4Params p) {
+  g4_owned_rows<true, NE, NZ, NR>(pos, z, angles, mask, dpos, out, n_node, n_angle, p);
 }
 
 __global__ void __launch_bounds__(kWarps * 32) g2_fwd_kernel(
@@ -523,6 +784,31 @@ dim3 grid_for(int n_node) { return dim3((n_node + kWarps - 1) / kWarps); }
 
 size_t shared_bytes(int width) { return sizeof(float) * kWarps * width; }
 
+// the G4 fwd and jvp kernels' register tables: exact for the unique counts
+// of the HDNNP tables (2 eta, 4 (zeta, lambda), 1 r_c), else kMaxUniq of
+// each. Exact counts take 22% (fwd) and 50% (jvp) off the kMaxUniq
+// instance's time at the HDNNP2nd serving batch (PERF.md)
+bool g4_hdnnp_counts(const AcsfG4Params* p) {
+  return p->n_eta == 2 && p->n_zl == 4 && p->n_rc == 1;
+}
+
+// one launch of a G4 fwd or jvp kernel: a block for each kG4Range angles
+// (one for none, which zeroes every row); shared memory for the set values
+// of a round and kG4Warps + 2 rows
+template <typename Kernel, typename... Args>
+int launch_g4(Kernel kernel, const AcsfG4Params* p, int n_angle, void* stream, Args... args) {
+  const int bytes = static_cast<int>(
+      sizeof(float) * (p->m * kValStride + (2 * kG4Warps + 2) * p->num_rel * p->m));
+  if (bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int grid = std::max(1, (n_angle + kG4Range - 1) / kG4Range);
+  kernel<<<grid, kG4Threads, bytes, static_cast<cudaStream_t>(stream)>>>(args..., *p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError() (0 on
@@ -536,10 +822,11 @@ extern "C" int gcnn_acsf_g4_fwd_f32(const float* pos, const int* z,
                                     const AcsfG4Params* p, void* stream) {
   if (!g4_params_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_node <= 0) return static_cast<int>(cudaSuccess);
-  g4_fwd_kernel<<<grid_for(n_node), kWarps * 32, shared_bytes(p->num_rel * p->m),
-                  static_cast<cudaStream_t>(stream)>>>(pos, z, angles, mask, out,
-                                                       n_node, n_angle, *p);
-  return static_cast<int>(cudaGetLastError());
+  if (g4_hdnnp_counts(p))
+    return launch_g4(g4_fwd_kernel<2, 4, 1>, p, n_angle, stream, pos, z, angles, mask, out,
+                     n_node, n_angle);
+  return launch_g4(g4_fwd_kernel<kMaxUniq, kMaxUniq, kMaxUniq>, p, n_angle, stream, pos, z,
+                   angles, mask, out, n_node, n_angle);
 }
 
 extern "C" int gcnn_acsf_g4_vjp_f32(const float* pos, const int* z,
@@ -562,11 +849,16 @@ extern "C" int gcnn_acsf_g4_jvp_f32(const float* pos, const int* z,
                                     void* stream) {
   if (!g4_params_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_node <= 0) return static_cast<int>(cudaSuccess);
-  g4_jvp_kernel<<<grid_for(n_node), kWarps * 32, shared_bytes(p->num_rel * p->m),
-                  static_cast<cudaStream_t>(stream)>>>(pos, z, angles, mask, dpos,
-                                                       out, n_node, n_angle, *p);
-  return static_cast<int>(cudaGetLastError());
+  if (g4_hdnnp_counts(p))
+    return launch_g4(g4_jvp_kernel<2, 4, 1>, p, n_angle, stream, pos, z, angles, mask, dpos,
+                     out, n_node, n_angle);
+  return launch_g4(g4_jvp_kernel<kMaxUniq, kMaxUniq, kMaxUniq>, p, n_angle, stream, pos, z,
+                   angles, mask, dpos, out, n_node, n_angle);
 }
+
+// angles of a G4 fwd or jvp block's range (kG4Range), for callers that lay
+// out inputs by block
+extern "C" int gcnn_acsf_g4_range() { return kG4Range; }
 
 extern "C" int gcnn_acsf_g2_fwd_f32(const float* pos, const int* z,
                                     const int* senders, const int* receivers,

@@ -61,7 +61,7 @@ CENT_HARDNESS = (0.037 / 0.529177 * np.array([
 
 _NOT_PORTED_ITERATIVE = (
     "the iterative (matrix-free CG) Qeq solver is not ported yet (ROADMAP.md, "
-    "slice 3 item 4, 'Iterative Qeq'); use solver='dense'")
+    "'Iterative Qeq'); use solver='dense'")
 
 
 def _element_table(module: nn.Module, name: str, table: np.ndarray,

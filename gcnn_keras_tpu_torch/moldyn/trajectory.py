@@ -13,8 +13,8 @@ entering the model's cutoff mid-segment are already edges.
 Many replicas run in one disjoint batch (``run_ensemble``): one reverse
 pass over the summed energies gives every replica's forces. Not ported
 yet, and raising: ``n_devices > 1`` (replica parallelism over cards,
-slice 8) and periodic systems (``graph_lattice``; the port has no
-``set_range_periodic``).
+ROADMAP.md's "Parallel") and periodic systems (``graph_lattice``; the
+port has no ``set_range_periodic``).
 """
 from __future__ import annotations
 
@@ -157,7 +157,7 @@ class ScannedMD:
         if n_devices is not None and int(n_devices) > 1:
             raise NotImplementedError(
                 "ScannedMD.run_ensemble(n_devices > 1): replica parallelism over "
-                "cards is not ported yet (slice 8, parallel)")
+                "cards is not ported yet (ROADMAP.md, 'Parallel')")
         zs = [np.asarray(s["node_number"]) for s in systems]
         ns = [z.shape[0] for z in zs]
         pos = [np.asarray(s["node_coordinates"], np.float32) for s in systems]

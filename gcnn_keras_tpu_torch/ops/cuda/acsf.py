@@ -53,8 +53,9 @@ KERNELS = ("g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp", "g4_jvp", "g2_jvp")
 launches = dict.fromkeys(KERNELS, 0)
 
 # limits of the kernels' own design (csrc/acsf.cu): per-set and unique-value
-# tables live in the launch parameters, and one output row per warp in
-# shared memory
+# tables live in the launch parameters, and output rows in shared memory
+# (one a warp; the G4 fwd and jvp kernels two a warp, two carried and a
+# round's set values)
 MAX_SETS = 32
 MAX_UNIQ = 8
 MAX_ELEMENTS = 16
@@ -477,6 +478,12 @@ def _entry(name: str):
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def g4_range() -> int:
+    """Angles of a block's range in the G4 fwd and jvp kernels (``kG4Range``
+    of ``csrc/acsf.cu``), read from the loaded library."""
+    return int(load_library("acsf").gcnn_acsf_g4_range())
 
 
 def _check(pos: Tensor, z: Tensor, rows, mask: Tensor, width: int, ct=None,

@@ -20,7 +20,7 @@ Tensor = torch.Tensor
 
 _NOT_PORTED_MESH = (
     "Trainer(mesh=...): the data-parallel step is not ported yet (ROADMAP.md, "
-    "slice 8, 'Parallel'); run one device without a mesh")
+    "'Parallel'); run one device without a mesh")
 
 
 @dataclasses.dataclass

@@ -18,7 +18,11 @@ held against the plain version:
   ``schnet_train`` batch (``cf_hesjvp`` as a force loss calls it and with
   every tangent);
 - ``gather_mul_segsum``, ``fused_cfconv``: phase 11's timed checks at the
-  serving and MD shapes (their edge cases checked too).
+  serving and MD shapes (their edge cases checked too);
+- ``g4_fwd``, ``g4_jvp`` (``csrc/acsf.cu``, whose six ACSF kernels a
+  variant changes together): each of the six at phase 5's and 9's serving
+  batch and at the first step of ``hdnnp2nd_train`` and ``hdnnp4th_train``
+  (their captured calls), and at the ACSF edge cases.
 
 Prints one JSON line per timing. Needs one CUDA card.
 """
@@ -133,6 +137,48 @@ def schnet_kernel_timings(kernel, libs, order):
                     "max_abs_err")}}))
 
 
+def acsf_calls():
+    """``(name, label, args)`` of each ACSF kernel at its main-path shapes:
+    the serving batch of phases 5 and 9 (timed), the captured calls of one
+    step of ``hdnnp2nd_train`` and ``hdnnp4th_train`` (timed) and the edge
+    batch."""
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    pred = chip_smoke.make_hdnnp_predictor("cuda")
+    _, serving = pred.make_batch(chip_smoke.qm9_like_mols(0, 512))
+    model = pred.model.energy_model
+    statics = {"g2": model.acsf_g2._static, "g4": model.acsf_g4._static}
+    edge = chip_smoke.acsf_edge_batch(serving.senders.device)
+    out = []
+    for batch, label, timed in ((serving, "HDNNP2nd serving, 512 mols", True),
+                                (edge, "edge batch", False)):
+        out += [(name, label, timed, chip_smoke.acsf_call_args(name, statics[name[:2]], batch))
+                for name in ka.KERNELS]
+    for path in ("hdnnp2nd_train", "hdnnp4th_train"):
+        cfg = chip_smoke.TRAIN_PATHS[path]
+        batch = chip_smoke.train_batch(path, cfg["seed"], cfg["n_mols"], "cuda")
+        _, trainer, state = chip_smoke.make_trainer(path, "cuda")
+        with chip_smoke.captured_calls() as calls:
+            trainer.step_fn()(state, batch)
+        out += [(name, path, True, calls[name][0]) for name in ka.KERNELS]
+    return out
+
+
+def acsf_timings(libs, order):
+    """The six ACSF kernels' checks of ``acsf_calls``, each variant loaded in
+    its turn."""
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    build._loaded["acsf"] = libs[order[0]]
+    calls = acsf_calls()
+    for name in order:
+        build._loaded["acsf"] = libs[name]
+        ka._entry.cache_clear()
+        for kernel, label, timed, args in calls:
+            rec = chip_smoke.check_kernel_call(kernel, args, label, timed)
+            if timed:
+                print(json.dumps({"variant": name, "kernel": kernel, **{k: rec[k] for k in (
+                    "case", "ms", "ms_warm", "bound_ms", "max_abs_err")}}))
+
+
 def main():
     if len(sys.argv) < 2 or sys.argv[1] not in SOURCES:
         raise SystemExit(__doc__)
@@ -147,6 +193,8 @@ def main():
         segment_sum_timings(libs, order)
     elif kernel in ("gather_mul_segsum", "fused_cfconv"):
         schnet_kernel_timings(kernel, libs, order)
+    elif SOURCES[kernel] == "acsf":
+        acsf_timings(libs, order)
     else:
         chain_timings(kernel, libs, order)
 

@@ -7,7 +7,7 @@ training step or of one MD step goes on a CUDA card, for the PyTorch port.
                                      [--trace chiprun_out/serving_trace.json]
     python3 profile_serving_torch.py --kernel KERNEL
         (KERNEL: sorted_segment_sum, gather_mul_segsum, fused_cfconv, cf_fwd,
-         cf_vjp or cf_hesjvp)
+         cf_vjp, cf_hesjvp, g4_fwd or g4_jvp)
 
 Builds the serving batch of ``chip_smoke.py`` (512 QM9-like molecules,
 weights from seed 0; SchNet defaults in ``--mode`` (``interaction_args``
@@ -35,7 +35,10 @@ timed checks at the ``schnet_train`` batch (with the plain version's and
 the port's unfused chain's times; ``cf_hesjvp`` as a force loss calls it
 and with every tangent); ``gather_mul_segsum`` and ``fused_cfconv``, phase
 11's timed checks at the serving and MD shapes (with the unfused chains'
-times) and their edge cases. The last line is one JSON summary of the
+times) and their edge cases; ``g4_fwd`` and ``g4_jvp``, phase 5's and 9's
+timed check at the HDNNP2nd serving batch and the ACSF edge cases, and
+``g4_jvp`` also every call of one ``hdnnp2nd_train`` step (phase 10, the
+first call timed). The last line is one JSON summary of the
 timed records. Needs one CUDA card.
 """
 import argparse
@@ -103,13 +106,24 @@ def training_run(name, mode):
 # the source of each kernel that --kernel takes
 KERNEL_SOURCES = {"sorted_segment_sum": "segment_sum", "gather_mul_segsum": "fused_aggregate",
                   "fused_cfconv": "fused_cfconv", "cf_fwd": "fused_interaction",
-                  "cf_vjp": "fused_interaction", "cf_hesjvp": "fused_interaction"}
+                  "cf_vjp": "fused_interaction", "cf_hesjvp": "fused_interaction",
+                  "g4_fwd": "acsf", "g4_jvp": "acsf"}
 
 
 def kernel_records(name):
     """``chip_smoke.py``'s checks of kernel ``name`` at its main-path shapes
     and edge cases, after a fresh build of its source."""
     chip_smoke.phase_build([KERNEL_SOURCES[name]])
+    if KERNEL_SOURCES[name] == "acsf":
+        pred = chip_smoke.make_hdnnp_predictor("cuda")
+        _, batch = pred.make_batch(chip_smoke.qm9_like_mols(0, 512))
+        recs = chip_smoke.phase_acsf_kernel(batch, pred.model.energy_model, (name,))[name]
+        if name == "g4_jvp":
+            path = "hdnnp2nd_train"
+            cfg = chip_smoke.TRAIN_PATHS[path]
+            batch = chip_smoke.train_batch(path, cfg["seed"], cfg["n_mols"], "cuda")
+            recs += chip_smoke.check_training_kernels(path, batch)[name]
+        return recs
     if name in ("sorted_segment_sum", "gather_mul_segsum", "fused_cfconv"):
         _, batch = chip_smoke.make_predictor("cuda").make_batch(chip_smoke.qm9_like_mols(0, 512))
         if name == "sorted_segment_sum":

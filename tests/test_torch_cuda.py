@@ -110,11 +110,18 @@ ACSF_ELEMENTS = [1, 6, 7, 8, 9]
 G2_KW = dict(eta=[0.0, 0.3], rs=[0.0, 3.0], rc=4.0)
 G4_KW = dict(eta=[0.0, 0.3], zeta=[1.0, 8.0], lamda=[-1.0, 1.0], rc=4.0,
              multiplicity=2.0)
-# max|kernel - plain| <= tol * (1 + max|plain|): the forward sums in
-# another order (shared-memory atomics); the force and tangent passes add
-# terms of both signs with atomics, in an order that varies from run to run
+# max|kernel - plain| <= tol * (1 + max|plain|): the forward passes sum in
+# another order than index_add_ (G2 with shared-memory atomics); the force
+# and tangent passes add terms of both signs, the force passes and the G2
+# tangent pass with atomics, in an order that varies from run to run
 ACSF_FWD_TOL, ACSF_VJP_TOL = 1e-5, 1e-4
 ACSF_NAMES = ["g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp", "g4_jvp", "g2_jvp"]
+# each kernel with the HDNNP tables (G4: 2 eta, 4 (zeta, lambda), 1 r_c, the
+# G4 fwd and jvp kernels' exact instance), and the G4 kernels with a table of
+# other unique counts (their kMaxUniq instance)
+ACSF_CASES = ([pytest.param(n, False, id=n) for n in ACSF_NAMES]
+              + [pytest.param(n, True, id=f"{n}-other-g4-table")
+                 for n in ("g4_fwd", "g4_vjp", "g4_jvp")])
 
 
 def _acsf_graphs(seed, n_mols, elements=(1, 6, 7, 8, 9)):
@@ -134,6 +141,22 @@ def _acsf_layers():
     from gcnn_keras_tpu_torch.layers.conv.acsf import ACSFG2, ACSFG4
     return (ACSFG2(**ACSFG2.make_param_table(**G2_KW, elements=ACSF_ELEMENTS)),
             ACSFG4(**ACSFG4.make_param_table(**G4_KW, elements=ACSF_ELEMENTS)))
+
+
+def _g4_other_static():
+    """A shared G4 table of 8 eta, 1 (zeta, lambda) and 3 r_c (m = 24)."""
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    grid = [[eta, 4.0, 1.0, rc] for eta in np.linspace(0.0, 0.7, 8) for rc in (3.0, 3.5, 4.0)]
+    n_pairs = len(ACSF_ELEMENTS) * (len(ACSF_ELEMENTS) + 1) // 2
+    table = np.broadcast_to(np.asarray(grid, np.float32), (n_pairs, len(grid), 4))
+    return ka.make_static(table, ACSF_ELEMENTS, False, 2.0)
+
+
+def _acsf_static(name, other_g4_table):
+    g2, g4 = _acsf_layers()
+    if other_g4_table:
+        return _g4_other_static()
+    return (g4 if name.startswith("g4") else g2)._static
 
 
 def _acsf_args(name, b):
@@ -174,38 +197,26 @@ def _acsf_check(name, b, st, ct_seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ACSF_NAMES)
-def test_acsf_kernel_matches_plain(cuda_device, name):
+@pytest.mark.parametrize("name,other_g4_table", ACSF_CASES)
+def test_acsf_kernel_matches_plain(cuda_device, name, other_g4_table):
     from gcnn_keras_tpu_torch.batch import batch_graphs
     b = batch_graphs(_acsf_graphs(0, 96), device=cuda_device)
-    g2, g4 = _acsf_layers()
-    _acsf_check(name, b, (g4 if name.startswith("g4") else g2)._static)
+    _acsf_check(name, b, _acsf_static(name, other_g4_table))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ACSF_NAMES)
-def test_acsf_kernel_edge_cases(cuda_device, name):
-    """A collinear triple (the clamped cosine derivative), an atom with one
-    neighbour and one with none (no angles), elements outside the table
-    (S, Cl), all rows masked, and no rows at all."""
-    from gcnn_keras_tpu_torch.batch import batch_graphs
-    from gcnn_keras_tpu_torch.graph.preprocess import set_angle
-    graphs = [
-        {"node_number": np.array([6, 6, 6]),
-         "node_coordinates": np.array([[0, 0, 0], [1.0, 0, 0], [-2.0, 0, 0]], np.float32),
-         "edge_indices": np.array([[0, 1], [0, 2], [1, 0], [2, 0]])},
-        {"node_number": np.array([1, 8, 16]),
-         "node_coordinates": np.array([[0, 0, 0], [0.9, 0, 0], [9.0, 9, 9]], np.float32),
-         "edge_indices": np.array([[0, 1], [1, 0]])},
-        {"node_number": np.array([17, 6, 1, 16]),
-         "node_coordinates": np.array([[0, 0, 0], [1.5, 0, 0], [0, 1.2, 0],
-                                       [0, 0, 1.8]], np.float32),
-         "edge_indices": np.array([[i, j] for i in range(4) for j in range(4) if i != j])},
-    ]
-    graphs = [set_angle(g, range_indices="edge_indices") for g in graphs]
-    b = batch_graphs(graphs, device=cuda_device, n_angle_pad=64, n_edge_pad=64)
-    g2, g4 = _acsf_layers()
-    st = (g4 if name.startswith("g4") else g2)._static
+@pytest.mark.parametrize("name,other_g4_table", ACSF_CASES)
+def test_acsf_kernel_edge_cases(cuda_device, name, other_g4_table):
+    """With the HDNNP tables (the G4 kernels also with a table of other
+    unique counts), ``chip_smoke.acsf_edge_batch``: the G4 fwd and jvp
+    kernels' block layout (a centre whose angles span three or more blocks,
+    one whose first angle is a block's first, rows without angles inside a
+    block's range, the last block), a collinear triple (the clamped cosine derivative), an
+    atom with one neighbour and one with none (no angles), elements outside
+    the table (S, Cl); then all rows masked, and no rows at all."""
+    import chip_smoke
+    b = chip_smoke.acsf_edge_batch(cuda_device)
+    st = _acsf_static(name, other_g4_table)
     out = _acsf_check(name, b, st)
     assert torch.isfinite(out).all()
     if not name.endswith("vjp"):
@@ -220,6 +231,23 @@ def test_acsf_kernel_edge_cases(cuda_device, name):
                       receivers=torch.zeros(0, dtype=torch.int32, device=dev),
                       edge_mask=torch.zeros(0, dtype=torch.bool, device=dev))
     assert not _acsf_check(name, empty, st).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["g4_fwd", "g4_jvp"])
+def test_g4_kernels_give_the_same_bits_run_to_run(cuda_device, name):
+    """The G4 fwd and jvp kernels sum in a fixed order, without atomics: two
+    launches on the HDNNP2nd serving batch give identical bits."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    pred = chip_smoke.make_hdnnp_predictor("cuda")
+    _, b = pred.make_batch(chip_smoke.qm9_like_mols(0, 512))
+    args = chip_smoke.acsf_call_args(name, pred.model.energy_model.acsf_g4._static, b)
+    kernel = {"g4_fwd": ka.g4_forward, "g4_jvp": ka.g4_jvp}[name]
+    first, second = kernel(*args), kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first).all() and first.abs().max().item() > 0.0
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -792,3 +820,22 @@ def test_tiled_kernels_read_no_unwritten_shared_memory(cuda_device, fill_shared_
     fill_shared_nan()
     check(f"U={u} after NaN")
     assert count() == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["g4_fwd", "g4_jvp"])
+def test_g4_kernels_read_no_unwritten_shared_memory(cuda_device, fill_shared_nan, name):
+    """The G4 fwd and jvp kernels (rows of shared memory zeroed or carried
+    before they are summed into) on the edge batch, launched once, then
+    right after a kernel that left NaN in all of every SM's shared memory:
+    finite, and within the tolerance of their plain version, both times."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    b = chip_smoke.acsf_edge_batch(cuda_device)
+    args = chip_smoke.acsf_call_args(name, _acsf_layers()[1]._static, b)
+    before = ka.launches[name]
+    chip_smoke.check_acsf_call(name, args, "edge batch", False)
+    torch.cuda.synchronize()
+    fill_shared_nan()
+    chip_smoke.check_acsf_call(name, args, "edge batch after NaN", False)
+    assert ka.launches[name] == before + 2

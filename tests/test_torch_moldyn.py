@@ -195,7 +195,7 @@ def test_scanned_md_single_molecule_and_langevin(md_models):
 def test_scanned_md_refuses_what_is_not_ported(md_models):
     systems, (_, _, tm) = md_models
     md = ScannedMD(tm, dt=1e-3, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(NotImplementedError, match="'Parallel'"):
         md.run_ensemble(systems[:2], 1, n_devices=2)
     periodic = dict(systems[0], graph_lattice=np.eye(3, dtype=np.float32) * 10.0)
     with pytest.raises(NotImplementedError, match="set_range_periodic"):

@@ -19,17 +19,19 @@ order, each raising on a failed check:
 5. ACSF kernels: the four G2/G4 kernels (forward and force pass) against
    their plain versions at the HDNNP2nd serving shapes and at edge cases
    (``acsf_edge_batch``: the G4 fwd and jvp kernels' block layout, a
-   collinear triple, atoms without angles, unknown elements; all rows
-   masked; no rows), with times and bounds.
+   molecule whose angles join nodes further apart than the G4 vjp
+   kernel's shared window, a collinear triple, atoms without angles,
+   unknown elements; all rows masked; no rows), with times and bounds.
 6. HDNNP2nd serving: the Behler-mode HDNNP2nd of the JAX package's bench
    configuration, with ``set_angle`` as the graph preprocessor, answers the
    same 3 requests, checked as in phase 4, with every kernel's launch count
    per evaluation held to its derived value.
-7. SPD solve kernel: the batched Gauss-Jordan solve against its plain
+7. SPD solve kernels: the batched Gauss-Jordan solve against its plain
    version on the Qeq system that ``CENTCharge`` assembles from the first
-   HDNNP4th request, with times and bounds, and at edge cases (G = 1,
-   M = 1, M at the shared-memory gate, K = 1, the padding graph's identity
-   system, an empty graph whose bordered corner is 1).
+   HDNNP4th request (the same values), with times and bounds, and at edge
+   cases (G = 1, M = 1, M = 32 and 33 on either side of the warp and block
+   kernels, M at the shared-memory gate, K = 1, the padding graph's
+   identity system, an empty graph whose bordered corner is 1).
 8. HDNNP4th serving: the flagship HDNNP4th of the JAX package's bench
    configuration with ESP coupling answers the same 3 requests, each
    molecule given an ESP, its gradient and a total charge of -1, 0 or +1;
@@ -734,21 +736,36 @@ def star_degrees(n_angles):
     return degrees
 
 
+def wide_graph(n, rs):
+    """A molecule of ``n`` atoms whose angles join nodes ``n - 1`` apart in
+    id: atoms 0, 1 and ``n - 1`` form a triangle within r_c; the atoms
+    between, far apart, have no neighbours."""
+    xyz = np.stack([6.0 * np.arange(n), np.full(n, 20.0), np.zeros(n)], 1)
+    xyz[[0, 1, n - 1]] = [[0.0, 0.0, 0.0], [1.1, 0.0, 0.0], [0.2, 1.3, 0.0]]
+    tri = [0, 1, n - 1]
+    return {"node_number": rs.choice(HDNNP_ELEMENTS, size=n),
+            "node_coordinates": xyz.astype(np.float32),
+            "edge_indices": np.array([[i, j] for i in tri for j in tri if i != j])}
+
+
 def acsf_edge_batch(dev):
-    """The G4 fwd and jvp kernels' layout cases, then the ACSF edge cases.
-    Stars whose centres' angles fill the G4 kernels' first block range
+    """The G4 kernels' layout cases, then the ACSF edge cases. Stars whose
+    centres' angles fill the G4 fwd and jvp kernels' first block range
     (``g4_range()`` angles, read from the built kernels), their leaves
     between them rows without angles; then a compact 40-atom cluster
     within r_c, whose first centre's first
     angle is the second block's first angle and each of whose centres has
-    1482 angles, spanning three or more blocks; then a collinear triple
-    (1 + cos = 0: the clamped cosine derivative), an atom with one
-    neighbour and one with none (no angles), and atomic numbers outside
-    the table (S, Cl); padding rows and rows without angles after the last
-    angle, in the last block."""
+    1482 angles, spanning three or more blocks; then a molecule whose
+    angles join nodes further apart in id than the G4 vjp kernel's shared
+    window (``g4_vjp_window()`` nodes: its global-atomic branch), with
+    that many rows without angles inside one block's range; then a
+    collinear triple (1 + cos = 0: the clamped cosine derivative), an atom
+    with one neighbour and one with none (no angles), and atomic numbers
+    outside the table (S, Cl); padding rows and rows without angles after
+    the last angle, in the last block."""
     from gcnn_keras_tpu_torch.batch import batch_graphs
     from gcnn_keras_tpu_torch.graph.preprocess import set_angle
-    from gcnn_keras_tpu_torch.ops.cuda.acsf import g4_range
+    from gcnn_keras_tpu_torch.ops.cuda.acsf import g4_range, g4_vjp_window
     rs = np.random.RandomState(11)
     graphs = []
     for d in star_degrees(g4_range()):
@@ -767,6 +784,7 @@ def acsf_edge_batch(dev):
                    "node_coordinates": rs.uniform(0.0, 2.2, (40, 3)).astype(np.float32),
                    "edge_indices": np.array([[i, j] for i in range(40) for j in range(40)
                                              if i != j])})
+    graphs.append(wide_graph(g4_vjp_window() + 2, rs))
     graphs += [
         {"node_number": np.array([6, 6, 6]),
          "node_coordinates": np.array([[0, 0, 0], [1.0, 0, 0], [-2.0, 0, 0]], np.float32),
@@ -802,8 +820,8 @@ def phase_acsf_kernel(batch, model, names=("g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp
     for name in names:
         st = statics[name[:2]]
         recs[name] = [check_acsf(name, st, batch, "HDNNP2nd serving, 512 mols", True),
-                      check_acsf(name, st, edge, "block layout, collinear, no angles, "
-                                 "unknown element", False),
+                      check_acsf(name, st, edge, "block layout, wide molecule, collinear, "
+                                 "no angles, unknown element", False),
                       check_acsf(name, st, masked, "all rows masked", False),
                       check_acsf(name, st, none, "no rows", False)]
         if recs[name][2]["max_abs_err"] != 0.0 or recs[name][3]["max_abs_err"] != 0.0:
@@ -1083,17 +1101,25 @@ def random_spd(g, m, k, seed, dev):
     return a.contiguous(), torch.randn(g, m, k, generator=gen, device=dev)
 
 
-def phase_spd_kernel(model, batch):
-    """The SPD kernel against its plain version on the Qeq system that
-    ``CENTCharge`` assembles from ``batch`` (timed), and at edge cases."""
-    from gcnn_keras_tpu_torch.layers.conv.qeq_solver import solve_qeq_dense_cholesky
-    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
-    dev = batch.senders.device
+def qeq_system(model, batch):
+    """The Qeq systems that ``CENTCharge`` assembles from ``batch`` with
+    ``model``'s weights: ``(a, rhs, mask, b, qtot)``, ``rhs = [b | mask]``
+    (K = 2)."""
     with torch.no_grad():
         rep, esp, z = model.representation(batch)
         chi = model.mlp_charge(rep, z)[:, 0] + esp
-        a, mask, b, qtot, corner = model.cent_electrostatic.cent_charge.assemble(batch, chi)
-    rhs = torch.stack([b, mask], dim=-1).contiguous()
+        a, mask, b, qtot, _ = model.cent_electrostatic.cent_charge.assemble(batch, chi)
+    return a, torch.stack([b, mask], dim=-1).contiguous(), mask, b, qtot
+
+
+def phase_spd_kernel(model, batch):
+    """The SPD kernels against their plain version on the Qeq system that
+    ``CENTCharge`` assembles from ``batch`` (timed; the same bits), and at
+    edge cases: the warp kernel (M <= 32) and the block kernel (M > 32)."""
+    from gcnn_keras_tpu_torch.layers.conv.qeq_solver import solve_qeq_dense_cholesky
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    dev = batch.senders.device
+    a, rhs, mask, b, qtot = qeq_system(model, batch)
     if a.shape != (batch.n_graphs, HDNNP4TH_M, HDNNP4TH_M):
         raise AssertionError(f"unexpected Qeq shape {tuple(a.shape)}")
     eye = torch.eye(HDNNP4TH_M, device=dev)
@@ -1103,8 +1129,13 @@ def phase_spd_kernel(model, batch):
     recs = [check_spd(a, rhs, "Qeq of the HDNNP4th serving request, 512 mols", True),
             check_spd(a[:1].contiguous(), rhs[:1].contiguous(), "G=1", False),
             check_spd(*random_spd(7, 1, 2, 1, dev), "M=1", False),
+            *(check_spd(*random_spd(7, m, 2, m, dev), f"M={m}", False) for m in (5, 12, 27)),
+            check_spd(*random_spd(5, 32, 2, 3, dev), "M=32, the warp kernel's last", False),
+            check_spd(*random_spd(5, 33, 2, 4, dev), "M=33, the block kernel's first", False),
             check_spd(*random_spd(4, m_gate, 2, 2, dev), f"M={m_gate} at the gate", False),
             check_spd(a, rhs[..., :1].contiguous(), "K=1", False)]
+    if recs[0]["max_abs_err"] != 0.0:
+        raise AssertionError("spd_solve: the Qeq solve differs from the plain version")
     ident = check_spd(a[-1:].contiguous(), torch.randn(1, HDNNP4TH_M, 2, device=dev),
                       "the padding graph's identity system", False)
     if ident["max_abs_err"] != 0.0:

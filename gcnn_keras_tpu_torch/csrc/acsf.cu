@@ -52,42 +52,67 @@
 // So every output row is written once, and every sum is taken in an order
 // fixed by the input: the same inputs give the same bits from run to run.
 //
-// G4 force pass (g4_vjp_kernel) and the G2 kernels: one warp owns one
-// centre (receiver) node, finds the node's contiguous range of sorted
-// angles (edges) by binary search, and its lanes walk that range, one angle
-// (edge) per lane, with plain loads.
+// G4 force pass (g4_vjp_kernel): balanced by angles, no search, the shares
+// summed in shared memory before any global write.
+// - Block b (256 threads) takes the angles [256 b, 256 b + 256), one a
+//   thread (skipped where masked). The thread reads its centre's cotangent
+//   slice ct[i, rel*m : rel*m + m] (the rows of a run of angles with the same
+//   centre are the same, so they stay in L1 and L2), contracts the m set
+//   cotangents into the five geometry cotangents (cos, s2, r_ij, r_ik, r_jk)
+//   with the unique transcendentals in registers (angle_sets' third pass),
+//   and forms the shares of i, j and k in dpos.
+// - The centre's share is summed over each run of lanes with the same
+//   centre (the angles are sorted by centre), and j's over each run with
+//   the same j (set_angle's order: j repeats over the centre's other
+//   neighbours), by a segmented shuffle tree; k's stays per angle.
+// - In a batch of molecules a block's angles touch a short range of node
+//   ids (a molecule's nodes are contiguous): about 40 at the HDNNP2nd
+//   serving batch. Where that range fits kVjpWindow (1024) nodes, the shares
+//   are added into a window of dpos in shared memory (shared-memory
+//   atomics), and the block then adds each nonzero coordinate of the window
+//   to dpos with one global atomic. Where it does not (neighbours far apart
+//   in id), the shares go to dpos with global atomics.
+// dpos must be zero on entry. The window's adds and the global adds come in
+// an order that varies from run to run: dpos differs from run to run in the
+// last bits. The run sums alone are taken in a fixed order.
+//
+// G2 kernels: one warp owns one centre (receiver) node, finds the node's
+// contiguous range of sorted edges by binary search, and its lanes walk that
+// range, one edge per lane, with plain loads.
 // - force pass: the warp stages the node's cotangent row in shared memory;
-//   each lane forms the five geometry cotangents (cos, s2, r_ij, r_ik, r_jk)
-//   and the three vector cotangents, keeps the centre's share in registers
-//   (summed over the warp at the end) and adds the neighbours' shares to
-//   dpos with float atomics: the neighbours j, k are not sorted. dpos must
+//   each lane forms its edge's radial cotangent, keeps the centre's share in
+//   registers (summed over the warp at the end) and adds the neighbour's
+//   share to dpos with float atomics: the senders are not sorted. dpos must
 //   be zero on entry.
-// - G2: each lane adds the m set values (tangents) of its edge into the
-//   node's row in shared memory with shared-memory atomics; the warp then
-//   writes the whole row.
+// - forward and tangent pass: each lane adds the m set values (tangents) of
+//   its edge into the node's row in shared memory with shared-memory
+//   atomics; the warp then writes the whole row.
 // Masked rows (padding points at the dead node, i = j = k) are skipped, not
-// multiplied by zero. The atomics of these four make the order of each
-// float32 sum vary from run to run, so their results differ from run to run
-// in the last bits.
+// multiplied by zero. The atomics of the three G2 kernels make the order of
+// each float32 sum vary from run to run, so their results differ from run
+// to run in the last bits.
 //
 // Bound: at the HDNNP2nd serving shapes (N = 8192, A = 417024, R*m = 120 for
 // G4; E = 54784, R*m = 20 for G2) the bytes dominate all six: each call
 // must read its index rows and mask (5.4 MB for G4, 0.5 MB for G2) and
 // write (or, in the force pass, read) the (N, R*m) descriptors once, and
-// the tangent pass reads dpos besides: about 9.5 MB, 2.8-2.9 us at 3.35
-// TB/s for G4, 1.3 MB, 0.4 us for G2. The special-function results the G4
-// function needs (an rsqrt per distance, an exp per unique eta, a log2 and
-// an exp2 per unique (zeta, lambda) plus an exp2 for the derivative, a cos
-// and in the force and tangent passes a sin per distance and unique r_c)
-// number 16 an angle in the forward pass and 23 in the force and tangent
-// passes: 1.6 and 2.3 us at 16 a clock per SM. The G4 fwd and jvp kernels
-// wait on chains of shared-memory and global loads between their block
-// barriers; their times against these bounds, and the designs tried, are
-// in PERF.md (probe_kernel_variants.py).
+// the tangent pass reads dpos besides (the force pass writes it): about 9.5
+// MB, 2.8-2.9 us at 3.35 TB/s for G4, 1.3 MB, 0.4 us for G2. The
+// special-function results the G4 function needs (an rsqrt per distance, an
+// exp per unique eta, a log2 and an exp2 per unique (zeta, lambda) plus an
+// exp2 for the derivative, a cos and in the force and tangent passes a sin
+// per distance and unique r_c) number 16 an angle in the forward pass and
+// 23 in the force and tangent passes: 1.6 and 2.3 us at 16 a clock per SM.
+// The G4 fwd and jvp kernels wait on chains of shared-memory and global
+// loads between their block barriers; the force pass on its per-angle loads
+// (positions, atomic numbers, the cotangent slice) and its atomics. Their
+// times against these bounds, and the designs tried, are in PERF.md
+// (probe_kernel_variants.py).
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
 
 namespace {
 
@@ -96,11 +121,12 @@ constexpr int kMaxUniq = 8;
 constexpr int kMaxElements = 16;
 constexpr int kMaxZ = 96;
 constexpr int kMaxColumns = 2048;
-constexpr int kWarps = 4;  // centre (receiver) nodes per block: g4_vjp and G2
+constexpr int kWarps = 4;  // centre (receiver) nodes per block: G2
 constexpr int kG4Threads = 256;  // G4 fwd and jvp: threads of a block, angles of a round
 constexpr int kG4Warps = kG4Threads / 32;
 constexpr int kValStride = kG4Threads + 1;  // a round's values of one set, padded
 constexpr int kG4Range = 224;    // angles of a block's range
+constexpr int kVjpWindow = 1024;  // G4 vjp: nodes of a block's shared dpos window
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kG4Range <= kG4Threads, "round 0 covers a block's range");
 constexpr float kPi = 3.14159265358979323f;
@@ -182,64 +208,6 @@ struct Angle {
   float rij, rik, rjk, cos;
 };
 
-__device__ __forceinline__ void angle_geometry(const float* __restrict__ pos,
-                                               const float* pi, int j, int k,
-                                               Angle* g) {
-  float pj[3], pk[3];
-  load3(pos, j, pj);
-  load3(pos, k, pk);
-  for (int d = 0; d < 3; ++d) {
-    g->vij[d] = pj[d] - pi[d];
-    g->vik[d] = pk[d] - pi[d];
-    g->vjk[d] = pk[d] - pj[d];
-  }
-  g->rij = sqrtf(fmaxf(dot3(g->vij, g->vij), kEps));
-  g->rik = sqrtf(fmaxf(dot3(g->vik, g->vik), kEps));
-  g->rjk = sqrtf(fmaxf(dot3(g->vjk, g->vjk), kEps));
-  g->cos = dot3(g->vij, g->vik) / g->rij / g->rik;
-}
-
-__device__ __forceinline__ int g4_relation(const AcsfG4Params& p, int zj,
-                                           int zk) {
-  const int sj = p.slot_of_z[z_index(zj)];
-  const int sk = p.slot_of_z[z_index(zk)];
-  return (sj < 0 || sk < 0) ? 0 : p.pair_rel[sj * p.num_el + sk];
-}
-
-// an angle's unique transcendentals and their derivatives, the tables of
-// the force and tangent passes
-struct AngleTables {
-  float e[kMaxUniq], de[kMaxUniq], c[kMaxUniq], dc[kMaxUniq];
-  float f[kMaxUniq], df_ij[kMaxUniq], df_ik[kMaxUniq], df_jk[kMaxUniq];
-};
-
-__device__ __forceinline__ void derivative_tables(const AcsfG4Params& p,
-                                                  const Angle& g,
-                                                  AngleTables* t) {
-  const float s2 = g.rij * g.rij + g.rik * g.rik + g.rjk * g.rjk;
-  for (int u = 0; u < p.n_eta; ++u) {
-    t->e[u] = expf(-p.eta[u] * s2);
-    t->de[u] = -p.eta[u] * t->e[u];
-  }
-  for (int u = 0; u < p.n_zl; ++u) {
-    const float raw = g.cos * p.lam[u] + 1.0f;
-    const float base = fmaxf(raw, 1e-30f);
-    t->c[u] = p.pow2[u] * powf(base, p.zeta[u]);
-    // zero on the clamped branch (exactly collinear angles)
-    t->dc[u] = raw > 1e-30f
-        ? p.pow2[u] * p.zeta[u] * p.lam[u] * powf(base, p.zeta[u] - 1.0f) : 0.0f;
-  }
-  for (int u = 0; u < p.n_rc; ++u) {
-    const float rc = p.rc[u], w = p.pi_rc[u];
-    const float fij = cutoff(g.rij, rc, w), fik = cutoff(g.rik, rc, w);
-    const float fjk = cutoff(g.rjk, rc, w);
-    t->f[u] = fij * fik * fjk;
-    t->df_ij[u] = cutoff_d(g.rij, rc, w) * fik * fjk;
-    t->df_ik[u] = fij * cutoff_d(g.rik, rc, w) * fjk;
-    t->df_jk[u] = fij * fik * cutoff_d(g.rjk, rc, w);
-  }
-}
-
 // d rep_s / d r of G2 set s at distance r
 __device__ __forceinline__ float g2_drep_dr(const AcsfG2Params& p, int s,
                                             float r) {
@@ -249,76 +217,8 @@ __device__ __forceinline__ float g2_drep_dr(const AcsfG2Params& p, int s,
          + g * cutoff_d(r, p.rc[s], p.pi_rc[s]);
 }
 
-__global__ void __launch_bounds__(kWarps * 32) g4_vjp_kernel(
-    const float* __restrict__ pos, const int* __restrict__ z,
-    const int* __restrict__ angles, const bool* __restrict__ mask,
-    const float* __restrict__ ct, float* __restrict__ dpos, int n_node,
-    int n_angle, const __grid_constant__ AcsfG4Params p) {
-  extern __shared__ float rows[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int node = blockIdx.x * kWarps + warp;
-  if (node >= n_node) return;
-  const int m = p.m;
-  const int width = p.num_rel * m;
-  float* row = rows + warp * width;
-  const float* ct_row = ct + static_cast<long long>(node) * width;
-  for (int c = lane; c < width; c += 32) row[c] = __ldg(ct_row + c);
-  int begin, end;
-  warp_range(angles, 3, n_angle, node, lane, &begin, &end);
-  __syncwarp();
-  if (begin == end) return;
-  float pi[3];
-  load3(pos, node, pi);
-  float d_center[3] = {0.0f, 0.0f, 0.0f};
-  for (int a = begin + lane; a < end; a += 32) {
-    if (!mask[a]) continue;
-    const int j = __ldg(angles + 3LL * a + 1);
-    const int k = __ldg(angles + 3LL * a + 2);
-    Angle g;
-    angle_geometry(pos, pi, j, k, &g);
-    AngleTables t;
-    derivative_tables(p, g, &t);
-    const float* ctr = row + g4_relation(p, __ldg(z + j), __ldg(z + k)) * m;
-    float a_cos = 0.0f, a_s2 = 0.0f, a_rij = 0.0f, a_rik = 0.0f, a_rjk = 0.0f;
-    for (int s = 0; s < m; ++s) {
-      const int ue = p.eta_inv[s], uz = p.zl_inv[s], ur = p.rc_inv[s];
-      const float cts = ctr[s] * p.scale;
-      const float ce = cts * t.c[uz] * t.e[ue];
-      a_cos += cts * t.dc[uz] * t.e[ue] * t.f[ur];
-      a_s2 += cts * t.c[uz] * t.de[ue] * t.f[ur];
-      a_rij += ce * t.df_ij[ur];
-      a_rik += ce * t.df_ik[ur];
-      a_rjk += ce * t.df_jk[ur];
-    }
-    const float inv_ij = 1.0f / g.rij, inv_ik = 1.0f / g.rik;
-    const float inv_jk = 1.0f / g.rjk;
-    const float cross = inv_ij * inv_ik;
-    const float cij = g.cos * inv_ij * inv_ij, cik = g.cos * inv_ik * inv_ik;
-    for (int d = 0; d < 3; ++d) {
-      const float d_vij = a_cos * (g.vik[d] * cross - g.vij[d] * cij)
-                          + a_s2 * 2.0f * g.vij[d] + a_rij * g.vij[d] * inv_ij;
-      const float d_vik = a_cos * (g.vij[d] * cross - g.vik[d] * cik)
-                          + a_s2 * 2.0f * g.vik[d] + a_rik * g.vik[d] * inv_ik;
-      const float d_vjk = a_s2 * 2.0f * g.vjk[d] + a_rjk * g.vjk[d] * inv_jk;
-      d_center[d] -= d_vij + d_vik;
-      atomicAdd(dpos + 3LL * j + d, d_vij - d_vjk);
-      atomicAdd(dpos + 3LL * k + d, d_vik + d_vjk);
-    }
-  }
-  for (int d = 0; d < 3; ++d) {
-    float v = d_center[d];
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) atomicAdd(dpos + 3LL * node + d, v);
-  }
-}
+// ---------------------------------------------------------------- G4 angles
 
-// ---------------------------------------------------------------- G4 fwd and jvp
-// Rows owned by angle ranges (see the header): block b takes the angles
-// [b * kG4Range, + kG4Range) and owns the centres whose first angle lies
-// there, and the centres without angles before them.
-
-// t[u] for a runtime u < NU, by compare and select (no local memory)
 // fc = (cos(pi x) + 1) / 2 and s = sin(pi x) at x = r / rc, both 0 from x =
 // 1 on (d fc / d r = -(pi / rc) s / 2). __sincosf on [0, pi] is within
 // 2^-21.4 of both.
@@ -329,6 +229,7 @@ __device__ __forceinline__ void cutoff_sin(float x, float* fc, float* s) {
   *s = x < 1.0f ? sn : 0.0f;
 }
 
+// t[u] for a runtime u < N, by compare and select (no local memory)
 template <int N>
 __device__ __forceinline__ float pick(const float (&t)[N], int u) {
   float x = t[0];
@@ -337,26 +238,38 @@ __device__ __forceinline__ float pick(const float (&t)[N], int u) {
   return x;
 }
 
-// The m set values of angle a (with kJvp its m set tangents along dpos),
-// times the scale, into vals[s * kValStride]; returns its relation (slot
-// and pair_rel: p.slot_of_z and p.pair_rel in shared memory). The unique
-// transcendentals of the angle stay in registers: NE, NZ and NR cover the
-// unique counts of eta, (zeta, lambda) and r_c.
-template <bool kJvp, int NE, int NZ, int NR>
+// what angle_sets computes for an angle: its set values (forward), its set
+// tangents along dpos (tangent pass), or the shares of i, j and k in the
+// position cotangent of its set cotangents (force pass)
+enum G4Pass { kG4Fwd, kG4Jvp, kG4Vjp };
+
+// Angle (i, j, k) of the G4 sums. kG4Fwd: its m set values, times the
+// scale, into vals[s * kValStride]; kG4Jvp: its m set tangents along `extra`
+// (dpos) there; kG4Vjp: from the m set cotangents of its row and relation in
+// `extra` (ct), the five geometry cotangents (cos, s2, r_ij, r_ik, r_jk),
+// then the shares of i, j and k in dpos into vals[0..2], [3..5], [6..8].
+// Returns its relation (slot and pair_rel: p.slot_of_z and p.pair_rel in
+// shared memory). The unique transcendentals of the angle stay in
+// registers: NE, NZ and NR cover the unique counts of eta, (zeta, lambda)
+// and r_c.
+template <int kPass, int NE, int NZ, int NR>
 __device__ __forceinline__ int angle_sets(const float* __restrict__ pos,
-                                          const int* __restrict__ z,
-                                          const int* __restrict__ angles,
-                                          const float* __restrict__ dpos, int a,
+                                          const int* __restrict__ z, int i, int j, int k,
+                                          const float* __restrict__ extra,
                                           const AcsfG4Params& p, const int* slot,
                                           const int* pair_rel, float* vals) {
-  const int i = __ldg(angles + 3LL * a);
-  const int j = __ldg(angles + 3LL * a + 1);
-  const int k = __ldg(angles + 3LL * a + 2);
+  constexpr bool kJvp = kPass == kG4Jvp, kVjp = kPass == kG4Vjp;
   float pi[3], pj[3], pk[3];
   load3(pos, i, pi);
   load3(pos, j, pj);
   load3(pos, k, pk);
-  // the geometry of angle_geometry, with r = d2 rsqrt(d2) and 1 / r = rsqrt(d2)
+  // the force pass reads its cotangents by relation: found first
+  int rel = 0;
+  if constexpr (kVjp) {
+    const int sj = slot[z_index(__ldg(z + j))], sk = slot[z_index(__ldg(z + k))];
+    rel = sj < 0 || sk < 0 ? 0 : pair_rel[sj * p.num_el + sk];
+  }
+  // the geometry, with r = d2 rsqrt(d2) and 1 / r = rsqrt(d2)
   Angle g;
   for (int d = 0; d < 3; ++d) {
     g.vij[d] = pj[d] - pi[d];
@@ -375,9 +288,9 @@ __device__ __forceinline__ int angle_sets(const float* __restrict__ pos,
   float drij = 0.0f, drik = 0.0f, drjk = 0.0f, ds2 = 0.0f, dcos = 0.0f;
   if (kJvp) {
     float dpi[3], dpj[3], dpk[3], dvij[3], dvik[3], dvjk[3];
-    load3(dpos, i, dpi);
-    load3(dpos, j, dpj);
-    load3(dpos, k, dpk);
+    load3(extra, i, dpi);
+    load3(extra, j, dpj);
+    load3(extra, k, dpk);
     for (int d = 0; d < 3; ++d) {
       dvij[d] = dpj[d] - dpi[d];
       dvik[d] = dpk[d] - dpi[d];
@@ -391,14 +304,17 @@ __device__ __forceinline__ int angle_sets(const float* __restrict__ pos,
            - g.cos * (drij * inv_ij + drik * inv_ik);
   }
   // per unique value: e = exp(-eta s2), c = 2^(1-zeta) base^zeta, f the
-  // cutoff product; with kJvp de, dc and df, each times its geometry tangent
-  float e[NE], de[NE], c[NZ], dc[NZ], f[NR], df[NR];
+  // cutoff product; with kJvp de, dc and df, each times its geometry
+  // tangent; with kVjp de = d e / d s2, dc = d c / d cos, and df (d f / d
+  // r_ij), df_ik and df_jk
+  float e[NE], de[NE], c[NZ], dc[NZ], f[NR], df[NR], df_ik[NR], df_jk[NR];
 #pragma unroll
   for (int u = 0; u < NE; ++u) {
     e[u] = de[u] = 0.0f;
     if (u < p.n_eta) {
       e[u] = expf(-p.eta[u] * s2);
       if (kJvp) de[u] = -p.eta[u] * e[u] * ds2;
+      if (kVjp) de[u] = -p.eta[u] * e[u];
     }
   }
 #pragma unroll
@@ -414,11 +330,13 @@ __device__ __forceinline__ int angle_sets(const float* __restrict__ pos,
       // exact to 2 ulp); zero on the clamped branch (exactly collinear)
       if (kJvp)
         dc[u] = raw > 1e-30f ? __fdividef(c[u] * (p.zeta[u] * p.lam[u]), base) * dcos : 0.0f;
+      if (kVjp)
+        dc[u] = raw > 1e-30f ? __fdividef(c[u] * (p.zeta[u] * p.lam[u]), base) : 0.0f;
     }
   }
 #pragma unroll
   for (int u = 0; u < NR; ++u) {
-    f[u] = df[u] = 0.0f;
+    f[u] = df[u] = df_ik[u] = df_jk[u] = 0.0f;
     if (u < p.n_rc) {
       const float w = p.pi_rc[u] * kInvPi;  // 1 / rc
       float fij, sij, fik, sik, fjk, sjk;
@@ -429,22 +347,68 @@ __device__ __forceinline__ int angle_sets(const float* __restrict__ pos,
       if (kJvp)
         df[u] = -0.5f * p.pi_rc[u]
                 * (sij * drij * fik * fjk + fij * sik * drik * fjk + fij * fik * sjk * drjk);
+      if (kVjp) {
+        const float h = -0.5f * p.pi_rc[u];
+        df[u] = h * sij * fik * fjk;
+        df_ik[u] = h * fij * sik * fjk;
+        df_jk[u] = h * fij * fik * sjk;
+      }
     }
   }
-  for (int s = 0; s < p.m; ++s) {
-    const int ue = p.eta_inv[s], uz = p.zl_inv[s], ur = p.rc_inv[s];
-    const float ce = pick(c, uz) * pick(e, ue);
-    float v;
-    if (kJvp)
-      v = pick(f, ur) * (pick(dc, uz) * pick(e, ue) + pick(c, uz) * pick(de, ue))
-          + ce * pick(df, ur);
-    else
-      v = ce * pick(f, ur);
-    vals[s * kValStride] = v * p.scale;
+  if constexpr (kVjp) {
+    // the set cotangents contracted into the five geometry cotangents
+    const float* ctr = extra + static_cast<long long>(i) * (p.num_rel * p.m) + rel * p.m;
+    float a_cos = 0.0f, a_s2 = 0.0f, a_rij = 0.0f, a_rik = 0.0f, a_rjk = 0.0f;
+    for (int s = 0; s < p.m; ++s) {
+      const int ue = p.eta_inv[s], uz = p.zl_inv[s], ur = p.rc_inv[s];
+      const float ct = __ldg(ctr + s), fs = pick(f, ur);
+      const float ctc = ct * pick(c, uz), ctce = ctc * pick(e, ue);
+      a_cos += ct * pick(dc, uz) * pick(e, ue) * fs;
+      a_s2 += ctc * pick(de, ue) * fs;
+      a_rij += ctce * pick(df, ur);
+      a_rik += ctce * pick(df_ik, ur);
+      a_rjk += ctce * pick(df_jk, ur);
+    }
+    // then the three difference vectors' cotangents, through cos (d cos /
+    // d v_ij = v_ik / (r_ij r_ik) - cos v_ij / r_ij^2), s2 (2 v) and r (v / r)
+    a_cos *= p.scale;
+    const float a2 = 2.0f * a_s2 * p.scale;
+    a_rij *= p.scale * inv_ij;
+    a_rik *= p.scale * inv_ik;
+    a_rjk *= p.scale * inv_jk;
+    const float cross = inv_ij * inv_ik;
+    const float cij = g.cos * inv_ij * inv_ij, cik = g.cos * inv_ik * inv_ik;
+    for (int d = 0; d < 3; ++d) {
+      const float d_vij = a_cos * (g.vik[d] * cross - g.vij[d] * cij) + (a2 + a_rij) * g.vij[d];
+      const float d_vik = a_cos * (g.vij[d] * cross - g.vik[d] * cik) + (a2 + a_rik) * g.vik[d];
+      const float d_vjk = (a2 + a_rjk) * g.vjk[d];
+      vals[d] = -(d_vij + d_vik);
+      vals[3 + d] = d_vij - d_vjk;
+      vals[6 + d] = d_vik + d_vjk;
+    }
   }
-  const int sj = slot[z_index(__ldg(z + j))], sk = slot[z_index(__ldg(z + k))];
-  return sj < 0 || sk < 0 ? 0 : pair_rel[sj * p.num_el + sk];
+  if constexpr (!kVjp) {
+    for (int s = 0; s < p.m; ++s) {
+      const int ue = p.eta_inv[s], uz = p.zl_inv[s], ur = p.rc_inv[s];
+      const float ce = pick(c, uz) * pick(e, ue);
+      float v;
+      if (kJvp)
+        v = pick(f, ur) * (pick(dc, uz) * pick(e, ue) + pick(c, uz) * pick(de, ue))
+            + ce * pick(df, ur);
+      else
+        v = ce * pick(f, ur);
+      vals[s * kValStride] = v * p.scale;
+    }
+    const int sj = slot[z_index(__ldg(z + j))], sk = slot[z_index(__ldg(z + k))];
+    rel = sj < 0 || sk < 0 ? 0 : pair_rel[sj * p.num_el + sk];
+  }
+  return rel;
 }
+
+// ---------------------------------------------------------------- G4 fwd and jvp
+// Rows owned by angle ranges (see the header): block b takes the angles
+// [b * kG4Range, + kG4Range) and owns the centres whose first angle lies
+// there, and the centres without angles before them.
 
 // a[first set bit of b], and that bit cleared; 0 when b is 0
 __device__ __forceinline__ float take(const float* a, unsigned& b) {
@@ -517,9 +481,11 @@ __device__ __forceinline__ void g4_owned_rows(const float* __restrict__ pos,
     if (tid == kG4Threads - 1)
       sid[kG4Threads + 1] = computed_id(a + 1 < n_angle ? __ldg(angles + 3LL * (a + 1)) : -1,
                                         a + 1, n_angle, ab1, id_before, id_last);
-    srel[tid] = id >= 0 && mask[a] ? angle_sets<kJvp, NE, NZ, NR>(pos, z, angles, dpos, a, p, slot,
-                                                                  pair_rel, svals + tid)
-                                   : -1;
+    srel[tid] = id >= 0 && mask[a]
+                    ? angle_sets<kJvp ? kG4Jvp : kG4Fwd, NE, NZ, NR>(
+                          pos, z, raw, __ldg(angles + 3LL * a + 1), __ldg(angles + 3LL * a + 2),
+                          dpos, p, slot, pair_rel, svals + tid)
+                    : -1;
     __syncthreads();
     const bool more = sid[kG4Threads + 1] >= 0;
     if (round == 0) {
@@ -642,6 +608,101 @@ __global__ void __launch_bounds__(kG4Threads) g4_jvp_kernel(
     const float* __restrict__ dpos, float* __restrict__ out, int n_node,
     int n_angle, const __grid_constant__ AcsfG4Params p) {
   g4_owned_rows<true, NE, NZ, NR>(pos, z, angles, mask, dpos, out, n_node, n_angle, p);
+}
+
+// ---------------------------------------------------------------- G4 vjp
+// Block b (kG4Threads threads) takes the angles [b * kG4Threads, + kG4Threads),
+// one a thread; see the header.
+
+// v summed over each run of lanes with equal keys (consecutive lanes), by a
+// segmented shuffle tree in a fixed order; the run's first lane holds the
+// sum. Returns whether this lane is a run's first.
+__device__ __forceinline__ bool run_sum(int key, float* v) {
+  const int lane = threadIdx.x & 31;
+  const int prev = __shfl_up_sync(kFull, key, 1);  // every lane takes part
+  const bool head = lane == 0 || prev != key;
+  const unsigned after = __ballot_sync(kFull, head) & ~((2u << lane) - 1u);
+  const int end = after ? __ffs(after) - 1 : 32;  // the next run's first lane
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float o = __shfl_down_sync(kFull, v[d], off);
+      if (lane + off < end) v[d] += o;
+    }
+  }
+  return head;
+}
+
+__device__ __forceinline__ void add3(float* dst, const float* v) {
+  atomicAdd(dst, v[0]);
+  atomicAdd(dst + 1, v[1]);
+  atomicAdd(dst + 2, v[2]);
+}
+
+template <int NE, int NZ, int NR>
+__global__ void __launch_bounds__(kG4Threads) g4_vjp_kernel(
+    const float* __restrict__ pos, const int* __restrict__ z,
+    const int* __restrict__ angles, const bool* __restrict__ mask,
+    const float* __restrict__ ct, float* __restrict__ dpos, int n_angle,
+    const __grid_constant__ AcsfG4Params p) {
+  __shared__ float win[3 * kVjpWindow];  // dpos of nodes span[0] .. span[0] + kVjpWindow - 1
+  __shared__ int span[2];                 // the lowest and highest node the block's angles touch
+  __shared__ int slot[kMaxZ];             // p.slot_of_z
+  __shared__ int pair_rel[kMaxElements * kMaxElements];  // p.pair_rel
+  const int tid = threadIdx.x;
+  for (int t = tid; t < 3 * kVjpWindow; t += kG4Threads) win[t] = 0.0f;
+  for (int t = tid; t < kMaxZ; t += kG4Threads) slot[t] = p.slot_of_z[t];
+  for (int t = tid; t < p.num_el * p.num_el; t += kG4Threads) pair_rel[t] = p.pair_rel[t];
+  if (tid == 0) {
+    span[0] = INT_MAX;
+    span[1] = -1;
+  }
+  __syncthreads();
+  // each thread the shares of its angle's i, j and k (none where masked)
+  const int a = blockIdx.x * kG4Threads + tid;
+  const bool live = a < n_angle && mask[a];
+  int i = -1, j = -1, k = -1;
+  float sh[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (live) {
+    i = __ldg(angles + 3LL * a);
+    j = __ldg(angles + 3LL * a + 1);
+    k = __ldg(angles + 3LL * a + 2);
+    angle_sets<kG4Vjp, NE, NZ, NR>(pos, z, i, j, k, ct, p, slot, pair_rel, sh);
+  }
+  const int lo = __reduce_min_sync(kFull, live ? min(i, min(j, k)) : INT_MAX);
+  const int hi = __reduce_max_sync(kFull, live ? max(i, max(j, k)) : -1);
+  if ((tid & 31) == 0 && hi >= 0) {
+    atomicMin(span, lo);
+    atomicMax(span + 1, hi);
+  }
+  // the angles are sorted by centre, and j repeats over consecutive angles:
+  // one share of each run of lanes with the same i, and with the same j
+  const bool head_i = run_sum(i, sh);
+  const bool head_j = run_sum(j, sh + 3);
+  __syncthreads();
+  const int b_lo = span[0], b_hi = span[1];
+  if (b_hi < 0) return;  // no live angle in the block
+  if (b_hi - b_lo < kVjpWindow) {
+    // the block's nodes fit the window: shares added there, then one global
+    // add for each coordinate of each node that got one
+    if (live) {
+      if (head_i) add3(win + 3 * (i - b_lo), sh);
+      if (head_j) add3(win + 3 * (j - b_lo), sh + 3);
+      add3(win + 3 * (k - b_lo), sh + 6);
+    }
+    __syncthreads();
+    float* out = dpos + 3LL * b_lo;
+    for (int t = tid; t < 3 * (b_hi - b_lo + 1); t += kG4Threads) {
+      const float v = win[t];
+      if (v != 0.0f) atomicAdd(out + t, v);
+    }
+  } else if (live) {
+    // neighbours far apart in id: shares added to dpos
+    if (head_i) add3(dpos + 3LL * i, sh);
+    if (head_j) add3(dpos + 3LL * j, sh + 3);
+    add3(dpos + 3LL * k, sh + 6);
+  }
 }
 
 __global__ void __launch_bounds__(kWarps * 32) g2_fwd_kernel(
@@ -784,10 +845,10 @@ dim3 grid_for(int n_node) { return dim3((n_node + kWarps - 1) / kWarps); }
 
 size_t shared_bytes(int width) { return sizeof(float) * kWarps * width; }
 
-// the G4 fwd and jvp kernels' register tables: exact for the unique counts
-// of the HDNNP tables (2 eta, 4 (zeta, lambda), 1 r_c), else kMaxUniq of
-// each. Exact counts take 22% (fwd) and 50% (jvp) off the kMaxUniq
-// instance's time at the HDNNP2nd serving batch (PERF.md)
+// the G4 kernels' register tables: exact for the unique counts of the
+// HDNNP tables (2 eta, 4 (zeta, lambda), 1 r_c), else kMaxUniq of each.
+// Exact counts take 22% (fwd) and 50% (jvp) off the kMaxUniq instance's
+// time at the HDNNP2nd serving batch (PERF.md)
 bool g4_hdnnp_counts(const AcsfG4Params* p) {
   return p->n_eta == 2 && p->n_zl == 4 && p->n_rc == 1;
 }
@@ -835,10 +896,15 @@ extern "C" int gcnn_acsf_g4_vjp_f32(const float* pos, const int* z,
                                     int n_angle, const AcsfG4Params* p,
                                     void* stream) {
   if (!g4_params_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_node <= 0) return static_cast<int>(cudaSuccess);
-  g4_vjp_kernel<<<grid_for(n_node), kWarps * 32, shared_bytes(p->num_rel * p->m),
-                  static_cast<cudaStream_t>(stream)>>>(pos, z, angles, mask, ct,
-                                                       dpos, n_node, n_angle, *p);
+  if (n_node <= 0 || n_angle <= 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid((n_angle + kG4Threads - 1) / kG4Threads);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g4_hdnnp_counts(p))
+    g4_vjp_kernel<2, 4, 1><<<grid, kG4Threads, 0, s>>>(pos, z, angles, mask, ct, dpos, n_angle,
+                                                       *p);
+  else
+    g4_vjp_kernel<kMaxUniq, kMaxUniq, kMaxUniq><<<grid, kG4Threads, 0, s>>>(
+        pos, z, angles, mask, ct, dpos, n_angle, *p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -859,6 +925,10 @@ extern "C" int gcnn_acsf_g4_jvp_f32(const float* pos, const int* z,
 // angles of a G4 fwd or jvp block's range (kG4Range), for callers that lay
 // out inputs by block
 extern "C" int gcnn_acsf_g4_range() { return kG4Range; }
+
+// nodes of a G4 vjp block's shared window (kVjpWindow): a block whose
+// angles touch a wider range of node ids adds to dpos directly
+extern "C" int gcnn_acsf_g4_vjp_window() { return kVjpWindow; }
 
 extern "C" int gcnn_acsf_g2_fwd_f32(const float* pos, const int* z,
                                     const int* senders, const int* receivers,

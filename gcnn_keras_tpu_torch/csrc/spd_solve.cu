@@ -4,35 +4,104 @@
 //
 // Replaces the TPU kernel gcnn_keras_tpu/ops/pallas/spd_solve.py
 // (_gj_solve_impl / _gj_kernel: Gauss-Jordan with the batch on the 128
-// lanes, M padded to 8, one-hot iota row selects). Here each system is one
-// thread block that holds [A | B] (M x (M+K) floats) in shared memory and
-// runs the same Gauss-Jordan elimination without pivoting: A is SPD and
-// diagonally dominant in the Qeq solve (erf-screened Coulomb plus a positive
-// hardness diagonal, identity rows for padding atoms).
-//
-// Step k stashes column k and row k, then every thread updates its entries
-// (i, j) of the columns j > k (the columns j <= k are never read again):
+// lanes, M padded to 8, one-hot iota row selects). Both kernels here run the
+// same Gauss-Jordan elimination without pivoting: A is SPD and diagonally
+// dominant in the Qeq solve (erf-screened Coulomb plus a positive hardness
+// diagonal, identity rows for padding atoms). Step k updates every entry
+// (i, j) of [A | B]:
 //   row k:      s[k][j] = s[k][j] * (1 / s[k][k])
 //   row i != k: s[i][j] = s[i][j] - s[i][k] * (s[k][j] * (1 / s[k][k]))
 // with round-to-nearest products and differences (no fused multiply-add),
-// which is the arithmetic of the plain PyTorch version, so that the two
-// agree to the last bit.
+// which is the arithmetic of the plain PyTorch version, so that the kernels
+// and it agree to the last bit.
+//
+// M <= 32 (spd_solve_warp_kernel): one warp a system, kSpdWarps systems a
+// block, no block barrier. Lane j holds column j of [A | B] in registers, a
+// register a row (32 of them for every M, the rows past M zero). Step k
+// finds the pivot row in register 0: s[k][k] is lane k's register 0, and
+// the multipliers s[i][k] are lane k's registers, read by shuffle. Each lane
+// updates its column and moves every register down by one, the pivot row's
+// new value into the last: row k + 1 is in register 0 at the next step, and
+// after the M steps row i is in register 32 - M + i. Columns past the first
+// 32 (M + K > 32) are taken by further passes of the warp, which replay the
+// M steps with the reciprocals and multipliers that the first pass kept in
+// shared memory (one __syncwarp between).
+//
+// M > 32 (spd_solve_gj_kernel): one thread block a system, [A | B] (M x
+// (M+K) floats) in shared memory. Step k stashes column k and row k, then
+// every thread updates its entries (i, j) of the columns j > k (the columns
+// j <= k are never read again), with two block barriers a step.
 //
 // Bound: the call must read a (G*M*M*4 bytes) and b (G*M*K*4) and write x
 // (G*M*K*4); at the Qeq serving shape (G=513, M=20, K=2) that is 0.98 MB,
 // about 0.29 us at 3.35 TB/s, and some 5 MFLOP, far below the card's float32
-// rate. The kernel is instead bound by latency: M dependent steps, each with
-// two block barriers. One block per system puts G blocks in flight.
+// rate. Both kernels are instead bound by latency: M dependent steps. In the
+// warp kernel a step waits on a shuffle, the reciprocal and two rounded
+// operations; in the block kernel on two block barriers.
 //
-// Limit: the block's shared memory, 4 * (M*(M+K) + M + (M+K)) bytes, must fit
-// the 227 KB a block can use on sm_90 (M <= 239 for K = 2); the Python
-// wrapper makes that shape test before it launches.
+// Limit: the block kernel's shared memory, 4 * (M*(M+K) + M + (M+K)) bytes,
+// must fit the 227 KB a block can use on sm_90 (M <= 239 for K = 2); the
+// Python wrapper makes that shape test before it launches, for both kernels.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int kSpdWarps = 4;  // systems of a block in the warp kernel
+constexpr int kWarpM = 32;    // the warp kernel's largest M
+constexpr unsigned kFull = 0xffffffffu;
+
+__global__ void __launch_bounds__(kSpdWarps * 32) spd_solve_warp_kernel(
+    const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ x, int G,
+    int M, int K) {
+  // the first pass's step k: 1 / s[k][k] in [k][0], the multiplier of
+  // register r in [k][r], for the passes over columns past 32
+  __shared__ float kept[kSpdWarps][kWarpM][kWarpM];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long g = static_cast<long long>(blockIdx.x) * kSpdWarps + warp;
+  if (g >= G) return;
+  const int W = M + K;
+  const float* ag = a + g * M * M;
+  const float* bg = b + g * M * K;
+  float* xg = x + g * M * K;
+  float(*kw)[kWarpM] = kept[warp];
+  for (int c0 = 0; c0 < W; c0 += 32) {
+    const int col = c0 + lane;
+    float s[kWarpM];
+#pragma unroll
+    for (int r = 0; r < kWarpM; ++r) {
+      s[r] = 0.0f;
+      if (r < M && col < W)
+        s[r] = col < M ? __ldg(ag + r * M + col) : __ldg(bg + r * K + col - M);
+    }
+    for (int k = 0; k < M; ++k) {
+      float inv, mult[kWarpM];
+      if (c0 == 0) {
+        inv = 1.0f / __shfl_sync(kFull, s[0], k);
+#pragma unroll
+        for (int r = 1; r < kWarpM; ++r) mult[r] = __shfl_sync(kFull, s[r], k);
+        if (W > 32 && lane == 0) {
+          kw[k][0] = inv;
+#pragma unroll
+          for (int r = 1; r < kWarpM; ++r) kw[k][r] = mult[r];
+        }
+      } else {
+        inv = kw[k][0];
+#pragma unroll
+        for (int r = 1; r < kWarpM; ++r) mult[r] = kw[k][r];
+      }
+      const float rk = __fmul_rn(s[0], inv);
+#pragma unroll
+      for (int r = 1; r < kWarpM; ++r) s[r - 1] = __fsub_rn(s[r], __fmul_rn(mult[r], rk));
+      s[kWarpM - 1] = rk;
+    }
+    if (c0 == 0) __syncwarp();  // the kept steps, before a later pass reads them
+#pragma unroll
+    for (int r = 0; r < kWarpM; ++r)
+      if (r >= kWarpM - M && col >= M && col < W) xg[(r - (kWarpM - M)) * K + col - M] = s[r];
+  }
+}
 
 __global__ void spd_solve_gj_kernel(const float* __restrict__ a,
                                     const float* __restrict__ b,
@@ -77,10 +146,17 @@ __global__ void spd_solve_gj_kernel(const float* __restrict__ a,
 
 }  // namespace
 
-// Launches on `stream` and returns the CUDA error code (0 on success).
+// Launches on `stream` and returns the CUDA error code (0 on success): the
+// warp kernel for M <= 32, the block kernel above.
 extern "C" int gcnn_spd_solve_f32(const float* a, const float* b, float* x,
                                   int G, int M, int K, void* stream) {
   if (G <= 0 || M <= 0 || K <= 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= kWarpM) {
+    const int grid = (G + kSpdWarps - 1) / kSpdWarps;
+    spd_solve_warp_kernel<<<grid, kSpdWarps * 32, 0, s>>>(a, b, x, G, M, K);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int W = M + K;
   const size_t smem = sizeof(float) * (static_cast<size_t>(M) * W + M + W);
   if (smem > 48 * 1024) {
@@ -91,7 +167,6 @@ extern "C" int gcnn_spd_solve_f32(const float* a, const float* b, float* x,
   }
   int threads = ((M * W + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
-  spd_solve_gj_kernel<<<G, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, b, x, M, K);
+  spd_solve_gj_kernel<<<G, threads, smem, s>>>(a, b, x, M, K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,19 +1,29 @@
-"""Batched SPD solve: the hand-written CUDA kernel, its plain version and
-its autograd Function; counterpart of ``gcnn_keras_tpu/ops/pallas/spd_solve.py``.
+"""Batched SPD solve: the hand-written CUDA kernels, their plain version and
+their autograd Function; counterpart of ``gcnn_keras_tpu/ops/pallas/spd_solve.py``.
 
 ``x = a^-1 b`` for ``a (G, M, M)`` symmetric positive definite and
-``b (G, M, K)``, by Gauss-Jordan elimination without pivoting. The kernel
-(``csrc/spd_solve.cu``) replaces the TPU kernel ``_gj_solve_impl``
-(``_gj_kernel``): one thread block per system, ``[A | B]`` in shared memory.
+``b (G, M, K)``, by Gauss-Jordan elimination without pivoting. The kernels
+(``csrc/spd_solve.cu``) replace the TPU kernel ``_gj_solve_impl``
+(``_gj_kernel``); the C entry point picks one by M:
+
+- M <= 32 (every Qeq system of molecules up to 32 atoms): one warp a
+  system, a lane a column of ``[A | B]`` in registers, the pivot column read
+  by shuffle, no block barrier (columns past 32 in further passes of the
+  warp);
+- 32 < M: one thread block a system, ``[A | B]`` in shared memory, two
+  block barriers a step.
+
+Both do the plain version's arithmetic, rounded the same way, so they agree
+with :func:`spd_solve_plain` to the last bit.
 
 Bound on the H100: at the Qeq serving shape (G=513, M=20, K=2) the call
 must move 0.98 MB (about 0.29 us at 3.35 TB/s) and do some 5 MFLOP; the
-kernel is bound by the latency of its M dependent steps instead.
+kernels are bound by the latency of their M dependent steps instead.
 
-The kernel's one limit is its shared memory: :func:`fits_shared_memory`
-is the shape test a caller makes before choosing it. A CPU tensor takes
-:func:`spd_solve_plain`; a CUDA tensor launches the kernel or raises.
-``launches`` counts kernel launches and nothing else.
+The block kernel's one limit is its shared memory: :func:`fits_shared_memory`
+is the shape test a caller makes before choosing the kernels, for every M.
+A CPU tensor takes :func:`spd_solve_plain`; a CUDA tensor launches a kernel
+or raises. ``launches`` counts kernel launches and nothing else.
 """
 from __future__ import annotations
 

@@ -19,10 +19,16 @@ held against the plain version:
   every tangent);
 - ``gather_mul_segsum``, ``fused_cfconv``: phase 11's timed checks at the
   serving and MD shapes (their edge cases checked too);
-- ``g4_fwd``, ``g4_jvp`` (``csrc/acsf.cu``, whose six ACSF kernels a
-  variant changes together): each of the six at phase 5's and 9's serving
-  batch and at the first step of ``hdnnp2nd_train`` and ``hdnnp4th_train``
-  (their captured calls), and at the ACSF edge cases.
+- ``g4_fwd``, ``g4_jvp``, ``g4_vjp`` (``csrc/acsf.cu``, whose six ACSF
+  kernels a variant changes together): each of the six at phase 5's and
+  9's serving batch and at the first step of ``hdnnp2nd_train`` and
+  ``hdnnp4th_train`` (their captured calls), and at the ACSF edge cases;
+- ``spd_solve`` (both SPD kernels): phase 7's Qeq solve of the HDNNP4th
+  serving request with K = 2 and K = 1, every call of one
+  ``hdnnp4th_train`` step (captured), random systems of M = 8, 12 and 32
+  (the warp kernel) and 100 and 239 (the block kernel) at the same G, and
+  one system of M = 1 (the launch floor), with phase 7's edge cases
+  checked.
 
 Prints one JSON line per timing. Needs one CUDA card.
 """
@@ -179,6 +185,45 @@ def acsf_timings(libs, order):
                     "case", "ms", "ms_warm", "bound_ms", "max_abs_err")}}))
 
 
+def spd_calls():
+    """``(label, timed, (a, b))`` of the SPD kernels' checks: phase 7's Qeq
+    systems (K = 2 and K = 1), the captured calls of one ``hdnnp4th_train``
+    step, random systems of M = 8, 12 and 32 (the warp kernel) and 100 and
+    239 (the block kernel) at the serving G, and one of M = 1."""
+    pred = chip_smoke.make_hdnnp4th_predictor("cuda")
+    _, batch = pred.make_batch(chip_smoke.with_esp(chip_smoke.qm9_like_mols(0, 512), 0))
+    a, rhs, *_ = chip_smoke.qeq_system(pred.model.energy_model, batch)
+    g = a.shape[0]
+    out = [("Qeq of the HDNNP4th serving request, K=2", True, (a, rhs)),
+           ("Qeq of the HDNNP4th serving request, K=1", True,
+            (a, rhs[..., :1].contiguous()))]
+    path = "hdnnp4th_train"
+    cfg = chip_smoke.TRAIN_PATHS[path]
+    tbatch = chip_smoke.train_batch(path, cfg["seed"], cfg["n_mols"], "cuda")
+    _, trainer, state = chip_smoke.make_trainer(path, "cuda")
+    with chip_smoke.captured_calls() as calls:
+        trainer.step_fn()(state, tbatch)
+    out += [(f"{path}, call {i + 1}", True, args) for i, args in enumerate(calls["spd_solve"])]
+    out += [(f"random, M={m}", True, chip_smoke.random_spd(g, m, 2, m, a.device))
+            for m in (8, 12, 32, 100, 239)]
+    out.append(("G=1, M=1, K=1: the launch floor", True, chip_smoke.random_spd(1, 1, 1, 0, a.device)))
+    return out, (pred.model.energy_model, batch)
+
+
+def spd_timings(libs, order):
+    """The SPD kernels' checks of ``spd_calls`` and phase 7's edge cases,
+    each variant loaded in its turn."""
+    build._loaded["spd_solve"] = libs[order[0]]
+    calls, phase7 = spd_calls()
+    for name in order:
+        build._loaded["spd_solve"] = libs[name]
+        chip_smoke.phase_spd_kernel(*phase7)
+        for label, timed, args in calls:
+            rec = chip_smoke.check_spd(*args, label, timed)
+            print(json.dumps({"variant": name, **{k: rec[k] for k in (
+                "case", "G", "M", "K", "ms", "ms_warm", "bound_ms", "max_abs_err")}}))
+
+
 def main():
     if len(sys.argv) < 2 or sys.argv[1] not in SOURCES:
         raise SystemExit(__doc__)
@@ -195,6 +240,8 @@ def main():
         schnet_kernel_timings(kernel, libs, order)
     elif SOURCES[kernel] == "acsf":
         acsf_timings(libs, order)
+    elif kernel == "spd_solve":
+        spd_timings(libs, order)
     else:
         chain_timings(kernel, libs, order)
 

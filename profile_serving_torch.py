@@ -7,7 +7,7 @@ training step or of one MD step goes on a CUDA card, for the PyTorch port.
                                      [--trace chiprun_out/serving_trace.json]
     python3 profile_serving_torch.py --kernel KERNEL
         (KERNEL: sorted_segment_sum, gather_mul_segsum, fused_cfconv, cf_fwd,
-         cf_vjp, cf_hesjvp, g4_fwd or g4_jvp)
+         cf_vjp, cf_hesjvp, g4_fwd, g4_jvp, g4_vjp or spd_solve)
 
 Builds the serving batch of ``chip_smoke.py`` (512 QM9-like molecules,
 weights from seed 0; SchNet defaults in ``--mode`` (``interaction_args``
@@ -35,11 +35,14 @@ timed checks at the ``schnet_train`` batch (with the plain version's and
 the port's unfused chain's times; ``cf_hesjvp`` as a force loss calls it
 and with every tangent); ``gather_mul_segsum`` and ``fused_cfconv``, phase
 11's timed checks at the serving and MD shapes (with the unfused chains'
-times) and their edge cases; ``g4_fwd`` and ``g4_jvp``, phase 5's and 9's
-timed check at the HDNNP2nd serving batch and the ACSF edge cases, and
-``g4_jvp`` also every call of one ``hdnnp2nd_train`` step (phase 10, the
-first call timed). The last line is one JSON summary of the
-timed records. Needs one CUDA card.
+times) and their edge cases; ``g4_fwd``, ``g4_jvp`` and ``g4_vjp``, phase
+5's and 9's timed check at the HDNNP2nd serving batch and the ACSF edge
+cases, ``g4_jvp`` also every call of one ``hdnnp2nd_train`` step and
+``g4_vjp`` of one ``hdnnp2nd_train`` and one ``hdnnp4th_train`` step
+(phase 10, the first call timed); ``spd_solve``, phase 7's checks (the
+HDNNP4th serving request's Qeq solve timed, and the edge cases) and every
+call of one ``hdnnp4th_train`` step. The last line is one JSON summary of
+the timed records. Needs one CUDA card.
 """
 import argparse
 import functools
@@ -55,7 +58,7 @@ import chip_smoke
 # the port's hand-written kernels, by the names of their CUDA functions
 PORT_KERNELS = ("sorted_segment_sum", "g2_fwd_kernel", "g4_fwd_kernel",
                 "g4_vjp_kernel", "g2_vjp_kernel", "g4_jvp_kernel", "g2_jvp_kernel",
-                "spd_solve_gj_kernel", "gms_cols_kernel",
+                "spd_solve_warp_kernel", "spd_solve_gj_kernel", "gms_cols_kernel",
                 "fused_cfconv_kernel", "fused_cfconv_wide_kernel", "cf_fwd_kernel",
                 "cf_fwd_wide_kernel", "cf_vjp_kernel",
                 "cf_hesjvp_kernel", "cf_hesjvp_wide_kernel")
@@ -107,7 +110,19 @@ def training_run(name, mode):
 KERNEL_SOURCES = {"sorted_segment_sum": "segment_sum", "gather_mul_segsum": "fused_aggregate",
                   "fused_cfconv": "fused_cfconv", "cf_fwd": "fused_interaction",
                   "cf_vjp": "fused_interaction", "cf_hesjvp": "fused_interaction",
-                  "g4_fwd": "acsf", "g4_jvp": "acsf"}
+                  "g4_fwd": "acsf", "g4_jvp": "acsf", "g4_vjp": "acsf",
+                  "spd_solve": "spd_solve"}
+
+
+def training_kernel_records(name, paths):
+    """``chip_smoke.py`` phase 10's checks of kernel ``name``'s calls in one
+    step of each training path of ``paths`` (the first call timed)."""
+    recs = []
+    for path in paths:
+        cfg = chip_smoke.TRAIN_PATHS[path]
+        batch = chip_smoke.train_batch(path, cfg["seed"], cfg["n_mols"], "cuda")
+        recs += chip_smoke.check_training_kernels(path, batch)[name]
+    return recs
 
 
 def kernel_records(name):
@@ -118,12 +133,14 @@ def kernel_records(name):
         pred = chip_smoke.make_hdnnp_predictor("cuda")
         _, batch = pred.make_batch(chip_smoke.qm9_like_mols(0, 512))
         recs = chip_smoke.phase_acsf_kernel(batch, pred.model.energy_model, (name,))[name]
-        if name == "g4_jvp":
-            path = "hdnnp2nd_train"
-            cfg = chip_smoke.TRAIN_PATHS[path]
-            batch = chip_smoke.train_batch(path, cfg["seed"], cfg["n_mols"], "cuda")
-            recs += chip_smoke.check_training_kernels(path, batch)[name]
-        return recs
+        paths = {"g4_jvp": ("hdnnp2nd_train",),
+                 "g4_vjp": ("hdnnp2nd_train", "hdnnp4th_train")}.get(name, ())
+        return recs + training_kernel_records(name, paths)
+    if name == "spd_solve":
+        pred = chip_smoke.make_hdnnp4th_predictor("cuda")
+        _, batch = pred.make_batch(chip_smoke.with_esp(chip_smoke.qm9_like_mols(0, 512), 0))
+        return (chip_smoke.phase_spd_kernel(pred.model.energy_model, batch)
+                + training_kernel_records(name, ("hdnnp4th_train",)))
     if name in ("sorted_segment_sum", "gather_mul_segsum", "fused_cfconv"):
         _, batch = chip_smoke.make_predictor("cuda").make_batch(chip_smoke.qm9_like_mols(0, 512))
         if name == "sorted_segment_sum":

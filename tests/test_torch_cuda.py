@@ -401,7 +401,13 @@ def _random_spd(g, m, k, seed, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("g,m,k", [(513, 20, 2), (1, 20, 2), (7, 1, 2), (4, 239, 2),
-                                   (3, 20, 1), (2, 100, 5), (2, 239, 1)])
+                                   (3, 20, 1), (2, 100, 5), (2, 239, 1),
+                                   # the warp kernel's last M (M + K past 32 columns)
+                                   # and the block kernel's first; several right-hand
+                                   # sides in the warp kernel
+                                   (5, 32, 2), (5, 33, 2), (513, 20, 5),
+                                   # small systems in the warp kernel's padded rows
+                                   (7, 5, 2), (7, 12, 2), (7, 27, 2)])
 def test_spd_kernel_matches_plain(cuda_device, g, m, k):
     from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
     assert ks.fits_shared_memory(m, k)
@@ -413,6 +419,17 @@ def test_spd_kernel_matches_plain(cuda_device, g, m, k):
     plain = ks.spd_solve_plain(a, b)
     assert (x - plain).abs().max().item() <= SPD_TOL * (1 + plain.abs().max().item())
     assert (a @ x - b).abs().max().item() <= SPD_RESIDUAL_TOL * (1 + b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_spd_kernel_equals_plain_bit_for_bit(cuda_device):
+    """At the Qeq serving shape the warp kernel does the plain version's
+    arithmetic, rounded the same way: the same bits."""
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    a, b = _random_spd(513, 20, 2, 5, cuda_device)
+    x = ks.spd_solve(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(x.view(torch.int32), ks.spd_solve_plain(a, b).view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -823,10 +840,10 @@ def test_tiled_kernels_read_no_unwritten_shared_memory(cuda_device, fill_shared_
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["g4_fwd", "g4_jvp"])
+@pytest.mark.parametrize("name", ["g4_fwd", "g4_jvp", "g4_vjp"])
 def test_g4_kernels_read_no_unwritten_shared_memory(cuda_device, fill_shared_nan, name):
-    """The G4 fwd and jvp kernels (rows of shared memory zeroed or carried
-    before they are summed into) on the edge batch, launched once, then
+    """The G4 kernels (rows of shared memory zeroed or carried before they
+    are summed into; the vjp kernel's dpos window) on the edge batch, launched once, then
     right after a kernel that left NaN in all of every SM's shared memory:
     finite, and within the tolerance of their plain version, both times."""
     import chip_smoke
@@ -839,3 +856,44 @@ def test_g4_kernels_read_no_unwritten_shared_memory(cuda_device, fill_shared_nan
     fill_shared_nan()
     chip_smoke.check_acsf_call(name, args, "edge batch after NaN", False)
     assert ka.launches[name] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [20, 32])
+def test_spd_kernel_reads_no_unwritten_shared_memory(cuda_device, fill_shared_nan, m):
+    """The warp kernel at M = 20 (K = 2: registers only) and at M = 32 (its
+    second pass over the columns past 32 reads the first pass's steps from
+    shared memory), launched once, then right after a kernel that left NaN
+    in all of every SM's shared memory: within the tolerance of the plain
+    version both times."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    a, b = _random_spd(64, m, 2, m, cuda_device)
+    before = ks.launches
+    chip_smoke.check_spd(a, b, f"M={m}", False)
+    torch.cuda.synchronize()
+    fill_shared_nan()
+    chip_smoke.check_spd(a, b, f"M={m} after NaN", False)
+    assert ks.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("other_g4_table", [False, True])
+def test_g4_vjp_matches_plain_past_the_shared_window(cuda_device, other_g4_table):
+    """A molecule whose angles join nodes further apart in id than the vjp
+    kernel's shared window (the first block adds to dpos with global
+    atomics), then small molecules (the later blocks, through the window)."""
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    from gcnn_keras_tpu_torch.graph.preprocess import set_angle
+    from gcnn_keras_tpu_torch.ops.cuda.acsf import g4_vjp_window
+    import chip_smoke
+    rs = np.random.RandomState(4)
+    n = g4_vjp_window() + 2
+    graphs = ([set_angle(chip_smoke.wide_graph(n, rs), range_indices="edge_indices")]
+              + _acsf_graphs(2, 8))
+    b = batch_graphs(graphs, device=cuda_device)
+    live = b.angles[b.angle_mask]
+    assert (live.max() - live.min()).item() >= g4_vjp_window()
+    out = _acsf_check("g4_vjp", b, _acsf_static("g4_vjp", other_g4_table))
+    assert out[2:n - 1].abs().max().item() == 0.0  # the atoms without neighbours
+    assert out[[0, 1, n - 1]].abs().max().item() > 0.0

@@ -21,7 +21,11 @@ order, each raising on a failed check:
    (``acsf_edge_batch``: the G4 fwd and jvp kernels' block layout, a
    molecule whose angles join nodes further apart than the G4 vjp
    kernel's shared window, a collinear triple, atoms without angles,
-   unknown elements; all rows masked; no rows), with times and bounds.
+   unknown elements; all rows masked; no rows; for the G2 kernels also
+   ``acsf_g2_edge_batch``: a receiver whose edges span three of the G2 fwd
+   kernel's block ranges, receivers without edges inside a range and after
+   the last edge, senders further apart than the G2 vjp kernel's shared
+   window), with times and bounds.
 6. HDNNP2nd serving: the Behler-mode HDNNP2nd of the JAX package's bench
    configuration, with ``set_angle`` as the graph preprocessor, answers the
    same 3 requests, checked as in phase 4, with every kernel's launch count
@@ -748,6 +752,19 @@ def wide_graph(n, rs):
             "edge_indices": np.array([[i, j] for i in tri for j in tri if i != j])}
 
 
+def star_graph(d, rs):
+    """A star molecule: a centre and ``d`` leaves 1.2 from it on a Fibonacci
+    sphere, joined to the centre both ways."""
+    q = np.arange(d) + 0.5
+    theta, phi = np.arccos(1 - 2 * q / d), np.pi * (1 + 5 ** 0.5) * q
+    leaves = 1.2 * np.stack([np.cos(phi) * np.sin(theta), np.sin(phi) * np.sin(theta),
+                             np.cos(theta)], 1)
+    return {"node_number": rs.choice(HDNNP_ELEMENTS, size=d + 1),
+            "node_coordinates": np.concatenate([np.zeros((1, 3)), leaves]).astype(np.float32),
+            "edge_indices": np.array([[0, j] for j in range(1, d + 1)]
+                                     + [[j, 0] for j in range(1, d + 1)])}
+
+
 def acsf_edge_batch(dev):
     """The G4 kernels' layout cases, then the ACSF edge cases. Stars whose
     centres' angles fill the G4 fwd and jvp kernels' first block range
@@ -757,7 +774,7 @@ def acsf_edge_batch(dev):
     angle is the second block's first angle and each of whose centres has
     1482 angles, spanning three or more blocks; then a molecule whose
     angles join nodes further apart in id than the G4 vjp kernel's shared
-    window (``g4_vjp_window()`` nodes: its global-atomic branch), with
+    window (``vjp_window()`` nodes: its global-atomic branch), with
     that many rows without angles inside one block's range; then a
     collinear triple (1 + cos = 0: the clamped cosine derivative), an atom
     with one neighbour and one with none (no angles), and atomic numbers
@@ -765,26 +782,17 @@ def acsf_edge_batch(dev):
     the last angle, in the last block."""
     from gcnn_keras_tpu_torch.batch import batch_graphs
     from gcnn_keras_tpu_torch.graph.preprocess import set_angle
-    from gcnn_keras_tpu_torch.ops.cuda.acsf import g4_range, g4_vjp_window
+    from gcnn_keras_tpu_torch.ops.cuda.acsf import g4_range, vjp_window
     rs = np.random.RandomState(11)
     graphs = []
     for d in star_degrees(g4_range()):
-        # leaves 1.2 apart from the centre, on a Fibonacci sphere
-        q = np.arange(d) + 0.5
-        theta, phi = np.arccos(1 - 2 * q / d), np.pi * (1 + 5 ** 0.5) * q
-        leaves = 1.2 * np.stack([np.cos(phi) * np.sin(theta), np.sin(phi) * np.sin(theta),
-                                 np.cos(theta)], 1)
-        graphs.append({"node_number": rs.choice(HDNNP_ELEMENTS, size=d + 1),
-                       "node_coordinates": np.concatenate([np.zeros((1, 3)), leaves]
-                                                          ).astype(np.float32),
-                       "edge_indices": np.array([[0, j] for j in range(1, d + 1)]
-                                                + [[j, 0] for j in range(1, d + 1)])})
+        graphs.append(star_graph(d, rs))
     # every distance below 2.2 sqrt(3) = 3.81 < r_c
     graphs.append({"node_number": rs.choice(HDNNP_ELEMENTS, size=40),
                    "node_coordinates": rs.uniform(0.0, 2.2, (40, 3)).astype(np.float32),
                    "edge_indices": np.array([[i, j] for i in range(40) for j in range(40)
                                              if i != j])})
-    graphs.append(wide_graph(g4_vjp_window() + 2, rs))
+    graphs.append(wide_graph(vjp_window() + 2, rs))
     graphs += [
         {"node_number": np.array([6, 6, 6]),
          "node_coordinates": np.array([[0, 0, 0], [1.0, 0, 0], [-2.0, 0, 0]], np.float32),
@@ -803,12 +811,49 @@ def acsf_edge_batch(dev):
     return batch_graphs(graphs, device=dev, n_angle_pad=n_angle + 64, n_edge_pad=n_edge + 64)
 
 
+def acsf_g2_edge_graphs(g2_range, window):
+    """The G2 fwd and vjp kernels' layout cases, without angles: a 5-atom
+    molecule, so that the next receiver's first edge lies inside a block's
+    range; a star whose centre receives 3 x ``g2_range`` edges (the G2 fwd
+    kernel's block range), across three or more of the fwd kernel's ranges
+    and of the vjp kernel's blocks; a molecule whose edges join nodes
+    further apart in id than the vjp kernel's shared window (``window``
+    nodes: its global-atomic branch), with that many receivers without
+    edges inside one block's range; atomic numbers outside the table (S,
+    Cl); and a last molecule whose last atom has no edges."""
+    rs = np.random.RandomState(12)
+    return [{"node_number": rs.choice(HDNNP_ELEMENTS, size=5),
+             "node_coordinates": rs.uniform(0.0, 2.0, (5, 3)).astype(np.float32),
+             "edge_indices": np.array([[i, j] for i in range(5) for j in range(5) if i != j])},
+            star_graph(3 * g2_range, rs), wide_graph(window + 2, rs),
+            {"node_number": np.array([17, 6, 1, 16]),
+             "node_coordinates": np.array([[0, 0, 0], [1.5, 0, 0], [0, 1.2, 0],
+                                           [0, 0, 1.8]], np.float32),
+             "edge_indices": np.array([[i, j] for i in range(4) for j in range(4) if i != j])},
+            {"node_number": np.array([1, 8, 6]),
+             "node_coordinates": np.array([[0, 0, 0], [0.9, 0, 0], [9.0, 9, 9]], np.float32),
+             "edge_indices": np.array([[0, 1], [1, 0]])}]
+
+
+def acsf_g2_edge_batch(dev):
+    """``acsf_g2_edge_graphs`` at the built kernels' range and window, batched
+    without padding edges: the last atom and the padding nodes are
+    receivers without edges after the last edge, in the last block."""
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    from gcnn_keras_tpu_torch.ops.cuda.acsf import g2_range, vjp_window
+    graphs = acsf_g2_edge_graphs(g2_range(), vjp_window())
+    return batch_graphs(graphs, device=dev,
+                        n_edge_pad=sum(len(g["edge_indices"]) for g in graphs))
+
+
 def phase_acsf_kernel(batch, model, names=("g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp")):
     """Each ACSF kernel of ``names`` against its plain version at the
-    full-width shapes of ``batch`` (timed) and at edge cases."""
+    full-width shapes of ``batch`` (timed) and at edge cases; the G2 kernels
+    also at ``acsf_g2_edge_batch``."""
     dev = batch.senders.device
     statics = {"g2": model.acsf_g2._static, "g4": model.acsf_g4._static}
     edge = acsf_edge_batch(dev)
+    g2_edge = acsf_g2_edge_batch(dev) if any(n.startswith("g2") for n in names) else None
     masked = edge.replace(angle_mask=torch.zeros_like(edge.angle_mask),
                           edge_mask=torch.zeros_like(edge.edge_mask))
     none = edge.replace(angles=torch.zeros(0, 3, dtype=torch.int32, device=dev),
@@ -826,6 +871,10 @@ def phase_acsf_kernel(batch, model, names=("g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp
                       check_acsf(name, st, none, "no rows", False)]
         if recs[name][2]["max_abs_err"] != 0.0 or recs[name][3]["max_abs_err"] != 0.0:
             raise AssertionError(f"{name}: masked or absent rows gave output")
+        if name.startswith("g2"):
+            recs[name].append(check_acsf(
+                name, st, g2_edge, "G2 layout: a receiver across three ranges, edgeless "
+                "receivers, senders past the window, unknown elements", False))
     return recs
 
 

@@ -72,25 +72,53 @@
 //   atomics), and the block then adds each nonzero coordinate of the window
 //   to dpos with one global atomic. Where it does not (neighbours far apart
 //   in id), the shares go to dpos with global atomics.
-// dpos must be zero on entry. The window's adds and the global adds come in
-// an order that varies from run to run: dpos differs from run to run in the
-// last bits. The run sums alone are taken in a fixed order.
 //
-// G2 kernels: one warp owns one centre (receiver) node, finds the node's
-// contiguous range of sorted edges by binary search, and its lanes walk that
-// range, one edge per lane, with plain loads.
-// - force pass: the warp stages the node's cotangent row in shared memory;
-//   each lane forms its edge's radial cotangent, keeps the centre's share in
-//   registers (summed over the warp at the end) and adds the neighbour's
-//   share to dpos with float atomics: the senders are not sorted. dpos must
-//   be zero on entry.
-// - forward and tangent pass: each lane adds the m set values (tangents) of
-//   its edge into the node's row in shared memory with shared-memory
-//   atomics; the warp then writes the whole row.
+// G2 forward (g2_fwd_kernel): the G4 forward's owned rows, over edges: no
+// search, no atomics, deterministic.
+// - Block b (256 threads) takes the edges [224 b, 224 b + 224) and owns the
+//   receivers whose first edge lies there, and the receivers without edges
+//   between them (the last block also those after the last edge, to N),
+//   found from the receiver ids it loads anyway. It first zeroes its rows
+//   without edges, a run of rows at a time.
+// - A round: every thread computes one edge (skipped where masked) into
+//   shared memory, its m set values and its sender's slot. Each row of the
+//   round has a head and a tail edge there; a block-wide count of the heads
+//   numbers the rows and gives each its span of edges. Then a thread per
+//   (row, column) sums the row's edges of its column's slot, in edge order,
+//   and writes the column once (R*m = 20 columns at the HDNNP2nd tables). A
+//   row that goes on past the round is carried in shared memory into the
+//   next round of 256 edges, in which its owner finishes it (the star centre
+//   of chip_smoke.py's G2 layout cases has three ranges' worth of edges).
+//
+// G2 force pass (g2_vjp_kernel): the G4 force pass's layout, over edges.
+// Block b (256 threads) takes the edges [256 b, 256 b + 256), one a thread
+// (skipped where masked). The thread reads its receiver's cotangent slice
+// ct[i, slot*m : slot*m + m] (the same for a run of edges: L1), contracts it
+// into one radial cotangent and forms the shares of i and j in dpos. The
+// receiver's share is summed over each run of lanes with the same receiver
+// (run_sum); then both shares go through the shared dpos window, or with
+// global atomics where a block's edges join nodes further apart in id.
+//
+// G2 tangent pass (g2_jvp_kernel, its first design): one warp owns one
+// receiver, finds the receiver's range of edges by binary search, and its
+// lanes add the m set tangents of an edge each into the row in shared memory
+// with shared-memory atomics; the warp then writes the whole row.
+//
+// The G2 fwd and vjp kernels take r and 1 / r from one rsqrt, the cutoff and
+// its derivative from one __sincosf (cutoff_sin) for each run of sets with
+// the same r_c (one an edge for the HDNNP tables), and one exp2f a set.
+// exp2f is within 2 ulp of 2^x; the two products that form its argument x =
+// -eta log2(e) (r - rs)^2 add at most about 1.2e-7 |x| relative (|x| <= 6.9
+// at the HDNNP2nd tables for r < r_c: 8.6e-7).
+//
 // Masked rows (padding points at the dead node, i = j = k) are skipped, not
-// multiplied by zero. The atomics of the three G2 kernels make the order of
-// each float32 sum vary from run to run, so their results differ from run
-// to run in the last bits.
+// multiplied by zero. dpos must be zero on entry to the force passes. Which
+// sums use atomics: the G2 and G4 force passes add through the shared window
+// and to global memory, and the G2 tangent pass into its shared row, in an
+// order that varies from run to run: their results differ from run to run
+// in the last bits (the run sums over lanes alone are taken in a fixed
+// order). The G2 and G4 forward passes and the G4 tangent pass have no
+// atomics: the same inputs give the same bits.
 //
 // Bound: at the HDNNP2nd serving shapes (N = 8192, A = 417024, R*m = 120 for
 // G4; E = 54784, R*m = 20 for G2) the bytes dominate all six: each call
@@ -104,8 +132,10 @@
 // per distance and unique r_c) number 16 an angle in the forward pass and
 // 23 in the force and tangent passes: 1.6 and 2.3 us at 16 a clock per SM.
 // The G4 fwd and jvp kernels wait on chains of shared-memory and global
-// loads between their block barriers; the force pass on its per-angle loads
-// (positions, atomic numbers, the cotangent slice) and its atomics. Their
+// loads between their block barriers; the force passes on their per-row
+// loads (receivers, then positions; senders, then atomic numbers, then the
+// cotangent slice) and their atomics. The G2 kernels, with 214-245 blocks at
+// that batch, are one chain of dependent loads long, and their launch. Their
 // times against these bounds, and the designs tried, are in PERF.md
 // (probe_kernel_variants.py).
 
@@ -121,16 +151,22 @@ constexpr int kMaxUniq = 8;
 constexpr int kMaxElements = 16;
 constexpr int kMaxZ = 96;
 constexpr int kMaxColumns = 2048;
-constexpr int kWarps = 4;  // centre (receiver) nodes per block: G2
+constexpr int kWarps = 4;  // G2 jvp: receiver nodes per block
 constexpr int kG4Threads = 256;  // G4 fwd and jvp: threads of a block, angles of a round
 constexpr int kG4Warps = kG4Threads / 32;
 constexpr int kValStride = kG4Threads + 1;  // a round's values of one set, padded
 constexpr int kG4Range = 224;    // angles of a block's range
-constexpr int kVjpWindow = 1024;  // G4 vjp: nodes of a block's shared dpos window
+constexpr int kVjpWindow = 1024;  // G2, G4 vjp: nodes of a block's shared dpos window
+constexpr int kG2Threads = 256;  // G2 fwd and vjp: threads of a block, edges of a round
+constexpr int kG2Warps = kG2Threads / 32;
+constexpr int kG2Stride = kG2Threads + 1;  // a round's values of one set, padded
+constexpr int kG2Range = 224;    // G2 fwd: edges of a block's range
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kG4Range <= kG4Threads, "round 0 covers a block's range");
+static_assert(kG2Range <= kG2Threads, "round 0 covers a block's range");
 constexpr float kPi = 3.14159265358979323f;
 constexpr float kInvPi = 0.318309886183790672f;
+constexpr float kLog2e = 1.44269504088896341f;
 constexpr float kEps = 1e-12f;
 
 }  // namespace
@@ -418,13 +454,13 @@ __device__ __forceinline__ float take(const float* a, unsigned& b) {
   return x;
 }
 
-// id (the centre) of angle a if the block computes it, else -1: the angles
-// of [ab0, ab1) after those of the row that began before ab0 (id_before),
-// and past ab1 those of the block's last row (id_last), if it began in the
-// range
-__device__ __forceinline__ int computed_id(int id, int a, int n_angle, int ab1, int id_before,
+// id (the centre or receiver) of angle or edge a if the block computes it,
+// else -1: those of [ab0, ab1) after those of the row that began before ab0
+// (id_before), and past ab1 those of the block's last row (id_last), if it
+// began in the range
+__device__ __forceinline__ int computed_id(int id, int a, int n_rows, int ab1, int id_before,
                                            int id_last) {
-  if (a >= n_angle) return -1;
+  if (a >= n_rows) return -1;
   return (a < ab1 ? id != id_before : id == id_last && id_last != id_before) ? id : -1;
 }
 
@@ -640,6 +676,41 @@ __device__ __forceinline__ void add3(float* dst, const float* v) {
   atomicAdd(dst + 2, v[2]);
 }
 
+// The force passes' dpos window: the shares of a block's rows added into
+// dpos of nodes span[0] .. span[0] + kVjpWindow - 1 in shared memory, then
+// each nonzero coordinate added to dpos with one global atomic.
+
+// win (3 kVjpWindow floats) zeroed and span emptied by the block's
+// `threads` threads; a barrier follows
+__device__ __forceinline__ void window_clear(float* win, int* span, int threads) {
+  for (int t = threadIdx.x; t < 3 * kVjpWindow; t += threads) win[t] = 0.0f;
+  if (threadIdx.x == 0) {
+    span[0] = INT_MAX;
+    span[1] = -1;
+  }
+}
+
+// the lowest and highest node of a warp's live rows (lo, hi; INT_MAX and -1
+// where a lane has none) folded into span
+__device__ __forceinline__ void window_span(int lo, int hi, int* span) {
+  lo = __reduce_min_sync(kFull, lo);
+  hi = __reduce_max_sync(kFull, hi);
+  if ((threadIdx.x & 31) == 0 && hi >= 0) {
+    atomicMin(span, lo);
+    atomicMax(span + 1, hi);
+  }
+}
+
+// each nonzero coordinate of the window's nodes b_lo .. b_hi added to dpos
+__device__ __forceinline__ void window_flush(const float* win, int b_lo, int b_hi,
+                                             float* __restrict__ dpos, int threads) {
+  float* out = dpos + 3LL * b_lo;
+  for (int t = threadIdx.x; t < 3 * (b_hi - b_lo + 1); t += threads) {
+    const float v = win[t];
+    if (v != 0.0f) atomicAdd(out + t, v);
+  }
+}
+
 template <int NE, int NZ, int NR>
 __global__ void __launch_bounds__(kG4Threads) g4_vjp_kernel(
     const float* __restrict__ pos, const int* __restrict__ z,
@@ -651,13 +722,9 @@ __global__ void __launch_bounds__(kG4Threads) g4_vjp_kernel(
   __shared__ int slot[kMaxZ];             // p.slot_of_z
   __shared__ int pair_rel[kMaxElements * kMaxElements];  // p.pair_rel
   const int tid = threadIdx.x;
-  for (int t = tid; t < 3 * kVjpWindow; t += kG4Threads) win[t] = 0.0f;
+  window_clear(win, span, kG4Threads);
   for (int t = tid; t < kMaxZ; t += kG4Threads) slot[t] = p.slot_of_z[t];
   for (int t = tid; t < p.num_el * p.num_el; t += kG4Threads) pair_rel[t] = p.pair_rel[t];
-  if (tid == 0) {
-    span[0] = INT_MAX;
-    span[1] = -1;
-  }
   __syncthreads();
   // each thread the shares of its angle's i, j and k (none where masked)
   const int a = blockIdx.x * kG4Threads + tid;
@@ -670,12 +737,7 @@ __global__ void __launch_bounds__(kG4Threads) g4_vjp_kernel(
     k = __ldg(angles + 3LL * a + 2);
     angle_sets<kG4Vjp, NE, NZ, NR>(pos, z, i, j, k, ct, p, slot, pair_rel, sh);
   }
-  const int lo = __reduce_min_sync(kFull, live ? min(i, min(j, k)) : INT_MAX);
-  const int hi = __reduce_max_sync(kFull, live ? max(i, max(j, k)) : -1);
-  if ((tid & 31) == 0 && hi >= 0) {
-    atomicMin(span, lo);
-    atomicMax(span + 1, hi);
-  }
+  window_span(live ? min(i, min(j, k)) : INT_MAX, live ? max(i, max(j, k)) : -1, span);
   // the angles are sorted by centre, and j repeats over consecutive angles:
   // one share of each run of lanes with the same i, and with the same j
   const bool head_i = run_sum(i, sh);
@@ -692,11 +754,7 @@ __global__ void __launch_bounds__(kG4Threads) g4_vjp_kernel(
       add3(win + 3 * (k - b_lo), sh + 6);
     }
     __syncthreads();
-    float* out = dpos + 3LL * b_lo;
-    for (int t = tid; t < 3 * (b_hi - b_lo + 1); t += kG4Threads) {
-      const float v = win[t];
-      if (v != 0.0f) atomicAdd(out + t, v);
-    }
+    window_flush(win, b_lo, b_hi, dpos, kG4Threads);
   } else if (live) {
     // neighbours far apart in id: shares added to dpos
     if (head_i) add3(dpos + 3LL * i, sh);
@@ -705,86 +763,224 @@ __global__ void __launch_bounds__(kG4Threads) g4_vjp_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32) g2_fwd_kernel(
+// ---------------------------------------------------------------- G2 edges
+
+// edge e's receiver i, sender j and mask (-1, -1 and false past the last
+// edge), loaded together and ahead of what waits on them (the G2 fwd
+// kernel's zeroing of rows without edges, the vjp kernel's window)
+struct EdgeIds {
+  int i, j;
+  bool live;
+};
+
+__device__ __forceinline__ EdgeIds edge_ids(const int* __restrict__ senders,
+                                            const int* __restrict__ receivers,
+                                            const bool* __restrict__ mask, int e, int n_edge) {
+  EdgeIds x = {-1, -1, false};
+  if (e < n_edge) {
+    x.i = __ldg(receivers + e);
+    x.j = __ldg(senders + e);
+    x.live = mask[e];
+  }
+  return x;
+}
+
+// Edge i <- j of the G2 sums: v = p_j - p_i, and r and 1 / r from one rsqrt
+struct Edge {
+  float v[3];
+  float r, inv;
+};
+
+__device__ __forceinline__ Edge edge_geometry(const float* __restrict__ pos, int i, int j) {
+  float pi[3], pj[3];
+  load3(pos, i, pi);
+  load3(pos, j, pj);
+  Edge g;
+  for (int d = 0; d < 3; ++d) g.v[d] = pj[d] - pi[d];
+  const float d2 = fmaxf(dot3(g.v, g.v), kEps);
+  g.inv = rsqrtf(d2);
+  g.r = d2 * g.inv;
+  return g;
+}
+
+// f(s, g, dr, fc, sn) for each G2 set s at distance r: dr = r - rs_s, g =
+// exp(-eta_s dr^2), fc = fc(r; rc_s) and sn = sin(pi r / rc_s) (d fc / d r =
+// -(pi / rc_s) sn / 2). The cutoff is computed once for each run of sets
+// with the same r_c.
+template <typename F>
+__device__ __forceinline__ void g2_sets(const AcsfG2Params& p, float r, F f) {
+  float fc = 0.0f, sn = 0.0f;
+#pragma unroll 4
+  for (int s = 0; s < p.m; ++s) {
+    if (s == 0 || p.rc[s] != p.rc[s - 1]) cutoff_sin(r * (p.pi_rc[s] * kInvPi), &fc, &sn);
+    const float dr = r - p.rs[s];
+    f(s, exp2f(-(p.eta[s] * kLog2e) * (dr * dr)), dr, fc, sn);
+  }
+}
+
+// ---------------------------------------------------------------- G2 fwd
+// Rows owned by edge ranges (see the header): block b takes the edges
+// [b * kG2Range, + kG2Range) and owns the receivers whose first edge lies
+// there, and the receivers without edges before them.
+
+__global__ void __launch_bounds__(kG2Threads) g2_fwd_kernel(
     const float* __restrict__ pos, const int* __restrict__ z,
     const int* __restrict__ senders, const int* __restrict__ receivers,
     const bool* __restrict__ mask, float* __restrict__ out, int n_node,
     int n_edge, const __grid_constant__ AcsfG2Params p) {
-  extern __shared__ float rows[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int node = blockIdx.x * kWarps + warp;
-  if (node >= n_node) return;
-  const int m = p.m;
-  const int width = p.num_rel * m;
-  float* row = rows + warp * width;
-  for (int c = lane; c < width; c += 32) row[c] = 0.0f;
-  int begin, end;
-  warp_range(receivers, 1, n_edge, node, lane, &begin, &end);
-  __syncwarp();
-  float pi[3];
-  load3(pos, node, pi);
-  for (int e = begin + lane; e < end; e += 32) {
-    if (!mask[e]) continue;
-    const int j = __ldg(senders + e);
-    float pj[3], v[3];
-    load3(pos, j, pj);
-    for (int d = 0; d < 3; ++d) v[d] = pj[d] - pi[d];
-    const float r = sqrtf(fmaxf(dot3(v, v), kEps));
-    float* dst = row + p.slot_of_z[z_index(__ldg(z + j))] * m;
-    for (int s = 0; s < m; ++s) {
-      const float dr = r - p.rs[s];
-      atomicAdd(dst + s, expf(-p.eta[s] * (dr * dr)) * cutoff(r, p.rc[s], p.pi_rc[s]));
+  extern __shared__ float smem[];
+  __shared__ int srel[kG2Threads];       // sender slot of each edge of a round, -1 if skipped
+  __shared__ int row_id[kG2Threads];     // the rows of a round, in order: their ids,
+  __shared__ int row_begin[kG2Threads];  // first edges
+  __shared__ int row_end[kG2Threads];    // and ends
+  __shared__ int heads[kG2Warps];        // rows that start in each warp's edges
+  const int m = p.m, width = p.num_rel * m;
+  float* vals = smem;                     // m x kG2Stride set values of a round
+  float* carry = vals + m * kG2Stride;    // a row that goes on into the next round, 2 x
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ab0 = blockIdx.x * kG2Range, ab1 = min(ab0 + kG2Range, n_edge);
+  const int id_before = ab0 > 0 ? __ldg(receivers + ab0 - 1) : -1;
+  const int id_last = ab1 > ab0 ? __ldg(receivers + ab1 - 1) : -1;
+  int e = ab0 + tid;
+  EdgeIds x = edge_ids(senders, receivers, mask, e, n_edge);  // round 0's edge
+  {
+    // Rows without edges: those between the rows of edges e - 1 and e, for
+    // e in [ab0, ab1), each run zeroed by the warp of e; in the last block
+    // also those after the last edge
+    int lo = 0, hi = 0;
+    if (e < ab1) {
+      lo = (e > ab0 ? __ldg(receivers + e - 1) : id_before) + 1;
+      hi = min(x.i, n_node);
     }
+    for (unsigned runs = __ballot_sync(kFull, lo < hi); runs; runs &= runs - 1) {
+      const int b = __ffs(runs) - 1;
+      const long long q1 = 1LL * __shfl_sync(kFull, hi, b) * width;
+      for (long long q = 1LL * __shfl_sync(kFull, lo, b) * width + lane; q < q1; q += 32)
+        out[q] = 0.0f;
+    }
+    if (ab1 >= n_edge)
+      for (long long q = (max(id_last, id_before) + 1LL) * width + tid; q < 1LL * n_node * width;
+           q += kG2Threads)
+        out[q] = 0.0f;
   }
-  __syncwarp();
-  float* o = out + static_cast<long long>(node) * width;
-  for (int c = lane; c < width; c += 32) o[c] = row[c];
+  for (int base = ab0, round = 0;; ++round) {
+    // The round's rows: each has a head edge (the round's first, or where the
+    // row starts) and a tail edge (the round's last, or where it ends). The
+    // heads, counted over the block, number the rows in order.
+    const int id = computed_id(x.i, e, n_edge, ab1, id_before, id_last);
+    int prev = __shfl_up_sync(kFull, id, 1), next = __shfl_down_sync(kFull, id, 1);
+    if (lane == 0 && tid > 0)
+      prev = computed_id(e - 1 < n_edge ? __ldg(receivers + e - 1) : -1, e - 1, n_edge, ab1,
+                         id_before, id_last);
+    if (lane == 31 && tid < kG2Threads - 1)
+      next = computed_id(e + 1 < n_edge ? __ldg(receivers + e + 1) : -1, e + 1, n_edge, ab1,
+                         id_before, id_last);
+    const int nb = base + kG2Threads;  // the next round's first edge
+    const bool more = computed_id(nb < n_edge ? __ldg(receivers + nb) : -1, nb, n_edge, ab1,
+                                  id_before, id_last) >= 0;
+    // every thread computes one edge's m set values into shared memory
+    int rel = -1;
+    if (id >= 0 && x.live) {
+      const Edge g = edge_geometry(pos, id, x.j);
+      rel = p.slot_of_z[z_index(__ldg(z + x.j))];
+      g2_sets(p, g.r, [&](int s, float gs, float, float fc, float) {
+        vals[s * kG2Stride + tid] = gs * fc;
+      });
+    }
+    srel[tid] = rel;
+    const bool head = id >= 0 && (tid == 0 || prev != id);
+    const bool tail = id >= 0 && (tid == kG2Threads - 1 || next != id);
+    const unsigned hb = __ballot_sync(kFull, head);
+    if (lane == 0) heads[warp] = __popc(hb);
+    __syncthreads();
+    int ord = __popc(hb & ((2u << lane) - 1)) - 1, n_rows = 0;
+    for (int w = 0; w < kG2Warps; ++w) {
+      if (w < warp) ord += heads[w];
+      n_rows += heads[w];
+    }
+    if (head) {
+      row_id[ord] = id;
+      row_begin[ord] = tid;
+    }
+    if (tail) row_end[ord] = tid + 1;
+    __syncthreads();
+    // A thread per (row, column) sums the row's edges of the column's slot in
+    // edge order, after the carried sum of a row that began in an earlier
+    // round (the round's first row, after round 0); then carries the sum
+    // into the next round (the round's last row, if it goes on) or writes
+    // the column out
+    const float* carried_in = carry + ((round + 1) & 1) * width;
+    float* carried_out = carry + (round & 1) * width;
+    for (int q = tid; q < n_rows * width; q += kG2Threads) {
+      const int o = q / width, c = q - o * width, rel_c = c / m, s = c - rel_c * m;
+      float acc = o == 0 && round > 0 ? carried_in[c] : 0.0f;
+      for (int k = row_begin[o]; k < row_end[o]; ++k)
+        if (srel[k] == rel_c) acc += vals[s * kG2Stride + k];
+      if (o == n_rows - 1 && more) carried_out[c] = acc;
+      else if (row_id[o] < n_node) out[static_cast<long long>(row_id[o]) * width + c] = acc;
+    }
+    if (!more) break;
+    base = nb;
+    e = base + tid;
+    x = edge_ids(senders, receivers, mask, e, n_edge);
+    __syncthreads();  // before the next round writes what this one read
+  }
 }
 
-__global__ void __launch_bounds__(kWarps * 32) g2_vjp_kernel(
+// ---------------------------------------------------------------- G2 vjp
+// Block b (kG2Threads threads) takes the edges [b * kG2Threads, + kG2Threads),
+// one a thread; see the header.
+
+__global__ void __launch_bounds__(kG2Threads) g2_vjp_kernel(
     const float* __restrict__ pos, const int* __restrict__ z,
     const int* __restrict__ senders, const int* __restrict__ receivers,
     const bool* __restrict__ mask, const float* __restrict__ ct,
-    float* __restrict__ dpos, int n_node, int n_edge,
-    const __grid_constant__ AcsfG2Params p) {
-  extern __shared__ float rows[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int node = blockIdx.x * kWarps + warp;
-  if (node >= n_node) return;
-  const int m = p.m;
-  const int width = p.num_rel * m;
-  float* row = rows + warp * width;
-  const float* ct_row = ct + static_cast<long long>(node) * width;
-  for (int c = lane; c < width; c += 32) row[c] = __ldg(ct_row + c);
-  int begin, end;
-  warp_range(receivers, 1, n_edge, node, lane, &begin, &end);
-  __syncwarp();
-  if (begin == end) return;
-  float pi[3];
-  load3(pos, node, pi);
-  float d_center[3] = {0.0f, 0.0f, 0.0f};
-  for (int e = begin + lane; e < end; e += 32) {
-    if (!mask[e]) continue;
-    const int j = __ldg(senders + e);
-    float pj[3], v[3];
-    load3(pos, j, pj);
-    for (int d = 0; d < 3; ++d) v[d] = pj[d] - pi[d];
-    const float r = sqrtf(fmaxf(dot3(v, v), kEps));
-    const float* ctr = row + p.slot_of_z[z_index(__ldg(z + j))] * m;
+    float* __restrict__ dpos, int n_edge, const __grid_constant__ AcsfG2Params p) {
+  __shared__ float win[3 * kVjpWindow];  // dpos of nodes span[0] .. span[0] + kVjpWindow - 1
+  __shared__ int span[2];                 // the lowest and highest node the block's edges touch
+  const EdgeIds x = edge_ids(senders, receivers, mask, blockIdx.x * kG2Threads + threadIdx.x,
+                             n_edge);
+  window_clear(win, span, kG2Threads);
+  __syncthreads();
+  // each thread the shares of its edge's receiver i and sender j (none where
+  // masked)
+  const bool live = x.live;
+  const int i = live ? x.i : -1, j = live ? x.j : -1;
+  float sh_i[3] = {0.0f, 0.0f, 0.0f}, sh_j[3] = {0.0f, 0.0f, 0.0f};
+  if (live) {
+    const Edge g = edge_geometry(pos, i, j);
+    // the set cotangents of the row and the sender's slot, contracted into
+    // the radial cotangent: d rep_s / d r = g (d fc / d r - 2 eta_s dr fc)
+    const float* ctr = ct + static_cast<long long>(i) * (p.num_rel * p.m)
+                       + p.slot_of_z[z_index(__ldg(z + j))] * p.m;
     float a_r = 0.0f;
-    for (int s = 0; s < m; ++s) a_r += ctr[s] * g2_drep_dr(p, s, r);
+    g2_sets(p, g.r, [&](int s, float gs, float dr, float fc, float sn) {
+      a_r += __ldg(ctr + s) * gs * (-0.5f * p.pi_rc[s] * sn - 2.0f * p.eta[s] * dr * fc);
+    });
+    a_r *= g.inv;
     for (int d = 0; d < 3; ++d) {
-      const float dv = a_r * v[d] / r;
-      d_center[d] -= dv;
-      atomicAdd(dpos + 3LL * j + d, dv);
+      sh_j[d] = a_r * g.v[d];
+      sh_i[d] = -sh_j[d];
     }
   }
-  for (int d = 0; d < 3; ++d) {
-    float v = d_center[d];
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) atomicAdd(dpos + 3LL * node + d, v);
+  window_span(live ? min(i, j) : INT_MAX, live ? max(i, j) : -1, span);
+  // the edges are sorted by receiver: one share of each run of lanes with
+  // the same i
+  const bool head_i = run_sum(i, sh_i);
+  __syncthreads();
+  const int b_lo = span[0], b_hi = span[1];
+  if (b_hi < 0) return;  // no live edge in the block
+  if (b_hi - b_lo < kVjpWindow) {
+    if (live) {
+      if (head_i) add3(win + 3 * (i - b_lo), sh_i);
+      add3(win + 3 * (j - b_lo), sh_j);
+    }
+    __syncthreads();
+    window_flush(win, b_lo, b_hi, dpos, kG2Threads);
+  } else if (live) {
+    // neighbours far apart in id: shares added to dpos
+    if (head_i) add3(dpos + 3LL * i, sh_i);
+    add3(dpos + 3LL * j, sh_j);
   }
 }
 
@@ -841,6 +1037,7 @@ bool g2_params_ok(const AcsfG2Params* p) {
          && p->num_rel * p->m <= kMaxColumns;
 }
 
+// the G2 jvp kernel: a warp a receiver, its row in shared memory
 dim3 grid_for(int n_node) { return dim3((n_node + kWarps - 1) / kWarps); }
 
 size_t shared_bytes(int width) { return sizeof(float) * kWarps * width; }
@@ -853,6 +1050,19 @@ bool g4_hdnnp_counts(const AcsfG4Params* p) {
   return p->n_eta == 2 && p->n_zl == 4 && p->n_rc == 1;
 }
 
+// one launch with `bytes` of dynamic shared memory (above 48 KB once the
+// kernel's limit is raised)
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int grid, int threads, int bytes, void* stream, Args... args) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // one launch of a G4 fwd or jvp kernel: a block for each kG4Range angles
 // (one for none, which zeroes every row); shared memory for the set values
 // of a round and kG4Warps + 2 rows
@@ -860,14 +1070,8 @@ template <typename Kernel, typename... Args>
 int launch_g4(Kernel kernel, const AcsfG4Params* p, int n_angle, void* stream, Args... args) {
   const int bytes = static_cast<int>(
       sizeof(float) * (p->m * kValStride + (2 * kG4Warps + 2) * p->num_rel * p->m));
-  if (bytes > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const int grid = std::max(1, (n_angle + kG4Range - 1) / kG4Range);
-  kernel<<<grid, kG4Threads, bytes, static_cast<cudaStream_t>(stream)>>>(args..., *p);
-  return static_cast<int>(cudaGetLastError());
+  return launch(kernel, grid, kG4Threads, bytes, stream, args..., *p);
 }
 
 }  // namespace
@@ -926,9 +1130,12 @@ extern "C" int gcnn_acsf_g4_jvp_f32(const float* pos, const int* z,
 // out inputs by block
 extern "C" int gcnn_acsf_g4_range() { return kG4Range; }
 
-// nodes of a G4 vjp block's shared window (kVjpWindow): a block whose
-// angles touch a wider range of node ids adds to dpos directly
-extern "C" int gcnn_acsf_g4_vjp_window() { return kVjpWindow; }
+// edges of a G2 fwd block's range (kG2Range)
+extern "C" int gcnn_acsf_g2_range() { return kG2Range; }
+
+// nodes of a G2 or G4 vjp block's shared window (kVjpWindow): a block whose
+// edges or angles touch a wider range of node ids adds to dpos directly
+extern "C" int gcnn_acsf_vjp_window() { return kVjpWindow; }
 
 extern "C" int gcnn_acsf_g2_fwd_f32(const float* pos, const int* z,
                                     const int* senders, const int* receivers,
@@ -937,10 +1144,12 @@ extern "C" int gcnn_acsf_g2_fwd_f32(const float* pos, const int* z,
                                     void* stream) {
   if (!g2_params_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_node <= 0) return static_cast<int>(cudaSuccess);
-  g2_fwd_kernel<<<grid_for(n_node), kWarps * 32, shared_bytes(p->num_rel * p->m),
-                  static_cast<cudaStream_t>(stream)>>>(pos, z, senders, receivers,
-                                                       mask, out, n_node, n_edge, *p);
-  return static_cast<int>(cudaGetLastError());
+  // a block for each kG2Range edges (one for none, which zeroes every row);
+  // shared memory for the set values of a round and 2 carried rows
+  const int bytes = static_cast<int>(sizeof(float) * (p->m * kG2Stride + 2 * p->num_rel * p->m));
+  const int grid = std::max(1, (n_edge + kG2Range - 1) / kG2Range);
+  return launch(g2_fwd_kernel, grid, kG2Threads, bytes, stream, pos, z, senders, receivers, mask,
+                out, n_node, n_edge, *p);
 }
 
 extern "C" int gcnn_acsf_g2_vjp_f32(const float* pos, const int* z,
@@ -949,11 +1158,10 @@ extern "C" int gcnn_acsf_g2_vjp_f32(const float* pos, const int* z,
                                     float* dpos, int n_node, int n_edge,
                                     const AcsfG2Params* p, void* stream) {
   if (!g2_params_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_node <= 0) return static_cast<int>(cudaSuccess);
-  g2_vjp_kernel<<<grid_for(n_node), kWarps * 32, shared_bytes(p->num_rel * p->m),
-                  static_cast<cudaStream_t>(stream)>>>(pos, z, senders, receivers,
-                                                       mask, ct, dpos, n_node,
-                                                       n_edge, *p);
+  if (n_node <= 0 || n_edge <= 0) return static_cast<int>(cudaSuccess);
+  g2_vjp_kernel<<<(n_edge + kG2Threads - 1) / kG2Threads, kG2Threads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(pos, z, senders, receivers, mask, ct,
+                                                       dpos, n_edge, *p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,9 +54,10 @@ launches = dict.fromkeys(KERNELS, 0)
 
 # limits of the kernels' own design (csrc/acsf.cu): per-set and unique-value
 # tables live in the launch parameters, and output rows in shared memory
-# (one a warp in the G2 kernels; the G4 fwd and jvp kernels two a warp, two
-# carried and a round's set values; the G4 vjp kernel reads its cotangent
-# rows from global memory)
+# (the G2 fwd kernel two carried and a round's set values; the G2 jvp kernel
+# one a warp; the G4 fwd and jvp kernels two a warp, two carried and a
+# round's set values; the vjp kernels read their cotangent rows from global
+# memory)
 MAX_SETS = 32
 MAX_UNIQ = 8
 MAX_ELEMENTS = 16
@@ -487,11 +488,18 @@ def g4_range() -> int:
     return int(load_library("acsf").gcnn_acsf_g4_range())
 
 
-def g4_vjp_window() -> int:
-    """Nodes of the G4 vjp kernel's shared window (``kVjpWindow`` of
-    ``csrc/acsf.cu``), read from the loaded library: a block whose angles
-    touch a wider range of node ids adds its shares to dpos directly."""
-    return int(load_library("acsf").gcnn_acsf_g4_vjp_window())
+def g2_range() -> int:
+    """Edges of a block's range in the G2 fwd kernel (``kG2Range`` of
+    ``csrc/acsf.cu``), read from the loaded library."""
+    return int(load_library("acsf").gcnn_acsf_g2_range())
+
+
+def vjp_window() -> int:
+    """Nodes of the G2 and G4 vjp kernels' shared window (``kVjpWindow`` of
+    ``csrc/acsf.cu``), read from the loaded library: a block whose edges or
+    angles touch a wider range of node ids adds its shares to dpos
+    directly."""
+    return int(load_library("acsf").gcnn_acsf_vjp_window())
 
 
 def _check(pos: Tensor, z: Tensor, rows, mask: Tensor, width: int, ct=None,

@@ -19,10 +19,11 @@ held against the plain version:
   every tangent);
 - ``gather_mul_segsum``, ``fused_cfconv``: phase 11's timed checks at the
   serving and MD shapes (their edge cases checked too);
-- ``g4_fwd``, ``g4_jvp``, ``g4_vjp`` (``csrc/acsf.cu``, whose six ACSF
-  kernels a variant changes together): each of the six at phase 5's and
-  9's serving batch and at the first step of ``hdnnp2nd_train`` and
-  ``hdnnp4th_train`` (their captured calls), and at the ACSF edge cases;
+- ``g2_fwd``, ``g2_jvp``, ``g2_vjp``, ``g4_fwd``, ``g4_jvp``, ``g4_vjp``
+  (``csrc/acsf.cu``, whose six ACSF kernels a variant changes together):
+  each of the six at phase 5's and 9's serving batch and at the first step
+  of ``hdnnp2nd_train`` and ``hdnnp4th_train`` (their captured calls), and
+  at the ACSF edge cases (the G2 kernels also at the G2 layout cases);
 - ``spd_solve`` (both SPD kernels): phase 7's Qeq solve of the HDNNP4th
   serving request with K = 2 and K = 1, every call of one
   ``hdnnp4th_train`` step (captured), random systems of M = 8, 12 and 32
@@ -146,8 +147,8 @@ def schnet_kernel_timings(kernel, libs, order):
 def acsf_calls():
     """``(name, label, args)`` of each ACSF kernel at its main-path shapes:
     the serving batch of phases 5 and 9 (timed), the captured calls of one
-    step of ``hdnnp2nd_train`` and ``hdnnp4th_train`` (timed) and the edge
-    batch."""
+    step of ``hdnnp2nd_train`` and ``hdnnp4th_train`` (timed), the edge
+    batch and, for the G2 kernels, the G2 layout batch."""
     from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
     pred = chip_smoke.make_hdnnp_predictor("cuda")
     _, serving = pred.make_batch(chip_smoke.qm9_like_mols(0, 512))
@@ -159,6 +160,10 @@ def acsf_calls():
                                 (edge, "edge batch", False)):
         out += [(name, label, timed, chip_smoke.acsf_call_args(name, statics[name[:2]], batch))
                 for name in ka.KERNELS]
+    g2_edge = chip_smoke.acsf_g2_edge_batch(serving.senders.device)
+    out += [(name, "G2 layout batch", False,
+             chip_smoke.acsf_call_args(name, statics["g2"], g2_edge))
+            for name in ka.KERNELS if name.startswith("g2")]
     for path in ("hdnnp2nd_train", "hdnnp4th_train"):
         cfg = chip_smoke.TRAIN_PATHS[path]
         batch = chip_smoke.train_batch(path, cfg["seed"], cfg["n_mols"], "cuda")

@@ -7,7 +7,8 @@ training step or of one MD step goes on a CUDA card, for the PyTorch port.
                                      [--trace chiprun_out/serving_trace.json]
     python3 profile_serving_torch.py --kernel KERNEL
         (KERNEL: sorted_segment_sum, gather_mul_segsum, fused_cfconv, cf_fwd,
-         cf_vjp, cf_hesjvp, g4_fwd, g4_jvp, g4_vjp or spd_solve)
+         cf_vjp, cf_hesjvp, g4_fwd, g4_jvp, g4_vjp, g2_fwd, g2_jvp, g2_vjp
+         or spd_solve)
 
 Builds the serving batch of ``chip_smoke.py`` (512 QM9-like molecules,
 weights from seed 0; SchNet defaults in ``--mode`` (``interaction_args``
@@ -35,11 +36,11 @@ timed checks at the ``schnet_train`` batch (with the plain version's and
 the port's unfused chain's times; ``cf_hesjvp`` as a force loss calls it
 and with every tangent); ``gather_mul_segsum`` and ``fused_cfconv``, phase
 11's timed checks at the serving and MD shapes (with the unfused chains'
-times) and their edge cases; ``g4_fwd``, ``g4_jvp`` and ``g4_vjp``, phase
-5's and 9's timed check at the HDNNP2nd serving batch and the ACSF edge
-cases, ``g4_jvp`` also every call of one ``hdnnp2nd_train`` step and
-``g4_vjp`` of one ``hdnnp2nd_train`` and one ``hdnnp4th_train`` step
-(phase 10, the first call timed); ``spd_solve``, phase 7's checks (the
+times) and their edge cases; the six ACSF kernels, phase 5's and 9's
+timed check at the HDNNP2nd serving batch and the ACSF edge cases (the G2
+kernels also the G2 layout cases), each also every call of one
+``hdnnp2nd_train`` and one ``hdnnp4th_train`` step (phase 10, the first
+call timed); ``spd_solve``, phase 7's checks (the
 HDNNP4th serving request's Qeq solve timed, and the edge cases) and every
 call of one ``hdnnp4th_train`` step. The last line is one JSON summary of
 the timed records. Needs one CUDA card.
@@ -111,6 +112,7 @@ KERNEL_SOURCES = {"sorted_segment_sum": "segment_sum", "gather_mul_segsum": "fus
                   "fused_cfconv": "fused_cfconv", "cf_fwd": "fused_interaction",
                   "cf_vjp": "fused_interaction", "cf_hesjvp": "fused_interaction",
                   "g4_fwd": "acsf", "g4_jvp": "acsf", "g4_vjp": "acsf",
+                  "g2_fwd": "acsf", "g2_jvp": "acsf", "g2_vjp": "acsf",
                   "spd_solve": "spd_solve"}
 
 
@@ -133,9 +135,7 @@ def kernel_records(name):
         pred = chip_smoke.make_hdnnp_predictor("cuda")
         _, batch = pred.make_batch(chip_smoke.qm9_like_mols(0, 512))
         recs = chip_smoke.phase_acsf_kernel(batch, pred.model.energy_model, (name,))[name]
-        paths = {"g4_jvp": ("hdnnp2nd_train",),
-                 "g4_vjp": ("hdnnp2nd_train", "hdnnp4th_train")}.get(name, ())
-        return recs + training_kernel_records(name, paths)
+        return recs + training_kernel_records(name, ("hdnnp2nd_train", "hdnnp4th_train"))
     if name == "spd_solve":
         pred = chip_smoke.make_hdnnp4th_predictor("cuda")
         _, batch = pred.make_batch(chip_smoke.with_esp(chip_smoke.qm9_like_mols(0, 512), 0))

@@ -443,6 +443,37 @@ def test_g2_periodic_batch_takes_the_plain_path():
     _tol(dpos, ref_vjp(ct), 1e-4)
 
 
+def test_g2_layout_cases_match_unfused_jax():
+    """``chip_smoke.acsf_g2_edge_graphs`` at the G2 kernels' block range and
+    window (``kG2Range`` and ``kVjpWindow``, read from ``csrc/acsf.cu``),
+    batched as ``chip_smoke.acsf_g2_edge_batch`` batches them: it holds a
+    receiver whose edges span three block ranges, receivers without edges
+    inside a range and after the last edge, and an edge whose ends lie
+    further apart in id than the window; the plain G2 versions match the
+    unfused JAX layer on it."""
+    import re
+    from pathlib import Path
+    import chip_smoke
+    src = (Path(kacsf.__file__).parents[2] / "csrc" / "acsf.cu").read_text()
+    g2_range, window = (int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                        for k in ("kG2Range", "kVjpWindow"))
+    graphs = chip_smoke.acsf_g2_edge_graphs(g2_range, window)
+    n_edge = sum(len(g["edge_indices"]) for g in graphs)
+    tb = batch_graphs(graphs, device="cpu", n_edge_pad=n_edge)
+    recv, send = tb.receivers.numpy(), tb.senders.numpy()
+    assert tb.edge_mask.all() and np.all(np.diff(recv) >= 0)
+    first = np.searchsorted(recv, np.argmax(np.bincount(recv)))
+    assert first % g2_range and np.bincount(recv).max() >= 3 * g2_range
+    assert np.diff(recv).max() > 1 and recv[-1] < tb.n_node - 1
+    assert np.abs(recv - send).max() >= window
+    kwargs = JACSFG2.make_param_table(**G2_KW, elements=chip_smoke.HDNNP_ELEMENTS)
+    ref, ref_vjp = _jax_layer(JACSFG2(**kwargs), jbatch_graphs(graphs, n_edge_pad=n_edge))
+    ct = _ct(ref.shape, seed=12)
+    out, dpos = _g2_port(tb, _g2_static(kwargs), ct)
+    _tol(out, ref, 1e-5)
+    _tol(dpos, ref_vjp(ct), 1e-4)
+
+
 # ------------------------------------------------------------ layers
 
 def _per_target(table):

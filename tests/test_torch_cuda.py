@@ -213,7 +213,11 @@ def test_acsf_kernel_edge_cases(cuda_device, name, other_g4_table):
     one whose first angle is a block's first, rows without angles inside a
     block's range, the last block), a collinear triple (the clamped cosine derivative), an
     atom with one neighbour and one with none (no angles), elements outside
-    the table (S, Cl); then all rows masked, and no rows at all."""
+    the table (S, Cl); the G2 kernels also ``chip_smoke.acsf_g2_edge_batch``
+    (a receiver whose edges span three of the G2 fwd kernel's ranges,
+    receivers without edges inside a range and after the last edge, senders
+    further apart than the vjp kernel's window); then all rows masked, and
+    no rows at all."""
     import chip_smoke
     b = chip_smoke.acsf_edge_batch(cuda_device)
     st = _acsf_static(name, other_g4_table)
@@ -221,6 +225,9 @@ def test_acsf_kernel_edge_cases(cuda_device, name, other_g4_table):
     assert torch.isfinite(out).all()
     if not name.endswith("vjp"):
         assert not out[b.n_node - 1].any()  # the dead node gets nothing
+    if name.startswith("g2"):
+        assert torch.isfinite(_acsf_check(name, chip_smoke.acsf_g2_edge_batch(cuda_device),
+                                          st)).all()
     masked = b.replace(angle_mask=torch.zeros_like(b.angle_mask),
                        edge_mask=torch.zeros_like(b.edge_mask))
     assert not _acsf_check(name, masked, st).any()
@@ -234,16 +241,19 @@ def test_acsf_kernel_edge_cases(cuda_device, name, other_g4_table):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["g4_fwd", "g4_jvp"])
-def test_g4_kernels_give_the_same_bits_run_to_run(cuda_device, name):
-    """The G4 fwd and jvp kernels sum in a fixed order, without atomics: two
-    launches on the HDNNP2nd serving batch give identical bits."""
+@pytest.mark.parametrize("name", ["g2_fwd", "g4_fwd", "g4_jvp"])
+def test_acsf_kernels_give_the_same_bits_run_to_run(cuda_device, name):
+    """The G2 and G4 fwd and the G4 jvp kernels sum in a fixed order, without
+    atomics: two launches on the HDNNP2nd serving batch give identical
+    bits."""
     import chip_smoke
     from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
     pred = chip_smoke.make_hdnnp_predictor("cuda")
     _, b = pred.make_batch(chip_smoke.qm9_like_mols(0, 512))
-    args = chip_smoke.acsf_call_args(name, pred.model.energy_model.acsf_g4._static, b)
-    kernel = {"g4_fwd": ka.g4_forward, "g4_jvp": ka.g4_jvp}[name]
+    model = pred.model.energy_model
+    st = (model.acsf_g2 if name.startswith("g2") else model.acsf_g4)._static
+    args = chip_smoke.acsf_call_args(name, st, b)
+    kernel = {"g2_fwd": ka.g2_forward, "g4_fwd": ka.g4_forward, "g4_jvp": ka.g4_jvp}[name]
     first, second = kernel(*args), kernel(*args)
     torch.cuda.synchronize()
     assert torch.isfinite(first).all() and first.abs().max().item() > 0.0
@@ -840,16 +850,22 @@ def test_tiled_kernels_read_no_unwritten_shared_memory(cuda_device, fill_shared_
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["g4_fwd", "g4_jvp", "g4_vjp"])
-def test_g4_kernels_read_no_unwritten_shared_memory(cuda_device, fill_shared_nan, name):
-    """The G4 kernels (rows of shared memory zeroed or carried before they
-    are summed into; the vjp kernel's dpos window) on the edge batch, launched once, then
+@pytest.mark.parametrize("name", ["g4_fwd", "g4_jvp", "g4_vjp", "g2_fwd", "g2_vjp"])
+def test_acsf_kernels_read_no_unwritten_shared_memory(cuda_device, fill_shared_nan, name):
+    """The G4 kernels and the G2 fwd and vjp kernels (set values and carried
+    rows in shared memory; the vjp kernels' dpos window) on their edge
+    batches (G2: ``chip_smoke.acsf_g2_edge_batch``), launched once, then
     right after a kernel that left NaN in all of every SM's shared memory:
     finite, and within the tolerance of their plain version, both times."""
     import chip_smoke
     from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
-    b = chip_smoke.acsf_edge_batch(cuda_device)
-    args = chip_smoke.acsf_call_args(name, _acsf_layers()[1]._static, b)
+    g2, g4 = _acsf_layers()
+    if name.startswith("g2"):
+        args = chip_smoke.acsf_call_args(name, g2._static,
+                                         chip_smoke.acsf_g2_edge_batch(cuda_device))
+    else:
+        args = chip_smoke.acsf_call_args(name, g4._static,
+                                         chip_smoke.acsf_edge_batch(cuda_device))
     before = ka.launches[name]
     chip_smoke.check_acsf_call(name, args, "edge batch", False)
     torch.cuda.synchronize()
@@ -885,15 +901,36 @@ def test_g4_vjp_matches_plain_past_the_shared_window(cuda_device, other_g4_table
     atomics), then small molecules (the later blocks, through the window)."""
     from gcnn_keras_tpu_torch.batch import batch_graphs
     from gcnn_keras_tpu_torch.graph.preprocess import set_angle
-    from gcnn_keras_tpu_torch.ops.cuda.acsf import g4_vjp_window
+    from gcnn_keras_tpu_torch.ops.cuda.acsf import vjp_window
     import chip_smoke
     rs = np.random.RandomState(4)
-    n = g4_vjp_window() + 2
+    n = vjp_window() + 2
     graphs = ([set_angle(chip_smoke.wide_graph(n, rs), range_indices="edge_indices")]
               + _acsf_graphs(2, 8))
     b = batch_graphs(graphs, device=cuda_device)
     live = b.angles[b.angle_mask]
-    assert (live.max() - live.min()).item() >= g4_vjp_window()
+    assert (live.max() - live.min()).item() >= vjp_window()
     out = _acsf_check("g4_vjp", b, _acsf_static("g4_vjp", other_g4_table))
+    assert out[2:n - 1].abs().max().item() == 0.0  # the atoms without neighbours
+    assert out[[0, 1, n - 1]].abs().max().item() > 0.0
+
+
+@pytest.mark.cuda
+def test_g2_vjp_matches_plain_past_the_shared_window(cuda_device):
+    """A molecule whose edges join nodes further apart in id than the G2 vjp
+    kernel's shared window (the first block adds to dpos with global
+    atomics), then small molecules (the later blocks, through the window)."""
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    from gcnn_keras_tpu_torch.graph.preprocess import set_angle
+    from gcnn_keras_tpu_torch.ops.cuda.acsf import vjp_window
+    import chip_smoke
+    rs = np.random.RandomState(5)
+    n = vjp_window() + 2
+    graphs = ([set_angle(chip_smoke.wide_graph(n, rs), range_indices="edge_indices")]
+              + _acsf_graphs(3, 8))
+    b = batch_graphs(graphs, device=cuda_device)
+    ends = torch.stack([b.senders, b.receivers])[:, b.edge_mask]
+    assert (ends.max() - ends.min()).item() >= vjp_window()
+    out = _acsf_check("g2_vjp", b, _acsf_static("g2_vjp", False))
     assert out[2:n - 1].abs().max().item() == 0.0  # the atoms without neighbours
     assert out[[0, 1, n - 1]].abs().max().item() > 0.0

@@ -256,6 +256,9 @@ HDNNP4TH_M = 20  # max_nodes of the three requests: the Qeq systems are 20 x 20
 # SPD solve: max|kernel - plain| <= SPD_TOL * (1 + max|plain|) and
 # max|A x - b| <= SPD_RESIDUAL_TOL * (1 + max|b|)
 SPD_TOL, SPD_RESIDUAL_TOL = 1e-5, 1e-4
+# the block kernel's (M > 32) shapes timed in phase 7, at the serving G: a
+# ligand or small peptide, and the largest M the kernel takes at K = 2
+SPD_BLOCK_TIMED_M = (100, 239)
 # charges of a molecule sum to its total charge within CHARGE_TOL * (1 + sum|q|)
 CHARGE_TOL = 1e-4
 # The training paths: the JAX package's bench training steps (bench.py
@@ -1164,7 +1167,9 @@ def qeq_system(model, batch):
 def phase_spd_kernel(model, batch):
     """The SPD kernels against their plain version on the Qeq system that
     ``CENTCharge`` assembles from ``batch`` (timed; the same bits), and at
-    edge cases: the warp kernel (M <= 32) and the block kernel (M > 32)."""
+    edge cases: the warp kernel (M <= 32) and the block kernel (M > 32; the
+    same bits at M = 33 and at ``SPD_BLOCK_TIMED_M``, timed there beside
+    ``torch.linalg.solve`` and Cholesky + ``cholesky_solve``)."""
     from gcnn_keras_tpu_torch.layers.conv.qeq_solver import solve_qeq_dense_cholesky
     from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
     dev = batch.senders.device
@@ -1182,9 +1187,17 @@ def phase_spd_kernel(model, batch):
             check_spd(*random_spd(5, 32, 2, 3, dev), "M=32, the warp kernel's last", False),
             check_spd(*random_spd(5, 33, 2, 4, dev), "M=33, the block kernel's first", False),
             check_spd(*random_spd(4, m_gate, 2, 2, dev), f"M={m_gate} at the gate", False),
-            check_spd(a, rhs[..., :1].contiguous(), "K=1", False)]
-    if recs[0]["max_abs_err"] != 0.0:
-        raise AssertionError("spd_solve: the Qeq solve differs from the plain version")
+            check_spd(a, rhs[..., :1].contiguous(), "K=1", False),
+            # the block kernel at the serving G, timed beside the library calls
+            *(check_spd(*random_spd(batch.n_graphs, m, 2, m, dev),
+                        f"block kernel, G={batch.n_graphs}, M={m}", True)
+              for m in SPD_BLOCK_TIMED_M)]
+    # both kernels give the plain version's bits: the Qeq solve (warp
+    # kernel), the block kernel's first M and its timed shapes
+    for r in recs:
+        if (r is recs[0] or r["M"] == 33 or r["M"] in SPD_BLOCK_TIMED_M) and r["max_abs_err"]:
+            raise AssertionError(f"spd_solve {r['case']}: differs from the plain version "
+                                 f"by {r['max_abs_err']}")
     ident = check_spd(a[-1:].contiguous(), torch.randn(1, HDNNP4TH_M, 2, device=dev),
                       "the padding graph's identity system", False)
     if ident["max_abs_err"] != 0.0:

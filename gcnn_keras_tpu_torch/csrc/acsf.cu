@@ -73,22 +73,26 @@
 //   to dpos with one global atomic. Where it does not (neighbours far apart
 //   in id), the shares go to dpos with global atomics.
 //
-// G2 forward (g2_fwd_kernel): the G4 forward's owned rows, over edges: no
-// search, no atomics, deterministic.
+// G2 forward and tangent pass (g2_fwd_kernel, g2_jvp_kernel): one routine
+// (g2_owned_rows<kJvp>), the G4 forward's owned rows over edges: no search,
+// no atomics, deterministic.
 // - Block b (256 threads) takes the edges [224 b, 224 b + 224) and owns the
 //   receivers whose first edge lies there, and the receivers without edges
 //   between them (the last block also those after the last edge, to N),
 //   found from the receiver ids it loads anyway. It first zeroes its rows
 //   without edges, a run of rows at a time.
 // - A round: every thread computes one edge (skipped where masked) into
-//   shared memory, its m set values and its sender's slot. Each row of the
-//   round has a head and a tail edge there; a block-wide count of the heads
-//   numbers the rows and gives each its span of edges. Then a thread per
-//   (row, column) sums the row's edges of its column's slot, in edge order,
-//   and writes the column once (R*m = 20 columns at the HDNNP2nd tables). A
-//   row that goes on past the round is carried in shared memory into the
-//   next round of 256 edges, in which its owner finishes it (the star centre
-//   of chip_smoke.py's G2 layout cases has three ranges' worth of edges).
+//   shared memory, its m set values and its sender's slot; in the tangent
+//   pass it loads dpos of i and j beside their positions and writes the m
+//   set tangents d rep_s / d r * (v . dv) / r instead, 1 / r from the same
+//   rsqrt. Each row of the round has a head and a tail edge there; a
+//   block-wide count of the heads numbers the rows and gives each its span of
+//   edges. Then a thread per (row, column) sums the row's edges of its
+//   column's slot, in edge order, and writes the column once (R*m = 20
+//   columns at the HDNNP2nd tables). A row that goes on past the round is
+//   carried in shared memory into the next round of 256 edges, in which its
+//   owner finishes it (the star centre of chip_smoke.py's G2 layout cases
+//   has three ranges' worth of edges).
 //
 // G2 force pass (g2_vjp_kernel): the G4 force pass's layout, over edges.
 // Block b (256 threads) takes the edges [256 b, 256 b + 256), one a thread
@@ -99,12 +103,7 @@
 // (run_sum); then both shares go through the shared dpos window, or with
 // global atomics where a block's edges join nodes further apart in id.
 //
-// G2 tangent pass (g2_jvp_kernel, its first design): one warp owns one
-// receiver, finds the receiver's range of edges by binary search, and its
-// lanes add the m set tangents of an edge each into the row in shared memory
-// with shared-memory atomics; the warp then writes the whole row.
-//
-// The G2 fwd and vjp kernels take r and 1 / r from one rsqrt, the cutoff and
+// The three G2 kernels take r and 1 / r from one rsqrt, the cutoff and
 // its derivative from one __sincosf (cutoff_sin) for each run of sets with
 // the same r_c (one an edge for the HDNNP tables), and one exp2f a set.
 // exp2f is within 2 ulp of 2^x; the two products that form its argument x =
@@ -113,12 +112,11 @@
 //
 // Masked rows (padding points at the dead node, i = j = k) are skipped, not
 // multiplied by zero. dpos must be zero on entry to the force passes. Which
-// sums use atomics: the G2 and G4 force passes add through the shared window
-// and to global memory, and the G2 tangent pass into its shared row, in an
-// order that varies from run to run: their results differ from run to run
-// in the last bits (the run sums over lanes alone are taken in a fixed
-// order). The G2 and G4 forward passes and the G4 tangent pass have no
-// atomics: the same inputs give the same bits.
+// sums use atomics: only the G2 and G4 force passes, which add through the
+// shared window and to global memory in an order that varies from run to
+// run: their results differ from run to run in the last bits (the run sums
+// over lanes alone are taken in a fixed order). The G2 and G4 forward and
+// tangent passes have no atomics: the same inputs give the same bits.
 //
 // Bound: at the HDNNP2nd serving shapes (N = 8192, A = 417024, R*m = 120 for
 // G4; E = 54784, R*m = 20 for G2) the bytes dominate all six: each call
@@ -134,8 +132,10 @@
 // The G4 fwd and jvp kernels wait on chains of shared-memory and global
 // loads between their block barriers; the force passes on their per-row
 // loads (receivers, then positions; senders, then atomic numbers, then the
-// cotangent slice) and their atomics. The G2 kernels, with 214-245 blocks at
-// that batch, are one chain of dependent loads long, and their launch. Their
+// cotangent slice) and their atomics. The G2 kernels (245 blocks for the fwd
+// and jvp kernels, 214 for the vjp kernel at that batch) are one chain of
+// dependent loads long (the tangent pass loads dpos beside the positions),
+// and their launch. Their
 // times against these bounds, and the designs tried, are in PERF.md
 // (probe_kernel_variants.py).
 
@@ -151,7 +151,6 @@ constexpr int kMaxUniq = 8;
 constexpr int kMaxElements = 16;
 constexpr int kMaxZ = 96;
 constexpr int kMaxColumns = 2048;
-constexpr int kWarps = 4;  // G2 jvp: receiver nodes per block
 constexpr int kG4Threads = 256;  // G4 fwd and jvp: threads of a block, angles of a round
 constexpr int kG4Warps = kG4Threads / 32;
 constexpr int kValStride = kG4Threads + 1;  // a round's values of one set, padded
@@ -192,39 +191,8 @@ struct AcsfG2Params {
 
 namespace {
 
-// first row in [0, n) whose id (ids[row * stride]) is >= key
-__device__ __forceinline__ int row_lower_bound(const int* __restrict__ ids,
-                                           int stride, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (__ldg(ids + static_cast<long long>(mid) * stride) < key) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
-// the node's row range [begin, end), found by lanes 0 and 1, for the warp
-__device__ __forceinline__ void warp_range(const int* __restrict__ ids,
-                                           int stride, int n, int node,
-                                           int lane, int* begin, int* end) {
-  int b = 0;
-  if (lane < 2) b = row_lower_bound(ids, stride, n, node + lane);
-  *begin = __shfl_sync(0xffffffffu, b, 0);
-  *end = __shfl_sync(0xffffffffu, b, 1);
-}
-
 __device__ __forceinline__ int z_index(int z) {
   return min(max(z, 0), kMaxZ - 1);
-}
-
-__device__ __forceinline__ float cutoff(float r, float rc, float pi_rc) {
-  return 0.5f * (cosf(fminf(fmaxf(r, -rc), rc) * pi_rc) + 1.0f);
-}
-
-// d fc / d r, zero outside [-rc, rc]
-__device__ __forceinline__ float cutoff_d(float r, float rc, float pi_rc) {
-  return fabsf(r) <= rc ? -0.5f * pi_rc * sinf(r * pi_rc) : 0.0f;
 }
 
 __device__ __forceinline__ float dot3(const float* a, const float* b) {
@@ -243,15 +211,6 @@ struct Angle {
   float vij[3], vik[3], vjk[3];
   float rij, rik, rjk, cos;
 };
-
-// d rep_s / d r of G2 set s at distance r
-__device__ __forceinline__ float g2_drep_dr(const AcsfG2Params& p, int s,
-                                            float r) {
-  const float dr = r - p.rs[s];
-  const float g = expf(-p.eta[s] * (dr * dr));
-  return -2.0f * p.eta[s] * dr * g * cutoff(r, p.rc[s], p.pi_rc[s])
-         + g * cutoff_d(r, p.rc[s], p.pi_rc[s]);
-}
 
 // ---------------------------------------------------------------- G4 angles
 
@@ -818,16 +777,20 @@ __device__ __forceinline__ void g2_sets(const AcsfG2Params& p, float r, F f) {
   }
 }
 
-// ---------------------------------------------------------------- G2 fwd
+// ---------------------------------------------------------------- G2 fwd and jvp
 // Rows owned by edge ranges (see the header): block b takes the edges
 // [b * kG2Range, + kG2Range) and owns the receivers whose first edge lies
 // there, and the receivers without edges before them.
 
-__global__ void __launch_bounds__(kG2Threads) g2_fwd_kernel(
-    const float* __restrict__ pos, const int* __restrict__ z,
-    const int* __restrict__ senders, const int* __restrict__ receivers,
-    const bool* __restrict__ mask, float* __restrict__ out, int n_node,
-    int n_edge, const __grid_constant__ AcsfG2Params p) {
+template <bool kJvp>
+__device__ __forceinline__ void g2_owned_rows(const float* __restrict__ pos,
+                                              const int* __restrict__ z,
+                                              const int* __restrict__ senders,
+                                              const int* __restrict__ receivers,
+                                              const bool* __restrict__ mask,
+                                              const float* __restrict__ dpos,
+                                              float* __restrict__ out, int n_node, int n_edge,
+                                              const AcsfG2Params& p) {
   extern __shared__ float smem[];
   __shared__ int srel[kG2Threads];       // sender slot of each edge of a round, -1 if skipped
   __shared__ int row_id[kG2Threads];     // the rows of a round, in order: their ids,
@@ -878,14 +841,29 @@ __global__ void __launch_bounds__(kG2Threads) g2_fwd_kernel(
     const int nb = base + kG2Threads;  // the next round's first edge
     const bool more = computed_id(nb < n_edge ? __ldg(receivers + nb) : -1, nb, n_edge, ab1,
                                   id_before, id_last) >= 0;
-    // every thread computes one edge's m set values into shared memory
+    // every thread computes one edge's m set values (kJvp: their tangents
+    // along dpos) into shared memory
     int rel = -1;
     if (id >= 0 && x.live) {
       const Edge g = edge_geometry(pos, id, x.j);
       rel = p.slot_of_z[z_index(__ldg(z + x.j))];
-      g2_sets(p, g.r, [&](int s, float gs, float, float fc, float) {
-        vals[s * kG2Stride + tid] = gs * fc;
-      });
+      if constexpr (kJvp) {
+        // the tangent of r, tr = (v . dv) / r with dv = dpos_j - dpos_i, times
+        // d rep_s / d r = g (d fc / d r - 2 eta_s dr fc)
+        float dpi[3], dpj[3];
+        load3(dpos, id, dpi);
+        load3(dpos, x.j, dpj);
+        const float tr = ((dpj[0] - dpi[0]) * g.v[0] + (dpj[1] - dpi[1]) * g.v[1]
+                          + (dpj[2] - dpi[2]) * g.v[2]) * g.inv;
+        g2_sets(p, g.r, [&](int s, float gs, float dr, float fc, float sn) {
+          vals[s * kG2Stride + tid] =
+              gs * (-0.5f * p.pi_rc[s] * sn - 2.0f * p.eta[s] * dr * fc) * tr;
+        });
+      } else {
+        g2_sets(p, g.r, [&](int s, float gs, float, float fc, float) {
+          vals[s * kG2Stride + tid] = gs * fc;
+        });
+      }
     }
     srel[tid] = rel;
     const bool head = id >= 0 && (tid == 0 || prev != id);
@@ -925,6 +903,23 @@ __global__ void __launch_bounds__(kG2Threads) g2_fwd_kernel(
     x = edge_ids(senders, receivers, mask, e, n_edge);
     __syncthreads();  // before the next round writes what this one read
   }
+}
+
+__global__ void __launch_bounds__(kG2Threads) g2_fwd_kernel(
+    const float* __restrict__ pos, const int* __restrict__ z,
+    const int* __restrict__ senders, const int* __restrict__ receivers,
+    const bool* __restrict__ mask, float* __restrict__ out, int n_node,
+    int n_edge, const __grid_constant__ AcsfG2Params p) {
+  g2_owned_rows<false>(pos, z, senders, receivers, mask, nullptr, out, n_node, n_edge, p);
+}
+
+__global__ void __launch_bounds__(kG2Threads) g2_jvp_kernel(
+    const float* __restrict__ pos, const int* __restrict__ z,
+    const int* __restrict__ senders, const int* __restrict__ receivers,
+    const bool* __restrict__ mask, const float* __restrict__ dpos,
+    float* __restrict__ out, int n_node, int n_edge,
+    const __grid_constant__ AcsfG2Params p) {
+  g2_owned_rows<true>(pos, z, senders, receivers, mask, dpos, out, n_node, n_edge, p);
 }
 
 // ---------------------------------------------------------------- G2 vjp
@@ -984,47 +979,6 @@ __global__ void __launch_bounds__(kG2Threads) g2_vjp_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32) g2_jvp_kernel(
-    const float* __restrict__ pos, const int* __restrict__ z,
-    const int* __restrict__ senders, const int* __restrict__ receivers,
-    const bool* __restrict__ mask, const float* __restrict__ dpos,
-    float* __restrict__ out, int n_node, int n_edge,
-    const __grid_constant__ AcsfG2Params p) {
-  extern __shared__ float rows[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int node = blockIdx.x * kWarps + warp;
-  if (node >= n_node) return;
-  const int m = p.m;
-  const int width = p.num_rel * m;
-  float* row = rows + warp * width;
-  for (int c = lane; c < width; c += 32) row[c] = 0.0f;
-  int begin, end;
-  warp_range(receivers, 1, n_edge, node, lane, &begin, &end);
-  __syncwarp();
-  float pi[3], dpi[3];
-  load3(pos, node, pi);
-  load3(dpos, node, dpi);
-  for (int e = begin + lane; e < end; e += 32) {
-    if (!mask[e]) continue;
-    const int j = __ldg(senders + e);
-    float pj[3], dpj[3], v[3], dv[3];
-    load3(pos, j, pj);
-    load3(dpos, j, dpj);
-    for (int d = 0; d < 3; ++d) {
-      v[d] = pj[d] - pi[d];
-      dv[d] = dpj[d] - dpi[d];
-    }
-    const float r = sqrtf(fmaxf(dot3(v, v), kEps));
-    const float dr = dot3(v, dv) / r;
-    float* dst = row + p.slot_of_z[z_index(__ldg(z + j))] * m;
-    for (int s = 0; s < m; ++s) atomicAdd(dst + s, g2_drep_dr(p, s, r) * dr);
-  }
-  __syncwarp();
-  float* o = out + static_cast<long long>(node) * width;
-  for (int c = lane; c < width; c += 32) o[c] = row[c];
-}
-
 bool g4_params_ok(const AcsfG4Params* p) {
   return p->m > 0 && p->m <= kMaxSets && p->n_eta <= kMaxUniq
          && p->n_zl <= kMaxUniq && p->n_rc <= kMaxUniq
@@ -1036,11 +990,6 @@ bool g2_params_ok(const AcsfG2Params* p) {
   return p->m > 0 && p->m <= kMaxSets && p->num_rel > 0
          && p->num_rel * p->m <= kMaxColumns;
 }
-
-// the G2 jvp kernel: a warp a receiver, its row in shared memory
-dim3 grid_for(int n_node) { return dim3((n_node + kWarps - 1) / kWarps); }
-
-size_t shared_bytes(int width) { return sizeof(float) * kWarps * width; }
 
 // the G4 kernels' register tables: exact for the unique counts of the
 // HDNNP tables (2 eta, 4 (zeta, lambda), 1 r_c), else kMaxUniq of each.
@@ -1072,6 +1021,16 @@ int launch_g4(Kernel kernel, const AcsfG4Params* p, int n_angle, void* stream, A
       sizeof(float) * (p->m * kValStride + (2 * kG4Warps + 2) * p->num_rel * p->m));
   const int grid = std::max(1, (n_angle + kG4Range - 1) / kG4Range);
   return launch(kernel, grid, kG4Threads, bytes, stream, args..., *p);
+}
+
+// one launch of the G2 fwd or jvp kernel: a block for each kG2Range edges
+// (one for none, which zeroes every row); shared memory for the set values
+// of a round and 2 carried rows
+template <typename Kernel, typename... Args>
+int launch_g2(Kernel kernel, const AcsfG2Params* p, int n_edge, void* stream, Args... args) {
+  const int bytes = static_cast<int>(sizeof(float) * (p->m * kG2Stride + 2 * p->num_rel * p->m));
+  const int grid = std::max(1, (n_edge + kG2Range - 1) / kG2Range);
+  return launch(kernel, grid, kG2Threads, bytes, stream, args..., *p);
 }
 
 }  // namespace
@@ -1144,12 +1103,8 @@ extern "C" int gcnn_acsf_g2_fwd_f32(const float* pos, const int* z,
                                     void* stream) {
   if (!g2_params_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_node <= 0) return static_cast<int>(cudaSuccess);
-  // a block for each kG2Range edges (one for none, which zeroes every row);
-  // shared memory for the set values of a round and 2 carried rows
-  const int bytes = static_cast<int>(sizeof(float) * (p->m * kG2Stride + 2 * p->num_rel * p->m));
-  const int grid = std::max(1, (n_edge + kG2Range - 1) / kG2Range);
-  return launch(g2_fwd_kernel, grid, kG2Threads, bytes, stream, pos, z, senders, receivers, mask,
-                out, n_node, n_edge, *p);
+  return launch_g2(g2_fwd_kernel, p, n_edge, stream, pos, z, senders, receivers, mask, out,
+                   n_node, n_edge);
 }
 
 extern "C" int gcnn_acsf_g2_vjp_f32(const float* pos, const int* z,
@@ -1172,9 +1127,6 @@ extern "C" int gcnn_acsf_g2_jvp_f32(const float* pos, const int* z,
                                     const AcsfG2Params* p, void* stream) {
   if (!g2_params_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_node <= 0) return static_cast<int>(cudaSuccess);
-  g2_jvp_kernel<<<grid_for(n_node), kWarps * 32, shared_bytes(p->num_rel * p->m),
-                  static_cast<cudaStream_t>(stream)>>>(pos, z, senders, receivers,
-                                                       mask, dpos, out, n_node,
-                                                       n_edge, *p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_g2(g2_jvp_kernel, p, n_edge, stream, pos, z, senders, receivers, mask, dpos,
+                   out, n_node, n_edge);
 }

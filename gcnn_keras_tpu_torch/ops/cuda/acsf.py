@@ -54,10 +54,9 @@ launches = dict.fromkeys(KERNELS, 0)
 
 # limits of the kernels' own design (csrc/acsf.cu): per-set and unique-value
 # tables live in the launch parameters, and output rows in shared memory
-# (the G2 fwd kernel two carried and a round's set values; the G2 jvp kernel
-# one a warp; the G4 fwd and jvp kernels two a warp, two carried and a
-# round's set values; the vjp kernels read their cotangent rows from global
-# memory)
+# (the G2 fwd and jvp kernels two carried and a round's set values; the G4
+# fwd and jvp kernels two a warp, two carried and a round's set values; the
+# vjp kernels read their cotangent rows from global memory)
 MAX_SETS = 32
 MAX_UNIQ = 8
 MAX_ELEMENTS = 16

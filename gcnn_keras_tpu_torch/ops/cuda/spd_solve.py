@@ -10,18 +10,27 @@ their autograd Function; counterpart of ``gcnn_keras_tpu/ops/pallas/spd_solve.py
   system, a lane a column of ``[A | B]`` in registers, the pivot column read
   by shuffle, no block barrier (columns past 32 in further passes of the
   warp);
-- 32 < M: one thread block a system, ``[A | B]`` in shared memory, two
-  block barriers a step.
+- 32 < M: one thread block a system, ``[A | B]`` in shared memory
+  column-major, a warp a round-robin set of columns, a lane a set of rows
+  (one instance for each ceil(M / 32) from 2 to 8); the steps go in blocks
+  of three, each live entry read and written once a block, one block
+  barrier a block.
 
 Both do the plain version's arithmetic, rounded the same way, so they agree
 with :func:`spd_solve_plain` to the last bit.
 
 Bound on the H100: at the Qeq serving shape (G=513, M=20, K=2) the call
 must move 0.98 MB (about 0.29 us at 3.35 TB/s) and do some 5 MFLOP; the
-kernels are bound by the latency of their M dependent steps instead.
+warp kernel is bound by the latency of its M dependent steps instead, the
+block kernel at large M by the instruction rate of its rounded operations
+and its shared-memory traffic, at small M by the latency of its block
+steps.
 
-The block kernel's one limit is its shared memory: :func:`fits_shared_memory`
-is the shape test a caller makes before choosing the kernels, for every M.
+The block kernel's one limit is its shared memory, ``4 (M | 1) (M + K)``
+bytes: :func:`fits_shared_memory` is the shape test a caller makes before
+choosing the kernels, for every M, on the budget :func:`shared_bytes`
+states (at least the kernel's; ``M <= 239`` at ``K = 2``).
+
 A CPU tensor takes :func:`spd_solve_plain`; a CUDA tensor launches a kernel
 or raises. ``launches`` counts kernel launches and nothing else.
 """
@@ -42,7 +51,9 @@ MAX_SHARED_BYTES = 232448
 
 
 def shared_bytes(m: int, k: int) -> int:
-    """Shared memory of one block: ``[A | B]`` plus a row and a column."""
+    """The gate's shared-memory budget of one system: ``[A | B]`` plus a row
+    and a column. The block kernel takes ``[A | B]`` with its columns padded
+    to an odd length, ``4 (m | 1) (m + k)`` bytes, which is never more."""
     return 4 * (m * (m + k) + m + (m + k))
 
 

@@ -27,9 +27,10 @@ held against the plain version:
 - ``spd_solve`` (both SPD kernels): phase 7's Qeq solve of the HDNNP4th
   serving request with K = 2 and K = 1, every call of one
   ``hdnnp4th_train`` step (captured), random systems of M = 8, 12 and 32
-  (the warp kernel) and 100 and 239 (the block kernel) at the same G, and
-  one system of M = 1 (the launch floor), with phase 7's edge cases
-  checked.
+  (the warp kernel) and 64, 100, 160 and 239 (the block kernel) at the same
+  G, and one system of M = 1 (the launch floor), each beside
+  ``torch.linalg.solve`` and Cholesky + ``cholesky_solve``, with phase 7's
+  edge cases checked.
 
 Prints one JSON line per timing. Needs one CUDA card.
 """
@@ -193,8 +194,8 @@ def acsf_timings(libs, order):
 def spd_calls():
     """``(label, timed, (a, b))`` of the SPD kernels' checks: phase 7's Qeq
     systems (K = 2 and K = 1), the captured calls of one ``hdnnp4th_train``
-    step, random systems of M = 8, 12 and 32 (the warp kernel) and 100 and
-    239 (the block kernel) at the serving G, and one of M = 1."""
+    step, random systems of M = 8, 12 and 32 (the warp kernel) and 64, 100,
+    160 and 239 (the block kernel) at the serving G, and one of M = 1."""
     pred = chip_smoke.make_hdnnp4th_predictor("cuda")
     _, batch = pred.make_batch(chip_smoke.with_esp(chip_smoke.qm9_like_mols(0, 512), 0))
     a, rhs, *_ = chip_smoke.qeq_system(pred.model.energy_model, batch)
@@ -210,7 +211,7 @@ def spd_calls():
         trainer.step_fn()(state, tbatch)
     out += [(f"{path}, call {i + 1}", True, args) for i, args in enumerate(calls["spd_solve"])]
     out += [(f"random, M={m}", True, chip_smoke.random_spd(g, m, 2, m, a.device))
-            for m in (8, 12, 32, 100, 239)]
+            for m in (8, 12, 32, 64, 100, 160, 239)]
     out.append(("G=1, M=1, K=1: the launch floor", True, chip_smoke.random_spd(1, 1, 1, 0, a.device)))
     return out, (pred.model.energy_model, batch)
 
@@ -226,7 +227,8 @@ def spd_timings(libs, order):
         for label, timed, args in calls:
             rec = chip_smoke.check_spd(*args, label, timed)
             print(json.dumps({"variant": name, **{k: rec[k] for k in (
-                "case", "G", "M", "K", "ms", "ms_warm", "bound_ms", "max_abs_err")}}))
+                "case", "G", "M", "K", "ms", "ms_warm", "bound_ms", "library_ms",
+                "cholesky_ms", "max_abs_err")}}))
 
 
 def main():

@@ -41,7 +41,8 @@ timed check at the HDNNP2nd serving batch and the ACSF edge cases (the G2
 kernels also the G2 layout cases), each also every call of one
 ``hdnnp2nd_train`` and one ``hdnnp4th_train`` step (phase 10, the first
 call timed); ``spd_solve``, phase 7's checks (the
-HDNNP4th serving request's Qeq solve timed, and the edge cases) and every
+HDNNP4th serving request's Qeq solve and the block kernel at M = 100 and
+239 timed, and the edge cases) and every
 call of one ``hdnnp4th_train`` step. The last line is one JSON summary of
 the timed records. Needs one CUDA card.
 """

@@ -241,9 +241,9 @@ def test_acsf_kernel_edge_cases(cuda_device, name, other_g4_table):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["g2_fwd", "g4_fwd", "g4_jvp"])
+@pytest.mark.parametrize("name", ["g2_fwd", "g4_fwd", "g4_jvp", "g2_jvp"])
 def test_acsf_kernels_give_the_same_bits_run_to_run(cuda_device, name):
-    """The G2 and G4 fwd and the G4 jvp kernels sum in a fixed order, without
+    """The G2 and G4 fwd and jvp kernels sum in a fixed order, without
     atomics: two launches on the HDNNP2nd serving batch give identical
     bits."""
     import chip_smoke
@@ -253,7 +253,8 @@ def test_acsf_kernels_give_the_same_bits_run_to_run(cuda_device, name):
     model = pred.model.energy_model
     st = (model.acsf_g2 if name.startswith("g2") else model.acsf_g4)._static
     args = chip_smoke.acsf_call_args(name, st, b)
-    kernel = {"g2_fwd": ka.g2_forward, "g4_fwd": ka.g4_forward, "g4_jvp": ka.g4_jvp}[name]
+    kernel = {"g2_fwd": ka.g2_forward, "g4_fwd": ka.g4_forward, "g4_jvp": ka.g4_jvp,
+              "g2_jvp": ka.g2_jvp}[name]
     first, second = kernel(*args), kernel(*args)
     torch.cuda.synchronize()
     assert torch.isfinite(first).all() and first.abs().max().item() > 0.0
@@ -439,6 +440,25 @@ def test_spd_kernel_equals_plain_bit_for_bit(cuda_device):
     a, b = _random_spd(513, 20, 2, 5, cuda_device)
     x = ks.spd_solve(a, b)
     torch.cuda.synchronize()
+    assert torch.equal(x.view(torch.int32), ks.spd_solve_plain(a, b).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(33, 1), (33, 2), (33, 5), (64, 1), (64, 2), (64, 5),
+                                 (100, 1), (100, 2), (100, 5), (160, 1), (160, 2),
+                                 (160, 5), (239, 1), (239, 2)])
+def test_spd_block_kernel_equals_plain_bit_for_bit(cuda_device, m, k):
+    """The block kernel (M > 32; 239 at K = 5 is past the gate) takes the
+    steps in pairs, and each entry still goes through the plain version's
+    operations in its order: the same bits, at an odd and an even M, one
+    and several right-hand sides."""
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    assert ks.fits_shared_memory(m, k)
+    a, b = _random_spd(9, m, k, m + k, cuda_device)
+    before = ks.launches
+    x = ks.spd_solve(a, b)
+    torch.cuda.synchronize()
+    assert ks.launches == before + 1
     assert torch.equal(x.view(torch.int32), ks.spd_solve_plain(a, b).view(torch.int32))
 
 
@@ -850,10 +870,10 @@ def test_tiled_kernels_read_no_unwritten_shared_memory(cuda_device, fill_shared_
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["g4_fwd", "g4_jvp", "g4_vjp", "g2_fwd", "g2_vjp"])
+@pytest.mark.parametrize("name", ["g4_fwd", "g4_jvp", "g4_vjp", "g2_fwd", "g2_vjp", "g2_jvp"])
 def test_acsf_kernels_read_no_unwritten_shared_memory(cuda_device, fill_shared_nan, name):
-    """The G4 kernels and the G2 fwd and vjp kernels (set values and carried
-    rows in shared memory; the vjp kernels' dpos window) on their edge
+    """The G4 and G2 kernels (set values and carried rows in shared memory;
+    the vjp kernels' dpos window) on their edge
     batches (G2: ``chip_smoke.acsf_g2_edge_batch``), launched once, then
     right after a kernel that left NaN in all of every SM's shared memory:
     finite, and within the tolerance of their plain version, both times."""
@@ -875,13 +895,14 @@ def test_acsf_kernels_read_no_unwritten_shared_memory(cuda_device, fill_shared_n
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [20, 32])
+@pytest.mark.parametrize("m", [20, 32, 33, 239])
 def test_spd_kernel_reads_no_unwritten_shared_memory(cuda_device, fill_shared_nan, m):
     """The warp kernel at M = 20 (K = 2: registers only) and at M = 32 (its
     second pass over the columns past 32 reads the first pass's steps from
-    shared memory), launched once, then right after a kernel that left NaN
-    in all of every SM's shared memory: within the tolerance of the plain
-    version both times."""
+    shared memory), and the block kernel at M = 33 and 239 ([A | B] in
+    shared memory, the last rows a lane partly past M), launched once, then
+    right after a kernel that left NaN in all of every SM's shared memory:
+    within the tolerance of the plain version both times."""
     import chip_smoke
     from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
     a, b = _random_spd(64, m, 2, m, cuda_device)

@@ -31,7 +31,9 @@ def _spd(seed, g, m, k):
 
 
 @pytest.mark.parametrize("g,m,k", [(5, 21, 2), (5, 1, 2), (1, 21, 2), (5, 21, 1),
-                                   (1, 1, 1), (3, 9, 4)])
+                                   (1, 1, 1), (3, 9, 4),
+                                   # the sizes the block kernel (M > 32) serves
+                                   (3, 33, 2), (2, 64, 2), (2, 100, 1)])
 def test_plain_and_function_match_the_jax_kernel(g, m, k):
     """The JAX Gauss-Jordan kernel in interpret mode and its
     custom_linear_solve wrapper; atol 2e-6 as tests/test_qeq_solver.py."""

@@ -48,16 +48,20 @@ order, each raising on a failed check:
    and at edge cases, with times and bounds; and the second-order pattern
    of ``tests/test_fused_g4.py`` (a derivative through the force pass), the
    kernel path against the plain path on the card.
-10. training: for SchNet, HDNNP2nd and HDNNP4th, the JAX package's bench
-   training step (``bench.py``: its batch, loss and ``adam(1e-3)``) through
-   ``Trainer`` over ``EnergyForceModel.apply(create_graph=True)``. The first
-   step's loss and parameter gradients on a 64-molecule batch equal the same
-   step on the CPU; every kernel call of a step on the full-width batch is
-   held against its plain version on the same inputs (the first call of
-   each kernel timed, with its bound); then 5 steps on the full-width
-   batch, each loss finite and the fifth below the first, with every
-   kernel's launch count per step held to its derived value, the time per
-   step and the peak memory.
+10. training: for SchNet, HDNNP2nd, HDNNP4th and PAiNN, the JAX package's
+   bench training step (``bench.py``: its batch, loss and ``adam(1e-3)``)
+   through ``Trainer`` over ``EnergyForceModel.apply(create_graph=True)``;
+   and GCN node classification at Cora scale (``sec_gcn_cora``: the
+   synthetic 2708-node citation graph, the masked cross-entropy,
+   ``adam(1e-2)``, full batch). The first step's loss and parameter
+   gradients on a 64-molecule batch (GCN: the same full graph) equal the
+   same step on the CPU; every kernel call of a step on the full-width
+   batch is held against its plain version on the same inputs (the first
+   call of each kernel timed, with its bound); then 5 steps on the
+   full-width batch, each loss finite and the fifth below the first (PAiNN:
+   finite; its bench recipe overshoots after the first update, as in the
+   JAX package), with every kernel's launch count per step held to its
+   derived value, the time per step and the peak memory.
 11. SchNet MD kernels: the gather-multiply-segment-sum (``fused_aggregate``)
    and the fused cfconv (``accurate_cfconv``) against their plain versions
    at the SchNet serving shapes of the seed-0 request (the fused cfconv
@@ -95,6 +99,14 @@ order, each raising on a failed check:
 16. SchNet serving with ``fused_chain=True``: the 3 requests of phase 4,
    checked as there, against the CPU and phase 4's unfused answers.
    ``SCHNET_MODES``, which phase 14 runs, leaves this mode out.
+17. PAiNN serving: ``MolDynamicsModelPredictor(EnergyForceModel(
+   painn.make_model(...)))`` at the JAX package's bench configuration
+   (``bench.py`` ``bench_painn_model``) answers the 3 requests of phase 4,
+   checked as there; every segment-sum call of one evaluation of the
+   first request is held against its plain version (the first call at 384
+   columns, the equivariant messages, timed), the launch count per
+   evaluation held to its derived value, and the time per evaluation and
+   per request measured.
 
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it.
@@ -253,6 +265,22 @@ HDNNP4TH_KW = dict(
 HDNNP4TH_LAUNCHES = launch_counts(g2_fwd=1, g4_fwd=1, g4_vjp=1, g2_vjp=1,
                                   sorted_segment_sum=5, spd_solve=2)
 HDNNP4TH_M = 20  # max_nodes of the three requests: the Qeq systems are 20 x 20
+# the JAX package's PAiNN bench configuration (bench.py bench_painn_model),
+# written out: depth 3, 128 units, the cosine cutoff at 5.0 on every filter,
+# 20 Bessel radials to 5.0, a [128, 1] swish/linear output MLP
+PAINN_KW = dict(depth=3, conv_args={"units": 128, "cutoff": 5.0},
+                update_args={"units": 128}, input_embedding={"node": {"output_dim": 128}},
+                bessel_basis={"num_radial": 20, "cutoff": 5.0},
+                output_mlp={"units": [128, 1], "activation": ["swish", "linear"]})
+# segment-sum launches per PAiNN energy+force evaluation (see PERF.md): the
+# energy pass pools the scalar (E, 128) and equivariant (E, 3, 128) messages
+# in each of the 3 convs and pools the nodes onto the graphs (7); the force
+# pass runs the transposes of pos_j and pos_i in edge_vectors and of the
+# sender gathers of phi and v in convs 1-2 (6). Conv 0's phi and v do not
+# depend on the coordinates (v starts at 0); the pools' backwards are
+# gathers.
+PAINN_LAUNCHES = launch_counts(sorted_segment_sum=2 * 3 + 1 + 2 + 2 * 2)
+PAINN_WIDE = 3 * 128  # the equivariant messages' columns, (E, 3, U) flattened
 # SPD solve: max|kernel - plain| <= SPD_TOL * (1 + max|plain|) and
 # max|A x - b| <= SPD_RESIDUAL_TOL * (1 + max|b|)
 SPD_TOL, SPD_RESIDUAL_TOL = 1e-5, 1e-4
@@ -262,9 +290,11 @@ SPD_BLOCK_TIMED_M = (100, 239)
 # charges of a molecule sum to its total charge within CHARGE_TOL * (1 + sum|q|)
 CHARGE_TOL = 1e-4
 # The training paths: the JAX package's bench training steps (bench.py
-# bench_schnet_setup, sec_hdnnp2nd with _ef_train_step, _hdnnp_setup): the
-# batch _mols(RandomState(seed), n_mols, with_esp), the loss
-# charge_weight * q_MAE + E_MAE + force_weight * F_MAE, adam(1e-3).
+# bench_schnet_setup, sec_hdnnp2nd and sec_painn with _ef_train_step,
+# _hdnnp_setup): the batch _mols(RandomState(seed), size, with_esp), the loss
+# charge_weight * q_MAE + E_MAE + force_weight * F_MAE, adam(1e-3); and
+# sec_gcn_cora: the citation graph of size nodes from seed, the masked
+# cross-entropy of the node logits, adam(1e-2).
 # Kernel launches per step (see PERF.md): the evaluation of serving with
 # create_graph=True, then the loss's reverse pass along the parameters:
 # - SchNet (10 + 9): the transposes of the sender gathers of interactions
@@ -283,32 +313,63 @@ CHARGE_TOL = 1e-4
 #   interaction, the loss's reverse pass runs CF's backward once with the
 #   summed cotangent (cf_vjp) and BWD's backward once (cf_hesjvp); the
 #   transpose of the graph pool's backward gather is the second segment-sum.
-#   Its kernels are timed in phase 15 on the same batch.
+#   Its kernels are timed in phase 15 on the same batch;
+# - PAiNN (13 + 12): the transposes of the sender gathers of phi in convs
+#   0-2 and of v in convs 1-2 (5), and, through the force pass, the
+#   transposes of the gathers that are the backward of the six edge pools
+#   and of the graph pool (7; the output MLP comes after the pool);
+# - GCN (3 + 3): no force pass; the three weighted edge pools, then the
+#   transposes of the three sender gathers (conv 0's input is
+#   embed_to_units of the features, which depends on the parameters).
 TRAIN_PATHS = {
-    "schnet_train": dict(model="schnet", seed=0, n_mols=512, with_esp=False,
+    "schnet_train": dict(model="schnet", seed=0, size=512, with_esp=False,
                          global_keys=("energy",), force_weight=100.0, charge_weight=0.0,
                          launches=launch_counts(sorted_segment_sum=19)),
-    "schnet_chain_train": dict(model="schnet", mode="chain", seed=0, n_mols=512,
+    "schnet_chain_train": dict(model="schnet", mode="chain", seed=0, size=512,
                                with_esp=False, global_keys=("energy",), force_weight=100.0,
                                charge_weight=0.0, time_calls=False,
                                launches=launch_counts(cf_fwd=4, cf_vjp=8, cf_hesjvp=4,
                                                       sorted_segment_sum=2)),
-    "hdnnp2nd_train": dict(model="hdnnp2nd", seed=5, n_mols=1024, with_esp=True,
+    "hdnnp2nd_train": dict(model="hdnnp2nd", seed=5, size=1024, with_esp=True,
                            global_keys=("energy",), force_weight=100.0, charge_weight=0.0,
                            launches=launch_counts(g2_fwd=1, g4_fwd=1, g4_vjp=1, g2_vjp=1,
                                                   g4_jvp=1, g2_jvp=1, sorted_segment_sum=1)),
-    "hdnnp4th_train": dict(model="hdnnp4th", seed=1, n_mols=128, with_esp=True,
+    "hdnnp4th_train": dict(model="hdnnp4th", seed=1, size=128, with_esp=True,
                            global_keys=("energy", "total_charge"), force_weight=200.0,
                            charge_weight=50.0,
                            launches=launch_counts(g2_fwd=1, g4_fwd=1, g4_vjp=1, g2_vjp=1,
                                                   g4_jvp=1, g2_jvp=1, sorted_segment_sum=7,
                                                   spd_solve=4)),
+    # Two differences from the other paths, both the bench recipe's and not
+    # the port's (PERF.md; tests/test_torch_painn.py): its loss jumps
+    # after the first Adam step in both packages and need not be below the
+    # first by the fifth (falls=False); and its force-loss gradients carry
+    # float32 noise of a few 1e-5 of a tensor's largest entry in either
+    # package (the second derivative of |v| on the init's small equivariant
+    # features), so two float32 runs, the card's and the CPU's, are held to
+    # grad_tol, 5 x TRAIN_TOL
+    "painn_train": dict(model="painn", seed=4, size=256, with_esp=False,
+                        global_keys=("energy",), force_weight=100.0, charge_weight=0.0,
+                        falls=False, grad_tol=5e-4,
+                        launches=launch_counts(sorted_segment_sum=13 + 5 + 7)),
+    # the first step against the CPU on the same full graph
+    "gcn_cora_train": dict(model="gcn", seed=1, size=2708, first_step=(1, 2708),
+                           launches=launch_counts(sorted_segment_sum=3 + 3)),
 }
+# sec_gcn_cora's graph and model: SyntheticCitationDataset(num_nodes=2708,
+# num_classes=70, feature_dim=1433, avg_degree=4, seed=1), a 3-deep GCN of
+# 140 units with a linear 70-class output per node
+CORA_CLASSES, CORA_FEATURES = 70, 1433
+GCN_CORA_KW = dict(in_features=CORA_FEATURES, depth=3, gcn_args={"units": 140},
+                   output_embedding="node",
+                   output_mlp={"units": [CORA_CLASSES], "activation": ["linear"]})
 TRAIN_STEPS = 5
-# the first step on the card against the CPU, on _mols(RandomState(2), 64):
+# the first step on the card against the CPU, on _mols(RandomState(2), 64)
+# (GCN: the full graph):
 # |loss_gpu - loss_cpu| <= TRAIN_TOL * |loss_cpu|, and for each parameter
-# max|grad_gpu - grad_cpu| <= TRAIN_TOL * max|grad_cpu|: float32 sums in
-# other orders (atomics among them) through two reverse passes
+# max|grad_gpu - grad_cpu| <= TRAIN_TOL * max|grad_cpu| (a path's grad_tol
+# where it sets one): float32 sums in other orders (atomics among them)
+# through two reverse passes
 TRAIN_TOL = 1e-4
 
 
@@ -522,13 +583,16 @@ def schnet_model(mode, device, **kwargs):
 
 def energy_force_model(kind, device, mode="unfused"):
     """The full-width ``EnergyForceModel`` of ``kind`` with weights from seed
-    0: SchNet ``make_model()`` defaults in ``mode``, or the HDNNP2nd or
-    HDNNP4th bench configuration (HDNNP4th with ESP coupling)."""
+    0: SchNet ``make_model()`` defaults in ``mode``, or the HDNNP2nd,
+    HDNNP4th (with ESP coupling) or PAiNN bench configuration."""
     from gcnn_keras_tpu_torch.model.force import EnergyForceModel
-    from gcnn_keras_tpu_torch.models import hdnnp2nd, hdnnp4th
+    from gcnn_keras_tpu_torch.models import hdnnp2nd, hdnnp4th, painn
     gen = torch.Generator().manual_seed(0)
     if kind == "schnet":
         return EnergyForceModel(schnet_model(mode, device), device=device)
+    if kind == "painn":
+        return EnergyForceModel(painn.make_model(device=device, generator=gen, **PAINN_KW),
+                                device=device)
     if kind == "hdnnp2nd":
         return EnergyForceModel(hdnnp2nd.make_model_behler(
             device=device, generator=gen, **HDNNP2ND_KW), device=device)
@@ -542,6 +606,12 @@ def make_predictor(device, mode="unfused"):
     from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
     return MolDynamicsModelPredictor(energy_force_model("schnet", device, mode),
                                      device=device)
+
+
+def make_painn_predictor(device):
+    """The serving stack at the PAiNN bench width with weights from seed 0."""
+    from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
+    return MolDynamicsModelPredictor(energy_force_model("painn", device), device=device)
 
 
 def phase_serving(gpu, requests, batch0, smi):
@@ -1285,24 +1355,66 @@ def ef_loss_fn(fmodel, force_weight, charge_weight=0.0):
     return loss_fn
 
 
-def train_batch(path, seed, n_mols, device):
+def citation_batch(seed, n_nodes, device):
+    """``bench.py`` ``sec_gcn_cora``'s batch: the synthetic citation graph of
+    ``n_nodes`` nodes (70 classes, 1433 features, degree 4) from ``seed``,
+    its edge weights set uniform and normalized symmetrically, alone in a
+    batch, with its ``node_labels``."""
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    from gcnn_keras_tpu_torch.data.datasets.synthetic import SyntheticCitationDataset
+    from gcnn_keras_tpu_torch.graph.preprocess import (normalize_edge_weights_symmetric,
+                                                       set_edge_weights_uniform)
+    g = SyntheticCitationDataset(num_nodes=n_nodes, num_classes=CORA_CLASSES,
+                                 feature_dim=CORA_FEATURES, avg_degree=4, seed=seed)[0]
+    return batch_graphs([normalize_edge_weights_symmetric(set_edge_weights_uniform(g))],
+                        device=device)
+
+
+def train_batch(path, seed, size, device):
     """A labelled batch of ``path``'s kind: ``bench.py`` ``_mols(RandomState(
-    seed), n_mols, with_esp)``."""
+    seed), size, with_esp)``, or for GCN the citation graph of ``size``
+    nodes."""
     from gcnn_keras_tpu_torch.batch import batch_graphs
     cfg = TRAIN_PATHS[path]
-    return batch_graphs(labelled_mols(seed, n_mols, cfg["with_esp"]),
+    if cfg["model"] == "gcn":
+        return citation_batch(seed, size, device)
+    return batch_graphs(labelled_mols(seed, size, cfg["with_esp"]),
                         global_keys=cfg["global_keys"], device=device)
 
 
+def full_batch(path, device):
+    """``path``'s full-width batch: its bench seed and size."""
+    cfg = TRAIN_PATHS[path]
+    return train_batch(path, cfg["seed"], cfg["size"], device)
+
+
+def node_class_loss_fn(model):
+    """``sec_gcn_cora``'s loss: the masked categorical cross-entropy of the
+    node logits against ``node_labels`` over the real nodes."""
+    from gcnn_keras_tpu_torch.training.losses import masked_categorical_crossentropy
+
+    def loss_fn(b):
+        return masked_categorical_crossentropy(model(b)["output"], b.nodes["node_labels"],
+                                               b.node_mask), {}
+    return loss_fn
+
+
 def make_trainer(path, device):
-    """``(EnergyForceModel, Trainer, TrainState)`` of a training path:
-    weights from seed 0, ``torch.optim.Adam(lr=1e-3)`` for ``optax.adam(1e-3)``."""
+    """``(model, Trainer, TrainState)`` of a training path, ``model`` the
+    module whose parameters train: weights from seed 0, ``torch.optim.Adam``
+    for ``optax.adam`` (lr 1e-3; GCN 1e-2)."""
+    from gcnn_keras_tpu_torch.models import gcn
     from gcnn_keras_tpu_torch.training import Trainer
     cfg = TRAIN_PATHS[path]
+    if cfg["model"] == "gcn":
+        model = gcn.make_model(device=device, generator=torch.Generator().manual_seed(0),
+                               **GCN_CORA_KW)
+        trainer = Trainer(node_class_loss_fn(model), functools.partial(torch.optim.Adam, lr=1e-2))
+        return model, trainer, trainer.init_state(model.parameters())
     fm = energy_force_model(cfg["model"], device, cfg.get("mode", "unfused"))
     trainer = Trainer(ef_loss_fn(fm, cfg["force_weight"], cfg["charge_weight"]),
                       functools.partial(torch.optim.Adam, lr=1e-3))
-    return fm, trainer, trainer.init_state(fm.energy_model.parameters())
+    return fm.energy_model, trainer, trainer.init_state(fm.energy_model.parameters())
 
 
 def check_kernel_call(name, args, label, timed):
@@ -1349,29 +1461,31 @@ def phase_training(path, smi):
     the main path, ``TRAIN_STEPS`` steps on that batch. Returns the main
     path's launch counts and the kernel records."""
     cfg = TRAIN_PATHS[path]
+    first_seed, first_size = cfg.get("first_step", (2, 64))
     first = {}
     for dev in ("cuda", "cpu"):
-        fm, trainer, state = make_trainer(path, dev)
-        state, metrics = trainer.step_fn()(state, train_batch(path, 2, 64, dev))
+        model, trainer, state = make_trainer(path, dev)
+        state, metrics = trainer.step_fn()(state, train_batch(path, first_seed, first_size, dev))
         first[dev] = (float(metrics["loss"]),
-                      {n: p.grad.detach().cpu() for n, p in fm.energy_model.named_parameters()})
+                      {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
     (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = first["cuda"], first["cpu"]
     if not abs(loss_gpu - loss_cpu) <= TRAIN_TOL * abs(loss_cpu):
         raise AssertionError(f"{path}: first loss {loss_gpu} on the card, {loss_cpu} on the CPU")
+    grad_tol = cfg.get("grad_tol", TRAIN_TOL)
     worst_rel = 0.0
     for name, ref in grads_cpu.items():
         err, scale = (grads_gpu[name] - ref).abs().max().item(), ref.abs().max().item()
-        if not err <= TRAIN_TOL * scale:
+        if not err <= grad_tol * scale:
             raise AssertionError(f"{path}: gradient of {name}: max|gpu-cpu|={err} > "
-                                 f"{TRAIN_TOL}*{scale}")
+                                 f"{grad_tol}*{scale}")
         worst_rel = max(worst_rel, err / max(scale, 1e-30))
-    log(f"{path} first step gpu vs cpu (64 mols, seed 2): " + json.dumps(
+    log(f"{path} first step gpu vs cpu (size {first_size}, seed {first_seed}): " + json.dumps(
         {"loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "params": len(grads_cpu),
          "max_rel_grad_err": worst_rel}))
 
-    batch = train_batch(path, cfg["seed"], cfg["n_mols"], "cuda")
+    batch = full_batch(path, "cuda")
     kernel_recs = check_training_kernels(path, batch)
-    fm, trainer, state = make_trainer(path, "cuda")
+    _, trainer, state = make_trainer(path, "cuda")
     step = trainer.step_fn()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1387,13 +1501,13 @@ def phase_training(path, smi):
         losses.append(float(metrics["loss"]))
         per_step.append({k: v - before[k] for k, v in kernel_counts().items()})
     main_launches = kernel_counts()
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+    if not all(np.isfinite(losses)) or (cfg.get("falls", True) and not losses[-1] < losses[0]):
         raise AssertionError(f"{path}: losses {losses}")
     for i, counts in enumerate(per_step):
         if counts != cfg["launches"]:
             raise AssertionError(f"{path} step {i}: launches {counts}, "
                                  f"expected {cfg['launches']}")
-    rec = {"path": path, "n_mols": cfg["n_mols"], "seed": cfg["seed"],
+    rec = {"path": path, "size": cfg["size"], "seed": cfg["seed"],
            "N_pad": batch.n_node, "E_pad": batch.n_edge,
            "A_pad": 0 if batch.angles is None else batch.angles.shape[0],
            "G": batch.n_graphs, "real_edges": int(batch.edge_mask.sum().item()),
@@ -2189,6 +2303,35 @@ def phase_chain_kernels(batch, model):
     return recs
 
 
+# ------------------------------------------------------- phase 17: PAiNN serving
+
+
+def phase_painn_serving(requests, smi):
+    """Phase 17: every segment-sum call of one evaluation of the first
+    request's batch against its plain version (the first call at
+    ``PAINN_WIDE`` columns timed), then the 3 requests as phase 4 serves
+    them. Returns the main path's launch counts and the records."""
+    gpu = make_painn_predictor("cuda")
+    _, batch = gpu.make_batch(requests[0][1])
+    if (batch.n_node, batch.n_edge, batch.n_graphs) != (8192, 54784, 513):
+        raise AssertionError(f"unexpected PAiNN full-width shapes {batch.n_node} "
+                             f"{batch.n_edge} {batch.n_graphs}")
+    with captured_calls() as calls:
+        gpu.model(batch)
+        torch.cuda.synchronize()
+    counts = {name: len(c) for name, c in calls.items() if c}
+    if counts != {k: v for k, v in PAINN_LAUNCHES.items() if v}:
+        raise AssertionError(f"painn: kernel calls {counts}, expected {PAINN_LAUNCHES}")
+    seg = calls["sorted_segment_sum"]
+    wide = next(i for i, args in enumerate(seg) if args[0].shape[1] == PAINN_WIDE)
+    recs = [dict(check_segment_sum(*args, f"painn_serving, call {i + 1} of {len(seg)}",
+                                   timed=i == wide), path="painn_serving")
+            for i, args in enumerate(seg)]
+    launches = phase_model_serving(gpu, requests, batch, smi, name="painn",
+                                   make_cpu=make_painn_predictor, expected=PAINN_LAUNCHES)
+    return launches, recs
+
+
 def kernels_line(records, by_path, second_order):
     """The ``kernels`` entries of the result line: each kernel's source, the
     TPU kernel it replaces, its launches on each main path, its largest
@@ -2299,7 +2442,7 @@ def main():
                "hdnnp2nd_serving": hlaunches, "hdnnp4th_serving": qlaunches}
     # phase 15 before the training path that launches its kernels
     records.update(phase_chain_kernels(
-        train_batch("schnet_chain_train", 0, 512, "cuda"), schnet_model("chain", "cuda")))
+        full_batch("schnet_chain_train", "cuda"), schnet_model("chain", "cuda")))
     for path in TRAIN_PATHS:
         by_path[path], train_recs = phase_training(path, smi)
         for name, rs in train_recs.items():
@@ -2313,6 +2456,8 @@ def main():
         make_predictor("cuda", "chain"), requests, batch0, smi, name="schnet chain",
         make_cpu=functools.partial(make_predictor, mode="chain"),
         expected=schnet_launches("chain"), reference=unfused_answers)
+    by_path["painn_serving"], painn_recs = phase_painn_serving(requests, smi)
+    records["sorted_segment_sum"].extend(painn_recs)
 
     kernels = kernels_line(records, by_path, second_order)
     print(json.dumps({"kernels": kernels}))

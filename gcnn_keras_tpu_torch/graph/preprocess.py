@@ -1,8 +1,9 @@
 """Host-side graph preprocessing (numpy); counterpart of
 ``gcnn_keras_tpu/graph/preprocess.py``.
 
-Carried so far: the dense cutoff neighbour list (``set_range``) and the
-node-triple angle list (``set_angle``). The C++ cell-list backend of the JAX
+Carried so far: the dense cutoff neighbour list (``set_range``), the
+node-triple angle list (``set_angle``) and GCN's edge weights
+(``set_edge_weights_uniform``, ``normalize_edge_weights_symmetric``). The C++ cell-list backend of the JAX
 package (``native/neighborlist.cpp``) is a later slice.
 """
 from __future__ import annotations
@@ -91,3 +92,40 @@ def set_angle(graph: Dict[str, np.ndarray], range_indices: str = "range_indices"
     out = dict(graph)
     out["angle_indices_nodes"] = angles.astype(np.int64)
     return out
+
+
+def set_edge_weights_uniform(graph: Dict[str, np.ndarray], value: float = 1.0,
+                             edge_indices: str = "edge_indices") -> Dict[str, np.ndarray]:
+    """``edge_weights`` (M, 1) float32, all ``value``."""
+    ei = np.asarray(graph[edge_indices])
+    out = dict(graph)
+    out["edge_weights"] = np.full((ei.shape[0], 1), value, dtype=np.float32)
+    return out
+
+
+def normalize_edge_weights_symmetric(graph: Dict[str, np.ndarray],
+                                     edge_indices: str = "edge_indices",
+                                     edge_weights: str = "edge_weights") -> Dict[str, np.ndarray]:
+    """GCN's symmetric normalization ``w_ij / sqrt(d_i d_j)``, the degrees
+    summed over the receivers (``edge_indices[:, 0]``); weights 1 where the
+    graph has none."""
+    ei = np.asarray(graph[edge_indices])
+    n = _num_nodes(graph, ei)
+    w = np.asarray(graph.get(edge_weights)) if edge_weights in graph else \
+        np.ones((ei.shape[0], 1), dtype=np.float32)
+    w = w.reshape(len(ei), -1)
+    deg = np.zeros(n)
+    np.add.at(deg, ei[:, 0], w[:, 0])
+    norm = 1.0 / np.sqrt(np.maximum(deg[ei[:, 0]] * deg[ei[:, 1]], 1e-12))
+    out = dict(graph)
+    out[edge_weights] = (w * norm[:, None]).astype(np.float32)
+    return out
+
+
+def _num_nodes(graph: Dict[str, np.ndarray], ei: np.ndarray) -> int:
+    """The node count of the first node array present, else one past the
+    largest node id of ``ei``."""
+    for key in ("node_number", "node_coordinates", "node_attributes"):
+        if key in graph:
+            return int(np.asarray(graph[key]).shape[0])
+    return int(ei.max()) + 1 if ei.size else 0

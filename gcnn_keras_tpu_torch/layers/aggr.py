@@ -53,6 +53,21 @@ def pool_edges_to_nodes(batch: GraphBatch, edge_values: Tensor,
                                indices_are_sorted=True)
 
 
+def pool_weighted_edges_to_nodes(batch: GraphBatch, edge_values: Tensor,
+                                 edge_weights: Tensor, mode: str = "sum",
+                                 normalize: bool = False) -> Tensor:
+    """``pool_edges_to_nodes`` of ``edge_values * edge_weights`` (weights
+    ``(E,)`` or ``(E, 1)`` broadcast over the features); ``normalize``
+    divides each node's sum by the sum of its edges' weights."""
+    w = edge_weights
+    if w.dim() == edge_values.dim() - 1:
+        w = w[..., None]
+    out = pool_edges_to_nodes(batch, edge_values * w, mode=mode)
+    if normalize:
+        out = out / pool_edges_to_nodes(batch, w).clamp_min(1e-12)
+    return out
+
+
 def gather_mul_pool_edges(batch: GraphBatch, nodes: Tensor,
                           edge_filter: Tensor, mode: str = "sum",
                           fused=False) -> Tensor:

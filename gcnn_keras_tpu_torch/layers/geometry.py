@@ -1,8 +1,10 @@
 """Geometric edge features; counterpart of ``gcnn_keras_tpu/layers/geometry.py``
-(``edge_vectors``, ``edge_distances`` and ``gauss_basis`` so far)."""
+(edge vectors, distances and directions, the Gauss and Bessel radial bases
+and the cutoff envelopes so far)."""
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,6 +52,16 @@ def edge_distances(batch: GraphBatch, positions: Optional[Tensor] = None,
     return torch.where(d2 > eps, d, torch.full_like(d, eps ** 0.5))
 
 
+def edge_directions(batch: GraphBatch, positions: Optional[Tensor] = None,
+                    eps: float = 1e-12) -> Tuple[Tensor, Tensor]:
+    """Unit edge direction ``(E, 3)`` and distance ``(E, 1)``; a padding
+    edge (zero vector) gets direction 0 and distance 0."""
+    vec = edge_vectors(batch, positions)
+    d2 = torch.sum(vec * vec, dim=-1, keepdim=True)
+    d = torch.sqrt(d2.clamp_min(eps))
+    return vec / d, torch.where(d2 > eps, d, torch.zeros_like(d))
+
+
 def gauss_basis(distance: Tensor, bins: int = 20, distance_max: float = 4.0,
                 offset: float = 0.0, sigma: float = 0.4) -> Tensor:
     """Gaussian radial basis ``(E, 1) -> (E, bins)``: centres
@@ -60,3 +72,49 @@ def gauss_basis(distance: Tensor, bins: int = 20, distance_max: float = 4.0,
                / float(bins) * distance_max)
     diff = (distance - offset) - centers[None, :]
     return torch.exp(gamma * diff * diff)
+
+
+def bessel_basis(distance: Tensor, num_radial: int = 20, cutoff: float = 5.0,
+                 envelope: bool = False, exponent: int = 5) -> Tensor:
+    """DimeNet's Bessel basis ``sqrt(2/c) sin(n pi d / c) / d``, ``(E, 1) ->
+    (E, num_radial)``, optionally times the polynomial envelope of d / c."""
+    d = distance.clamp_min(1e-8)
+    n = torch.arange(1, num_radial + 1, dtype=distance.dtype, device=distance.device)
+    rbf = math.sqrt(2.0 / cutoff) * torch.sin(n[None, :] * (math.pi / cutoff) * d) / d
+    if envelope:
+        rbf = rbf * polynomial_envelope(distance / cutoff, exponent)
+    return rbf
+
+
+def bessel_basis_kgcnn(distance: Tensor, num_radial: int = 20,
+                       cutoff: float = 5.0, envelope_exponent: int = 5) -> Tensor:
+    """kgcnn's Bessel basis, ``env(u) sin(n pi u)`` with ``u = d / c`` and
+    ``env(u) = polynomial_envelope(u, p + 1) / u``: the 1/d rides in the
+    envelope and there is no sqrt(2/c). The frequencies ``n pi`` are a
+    closed form (kgcnn trains them; its initial values are these)."""
+    u = distance / cutoff
+    n = torch.arange(1, num_radial + 1, dtype=distance.dtype,
+                     device=distance.device) * math.pi
+    env = polynomial_envelope(u, envelope_exponent + 1) / u.clamp_min(1e-8)
+    return env * torch.sin(n[None, :] * u)
+
+
+def polynomial_envelope(u: Tensor, p: int = 5) -> Tensor:
+    """DimeNet's C^p envelope on u in [0, 1): ``1 - (p+1)(p+2)/2 u^p +
+    p(p+2) u^(p+1) - p(p+1)/2 u^(p+2)``; 0 from u = 1 on."""
+    a = -(p + 1) * (p + 2) / 2.0
+    b = float(p * (p + 2))
+    c = -p * (p + 1) / 2.0
+    env = 1.0 + a * u ** p + b * u ** (p + 1) + c * u ** (p + 2)
+    return torch.where(u < 1.0, env, torch.zeros_like(env))
+
+
+def cosine_cutoff_envelope(distance: Tensor, cutoff: float) -> Tensor:
+    """Behler's cutoff ``0.5 (cos(pi r / r_c) + 1)`` below ``r_c``, else 0."""
+    fc = 0.5 * (torch.cos(math.pi * distance / cutoff) + 1.0)
+    return torch.where(distance < cutoff, fc, torch.zeros_like(fc))
+
+
+def cosine_cutoff(values: Tensor, distance: Tensor, cutoff: float) -> Tensor:
+    """``values`` times the cosine cutoff of ``distance``."""
+    return values * cosine_cutoff_envelope(distance, cutoff)

@@ -2,14 +2,16 @@
 
 The port names its submodules after the flax parameter tree, so a module at
 ``interaction_0.cfconv.filter_1`` takes ``interaction_0/cfconv/filter_1``.
-Three node types carry weights in their own layout:
+Four node types carry weights in their own layout:
 
 - ``Dense``: ``<path>/Dense_0/kernel`` (in, out), transposed into
   ``weight`` (out, in), and ``<path>/Dense_0/bias``;
 - ``RelationalDense``: ``<path>/kernel`` (R, in, out) and ``<path>/bias``
   (R, out), as they are;
 - ``OptionalInputEmbedding``: ``<path>/Embed_0/embedding``; its flax name
-  is ``OptionalInputEmbedding_0`` where the port says ``embedding``.
+  is ``OptionalInputEmbedding_0`` where the port says ``embedding``;
+- ``GraphLayerNorm``: ``<path>/LayerNorm_0/scale`` and
+  ``<path>/LayerNorm_0/bias``.
 
 Any other module's own parameters are bare flax leaves of the same name,
 ``<path>/<name>``, as they are: the per-element tables ``hardness_j`` and
@@ -24,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from ..layers.mlp import Dense, RelationalDense
+from ..layers.norm import GraphLayerNorm
 from ..models.common import OptionalInputEmbedding
 
 _FLAX_NAMES = {"embedding": "OptionalInputEmbedding_0"}
@@ -66,19 +69,25 @@ def params_from_jax(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
 
     for name, module in model.named_modules():
         base = _flax_path(name)
+
+        def leaf(*parts: str) -> str:
+            return "/".join((base,) + parts if base else parts)
         if isinstance(module, Dense):
-            take(f"{base}/Dense_0/kernel", module.weight, transpose=True)
+            take(leaf("Dense_0", "kernel"), module.weight, transpose=True)
             if module.bias is not None:
-                take(f"{base}/Dense_0/bias", module.bias)
+                take(leaf("Dense_0", "bias"), module.bias)
         elif isinstance(module, RelationalDense):
-            take(f"{base}/kernel", module.kernel)
+            take(leaf("kernel"), module.kernel)
             if module.bias is not None:
-                take(f"{base}/bias", module.bias)
+                take(leaf("bias"), module.bias)
         elif isinstance(module, OptionalInputEmbedding):
-            take(f"{base}/Embed_0/embedding", module.weight)
+            take(leaf("Embed_0", "embedding"), module.weight)
+        elif isinstance(module, GraphLayerNorm):
+            for pname, p in module.named_parameters(recurse=False):
+                take(leaf("LayerNorm_0", pname), p)
         else:
             for pname, p in module.named_parameters(recurse=False):
-                take(f"{base}/{pname}" if base else pname, p)
+                take(leaf(pname), p)
     left = sorted(set(flat) - used)
     if left:
         raise KeyError(f"flax parameters with no port counterpart: {left}")

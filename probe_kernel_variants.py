@@ -121,7 +121,7 @@ def segment_sum_timings(libs, order):
 def chain_timings(kernel, libs, order):
     """phase 15's timed checks of cf_fwd, cf_vjp or cf_hesjvp, each variant
     loaded in its turn."""
-    batch = chip_smoke.train_batch("schnet_chain_train", 0, 512, "cuda")
+    batch = chip_smoke.full_batch("schnet_chain_train", "cuda")
     model = chip_smoke.schnet_model("chain", "cuda")
     for name in order:
         build._loaded["fused_interaction"] = libs[name]
@@ -166,8 +166,7 @@ def acsf_calls():
              chip_smoke.acsf_call_args(name, statics["g2"], g2_edge))
             for name in ka.KERNELS if name.startswith("g2")]
     for path in ("hdnnp2nd_train", "hdnnp4th_train"):
-        cfg = chip_smoke.TRAIN_PATHS[path]
-        batch = chip_smoke.train_batch(path, cfg["seed"], cfg["n_mols"], "cuda")
+        batch = chip_smoke.full_batch(path, "cuda")
         _, trainer, state = chip_smoke.make_trainer(path, "cuda")
         with chip_smoke.captured_calls() as calls:
             trainer.step_fn()(state, batch)
@@ -204,8 +203,7 @@ def spd_calls():
            ("Qeq of the HDNNP4th serving request, K=1", True,
             (a, rhs[..., :1].contiguous()))]
     path = "hdnnp4th_train"
-    cfg = chip_smoke.TRAIN_PATHS[path]
-    tbatch = chip_smoke.train_batch(path, cfg["seed"], cfg["n_mols"], "cuda")
+    tbatch = chip_smoke.full_batch(path, "cuda")
     _, trainer, state = chip_smoke.make_trainer(path, "cuda")
     with chip_smoke.captured_calls() as calls:
         trainer.step_fn()(state, tbatch)

@@ -1,7 +1,7 @@
 """Where the time of one full-width energy+force evaluation, of one
 training step or of one MD step goes on a CUDA card, for the PyTorch port.
 
-    python3 profile_serving_torch.py [--model schnet|hdnnp2nd|hdnnp4th]
+    python3 profile_serving_torch.py [--model schnet|hdnnp2nd|hdnnp4th|painn|gcn]
                                      [--mode unfused|fused|accurate|chain]
                                      [--train | --md] [--evals 10]
                                      [--trace chiprun_out/serving_trace.json]
@@ -14,10 +14,12 @@ Builds the serving batch of ``chip_smoke.py`` (512 QM9-like molecules,
 weights from seed 0; SchNet defaults in ``--mode`` (``interaction_args``
 ``fused_aggregate``, ``accurate_cfconv`` or ``fused_chain``), or the HDNNP2nd or HDNNP4th
 bench configuration with ``set_angle`` as the graph preprocessor, HDNNP4th
-with the ESP, its gradient and total charges of ``chip_smoke.with_esp``);
+with the ESP, its gradient and total charges of ``chip_smoke.with_esp``, or
+PAiNN's bench configuration, ``chip_smoke.PAINN_KW``);
 with ``--train`` the model's training path of ``chip_smoke.TRAIN_PATHS``
 (its labelled batch, loss and Adam; SchNet's ``schnet_chain_train`` with
-``--mode chain``); with ``--md`` velocity-Verlet steps
+``--mode chain``; GCN, which has only this mode, ``gcn_cora_train``: node
+classification on the 2708-node citation graph); with ``--md`` velocity-Verlet steps
 of ``bench.py``'s 21-atom molecule (SchNet in ``--mode``, masses 12, dt
 5e-4, ``chip_smoke.md_batch``). Warms up, and runs ``--evals``
 evaluations or steps under ``torch.profiler``. Prints the device time by kernel, the
@@ -69,7 +71,8 @@ PORT_KERNELS = ("sorted_segment_sum", "g2_fwd_kernel", "g4_fwd_kernel",
 def serving_run(name, mode):
     make = {"schnet": functools.partial(chip_smoke.make_predictor, mode=mode),
             "hdnnp2nd": chip_smoke.make_hdnnp_predictor,
-            "hdnnp4th": chip_smoke.make_hdnnp4th_predictor}[name]
+            "hdnnp4th": chip_smoke.make_hdnnp4th_predictor,
+            "painn": chip_smoke.make_painn_predictor}[name]
     gpu = make("cuda")
     mols = chip_smoke.qm9_like_mols(0, 512)
     if name == "hdnnp4th":
@@ -96,10 +99,10 @@ def md_run(name, mode):
 
 
 def training_run(name, mode):
-    path = "schnet_chain_train" if mode == "chain" else f"{name}_train"
-    cfg = chip_smoke.TRAIN_PATHS[path]
+    path = ("schnet_chain_train" if mode == "chain" else "gcn_cora_train" if name == "gcn"
+            else f"{name}_train")
     _, trainer, state = chip_smoke.make_trainer(path, "cuda")
-    batch = chip_smoke.train_batch(path, cfg["seed"], cfg["n_mols"], "cuda")
+    batch = chip_smoke.full_batch(path, "cuda")
     step = trainer.step_fn()
     holder = [state]
 
@@ -122,9 +125,7 @@ def training_kernel_records(name, paths):
     step of each training path of ``paths`` (the first call timed)."""
     recs = []
     for path in paths:
-        cfg = chip_smoke.TRAIN_PATHS[path]
-        batch = chip_smoke.train_batch(path, cfg["seed"], cfg["n_mols"], "cuda")
-        recs += chip_smoke.check_training_kernels(path, batch)[name]
+        recs += chip_smoke.check_training_kernels(path, chip_smoke.full_batch(path, "cuda"))[name]
     return recs
 
 
@@ -148,7 +149,7 @@ def kernel_records(name):
             return chip_smoke.phase_kernel(batch)
         return chip_smoke.phase_schnet_kernels(
             batch, chip_smoke.schnet_model("unfused", "cuda"), (name,))[name]
-    batch = chip_smoke.train_batch("schnet_chain_train", 0, 512, "cuda")
+    batch = chip_smoke.full_batch("schnet_chain_train", "cuda")
     recs = chip_smoke.chain_edge_case_checks(batch.senders.device, (name,))[name]
     return chip_smoke.chain_timed_check(name, batch,
                                         chip_smoke.schnet_model("chain", "cuda")) + recs
@@ -156,7 +157,7 @@ def kernel_records(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("schnet", "hdnnp2nd", "hdnnp4th"),
+    ap.add_argument("--model", choices=("schnet", "hdnnp2nd", "hdnnp4th", "painn", "gcn"),
                     default="schnet")
     ap.add_argument("--mode", choices=tuple(chip_smoke.MODE_ARGS), default="unfused",
                     help="SchNet's execution mode")
@@ -183,6 +184,8 @@ def main():
         raise SystemExit("profile_serving_torch: --mode is SchNet's")
     if args.train and args.mode not in ("unfused", "chain"):
         raise SystemExit("profile_serving_torch: --train runs SchNet unfused or chain")
+    if args.model == "gcn" and not args.train:
+        raise SystemExit("profile_serving_torch: GCN runs --train only")
     run = (training_run if args.train else md_run if args.md else serving_run)(
         args.model, args.mode)
     for _ in range(3):

@@ -14,7 +14,7 @@ import torch
 
 from gcnn_keras_tpu_torch.batch import batch_graphs
 from gcnn_keras_tpu_torch.model.force import EnergyForceModel
-from gcnn_keras_tpu_torch.models import hdnnp4th
+from gcnn_keras_tpu_torch.models import gcn, hdnnp4th, painn
 from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
 from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
 from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
@@ -61,7 +61,9 @@ def test_scan_sees_the_package():
                                    "make_model_behler", "EnergyForceModel",
                                    "MolDynamicsModelPredictor", "hdnnp4th.make_model_behler",
                                    "hdnnp4th.make_model_rep", "hdnnp4th.make_model_learn",
-                                   "hdnnp4th.make_model_behler_charge_separat", "ScannedMD"])
+                                   "hdnnp4th.make_model_behler_charge_separat", "ScannedMD",
+                                   "painn.make_model", "painn.make_crystal_model",
+                                   "gcn.make_model", "gcn.make_model_weighted"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     graph = {"node_number": [1, 8], "node_coordinates": [[0, 0, 0], [0, 0, 1.0]],
@@ -81,6 +83,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
         "hdnnp4th.make_model_behler_charge_separat":
             lambda **kw: hdnnp4th.make_model_behler_charge_separat(**kw),
         "ScannedMD": lambda **kw: ScannedMD(make_model(device="cpu", depth=1), dt=1e-3, **kw),
+        "painn.make_model": lambda **kw: painn.make_model(depth=1, **kw),
+        "painn.make_crystal_model": lambda **kw: painn.make_crystal_model(depth=1, **kw),
+        "gcn.make_model": lambda **kw: gcn.make_model(in_features=8, **kw),
+        "gcn.make_model_weighted": lambda **kw: gcn.make_model_weighted(**kw),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

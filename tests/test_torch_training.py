@@ -4,8 +4,8 @@
 ``EnergyForceModel.apply(create_graph=True)`` are held against the JAX
 package's ``training/losses.py``, ``Trainer`` and ``optax.adam``, on the same
 batches (``bench.py`` ``_mols``) and weights (``params_from_jax``), with the
-JAX bench's losses: E + 100 F for SchNet and HDNNP2nd, 50 q + E + 200 F for
-HDNNP4th with ESP coupling. The JAX gradients have the params tree's
+JAX bench's losses: E + 100 F for SchNet, HDNNP2nd and PAiNN, 50 q + E + 200
+F for HDNNP4th with ESP coupling. The JAX gradients have the params tree's
 structure, so ``params_from_jax`` maps them onto the port's parameters too.
 
 Tolerances: the losses within ``rtol 1e-5``; each parameter's gradient
@@ -30,12 +30,13 @@ from gcnn_keras_tpu.batch import batch_graphs as jbatch_graphs
 from gcnn_keras_tpu.model.force import EnergyForceModel as JEnergyForceModel
 from gcnn_keras_tpu.models import hdnnp2nd as jhdnnp2nd
 from gcnn_keras_tpu.models import hdnnp4th as jhdnnp4th
+from gcnn_keras_tpu.models import painn as jpainn
 from gcnn_keras_tpu.models.schnet import make_model as jschnet
 from gcnn_keras_tpu.training import losses as jlosses
 from gcnn_keras_tpu.training.trainer import Trainer as JTrainer
 from gcnn_keras_tpu_torch.batch import batch_graphs
 from gcnn_keras_tpu_torch.model.force import EnergyForceModel
-from gcnn_keras_tpu_torch.models import hdnnp2nd, hdnnp4th, schnet
+from gcnn_keras_tpu_torch.models import hdnnp2nd, hdnnp4th, painn, schnet
 from gcnn_keras_tpu_torch.training import Trainer, losses
 from gcnn_keras_tpu_torch.utils.convert import params_from_jax
 
@@ -64,6 +65,12 @@ MODELS = {
                      jax=jhdnnp4th.make_model_behler, port=hdnnp4th.make_model_behler,
                      with_esp=True, global_keys=("energy", "total_charge"),
                      weights=(50.0, 1.0, 200.0), esp=True),
+    "painn": dict(kw=dict(depth=2, conv_args={"units": 32, "cutoff": 5.0},
+                          update_args={"units": 32}, input_embedding={"node": {"output_dim": 32}},
+                          bessel_basis={"num_radial": 8, "cutoff": 5.0},
+                          output_mlp={"units": [32, 1], "activation": ["swish", "linear"]}),
+                  jax=jpainn.make_model, port=painn.make_model, with_esp=False,
+                  global_keys=("energy",), weights=(0.0, 1.0, 100.0), esp=False),
 }
 
 
@@ -264,7 +271,8 @@ def test_labelled_mols_are_bench_mols(with_esp):
 @pytest.mark.parametrize("path", list(chip_smoke.TRAIN_PATHS))
 def test_kernel_calls_per_training_step_are_the_derived_counts(path):
     """One Trainer step of each full-width training path of ``chip_smoke.py``
-    on a 3-molecule batch calls each kernel's wrapper as often as
+    on a 3-molecule batch (GCN: a 100-node citation graph) calls each
+    kernel's wrapper as often as
     ``TRAIN_PATHS`` says that the card launches it per step; the calls are
     recorded by ``chip_smoke.captured_calls``, which phase 10 uses to hold
     every call of a step against its plain version, and which puts the
@@ -272,8 +280,10 @@ def test_kernel_calls_per_training_step_are_the_derived_counts(path):
     table = chip_smoke.kernel_wrappers()
     wrappers = {name: getattr(mod, attr) for name, (mod, attr, _) in table.items()}
     _, trainer, state = chip_smoke.make_trainer(path, "cpu")
+    # 3 molecules, or a citation graph of 100 nodes
+    size = 100 if chip_smoke.TRAIN_PATHS[path]["model"] == "gcn" else 3
     with chip_smoke.captured_calls() as calls:
-        trainer.step_fn()(state, chip_smoke.train_batch(path, 3, 3, "cpu"))
+        trainer.step_fn()(state, chip_smoke.train_batch(path, 3, size, "cpu"))
     assert {name: getattr(mod, attr) for name, (mod, attr, _) in table.items()} == wrappers
     expected = chip_smoke.TRAIN_PATHS[path]["launches"]
     assert {k: len(v) for k, v in calls.items() if v} == {k: v for k, v in expected.items() if v}

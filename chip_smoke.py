@@ -107,6 +107,25 @@ order, each raising on a failed check:
    columns, the equivariant messages, timed), the launch count per
    evaluation held to its derived value, and the time per evaluation and
    per request measured.
+18. HDNNP4th at molecule scale: ``bench.py`` ``bench_large_mol_step``'s
+   molecule (``large_mol_graph``, a curved chain) and model
+   (``LARGE_MOL_KW``) at 200, 520 and 2080 atoms (``MOL_SIZES``: the
+   bench's 520 and 2080, and 200, whose Qeq system takes the SPD block
+   kernel). For each: every kernel call of one evaluation against its
+   plain version, then one evaluation with its launches held to
+   ``mol_launches`` against the CPU (energies, forces, charges summing to
+   the total charge), timed; then the training path
+   ``hdnnp4th_mol{n}_train`` as phase 10 runs one (its first step against
+   the CPU on the same molecule, every kernel call of a step against its
+   plain version, 5 timed steps with falling losses, peak memory). Then at
+   520 and 2080 atoms the first step with ``solver="iterative"`` against
+   the dense one on the same weights (loss and every gradient, to
+   ``CG_LOSS_RTOL``/``CG_GRAD_TOL``; 4 CG solves, each stopping before its
+   10 M rounds), and the steps that follow timed, dense and iterative in
+   turns (``QEQ_AB_STEPS``). Last, the first HDNNP4th request of phase 8
+   through ``MLMMEnergyForceModel``: its launches, its energy the inner
+   one plus the QM/MM correction and its forces the inner ones plus
+   ``-q dPhi/dr``, against the CPU.
 
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it.
@@ -289,6 +308,52 @@ SPD_TOL, SPD_RESIDUAL_TOL = 1e-5, 1e-4
 SPD_BLOCK_TIMED_M = (100, 239)
 # charges of a molecule sum to its total charge within CHARGE_TOL * (1 + sum|q|)
 CHARGE_TOL = 1e-4
+# bench.py bench_large_mol_step's model (make_model_behler at bench.py:743-756),
+# written out: HDNNP2ND_KW's tables at r_c 3.5, a [64, 64, 1] network per
+# atomic number for chi and for the local energies, fixed physical Qeq
+# tables, solver "auto" (dense below CENTCharge's iterative_threshold)
+LARGE_MOL_KW = dict(
+    g2_kwargs={**HDNNP2ND_KW["g2_kwargs"], "rc": 3.5},
+    g4_kwargs={**HDNNP2ND_KW["g4_kwargs"], "rc": 3.5},
+    mlp_charge_kwargs=HDNNP2ND_KW["mlp_kwargs"], mlp_local_kwargs=HDNNP2ND_KW["mlp_kwargs"],
+    electrostatic_kwargs={"param_trainable": False, "solver": "auto"})
+# phase 18's molecules: bench.py's 520 and 2080 atoms (sec_hdnnp_large_mol,
+# sec_hdnnp_giant_mol), and 200, inside the SPD block kernel's range
+MOL_SIZES = (200, 520, 2080)
+# the largest M the SPD kernels take at K = 2 (ops/cuda/spd_solve.py
+# max_kernel_m(2)); Cholesky beyond
+SPD_MAX_M = 239
+
+
+def mol_launches(n, train=False):
+    """Kernel launches per HDNNP4th evaluation (``train``: training step) of
+    one molecule of ``n`` atoms: those of ``HDNNP4TH_LAUNCHES`` (a step:
+    ``TRAIN_PATHS["hdnnp4th_train"]``), with the SPD solves only where the
+    ``(n, n)`` Qeq system fits the kernel (``SPD_MAX_M``); past that the
+    solve is Cholesky, which launches none of the port's kernels."""
+    counts = dict(HDNNP4TH_LAUNCHES)
+    if train:
+        counts.update(g4_jvp=1, g2_jvp=1, sorted_segment_sum=7, spd_solve=4)
+    if n > SPD_MAX_M:
+        counts["spd_solve"] = 0
+    return counts
+
+
+# CG calls of the iterative Qeq solve (each the 2 G systems of the batch) per
+# evaluation and per training step, derived as the SPD solves are: the solve
+# and its adjoint in the force pass; in training also the backward of each
+CG_SOLVES = {"eval": 2, "train": 4}
+# the iterative step against the dense one on the same weights, the
+# tolerances of tests/test_qeq_solver.py::test_iterative_qeq_inside_full_force_train_step:
+# |loss_cg - loss_dense| <= CG_LOSS_RTOL * |loss_dense|, and for each
+# parameter max|grad_cg - grad_dense| <= CG_GRAD_TOL * max|grad_dense|
+CG_LOSS_RTOL, CG_GRAD_TOL = 5e-5, 5e-4
+# steps timed per solver in the dense-against-CG comparison, by atoms
+QEQ_AB_STEPS = {520: 5, 2080: 5}
+# kernel launches of one ML/MM evaluation (phase 18): HDNNP4th's, and the
+# QM/MM energy correction's sum over graph_id (no backward: the wrapper
+# adds it after the forces)
+MLMM_LAUNCHES = {**HDNNP4TH_LAUNCHES, "sorted_segment_sum": 6}
 # The training paths: the JAX package's bench training steps (bench.py
 # bench_schnet_setup, sec_hdnnp2nd and sec_painn with _ef_train_step,
 # _hdnnp_setup): the batch _mols(RandomState(seed), size, with_esp), the loss
@@ -355,6 +420,15 @@ TRAIN_PATHS = {
     # the first step against the CPU on the same full graph
     "gcn_cora_train": dict(model="gcn", seed=1, size=2708, first_step=(1, 2708),
                            launches=launch_counts(sorted_segment_sum=3 + 3)),
+    # phase 18: bench.py bench_large_mol_step, one molecule of size atoms
+    # (large_mol_graph), and the same at 200 atoms, where the Qeq system
+    # takes the SPD block kernel; each first step against the CPU on its
+    # own batch
+    **{f"hdnnp4th_mol{n}_train": dict(model="hdnnp4th_mol", seed=3, size=n, first_step=(3, n),
+                                      global_keys=("energy", "total_charge"),
+                                      force_weight=200.0, charge_weight=50.0,
+                                      launches=mol_launches(n, train=True))
+       for n in MOL_SIZES},
 }
 # sec_gcn_cora's graph and model: SyntheticCitationDataset(num_nodes=2708,
 # num_classes=70, feature_dim=1433, avg_degree=4, seed=1), a 3-deep GCN of
@@ -407,6 +481,31 @@ def labelled_mols(seed, n_mols, with_esp=False):
             g["charge"] = (rs.randn(n) * 0.1).astype(np.float32)
         graphs.append(g)
     return graphs
+
+
+def large_mol_graph(n, seed=3):
+    """``bench.py`` ``bench_large_mol_step``'s molecule, draw for draw: ``n``
+    atoms of H, C, N, O, F on a gently curved chain 1.3 apart, neighbours
+    within 3.5 (at most 12), its angles, an energy, force, ESP, ESP
+    gradient and charge labels, and a total charge of 0."""
+    from gcnn_keras_tpu_torch.graph.preprocess import set_angle, set_range
+    rs = np.random.RandomState(seed)
+    t = np.arange(n) * 1.3
+    pos = np.stack([t, 2.0 * np.sin(t * 0.05), 2.0 * np.cos(t * 0.03)],
+                   axis=1).astype(np.float32)
+    pos += rs.randn(n, 3).astype(np.float32) * 0.05
+    g = {"node_number": rs.choice([1, 6, 7, 8, 9], size=n),
+         "node_coordinates": pos,
+         "energy": np.array([rs.randn()], dtype=np.float32)}
+    g = set_range(g, max_distance=3.5, max_neighbours=12)
+    g["edge_indices"] = g.pop("range_indices")
+    g = set_angle(g, range_indices="edge_indices")
+    g["force"] = (rs.randn(n, 3) * 0.1).astype(np.float32)
+    g["esp"] = (rs.randn(n) * 0.02).astype(np.float32)
+    g["esp_grad"] = (rs.randn(n, 3) * 0.02).astype(np.float32)
+    g["total_charge"] = np.zeros((1,), dtype=np.float32)
+    g["charge"] = (rs.randn(n) * 0.1).astype(np.float32)
+    return g
 
 
 def qm9_like_mols(seed, n_mols):
@@ -581,10 +680,12 @@ def schnet_model(mode, device, **kwargs):
                              interaction_args=inter, **kwargs)
 
 
-def energy_force_model(kind, device, mode="unfused"):
+def energy_force_model(kind, device, mode="unfused", solver=None):
     """The full-width ``EnergyForceModel`` of ``kind`` with weights from seed
     0: SchNet ``make_model()`` defaults in ``mode``, or the HDNNP2nd,
-    HDNNP4th (with ESP coupling) or PAiNN bench configuration."""
+    HDNNP4th (with ESP coupling) or PAiNN bench configuration, or
+    (``hdnnp4th_mol``) HDNNP4th at ``LARGE_MOL_KW``, with the Qeq
+    ``solver`` given (default ``"auto"``)."""
     from gcnn_keras_tpu_torch.model.force import EnergyForceModel
     from gcnn_keras_tpu_torch.models import hdnnp2nd, hdnnp4th, painn
     gen = torch.Generator().manual_seed(0)
@@ -596,8 +697,12 @@ def energy_force_model(kind, device, mode="unfused"):
     if kind == "hdnnp2nd":
         return EnergyForceModel(hdnnp2nd.make_model_behler(
             device=device, generator=gen, **HDNNP2ND_KW), device=device)
-    return EnergyForceModel(hdnnp4th.make_model_behler(
-        device=device, generator=gen, **HDNNP4TH_KW), use_esp_coupling=True, device=device)
+    kw = HDNNP4TH_KW
+    if kind == "hdnnp4th_mol":
+        kw = dict(LARGE_MOL_KW, electrostatic_kwargs={
+            **LARGE_MOL_KW["electrostatic_kwargs"], **({"solver": solver} if solver else {})})
+    return EnergyForceModel(hdnnp4th.make_model_behler(device=device, generator=gen, **kw),
+                            use_esp_coupling=True, device=device)
 
 
 def make_predictor(device, mode="unfused"):
@@ -1372,12 +1477,15 @@ def citation_batch(seed, n_nodes, device):
 
 def train_batch(path, seed, size, device):
     """A labelled batch of ``path``'s kind: ``bench.py`` ``_mols(RandomState(
-    seed), size, with_esp)``, or for GCN the citation graph of ``size``
-    nodes."""
+    seed), size, with_esp)``, for GCN the citation graph of ``size`` nodes,
+    for the molecule-scale paths ``large_mol_graph(size, seed)``."""
     from gcnn_keras_tpu_torch.batch import batch_graphs
     cfg = TRAIN_PATHS[path]
     if cfg["model"] == "gcn":
         return citation_batch(seed, size, device)
+    if cfg["model"] == "hdnnp4th_mol":
+        return batch_graphs([large_mol_graph(size, seed)], global_keys=cfg["global_keys"],
+                            device=device)
     return batch_graphs(labelled_mols(seed, size, cfg["with_esp"]),
                         global_keys=cfg["global_keys"], device=device)
 
@@ -1399,10 +1507,11 @@ def node_class_loss_fn(model):
     return loss_fn
 
 
-def make_trainer(path, device):
+def make_trainer(path, device, solver=None):
     """``(model, Trainer, TrainState)`` of a training path, ``model`` the
     module whose parameters train: weights from seed 0, ``torch.optim.Adam``
-    for ``optax.adam`` (lr 1e-3; GCN 1e-2)."""
+    for ``optax.adam`` (lr 1e-3; GCN 1e-2); ``solver``, the Qeq solver of
+    the molecule-scale paths."""
     from gcnn_keras_tpu_torch.models import gcn
     from gcnn_keras_tpu_torch.training import Trainer
     cfg = TRAIN_PATHS[path]
@@ -1411,7 +1520,7 @@ def make_trainer(path, device):
                                **GCN_CORA_KW)
         trainer = Trainer(node_class_loss_fn(model), functools.partial(torch.optim.Adam, lr=1e-2))
         return model, trainer, trainer.init_state(model.parameters())
-    fm = energy_force_model(cfg["model"], device, cfg.get("mode", "unfused"))
+    fm = energy_force_model(cfg["model"], device, cfg.get("mode", "unfused"), solver)
     trainer = Trainer(ef_loss_fn(fm, cfg["force_weight"], cfg["charge_weight"]),
                       functools.partial(torch.optim.Adam, lr=1e-3))
     return fm.energy_model, trainer, trainer.init_state(fm.energy_model.parameters())
@@ -2332,6 +2441,259 @@ def phase_painn_serving(requests, smi):
     return launches, recs
 
 
+# ------------------------------------------- phase 18: HDNNP4th at molecule scale
+
+
+def mol_answer(fm, batch):
+    """One evaluation of a batch of one molecule: its energy, and the
+    forces and charges of its atoms (the first nodes), on the host."""
+    out = fm.apply(batch)
+    n = int(batch.node_mask.sum().item())
+    return {"energy": out["energy"][0].detach().cpu().numpy(),
+            "force": out["force"][:n].detach().cpu().numpy(),
+            "charge": out["charge"][:n].detach().cpu().numpy()}
+
+
+def phase_mol_serving(n, smi, device="cuda"):
+    """Phase 18, one molecule of ``n`` atoms (``large_mol_graph``): every
+    kernel call of one evaluation against its plain version; then the main
+    path, one evaluation with the launches held to ``mol_launches(n)``,
+    against the CPU on the same weights (energies, forces and charges,
+    charges summing to the total charge); then the time per evaluation.
+    Returns the main path's launch counts and the kernel records."""
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    from gcnn_keras_tpu_torch.layers.conv import qeq_solver as qs
+    path, expected = f"hdnnp4th_mol{n}_serving", mol_launches(n)
+    g = large_mol_graph(n)
+    fm = energy_force_model("hdnnp4th_mol", device)
+    batch = batch_graphs([g], global_keys=("energy", "total_charge"), device=device)
+    with captured_calls() as calls:
+        fm.apply(batch)
+        torch.cuda.synchronize()
+    counts = {name: len(c) for name, c in calls.items() if c}
+    if counts != {k: v for k, v in expected.items() if v}:
+        raise AssertionError(f"{path}: kernel calls {counts}, expected {expected}")
+    recs = {name: [dict(check_kernel_call(name, args, f"{path}, call {i + 1} of {len(c)}",
+                                          False), path=path)
+                   for i, args in enumerate(c)]
+            for name, c in calls.items() if c}
+
+    # the main path: every count set to 0 just before, read just after
+    reset_counts()
+    solves = qs.solves
+    ans = mol_answer(fm, batch)
+    launches = kernel_counts()
+    if launches != expected or qs.solves != solves:
+        raise AssertionError(f"{path}: launches {launches} and {qs.solves - solves} CG "
+                             f"solves, expected {expected} and none")
+    cpu = energy_force_model("hdnnp4th_mol", "cpu")
+    for (wname, wg), (_, wc) in zip(fm.energy_model.state_dict().items(),
+                                    cpu.energy_model.state_dict().items()):
+        if not torch.equal(wg.cpu(), wc):
+            raise AssertionError(f"weights differ between devices: {wname}")
+    t0 = time.perf_counter()
+    cpu_ans = mol_answer(cpu, batch_graphs([g], global_keys=("energy", "total_charge"),
+                                           device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    check_charged_request([ans], [g], path)
+    check_charged_request([cpu_ans], [g], f"{path} cpu")
+    errs = compare_answers([ans], [cpu_ans], ("energy", "force", "charge"))
+
+    for _ in range(2):
+        fm.apply(batch)
+    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fm.apply(batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    rec = {"path": path, "atoms": n, "N_pad": batch.n_node, "E_pad": batch.n_edge,
+           "A_pad": batch.angles.shape[0], "real_edges": int(batch.edge_mask.sum().item()),
+           "real_angles": int(batch.angle_mask.sum().item()), "max_nodes": batch.max_nodes,
+           "gpu_vs_cpu": errs, "cpu_s": cpu_s, "ms_per_eval": float(np.median(times)),
+           "ms_per_eval_min": float(np.min(times)),
+           "peak_mem_mb": (torch.cuda.max_memory_allocated() / 2**20
+                           if device == "cuda" else None),
+           "launches_per_eval": expected, "card": smi}
+    log(f"{path}: " + json.dumps(rec))
+    return launches, recs
+
+
+@contextlib.contextmanager
+def cg_rounds():
+    """Inside the block, the rounds of each CG call of the iterative Qeq
+    solve, in call order; yields the list."""
+    from gcnn_keras_tpu_torch.layers.conv import qeq_solver as qs
+    rounds, original = [], qs._pcg
+
+    def recording(*args):
+        before = qs.rounds
+        x = original(*args)
+        rounds.append(qs.rounds - before)
+        return x
+    qs._pcg = recording
+    try:
+        yield rounds
+    finally:
+        qs._pcg = original
+
+
+def phase_qeq_ab(smi, device="cuda"):
+    """Phase 18, the iterative Qeq against the dense one: at each size of
+    ``QEQ_AB_STEPS``, the first training step of ``hdnnp4th_mol{n}_train``
+    with ``solver="iterative"`` (default ``cg_tol``) against the same step
+    with the dense solve on the same weights (loss and every gradient, to
+    ``CG_LOSS_RTOL``/``CG_GRAD_TOL``), its kernel launches and CG solves
+    held to their derived counts; then the steps that follow, dense and
+    iterative in turns, timed. Returns the launch counts of each size's
+    first iterative step, by path."""
+    from gcnn_keras_tpu_torch.layers.conv import qeq_solver as qs
+    by_path = {}
+    for n, steps in QEQ_AB_STEPS.items():
+        path = f"hdnnp4th_mol{n}_train"
+        batch = train_batch(path, 3, n, device)
+        runs, first = {}, {}
+        for solver in ("dense", "iterative"):
+            model, trainer, state = make_trainer(path, device, solver)
+            step = trainer.step_fn()
+            reset_counts()
+            solves = qs.solves
+            with cg_rounds() as rounds:
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+            first[solver] = dict(loss=float(metrics["loss"]), launches=kernel_counts(),
+                                 solves=qs.solves - solves, rounds=rounds,
+                                 grads={k: p.grad.detach().clone()
+                                        for k, p in model.named_parameters()})
+            runs[solver] = [step, state]
+        dense, cg = first["dense"], first["iterative"]
+        expected = mol_launches(n, train=True)
+        if (dense["launches"], dense["solves"]) != (expected, 0) or (
+                cg["launches"], cg["solves"]) != ({**expected, "spd_solve": 0},
+                                                  CG_SOLVES["train"]):
+            raise AssertionError(f"{path}: launches and CG solves, dense {dense['launches']} "
+                                 f"{dense['solves']}, iterative {cg['launches']} "
+                                 f"{cg['solves']}")
+        if max(cg["rounds"]) >= 10 * n:
+            raise AssertionError(f"{path}: a CG solve ran to maxiter: {cg['rounds']}")
+        if not abs(cg["loss"] - dense["loss"]) <= CG_LOSS_RTOL * abs(dense["loss"]):
+            raise AssertionError(f"{path}: loss {cg['loss']} iterative, {dense['loss']} dense")
+        worst = 0.0
+        for name, ref in dense["grads"].items():
+            err, scale = (cg["grads"][name] - ref).abs().max().item(), ref.abs().max().item()
+            if not err <= CG_GRAD_TOL * scale:
+                raise AssertionError(f"{path}: gradient of {name}: max|cg-dense|={err} > "
+                                     f"{CG_GRAD_TOL}*{scale}")
+            worst = max(worst, err / max(scale, 1e-30))
+        by_path[f"hdnnp4th_mol{n}_cg_train"] = cg["launches"]
+
+        times = {"dense": [], "iterative": []}
+        losses = {s: [first[s]["loss"]] for s in times}
+        peak = dict.fromkeys(times, 0.0 if device == "cuda" else None)
+        step_rounds = []
+        for i in range(steps - 1):
+            for solver in (("dense", "iterative") if i % 2 == 0 else ("iterative", "dense")):
+                step, state = runs[solver]
+                if device == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                with cg_rounds() as rounds:
+                    t0 = time.perf_counter()
+                    state, metrics = step(state, batch)
+                    torch.cuda.synchronize()
+                    times[solver].append(1e3 * (time.perf_counter() - t0))
+                runs[solver][1] = state
+                losses[solver].append(float(metrics["loss"]))
+                if rounds:
+                    step_rounds.append(rounds)
+                if device == "cuda":
+                    peak[solver] = max(peak[solver], torch.cuda.max_memory_allocated() / 2**20)
+        rec = {"path": path, "atoms": n, "first_step": {
+                   "loss_dense": dense["loss"], "loss_iterative": cg["loss"],
+                   "max_rel_grad_err": worst, "cg_rounds_per_solve": cg["rounds"]},
+               "cg_rounds_per_solve": step_rounds, "losses": losses,
+               "ms_per_step": {s: float(np.median(t)) for s, t in times.items()},
+               "ms_per_step_all": times, "peak_mem_mb": peak, "steps_timed": steps - 1,
+               "iterative_launches_per_step": cg["launches"], "cg_solves_per_step":
+               cg["solves"], "card": smi}
+        log(f"{path} dense against iterative Qeq: " + json.dumps(rec))
+    return by_path
+
+
+def make_mlmm_predictor(device):
+    """Phase 8's HDNNP4th serving stack with ``MLMMEnergyForceModel``
+    around its ``EnergyForceModel``, serving the QM/MM correction too."""
+    from gcnn_keras_tpu_torch.graph.preprocess import set_angle
+    from gcnn_keras_tpu_torch.model.mlmm import MLMMEnergyForceModel
+    from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
+    return MolDynamicsModelPredictor(
+        MLMMEnergyForceModel(energy_force_model("hdnnp4th", device)),
+        graph_preprocessors=[functools.partial(set_angle, range_indices="edge_indices")],
+        output_translation={k: k for k in ("energy", "force", "charge",
+                                           "qmmm_energy_correction")},
+        device=device)
+
+
+def phase_mlmm(request, smi, device="cuda"):
+    """Phase 18, ML/MM: one evaluation of ``request`` (phase 8's first,
+    with ESP) through ``MLMMEnergyForceModel``, its launches held to
+    ``MLMM_LAUNCHES``; its energy is the inner model's plus the correction
+    ``sum_i q_i Phi_i`` and its forces the inner ones plus ``-q_i
+    dPhi_i/dr_i``; the answers against the CPU. Returns the launch counts."""
+    label, graphs = request
+    gpu = make_mlmm_predictor(device)
+    prepared, batch = gpu.make_batch(graphs)
+    reset_counts()
+    out = gpu.model(batch)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    if launches != MLMM_LAUNCHES:
+        raise AssertionError(f"mlmm {label}: launches {launches}, expected {MLMM_LAUNCHES}")
+    inner = gpu.model.inner.apply(batch)
+    q, esp = out["charge"].detach(), batch.nodes["esp"]
+    mask = batch.node_mask.to(q.dtype)
+    corr = torch.zeros(batch.n_graphs, device=q.device).index_add_(
+        0, batch.graph_id, q * esp * mask)[:, None]
+    parts = {"correction": (out["qmmm_energy_correction"], corr),
+             "energy": (out["energy"], inner["energy"] + out["qmmm_energy_correction"]),
+             "force": (out["force"], inner["force"]
+                       - q[:, None] * batch.nodes["esp_grad"] * mask[:, None])}
+    errs = {}
+    for key, (got, ref) in parts.items():
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        if not err <= SERVE_TOL * scale:
+            raise AssertionError(f"mlmm {label}: {key} max|d|={err} > {SERVE_TOL}*{scale}")
+        errs[key] = {"max_abs_err": err, "max_abs": scale}
+    results = gpu.split(prepared, batch, out)
+    check_charged_request(results, graphs, f"mlmm {label}")
+    cpu_results = make_mlmm_predictor("cpu")(graphs)
+    errs["gpu_vs_cpu"] = compare_answers(results, cpu_results, (
+        "energy", "force", "charge", "qmmm_energy_correction"))
+    log(f"mlmm serving {label}: " + json.dumps(
+        {"errs": errs, "launches": launches, "card": smi}))
+    return launches
+
+
+def phase_molecule_scale(qrequest, smi):
+    """Phase 18. Returns the launch counts of its main paths and the kernel
+    records."""
+    by_path, records = {}, {}
+    for n in MOL_SIZES:
+        by_path[f"hdnnp4th_mol{n}_serving"], recs = phase_mol_serving(n, smi)
+        for name, rs in recs.items():
+            records.setdefault(name, []).extend(rs)
+    for n in MOL_SIZES:
+        path = f"hdnnp4th_mol{n}_train"
+        by_path[path], recs = phase_training(path, smi)
+        for name, rs in recs.items():
+            records.setdefault(name, []).extend(rs)
+    by_path.update(phase_qeq_ab(smi))
+    by_path["mlmm_serving"] = phase_mlmm(qrequest, smi)
+    return by_path, records
+
+
 def kernels_line(records, by_path, second_order):
     """The ``kernels`` entries of the result line: each kernel's source, the
     TPU kernel it replaces, its launches on each main path, its largest
@@ -2444,6 +2806,8 @@ def main():
     records.update(phase_chain_kernels(
         full_batch("schnet_chain_train", "cuda"), schnet_model("chain", "cuda")))
     for path in TRAIN_PATHS:
+        if TRAIN_PATHS[path]["model"] == "hdnnp4th_mol":
+            continue  # phase 18
         by_path[path], train_recs = phase_training(path, smi)
         for name, rs in train_recs.items():
             records.setdefault(name, []).extend(rs)
@@ -2458,6 +2822,10 @@ def main():
         expected=schnet_launches("chain"), reference=unfused_answers)
     by_path["painn_serving"], painn_recs = phase_painn_serving(requests, smi)
     records["sorted_segment_sum"].extend(painn_recs)
+    mol_paths, mol_recs = phase_molecule_scale(qrequests[0], smi)
+    by_path.update(mol_paths)
+    for name, rs in mol_recs.items():
+        records[name].extend(rs)
 
     kernels = kernels_line(records, by_path, second_order)
     print(json.dumps({"kernels": kernels}))

@@ -2,11 +2,12 @@
 the screened-Coulomb energy of Gaussian charges and the QM/MM coupling;
 counterpart of ``gcnn_keras_tpu/layers/conv/hdnnp_electro.py``.
 
-The Qeq system of each molecule is a dense ``(M, M)`` matrix in a padded
-``(G, M, M)`` batch, ``M = batch.max_nodes``: padding atoms get identity
-rows, and the total-charge constraint is eliminated by a Schur complement
-(``qeq_solver.py``). The matrix-free iterative solver and the row-sharded
-one of the JAX package are not ported yet and raise.
+The Qeq system of each molecule is padded to ``M = batch.max_nodes`` atoms:
+padding atoms get identity rows, and the total-charge constraint is
+eliminated by a Schur complement (``qeq_solver.py``). The dense solve builds
+the ``(G, M, M)`` matrices; the iterative one (matrix-free CG) only their
+per-atom tables. The row-sharded solver of the JAX package is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch.nn as nn
 from ...batch import GraphBatch, flat_to_padded, graph_psum, padded_to_flat
 from ...ops.segment import segment_sum
 from ..aggr import gather_receiver_nodes, gather_sender_nodes
-from .qeq_solver import solve_qeq_dense_cholesky
+from .qeq_solver import solve_qeq_dense_cholesky, solve_qeq_iterative_batch
 
 Tensor = torch.Tensor
 
@@ -59,10 +60,6 @@ CENT_HARDNESS = (0.037 / 0.529177 * np.array([
     1.8, 3.0, 2.8, 2.8, 3.1, 3.0, 3.1, 3.5, 3.3, 3.3
 ])).astype(np.float32)
 
-_NOT_PORTED_ITERATIVE = (
-    "the iterative (matrix-free CG) Qeq solver is not ported yet (ROADMAP.md, "
-    "'Iterative Qeq'); use solver='dense'")
-
 
 def _element_table(module: nn.Module, name: str, table: np.ndarray,
                    as_param: bool, use_physical_params: bool,
@@ -92,14 +89,13 @@ class CENTCharge(nn.Module):
     ``chi (N,)`` and uses ``node_number``, ``node_coordinates`` and
     ``globals['total_charge']``; it returns flat charges ``(N,)``.
 
+    ``solver``: ``"dense"``; ``"iterative"``, the matrix-free CG of
+    ``qeq_solver.py`` to the relative residual ``cg_tol``; or ``"auto"``,
+    iterative from ``iterative_threshold`` atoms per molecule up, dense
+    below. Any other value raises ``ValueError``.
     ``dense_impl``: ``"cholesky"`` (Schur-eliminated constraint, the SPD
     solve) or ``"lu"`` (the bordered ``(G, M+1, M+1)`` system through
     ``torch.linalg.solve``); anything else raises ``ValueError``.
-    ``solver``: ``"dense"``, or ``"auto"`` (dense below
-    ``iterative_threshold`` atoms per molecule); ``"iterative"``, and
-    ``"auto"`` at or above the threshold, raise ``NotImplementedError``;
-    ``cg_tol``, the iterative solver's tolerance, is accepted for the JAX
-    package's configurations and not used.
     """
 
     def __init__(self, param_trainable: bool = False, use_physical_params: bool = True,
@@ -109,27 +105,23 @@ class CENTCharge(nn.Module):
         super().__init__()
         if dense_impl not in ("cholesky", "lu"):
             raise ValueError(f"dense_impl={dense_impl!r}: use 'cholesky' or 'lu'")
-        if solver == "iterative":
-            raise NotImplementedError(_NOT_PORTED_ITERATIVE)
-        if solver not in ("auto", "dense"):
+        if solver not in ("auto", "dense", "iterative"):
             raise ValueError(f"solver={solver!r}: use 'auto', 'dense' or 'iterative'")
         self.solver, self.dense_impl = solver, dense_impl
-        self.iterative_threshold = iterative_threshold
+        self.iterative_threshold, self.cg_tol = iterative_threshold, cg_tol
         as_param = param_trainable or not use_physical_params
         _element_table(self, "hardness_j", CENT_HARDNESS, as_param,
                        use_physical_params, generator)
         _element_table(self, "sigma", CENT_RADII, as_param,
                        use_physical_params, generator)
 
-    def assemble(self, batch: GraphBatch, chi: Tensor,
-                 positions: Optional[Tensor] = None):
-        """The padded Qeq system: ``(a_core (G, M, M), mask (G, M),
-        b (G, M), qtot (G,), corner (G,))``."""
-        G, M = batch.n_graphs, max(batch.max_nodes, 1)
-        if self.solver == "auto" and M >= self.iterative_threshold:
-            raise NotImplementedError(
-                f"solver='auto' at {M} atoms per molecule (>= iterative_threshold="
-                f"{self.iterative_threshold}): " + _NOT_PORTED_ITERATIVE)
+    def tables(self, batch: GraphBatch, chi: Tensor,
+               positions: Optional[Tensor] = None):
+        """The padded per-atom tables both solvers read: ``(pos (G, M, 3),
+        chi (G, M), sigma (G, M), diag (G, M), mask (G, M), qtot (G,))``.
+        ``chi`` is zero and ``diag`` (hardness + 1/(sigma sqrt(pi))) is 1 on
+        padding rows."""
+        G = batch.n_graphs
         z = _atomic_numbers(batch)
         pos = positions if positions is not None else batch.nodes["node_coordinates"]
         qtot = batch.globals.get("total_charge")
@@ -139,34 +131,45 @@ class CENTCharge(nn.Module):
         chi_flat = chi.reshape(chi.shape[0], -1)[:, 0]
 
         mask = flat_to_padded(batch.node_mask.to(pos.dtype), batch)     # (G, M)
-        mb = mask.bool()
         tab = flat_to_padded(torch.cat(
             [pos, chi_flat[:, None], self.sigma[z][:, None],
              self.hardness_j[z][:, None]], dim=1), batch)                # (G, M, 6)
         x_pad, chi_pad, sig, hard = tab[..., :3], tab[..., 3], tab[..., 4], tab[..., 5]
+        # the physical diagonal for real atoms, 1 for padding rows
+        diag = torch.where(mask.bool(), hard + 1.0 / (sig * math.sqrt(math.pi) + 1e-12),
+                           torch.ones_like(hard))
+        return x_pad, chi_pad * mask, sig, diag, mask, qtot
 
+    def assemble(self, batch: GraphBatch, chi: Tensor,
+                 positions: Optional[Tensor] = None):
+        """The padded dense Qeq system: ``(a_core (G, M, M), mask (G, M),
+        b (G, M), qtot (G,), corner (G,))``."""
+        x_pad, b, sig, diag, mask, qtot = self.tables(batch, chi, positions)
+        M = mask.shape[1]
+        mb = mask.bool()
         diff = x_pad[:, :, None, :] - x_pad[:, None, :, :]
         dist = torch.sqrt(torch.clamp_min(torch.sum(diff * diff, dim=-1), 1e-12))
         gamma = torch.sqrt(sig[:, :, None] ** 2 + sig[:, None, :] ** 2 + 1e-12)
         off = torch.erf(dist / (gamma * math.sqrt(2.0))) / dist
-        eye = torch.eye(M, dtype=torch.bool, device=pos.device)
+        eye = torch.eye(M, dtype=torch.bool, device=x_pad.device)
         pair = mb[:, :, None] & mb[:, None, :] & ~eye
-        a_core = torch.where(pair, off, torch.zeros_like(off))
-        # diagonal: the physical value for real atoms, 1 for padding rows
-        diag = torch.where(mb, hard + 1.0 / (sig * math.sqrt(math.pi) + 1e-12),
-                           torch.ones_like(hard))
-        a_core = a_core + diag[:, :, None] * eye
+        a_core = torch.where(pair, off, torch.zeros_like(off)) + diag[:, :, None] * eye
         # the bordered corner: 0, or 1 for an empty graph (nonsingular)
         corner = torch.where(mask.sum(dim=1) > 0, torch.zeros_like(qtot),
                              torch.ones_like(qtot))
-        return a_core, mask, chi_pad * mask, qtot, corner
+        return a_core, mask, b, qtot, corner
 
     def forward(self, batch: GraphBatch, chi: Tensor,
                 positions: Optional[Tensor] = None) -> Tensor:
-        a_core, mask, b, qtot, corner = self.assemble(batch, chi, positions)
-        if self.dense_impl == "cholesky":
-            q_pad = solve_qeq_dense_cholesky(a_core, mask, b, qtot, corner)
+        if self.solver == "iterative" or (
+                self.solver == "auto" and max(batch.max_nodes, 1) >= self.iterative_threshold):
+            x_pad, b, sig, diag, mask, qtot = self.tables(batch, chi, positions)
+            q_pad = solve_qeq_iterative_batch(x_pad, sig, diag, b, qtot, mask.bool(),
+                                              tol=self.cg_tol)
+        elif self.dense_impl == "cholesky":
+            q_pad = solve_qeq_dense_cholesky(*self.assemble(batch, chi, positions))
         else:
+            a_core, mask, b, qtot, corner = self.assemble(batch, chi, positions)
             G, M = mask.shape
             a = a_core.new_zeros(G, M + 1, M + 1)
             a[:, :M, :M] = a_core

@@ -1,16 +1,36 @@
-"""The dense constrained Qeq solve; counterpart of
-``gcnn_keras_tpu/layers/conv/qeq_solver.py`` (``solve_qeq_dense_cholesky``).
+"""The constrained Qeq solves; counterpart of
+``gcnn_keras_tpu/layers/conv/qeq_solver.py`` (``solve_qeq_dense_cholesky``,
+``_erf_kernel_matvec``, ``solve_qeq_iterative``,
+``solve_qeq_iterative_batch``).
 
-The iterative (matrix-free CG) and row-sharded solvers of that file are not
-ported yet.
+Both eliminate the total-charge constraint by a Schur complement: with
+``A x1 = chi`` and ``A x2 = 1`` (``A`` SPD: erf-screened Coulomb plus a
+positive hardness diagonal), ``lambda = (1.x1 - qtot) / 1.x2`` and
+``q = x1 - lambda x2``, the solution of the bordered system.
+
+The dense solve builds ``A`` as a padded ``(G, M, M)`` batch. The iterative
+one never does: Jacobi-preconditioned conjugate gradients on the erf-kernel
+matvec, computed in row blocks of ``block`` rows, so it holds O(M * block)
+values at a time (its derivatives, like the JAX package's ``lax.map``
+under autodiff, keep each block's intermediates). The row-sharded solvers of
+the JAX module are not ported yet.
 """
 from __future__ import annotations
 
+import math
+from typing import Callable, Optional
+
 import torch
+import torch.nn.functional as F
 
 from ...ops.cuda.spd_solve import SPDSolve, fits_shared_memory
 
 Tensor = torch.Tensor
+
+# CG calls (each solving the 2 G systems of one batch, or their adjoints)
+# and the rounds they took, summed
+solves = 0
+rounds = 0
 
 
 def solve_qeq_dense_cholesky(a_core: Tensor, border: Tensor, b: Tensor,
@@ -44,3 +64,157 @@ def solve_qeq_dense_cholesky(a_core: Tensor, border: Tensor, b: Tensor,
     den = torch.sum(border * y2, dim=-1) - corner
     lam = num / torch.where(den == 0.0, torch.ones_like(den), den)
     return y1 - lam[:, None] * y2
+
+
+def _erf_kernel_matvec(pos: Tensor, sigma: Tensor, diag: Tensor, mask: Tensor,
+                       block: int = 128) -> Callable[[Tensor], Tensor]:
+    """Matrix-free SPD matvec of a batch of molecules: ``pos (G, M, 3)``,
+    ``sigma (G, M)``, ``diag (G, M)``, ``mask (G, M)`` bool.
+
+    ``(A q)_i = diag_i q_i + mask_i sum_{j != i} mask_j erf(d_ij / (sqrt(2)
+    gamma_ij)) / d_ij q_j`` with ``d_ij = sqrt(|r_i - r_j|^2 + 1e-12)`` and
+    ``gamma_ij = sqrt(sigma_i^2 + sigma_j^2 + 1e-12)``, ``sigma`` padded
+    with 1.0 up to a multiple of ``block``. The returned function takes
+    ``q (G, M, K)`` and computes the rows ``block`` at a time."""
+    m = mask.shape[1]
+    m_pad = -(-m // block) * block
+    pos_p = F.pad(pos, (0, 0, 0, m_pad - m))
+    sig_p = F.pad(sigma, (0, m_pad - m), value=1.0)
+    mask_p = F.pad(mask.to(pos.dtype), (0, m_pad - m))
+    cols = torch.arange(m_pad, device=pos.device)
+    rows = torch.arange(block, device=pos.device)[:, None]
+
+    def matvec(q: Tensor) -> Tensor:
+        q_p = F.pad(q, (0, 0, 0, m_pad - m))
+        out = []
+        for r0 in range(0, m_pad, block):
+            diff = pos_p[:, r0:r0 + block, None, :] - pos_p[:, None, :, :]
+            d = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)      # (G, block, M_pad)
+            sr = sig_p[:, r0:r0 + block, None]
+            gamma = torch.sqrt(sr ** 2 + sig_p[:, None, :] ** 2 + 1e-12)
+            off = torch.erf(d / (gamma * math.sqrt(2.0))) / d
+            # zero the diagonal and the padded rows and columns
+            off = torch.where(cols == rows + r0, torch.zeros_like(off), off)
+            off = off * mask_p[:, None, :]
+            out.append((off @ q_p) * mask_p[:, r0:r0 + block, None])
+        return torch.cat(out, dim=1)[:, :m] + diag[..., None] * q
+
+    return matvec
+
+
+def _pcg(matvec: Callable[[Tensor], Tensor], b: Tensor, inv_diag: Tensor,
+         tol: float, maxiter: int) -> Tensor:
+    """Jacobi-preconditioned CG on every system of ``b (G, M, K)`` at once,
+    as ``jax.scipy.sparse.linalg.cg`` under ``vmap``: x0 = 0; a system
+    stops, and keeps its value, once its residual has ``r.r <= tol^2 b.b``
+    or after ``maxiter`` rounds. One test a round for the whole batch (a
+    host sync)."""
+    global solves, rounds
+    x = torch.zeros_like(b)
+    r = b.clone()
+    z = inv_diag[..., None] * r
+    p = z
+    gamma = torch.sum(r * z, dim=1)                                     # (G, K)
+    thresh = tol * tol * torch.sum(b * b, dim=1)
+    active = torch.sum(r * r, dim=1) > thresh
+    k = 0
+    while k < maxiter and bool(active.any()):
+        ap = matvec(p)
+        denom = torch.sum(p * ap, dim=1)
+        alpha = gamma / torch.where(active, denom, torch.ones_like(denom))
+        x_new = x + alpha[:, None] * p
+        r_new = r - alpha[:, None] * ap
+        z = inv_diag[..., None] * r_new
+        gamma_new = torch.sum(r_new * z, dim=1)
+        beta = gamma_new / torch.where(active, gamma, torch.ones_like(gamma))
+        p_new = z + beta[:, None] * p
+        keep = active[:, None]
+        x = torch.where(keep, x_new, x)
+        r = torch.where(keep, r_new, r)
+        p = torch.where(keep, p_new, p)
+        gamma = torch.where(active, gamma_new, gamma)
+        k += 1
+        active = active & (torch.sum(r * r, dim=1) > thresh)
+    solves += 1
+    rounds += k
+    return x
+
+
+class _CGSolve(torch.autograd.Function):
+    """``x = A^-1 b`` for the erf-kernel matrix of ``(pos, sigma, diag,
+    mask)``, by :func:`_pcg`, differentiable to any order as
+    ``lax.custom_linear_solve(symmetric=True)``: the cotangent of ``b`` is
+    ``lambda = A^-1 x_bar``, a solve of the same system, and that of each
+    matvec input ``theta`` is ``-<lambda, d(A x)/d theta>`` at the solution
+    ``x``."""
+
+    @staticmethod
+    def forward(ctx, b, pos, sigma, diag, mask, block, tol, maxiter):
+        with torch.no_grad():
+            matvec = _erf_kernel_matvec(pos, sigma, diag, mask, block)
+            x = _pcg(matvec, b, 1.0 / torch.clamp_min(diag, 1e-6), tol, maxiter)
+        ctx.save_for_backward(x, pos, sigma, diag, mask)
+        ctx.config = (block, tol, maxiter)
+        return x
+
+    @staticmethod
+    def backward(ctx, x_bar):
+        x, pos, sigma, diag, mask = ctx.saved_tensors
+        block, tol, maxiter = ctx.config
+        lam = _CGSolve.apply(x_bar, pos, sigma, diag, mask, block, tol, maxiter)
+        needed = [i for i in range(3) if ctx.needs_input_grad[1 + i]]
+        grads = [None, None, None]
+        if needed:
+            # grad mode is on here only when the caller asked for a graph
+            # (create_graph=True); the matvec's VJP needs it either way
+            create = torch.is_grad_enabled()
+            with torch.enable_grad():
+                # fresh aliases of the inputs, so that the VJP reaches them
+                # only through the matvec, not through x = A^-1 b
+                theta = [t.view_as(t) if create else t.detach().requires_grad_(i in needed)
+                         for i, t in enumerate((pos, sigma, diag))]
+                ax = _erf_kernel_matvec(*theta, mask, block)(x if create else x.detach())
+                vjp = torch.autograd.grad(ax, [theta[i] for i in needed], lam,
+                                          create_graph=create)
+            for i, g in zip(needed, vjp):
+                grads[i] = -g
+        return (lam, *grads, None, None, None, None)
+
+
+def solve_qeq_iterative_batch(pos: Tensor, sigma: Tensor, hardness_diag: Tensor,
+                              chi: Tensor, qtot: Tensor, mask: Tensor,
+                              block: int = 128, tol: float = 1e-6,
+                              maxiter: Optional[int] = None) -> Tensor:
+    """Matrix-free constrained Qeq solve of a batch of molecules padded to
+    M atoms: ``pos (G, M, 3)``; ``sigma (G, M)`` Gaussian widths (Bohr);
+    ``hardness_diag (G, M)`` the dense solve's diagonal (hardness +
+    1/(sigma sqrt(pi)), 1.0 on padding rows); ``chi (G, M)``; ``qtot (G,)``;
+    ``mask (G, M)`` bool. Returns charges ``(G, M)``, zero on padding.
+
+    The 2 G systems ``A x1 = chi mask`` and ``A x2 = mask`` run as one
+    batched CG (``maxiter`` defaults to 10 M rounds, each system stopping
+    on its own); an empty molecule's charges are 0."""
+    maskf = mask.to(pos.dtype)
+    if maxiter is None:
+        maxiter = 10 * mask.shape[1]
+    b = torch.stack([chi * maskf, maskf], dim=-1)                       # (G, M, 2)
+    xs = _CGSolve.apply(b, pos, sigma, hardness_diag, mask, block, tol, maxiter)
+    x1, x2 = xs[..., 0], xs[..., 1]
+    denom = torch.sum(maskf * x2, dim=-1)
+    lam = (torch.sum(maskf * x1, dim=-1) - qtot) / torch.where(
+        denom != 0, denom, torch.ones_like(denom))
+    return (x1 - lam[:, None] * x2) * maskf
+
+
+def solve_qeq_iterative(pos: Tensor, sigma: Tensor, hardness_diag: Tensor,
+                        chi: Tensor, qtot: Tensor, mask: Tensor,
+                        block: int = 128, tol: float = 1e-6,
+                        maxiter: Optional[int] = None) -> Tensor:
+    """:func:`solve_qeq_iterative_batch` for ONE molecule: ``pos (M, 3)``,
+    ``sigma``, ``hardness_diag``, ``chi``, ``mask`` ``(M,)``, ``qtot`` a
+    scalar. Returns charges ``(M,)``."""
+    q = solve_qeq_iterative_batch(pos[None], sigma[None], hardness_diag[None], chi[None],
+                                  torch.as_tensor(qtot, dtype=pos.dtype,
+                                                  device=pos.device).reshape(1),
+                                  mask[None], block=block, tol=tol, maxiter=maxiter)
+    return q[0]

@@ -5,6 +5,8 @@ training step or of one MD step goes on a CUDA card, for the PyTorch port.
                                      [--mode unfused|fused|accurate|chain]
                                      [--train | --md] [--evals 10]
                                      [--trace chiprun_out/serving_trace.json]
+    python3 profile_serving_torch.py --model hdnnp4th --atoms N [--train]
+                                     [--solver dense|iterative]
     python3 profile_serving_torch.py --kernel KERNEL
         (KERNEL: sorted_segment_sum, gather_mul_segsum, fused_cfconv, cf_fwd,
          cf_vjp, cf_hesjvp, g4_fwd, g4_jvp, g4_vjp, g2_fwd, g2_jvp, g2_vjp
@@ -26,6 +28,16 @@ evaluations or steps under ``torch.profiler``. Prints the device time by kernel,
 device busy share of the wall time, and one JSON summary line with the time
 and calls of each of the port's own kernels; writes a Chrome trace when
 ``--trace`` is given.
+
+``--atoms N`` (HDNNP4th only) takes one molecule of N atoms instead
+(``chip_smoke.large_mol_graph``, ``bench.py`` ``bench_large_mol_step``'s
+molecule and model, ``chip_smoke.LARGE_MOL_KW``), with the Qeq
+``--solver`` given (default: ``"auto"``, dense below 4096 atoms); with
+``--train`` its training step (``TRAIN_PATHS["hdnnp4th_mol520_train"]``'s
+loss and Adam on that molecule). The summary then also gives the device time
+of the Qeq solve's Cholesky factorizations and solves (every operation
+named for Cholesky, with the backward nodes of both) and of its CG solves,
+each as a share of the device time.
 
 ``--kernel`` is the kernel-only timing mode, seconds long where a whole
 ``chip_smoke.py`` takes minutes: it builds the kernel's source afresh
@@ -55,7 +67,7 @@ import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 import chip_smoke
 
@@ -79,6 +91,37 @@ def serving_run(name, mode):
         mols = chip_smoke.with_esp(mols, 0)
     _, batch = gpu.make_batch(mols)
     return lambda: gpu.model(batch)
+
+
+def molecule_run(atoms, train, solver):
+    """An evaluation or a training step of one molecule of ``atoms`` atoms."""
+    path = "hdnnp4th_mol520_train"
+    batch = chip_smoke.train_batch(path, 3, atoms, "cuda")
+    if not train:
+        fm = chip_smoke.energy_force_model("hdnnp4th_mol", "cuda", solver=solver)
+        return lambda: fm.apply(batch)
+    _, trainer, state = chip_smoke.make_trainer(path, "cuda", solver)
+    step = trainer.step_fn()
+    holder = [state]
+
+    def run():
+        holder[0], _ = step(holder[0], batch)
+    return run
+
+
+def top_device_ms(events, match):
+    """Device time (ms) of the CPU events whose name ``match`` accepts and
+    that no accepted event encloses: the kernels launched inside them."""
+    total = 0.0
+    for e in events:
+        if e.device_type != DeviceType.CPU or not match(e.name):
+            continue
+        parent = e.cpu_parent
+        while parent is not None and not match(parent.name):
+            parent = parent.cpu_parent
+        if parent is None:
+            total += e.device_time_total / 1e3
+    return total
 
 
 def md_run(name, mode):
@@ -168,6 +211,10 @@ def main():
                       help="profile MD steps of a 21-atom molecule instead")
     kind.add_argument("--kernel", choices=tuple(KERNEL_SOURCES),
                       help="time one kernel at its main-path shapes instead")
+    ap.add_argument("--atoms", type=int, default=None,
+                    help="HDNNP4th on one molecule of this many atoms")
+    ap.add_argument("--solver", choices=("dense", "iterative"), default=None,
+                    help="the Qeq solver with --atoms (default: auto)")
     ap.add_argument("--evals", type=int, default=10)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
@@ -186,8 +233,22 @@ def main():
         raise SystemExit("profile_serving_torch: --train runs SchNet unfused or chain")
     if args.model == "gcn" and not args.train:
         raise SystemExit("profile_serving_torch: GCN runs --train only")
-    run = (training_run if args.train else md_run if args.md else serving_run)(
-        args.model, args.mode)
+    if (args.atoms is not None or args.solver) and (args.model != "hdnnp4th" or args.md
+                                                     or args.atoms is None):
+        raise SystemExit("profile_serving_torch: --atoms [--solver] is HDNNP4th's, "
+                         "serving or --train")
+    if args.atoms is not None:
+        from gcnn_keras_tpu_torch.layers.conv import qeq_solver
+        run = molecule_run(args.atoms, args.train, args.solver)
+        pcg = qeq_solver._pcg
+
+        def annotated_pcg(*a):
+            with record_function("qeq_cg_solve"):
+                return pcg(*a)
+        qeq_solver._pcg = annotated_pcg
+    else:
+        run = (training_run if args.train else md_run if args.md else serving_run)(
+            args.model, args.mode)
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -223,6 +284,14 @@ def main():
         "device_busy_share": dev_ms / wall_ms,
         f"kernels_per_{unit}": n_kernels,
     }
+    if args.atoms is not None:
+        events = prof.events()
+        cholesky_ms = top_device_ms(events, lambda n: "cholesky" in n.lower()) / args.evals
+        cg_ms = top_device_ms(events, lambda n: n == "qeq_cg_solve") / args.evals
+        summary.update(atoms=args.atoms, solver=args.solver or "auto",
+                       **{f"cholesky_ms_per_{unit}": cholesky_ms,
+                          "cholesky_share": cholesky_ms / dev_ms,
+                          f"cg_ms_per_{unit}": cg_ms, "cg_share": cg_ms / dev_ms})
     for name in PORT_KERNELS:
         mine = [e for e in kernels if name in e.key]
         if mine:

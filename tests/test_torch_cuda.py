@@ -326,10 +326,12 @@ def test_acsf_force_loss_gradient_on_the_card_matches_the_cpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("path,size", [("schnet_train", 16), ("hdnnp2nd_train", 16),
                                        ("hdnnp4th_train", 16), ("schnet_chain_train", 16),
-                                       ("painn_train", 16), ("gcn_cora_train", 2708)])
+                                       ("painn_train", 16), ("gcn_cora_train", 2708),
+                                       ("hdnnp4th_mol520_train", 520)])
 def test_training_step_on_the_card_matches_the_cpu(cuda_device, path, size):
     """One full-width training step of ``chip_smoke.py`` on 16 molecules
-    (GCN: the 2708-node citation graph of ``sec_gcn_cora``, seed 7): the
+    (GCN: the 2708-node citation graph of ``sec_gcn_cora``, seed 7; the
+    molecule-scale path: one molecule of 520 atoms from seed 7): the
     loss and every parameter gradient equal the CPU's (within the path's
     ``grad_tol``, where it sets one), and each kernel launches as often as
     ``TRAIN_PATHS`` derives."""
@@ -978,3 +980,107 @@ def test_g2_vjp_matches_plain_past_the_shared_window(cuda_device):
     out = _acsf_check("g2_vjp", b, _acsf_static("g2_vjp", False))
     assert out[2:n - 1].abs().max().item() == 0.0  # the atoms without neighbours
     assert out[[0, 1, n - 1]].abs().max().item() > 0.0
+
+
+# ------------------------------------------ HDNNP4th at molecule scale, ML/MM
+
+
+def _qeq_system(m, n_real, seed):
+    """A Qeq system of ``tests/test_qeq_solver.py``'s kind: ``m`` slots,
+    ``n_real`` atoms of H, C and O in a 40-unit box, the CENT tables."""
+    import math
+    from gcnn_keras_tpu_torch.layers.conv.hdnnp_electro import CENT_HARDNESS, CENT_RADII
+    rs = np.random.RandomState(seed)
+    z = rs.choice([1, 6, 8], size=m)
+    pos = (rs.rand(m, 3) * 40).astype(np.float32)
+    mask = np.arange(m) < n_real
+    chi = (rs.randn(m) * 0.1).astype(np.float32) * mask
+    sigma = CENT_RADII[z]
+    hard = np.where(mask, CENT_HARDNESS[z] + 1.0 / (sigma * math.sqrt(math.pi) + 1e-12), 1.0)
+    return [torch.from_numpy(a) for a in (pos, sigma, hard.astype(np.float32), chi, mask)]
+
+
+@pytest.mark.cuda
+def test_iterative_qeq_on_the_card_matches_the_cpu(cuda_device):
+    """The CG solve of a 1024-slot system (1000 atoms) and its position
+    gradient on the card against the CPU; the charges sum to the total."""
+    from gcnn_keras_tpu_torch.layers.conv import qeq_solver as qs
+    pos, sigma, hard, chi, mask = _qeq_system(1024, 1000, 0)
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        p = pos.to(dev).requires_grad_()
+        q = qs.solve_qeq_iterative(p, sigma.to(dev), hard.to(dev), chi.to(dev), 1.0,
+                                   mask.to(dev))
+        (g,) = torch.autograd.grad(torch.sum(q ** 2), p)
+        results.append((q.detach().cpu(), g.cpu()))
+    (q, g), (q_ref, g_ref) = results
+    assert (q - q_ref).abs().max().item() <= 5e-5
+    assert abs(q.sum().item() - 1.0) < 1e-4
+    assert (g - g_ref).abs().max().item() <= 1e-3 * g_ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_iterative_training_step_on_the_card_matches_dense(cuda_device):
+    """One 200-atom force-loss step with the iterative Qeq against the dense
+    (SPD kernel) one on the card, same weights, to
+    ``chip_smoke.CG_LOSS_RTOL``/``CG_GRAD_TOL``; 4 CG solves, no SPD."""
+    import chip_smoke
+    batch = chip_smoke.train_batch("hdnnp4th_mol200_train", 3, 200, "cuda")
+    res = {}
+    for solver in ("dense", "iterative"):
+        model, trainer, state = chip_smoke.make_trainer("hdnnp4th_mol200_train", "cuda", solver)
+        before = chip_smoke.kernel_counts()
+        with chip_smoke.cg_rounds() as rounds:
+            state, metrics = trainer.step_fn()(state, batch)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in chip_smoke.kernel_counts().items()}
+        res[solver] = (metrics["loss"].item(), [p.grad for p in model.parameters()], launched,
+                       rounds)
+    (loss, grads, launched, rounds), (ref_loss, ref_grads, ref_launched, ref_rounds) = (
+        res["iterative"], res["dense"])
+    expected = chip_smoke.mol_launches(200, train=True)
+    assert ref_launched == expected and ref_rounds == []
+    assert launched == dict(expected, spd_solve=0)
+    assert len(rounds) == chip_smoke.CG_SOLVES["train"] and max(rounds) < 2000
+    assert abs(loss - ref_loss) <= chip_smoke.CG_LOSS_RTOL * abs(ref_loss)
+    for g, ref in zip(grads, ref_grads):
+        assert (g - ref).abs().max().item() <= chip_smoke.CG_GRAD_TOL * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_mol200_evaluation_spd_calls_give_the_plain_bits(cuda_device):
+    """A 200-atom evaluation runs the SPD block kernel twice (the solve
+    and its adjoint), each call giving the plain version's bits; energies,
+    forces and charges against the CPU."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    launches, recs = chip_smoke.phase_mol_serving(200, "test", "cuda")
+    assert launches == chip_smoke.mol_launches(200) and launches["spd_solve"] == 2
+    with chip_smoke.captured_calls() as calls:
+        chip_smoke.energy_force_model("hdnnp4th_mol", "cuda").apply(
+            chip_smoke.train_batch("hdnnp4th_mol200_train", 3, 200, "cuda"))
+    assert len(calls["spd_solve"]) == 2
+    for a, b in calls["spd_solve"]:
+        assert a.shape[1] == 200
+        x = ks.spd_solve(a, b)
+        assert torch.equal(x.view(torch.int32), ks.spd_solve_plain(a, b).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_mlmm_on_the_card_matches_the_cpu(cuda_device):
+    """``MLMMEnergyForceModel`` around the bench-width HDNNP4th on 16
+    molecules with ESP: the card against the CPU, launches per evaluation
+    of ``chip_smoke.MLMM_LAUNCHES``."""
+    import chip_smoke
+    frames = chip_smoke.with_esp(chip_smoke.qm9_like_mols(9, 16), 9)
+    answers = {}
+    for dev in ("cuda", "cpu"):
+        before = chip_smoke.kernel_counts()
+        answers[dev] = chip_smoke.make_mlmm_predictor(dev)(frames)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in chip_smoke.kernel_counts().items()}
+        assert launched == (chip_smoke.MLMM_LAUNCHES if dev == "cuda"
+                            else chip_smoke.launch_counts())
+    chip_smoke.check_charged_request(answers["cuda"], frames, "mlmm")
+    chip_smoke.compare_answers(answers["cuda"], answers["cpu"],
+                               ("energy", "force", "charge", "qmmm_energy_correction"))

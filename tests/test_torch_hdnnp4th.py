@@ -236,13 +236,9 @@ def test_cent_charge_and_its_derivatives_match_jax(impl, lanes, monkeypatch):
 def test_cent_charge_raises_on_what_is_not_ported():
     with pytest.raises(ValueError, match="dense_impl"):
         electro.CENTCharge(dense_impl="cholesky_typo")
-    with pytest.raises(NotImplementedError, match="Iterative Qeq"):
-        electro.CENTCharge(solver="iterative")
     with pytest.raises(ValueError, match="solver"):
         electro.CENTCharge(solver="cg")
     _, tb, chi = _qeq_batches()
-    with pytest.raises(NotImplementedError, match="Iterative Qeq"):
-        electro.CENTCharge(iterative_threshold=4)(tb, torch.from_numpy(chi))
     electro.CENTCharge(solver="dense", iterative_threshold=4)(tb, torch.from_numpy(chi))
 
 
@@ -399,9 +395,7 @@ def test_golden_reference_energies_and_charges():
 @pytest.mark.parametrize("call", [
     lambda: hdnnp4th.make_model_behler(device="cpu", normalize_kwargs={"epsilon": 1e-3}),
     lambda: hdnnp4th.make_model_learn(device="cpu", normalize_kwargs={"epsilon": 1e-3}),
-    lambda: hdnnp4th.make_model_behler(
-        device="cpu", electrostatic_kwargs={"solver": "iterative"}),
-], ids=["behler-normalize", "learn-normalize", "iterative"])
+], ids=["behler-normalize", "learn-normalize"])
 def test_unported_options_raise(call):
     with pytest.raises(NotImplementedError):
         call()

@@ -14,6 +14,7 @@ import torch
 
 from gcnn_keras_tpu_torch.batch import batch_graphs
 from gcnn_keras_tpu_torch.model.force import EnergyForceModel
+from gcnn_keras_tpu_torch.model.mlmm import MLMMEnergyForceModel
 from gcnn_keras_tpu_torch.models import gcn, hdnnp4th, painn
 from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
 from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
@@ -63,7 +64,8 @@ def test_scan_sees_the_package():
                                    "hdnnp4th.make_model_rep", "hdnnp4th.make_model_learn",
                                    "hdnnp4th.make_model_behler_charge_separat", "ScannedMD",
                                    "painn.make_model", "painn.make_crystal_model",
-                                   "gcn.make_model", "gcn.make_model_weighted"])
+                                   "gcn.make_model", "gcn.make_model_weighted",
+                                   "MLMMEnergyForceModel"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     graph = {"node_number": [1, 8], "node_coordinates": [[0, 0, 0], [0, 0, 1.0]],
@@ -87,6 +89,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
         "painn.make_crystal_model": lambda **kw: painn.make_crystal_model(depth=1, **kw),
         "gcn.make_model": lambda **kw: gcn.make_model(in_features=8, **kw),
         "gcn.make_model_weighted": lambda **kw: gcn.make_model_weighted(**kw),
+        "MLMMEnergyForceModel": lambda **kw: MLMMEnergyForceModel(EnergyForceModel(
+            hdnnp4th.make_model_behler(device="cpu"), use_esp_coupling=True, **kw)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -271,7 +271,9 @@ def test_labelled_mols_are_bench_mols(with_esp):
 @pytest.mark.parametrize("path", list(chip_smoke.TRAIN_PATHS))
 def test_kernel_calls_per_training_step_are_the_derived_counts(path):
     """One Trainer step of each full-width training path of ``chip_smoke.py``
-    on a 3-molecule batch (GCN: a 100-node citation graph) calls each
+    on a 3-molecule batch (GCN: a 100-node citation graph; the
+    molecule-scale paths: one molecule of their size, at most 260 atoms, so
+    past the SPD kernels' gate where theirs is) calls each
     kernel's wrapper as often as
     ``TRAIN_PATHS`` says that the card launches it per step; the calls are
     recorded by ``chip_smoke.captured_calls``, which phase 10 uses to hold
@@ -280,8 +282,9 @@ def test_kernel_calls_per_training_step_are_the_derived_counts(path):
     table = chip_smoke.kernel_wrappers()
     wrappers = {name: getattr(mod, attr) for name, (mod, attr, _) in table.items()}
     _, trainer, state = chip_smoke.make_trainer(path, "cpu")
-    # 3 molecules, or a citation graph of 100 nodes
-    size = 100 if chip_smoke.TRAIN_PATHS[path]["model"] == "gcn" else 3
+    # 3 molecules, a citation graph of 100 nodes, or one molecule
+    cfg = chip_smoke.TRAIN_PATHS[path]
+    size = {"gcn": 100, "hdnnp4th_mol": min(cfg["size"], 260)}.get(cfg["model"], 3)
     with chip_smoke.captured_calls() as calls:
         trainer.step_fn()(state, chip_smoke.train_batch(path, 3, size, "cpu"))
     assert {name: getattr(mod, attr) for name, (mod, attr, _) in table.items()} == wrappers

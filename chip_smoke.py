@@ -126,6 +126,21 @@ order, each raising on a failed check:
    through ``MLMMEnergyForceModel``: its launches, its energy the inner
    one plus the QM/MM correction and its forces the inner ones plus
    ``-q dPhi/dr``, against the CPU.
+19. The training entry point: each script of ``gcnn_keras_tpu_torch.scripts``
+   (``SCRIPT_PATHS``) trains through ``run_force_training`` (``force_hdnnp4th``
+   through its own ``train``) at its ``CONFIG`` widths, with the cuts of
+   ``SCRIPT_CUTS``: 3 epochs (100), 512 synthetic frames (64) so that a fold
+   takes enough steps to time, no PNGs. The first engine step is held
+   against the same step on the CPU (the same weights and batch, to
+   ``TRAIN_TOL``), each of its kernel calls against its plain version, and,
+   for the scripts whose loss is a ``TRAIN_PATHS`` path's, its launches and
+   every later step's against that path's; each fold's losses are finite
+   and fall where phase 10 requires it; the fold artifacts exist, and fold
+   0's checkpoint reloads into a fresh model that gives the energies of
+   its ``energy_predictions.csv``. Prints the median ms per engine step
+   after the first epoch (and the sync that ends it), the loader's host ms
+   per batch and its waits an epoch, ms per epoch, ms of the validation
+   pass and the rest of an epoch.
 
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it.
@@ -137,11 +152,14 @@ no result.
 """
 import contextlib
 import functools
+import importlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2694,6 +2712,228 @@ def phase_molecule_scale(qrequest, smi):
     return by_path, records
 
 
+# ------------------------------------------- phase 19: the training entry point
+
+
+# the port's training scripts, each with the TRAIN_PATHS path whose loss is
+# its loss (None: a loss of its own, no path)
+SCRIPT_PATHS = {"force_schnet": "schnet_train", "force_painn": "painn_train",
+                "force_hdnnp2nd": "hdnnp2nd_train", "force_hdnnp4th": "hdnnp4th_train",
+                "energy_hdnnp4th": None, "charge_hdnnp4th": None}
+# phase 19's cuts to each CONFIG, whose widths stay: 3 epochs (100), 512
+# synthetic frames (64) so that a fold of 16-molecule batches takes 10 steps
+# an epoch, no PNGs (no matplotlib on the card's machine)
+SCRIPT_CUTS = dict(epochs=3, synthetic_frames=512, make_plots=False)
+
+
+def check_script_artifacts(name, mod, cfg, global_keys, device):
+    """Every fold's checkpoint, scaler, errors and test artifacts and the
+    score file exist; fold 0's checkpoint, loaded into a model built from
+    another seed, predicts its test split's energies as its
+    ``energy_predictions.csv`` has them (in the scaled space, to
+    ``SERVE_TOL`` of the largest)."""
+    from gcnn_keras_tpu_torch.data.scalers import EnergyForceExtensiveLabelScaler
+    from gcnn_keras_tpu_torch.training import force_script
+    from gcnn_keras_tpu_torch.training.evaluation import _predict_stage
+    from gcnn_keras_tpu_torch.utils.checkpoint import load_checkpoint
+    from gcnn_keras_tpu_torch.utils.data_splitter import kfold_swapped_val
+    prefix = cfg["model_prefix"]
+    score = "results/hdnnp4th_score" if name == "force_hdnnp4th" else f"results/{prefix}_score"
+    missing = [] if os.path.exists(score + ".yaml") or os.path.exists(score + ".json") \
+        else [score]
+    for fold in range(cfg["ensemble_size"]):
+        missing += [f for f in (f"step_{cfg['epochs']}/checkpoint.pt", "scaler.json",
+                                "errors.json", "geoms.extxyz", "energy_predictions.csv")
+                    if not os.path.exists(os.path.join(f"{prefix}_{fold}", f))]
+    if missing:
+        raise AssertionError(f"{name}: missing artifacts {missing}")
+    fresh = mod.build_model(cfg, device=device, generator=torch.Generator().manual_seed(12345))
+    fresh.energy_model.load_state_dict(load_checkpoint(f"{prefix}_0", map_location=device)["params"])
+    ds = mod.load_dataset(cfg) if hasattr(mod, "load_dataset") \
+        else force_script.load_force_dataset({**force_script.DEFAULTS, **cfg})
+    _, _, te = next(kfold_swapped_val(len(ds), k=cfg["ensemble_size"], seed=cfg["seed"]))
+    test = ds[te]
+    scaler = EnergyForceExtensiveLabelScaler().load(os.path.join(f"{prefix}_0", "scaler.json"))
+    scaler.transform_dataset(test)
+    pred = _predict_stage(test, fresh, global_keys, 32)["pred_e"]
+    raw = np.genfromtxt(os.path.join(f"{prefix}_0", "energy_predictions.csv"), delimiter=",",
+                        names=True)["energy_prediction"]
+    ref = scaler.transform(raw, [g["node_number"] for g in test])
+    err, scale = float(np.abs(pred - ref).max()), float(np.abs(ref).max())
+    if pred.shape != ref.shape or not err <= SERVE_TOL * scale:
+        raise AssertionError(f"{name}: reloaded checkpoint's energies max|diff|={err} > "
+                             f"{SERVE_TOL}*{scale}")
+    return err
+
+
+def check_first_script_step(name, mod, cfg, first, grad_tol):
+    """The engine's first step on the card against the same step on the
+    CPU: the same weights and batch, the engine's loss; the loss within
+    ``TRAIN_TOL`` of the CPU's and each gradient within ``grad_tol`` of
+    that tensor's largest entry on the CPU."""
+    from gcnn_keras_tpu_torch.training import force_script
+    fm = mod.build_model(cfg, device="cpu")
+    params = [p for p in fm.energy_model.parameters() if p.requires_grad]
+    with torch.no_grad():
+        for p, w in zip(params, first["weights"]):
+            p.copy_(w)
+    loss, _ = force_script.force_loss_fn(fm, force_script.normalized_loss_weights(cfg))(
+        first["batch"])
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    loss_cpu = loss.item()
+    if not abs(first["loss"] - loss_cpu) <= TRAIN_TOL * abs(loss_cpu):
+        raise AssertionError(f"{name}: first loss {first['loss']} on the card, {loss_cpu} "
+                             "on the CPU")
+    worst = 0.0
+    for (pname, _), g, ref in zip(
+            [(n, p) for n, p in fm.energy_model.named_parameters() if p.requires_grad],
+            first["grads"], grads):
+        ref = torch.zeros_like(g) if ref is None else ref
+        err, scale = (g - ref).abs().max().item(), ref.abs().max().item()
+        if not err <= grad_tol * scale:
+            raise AssertionError(f"{name}: gradient of {pname}: max|gpu-cpu|={err} > "
+                                 f"{grad_tol}*{scale}")
+        worst = max(worst, err / max(scale, 1e-30))
+    return {"loss_gpu": first["loss"], "loss_cpu": loss_cpu, "params": len(params),
+            "max_rel_grad_err": worst}
+
+
+def phase_script(name, smi, device="cuda", cuts=SCRIPT_CUTS):
+    """Phase 19 for one script: the main path, its training run with every
+    count set to 0 just before and read just after, instrumented through
+    ``force_script.fit_model`` (each step timed after a sync, the first run
+    inside ``captured_calls``, the validation pass timed) and
+    ``loader.host_batch`` (the producer's host time); then the checks of
+    the first step, its kernel calls, the launches, losses and artifacts.
+    Returns the run's launch counts and the kernel records."""
+    from gcnn_keras_tpu_torch.data import loader as loader_mod
+    from gcnn_keras_tpu_torch.training import force_script
+    mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{name}")
+    cfg = {**mod.CONFIG, **cuts, "device": device}
+    merged = cfg if name == "force_hdnnp4th" else {**force_script.DEFAULTS, **cfg}
+    global_keys = ("energy", "total_charge") \
+        if name == "force_hdnnp4th" or merged["need_esp"] else ("energy",)
+    path = SCRIPT_PATHS[name]
+    expected = TRAIN_PATHS[path]["launches"] if path else None
+    first, steps, host_ms, val_ms, wait_ms, hists = {}, [], [], {}, [], []
+    fit, host_batch = force_script.fit_model, loader_mod.host_batch
+
+    def instrumented_fit(trainer, state, batches, eval_fn, epochs, **kw):
+        step, fold, epoch = trainer.step, len(hists), [0]
+
+        def timed_step(st, batch):
+            if not first:
+                first.update(batch=batch.to("cpu"),
+                             weights=[p.detach().cpu().clone() for p in st.params])
+                with captured_calls() as calls:
+                    st, metrics = step(st, batch)
+                first.update(calls=calls, loss=float(metrics["loss"]),
+                             grads=[p.grad.detach().cpu().clone() for p in st.params])
+                return st, metrics
+            before = kernel_counts()
+            t0 = time.perf_counter()
+            st, metrics = step(st, batch)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()  # the wait fit_epoch's float(v) then skips
+            t2 = time.perf_counter()
+            steps.append((fold, epoch[0], 1e3 * (t2 - t0), 1e3 * (t2 - t1),
+                          {k: v - before[k] for k, v in kernel_counts().items()}))
+            return st, metrics
+
+        def timed_eval(params):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eval_fn(params)
+            torch.cuda.synchronize()
+            val_ms[fold, epoch[0]] = 1e3 * (time.perf_counter() - t0)
+            epoch[0] += 1
+            return out
+
+        class TimedBatches:
+            """The loader, each batch's wait on the caller's thread timed
+            (the queue, then the copies to the device)."""
+            def __iter__(self):
+                it = iter(batches)
+                while True:
+                    t0 = time.perf_counter()
+                    batch = next(it, None)
+                    if batch is None:
+                        return
+                    wait_ms.append((fold, epoch[0], 1e3 * (time.perf_counter() - t0)))
+                    yield batch
+
+        trainer.step = timed_step
+        state, hist = fit(trainer, state, TimedBatches(), timed_eval, epochs, **kw)
+        hists.append(hist)
+        return state, hist
+
+    def timed_host_batch(graphs, pin, **kw):
+        t0 = time.perf_counter()
+        out = host_batch(graphs, pin, **kw)
+        host_ms.append((len(graphs), 1e3 * (time.perf_counter() - t0)))
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="_phase19_", dir=os.getcwd()) as workdir, \
+            contextlib.chdir(workdir):
+        force_script.fit_model, loader_mod.host_batch = instrumented_fit, timed_host_batch
+        try:
+            # the main path: every count set to 0 just before, read just after
+            reset_counts()
+            t0 = time.perf_counter()
+            score = mod.train(cfg) if hasattr(mod, "train") \
+                else force_script.run_force_training(mod.build_model, cfg)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            main_launches = kernel_counts()
+        finally:
+            force_script.fit_model, loader_mod.host_batch = fit, host_batch
+        reload_err = check_script_artifacts(name, mod, cfg, global_keys, device)
+
+    label = f"{name}_script"
+    grad_tol = TRAIN_PATHS[path].get("grad_tol", TRAIN_TOL) if path else TRAIN_TOL
+    first_rec = check_first_script_step(name, mod, cfg, first, grad_tol)
+    counts = {k: len(c) for k, c in first["calls"].items() if c}
+    if expected is not None:
+        bad = [i for i, (_, _, _, _, c) in enumerate(steps) if c != expected]
+        if counts != {k: v for k, v in expected.items() if v} or bad:
+            raise AssertionError(f"{name}: first step's kernel calls {counts}, steps {bad[:5]} "
+                                 f"off; expected {expected} a step ({path})")
+    recs = {k: [dict(check_kernel_call(k, args, f"{label}, first step, call {i + 1} of "
+                                       f"{len(arg_list)}", timed=False), path=label)
+                for i, args in enumerate(arg_list)]
+            for k, arg_list in first["calls"].items() if arg_list}
+    losses = [h["loss"] for h in hists]
+    falls = path is not None and TRAIN_PATHS[path].get("falls", True)
+    if not all(np.isfinite(ls).all() for ls in losses) or \
+            (falls and not all(ls[-1] < ls[0] for ls in losses)):
+        raise AssertionError(f"{name}: fold losses {losses}")
+    # after each fold's first epoch: its steps, validation passes, the
+    # loader's waits, and the rest of each epoch (the loop's host work)
+    batch_size = cfg["batch_size"]
+    late = [(f, e) for f, h in enumerate(hists) for e in range(1, len(h["epoch_time"]))]
+    step_ms = {fe: [ms for f, e, ms, _, _ in steps if (f, e) == fe] for fe in late}
+    epoch_ms = {(f, e): 1e3 * hists[f]["epoch_time"][e] for f, e in late}
+    waits = {fe: [ms for f, e, ms in wait_ms if (f, e) == fe] for fe in late}
+    other_ms = [epoch_ms[fe] - sum(step_ms[fe]) - val_ms[fe] - sum(waits[fe]) for fe in late]
+    rec = {"script": name, "path": path, "card": smi, "folds": len(hists), "epochs": cfg["epochs"],
+           "steps_per_epoch": len(step_ms[late[0]]), "batch_size": batch_size,
+           "ms_per_step": float(np.median([ms for fe in late for ms in step_ms[fe]])),
+           # the device's tail after the host has queued a step: what the
+           # host waits for in fit_epoch's float(v) of each metric
+           "ms_sync_per_step": float(np.median([w for f, e, _, w, _ in steps if e >= 1])),
+           "loader_host_ms_per_batch": float(np.median(
+               [ms for n, ms in host_ms if n == batch_size])),
+           "loader_wait_ms_per_epoch": float(np.median([sum(w) for w in waits.values()])),
+           "ms_per_epoch": float(np.median(list(epoch_ms.values()))),
+           "ms_validation": float(np.median([val_ms[fe] for fe in late])),
+           "ms_epoch_other": float(np.median(other_ms)),
+           "s_run": run_s, "cpu_s_per_fold": score.get("execute_time"),
+           "losses": losses, "first_step": first_rec, "reload_max_err": reload_err,
+           "launches_per_step": expected, "launches_run": main_launches}
+    log(f"{name} script: " + json.dumps(rec))
+    return main_launches, recs
+
+
 def kernels_line(records, by_path, second_order):
     """The ``kernels`` entries of the result line: each kernel's source, the
     TPU kernel it replaces, its launches on each main path, its largest
@@ -2826,6 +3066,10 @@ def main():
     by_path.update(mol_paths)
     for name, rs in mol_recs.items():
         records[name].extend(rs)
+    for name in SCRIPT_PATHS:
+        by_path[f"{name}_script"], script_recs = phase_script(name, smi)
+        for kname, rs in script_recs.items():
+            records[kname].extend(rs)
 
     kernels = kernels_line(records, by_path, second_order)
     print(json.dumps({"kernels": kernels}))

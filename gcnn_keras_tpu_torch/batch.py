@@ -83,14 +83,26 @@ class GraphBatch:
     def replace_nodes(self, **kv) -> "GraphBatch":
         return self.replace(nodes={**self.nodes, **kv})
 
-    def to(self, device: DeviceLike) -> "GraphBatch":
-        """Copy of the batch with every tensor on ``device``."""
-        def move(v):
+    def _map(self, fn) -> "GraphBatch":
+        """The batch with ``fn`` applied to every array (tensor, or numpy
+        array of a batch built with ``np_out=True``)."""
+        def apply(v):
             if isinstance(v, dict):
-                return {k: t.to(device) for k, t in v.items()}
-            return v.to(device) if isinstance(v, torch.Tensor) else v
-        return GraphBatch(**{f.name: move(getattr(self, f.name))
+                return {k: fn(t) for k, t in v.items()}
+            return fn(v) if isinstance(v, (torch.Tensor, np.ndarray)) else v
+        return GraphBatch(**{f.name: apply(getattr(self, f.name))
                              for f in dataclasses.fields(self)})
+
+    def to(self, device: DeviceLike, non_blocking: bool = False) -> "GraphBatch":
+        """Copy of the batch with every array a tensor on ``device``;
+        ``non_blocking`` copies from pinned memory asynchronously."""
+        return self._map(lambda t: torch.as_tensor(t).to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "GraphBatch":
+        """Copy of the batch with every array a tensor in page-locked host
+        memory, from which ``to(device, non_blocking=True)`` copies without
+        holding up the host."""
+        return self._map(lambda t: torch.as_tensor(t).pin_memory())
 
 
 # ---------------------------------------------------------------------------
@@ -131,16 +143,19 @@ def batch_graphs(
     max_nodes: Optional[int] = None,
     compute_reverse_edges: bool = False,
     device: DeviceLike = None,
+    np_out: bool = False,
 ) -> GraphBatch:
     """Assemble a list of per-graph numpy dicts into one flat GraphBatch on
-    ``device`` (the CUDA card unless ``device="cpu"``).
+    ``device`` (the CUDA card unless ``device="cpu"``); with ``np_out`` its
+    arrays stay numpy arrays on the host, as the JAX package's
+    ``np_out=True`` gives them, and ``device`` is not read.
 
     Arrays whose leading dimension equals the node count are node
     properties, ones whose leading dim equals the edge count edge
     properties; names in ``global_keys`` (or scalars) become per-graph
     globals.
     """
-    dev = resolve_device(device)
+    dev = None if np_out else resolve_device(device)
     n_real = len(graphs)
     if n_real == 0:
         raise ValueError("batch_graphs needs at least one graph")
@@ -414,8 +429,10 @@ def batch_graphs(
                 angle_window_local = True
 
     def conv(x):
-        return None if x is None else torch.as_tensor(
-            np.ascontiguousarray(x), device=dev)
+        if x is None:
+            return None
+        x = np.ascontiguousarray(x)
+        return x if np_out else torch.as_tensor(x, device=dev)
 
     return GraphBatch(
         nodes={k: conv(v) for k, v in nodes.items()},

@@ -2,13 +2,16 @@
 ``gcnn_keras_tpu/graph/preprocess.py``.
 
 Carried so far: the dense cutoff neighbour list (``set_range``), the
-node-triple angle list (``set_angle``) and GCN's edge weights
-(``set_edge_weights_uniform``, ``normalize_edge_weights_symmetric``). The C++ cell-list backend of the JAX
-package (``native/neighborlist.cpp``) is a later slice.
+node-triple angle list (``set_angle``), GCN's edge weights
+(``set_edge_weights_uniform``, ``normalize_edge_weights_symmetric``) and
+the registry that names them (``get_preprocessor``, which
+``GraphDict.apply_preprocessor`` and ``map_list`` reach). The C++
+cell-list backend of the JAX package (``native/neighborlist.cpp``) is a
+later slice.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
@@ -129,3 +132,32 @@ def _num_nodes(graph: Dict[str, np.ndarray], ei: np.ndarray) -> int:
         if key in graph:
             return int(np.asarray(graph[key]).shape[0])
     return int(ei.max()) + 1 if ei.size else 0
+
+
+class GraphPreprocessorBase:
+    """A preprocessor function and its keyword arguments, called on a graph
+    dict: the counterpart of the JAX package's class of the same name."""
+
+    def __init__(self, fn: Callable, **config):
+        self._fn = fn
+        self._config = config
+
+    def __call__(self, graph: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        return self._fn(graph, **self._config)
+
+    def get_config(self) -> Dict:
+        return dict(self._config)
+
+
+# the JAX package's registry, as far as the port has its preprocessors
+_PREPROCESSORS = {
+    "set_range": set_range,
+    "set_angle": set_angle,
+    "set_edge_weights_uniform": set_edge_weights_uniform,
+    "normalize_edge_weights_symmetric": normalize_edge_weights_symmetric,
+}
+
+
+def get_preprocessor(name: str, **config) -> GraphPreprocessorBase:
+    """The preprocessor registered as ``name`` with ``config`` bound."""
+    return GraphPreprocessorBase(_PREPROCESSORS[name], **config)

@@ -11,7 +11,7 @@ The data-parallel step over a mesh is not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -38,15 +38,18 @@ class Trainer:
     its first argument). ``optimizer`` makes the optimizer from the
     parameters: ``functools.partial(torch.optim.Adam, lr=1e-3)`` is
     ``optax.adam(1e-3)``, whose ``b1``, ``b2`` and ``eps`` are PyTorch's
-    defaults."""
+    defaults. ``schedule(k)``, if given, is update k's learning rate (k
+    counted from 0): the counterpart of an optax chain that holds a
+    schedule, e.g. ``optax.adam(optax.linear_schedule(...))``."""
 
     def __init__(self, loss_fn: Callable,
                  optimizer: Callable[[List[nn.Parameter]], torch.optim.Optimizer],
-                 mesh=None):
+                 mesh=None, schedule: Optional[Callable[[int], float]] = None):
         if mesh is not None:
             raise NotImplementedError(_NOT_PORTED_MESH)
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.schedule = schedule
 
     def init_state(self, params: Iterable[nn.Parameter]) -> TrainState:
         params = [p for p in params if p.requires_grad]
@@ -58,6 +61,10 @@ class Trainer:
         grads = torch.autograd.grad(loss, state.params, allow_unused=True)
         for p, g in zip(state.params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
+        if self.schedule is not None:
+            lr = self.schedule(state.step)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
         state.optimizer.step()
         metrics = dict(metrics)
         metrics["loss"] = loss.detach()

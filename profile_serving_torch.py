@@ -7,6 +7,9 @@ training step or of one MD step goes on a CUDA card, for the PyTorch port.
                                      [--trace chiprun_out/serving_trace.json]
     python3 profile_serving_torch.py --model hdnnp4th --atoms N [--train]
                                      [--solver dense|iterative]
+    python3 profile_serving_torch.py --script NAME
+        (NAME: force_schnet, force_painn, force_hdnnp2nd, force_hdnnp4th,
+         energy_hdnnp4th or charge_hdnnp4th)
     python3 profile_serving_torch.py --kernel KERNEL
         (KERNEL: sorted_segment_sum, gather_mul_segsum, fused_cfconv, cf_fwd,
          cf_vjp, cf_hesjvp, g4_fwd, g4_jvp, g4_vjp, g2_fwd, g2_jvp, g2_vjp
@@ -39,6 +42,12 @@ of the Qeq solve's Cholesky factorizations and solves (every operation
 named for Cholesky, with the backward nodes of both) and of its CG solves,
 each as a share of the device time.
 
+``--script NAME`` profiles one training step of the training engine on
+the script ``gcnn_keras_tpu_torch.scripts.NAME`` at its ``CONFIG`` widths
+with ``chip_smoke.py`` phase 19's cuts: the engine's fold-0 model, loss,
+Adam and schedule on the first batch of its loader (16 molecules of 9
+atoms), held once the engine reaches its fit loop.
+
 ``--kernel`` is the kernel-only timing mode, seconds long where a whole
 ``chip_smoke.py`` takes minutes: it builds the kernel's source afresh
 (printing ptxas's registers and spills), builds the main-path batch and runs
@@ -61,8 +70,12 @@ call of one ``hdnnp4th_train`` step. The last line is one JSON summary of
 the timed records. Needs one CUDA card.
 """
 import argparse
+import contextlib
 import functools
+import importlib
 import json
+import os
+import tempfile
 import time
 
 import torch
@@ -154,6 +167,40 @@ def training_run(name, mode):
     return run
 
 
+def script_run(name):
+    """One engine step of script ``name`` (phase 19's configuration): the
+    engine runs until its fit loop, which is held there with its trainer,
+    state and first batch."""
+    from gcnn_keras_tpu_torch.training import force_script
+    mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{name}")
+    cfg = {**mod.CONFIG, **chip_smoke.SCRIPT_CUTS, "device": "cuda"}
+    held = {}
+
+    class Held(Exception):
+        pass
+
+    def hold(trainer, state, batches, *args, **kwargs):
+        held.update(trainer=trainer, state=[state], batch=next(iter(batches)))
+        raise Held
+
+    fit, force_script.fit_model = force_script.fit_model, hold
+    try:
+        with tempfile.TemporaryDirectory(prefix="_profile_", dir=os.getcwd()) as workdir, \
+                contextlib.chdir(workdir):
+            if hasattr(mod, "train"):
+                mod.train(cfg)
+            else:
+                force_script.run_force_training(mod.build_model, cfg)
+    except Held:
+        pass
+    finally:
+        force_script.fit_model = fit
+
+    def run():
+        held["state"][0], _ = held["trainer"].step(held["state"][0], held["batch"])
+    return run
+
+
 # the source of each kernel that --kernel takes
 KERNEL_SOURCES = {"sorted_segment_sum": "segment_sum", "gather_mul_segsum": "fused_aggregate",
                   "fused_cfconv": "fused_cfconv", "cf_fwd": "fused_interaction",
@@ -211,6 +258,8 @@ def main():
                       help="profile MD steps of a 21-atom molecule instead")
     kind.add_argument("--kernel", choices=tuple(KERNEL_SOURCES),
                       help="time one kernel at its main-path shapes instead")
+    kind.add_argument("--script", choices=tuple(chip_smoke.SCRIPT_PATHS),
+                      help="profile one step of the training engine on this script")
     ap.add_argument("--atoms", type=int, default=None,
                     help="HDNNP4th on one molecule of this many atoms")
     ap.add_argument("--solver", choices=("dense", "iterative"), default=None,
@@ -237,7 +286,9 @@ def main():
                                                      or args.atoms is None):
         raise SystemExit("profile_serving_torch: --atoms [--solver] is HDNNP4th's, "
                          "serving or --train")
-    if args.atoms is not None:
+    if args.script:
+        run = script_run(args.script)
+    elif args.atoms is not None:
         from gcnn_keras_tpu_torch.layers.conv import qeq_solver
         run = molecule_run(args.atoms, args.train, args.solver)
         pcg = qeq_solver._pcg
@@ -270,14 +321,15 @@ def main():
     kernels.sort(key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.evals
     n_kernels = sum(e.count for e in kernels) / args.evals
-    unit = "step" if args.train or args.md else "eval"
+    unit = "step" if args.train or args.md or args.script else "eval"
     print(f"card: {smi}")
     print(f"{'device ms/' + unit:>14} {'calls/' + unit:>10}  kernel")
     for e in kernels[:25]:
         print(f"{e.self_device_time_total / 1e3 / args.evals:14.4f} "
               f"{e.count / args.evals:10.1f}  {e.key[:100]}")
     summary = {
-        "card": smi, "model": args.model, "mode": args.mode, "train": args.train,
+        "card": smi, "model": args.script or args.model, "mode": args.mode,
+        "train": args.train or bool(args.script),
         "md": args.md, "evals": args.evals,
         f"wall_ms_per_{unit}_profiled": wall_ms,
         f"device_ms_per_{unit}": dev_ms,

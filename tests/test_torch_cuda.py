@@ -1084,3 +1084,50 @@ def test_mlmm_on_the_card_matches_the_cpu(cuda_device):
     chip_smoke.check_charged_request(answers["cuda"], frames, "mlmm")
     chip_smoke.compare_answers(answers["cuda"], answers["cpu"],
                                ("energy", "force", "charge", "qmmm_energy_correction"))
+
+
+# the port's training scripts at their CONFIG widths on a few small folds
+SCRIPT_TEST_CUTS = dict(epochs=2, synthetic_frames=48, batch_size=4, make_plots=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["force_schnet", "force_painn", "force_hdnnp2nd",
+                                  "force_hdnnp4th", "energy_hdnnp4th", "charge_hdnnp4th"])
+def test_script_phase_on_the_card(cuda_device, name):
+    """``chip_smoke.py`` phase 19 for one script on 48 frames: its first
+    step against the CPU, every kernel call of it against its plain
+    version, the launches of every step (``SCRIPT_PATHS``' path), falling
+    losses, the artifacts and the reloaded checkpoint; every kernel of the
+    first step launched in the run."""
+    import chip_smoke
+    launches, recs = chip_smoke.phase_script(name, "test", "cuda", cuts=SCRIPT_TEST_CUTS)
+    assert recs and all(launches[k] > 0 for k in recs)
+    path = chip_smoke.SCRIPT_PATHS[name]
+    if path:
+        expected = chip_smoke.TRAIN_PATHS[path]["launches"]
+        assert {k: len(r) for k, r in recs.items()} == {k: v for k, v in expected.items() if v}
+
+
+@pytest.mark.cuda
+def test_loader_on_the_card_yields_the_cpu_batches(cuda_device):
+    """``GraphBatchLoader`` on the card: batches built in pinned host memory
+    and copied without blocking equal the CPU loader's, epoch by epoch."""
+    from gcnn_keras_tpu_torch.data.datasets.synthetic import SyntheticMDDataset
+    from gcnn_keras_tpu_torch.data.loader import GraphBatchLoader, host_batch
+    ds = SyntheticMDDataset(num_frames=40, seed=3)
+    ds.map_list("set_range", max_distance=5.0, max_neighbours=8)
+    ds.map_list("set_angle")
+    for g in ds:
+        g["edge_indices"] = g["range_indices"]
+    hint = ds.batch_shape_hint(6)
+    pinned = host_batch([dict(g) for g in ds[:6]], True, global_keys=("energy",), **hint)
+    assert pinned.senders.is_pinned() and pinned.nodes["force"].is_pinned()
+    loaders = {dev: GraphBatchLoader(list(ds), 6, seed=2, device=dev, global_keys=("energy",),
+                                     **hint) for dev in ("cuda", "cpu")}
+    for _ in range(2):
+        for gb, cb in zip(*(list(loaders[d]) for d in ("cuda", "cpu"))):
+            assert gb.senders.is_cuda
+            for name in ("senders", "receivers", "node_mask", "angles"):
+                assert torch.equal(getattr(gb, name).cpu(), getattr(cb, name))
+            for k, v in cb.nodes.items():
+                assert torch.equal(gb.nodes[k].cpu(), v), k

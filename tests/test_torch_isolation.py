@@ -7,12 +7,17 @@ The scan reads the sources' ASTs rather than ``sys.modules``: the test
 process has JAX loaded already.
 """
 import ast
+import functools
 from pathlib import Path
 
 import pytest
 import torch
 
+import importlib
+
 from gcnn_keras_tpu_torch.batch import batch_graphs
+from gcnn_keras_tpu_torch.data.dataset import MemoryGraphDataset
+from gcnn_keras_tpu_torch.data.loader import GraphBatchLoader
 from gcnn_keras_tpu_torch.model.force import EnergyForceModel
 from gcnn_keras_tpu_torch.model.mlmm import MLMMEnergyForceModel
 from gcnn_keras_tpu_torch.models import gcn, hdnnp4th, painn
@@ -20,6 +25,7 @@ from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
 from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
 from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
 from gcnn_keras_tpu_torch.moldyn.trajectory import ScannedMD
+from gcnn_keras_tpu_torch.training.force_script import run_force_training
 
 torch.set_num_threads(1)
 
@@ -27,6 +33,33 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gcnn_keras_tpu")
 SOURCES = sorted((ROOT / "gcnn_keras_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "profile_serving_torch.py", ROOT / "probe_kernel_variants.py"]
+
+
+SCRIPTS = ("force_schnet", "force_painn", "force_hdnnp2nd", "force_hdnnp4th",
+           "energy_hdnnp4th", "charge_hdnnp4th")
+
+
+def _script(name):
+    return importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{name}")
+
+
+def _tiny(name, **kw):
+    """A run of two folds of one step at narrow widths."""
+    cfg = dict(_script(name).CONFIG, synthetic_frames=6, batch_size=3, ensemble_size=2,
+               epochs=1, make_plots=False, **kw)
+    if "mlp_units" in cfg:
+        cfg["mlp_units"] = [8, 8, 1]
+    cfg.update({"schnet": {"depth": 1, "units": 8, "gauss_bins": 8, "gauss_distance": 5.0},
+                "painn": {"depth": 1, "units": 8, "num_radial": 8, "cutoff": 5.0}})
+    return cfg
+
+
+def _run_script(name, **kw):
+    """What ``python -m gcnn_keras_tpu_torch.scripts.<name>`` runs."""
+    mod = _script(name)
+    if name == "force_hdnnp4th":
+        return mod.train(_tiny(name, **kw))
+    return run_force_training(mod.build_model, _tiny(name, **kw))
 
 
 def _imported_modules(source):
@@ -65,9 +98,12 @@ def test_scan_sees_the_package():
                                    "hdnnp4th.make_model_behler_charge_separat", "ScannedMD",
                                    "painn.make_model", "painn.make_crystal_model",
                                    "gcn.make_model", "gcn.make_model_weighted",
-                                   "MLMMEnergyForceModel"])
-def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
+                                   "MLMMEnergyForceModel", "GraphBatchLoader",
+                                   "MemoryGraphDataset.to_batch", "run_force_training",
+                                   *(f"scripts.{name}" for name in SCRIPTS)])
+def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)  # the training entry points write their artifacts here
     graph = {"node_number": [1, 8], "node_coordinates": [[0, 0, 0], [0, 0, 1.0]],
              "edge_indices": [[0, 1], [1, 0]]}
     calls = {
@@ -91,6 +127,12 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
         "gcn.make_model_weighted": lambda **kw: gcn.make_model_weighted(**kw),
         "MLMMEnergyForceModel": lambda **kw: MLMMEnergyForceModel(EnergyForceModel(
             hdnnp4th.make_model_behler(device="cpu"), use_esp_coupling=True, **kw)),
+        "GraphBatchLoader": lambda **kw: GraphBatchLoader([graph], 1, **kw),
+        "MemoryGraphDataset.to_batch": lambda **kw: MemoryGraphDataset(
+            graphs=[graph]).to_batch(**kw),
+        "run_force_training": lambda **kw: run_force_training(
+            _script("force_schnet").build_model, _tiny("force_schnet", **kw)),
+        **{f"scripts.{name}": functools.partial(_run_script, name) for name in SCRIPTS},
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

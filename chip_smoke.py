@@ -141,6 +141,30 @@ order, each raising on a failed check:
    after the first epoch (and the sync that ends it), the loader's host ms
    per batch and its waits an epoch, ms per epoch, ms of the validation
    pass and the rest of an epoch.
+20. The fork's workflow, on phase 19's ensembles in its working directory
+   (its cuts: 512 synthetic frames, 3 folds; no second training), for each
+   script of ``SCRIPT_PATHS`` (``phase_workflow``): ``evaluate_models`` on
+   the card, its launches ``members x (1 + ceil(frames / 32))`` evaluations
+   of the model's (``script_eval_launches``), each member's artifacts, its
+   outputs on the whole dataset and the report's MAEs against the same
+   checkpoints on the CPU, every kernel call of member 0's evaluation
+   against its plain version; ``calc_prediction_std`` against the CPU (each
+   frame's force and energy std, the frames flagged at the CPU's median);
+   ``load_model``'s energies of 16 frames against the CPU;
+   ``transfer_learning`` from fold 0's checkpoint for ``TRANSFER_EPOCHS``
+   epochs (the frozen parameters bit for bit, the trainable ones moved,
+   finite losses, the first step against the CPU and its kernel calls
+   against their plain versions). Then the five searches
+   (``phase_searches``, ``SEARCHES``) on 512 frames, each cut to 3 trials
+   of 1 epoch and the best one's 3 (``SEARCH_ARGS``; 9 trials, 5 and 30
+   epochs by default): the trial files against the same
+   ``HyperbandSearch`` on the CPU replaying their metrics, every objective
+   finite, ``best_trial.json`` read back by ``retrieve_trial``, the first
+   step of trial 0 against the CPU and its kernel calls against their plain
+   versions. Prints ``<name> workflow: {...}`` (ms per member evaluation,
+   of the ensemble's predictions, s of each script, ms per transfer epoch
+   and step) and ``<search> search: {...}`` (ms per trial epoch and step, s
+   per search).
 
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it.
@@ -153,6 +177,7 @@ no result.
 import contextlib
 import functools
 import importlib
+import io
 import json
 import math
 import os
@@ -316,7 +341,13 @@ PAINN_KW = dict(depth=3, conv_args={"units": 128, "cutoff": 5.0},
 # sender gathers of phi and v in convs 1-2 (6). Conv 0's phi and v do not
 # depend on the coordinates (v starts at 0); the pools' backwards are
 # gathers.
-PAINN_LAUNCHES = launch_counts(sorted_segment_sum=2 * 3 + 1 + 2 + 2 * 2)
+def painn_launches(depth):
+    """Kernel launches per PAiNN energy+force evaluation of ``depth``
+    blocks."""
+    return launch_counts(sorted_segment_sum=2 * depth + 1 + 2 + 2 * (depth - 1))
+
+
+PAINN_LAUNCHES = painn_launches(3)
 PAINN_WIDE = 3 * 128  # the equivariant messages' columns, (E, 3, U) flattened
 # SPD solve: max|kernel - plain| <= SPD_TOL * (1 + max|plain|) and
 # max|A x - b| <= SPD_RESIDUAL_TOL * (1 + max|b|)
@@ -2749,8 +2780,7 @@ def check_script_artifacts(name, mod, cfg, global_keys, device):
         raise AssertionError(f"{name}: missing artifacts {missing}")
     fresh = mod.build_model(cfg, device=device, generator=torch.Generator().manual_seed(12345))
     fresh.energy_model.load_state_dict(load_checkpoint(f"{prefix}_0", map_location=device)["params"])
-    ds = mod.load_dataset(cfg) if hasattr(mod, "load_dataset") \
-        else force_script.load_force_dataset({**force_script.DEFAULTS, **cfg})
+    ds = force_script.load_script_dataset(mod, cfg)
     _, _, te = next(kfold_swapped_val(len(ds), k=cfg["ensemble_size"], seed=cfg["seed"]))
     test = ds[te]
     scaler = EnergyForceExtensiveLabelScaler().load(os.path.join(f"{prefix}_0", "scaler.json"))
@@ -2766,46 +2796,79 @@ def check_script_artifacts(name, mod, cfg, global_keys, device):
     return err
 
 
-def check_first_script_step(name, mod, cfg, first, grad_tol):
-    """The engine's first step on the card against the same step on the
-    CPU: the same weights and batch, the engine's loss; the loss within
-    ``TRAIN_TOL`` of the CPU's and each gradient within ``grad_tol`` of
-    that tensor's largest entry on the CPU."""
-    from gcnn_keras_tpu_torch.training import force_script
-    fm = mod.build_model(cfg, device="cpu")
-    params = [p for p in fm.energy_model.parameters() if p.requires_grad]
+def check_close(label, got, ref, tol=SERVE_TOL):
+    """max|got - ref| <= tol * max|ref|; returns that ratio."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err, scale = float(np.abs(got - ref).max(initial=0.0)), float(np.abs(ref).max(initial=0.0))
+    if got.shape != ref.shape or not err <= tol * scale:
+        raise AssertionError(f"{label}: max|diff|={err} > {tol}*{scale} (shapes {got.shape}, "
+                             f"{ref.shape})")
+    return err / max(scale, 1e-30)
+
+
+def kernel_call_records(calls, label, path):
+    """Every captured call against its kernel's plain version."""
+    return {k: [dict(check_kernel_call(k, args, f"{label}, call {i + 1} of {len(arg_list)}",
+                                       timed=False), path=path)
+                for i, args in enumerate(arg_list)]
+            for k, arg_list in calls.items() if arg_list}
+
+
+def capture_first_step(first, step, state, batch, **extra):
+    """``step(state, batch)`` recorded into ``first``: its batch on the
+    CPU, the weights before, its kernel calls, its loss and gradients, and
+    ``extra``."""
+    first.update(batch=batch.to("cpu"), weights=[p.detach().cpu().clone() for p in state.params],
+                 **extra)
+    with captured_calls() as calls:
+        state, metrics = step(state, batch)
+    first.update(calls=calls, loss=float(metrics["loss"]),
+                 grads=[p.grad.detach().cpu().clone() for p in state.params])
+    return state, metrics
+
+
+def check_first_step_on_cpu(label, first, named_params, loss_fn, grad_tol):
+    """The recorded first step against the same step on the CPU:
+    ``named_params`` (the CPU model's trained tensors, with their names)
+    take the recorded weights, then the loss within ``TRAIN_TOL`` of the
+    CPU's and each gradient within ``grad_tol`` of that tensor's largest
+    entry on the CPU."""
+    names, params = zip(*named_params)
     with torch.no_grad():
         for p, w in zip(params, first["weights"]):
             p.copy_(w)
-    loss, _ = force_script.force_loss_fn(fm, force_script.normalized_loss_weights(cfg))(
-        first["batch"])
+    loss, _ = loss_fn(first["batch"])
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    loss_cpu = loss.item()
-    if not abs(first["loss"] - loss_cpu) <= TRAIN_TOL * abs(loss_cpu):
-        raise AssertionError(f"{name}: first loss {first['loss']} on the card, {loss_cpu} "
-                             "on the CPU")
+    if not abs(first["loss"] - loss.item()) <= TRAIN_TOL * abs(loss.item()):
+        raise AssertionError(f"{label}: first loss {first['loss']}, {loss.item()} on the CPU")
     worst = 0.0
-    for (pname, _), g, ref in zip(
-            [(n, p) for n, p in fm.energy_model.named_parameters() if p.requires_grad],
-            first["grads"], grads):
+    for pname, g, ref in zip(names, first["grads"], grads):
         ref = torch.zeros_like(g) if ref is None else ref
-        err, scale = (g - ref).abs().max().item(), ref.abs().max().item()
-        if not err <= grad_tol * scale:
-            raise AssertionError(f"{name}: gradient of {pname}: max|gpu-cpu|={err} > "
-                                 f"{grad_tol}*{scale}")
-        worst = max(worst, err / max(scale, 1e-30))
-    return {"loss_gpu": first["loss"], "loss_cpu": loss_cpu, "params": len(params),
+        worst = max(worst, check_close(f"{label}: gradient of {pname}", g, ref, grad_tol))
+    return {"loss_gpu": first["loss"], "loss_cpu": loss.item(), "params": len(params),
             "max_rel_grad_err": worst}
 
 
-def phase_script(name, smi, device="cuda", cuts=SCRIPT_CUTS):
+def check_first_script_step(name, mod, cfg, first, grad_tol):
+    """The engine's first step on the card against the same step on the
+    CPU: the same weights and batch, the engine's loss
+    (``check_first_step_on_cpu``)."""
+    from gcnn_keras_tpu_torch.training import force_script
+    fm = mod.build_model(cfg, device="cpu")
+    return check_first_step_on_cpu(
+        name, first, [(n, p) for n, p in fm.energy_model.named_parameters() if p.requires_grad],
+        force_script.force_loss_fn(fm, force_script.normalized_loss_weights(cfg)), grad_tol)
+
+
+def phase_script(name, smi, device="cuda", cuts=SCRIPT_CUTS, after=None):
     """Phase 19 for one script: the main path, its training run with every
     count set to 0 just before and read just after, instrumented through
     ``force_script.fit_model`` (each step timed after a sync, the first run
     inside ``captured_calls``, the validation pass timed) and
     ``loader.host_batch`` (the producer's host time); then the checks of
-    the first step, its kernel calls, the launches, losses and artifacts.
-    Returns the run's launch counts and the kernel records."""
+    the first step, its kernel calls, the launches, losses and artifacts;
+    then ``after(cfg)``, if given, in the run's working directory before it
+    is removed. Returns the run's launch counts and the kernel records."""
     from gcnn_keras_tpu_torch.data import loader as loader_mod
     from gcnn_keras_tpu_torch.training import force_script
     mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{name}")
@@ -2823,13 +2886,7 @@ def phase_script(name, smi, device="cuda", cuts=SCRIPT_CUTS):
 
         def timed_step(st, batch):
             if not first:
-                first.update(batch=batch.to("cpu"),
-                             weights=[p.detach().cpu().clone() for p in st.params])
-                with captured_calls() as calls:
-                    st, metrics = step(st, batch)
-                first.update(calls=calls, loss=float(metrics["loss"]),
-                             grads=[p.grad.detach().cpu().clone() for p in st.params])
-                return st, metrics
+                return capture_first_step(first, step, st, batch)
             before = kernel_counts()
             t0 = time.perf_counter()
             st, metrics = step(st, batch)
@@ -2888,6 +2945,8 @@ def phase_script(name, smi, device="cuda", cuts=SCRIPT_CUTS):
         finally:
             force_script.fit_model, loader_mod.host_batch = fit, host_batch
         reload_err = check_script_artifacts(name, mod, cfg, global_keys, device)
+        if after is not None:
+            after(cfg)
 
     label = f"{name}_script"
     grad_tol = TRAIN_PATHS[path].get("grad_tol", TRAIN_TOL) if path else TRAIN_TOL
@@ -2898,10 +2957,7 @@ def phase_script(name, smi, device="cuda", cuts=SCRIPT_CUTS):
         if counts != {k: v for k, v in expected.items() if v} or bad:
             raise AssertionError(f"{name}: first step's kernel calls {counts}, steps {bad[:5]} "
                                  f"off; expected {expected} a step ({path})")
-    recs = {k: [dict(check_kernel_call(k, args, f"{label}, first step, call {i + 1} of "
-                                       f"{len(arg_list)}", timed=False), path=label)
-                for i, args in enumerate(arg_list)]
-            for k, arg_list in first["calls"].items() if arg_list}
+    recs = kernel_call_records(first["calls"], f"{label}, first step", label)
     losses = [h["loss"] for h in hists]
     falls = path is not None and TRAIN_PATHS[path].get("falls", True)
     if not all(np.isfinite(ls).all() for ls in losses) or \
@@ -2932,6 +2988,339 @@ def phase_script(name, smi, device="cuda", cuts=SCRIPT_CUTS):
            "launches_per_step": expected, "launches_run": main_launches}
     log(f"{name} script: " + json.dumps(rec))
     return main_launches, recs
+
+
+# ------------------------------------------- phase 20: the fork's workflow
+
+
+def script_eval_launches(name, cfg):
+    """Kernel launches of one evaluation of script ``name``'s model at the
+    widths of ``cfg``."""
+    if name == "force_schnet":
+        return schnet_launches("unfused", cfg["schnet"]["depth"])
+    if name == "force_painn":
+        return painn_launches(cfg["painn"]["depth"])
+    return HDNNP_LAUNCHES if name == "force_hdnnp2nd" else HDNNP4TH_LAUNCHES
+
+
+# transfer_learning's --trainable: the defaults ("mlp_local", "output")
+# select SchNet's and PAiNN's output_mlp and HDNNP4th's mlp_local; they
+# freeze all of HDNNP2nd, whose last layer is its head here
+TRANSFER_TRAINABLE = {"force_hdnnp2nd": ["dense_2"]}
+TRANSFER_EPOCHS = 2
+EVAL_BATCH = 32  # evaluate_model's batches of graphs
+# the five searches, each with its objective and the TRAIN_PATHS path of
+# its model (for the gradient tolerance)
+SEARCHES = {"force_schnet_hyp_param_search": ("val_force_mae", "schnet_train"),
+            "force_painn_hyp_param_search": ("val_force_mae", "painn_train"),
+            "force_hdnnp2nd_hyp_param_search": ("val_force_mae", "hdnnp2nd_train"),
+            "force_hdnnp4th_hyp_param_search": ("val_force_mae", "hdnnp4th_train"),
+            "charge_hyp_param_search": ("val_charge_mae", "hdnnp4th_train")}
+# phase 20's cuts to each search: 3 trials (9), 1 epoch at rung 0 (5), 3 at
+# most (30), so rung 0 trains 3 trials 1 epoch and rung 1 the best 3 epochs
+SEARCH_ARGS = ["--trials", "3", "--min-epochs", "1", "--max-epochs", "3"]
+
+
+def synced_ms(fn, reps=1):
+    """Median wall ms of ``fn`` over ``reps`` runs, each ended by a sync."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+class RecordingTrainer:
+    """A ``Trainer`` class that records its first step over all instances
+    (its batch on the CPU, the weights before, the loss, the gradients and
+    every kernel call) and, after it, each step's ms (sync included), its
+    launches and the instance (trial) it ran in."""
+
+    def __init__(self, base):
+        rec = self
+        self.first, self.steps, self.instances = {}, [], 0
+
+        class Trainer(base):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                rec.instances += 1
+                self.index = rec.instances - 1
+
+            def step(self, state, batch):
+                if not rec.first:
+                    return capture_first_step(rec.first, super().step, state, batch,
+                                              instance=self.index)
+                before = kernel_counts()
+                t0 = time.perf_counter()
+                state, metrics = super().step(state, batch)
+                torch.cuda.synchronize()
+                rec.steps.append((self.index, 1e3 * (time.perf_counter() - t0),
+                                  {k: v - before[k] for k, v in kernel_counts().items()}))
+                return state, metrics
+        self.cls = Trainer
+
+    def check_steps(self, label):
+        """Every step's launches equal those of the first step of its
+        instance (the first step of instance 0 counted from its calls)."""
+        first = {self.first["instance"]: {k: len(c) for k, c in self.first["calls"].items()}}
+        for index, _, counts in self.steps:
+            ref = first.setdefault(index, counts)
+            if {k: v for k, v in counts.items() if v} != {k: v for k, v in ref.items() if v}:
+                raise AssertionError(f"{label}: step launches {counts}, first {ref}")
+        return {k: v for k, v in first[self.first["instance"]].items() if v}
+
+
+@contextlib.contextmanager
+def patched(obj, attr, value):
+    old = getattr(obj, attr)
+    setattr(obj, attr, value)
+    try:
+        yield
+    finally:
+        setattr(obj, attr, old)
+
+
+def phase_workflow(name, cfg, smi, device="cuda"):
+    """Phase 20 for one script, in the working directory that holds the
+    ensemble phase 19 trained from ``cfg`` (``<model_prefix>_<fold>``):
+
+    - ``evaluate_models`` on ``device`` (the main path, counts set to 0
+      just before and read just after): its launches are ``members x (1 +
+      ceil(frames / 32))`` evaluations of ``script_eval_launches``; each
+      member's artifacts exist; each member's outputs on the whole dataset
+      and the report's MAEs against the same checkpoints on the CPU (to
+      ``SERVE_TOL`` of the largest output); every kernel call of member
+      0's evaluation against its plain version; the ms of a member's
+      evaluation and of the ensemble's predictions;
+    - ``calc_prediction_std`` on ``device`` against the CPU: each frame's
+      largest force std and energy std to ``SERVE_TOL`` of the largest, the
+      same frames flagged at the CPU's median (frames within that
+      tolerance of it left out);
+    - ``load_model``'s energies of 16 frames against the CPU;
+    - ``transfer_learning`` from fold 0's checkpoint, ``TRANSFER_EPOCHS``
+      epochs: the frozen parameters bit for bit, each trainable one moved,
+      finite losses, the first step's loss and gradients against the CPU
+      and its kernel calls against their plain versions, every step's
+      launches equal to the first's; ms per epoch and per step.
+
+    Returns the launches of the evaluation and of the transfer by path, and
+    the kernel records."""
+    from gcnn_keras_tpu_torch.scripts import calc_prediction_std as cps
+    from gcnn_keras_tpu_torch.scripts import evaluate_models as em
+    from gcnn_keras_tpu_torch.scripts import load_model as lm
+    from gcnn_keras_tpu_torch.scripts import transfer_learning as tl
+    from gcnn_keras_tpu_torch.training import force_script
+    from gcnn_keras_tpu_torch.utils.checkpoint import load_checkpoint
+    mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{name}")
+    prefix = cfg["model_prefix"]
+    conf = "workflow_conf.json"
+    with open(conf, "w") as f:
+        json.dump({k: v for k, v in cfg.items() if k != "device"}, f)
+    mcfg = force_script.load_config(mod, conf=conf)
+    ds = force_script.load_script_dataset(mod, mcfg)
+    n_members, n_frames = mcfg["ensemble_size"], len(ds)
+    ensemble = ["--prefix", prefix, "--script", name, "--conf", conf]
+    per_eval = script_eval_launches(name, mcfg)
+    rec = {"script": name, "card": smi, "frames": n_frames, "members": n_members}
+
+    # evaluate_models: the main path
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = em.main(ensemble + ["--output-dir", "eval", "--device", device])
+    torch.cuda.synchronize()
+    rec["s_evaluate_models"] = time.perf_counter() - t0
+    eval_launches = kernel_counts()
+    evals = n_members * (1 + -(-n_frames // EVAL_BATCH))
+    if eval_launches != {k: evals * v for k, v in per_eval.items()}:
+        raise AssertionError(f"{name}: evaluate_models launches {eval_launches}, expected "
+                             f"{evals} x {per_eval}")
+    labels = ["energy", "force"] + (["charge"] if "hdnnp4th" in name else [])
+    missing = [f for i in range(n_members) for f in
+               [f"errors_{i}.json", f"geoms_{i}.extxyz"]
+               + [f"{k}_predictions_{i}.csv" for k in labels]
+               if not os.path.exists(os.path.join("eval", f))]
+    if missing:
+        raise AssertionError(f"{name}: evaluate_models artifacts missing: {missing}")
+
+    members = {dev: em.load_ensemble(prefix, mod.build_model, mcfg, dev)
+               for dev in (device, "cpu")}
+    batches = {dev: ds.to_batch(global_keys=("energy", "total_charge"), device=dev)
+               for dev in (device, "cpu")}
+    preds = {"cpu": em.predict_ensemble(members["cpu"], batches["cpu"], graphs=list(ds))}
+    rec["ms_ensemble_predict"] = synced_ms(lambda: preds.update(
+        gpu=em.predict_ensemble(members[device], batches[device], graphs=list(ds))))
+    rec["max_rel_err_member"] = max(
+        check_close(f"{name}: member {m} {k}", preds["gpu"][k][m], preds["cpu"][k][m])
+        for k in labels for m in range(n_members))
+    report_cpu = em.ensemble_report(preds["cpu"], batches["cpu"])
+    for k in ("energy_mae_per_model", "energy_mae_ensemble", "force_mae_per_model",
+              "force_mae_ensemble"):
+        # an MAE moves by at most the largest change of a prediction
+        err = float(np.abs(np.subtract(report[k], report_cpu[k])).max())
+        scale = float(np.abs(preds["cpu"][k.split("_")[0]]).max())
+        if not err <= SERVE_TOL * scale:
+            raise AssertionError(f"{name}: report {k}: max|diff|={err} > {SERVE_TOL}*{scale}")
+    fm0, batch = members[device][0][0], batches[device]
+    with captured_calls() as calls:
+        fm0.apply(batch)
+    counts = {k: len(c) for k, c in calls.items() if c}
+    if counts != {k: v for k, v in per_eval.items() if v}:
+        raise AssertionError(f"{name}: member 0's evaluation calls {counts}, expected {per_eval}")
+    recs = kernel_call_records(calls, f"{name} evaluate_models, member 0", f"{name}_evaluate")
+    fm0.apply(batch)
+    rec["ms_member_eval"] = synced_ms(lambda: fm0.apply(batch), reps=3)
+    rec["launches_per_eval"] = {k: v for k, v in per_eval.items() if v}
+    rec["evaluations"] = evals
+    rec["report"] = report
+
+    # calc_prediction_std at the CPU's median
+    std_cpu = cps.prediction_std(preds["cpu"], batches["cpu"], n_frames)
+    per_frame = np.asarray(std_cpu["force_std_max_per_frame"])
+    threshold = float(np.median(per_frame))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        std_gpu = cps.main(ensemble + ["--threshold", repr(threshold), "--device", device])
+    rec["s_calc_prediction_std"] = time.perf_counter() - t0
+    rec["max_rel_err_std"] = max(check_close(f"{name}: {k}", std_gpu[k], std_cpu[k])
+                                 for k in ("force_std_max_per_frame", "energy_std_per_frame"))
+    near = set(np.flatnonzero(np.abs(per_frame - threshold) <= SERVE_TOL * per_frame.max()))
+    flagged = set(np.flatnonzero(per_frame > threshold))
+    if set(std_gpu["flagged_frames"]) - near != flagged - near:
+        raise AssertionError(f"{name}: flagged frames differ from the CPU's")
+    rec["flagged"] = len(std_gpu["flagged_frames"])
+
+    # load_model
+    loaded = {dev: lm.load_and_predict(f"{prefix}_0", name, n_frames=16, device=dev, conf=conf)
+              for dev in (device, "cpu")}
+    rec["max_rel_err_load_model"] = check_close(f"{name}: load_model energies",
+                                                loaded[device]["energies"],
+                                                loaded["cpu"]["energies"])
+
+    # transfer_learning
+    trainable = TRANSFER_TRAINABLE.get(name, ["mlp_local", "output"])
+    recorder = RecordingTrainer(tl.Trainer)
+    reset_counts()
+    with patched(tl, "Trainer", recorder.cls), contextlib.redirect_stdout(io.StringIO()):
+        res = tl.transfer(f"{prefix}_0", name, epochs=TRANSFER_EPOCHS, trainable=trainable,
+                          out="transfer", device=device, conf=conf)
+    torch.cuda.synchronize()
+    transfer_launches = kernel_counts()
+    step_counts = recorder.check_steps(f"{name} transfer_learning")
+    before = load_checkpoint(f"{prefix}_0", map_location="cpu")["params"]
+    after = load_checkpoint("transfer", map_location="cpu")["params"]
+    moved = [n for n, lab in res["labels"].items() if not torch.equal(before[n], after[n])]
+    trained = [n for n, lab in res["labels"].items() if lab == "trainable"]
+    if not trained or sorted(moved) != sorted(trained):
+        raise AssertionError(f"{name}: transfer moved {moved}, trainable {trained}")
+    if not np.isfinite(res["epoch_losses"]).all():
+        raise AssertionError(f"{name}: transfer losses {res['epoch_losses']}")
+    fm = mod.build_model(mcfg, device="cpu")
+    fm.energy_model.load_state_dict(before)
+    params = [(n, p) for n, p in fm.energy_model.named_parameters() if n in trained]
+    path = SCRIPT_PATHS[name] or "hdnnp4th_train"
+    rec["transfer"] = {
+        "trainable": trainable, "params": len(trained), "epochs": TRANSFER_EPOCHS,
+        "steps_per_epoch": (len(recorder.steps) + 1) // TRANSFER_EPOCHS,
+        "ms_per_epoch": float(np.median(1e3 * np.asarray(res["epoch_s"]))),
+        "ms_per_step": float(np.median([ms for _, ms, _ in recorder.steps])),
+        "losses": res["epoch_losses"], "launches_per_step": step_counts,
+        "first_step": check_first_step_on_cpu(f"{name} transfer_learning", recorder.first,
+                                              params,
+                                              force_script.force_loss_fn(fm, tl.LOSS_WEIGHTS),
+                                              TRAIN_PATHS[path].get("grad_tol", TRAIN_TOL))}
+    for k, rs in kernel_call_records(recorder.first["calls"], f"{name} transfer_learning, "
+                                     "first step", f"{name}_transfer").items():
+        recs.setdefault(k, []).extend(rs)
+    log(f"{name} workflow: " + json.dumps(rec))
+    return {f"{name}_evaluate": eval_launches, f"{name}_transfer": transfer_launches}, recs
+
+
+def phase_searches(smi, device="cuda", frames=SCRIPT_CUTS["synthetic_frames"],
+                   searches=tuple(SEARCHES)):
+    """Phase 20's searches: each of ``searches`` with ``SEARCH_ARGS`` on
+    ``frames`` synthetic frames (the main path, counts set to 0 just
+    before and read just after); the trial files against the same
+    ``HyperbandSearch`` on the CPU replaying the same metrics (the same
+    sampled configurations, rungs and best trial), every objective finite,
+    ``best_trial.json`` read back by ``retrieve_trial``; the first step of
+    trial 0 against the CPU and its kernel calls against their plain
+    versions, every step's launches equal to its trial's first step's;
+    ms per trial epoch, per step and per search. Returns the launches by
+    path and the kernel records."""
+    from gcnn_keras_tpu_torch.scripts import retrieve_trial
+    from gcnn_keras_tpu_torch.training import force_script, force_search, hyper_search
+    by_path, recs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="_phase20_", dir=os.getcwd()) as workdir, \
+            contextlib.chdir(workdir):
+        with open("search_conf.json", "w") as f:
+            json.dump({"synthetic_frames": frames}, f)
+        for search in searches:
+            objective, path = SEARCHES[search]
+            mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{search}")
+            cfg0 = dict(mod.CONFIG, synthetic_frames=frames)
+            records = []
+            save = hyper_search.HyperbandSearch._save_trial
+            recorder = RecordingTrainer(force_search.Trainer)
+            reset_counts()
+            t0 = time.perf_counter()
+            with patched(hyper_search.HyperbandSearch, "_save_trial",
+                         lambda self, t: records.append(dict(t)) or save(self, t)), \
+                    patched(force_search, "Trainer", recorder.cls), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                best = mod.main(SEARCH_ARGS + ["--directory", search, "--conf",
+                                               "search_conf.json", "--device", device])
+            torch.cuda.synchronize()
+            s_search = time.perf_counter() - t0
+            by_path[f"{search}_search"] = kernel_counts()
+            step_counts = recorder.check_steps(search)
+            if [r["epochs"] for r in records] != [1, 1, 1, 3] or not all(
+                    np.isfinite(r["score"]) for r in records):
+                raise AssertionError(f"{search}: trials {records}")
+            tids = {json.dumps(r["hparams"], sort_keys=True): r["trial_id"] for r in records}
+            metrics = {(r["trial_id"], r["epochs"]): r["metrics"] for r in records}
+            ref_dir = os.path.join("replay", search)
+            hyper_search.HyperbandSearch(
+                hyper_search.SearchSpace(mod.SPACE), objective=objective, num_trials=3,
+                min_epochs=1, max_epochs=3, eta=3, directory=ref_dir).run(
+                lambda hp, epochs: metrics[tids[json.dumps(hp, sort_keys=True)], epochs])
+
+            def trial_files(d):
+                out = {}
+                for fname in sorted(os.listdir(d)):
+                    with open(os.path.join(d, fname)) as f:
+                        out[fname] = {k: v for k, v in json.load(f).items() if k != "time_s"}
+                return out
+            if trial_files(search) != trial_files(ref_dir):
+                raise AssertionError(f"{search}: trial files differ from the CPU replay's")
+            with contextlib.redirect_stdout(io.StringIO()):
+                back = retrieve_trial.main(["--directory", search])
+            if back != json.loads(json.dumps(best, default=str)):
+                raise AssertionError(f"{search}: retrieve_trial gave {back}, best {best}")
+            hp0 = records[0]["hparams"]
+            fm = mod.build_model(hp0, cfg0, device="cpu")
+            weights = getattr(mod, "loss_weights", force_search.search_loss_weights)(cfg0, hp0)
+            first = check_first_step_on_cpu(
+                search, recorder.first, list(fm.energy_model.named_parameters()),
+                force_script.force_loss_fn(fm, weights),
+                TRAIN_PATHS[path].get("grad_tol", TRAIN_TOL))
+            for k, rs in kernel_call_records(recorder.first["calls"], f"{search}, trial 0, "
+                                             "first step", f"{search}_search").items():
+                recs.setdefault(k, []).extend(rs)
+            log(f"{search} search: " + json.dumps({
+                "search": search, "card": smi, "frames": frames, "s_search": s_search,
+                "ms_per_trial_epoch": float(np.median(
+                    [1e3 * r["time_s"] / r["epochs"] for r in records])),
+                "ms_per_step": float(np.median([ms for _, ms, _ in recorder.steps])),
+                "steps": len(recorder.steps) + 1,
+                "trials": [(r["trial_id"], r["epochs"], r["score"], r["hparams"])
+                           for r in records],
+                "launches_per_step_trial_0": step_counts, "first_step": first,
+                "launches_run": by_path[f"{search}_search"]}))
+    return by_path, recs
 
 
 def kernels_line(records, by_path, second_order):
@@ -3066,10 +3455,21 @@ def main():
     by_path.update(mol_paths)
     for name, rs in mol_recs.items():
         records[name].extend(rs)
+    workflow = {}
     for name in SCRIPT_PATHS:
-        by_path[f"{name}_script"], script_recs = phase_script(name, smi)
+        by_path[f"{name}_script"], script_recs = phase_script(
+            name, smi, after=lambda cfg, name=name: workflow.update(
+                {name: phase_workflow(name, cfg, smi)}))
         for kname, rs in script_recs.items():
             records[kname].extend(rs)
+        paths, workflow_recs = workflow[name]
+        by_path.update(paths)
+        for kname, rs in workflow_recs.items():
+            records[kname].extend(rs)
+    paths, search_recs = phase_searches(smi)
+    by_path.update(paths)
+    for kname, rs in search_recs.items():
+        records[kname].extend(rs)
 
     kernels = kernels_line(records, by_path, second_order)
     print(json.dumps({"kernels": kernels}))

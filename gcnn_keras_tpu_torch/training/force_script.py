@@ -21,6 +21,7 @@ is not ported.
 from __future__ import annotations
 
 import functools
+import importlib
 import json
 import os
 import time
@@ -89,6 +90,38 @@ def script_config(mod, **overrides) -> Dict:
     cfg.update(mod.CONFIG)
     cfg.update({k: v for k, v in overrides.items() if v is not None})
     return cfg
+
+
+def merge_config(cfg: Dict, conf=None, data_path=None) -> Dict:
+    """A copy of ``cfg`` updated with ``conf`` (a dict, or the path of a
+    JSON file), then with ``data_path`` if given."""
+    cfg = dict(cfg)
+    if isinstance(conf, str):
+        with open(conf) as f:
+            conf = json.load(f)
+    cfg.update(conf or {})
+    if data_path:
+        cfg["data_path"] = data_path
+    return cfg
+
+
+def script_module(name: str):
+    """The module ``gcnn_keras_tpu_torch.scripts.<name>``."""
+    return importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{name}")
+
+
+def load_config(mod, data_path=None, conf=None) -> Dict:
+    """``script_config(mod)`` under ``conf`` and ``data_path``, as
+    ``merge_config`` applies them."""
+    return merge_config(script_config(mod), conf, data_path)
+
+
+def load_script_dataset(mod, cfg: Dict) -> MemoryGraphDataset:
+    """A script's dataset: its own ``load_dataset``, else
+    ``load_force_dataset`` under the engine's ``DEFAULTS``."""
+    if hasattr(mod, "load_dataset"):
+        return mod.load_dataset(cfg)
+    return load_force_dataset({**DEFAULTS, **cfg})
 
 
 def normalized_loss_weights(cfg: Dict) -> Dict[str, float]:
@@ -295,14 +328,9 @@ def parse_config_cli(defaults: Dict) -> Dict:
     ap.add_argument("--device", default=None,
                     help="the device to train on: the CUDA card unless 'cpu'")
     args = ap.parse_args()
-    cfg = dict(defaults)
-    if args.conf:
-        with open(args.conf) as f:
-            cfg.update(json.load(f))
+    cfg = merge_config(defaults, args.conf, args.data_path)
     if args.epochs is not None:
         cfg["epochs"] = args.epochs
-    if args.data_path:
-        cfg["data_path"] = args.data_path
     if args.n_devices is not None:
         cfg["n_devices"] = args.n_devices
     if args.distributed:

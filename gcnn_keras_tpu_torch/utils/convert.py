@@ -15,11 +15,12 @@ Four node types carry weights in their own layout:
 
 Any other module's own parameters are bare flax leaves of the same name,
 ``<path>/<name>``, as they are: the per-element tables ``hardness_j`` and
-``sigma`` of the HDNNP4th electrostatics.
+``sigma`` of the HDNNP4th electrostatics. ``flax_leaf_names`` gives each
+port parameter's flax path.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +48,39 @@ def _flax_path(name: str) -> str:
     return "/".join(_FLAX_NAMES.get(p, p) for p in name.split("."))
 
 
+def _flax_leaves(model: nn.Module) -> Iterator[Tuple[str, torch.Tensor, bool]]:
+    """``(flax leaf path, port parameter, transposed)`` of each parameter
+    of ``model``, in module order."""
+    for name, module in model.named_modules():
+        base = _flax_path(name)
+
+        def leaf(*parts: str) -> str:
+            return "/".join((base,) + parts if base else parts)
+        if isinstance(module, Dense):
+            yield leaf("Dense_0", "kernel"), module.weight, True
+            if module.bias is not None:
+                yield leaf("Dense_0", "bias"), module.bias, False
+        elif isinstance(module, RelationalDense):
+            yield leaf("kernel"), module.kernel, False
+            if module.bias is not None:
+                yield leaf("bias"), module.bias, False
+        elif isinstance(module, OptionalInputEmbedding):
+            yield leaf("Embed_0", "embedding"), module.weight, False
+        elif isinstance(module, GraphLayerNorm):
+            for pname, p in module.named_parameters(recurse=False):
+                yield leaf("LayerNorm_0", pname), p, False
+        else:
+            for pname, p in module.named_parameters(recurse=False):
+                yield leaf(pname), p, False
+
+
+def flax_leaf_names(model: nn.Module) -> Dict[str, str]:
+    """Each parameter's name in ``model.named_parameters()`` -> its flax
+    leaf path (under the top-level ``"params"``)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {names[id(p)]: key for key, p, _ in _flax_leaves(model)}
+
+
 def params_from_jax(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     """Copy a flax parameter tree (nested dict of numpy arrays, with or
     without the top-level ``"params"``) into ``model`` in place. Raises if
@@ -54,8 +88,7 @@ def params_from_jax(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     differs."""
     flat = _flatten(tree.get("params", tree))
     used, filled = set(), set()
-
-    def take(key: str, target: torch.Tensor, transpose: bool = False) -> None:
+    for key, target, transpose in _flax_leaves(model):
         if key not in flat:
             raise KeyError(f"flax parameter {key!r} missing")
         arr = flat[key].T if transpose else flat[key]
@@ -66,28 +99,6 @@ def params_from_jax(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
             target.copy_(torch.tensor(arr))
         used.add(key)
         filled.add(id(target))
-
-    for name, module in model.named_modules():
-        base = _flax_path(name)
-
-        def leaf(*parts: str) -> str:
-            return "/".join((base,) + parts if base else parts)
-        if isinstance(module, Dense):
-            take(leaf("Dense_0", "kernel"), module.weight, transpose=True)
-            if module.bias is not None:
-                take(leaf("Dense_0", "bias"), module.bias)
-        elif isinstance(module, RelationalDense):
-            take(leaf("kernel"), module.kernel)
-            if module.bias is not None:
-                take(leaf("bias"), module.bias)
-        elif isinstance(module, OptionalInputEmbedding):
-            take(leaf("Embed_0", "embedding"), module.weight)
-        elif isinstance(module, GraphLayerNorm):
-            for pname, p in module.named_parameters(recurse=False):
-                take(leaf("LayerNorm_0", pname), p)
-        else:
-            for pname, p in module.named_parameters(recurse=False):
-                take(leaf(pname), p)
     left = sorted(set(flat) - used)
     if left:
         raise KeyError(f"flax parameters with no port counterpart: {left}")

@@ -1131,3 +1131,31 @@ def test_loader_on_the_card_yields_the_cpu_batches(cuda_device):
                 assert torch.equal(getattr(gb, name).cpu(), getattr(cb, name))
             for k, v in cb.nodes.items():
                 assert torch.equal(gb.nodes[k].cpu(), v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["force_schnet", "force_painn", "force_hdnnp2nd",
+                                  "force_hdnnp4th", "charge_hdnnp4th"])
+def test_workflow_phase_on_the_card(cuda_device, name):
+    """``chip_smoke.py`` phase 20 for one script on the ensemble phase 19
+    trains on 48 frames: evaluate_models (launches, artifacts, each member
+    and the report against the CPU, member 0's kernel calls against their
+    plain versions), calc_prediction_std and load_model against the CPU,
+    transfer_learning (frozen bit for bit, its first step against the
+    CPU)."""
+    import chip_smoke
+    seen = {}
+    chip_smoke.phase_script(name, "test", "cuda", cuts=SCRIPT_TEST_CUTS,
+                            after=lambda cfg: seen.update(
+                                out=chip_smoke.phase_workflow(name, cfg, "test", "cuda")))
+    paths, recs = seen["out"]
+    assert recs and sorted(paths) == [f"{name}_evaluate", f"{name}_transfer"]
+
+
+@pytest.mark.cuda
+def test_search_phase_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """``chip_smoke.py`` phase 20's five searches on 40 frames."""
+    import chip_smoke
+    monkeypatch.chdir(tmp_path)
+    paths, recs = chip_smoke.phase_searches("test", "cuda", frames=40)
+    assert len(paths) == 5 and recs

@@ -8,6 +8,7 @@ process has JAX loaded already.
 """
 import ast
 import functools
+import json
 from pathlib import Path
 
 import pytest
@@ -26,6 +27,7 @@ from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
 from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
 from gcnn_keras_tpu_torch.moldyn.trajectory import ScannedMD
 from gcnn_keras_tpu_torch.training.force_script import run_force_training
+from gcnn_keras_tpu_torch.training.hyper import HyperParameter
 
 torch.set_num_threads(1)
 
@@ -36,7 +38,13 @@ SOURCES = sorted((ROOT / "gcnn_keras_tpu_torch").rglob("*.py")) + [
 
 
 SCRIPTS = ("force_schnet", "force_painn", "force_hdnnp2nd", "force_hdnnp4th",
-           "energy_hdnnp4th", "charge_hdnnp4th")
+           "energy_hdnnp4th", "charge_hdnnp4th", "energy_hdnnp2nd")
+# the entry points that run a trained ensemble or search, each a ``main(argv)``
+# that takes ``--device``; ``retrieve_trial`` reads JSON only
+WORKFLOW = ("evaluate_models", "calc_prediction_std", "load_model", "transfer_learning",
+            "force_schnet_hyp_param_search", "force_painn_hyp_param_search",
+            "force_hdnnp2nd_hyp_param_search", "force_hdnnp4th_hyp_param_search",
+            "charge_hyp_param_search")
 
 
 def _script(name):
@@ -60,6 +68,32 @@ def _run_script(name, **kw):
     if name == "force_hdnnp4th":
         return mod.train(_tiny(name, **kw))
     return run_force_training(mod.build_model, _tiny(name, **kw))
+
+
+def _run_workflow(name, monkeypatch, device=None):
+    """``main`` of a workflow entry point, with ``--device`` if given: the
+    ensemble scripts on a tiny two-fold SchNet ensemble trained in the
+    working directory first, the searches on 4 frames (one trial of one
+    epoch)."""
+    mod = _script(name)
+    if hasattr(mod, "SPACE"):
+        monkeypatch.setattr(mod, "CONFIG", dict(mod.CONFIG, synthetic_frames=4, batch_size=3))
+        argv = ["--trials", "1", "--min-epochs", "1", "--max-epochs", "1"]
+    else:
+        with open("conf.json", "w") as f:
+            # 8 frames: one batch of transfer_learning's 8
+            json.dump({"schnet": _tiny("force_schnet")["schnet"], "synthetic_frames": 8,
+                       "make_plots": False}, f)
+        if device:
+            run_force_training(_script("force_schnet").build_model,
+                               _tiny("force_schnet", device=device))
+        flag = "--prefix" if name in ("evaluate_models", "calc_prediction_std") \
+            else "--checkpoint"
+        target = "model_schnet_force" if flag == "--prefix" else "model_schnet_force_0"
+        argv = [flag, target, "--script", "force_schnet", "--conf", "conf.json"]
+        if name == "transfer_learning":
+            argv += ["--epochs", "1"]
+    return mod.main(argv + (["--device", device] if device else []))
 
 
 def _imported_modules(source):
@@ -100,7 +134,9 @@ def test_scan_sees_the_package():
                                    "gcn.make_model", "gcn.make_model_weighted",
                                    "MLMMEnergyForceModel", "GraphBatchLoader",
                                    "MemoryGraphDataset.to_batch", "run_force_training",
-                                   *(f"scripts.{name}" for name in SCRIPTS)])
+                                   "HyperParameter.make_model",
+                                   *(f"scripts.{name}" for name in SCRIPTS),
+                                   *(f"scripts.{name}" for name in WORKFLOW)])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)  # the training entry points write their artifacts here
@@ -132,7 +168,11 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_pat
             graphs=[graph]).to_batch(**kw),
         "run_force_training": lambda **kw: run_force_training(
             _script("force_schnet").build_model, _tiny("force_schnet", **kw)),
+        "HyperParameter.make_model": lambda **kw: HyperParameter(
+            {"model": {"module_name": "Schnet", "config": {"depth": 1}}}).make_model(**kw),
         **{f"scripts.{name}": functools.partial(_run_script, name) for name in SCRIPTS},
+        **{f"scripts.{name}": functools.partial(_run_workflow, name, monkeypatch)
+           for name in WORKFLOW},
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -166,8 +166,28 @@ order, each raising on a failed check:
    and step) and ``<search> search: {...}`` (ms per trial epoch and step, s
    per search).
 
+21. Every option of the potentials (``phase_options``): HDNNP2nd's default
+   (wACSF) model, ``make_model()``, answers the 3 requests with ``set_angle``
+   (every segment-sum call of one evaluation against its plain version, the
+   (E, 22) radial and (A, 10) angular sums timed; ``WACSF_LAUNCHES``);
+   SchNet at the serving width in bfloat16, in the dense block and under
+   remat (``SCHNET_OPTIONS``) answers them against the CPU and phase 4's
+   float32 answers (bfloat16 within ``BF16_TOL``), every kernel call of one
+   bfloat16 evaluation against its plain version, the bfloat16 (E, 128) sum
+   timed; the training paths of phase 21 (``TRAIN_PATHS``: SchNet bfloat16,
+   dense, remat and chain under remat, HDNNP2nd's wACSF model and HDNNP4th
+   each with a ``GraphBatchNorm``) as phase 10 runs one; one
+   ``apply_multistate`` evaluation of 3 states against the CPU; PAiNN MD at
+   the bench width (phase 14's 21-atom molecule with its NVE drift, and 64
+   replicas through ``ScannedMD``) against the CPU; ``force_inverse_distances``
+   through phase 19's ``phase_script``; last, the device's busy share of
+   each of phase 21's serving and training paths (``busy_share``,
+   ``torch.profiler``), after every timed part of the script.
+
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
-its timed check at the shapes of the first path that launched it.
+its timed check at the shapes of the first path that launched it; the
+segment-sum's bfloat16 instance has an entry of its own
+(``sorted_segment_sum_bf16``).
 
 Prints ``{"kernels": [...]}``, then the card's name and power limit as
 ``nvidia-smi`` gives them, and last the line
@@ -208,6 +228,31 @@ HEAD_START_CYCLES = 200_000
 LAUNCHES_PER_EVAL = 10
 KERNEL_TOL = 1e-5  # max|kernel - plain| <= KERNEL_TOL * (1 + max|plain|)
 SERVE_TOL = 1e-4   # max|gpu - cpu| <= SERVE_TOL * max|cpu|, per output
+# the segment-sum's bfloat16 instance against its plain version: each rounds
+# a float32 sum to bfloat16 once, and two float32 sums in other orders
+# (index_add_'s atomics on the card) may round to neighbouring bfloat16
+# values, one bfloat16 ulp apart: at most 2^-7 of the value
+BF16_KERNEL_TOL = 2.0 ** -7
+# a bfloat16 model against the same model elsewhere (the card against the
+# CPU, or bfloat16 against float32), per key: max|a - b| <= BF16_TOL[key] *
+# max|b|. "atom" is the graph pool's input (last_mlp's output on the real
+# atoms, before the molecules' energies cancel), "energy" and "force" the
+# answers, "loss" a training step's first loss and "grad" each parameter's
+# gradient (against that tensor's largest entry). Each is twice the JAX
+# package's own gap for its key, the largest over the inputs below, rounded
+# up: its SchNet with dtype="bfloat16" against the float32 one, on the CPU,
+# on this script's SchNet weights (seed 0, the bench width). Two bfloat16
+# runs that round in other places, each that far from float32, differ by
+# up to twice it. The outputs, on the first 64 molecules of each request
+# (seeds 0-2): atom 0.118-0.134, energy 0.116-0.184, force 0.039-0.068. The
+# first step (force weight 100): the gradients on the two batches the
+# first-step checks take, _mols(RandomState(2), 64) and (7, 16), 0.135 and
+# 0.211 (on other batches the gap reaches 1.0: an energy MAE's sign flips
+# where a prediction lies near its label); the loss, one number a batch
+# that spreads from 6.6e-7 to 5.08e-4 over the batches of ten seeds at each
+# of those two sizes (jitted), over those twenty.
+# tests/test_torch_schnet_options.py measures each.
+BF16_TOL = {"atom": 0.27, "energy": 0.37, "force": 0.14, "loss": 1.1e-3, "grad": 0.43}
 # ACSF kernels: max|kernel - plain| <= tol * (1 + max|plain|), and in the
 # forward pass also, for each set s, max|kernel - plain| over its columns
 # <= tol * max|plain| over them. The forward sums each output in another
@@ -233,8 +278,8 @@ HDNNP2ND_KW = dict(
 HDNNP_SHAPES = (8192, 54784, 417024, 513)  # N, E, A, G of the seed-0 request
 # every kernel of the port, by its name in the launch counts
 KERNEL_NAMES = ("g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp", "g4_jvp", "g2_jvp",
-                "sorted_segment_sum", "spd_solve", "gather_mul_segsum", "fused_cfconv",
-                "cf_fwd", "cf_vjp", "cf_hesjvp")
+                "sorted_segment_sum", "sorted_segment_sum_bf16", "spd_solve",
+                "gather_mul_segsum", "fused_cfconv", "cf_fwd", "cf_vjp", "cf_hesjvp")
 
 
 def launch_counts(**nonzero):
@@ -252,26 +297,59 @@ SCHNET_MODES = {"unfused": {}, "fused": {"fused_aggregate": True},
 MODE_ARGS = {**SCHNET_MODES, "chain": {"fused_chain": True}}
 
 
-def schnet_launches(mode, depth=4):
-    """Kernel launches per SchNet energy+force evaluation of ``depth``
-    interactions (see PERF.md). The energy pass sums onto the receivers in
-    each interaction (unfused: a segment-sum; fused: the gms kernel;
-    accurate: the fused cfconv kernel) and pools onto the graphs (a
-    segment-sum). The force pass runs the transposes of pos_j and pos_i in
-    ``edge_vectors`` (2 segment-sums) and, in interactions 1 to depth-1,
-    the cotangent of the node features by sender (a segment-sum: the
-    transpose of the sender gather, or GMS's ct_x); interaction 0's node
+def schnet_launches(mode, depth=4, remat=False, dtype=None, train=False):
+    """Kernel launches per SchNet energy+force evaluation (``train``: per
+    training step) of ``depth`` interactions (see PERF.md). The energy pass
+    sums onto the receivers in each interaction (unfused: a segment-sum;
+    fused: the gms kernel; accurate: the fused cfconv kernel) and pools onto
+    the graphs (a segment-sum). The force pass runs the transposes of pos_j
+    and pos_i in ``edge_vectors`` (2 segment-sums) and, in interactions 1 to
+    depth-1, the cotangent of the node features by sender (a segment-sum:
+    the transpose of the sender gather, or GMS's ct_x); interaction 0's node
     features do not depend on the coordinates. GMS's ct_m and the fused
     cfconv's backward are gathers and matmuls, no kernel. The fused chain
     (``chain``) computes no edge vectors: each interaction runs cf_fwd in
     the energy pass and cf_vjp in the force pass, and the graph pool is the
-    one segment-sum (its backward is a gather)."""
+    one segment-sum (its backward is a gather).
+
+    A training step (unfused or chain) adds the loss's reverse pass along
+    the parameters: unfused, the transposes of the sender gathers of
+    interactions 0 to depth-1 (the energy term reaches the embedding), and,
+    through the force pass, those of the gathers that are the backward of
+    the depth edge pools and of the graph pool (the output MLP after the
+    pool makes the pooled cotangent depend on the parameters); chain, CF's
+    backward once with the summed cotangent (cf_vjp) and BWD's backward
+    once (cf_hesjvp) in each interaction, and the transpose of the graph
+    pool's backward gather.
+
+    ``dtype="bfloat16"``: the messages, their sums and the transposes of
+    the sender gathers are bfloat16 and take the segment-sum's bfloat16
+    instance; the graph pool and ``edge_vectors`` stay float32. Such an
+    interaction has no fused kernel (``fused`` takes the unfused chain).
+    ``remat``: every reverse pass through the checkpointed forward reruns
+    each interaction's forward, and with it its kernel (the edge pool's
+    segment-sum, gms, cf_fwd): the force pass once, a training step's loss
+    pass once more."""
+    bf16 = dtype == "bfloat16"
     if mode == "chain":
-        return launch_counts(cf_fwd=depth, cf_vjp=depth, sorted_segment_sum=1)
-    per_interaction = {"unfused": "sorted_segment_sum", "fused": "gather_mul_segsum",
-                       "accurate": "fused_cfconv"}[mode]
-    counts = launch_counts(sorted_segment_sum=1 + 2 + depth - 1)
-    counts[per_interaction] += depth
+        counts = launch_counts(cf_fwd=depth, cf_vjp=depth * (2 if train else 1),
+                               cf_hesjvp=depth if train else 0,
+                               sorted_segment_sum=2 if train else 1)
+        rerun = "cf_fwd"
+    else:
+        msg = "sorted_segment_sum_bf16" if bf16 else "sorted_segment_sum"
+        rerun = msg if bf16 else {"unfused": msg, "fused": "gather_mul_segsum",
+                                  "accurate": "fused_cfconv"}[mode]
+        if train and rerun != msg:
+            raise ValueError(f"no derived training launches for mode {mode!r}")
+        counts = launch_counts(sorted_segment_sum=1 + 2)
+        counts[rerun] += depth
+        counts[msg] += depth - 1
+        if train:
+            counts["sorted_segment_sum"] += 1
+            counts[msg] += 2 * depth
+    if remat:
+        counts[rerun] += depth * (2 if train else 1)
     return counts
 
 
@@ -301,6 +379,12 @@ MD_TOL = 1e-4
 # segment-sum); the force pass runs the G4 and G2 vjp kernels, and the
 # backward of the pool is a gather, which launches nothing
 HDNNP_LAUNCHES = launch_counts(g2_fwd=1, g4_fwd=1, g4_vjp=1, g2_vjp=1, sorted_segment_sum=1)
+# per evaluation of HDNNP2nd's default (wACSF) model: the radial sum by
+# receiver (E, 22), the angular sum by angle centre (A, 10) and the pool
+# onto the graphs, segment-sums all three; the force pass's backwards are
+# gathers. A training step adds the transposes of the force pass's gathers
+# of the two descriptor sums (2); the pool's backward gathers a constant
+WACSF_LAUNCHES = launch_counts(sorted_segment_sum=3)
 # the TPU kernel each ACSF kernel replaces (its pl.pallas_call line)
 ACSF_REPLACES = {"g2_fwd": "gcnn_keras_tpu/ops/pallas/fused_g4.py:1088",
                  "g4_fwd": "gcnn_keras_tpu/ops/pallas/fused_g4.py:660",
@@ -438,12 +522,11 @@ MLMM_LAUNCHES = {**HDNNP4TH_LAUNCHES, "sorted_segment_sum": 6}
 TRAIN_PATHS = {
     "schnet_train": dict(model="schnet", seed=0, size=512, with_esp=False,
                          global_keys=("energy",), force_weight=100.0, charge_weight=0.0,
-                         launches=launch_counts(sorted_segment_sum=19)),
+                         launches=schnet_launches("unfused", train=True)),
     "schnet_chain_train": dict(model="schnet", mode="chain", seed=0, size=512,
                                with_esp=False, global_keys=("energy",), force_weight=100.0,
                                charge_weight=0.0, time_calls=False,
-                               launches=launch_counts(cf_fwd=4, cf_vjp=8, cf_hesjvp=4,
-                                                      sorted_segment_sum=2)),
+                               launches=schnet_launches("chain", train=True)),
     "hdnnp2nd_train": dict(model="hdnnp2nd", seed=5, size=1024, with_esp=True,
                            global_keys=("energy",), force_weight=100.0, charge_weight=0.0,
                            launches=launch_counts(g2_fwd=1, g4_fwd=1, g4_vjp=1, g2_vjp=1,
@@ -476,8 +559,49 @@ TRAIN_PATHS = {
     **{f"hdnnp4th_mol{n}_train": dict(model="hdnnp4th_mol", seed=3, size=n, first_step=(3, n),
                                       global_keys=("energy", "total_charge"),
                                       force_weight=200.0, charge_weight=50.0,
-                                      launches=mol_launches(n, train=True))
+                                      launches=mol_launches(n, train=True), phase=18)
        for n in MOL_SIZES},
+    # phase 21: the potentials' options at the bench steps' batches and
+    # losses. SchNet in bfloat16 (its first step against the CPU to
+    # BF16_TOL's loss and grad), in the dense block (no kernel), and under
+    # remat (the interactions' kernels run again in each reverse pass), unfused and
+    # with the fused chain; HDNNP2nd's default wACSF model with a
+    # GraphBatchNorm (normalize_kwargs) at hdnnp2nd_train's batch; HDNNP4th
+    # with a GraphBatchNorm at hdnnp4th_train's
+    "schnet_bf16_train": dict(model="schnet", model_kw={"dtype": "bfloat16"}, seed=0, size=512,
+                              with_esp=False, global_keys=("energy",), force_weight=100.0,
+                              charge_weight=0.0, loss_tol=BF16_TOL["loss"],
+                              grad_tol=BF16_TOL["grad"],
+                              phase=21, launches=schnet_launches("unfused", dtype="bfloat16",
+                                                                 train=True)),
+    "schnet_dense_train": dict(model="schnet", model_kw={"dense_block": True}, seed=0, size=512,
+                               with_esp=False, global_keys=("energy",), force_weight=100.0,
+                               charge_weight=0.0, phase=21, launches=launch_counts()),
+    "schnet_remat_train": dict(model="schnet", model_kw={"remat": True}, seed=0, size=512,
+                               with_esp=False, global_keys=("energy",), force_weight=100.0,
+                               charge_weight=0.0, phase=21,
+                               launches=schnet_launches("unfused", remat=True, train=True)),
+    "schnet_chain_remat_train": dict(model="schnet", mode="chain", model_kw={"remat": True},
+                                     seed=0, size=512, with_esp=False, global_keys=("energy",),
+                                     force_weight=100.0, charge_weight=0.0, time_calls=False,
+                                     phase=21, launches=schnet_launches("chain", remat=True,
+                                                                        train=True)),
+    # the wACSF descriptors go unnormalized into the network (the default
+    # train=False normalizes by the initial running statistics, 0 and 1), so
+    # the bench recipe's Adam steps overshoot: the same loss series in both
+    # packages (tests/test_torch_wacsf.py), finite but not falling
+    "hdnnp2nd_weighted_train": dict(model="hdnnp2nd_weighted",
+                                    model_kw={"normalize_kwargs": {"epsilon": 1e-3}}, seed=5,
+                                    size=1024, with_esp=True, global_keys=("energy",),
+                                    force_weight=100.0, charge_weight=0.0, phase=21, falls=False,
+                                    launches=launch_counts(sorted_segment_sum=3 + 2)),
+    "hdnnp4th_norm_train": dict(model="hdnnp4th", model_kw={"normalize_kwargs": {"epsilon": 1e-3}},
+                                seed=1, size=128, with_esp=True,
+                                global_keys=("energy", "total_charge"), force_weight=200.0,
+                                charge_weight=50.0, phase=21,
+                                launches=launch_counts(g2_fwd=1, g4_fwd=1, g4_vjp=1, g2_vjp=1,
+                                                       g4_jvp=1, g2_jvp=1, sorted_segment_sum=7,
+                                                       spd_solve=4)),
 }
 # sec_gcn_cora's graph and model: SyntheticCitationDataset(num_nodes=2708,
 # num_classes=70, feature_dim=1433, avg_degree=4, seed=1), a 3-deep GCN of
@@ -583,6 +707,39 @@ def cuda_median_ms(fn, reps, flush=None, before=None):
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
+def busy_share(run, reps=5):
+    """``run()`` under ``torch.profiler`` (after two warm calls): its device
+    kernel ms and wall ms per call and the device's busy share, their
+    ratio; ``None`` where the profiler saw no device time. It runs after
+    every timed part of the script (``run_profiles``), which so measure
+    nothing of the profiler's own seconds of tracing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    return {"profiled_wall_ms": wall_ms, "device_ms": dev_ms or None,
+            "device_kernels": sum(e.count for e in kernels) / reps,
+            "busy_share": dev_ms / wall_ms if dev_ms else None}
+
+
+def run_profiles(profiles):
+    """``busy_share`` of each ``(label, run)`` of ``profiles``, in turn,
+    logged as ``<label> busy share: {...}``."""
+    for label, run in profiles:
+        log(f"{label} busy share: " + json.dumps(busy_share(run)))
+
+
 def phase_device():
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -610,21 +767,27 @@ def phase_build(names=None):
 
 
 def check_segment_sum(values, ids, n, label, timed):
+    """The segment-sum kernel (either instance, by the values' type) against
+    its plain version; timed: with its bound, the plain version's time and
+    ``index_add_``'s in the values' type."""
     from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
     out = ss.segment_sum(values, ids, n)
     torch.cuda.synchronize()
     plain = ss.segment_sum_plain(values, ids, n)
+    bf16 = values.dtype == torch.bfloat16
+    tol = BF16_KERNEL_TOL if bf16 else KERNEL_TOL
     scale = 1.0 + (plain.abs().max().item() if plain.numel() else 0.0)
-    err = (out - plain).abs().max().item() if out.numel() else 0.0
-    if not err <= KERNEL_TOL * scale:
-        raise AssertionError(f"segment_sum {label}: max|k-p|={err} > {KERNEL_TOL}*{scale}")
+    err = (out.float() - plain.float()).abs().max().item() if out.numel() else 0.0
+    if out.dtype != values.dtype or not err <= tol * scale:
+        raise AssertionError(f"segment_sum {label}: {out.dtype}, max|k-p|={err} > {tol}*{scale}")
     rec = {"case": label, "E": values.shape[0], "F": values.shape[1], "N": n,
-           "max_abs_err": err}
+           "dtype": str(values.dtype).replace("torch.", ""), "max_abs_err": err}
     if timed:
         e, f = values.shape
         flush = torch.empty(L2_FLUSH_BYTES // 4, device=values.device)
-        lib_out = torch.zeros(n, f, device=values.device)
-        nbytes = 4 * (e * f + e + n * f)
+        lib_out = torch.zeros(n, f, dtype=values.dtype, device=values.device)
+        size = values.element_size()
+        nbytes = size * (e * f + n * f) + 4 * e
         rec.update(
             ms=cuda_median_ms(lambda: ss.segment_sum(values, ids, n), 50, flush),
             ms_warm=cuda_median_ms(lambda: ss.segment_sum(values, ids, n), 50),
@@ -706,16 +869,18 @@ def check_request(results, graphs, label):
         raise AssertionError(f"{label}: forces do not sum to 0 ({worst:.3g} x tol)")
 
 
-def compare_answers(got, ref, keys=("energy", "force")):
-    """Two predictors' answers to one request, within SERVE_TOL of the
-    reference's largest value per output."""
+def compare_answers(got, ref, keys=("energy", "force"), tol=SERVE_TOL):
+    """Two predictors' answers to one request, within ``tol`` (SERVE_TOL;
+    or a tolerance per output, as ``BF16_TOL``) of the reference's largest
+    value per output."""
     errs = {}
     for key in keys:
         a = np.concatenate([r[key] for r in got])
         b = np.concatenate([r[key] for r in ref])
         err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
-        if not err <= SERVE_TOL * scale:
-            raise AssertionError(f"{key}: max|d|={err} > {SERVE_TOL}*{scale}")
+        key_tol = tol[key] if isinstance(tol, dict) else tol
+        if not err <= key_tol * scale:
+            raise AssertionError(f"{key}: max|d|={err} > {key_tol}*{scale}")
         errs[key] = {"max_abs_err": err, "max_abs_cpu": scale}
     return errs
 
@@ -729,24 +894,28 @@ def schnet_model(mode, device, **kwargs):
                              interaction_args=inter, **kwargs)
 
 
-def energy_force_model(kind, device, mode="unfused", solver=None):
+def energy_force_model(kind, device, mode="unfused", solver=None, **model_kw):
     """The full-width ``EnergyForceModel`` of ``kind`` with weights from seed
     0: SchNet ``make_model()`` defaults in ``mode``, or the HDNNP2nd,
-    HDNNP4th (with ESP coupling) or PAiNN bench configuration, or
-    (``hdnnp4th_mol``) HDNNP4th at ``LARGE_MOL_KW``, with the Qeq
-    ``solver`` given (default ``"auto"``)."""
+    HDNNP4th (with ESP coupling) or PAiNN bench configuration, or HDNNP2nd's
+    default (wACSF) model (``hdnnp2nd_weighted``), or (``hdnnp4th_mol``)
+    HDNNP4th at ``LARGE_MOL_KW``, with the Qeq ``solver`` given (default
+    ``"auto"``); ``model_kw`` over the configuration."""
     from gcnn_keras_tpu_torch.model.force import EnergyForceModel
     from gcnn_keras_tpu_torch.models import hdnnp2nd, hdnnp4th, painn
     gen = torch.Generator().manual_seed(0)
     if kind == "schnet":
-        return EnergyForceModel(schnet_model(mode, device), device=device)
+        return EnergyForceModel(schnet_model(mode, device, **model_kw), device=device)
     if kind == "painn":
         return EnergyForceModel(painn.make_model(device=device, generator=gen, **PAINN_KW),
                                 device=device)
     if kind == "hdnnp2nd":
         return EnergyForceModel(hdnnp2nd.make_model_behler(
             device=device, generator=gen, **HDNNP2ND_KW), device=device)
-    kw = HDNNP4TH_KW
+    if kind == "hdnnp2nd_weighted":
+        return EnergyForceModel(hdnnp2nd.make_model(device=device, generator=gen, **model_kw),
+                                device=device)
+    kw = {**HDNNP4TH_KW, **model_kw}
     if kind == "hdnnp4th_mol":
         kw = dict(LARGE_MOL_KW, electrostatic_kwargs={
             **LARGE_MOL_KW["electrostatic_kwargs"], **({"solver": solver} if solver else {})})
@@ -1124,7 +1293,8 @@ def kernel_counts():
     from gcnn_keras_tpu_torch.ops.cuda import fused_interaction as fi
     from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
     from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
-    return dict(ka.launches, sorted_segment_sum=ss.launches, spd_solve=ks.launches,
+    return dict(ka.launches, sorted_segment_sum=ss.launches,
+                sorted_segment_sum_bf16=ss.launches_bf16, spd_solve=ks.launches,
                 gather_mul_segsum=fa.launches, fused_cfconv=fc.launches, **fi.launches)
 
 
@@ -1154,16 +1324,21 @@ def kernel_wrappers():
 @contextlib.contextmanager
 def captured_calls():
     """Inside the block each kernel wrapper keeps a copy of the arguments of
-    every call before it runs; yields ``{name: [args, ...]}``. The autograd
-    Functions look their wrapper up by name at each call, so they call the
-    recording one."""
+    every call before it runs; yields ``{name: [args, ...]}`` (a segment-sum
+    of bfloat16 values under ``sorted_segment_sum_bf16``, its instance, a
+    key made at its first call). The autograd Functions look their wrapper
+    up by name at each call, so they call the recording one."""
     table = kernel_wrappers()
     calls = {name: [] for name in table}
     originals = {name: getattr(mod, attr) for name, (mod, attr, _) in table.items()}
 
     def recording(name):
         def wrapper(*args):
-            calls[name].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            key = name
+            if name == "sorted_segment_sum" and args[0].dtype == torch.bfloat16:
+                key = "sorted_segment_sum_bf16"
+            calls.setdefault(key, []).append(
+                tuple(a.clone() if torch.is_tensor(a) else a for a in args))
             return originals[name](*args)
         return wrapper
     for name, (mod, attr, _) in table.items():
@@ -1184,6 +1359,7 @@ def reset_counts():
     from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
     for mod in (ss, ks, fa, fc):
         mod.launches = 0
+    ss.launches_bf16 = 0
     for counts in (ka.launches, fi.launches):
         for k in counts:
             counts[k] = 0
@@ -1191,13 +1367,15 @@ def reset_counts():
 
 def phase_model_serving(gpu, requests, batch0, smi, name="hdnnp2nd",
                         make_cpu=make_hdnnp_predictor, expected=HDNNP_LAUNCHES,
-                        check=check_request, keys=("energy", "force"), reference=None):
+                        check=check_request, keys=("energy", "force"), reference=None,
+                        tol=SERVE_TOL, profiles=None):
     """Serving phase of a model (HDNNP2nd; HDNNP4th with the arguments of
     phase 8; SchNet in the modes of phase 12): the requests with every
     kernel's launches per request held to ``expected``, the first request
     against the same predictor on the CPU and, given ``reference`` (another
-    predictor's answers to the same requests), every request against it;
-    then the time per evaluation."""
+    predictor's answers to the same requests), every request against it,
+    each within ``tol``; then the time per evaluation; given ``profiles``,
+    an evaluation queued on it for ``run_profiles``."""
     # the main path: every count set to 0 just before, read just after
     reset_counts()
     answers, per_request = [], []
@@ -1223,12 +1401,12 @@ def phase_model_serving(gpu, requests, batch0, smi, name="hdnnp2nd",
     cpu_answer = cpu(requests[0][1])
     cpu_s = time.perf_counter() - t0
     check(cpu_answer, requests[0][1], f"{name} cpu {requests[0][0]}")
-    errs = compare_answers(answers[0], cpu_answer, keys)
+    errs = compare_answers(answers[0], cpu_answer, keys, tol)
     log(f"{name} serving gpu vs cpu ({requests[0][0]}, cpu {cpu_s:.2f} s): "
         + json.dumps(errs))
     for (label, _), res, ref in zip(requests, answers, reference or ()):
         log(f"{name} serving against unfused ({label}): "
-            + json.dumps(compare_answers(res, ref, keys)))
+            + json.dumps(compare_answers(res, ref, keys, tol)))
 
     # time one energy+force evaluation on the prepared full-width batch
     model = gpu.model
@@ -1273,6 +1451,8 @@ def phase_model_serving(gpu, requests, batch0, smi, name="hdnnp2nd",
         serving.update(A_pad=batch0.angles.shape[0], real_angles=real_angles,
                        angles_per_s=real_angles / (ms * 1e-3))
     log(f"{name} serving timing: " + json.dumps(serving))
+    if profiles is not None:
+        profiles.append((f"{name} serving", lambda: model(batch0)))
     return main_launches
 
 
@@ -1569,7 +1749,8 @@ def make_trainer(path, device, solver=None):
                                **GCN_CORA_KW)
         trainer = Trainer(node_class_loss_fn(model), functools.partial(torch.optim.Adam, lr=1e-2))
         return model, trainer, trainer.init_state(model.parameters())
-    fm = energy_force_model(cfg["model"], device, cfg.get("mode", "unfused"), solver)
+    fm = energy_force_model(cfg["model"], device, cfg.get("mode", "unfused"), solver,
+                            **cfg.get("model_kw", {}))
     trainer = Trainer(ef_loss_fn(fm, cfg["force_weight"], cfg["charge_weight"]),
                       functools.partial(torch.optim.Adam, lr=1e-3))
     return fm.energy_model, trainer, trainer.init_state(fm.energy_model.parameters())
@@ -1577,7 +1758,7 @@ def make_trainer(path, device, solver=None):
 
 def check_kernel_call(name, args, label, timed):
     """Kernel ``name`` against its plain version on one call's arguments."""
-    if name == "sorted_segment_sum":
+    if name in ("sorted_segment_sum", "sorted_segment_sum_bf16"):
         return check_segment_sum(*args, label, timed)
     if name == "spd_solve":
         return check_spd(*args, label, timed)
@@ -1613,11 +1794,12 @@ def check_training_kernels(path, batch):
     return recs
 
 
-def phase_training(path, smi):
+def phase_training(path, smi, profiles=None):
     """Phase 10 for one path: the first step against the CPU; each kernel
     call of a step on the full-width batch against its plain version; then
-    the main path, ``TRAIN_STEPS`` steps on that batch. Returns the main
-    path's launch counts and the kernel records."""
+    the main path, ``TRAIN_STEPS`` steps on that batch; given ``profiles``,
+    a step queued on it for ``run_profiles``. Returns the main path's
+    launch counts and the kernel records."""
     cfg = TRAIN_PATHS[path]
     first_seed, first_size = cfg.get("first_step", (2, 64))
     first = {}
@@ -1627,7 +1809,7 @@ def phase_training(path, smi):
         first[dev] = (float(metrics["loss"]),
                       {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
     (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = first["cuda"], first["cpu"]
-    if not abs(loss_gpu - loss_cpu) <= TRAIN_TOL * abs(loss_cpu):
+    if not abs(loss_gpu - loss_cpu) <= cfg.get("loss_tol", TRAIN_TOL) * abs(loss_cpu):
         raise AssertionError(f"{path}: first loss {loss_gpu} on the card, {loss_cpu} on the CPU")
     grad_tol = cfg.get("grad_tol", TRAIN_TOL)
     worst_rel = 0.0
@@ -1674,6 +1856,8 @@ def phase_training(path, smi):
            "ms_first_step": times[0], "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
            "launches_per_step": cfg["launches"], "card": smi}
     log(f"{path} timing: " + json.dumps(rec))
+    if profiles is not None:
+        profiles.append((path, lambda: step(state, batch)))
     return main_launches, kernel_recs
 
 
@@ -2005,15 +2189,15 @@ def md_system(rs, n, t):
             "node_coordinates": (pos + rs.randn(n, 3) * 0.1).astype(np.float32)}
 
 
-def md_batch(device):
+def md_batch(device, cutoff=4.0):
     """``bench.py`` ``sec_md_single``'s 21-atom molecule, neighbours within
-    4 A (at most 25), as one batch."""
+    ``cutoff`` (4 A; at most 25), as one batch."""
     from gcnn_keras_tpu_torch.batch import batch_graphs
     from gcnn_keras_tpu_torch.graph.preprocess import set_range
     n = 21
     g = md_system(np.random.RandomState(7), n, np.arange(n) * 1.2)
     g["energy"] = np.array([0.0], dtype=np.float32)
-    g = set_range(g, max_distance=4.0, max_neighbours=25)
+    g = set_range(g, max_distance=cutoff, max_neighbours=25)
     g["edge_indices"] = g.pop("range_indices")
     return batch_graphs([g], global_keys=("energy",), device=device)
 
@@ -2876,7 +3060,7 @@ def phase_script(name, smi, device="cuda", cuts=SCRIPT_CUTS, after=None):
     merged = cfg if name == "force_hdnnp4th" else {**force_script.DEFAULTS, **cfg}
     global_keys = ("energy", "total_charge") \
         if name == "force_hdnnp4th" or merged["need_esp"] else ("energy",)
-    path = SCRIPT_PATHS[name]
+    path = SCRIPT_PATHS.get(name)
     expected = TRAIN_PATHS[path]["launches"] if path else None
     first, steps, host_ms, val_ms, wait_ms, hists = {}, [], [], {}, [], []
     fit, host_batch = force_script.fit_model, loader_mod.host_batch
@@ -3323,6 +3507,333 @@ def phase_searches(smi, device="cuda", frames=SCRIPT_CUTS["synthetic_frames"],
     return by_path, recs
 
 
+# ------------------------------------------ phase 21: every option of the potentials
+
+# SchNet's options at the serving width, each on phase 4's weights (seed 0)
+SCHNET_OPTIONS = {"bf16": {"dtype": "bfloat16"}, "dense": {"dense_block": True},
+                  "remat": {"remat": True}}
+SCHNET_OPTION_LAUNCHES = {"bf16": schnet_launches("unfused", dtype="bfloat16"),
+                          "dense": launch_counts(),  # the dense block runs no kernel
+                          "remat": schnet_launches("unfused", remat=True)}
+# apply_multistate's states: SchNet's output MLP [64, 3]; launches per
+# evaluation: the energy pass's (4 edge pools and the graph pool), then one
+# force pass per state (edge_vectors' two transposes and those of
+# interactions 1-3's sender gathers)
+MULTISTATE_STATES = 3
+MULTISTATE_LAUNCHES = launch_counts(sorted_segment_sum=5 + MULTISTATE_STATES * 5)
+# PAiNN MD at PAINN_KW: its neighbour lists to its 5 A cutoff; the NVE bound
+# of tests/test_scanned_md.py::test_scanned_md_painn, |E_tot(t) - E_tot(0)|
+# under 1e-3 (the molecule starts at rest, so NVE_BOUNDS' drift relative to
+# the mean kinetic energy is not the measure here; it is printed)
+PAINN_CUTOFF = PAINN_KW["conv_args"]["cutoff"]
+PAINN_MAX_DRIFT = 1e-3
+
+
+def option_tol(option):
+    return BF16_TOL if option == "bf16" else SERVE_TOL
+
+
+def make_option_predictor(option, device):
+    """The serving stack at full SchNet width with ``option``'s settings
+    (``SCHNET_OPTIONS``) and the weights of seed 0."""
+    from gcnn_keras_tpu_torch.model.force import EnergyForceModel
+    from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
+    return MolDynamicsModelPredictor(EnergyForceModel(
+        schnet_model("unfused", device, **SCHNET_OPTIONS[option]), device=device), device=device)
+
+
+def make_wacsf_predictor(device):
+    """HDNNP2nd's default (wACSF) model, ``make_model()``, behind the
+    predictor with ``set_angle``, weights from seed 0."""
+    from gcnn_keras_tpu_torch.graph.preprocess import set_angle
+    from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
+    return MolDynamicsModelPredictor(
+        energy_force_model("hdnnp2nd_weighted", device),
+        graph_preprocessors=[functools.partial(set_angle, range_indices="edge_indices")],
+        device=device)
+
+
+def evaluation_calls(model, batch, label, path, timed=()):
+    """Every kernel call of one evaluation of ``model`` on ``batch`` against
+    its plain version; the calls whose (kernel, column count) is in
+    ``timed`` are timed, each the first time. Returns ``({name: calls},
+    {name: [record, ...]})``."""
+    with captured_calls() as calls:
+        model(batch)
+        torch.cuda.synchronize()
+    recs, seen = {}, set()
+    for name, arg_list in calls.items():
+        for i, args in enumerate(arg_list):
+            key = (name, args[0].shape[1] if args[0].dim() == 2 else None)
+            rec = check_kernel_call(name, args, f"{label}, call {i + 1} of {len(arg_list)}",
+                                    timed=key in timed and key not in seen)
+            seen.add(key)
+            recs.setdefault(name, []).append(dict(rec, path=path))
+    return {k: len(v) for k, v in calls.items() if v}, recs
+
+
+def phase_wacsf_serving(requests, smi, profiles):
+    """Phase 21 (a): HDNNP2nd's default model answers the 3 requests as
+    phase 6 serves them; every segment-sum call of one evaluation of the
+    first against its plain version, the (E, 22) radial and (A, 10)
+    angular sums timed."""
+    gpu = make_wacsf_predictor("cuda")
+    _, batch = gpu.make_batch(requests[0][1])
+    shapes = (batch.n_node, batch.n_edge, batch.angles.shape[0], batch.n_graphs)
+    if shapes != HDNNP_SHAPES:
+        raise AssertionError(f"unexpected wACSF full-width shapes {shapes}")
+    counts, recs = evaluation_calls(gpu.model, batch, "hdnnp2nd_wacsf_serving",
+                                    "hdnnp2nd_wacsf_serving",
+                                    timed={("sorted_segment_sum", 22), ("sorted_segment_sum", 10)})
+    if counts != {k: v for k, v in WACSF_LAUNCHES.items() if v}:
+        raise AssertionError(f"wACSF: kernel calls {counts}, expected {WACSF_LAUNCHES}")
+    launches = phase_model_serving(gpu, requests, batch, smi, name="hdnnp2nd wacsf",
+                                   make_cpu=make_wacsf_predictor, expected=WACSF_LAUNCHES,
+                                   profiles=profiles)
+    return launches, recs
+
+
+def pool_input(model, batch):
+    """SchNet's graph-pool input on ``batch``'s real atoms (``last_mlp``'s
+    output), float32 on the CPU."""
+    seen = []
+    hook = model.last_mlp.register_forward_hook(lambda m, i, o: seen.append(o.detach()))
+    try:
+        with torch.no_grad():
+            model(batch)
+    finally:
+        hook.remove()
+    return seen[0][batch.node_mask].float().cpu()
+
+
+def compare_bf16_atoms(batch0):
+    """The bfloat16 SchNet's graph-pool input on ``batch0`` on the card
+    against the CPU's and the float32 model's on the card, each within
+    ``BF16_TOL["atom"]``: per atom, before the molecules' energies cancel."""
+    kw = SCHNET_OPTIONS["bf16"]
+    got = pool_input(schnet_model("unfused", "cuda", **kw), batch0)
+    refs = {"gpu_vs_cpu": pool_input(schnet_model("unfused", "cpu", **kw), batch0.to("cpu")),
+            "against_float32": pool_input(schnet_model("unfused", "cuda"), batch0)}
+    return {label: check_close(f"schnet bf16 graph-pool input, {label}", got, ref,
+                               BF16_TOL["atom"]) for label, ref in refs.items()}
+
+
+def phase_schnet_options(requests, batch0, smi, unfused_answers, profiles):
+    """Phase 21 (b): SchNet at the serving width in bfloat16, in the dense
+    block and under remat answers the 3 requests of phase 4, against the
+    same predictor on the CPU and phase 4's float32 unfused answers
+    (bfloat16 within BF16_TOL per output, the others SERVE_TOL), launches
+    held to ``SCHNET_OPTION_LAUNCHES``; the bfloat16 model's graph-pool
+    input against the CPU's and float32's (``compare_bf16_atoms``); every
+    kernel call of one bfloat16 evaluation against its plain version, the
+    (E, 128) bfloat16 sum timed."""
+    by_path, records = {}, {}
+    for option in SCHNET_OPTIONS:
+        gpu = make_option_predictor(option, "cuda")
+        path = f"schnet_{option}_serving"
+        if option == "bf16":
+            counts, recs = evaluation_calls(gpu.model, batch0, path, path,
+                                            timed={("sorted_segment_sum_bf16", 128)})
+            if counts != {k: v for k, v in SCHNET_OPTION_LAUNCHES[option].items() if v}:
+                raise AssertionError(f"schnet bf16: kernel calls {counts}")
+            records = recs
+            log("schnet bf16 graph-pool input (max rel err): "
+                + json.dumps(compare_bf16_atoms(batch0)))
+        by_path[path] = phase_model_serving(
+            gpu, requests, batch0, smi, name=f"schnet {option}",
+            make_cpu=functools.partial(make_option_predictor, option),
+            expected=SCHNET_OPTION_LAUNCHES[option], reference=unfused_answers,
+            tol=option_tol(option), profiles=profiles)
+    return by_path, records
+
+
+def phase_multistate(batch0, smi, device="cuda"):
+    """Phase 21 (c): one ``apply_multistate`` evaluation of SchNet at the
+    serving width with ``MULTISTATE_STATES`` energy states on the first
+    request's batch: its launches, the (S, N, 3) forces and (G, S) energies
+    against the CPU, the states' forces summed against ``apply`` of the
+    states' summed energy, the time."""
+    from gcnn_keras_tpu_torch.model.force import EnergyForceModel
+    kw = dict(output_mlp={"units": [64, MULTISTATE_STATES]})
+    fm = EnergyForceModel(schnet_model("unfused", device, **kw), device=device)
+    # the main path: every count set to 0 just before, read just after
+    reset_counts()
+    out = fm.apply_multistate(batch0, MULTISTATE_STATES)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    if launches != MULTISTATE_LAUNCHES:
+        raise AssertionError(f"multistate: launches {launches}, expected {MULTISTATE_LAUNCHES}")
+    n, g = batch0.n_node, batch0.n_graphs
+    if out["force"].shape != (MULTISTATE_STATES, n, 3) or out["energy"].shape != (
+            g, MULTISTATE_STATES) or not torch.isfinite(out["force"]).all():
+        raise AssertionError(f"multistate: shapes {tuple(out['force'].shape)}, "
+                             f"{tuple(out['energy'].shape)}, or not finite")
+    cpu = EnergyForceModel(schnet_model("unfused", "cpu", **kw), device="cpu")
+    ref = cpu.apply_multistate(batch0.to("cpu"), MULTISTATE_STATES)
+    rec = {"states": MULTISTATE_STATES, "N_pad": n, "G": g, "card": smi,
+           "energy_rel_err": check_close("multistate energy", out["energy"].detach().cpu(),
+                                         ref["energy"].detach()),
+           "force_rel_err": check_close("multistate force", out["force"].cpu(), ref["force"])}
+    # the states' forces sum to the forces of the summed energy
+    summed = EnergyForceModel(SummedStates(fm.energy_model), device=device).apply(batch0)
+    rec["summed_force_rel_err"] = check_close("multistate forces summed over the states",
+                                              out["force"].sum(0).cpu(), summed["force"].cpu())
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fm.apply_multistate(batch0, MULTISTATE_STATES)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    rec.update(ms_per_eval=float(np.median(times)), launches_per_eval=MULTISTATE_LAUNCHES)
+    log("multistate: " + json.dumps(rec))
+    return launches
+
+
+class SummedStates(torch.nn.Module):
+    """An energy model's output summed over its states, as one state."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch):
+        return {"output": self.model(batch)["output"].sum(-1, keepdim=True)}
+
+
+def painn_md_model(device):
+    from gcnn_keras_tpu_torch.models import painn
+    return painn.make_model(device=device, generator=torch.Generator().manual_seed(0),
+                            **PAINN_KW)
+
+
+def phase_painn_md(smi, device="cuda", steps=MD_STEPS, pairs=MD_PAIRS,
+                   replicas=ENSEMBLE_REPLICAS, segment_steps=ENSEMBLE_SEGMENT_STEPS,
+                   segments=ENSEMBLE_SEGMENTS):
+    """Phase 21 (d): PAiNN MD at ``PAINN_KW``. (1) Phase 14's 21-atom
+    molecule, its neighbours to the 5 A cutoff: each kernel call of one
+    evaluation against its plain version; velocity Verlet from rest (masses
+    12, dt 5e-4), the short trajectory's energies against the CPU's
+    (MD_TOL), launches per step, the time per step (the smallest slope
+    between the two lengths over interleaved pairs) and the long
+    trajectory's NVE drift, its largest under ``PAINN_MAX_DRIFT``. (2) ``replicas`` of the
+    molecule through ``ScannedMD``: one segment to warm up, then
+    ``segments`` timed, launches per step, the first timed segment's
+    energies against the same segment on the CPU. Returns the launch counts
+    of the two main paths and the kernel records."""
+    from gcnn_keras_tpu_torch.moldyn.integrate import (
+        make_energy_force_fn, nve_drift, velocity_verlet)
+    from gcnn_keras_tpu_torch.moldyn.trajectory import ScannedMD
+    short, long = steps
+    model = painn_md_model(device)
+    batch = md_batch(device, PAINN_CUTOFF)
+    pos0 = batch.nodes["node_coordinates"]
+    vel0 = torch.zeros_like(pos0)
+    masses = torch.full((batch.n_node,), 12.0, device=pos0.device)
+    fn = make_energy_force_fn(model, batch)
+    with captured_calls() as calls:
+        _, f0 = fn(pos0)
+    recs = {name: [dict(r, path="painn_md_single") for r in rs]
+            for name, rs in check_captured(calls, "PAiNN MD 21 atoms").items()}
+    if not (torch.isfinite(f0).all() and f0.sum(0).abs().max().item()
+            <= FORCE_SUM_TOL * batch.n_node * f0.abs().max().item()):
+        raise AssertionError("PAiNN MD: forces not finite or not summing to 0")
+
+    def run(n):
+        return velocity_verlet(fn, pos0, vel0, masses, MD_DT, n, node_mask=batch.node_mask)
+
+    def wall(n):
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # the main path: every count set to 0 just before, read just after
+    reset_counts()
+    traj = run(short)
+    torch.cuda.synchronize()
+    single_launches = kernel_counts()
+    want = {k: (short + 1) * v for k, v in PAINN_LAUNCHES.items()}
+    if single_launches != want:
+        raise AssertionError(f"PAiNN MD: launches {single_launches} in {short} steps, "
+                             f"expected {want}")
+    long_traj = run(long)
+    slopes = [(wall(long) - wall(short)) / (long - short) for _ in range(pairs)]
+    cpu_batch = batch.to("cpu")
+    cpu_traj = velocity_verlet(make_energy_force_fn(painn_md_model("cpu"), cpu_batch),
+                               cpu_batch.nodes["node_coordinates"], vel0.cpu(), masses.cpu(),
+                               MD_DT, short, node_mask=cpu_batch.node_mask)
+    drift = nve_drift(long_traj)
+    if not drift["max_abs_drift"] < PAINN_MAX_DRIFT:
+        raise AssertionError(f"PAiNN MD: drift {drift['max_abs_drift']} >= {PAINN_MAX_DRIFT}")
+    out = {"atoms": int(batch.node_mask.sum().item()), "N_pad": batch.n_node,
+           "E_pad": batch.n_edge, "real_edges": int(batch.edge_mask.sum().item()),
+           "steps": list(steps), "pairs": pairs, "card": smi,
+           "us_per_md_step": 1e6 * min(slopes), "us_per_md_step_slopes": [1e6 * v for v in slopes],
+           "e_pot_rel_err_vs_cpu": check_close("PAiNN MD e_pot against the CPU", traj["e_pot"],
+                                               cpu_traj["e_pot"], MD_TOL),
+           "nve_drift": drift, "launches_per_step": PAINN_LAUNCHES}
+
+    n, t = 21, np.arange(21) * 1.2
+    systems = [md_system(np.random.RandomState(100 + s), n, t) for s in range(replicas)]
+    kw = dict(dt=MD_DT, segment_steps=segment_steps, max_distance=PAINN_CUTOFF,
+              max_neighbours=25)
+    md = ScannedMD(model, device=device, **kw)
+    md.run_ensemble(systems, 1)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ens = md.run_ensemble(systems, segments)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ensemble_launches = kernel_counts()
+    want = {k: segments * (segment_steps + 1) * v for k, v in PAINN_LAUNCHES.items()}
+    if ensemble_launches != want:
+        raise AssertionError(f"PAiNN ensemble: launches {ensemble_launches}, expected {want}")
+    if ens["e_pot"].shape != (segments * segment_steps, replicas) or not (
+            np.isfinite(ens["e_pot"]).all() and np.isfinite(ens["e_kin"]).all()):
+        raise AssertionError(f"PAiNN ensemble: e_pot {ens['e_pot'].shape}, or not finite")
+    cpu_ens = ScannedMD(painn_md_model("cpu"), device="cpu", **kw).run_ensemble(systems, 1)
+    out["ensemble"] = {
+        "replicas": replicas, "segment_steps": segment_steps, "segments": segments,
+        "us_per_replica_step": 1e6 * seconds / (segments * segment_steps) / replicas,
+        "ms_per_step": 1e3 * seconds / (segments * segment_steps),
+        "edge_counts": ens["edge_counts"],
+        "e_pot_rel_err_vs_cpu": check_close("PAiNN ensemble e_pot against the CPU",
+                                            ens["e_pot"][:segment_steps], cpu_ens["e_pot"],
+                                            MD_TOL)}
+    log("painn md: " + json.dumps(out))
+    return {"painn_md_single": single_launches, "painn_md_ensemble": ensemble_launches}, recs
+
+
+def phase_options(requests, batch0, smi, unfused_answers):
+    """Phase 21: every option of the potentials (see the
+    module docstring); then the device's busy share of an evaluation or a
+    step of each serving and training path (``run_profiles``). Returns the
+    launch counts of each main path and the kernel records."""
+    by_path, records, profiles = {}, {}, []
+
+    def add(recs):
+        for name, rs in recs.items():
+            records.setdefault(name, []).extend(rs)
+    by_path["hdnnp2nd_wacsf_serving"], recs = phase_wacsf_serving(requests, smi, profiles)
+    add(recs)
+    paths, recs = phase_schnet_options(requests, batch0, smi, unfused_answers, profiles)
+    by_path.update(paths)
+    add(recs)
+    for path, cfg in TRAIN_PATHS.items():
+        if cfg.get("phase") == 21:
+            by_path[path], recs = phase_training(path, smi, profiles)
+            add(recs)
+    by_path["multistate"] = phase_multistate(batch0, smi)
+    paths, recs = phase_painn_md(smi)
+    by_path.update(paths)
+    add(recs)
+    by_path["force_inverse_distances_script"], recs = phase_script("force_inverse_distances", smi)
+    add(recs)
+    run_profiles(profiles)
+    return by_path, records
+
+
 def kernels_line(records, by_path, second_order):
     """The ``kernels`` entries of the result line: each kernel's source, the
     TPU kernel it replaces, its launches on each main path, its largest
@@ -3341,6 +3852,8 @@ def kernels_line(records, by_path, second_order):
     sources = {
         "sorted_segment_sum": ("sorted_segment_sum", "segment_sum.cu",
                                "gcnn_keras_tpu/ops/pallas/segment_sum.py:182"),
+        "sorted_segment_sum_bf16": ("sorted_segment_sum_bf16", "segment_sum.cu",
+                                    "gcnn_keras_tpu/ops/pallas/segment_sum.py:182"),
         **{name: (f"acsf_{name}", "acsf.cu", replaces)
            for name, replaces in ACSF_REPLACES.items()},
         "spd_solve": ("spd_solve", "spd_solve.cu", "gcnn_keras_tpu/ops/pallas/spd_solve.py:95"),
@@ -3435,8 +3948,8 @@ def main():
     records.update(phase_chain_kernels(
         full_batch("schnet_chain_train", "cuda"), schnet_model("chain", "cuda")))
     for path in TRAIN_PATHS:
-        if TRAIN_PATHS[path]["model"] == "hdnnp4th_mol":
-            continue  # phase 18
+        if TRAIN_PATHS[path].get("phase", 10) != 10:
+            continue  # phases 18 and 21
         by_path[path], train_recs = phase_training(path, smi)
         for name, rs in train_recs.items():
             records.setdefault(name, []).extend(rs)
@@ -3470,6 +3983,10 @@ def main():
     by_path.update(paths)
     for kname, rs in search_recs.items():
         records[kname].extend(rs)
+    paths, option_recs = phase_options(requests, batch0, smi, unfused_answers)
+    by_path.update(paths)
+    for kname, rs in option_recs.items():
+        records.setdefault(kname, []).extend(rs)
 
     kernels = kernels_line(records, by_path, second_order)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,10 @@
 // Sorted segment-sum for Hopper (sm_90a):
 //   out[r, f] = sum_{e : ids[e] == r} values[e, f]
-// for ascending int32 ids, float32 values (E, F) row-major, out (N, F).
+// for ascending int32 ids, values (E, F) row-major, out (N, F), in float32
+// (gcnn_sorted_segment_sum_f32) or bfloat16 (gcnn_sorted_segment_sum_bf16).
+// Both instances load the values, sum them in float32 and store out in the
+// values' type (bfloat16 rounded to nearest even once, from the float32
+// sum), as the TPU kernel accumulates in float32 and writes values.dtype.
 //
 // Replaces the TPU kernel gcnn_keras_tpu/ops/pallas/segment_sum.py
 // (_sorted_segment_sum_pallas / _v2 / _v3: one-hot matmuls on the MXU over
@@ -8,10 +12,11 @@
 // output row owns the contiguous edge range of its id and is summed in float32
 // registers in edge order: deterministic, no atomics, no one-hot work.
 //
-// What bounds it. The call must read values (E*F*4 bytes) and ids (E*4) once
-// and write out (N*F*4) once; its E*F adds are far below the card's float32
-// rate. At F = 128 (E 54784, N 8192) that is 28.0 + 0.2 + 4.2 MB, about 9.7 us
-// at 3.35 TB/s: bytes. At F = 3 the 0.98 MB take 0.3 us, and the call is bound
+// What bounds it. The call must read values (E*F*s bytes, s = 4 in float32,
+// 2 in bfloat16) and ids (E*4) once and write out (N*F*s) once; its E*F adds
+// are far below the card's float32 rate. At F = 128 (E 54784, N 8192) that is
+// 28.0 + 0.2 + 4.2 MB in float32, about 9.7 us at 3.35 TB/s, and half the
+// value bytes in bfloat16: bytes. At F = 3 the 0.98 MB take 0.3 us, and the call is bound
 // by latency: the launch, then each round of dependent loads (ids, then the
 // values they locate) costs a trip to memory.
 //
@@ -27,15 +32,16 @@
 //   row, found by a warp 32 ids at a time).
 // - Values staged. The block copies the values of its range and of up to two
 //   mean rows after it (its columns of them) into shared memory with
-//   coalesced loads, 32 floats or 8 float4s in flight a thread, before the
-//   first barrier; rows sum from there in edge order. A row longer than the
+//   coalesced loads, 32 values or 8 vectors of 4 in flight a thread (16
+//   bytes a float32 vector, 8 a bfloat16 one), converted to float32 on the
+//   way, before the first barrier; rows sum from there in edge order. A row longer than the
 //   staged window reads the rest from device memory, kInFlight edges a round
 //   (those past its end read as 0).
 // - A layout chosen by F in the launcher:
 //   - F <= 8: one thread per row, summing all F columns of each edge (no idle
 //     lanes at F = 1..8);
-//   - F a multiple of 4 (16-byte aligned values): float4 columns, up to 32
-//     lanes (128 columns) per row, a second grid dimension beyond;
+//   - F a multiple of 4 (values aligned to 4 of them): 4 columns a lane, up
+//     to 32 lanes (128 columns) per row, a second grid dimension beyond;
 //   - any other F: one scalar column per lane, 32 lanes per row.
 // - Block sizes. Threads per block is the largest of 256, 128, 64, 32 that
 //   leaves a block for at least a quarter of the SMs; a block's edge range
@@ -57,6 +63,7 @@
 // Registers (ptxas, sm_90a): 32-64 a thread, no spills; 9.4 KB of static
 // shared memory a block and the staged values (at most kStaged floats).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -78,30 +85,76 @@ struct Shared {
   int start[kMaxThreads + 1];       // the first edge of each row of a chunk, and its end
 };
 
-// s_vals[w * C + c] = values[(eb0 + w) * F + col0 + c] for w < W (0 past edge
-// E), c < C; V = 4 copies float4s (C a multiple of 4, rows 16-byte aligned).
-// 32 / V loads in flight per thread before their stores.
-template <int V>
-__device__ __forceinline__ void stage_values(const float* __restrict__ values, int E, int F,
+// The value type's loads (as float32) and stores (from float32): one value,
+// or 4 neighbouring ones (a float4, or 4 bfloat16s in 8 bytes).
+template <typename T>
+struct Io;
+
+template <>
+struct Io<float> {
+  static __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ float4 load4(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+  static __device__ __forceinline__ void store4(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+  // a bfloat16 is the high half of the float32 of the same value
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    return __uint_as_float(
+        static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
+  }
+  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  }
+  static __device__ __forceinline__ unsigned bits(float v) {
+    return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v)));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(bits(v.x) | (bits(v.y) << 16), bits(v.z) | (bits(v.w) << 16));
+  }
+};
+
+// s_vals[w * C + c] = values[(eb0 + w) * F + col0 + c] as float32 for w < W
+// (0 past edge E), c < C; V = 4 copies 4 neighbouring values a load (C a
+// multiple of 4, rows aligned to 4 values). 32 / V loads in flight per thread
+// before their stores.
+template <typename T, int V>
+__device__ __forceinline__ void stage_values(const T* __restrict__ values, int E, int F,
                                              int eb0, int W, int col0, int C, float* s_vals) {
-  using T = typename std::conditional<V == 4, float4, float>::type;
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
   constexpr int kDepth = 32 / V;
   const int cv = C / V, n = W * cv;
   for (int i0 = threadIdx.x; i0 < n; i0 += kDepth * blockDim.x) {
-    T v[kDepth];
+    Vec v[kDepth];
 #pragma unroll
     for (int q = 0; q < kDepth; ++q) {
       const int i = i0 + q * blockDim.x, w = i / cv, c = i - w * cv;
-      if (i < n && eb0 + w < E)
-        v[q] = __ldg(reinterpret_cast<const T*>(values + static_cast<long long>(eb0 + w) * F
-                                                + col0) + c);
-      else
-        v[q] = T{};
+      if (i < n && eb0 + w < E) {
+        const T* p = values + static_cast<long long>(eb0 + w) * F + col0 + c * V;
+        if constexpr (V == 4)
+          v[q] = Io<T>::load4(p);
+        else
+          v[q] = Io<T>::load(p);
+      } else {
+        v[q] = Vec{};
+      }
     }
 #pragma unroll
     for (int q = 0; q < kDepth; ++q) {
       const int i = i0 + q * blockDim.x;
-      if (i < n) reinterpret_cast<T*>(s_vals)[i] = v[q];
+      if (i < n) reinterpret_cast<Vec*>(s_vals)[i] = v[q];
     }
   }
 }
@@ -165,17 +218,17 @@ __device__ __forceinline__ void owned_rows(const int* __restrict__ ids, int E, i
 
 // F <= 8: one thread per row, all F columns; the block's W staged edges in
 // shared memory, later edges of a long row from device memory.
-template <int F>
-__global__ void sorted_segment_sum_rows_kernel(const float* __restrict__ values,
+template <typename T, int F>
+__global__ void sorted_segment_sum_rows_kernel(const T* __restrict__ values,
                                                const int* __restrict__ ids,
-                                               float* __restrict__ out, int E, int N, int EB,
+                                               T* __restrict__ out, int E, int N, int EB,
                                                int W) {
   __shared__ Shared sh;
   extern __shared__ float4 smem4[];
   float* s_vals = reinterpret_cast<float*>(smem4);  // [W][F]
   owned_rows(
       ids, E, N, EB, blockDim.x, sh,
-      [&](int eb0) { stage_values<1>(values, E, F, eb0, W, 0, F, s_vals); },
+      [&](int eb0) { stage_values<T, 1>(values, E, F, eb0, W, 0, F, s_vals); },
       [&](int eb0, int base, int cend, const int* start) {
         const int slot = threadIdx.x, row = base + slot;
         if (row >= cend) return;
@@ -188,20 +241,21 @@ __global__ void sorted_segment_sum_rows_kernel(const float* __restrict__ values,
 #pragma unroll
           for (int f = 0; f < F; ++f) acc[f] += s_vals[(e - eb0) * F + f];
         for (; e < end; e += kInFlight) {
-          const float* p = values + static_cast<long long>(e) * F;
+          const T* p = values + static_cast<long long>(e) * F;
           float v[kInFlight * F];
 #pragma unroll
           for (int q = 0; q < kInFlight; ++q)
 #pragma unroll
-            for (int f = 0; f < F; ++f) v[q * F + f] = e + q < end ? __ldg(p + q * F + f) : 0.0f;
+            for (int f = 0; f < F; ++f)
+              v[q * F + f] = e + q < end ? Io<T>::load(p + q * F + f) : 0.0f;
 #pragma unroll
           for (int q = 0; q < kInFlight; ++q)
 #pragma unroll
             for (int f = 0; f < F; ++f) acc[f] += v[q * F + f];
         }
-        float* o = out + static_cast<long long>(row) * F;
+        T* o = out + static_cast<long long>(row) * F;
 #pragma unroll
-        for (int f = 0; f < F; ++f) o[f] = acc[f];
+        for (int f = 0; f < F; ++f) Io<T>::store(o + f, acc[f]);
       });
 }
 
@@ -213,13 +267,13 @@ __device__ __forceinline__ void add4(float4& a, const float4& b) {
 }
 
 // F > 8: `lanes` threads per row (a power of two up to 32, so a row lies in
-// one warp), each owning V neighbouring columns (V = 4: one float4), columns
+// one warp), each owning V neighbouring columns (V = 4: one vector), columns
 // col0 = blockIdx.y * lanes * V onwards; blockDim.x / lanes row slots; the
 // block's W staged edges (its C columns) in shared memory.
-template <int V>
-__global__ void sorted_segment_sum_cols_kernel(const float* __restrict__ values,
+template <typename T, int V>
+__global__ void sorted_segment_sum_cols_kernel(const T* __restrict__ values,
                                                const int* __restrict__ ids,
-                                               float* __restrict__ out, int E, int F, int N,
+                                               T* __restrict__ out, int E, int F, int N,
                                                int EB, int W, int lanes) {
   __shared__ Shared sh;
   extern __shared__ float4 smem4[];
@@ -227,7 +281,7 @@ __global__ void sorted_segment_sum_cols_kernel(const float* __restrict__ values,
   const int col0 = blockIdx.y * lanes * V, C = min(F - col0, lanes * V);
   owned_rows(
       ids, E, N, EB, blockDim.x / lanes, sh,
-      [&](int eb0) { stage_values<V>(values, E, F, eb0, W, col0, C, s_vals); },
+      [&](int eb0) { stage_values<T, V>(values, E, F, eb0, W, col0, C, s_vals); },
       [&](int eb0, int base, int cend, const int* start) {
         const int slot = threadIdx.x / lanes, row = base + slot;
         const int c = (threadIdx.x % lanes) * V;
@@ -235,33 +289,33 @@ __global__ void sorted_segment_sum_cols_kernel(const float* __restrict__ values,
         const int end = start[slot + 1], staged = min(end, eb0 + W);
         int e = start[slot];
         if constexpr (V == 4) {
-          const int ld = F / 4;  // float4s per edge row
           float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
           for (; e < staged; ++e)
             add4(acc, *reinterpret_cast<const float4*>(s_vals + (e - eb0) * C + c));
           for (; e < end; e += kInFlight) {
-            const float4* p = reinterpret_cast<const float4*>(
-                values + static_cast<long long>(e) * F + col0 + c);
+            const T* p = values + static_cast<long long>(e) * F + col0 + c;
             float4 v[kInFlight];
 #pragma unroll
             for (int q = 0; q < kInFlight; ++q)
-              v[q] = e + q < end ? __ldg(p + q * ld) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+              v[q] = e + q < end ? Io<T>::load4(p + static_cast<long long>(q) * F)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
             for (int q = 0; q < kInFlight; ++q) add4(acc, v[q]);
           }
-          *reinterpret_cast<float4*>(out + static_cast<long long>(row) * F + col0 + c) = acc;
+          Io<T>::store4(out + static_cast<long long>(row) * F + col0 + c, acc);
         } else {
           float acc = 0.0f;
           for (; e < staged; ++e) acc += s_vals[(e - eb0) * C + c];
           for (; e < end; e += kInFlight) {
-            const float* p = values + static_cast<long long>(e) * F + col0 + c;
+            const T* p = values + static_cast<long long>(e) * F + col0 + c;
             float v[kInFlight];
 #pragma unroll
-            for (int q = 0; q < kInFlight; ++q) v[q] = e + q < end ? __ldg(p + q * F) : 0.0f;
+            for (int q = 0; q < kInFlight; ++q)
+              v[q] = e + q < end ? Io<T>::load(p + static_cast<long long>(q) * F) : 0.0f;
 #pragma unroll
             for (int q = 0; q < kInFlight; ++q) acc += v[q];
           }
-          out[static_cast<long long>(row) * F + col0 + c] = acc;
+          Io<T>::store(out + static_cast<long long>(row) * F + col0 + c, acc);
         }
       });
 }
@@ -311,24 +365,24 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int F>
-cudaError_t launch_rows(const float* values, const int* ids, float* out, int E, int N, int t,
+template <typename T, int F>
+cudaError_t launch_rows(const T* values, const int* ids, T* out, int E, int N, int t,
                         cudaStream_t stream) {
   const Ranges r = ranges_for(E, N, t, F);
   const int smem = r.W * F * 4;
-  const cudaError_t err = allow_smem(sorted_segment_sum_rows_kernel<F>, smem);
+  const cudaError_t err = allow_smem(sorted_segment_sum_rows_kernel<T, F>, smem);
   if (err != cudaSuccess) return err;
-  sorted_segment_sum_rows_kernel<F><<<blocks_for(E, r.EB), t, smem, stream>>>(
+  sorted_segment_sum_rows_kernel<T, F><<<blocks_for(E, r.EB), t, smem, stream>>>(
       values, ids, out, E, N, r.EB, r.W);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int gcnn_sorted_segment_sum_f32(const float* values, const int* ids,
-                                           float* out, int E, int F,
-                                           int num_segments, void* stream) {
+// Launches the instance of value type T on `stream`; returns
+// cudaGetLastError() (0 on success). The staged values are float32 in shared
+// memory whatever T is.
+template <typename T>
+int launch(const T* values, const int* ids, T* out, int E, int F, int num_segments,
+           void* stream) {
   if (num_segments <= 0 || F <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = num_segments, sms = sm_count();
@@ -336,18 +390,19 @@ extern "C" int gcnn_sorted_segment_sum_f32(const float* values, const int* ids,
     const int t = threads_for(n, 1, sms);
     cudaError_t err;
     switch (F) {
-      case 1: err = launch_rows<1>(values, ids, out, E, n, t, s); break;
-      case 2: err = launch_rows<2>(values, ids, out, E, n, t, s); break;
-      case 3: err = launch_rows<3>(values, ids, out, E, n, t, s); break;
-      case 4: err = launch_rows<4>(values, ids, out, E, n, t, s); break;
-      case 5: err = launch_rows<5>(values, ids, out, E, n, t, s); break;
-      case 6: err = launch_rows<6>(values, ids, out, E, n, t, s); break;
-      case 7: err = launch_rows<7>(values, ids, out, E, n, t, s); break;
-      default: err = launch_rows<8>(values, ids, out, E, n, t, s); break;
+      case 1: err = launch_rows<T, 1>(values, ids, out, E, n, t, s); break;
+      case 2: err = launch_rows<T, 2>(values, ids, out, E, n, t, s); break;
+      case 3: err = launch_rows<T, 3>(values, ids, out, E, n, t, s); break;
+      case 4: err = launch_rows<T, 4>(values, ids, out, E, n, t, s); break;
+      case 5: err = launch_rows<T, 5>(values, ids, out, E, n, t, s); break;
+      case 6: err = launch_rows<T, 6>(values, ids, out, E, n, t, s); break;
+      case 7: err = launch_rows<T, 7>(values, ids, out, E, n, t, s); break;
+      default: err = launch_rows<T, 8>(values, ids, out, E, n, t, s); break;
     }
     return static_cast<int>(err);
   }
-  const int v = F % 4 == 0 && reinterpret_cast<std::uintptr_t>(values) % 16 == 0 ? 4 : 1;
+  const int v =
+      F % 4 == 0 && reinterpret_cast<std::uintptr_t>(values) % (4 * sizeof(T)) == 0 ? 4 : 1;
   int lanes = 1;
   while (lanes < 32 && lanes * v < F) lanes <<= 1;
   const int t = threads_for(n, lanes, sms);
@@ -355,9 +410,24 @@ extern "C" int gcnn_sorted_segment_sum_f32(const float* values, const int* ids,
   const Ranges r = ranges_for(E, n, t / lanes, c);
   const int smem = r.W * c * 4;
   const dim3 grid(blocks_for(E, r.EB), (F + lanes * v - 1) / (lanes * v));
-  auto kernel = v == 4 ? sorted_segment_sum_cols_kernel<4> : sorted_segment_sum_cols_kernel<1>;
+  auto kernel =
+      v == 4 ? sorted_segment_sum_cols_kernel<T, 4> : sorted_segment_sum_cols_kernel<T, 1>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, t, smem, s>>>(values, ids, out, E, F, n, r.EB, r.W, lanes);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int gcnn_sorted_segment_sum_f32(const float* values, const int* ids,
+                                           float* out, int E, int F,
+                                           int num_segments, void* stream) {
+  return launch(values, ids, out, E, F, num_segments, stream);
+}
+
+extern "C" int gcnn_sorted_segment_sum_bf16(const __nv_bfloat16* values, const int* ids,
+                                            __nv_bfloat16* out, int E, int F,
+                                            int num_segments, void* stream) {
+  return launch(values, ids, out, E, F, num_segments, stream);
 }

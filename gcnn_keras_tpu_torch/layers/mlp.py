@@ -18,8 +18,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.activ import get_activation
+from .norm import GraphBatchNorm, GraphLayerNorm
 
 Tensor = torch.Tensor
+
+_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
 
 def _as_list(v, depth: int):
@@ -36,51 +39,87 @@ def glorot_uniform_(w: Tensor, generator: Optional[torch.Generator]) -> Tensor:
     return nn.init.uniform_(w, -limit, limit, generator=generator)
 
 
+def compute_dtype(dtype: Any) -> Optional[torch.dtype]:
+    """A model's ``dtype`` option as a torch dtype: None for float32 (the
+    parameters' own), ``torch.bfloat16`` for ``"bfloat16``."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"unsupported dtype {dtype!r}: float32 or bfloat16")
+    return _DTYPES[dtype]
+
+
 class Dense(nn.Module):
-    """Linear layer with a named activation."""
+    """Linear layer with a named activation. ``dtype`` (``"bfloat16"``)
+    computes in that type over float32 parameters, as flax's
+    ``Dense(dtype=..., param_dtype=float32)``: input, weight and bias are
+    cast, the product, bias and activation run in it, and the output is in
+    it. None computes in the parameters' float32."""
 
     def __init__(self, in_features: int, units: int, activation: Any = "linear",
                  use_bias: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: Any = None):
         super().__init__()
         self.weight = nn.Parameter(glorot_uniform_(
             torch.empty(units, in_features), generator))
         self.register_parameter(
             "bias", nn.Parameter(torch.zeros(units)) if use_bias else None)
         self._act = get_activation(activation)
+        self.dtype = compute_dtype(dtype)
 
     def forward(self, x: Tensor) -> Tensor:
-        return self._act(F.linear(x, self.weight, self.bias))
+        w, b = self.weight, self.bias
+        if self.dtype is not None:
+            x, w = x.to(self.dtype), w.to(self.dtype)
+            b = None if b is None else b.to(self.dtype)
+        return self._act(F.linear(x, w, b))
 
 
 class MLP(nn.Module):
     """Stack of Dense layers ``dense_0 ... dense_{k-1}`` with per-layer
-    unit / activation / bias lists. Normalization layers are not ported."""
+    unit / activation / bias lists.
+
+    With ``use_normalization`` (per layer, or one value for all), a layer
+    runs dense -> ``norm_i`` -> activation, in the reference's order:
+    ``normalization_technique`` ``"graph_batch"`` or ``"batch"`` is a
+    ``GraphBatchNorm`` over the rows of ``mask`` (``train`` as that layer
+    takes it), anything else a ``GraphLayerNorm``."""
 
     def __init__(self, in_features: int, units: Union[int, Sequence[int]],
                  activation: Any = "linear", use_bias: Any = True,
                  last_linear: bool = False, use_normalization: Any = False,
+                 normalization_technique: str = "graph_batch",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         units = list(units) if isinstance(units, (list, tuple)) else [units]
         depth = len(units)
-        if any(_as_list(use_normalization, depth)):
-            raise NotImplementedError(
-                "MLP(use_normalization=...) is not ported yet")
         acts = _as_list(activation, depth)
         biases = _as_list(use_bias, depth)
+        self._acts = []
         fan_in = in_features
-        for i, (u, a, b) in enumerate(zip(units, acts, biases)):
+        for i, (u, a, b, nrm) in enumerate(zip(units, acts, biases,
+                                               _as_list(use_normalization, depth))):
             if last_linear and i == depth - 1:
                 a = "linear"
-            self.add_module(f"dense_{i}", Dense(fan_in, u, activation=a,
-                                                use_bias=b, generator=generator))
+            if not nrm:
+                self.add_module(f"dense_{i}", Dense(fan_in, u, activation=a,
+                                                    use_bias=b, generator=generator))
+                self._acts.append(None)
+            else:
+                self.add_module(f"dense_{i}", Dense(fan_in, u, use_bias=b,
+                                                    generator=generator))
+                self.add_module(f"norm_{i}", GraphBatchNorm(u) if normalization_technique
+                                in ("graph_batch", "batch") else GraphLayerNorm(u))
+                self._acts.append(get_activation(a))
             fan_in = u
         self.out_features = fan_in
 
-    def forward(self, x: Tensor) -> Tensor:
-        for layer in self.children():
-            x = layer(x)
+    def forward(self, x: Tensor, mask: Optional[Tensor] = None,
+                train: bool = False) -> Tensor:
+        for i, act in enumerate(self._acts):
+            x = getattr(self, f"dense_{i}")(x)
+            if act is not None:
+                norm = getattr(self, f"norm_{i}")
+                x = act(norm(x, mask, train) if isinstance(norm, GraphBatchNorm)
+                        else norm(x))
         return x
 
 

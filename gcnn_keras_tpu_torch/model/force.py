@@ -1,5 +1,6 @@
 """Energy -> force wrapper via autograd; counterpart of
-``gcnn_keras_tpu/model/force.py`` (``EnergyForceModel.apply``).
+``gcnn_keras_tpu/model/force.py`` (``EnergyForceModel.apply`` and
+``apply_multistate``).
 
 Per-graph energies are scalars, so one reverse pass over ``sum_g E_g``
 yields all forces at once. With ``use_esp_coupling`` the ESP force term
@@ -29,7 +30,10 @@ class EnergyForceModel:
     to ``device`` (the CUDA card unless ``device="cpu"``).
 
     ``apply(batch)`` returns a dict with ``energy`` (G, S) and ``force``
-    (N, 3), passing through all other outputs of the inner model.
+    (N, 3), passing through all other outputs of the inner model;
+    ``apply_multistate`` the forces of each of S states, (S, N, 3). Other
+    keywords of either (``train``) go to the energy model, as the JAX
+    package's ``**kwargs`` do.
     """
 
     def __init__(self, energy_model: nn.Module, energy_output_key: str = "output",
@@ -45,7 +49,8 @@ class EnergyForceModel:
         self.use_esp_coupling = use_esp_coupling
         self.sign = -1.0 if is_physical_force else 1.0
 
-    def apply(self, batch: GraphBatch, create_graph: bool = False) -> Dict[str, Tensor]:
+    def apply(self, batch: GraphBatch, create_graph: bool = False,
+              **kwargs) -> Dict[str, Tensor]:
         """Energies and forces. ``create_graph=False`` (serving) takes the
         forces without a graph through them; ``True`` (training) keeps the
         graph through ``dE/dr`` and ``dE/dPhi``, so that a loss on the forces
@@ -59,7 +64,7 @@ class EnergyForceModel:
                 esp = batch.nodes[self.esp_key].detach().requires_grad_(True)
                 new_nodes[self.esp_key] = esp
                 wrt.append(esp)
-            out = self.energy_model(batch.replace_nodes(**new_nodes))
+            out = self.energy_model(batch.replace_nodes(**new_nodes), **kwargs)
             e = out[self.energy_output_key]
             gmask = batch.globals["graph_mask"].to(e.dtype)
             total_e = torch.sum(e * gmask.reshape(gmask.shape + (1,) * (e.dim() - 1)))
@@ -77,6 +82,34 @@ class EnergyForceModel:
 
         result = dict(out)
         result["energy"] = out[self.energy_output_key]
+        result["force"] = force
+        return result
+
+    def apply_multistate(self, batch: GraphBatch, num_states: int,
+                         create_graph: bool = False, **kwargs) -> Dict[str, Tensor]:
+        """S > 1 energy states (``energy`` (G, S)): the forces of each,
+        ``force`` (S, N, 3), the Jacobian of the state energies summed over
+        the graphs along the coordinates, one reverse pass a state (the
+        JAX package's ``jacrev``). ``num_states`` names S, as the JAX
+        signature does; the energy output's width is what counts. With
+        ``create_graph`` the forces keep their graph for a force loss. No
+        ESP coupling, as in the JAX package."""
+        with torch.enable_grad():
+            coords = batch.nodes[self.coordinates_key].detach().requires_grad_(True)
+            out = self.energy_model(batch.replace_nodes(**{self.coordinates_key: coords}),
+                                    **kwargs)
+            e = out[self.energy_output_key]
+            gmask = batch.globals["graph_mask"].to(e.dtype)
+            energies = torch.sum(e * gmask[:, None], dim=0)  # (S,)
+            rows = []
+            for s in range(energies.shape[0]):
+                (g,) = torch.autograd.grad(energies[s], coords, allow_unused=True,
+                                           retain_graph=True, create_graph=create_graph)
+                rows.append(torch.zeros_like(coords) if g is None else g)
+        jac = torch.stack(rows)  # (S, N, 3)
+        force = self.sign * jac * batch.node_mask[None, :, None].to(jac.dtype)
+        result = dict(out)
+        result["energy"] = e
         result["force"] = force
         return result
 

@@ -10,10 +10,10 @@ network for local energies -> sum over each molecule;
 
 Submodule names follow the flax tree (``acsf_g2``, ``acsf_g4``,
 ``mlp_charge``, ``mlp_local``, ``cent_electrostatic.cent_charge``,
-``cent_electrostatic.electrostatic_energy``, ``output_mlp``) so that
-``utils/convert.py`` maps one onto the other. A ``GraphBatchNorm`` over the
-descriptors (a non-empty ``normalize_kwargs``) is not ported yet and raises
-``NotImplementedError``.
+``cent_electrostatic.electrostatic_energy``, ``norm``, ``output_mlp``) so
+that ``utils/convert.py`` maps one onto the other. A non-empty
+``normalize_kwargs`` puts a ``GraphBatchNorm`` over concat(rep, ESP); the
+models' ``train`` argument is the JAX call's, which that layer keys on.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from ..layers.conv.hdnnp_electro import (
     CENTChargePlusElectrostaticEnergy, electrostatic_qmmm_energy,
 )
 from ..layers.mlp import MLP, RelationalMLP
+from ..layers.norm import GraphBatchNorm
 from ..utils.devices import DeviceLike, resolve_device
 from .registry import update_model_kwargs
 
@@ -61,11 +62,6 @@ _ELECTRO_IGNORED = {"name", "param_initializer", "param_regularizer",
 _ELECTRO_KNOWN = {"param_trainable", "use_physical_params", "multiplicity",
                   "solver", "dense_impl", "cg_tol"} | _ELECTRO_IGNORED
 
-_NOT_PORTED_NORM = ("HDNNP4th normalize_kwargs is not ported yet: it needs "
-                    "GraphBatchNorm (layers/norm.py), which comes with the other "
-                    "model families")
-
-
 def _electro_opts(cfg: Dict[str, Any]) -> Dict[str, Any]:
     """``cent_kwargs`` merged with ``electrostatic_kwargs``, as the reference
     builds ``CENTChargePlusElectrostaticEnergy(**cent_kwargs,
@@ -83,10 +79,12 @@ def _electro_opts(cfg: Dict[str, Any]) -> Dict[str, Any]:
             if k in merged}
 
 
-def _check_normalize(cfg: Dict[str, Any]) -> None:
-    # an EMPTY normalize_kwargs dict means no normalization layer
-    if cfg.get("normalize_kwargs"):
-        raise NotImplementedError(_NOT_PORTED_NORM)
+def _norm(cfg: Dict[str, Any], width: int) -> Optional[GraphBatchNorm]:
+    """The ``GraphBatchNorm`` over ``width`` columns of a truthy
+    ``normalize_kwargs``; an EMPTY dict means no normalization layer, as in
+    the JAX package."""
+    return GraphBatchNorm(width, **cfg["normalize_kwargs"]) \
+        if cfg.get("normalize_kwargs") else None
 
 
 def _esp(batch: GraphBatch, like: Tensor) -> Tensor:
@@ -137,10 +135,10 @@ class HDNNP4th(_ChargeEnergyCore):
     def __init__(self, config: Dict[str, Any],
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_normalize(config)
         self.config = config
         self.acsf_g2, self.acsf_g4 = _acsf(config)
         width = self.acsf_g2.out_features + self.acsf_g4.out_features + 1
+        self.norm = _norm(config, width)
         self._build_core(config, width, generator)
 
     def representation(self, batch: GraphBatch) -> Tuple[Tensor, Tensor, Tensor]:
@@ -153,9 +151,12 @@ class HDNNP4th(_ChargeEnergyCore):
                          esp[:, None]], dim=-1)
         return rep, esp, z
 
-    def forward(self, batch: GraphBatch) -> Dict[str, Tensor]:
+    def forward(self, batch: GraphBatch, train: bool = False) -> Dict[str, Tensor]:
         cfg = self.config
-        result = self._charge_energy(batch, *self.representation(batch))
+        rep, esp, z = self.representation(batch)
+        if self.norm is not None:
+            rep = self.norm(rep, batch.node_mask, train)
+        result = self._charge_energy(batch, rep, esp, z)
         e_total = result["output"]
         if cfg.get("energy_mean_and_var"):
             mean, var = cfg["energy_mean_and_var"]
@@ -261,19 +262,21 @@ class HDNNP4thLearn(_ChargeEnergyCore):
     def __init__(self, config: Dict[str, Any],
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_normalize(config)
         self.config = config
+        self.norm = _norm(config, config["rep_features"] + 1)
         self._build_core(config, config["rep_features"] + 1, generator)
 
-    def forward(self, batch: GraphBatch) -> Dict[str, Tensor]:
+    def forward(self, batch: GraphBatch, train: bool = False) -> Dict[str, Tensor]:
         z = batch.nodes["node_number"].to(torch.int32)
         rep = batch.nodes["rep"]
         if rep.shape[-1] != self.config["rep_features"]:
             raise ValueError(f"nodes['rep'] has {rep.shape[-1]} columns; the model "
                              f"was built for rep_features={self.config['rep_features']}")
         esp = _esp(batch, rep)
-        result = self._charge_energy(batch, torch.cat([rep, esp[:, None]], dim=-1),
-                                     esp, z)
+        rep_esp = torch.cat([rep, esp[:, None]], dim=-1)
+        if self.norm is not None:
+            rep_esp = self.norm(rep_esp, batch.node_mask, train)
+        result = self._charge_energy(batch, rep_esp, esp, z)
         if self.output_mlp is not None:
             result["output"] = self.output_mlp(result["output"])
         return result

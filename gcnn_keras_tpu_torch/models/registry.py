@@ -6,7 +6,10 @@ A name is a model module's short name (``"Schnet"``), or a path that ends
 in one (``"kgcnn.literature.Schnet"``); a name the table does not hold is
 imported as a module path, one under ``gcnn_keras_tpu.`` from the port's
 package of the same layout. The port holds five of the JAX package's model
-modules; the others raise ``ValueError``, by short name or by file.
+modules, each with every builder of its JAX module (HDNNP2nd's
+``make_model``, ``make_model_weighted``, ``make_model_behler``,
+``make_model_atom_wise`` and ``make_model_inverse_distances`` among them);
+the others raise ``ValueError``, by short name or by file.
 """
 from __future__ import annotations
 

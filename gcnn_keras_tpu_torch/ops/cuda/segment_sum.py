@@ -5,6 +5,9 @@ its autograd pair; counterpart of ``gcnn_keras_tpu/ops/pallas/segment_sum.py``.
 The kernel (``csrc/segment_sum.cu``) replaces the three TPU variants
 ``_sorted_segment_sum_pallas`` (``_make_kernel``), ``_v2`` and ``_v3``,
 which compute the same function and differ only in their DMA schedule.
+It has two instances, float32 and bfloat16 values: each sums in float32
+and writes the values' type, as the TPU kernel accumulates in float32 and
+writes ``values.dtype``.
 
 Bound on the H100: memory bytes. Each call reads ``values`` and ``ids``
 once and writes ``out`` once; at the SchNet serving shapes (E=54784,
@@ -16,7 +19,8 @@ order with no atomics, in a layout chosen by F (the source's header). At
 F = 3 most of a call is the launch itself.
 
 A CPU tensor takes :func:`segment_sum_plain`; a CUDA tensor launches the
-kernel or raises. ``launches`` counts kernel launches and nothing else.
+kernel or raises. ``launches`` counts the float32 instance's launches and
+``launches_bf16`` the bfloat16 one's, and nothing else.
 """
 from __future__ import annotations
 
@@ -30,18 +34,27 @@ from .build import load_library
 Tensor = torch.Tensor
 
 launches = 0
+launches_bf16 = 0
+
+# the C entry point of each value type the kernel takes
+_ENTRIES = {torch.float32: "gcnn_sorted_segment_sum_f32",
+            torch.bfloat16: "gcnn_sorted_segment_sum_bf16"}
 
 
 def segment_sum_plain(values: Tensor, ids: Tensor, num_segments: int) -> Tensor:
-    """The kernel's plain PyTorch version (any device, any float dtype)."""
+    """The kernel's plain PyTorch version (any device, any float dtype):
+    ``index_add_`` in the values' type, for bfloat16 in float32 and then
+    rounded to bfloat16 once, as the kernel does."""
+    acc = torch.float32 if values.dtype == torch.bfloat16 else values.dtype
     return torch.zeros((num_segments,) + tuple(values.shape[1:]),
-                       dtype=values.dtype, device=values.device
-                       ).index_add_(0, ids, values)
+                       dtype=acc, device=values.device
+                       ).index_add_(0, ids, values.to(acc)).to(values.dtype)
 
 
-def _kernel():
-    """The C entry point of ``csrc/segment_sum.cu``, built on first use."""
-    fn = load_library("segment_sum").gcnn_sorted_segment_sum_f32
+def _kernel(dtype: torch.dtype):
+    """The C entry point of ``csrc/segment_sum.cu`` for ``dtype`` values,
+    built on first use."""
+    fn = getattr(load_library("segment_sum"), _ENTRIES[dtype])
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -65,28 +78,32 @@ def segment_sum(values: Tensor, ids: Tensor, num_segments: int) -> Tensor:
     """Sum the rows of ``values`` (E, F) into ``num_segments`` rows by the
     ASCENDING int32 ``ids`` (E,). Not differentiable by itself: see
     :class:`SortedSegmentSum`."""
-    global launches
+    global launches, launches_bf16
     _check(values, ids, num_segments)
     if values.device.type == "cpu":
         return segment_sum_plain(values, ids, num_segments)
     if values.device.type != "cuda":
         raise ValueError(f"no segment-sum kernel for device {values.device}")
-    if values.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernel takes float32 values, got {values.dtype}")
+    if values.dtype not in _ENTRIES:
+        raise TypeError("the CUDA kernel takes float32 or bfloat16 values (it sums in "
+                        f"float32 and writes the values' type), got {values.dtype}")
     if not (values.is_contiguous() and ids.is_contiguous()):
         raise ValueError("values and ids must be contiguous")
     e, f = values.shape
-    out = torch.empty((num_segments, f), dtype=torch.float32, device=values.device)
+    out = torch.empty((num_segments, f), dtype=values.dtype, device=values.device)
     if out.numel() == 0:
         return out
-    fn = _kernel()
+    fn = _kernel(values.dtype)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         rc = fn(values.data_ptr(), ids.data_ptr(), out.data_ptr(), e, f,
                 num_segments, stream)
     if rc != 0:
         raise RuntimeError(f"sorted_segment_sum kernel launch failed: CUDA error {rc}")
-    launches += 1
+    if values.dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 

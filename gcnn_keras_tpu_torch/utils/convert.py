@@ -15,8 +15,13 @@ Four node types carry weights in their own layout:
 
 Any other module's own parameters are bare flax leaves of the same name,
 ``<path>/<name>``, as they are: the per-element tables ``hardness_j`` and
-``sigma`` of the HDNNP4th electrostatics. ``flax_leaf_names`` gives each
-port parameter's flax path.
+``sigma`` of the HDNNP4th electrostatics, and ``scale`` and ``bias`` of
+``GraphBatchNorm``. ``flax_leaf_names`` gives each port parameter's flax
+path.
+
+``GraphBatchNorm``'s running ``mean`` and ``var`` are the flax
+``batch_stats`` collection, ``batch_stats/<path>/mean`` and ``/var``; they
+load into the module's buffers of the same names.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ import torch
 import torch.nn as nn
 
 from ..layers.mlp import Dense, RelationalDense
-from ..layers.norm import GraphLayerNorm
+from ..layers.norm import GraphBatchNorm, GraphLayerNorm
 from ..models.common import OptionalInputEmbedding
 
 _FLAX_NAMES = {"embedding": "OptionalInputEmbedding_0"}
@@ -81,16 +86,25 @@ def flax_leaf_names(model: nn.Module) -> Dict[str, str]:
     return {names[id(p)]: key for key, p, _ in _flax_leaves(model)}
 
 
-def params_from_jax(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
-    """Copy a flax parameter tree (nested dict of numpy arrays, with or
-    without the top-level ``"params"``) into ``model`` in place. Raises if
-    a port parameter has no flax leaf, a flax leaf is left over, or a shape
-    differs."""
-    flat = _flatten(tree.get("params", tree))
+def _batch_stats(model: nn.Module) -> Iterator[Tuple[str, torch.Tensor, bool]]:
+    """``(flax batch_stats path, port buffer, False)`` of each running
+    statistic of ``model``'s ``GraphBatchNorm`` modules."""
+    for name, module in model.named_modules():
+        if isinstance(module, GraphBatchNorm):
+            base = _flax_path(name)
+            for bname in ("mean", "var"):
+                yield "/".join(p for p in (base, bname) if p), getattr(module, bname), False
+
+
+def _copy_leaves(flat: Dict[str, np.ndarray],
+                 leaves: Iterator[Tuple[str, torch.Tensor, bool]], what: str) -> set:
+    """Copy each leaf of ``flat`` into its port tensor; raises if a port
+    tensor has no flax leaf, a flax leaf is left over, or a shape differs.
+    Returns the ids of the tensors filled."""
     used, filled = set(), set()
-    for key, target, transpose in _flax_leaves(model):
+    for key, target, transpose in leaves:
         if key not in flat:
-            raise KeyError(f"flax parameter {key!r} missing")
+            raise KeyError(f"flax {what} {key!r} missing")
         arr = flat[key].T if transpose else flat[key]
         if tuple(arr.shape) != tuple(target.shape):
             raise ValueError(f"{key}: flax shape {arr.shape} vs port "
@@ -101,7 +115,21 @@ def params_from_jax(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
         filled.add(id(target))
     left = sorted(set(flat) - used)
     if left:
-        raise KeyError(f"flax parameters with no port counterpart: {left}")
+        raise KeyError(f"flax {what}s with no port counterpart: {left}")
+    return filled
+
+
+def params_from_jax(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
+    """Copy a flax variable tree (nested dict of numpy arrays: the
+    ``"params"`` collection, or the parameters alone, and the
+    ``"batch_stats"`` collection where the model has ``GraphBatchNorm``
+    modules) into ``model`` in place. Raises if a port parameter or running
+    statistic has no flax leaf, a flax leaf is left over, or a shape
+    differs."""
+    params = tree.get("params", {k: v for k, v in tree.items() if k != "batch_stats"})
+    _copy_leaves(_flatten(tree.get("batch_stats", {})), _batch_stats(model),
+                 "batch_stats leaf")
+    filled = _copy_leaves(_flatten(params), _flax_leaves(model), "parameter")
     unfilled = [n for n, p in model.named_parameters() if id(p) not in filled]
     if unfilled:
         raise KeyError(f"port parameters with no flax counterpart: {unfilled}")

@@ -29,7 +29,9 @@ of ``bench.py``'s 21-atom molecule (SchNet in ``--mode``, masses 12, dt
 5e-4, ``chip_smoke.md_batch``). Warms up, and runs ``--evals``
 evaluations or steps under ``torch.profiler``. Prints the device time by kernel, the
 device busy share of the wall time, and one JSON summary line with the time
-and calls of each of the port's own kernels; writes a Chrome trace when
+and calls of each of the port's own kernels and the median wall time of
+``--evals`` synced calls outside the profiler, before it and after it (what
+the profiler's tracing leaves behind); writes a Chrome trace when
 ``--trace`` is given.
 
 ``--atoms N`` (HDNNP4th only) takes one molecule of N atoms instead
@@ -75,6 +77,7 @@ import functools
 import importlib
 import json
 import os
+import statistics
 import tempfile
 import time
 
@@ -91,6 +94,18 @@ PORT_KERNELS = ("sorted_segment_sum", "g2_fwd_kernel", "g4_fwd_kernel",
                 "fused_cfconv_kernel", "fused_cfconv_wide_kernel", "cf_fwd_kernel",
                 "cf_fwd_wide_kernel", "cf_vjp_kernel",
                 "cf_hesjvp_kernel", "cf_hesjvp_wide_kernel")
+
+
+def timed_ms(run, evals):
+    """The median wall ms of ``evals`` calls of ``run``, each followed by a
+    sync, outside the profiler."""
+    times = []
+    for _ in range(evals):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
 
 
 def serving_run(name, mode):
@@ -303,6 +318,7 @@ def main():
     for _ in range(3):
         run()
     torch.cuda.synchronize()
+    before_ms = timed_ms(run, args.evals)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -312,6 +328,7 @@ def main():
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.evals
     if args.trace:
         prof.export_chrome_trace(args.trace)
+    after_ms = timed_ms(run, args.evals)
 
     # device rows, less the optimizer's annotation range, whose device time
     # is that of the kernels it encloses, which are rows of their own
@@ -332,6 +349,8 @@ def main():
         "train": args.train or bool(args.script),
         "md": args.md, "evals": args.evals,
         f"wall_ms_per_{unit}_profiled": wall_ms,
+        f"wall_ms_per_{unit}_before_profiler": before_ms,
+        f"wall_ms_per_{unit}_after_profiler": after_ms,
         f"device_ms_per_{unit}": dev_ms,
         "device_busy_share": dev_ms / wall_ms,
         f"kernels_per_{unit}": n_kernels,

@@ -64,6 +64,61 @@ def test_kernel_matches_plain(cuda_device, e, n, f, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("e,n,f,layout", [
+    (54784, 8192, 128, "every third row empty"), (54784, 8192, 22, "every third row empty"),
+    (417024, 8192, 10, "every third row empty"), (1000, 50, 1, "every third row empty"),
+    (1000, 50, 3, "every third row empty"), (1000, 50, 130, "every third row empty"),
+    (6000, 2000, 128, "from row n / 2"), (7000, 300, 1, "one long row"),
+    (7000, 300, 64, "one long row"), (54784, 8192, 384, "every third row empty")])
+def test_bf16_kernel_matches_plain(cuda_device, e, n, f, layout):
+    """The bfloat16 instance against its plain version (a float32
+    ``index_add_`` rounded once): one bfloat16 ulp, ``chip_smoke``'s
+    ``BF16_KERNEL_TOL``; empty segments come out 0. It counts on
+    ``launches_bf16`` only."""
+    import chip_smoke
+    vals, ids = _sorted_case(e + f, e, n, f, layout)
+    v = torch.from_numpy(vals).to(cuda_device).to(torch.bfloat16)
+    i = torch.from_numpy(ids).to(cuda_device)
+    before = (kseg.launches, kseg.launches_bf16)
+    out = kseg.segment_sum(v, i, n)
+    torch.cuda.synchronize()
+    assert (kseg.launches, kseg.launches_bf16) == (before[0], before[1] + 1)
+    plain = kseg.segment_sum_plain(v, i, n)
+    assert out.dtype == plain.dtype == torch.bfloat16
+    err = (out.float() - plain.float()).abs().max().item()
+    assert err <= chip_smoke.BF16_KERNEL_TOL * (1.0 + plain.float().abs().max().item())
+    empty = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    empty[i.long()] = False
+    assert not out[empty].float().any()
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_edge_cases(cuda_device):
+    """One segment, no edges, and values 2 bytes off the 8-byte alignment
+    of the 4-wide loads (the scalar layout)."""
+    v = torch.randn(500, 8, device=cuda_device).to(torch.bfloat16)
+    one = torch.zeros(500, dtype=torch.int32, device=cuda_device)
+    out = kseg.segment_sum(v, one, 4)
+    torch.cuda.synchronize()
+    assert out[0].float().allclose(v.float().sum(0).bfloat16().float(), rtol=2.0 ** -7)
+    assert not out[1:].float().any()
+    empty = kseg.segment_sum(torch.zeros(0, 3, dtype=torch.bfloat16, device=cuda_device),
+                             torch.zeros(0, dtype=torch.int32, device=cuda_device), 6)
+    assert empty.shape == (6, 3) and empty.dtype == torch.bfloat16 and not empty.float().any()
+    base = torch.randn(4000 * 16 + 1, device=cuda_device).to(torch.bfloat16)
+    shifted = base[1:].view(4000, 16)
+    ids = torch.sort(torch.randint(0, 300, (4000,), device=cuda_device))[0].to(torch.int32)
+    out = kseg.segment_sum(shifted, ids, 300)
+    plain = kseg.segment_sum_plain(shifted, ids, 300)
+    torch.cuda.synchronize()
+    assert (out.float() - plain.float()).abs().max().item() <= 2.0 ** -7 * (
+        1 + plain.float().abs().max().item())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kseg.segment_sum(torch.zeros(4, 2, dtype=torch.float16, device=cuda_device),
+                         torch.zeros(4, dtype=torch.int32, device=cuda_device), 2)
+
+
+@pytest.mark.cuda
 def test_kernel_edge_cases(cuda_device):
     v = torch.randn(500, 7, device=cuda_device)
     one = torch.zeros(500, dtype=torch.int32, device=cuda_device)
@@ -327,14 +382,18 @@ def test_acsf_force_loss_gradient_on_the_card_matches_the_cpu(cuda_device):
 @pytest.mark.parametrize("path,size", [("schnet_train", 16), ("hdnnp2nd_train", 16),
                                        ("hdnnp4th_train", 16), ("schnet_chain_train", 16),
                                        ("painn_train", 16), ("gcn_cora_train", 2708),
-                                       ("hdnnp4th_mol520_train", 520)])
+                                       ("hdnnp4th_mol520_train", 520), ("schnet_bf16_train", 16),
+                                       ("schnet_dense_train", 16), ("schnet_remat_train", 16),
+                                       ("schnet_chain_remat_train", 16),
+                                       ("hdnnp2nd_weighted_train", 16),
+                                       ("hdnnp4th_norm_train", 16)])
 def test_training_step_on_the_card_matches_the_cpu(cuda_device, path, size):
     """One full-width training step of ``chip_smoke.py`` on 16 molecules
     (GCN: the 2708-node citation graph of ``sec_gcn_cora``, seed 7; the
     molecule-scale path: one molecule of 520 atoms from seed 7): the
     loss and every parameter gradient equal the CPU's (within the path's
-    ``grad_tol``, where it sets one), and each kernel launches as often as
-    ``TRAIN_PATHS`` derives."""
+    ``loss_tol`` and ``grad_tol``, where it sets them), and each kernel
+    launches as often as ``TRAIN_PATHS`` derives."""
     import chip_smoke
 
     results = []
@@ -349,7 +408,8 @@ def test_training_step_on_the_card_matches_the_cpu(cuda_device, path, size):
             assert launched == chip_smoke.TRAIN_PATHS[path]["launches"]
         results.append((metrics["loss"].item(), [p.grad.cpu() for p in model.parameters()]))
     (loss, grads), (ref_loss, ref_grads) = results
-    assert abs(loss - ref_loss) <= chip_smoke.TRAIN_TOL * abs(ref_loss)
+    assert abs(loss - ref_loss) <= chip_smoke.TRAIN_PATHS[path].get(
+        "loss_tol", chip_smoke.TRAIN_TOL) * abs(ref_loss)
     grad_tol = chip_smoke.TRAIN_PATHS[path].get("grad_tol", chip_smoke.TRAIN_TOL)
     for g, ref in zip(grads, ref_grads):
         assert (g - ref).abs().max().item() <= grad_tol * ref.abs().max().item()
@@ -693,6 +753,70 @@ def test_schnet_md_mode_serving_on_the_card_matches_the_cpu(cuda_device, mode):
                             else chip_smoke.launch_counts())
     chip_smoke.compare_answers(answers["gpu"], answers["cpu"])
     chip_smoke.compare_answers(answers["gpu"], answers["unfused"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", ["bf16", "dense", "remat"])
+def test_schnet_option_serving_on_the_card_matches_the_cpu(cuda_device, option):
+    """Full-width SchNet in bfloat16, in the dense block and under remat, on
+    64 molecules: the card against the CPU and against the float32 unfused
+    model on the card (bfloat16 within ``BF16_TOL``), with the launches
+    per evaluation of ``SCHNET_OPTION_LAUNCHES``; a bfloat16 CUDA tensor
+    reaches the bfloat16 kernel, never its plain version."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
+    frames = chip_smoke.qm9_like_mols(0, 64)
+    plain, plain_calls = ss.segment_sum_plain, []
+    ss.segment_sum_plain = lambda *a: plain_calls.append(a[0].device) or plain(*a)
+    try:
+        answers = {}
+        for key, dev in (("gpu", "cuda"), ("cpu", "cpu")):
+            before = chip_smoke.kernel_counts()
+            answers[key] = chip_smoke.make_option_predictor(option, dev)(frames)
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in chip_smoke.kernel_counts().items()}
+            assert launched == (chip_smoke.SCHNET_OPTION_LAUNCHES[option] if dev == "cuda"
+                                else chip_smoke.launch_counts())
+    finally:
+        ss.segment_sum_plain = plain
+    assert all(d.type == "cpu" for d in plain_calls)
+    answers["unfused"] = chip_smoke.make_predictor("cuda")(frames)
+    tol = chip_smoke.option_tol(option)
+    chip_smoke.check_request(answers["gpu"], frames, option)
+    chip_smoke.compare_answers(answers["gpu"], answers["cpu"], tol=tol)
+    chip_smoke.compare_answers(answers["gpu"], answers["unfused"], tol=tol)
+
+
+@pytest.mark.cuda
+def test_wacsf_serving_on_the_card_matches_the_cpu(cuda_device):
+    """HDNNP2nd's default (wACSF) model on 16 molecules: the card against
+    the CPU, with ``WACSF_LAUNCHES`` a request."""
+    import chip_smoke
+    frames = chip_smoke.qm9_like_mols(9, 16)
+    answers = {}
+    for dev in ("cuda", "cpu"):
+        before = chip_smoke.kernel_counts()
+        answers[dev] = chip_smoke.make_wacsf_predictor(dev)(frames)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in chip_smoke.kernel_counts().items()}
+        assert launched == (chip_smoke.WACSF_LAUNCHES if dev == "cuda"
+                            else chip_smoke.launch_counts())
+    chip_smoke.check_request(answers["cuda"], frames, "wacsf")
+    chip_smoke.compare_answers(answers["cuda"], answers["cpu"])
+
+
+@pytest.mark.cuda
+def test_option_phase_parts_on_the_card(cuda_device):
+    """Phase 21's multistate evaluation on 16 molecules and PAiNN MD at a few
+    steps and 4 replicas, on the card against the CPU."""
+    import chip_smoke
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    batch = batch_graphs(chip_smoke.qm9_like_mols(0, 16), device="cuda")
+    assert chip_smoke.phase_multistate(batch, "card") == chip_smoke.MULTISTATE_LAUNCHES
+    paths, recs = chip_smoke.phase_painn_md("card", steps=(4, 8), pairs=1, replicas=4,
+                                            segment_steps=4, segments=1)
+    assert paths["painn_md_ensemble"]["sorted_segment_sum"] == 5 * chip_smoke.PAINN_LAUNCHES[
+        "sorted_segment_sum"]
 
 
 @pytest.mark.cuda

@@ -25,7 +25,6 @@ from gcnn_keras_tpu_torch.batch import batch_graphs
 from gcnn_keras_tpu_torch.graph.preprocess import set_angle, set_range
 from gcnn_keras_tpu_torch.layers.mlp import RelationalDense
 from gcnn_keras_tpu_torch.model.force import EnergyForceModel
-from gcnn_keras_tpu_torch.models import hdnnp2nd
 from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
 from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
 from gcnn_keras_tpu_torch.ops.cuda import acsf as kacsf
@@ -253,18 +252,6 @@ def test_padding_leaves_real_outputs_unchanged():
     np.testing.assert_allclose(out["force"][:n_real].numpy(),
                                base["force"][:n_real].numpy(), rtol=1e-5, atol=1e-7)
     assert not out["force"][n_real:].any()
-
-
-@pytest.mark.parametrize("call", [
-    lambda: hdnnp2nd.make_model(device="cpu"),
-    lambda: hdnnp2nd.make_model_weighted(device="cpu"),
-    lambda: hdnnp2nd.make_model_atom_wise(device="cpu"),
-    lambda: make_model_behler(device="cpu", normalize_kwargs={"epsilon": 1e-3}),
-    lambda: hdnnp2nd.HDNNP2nd(hdnnp2nd.model_default_behler, mode="weighted"),
-], ids=["make_model", "weighted", "atom_wise", "normalize_kwargs", "mode-weighted"])
-def test_unported_modes_raise(call):
-    with pytest.raises(NotImplementedError):
-        call()
 
 
 def test_make_model_seeded_generator_is_deterministic():

@@ -393,15 +393,6 @@ def test_golden_reference_energies_and_charges():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: hdnnp4th.make_model_behler(device="cpu", normalize_kwargs={"epsilon": 1e-3}),
-    lambda: hdnnp4th.make_model_learn(device="cpu", normalize_kwargs={"epsilon": 1e-3}),
-], ids=["behler-normalize", "learn-normalize"])
-def test_unported_options_raise(call):
-    with pytest.raises(NotImplementedError):
-        call()
-
-
-@pytest.mark.parametrize("call", [
     lambda: hdnnp4th.make_model_behler(device="cpu", cent_kwargs={"tolerance": 1.0}),
     lambda: hdnnp4th.make_model_behler(
         device="cpu", electrostatic_kwargs={"dense_impl": "choleksy"}),

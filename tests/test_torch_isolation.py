@@ -21,7 +21,7 @@ from gcnn_keras_tpu_torch.data.dataset import MemoryGraphDataset
 from gcnn_keras_tpu_torch.data.loader import GraphBatchLoader
 from gcnn_keras_tpu_torch.model.force import EnergyForceModel
 from gcnn_keras_tpu_torch.model.mlmm import MLMMEnergyForceModel
-from gcnn_keras_tpu_torch.models import gcn, hdnnp4th, painn
+from gcnn_keras_tpu_torch.models import gcn, hdnnp2nd, hdnnp4th, painn
 from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
 from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
 from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
@@ -38,7 +38,7 @@ SOURCES = sorted((ROOT / "gcnn_keras_tpu_torch").rglob("*.py")) + [
 
 
 SCRIPTS = ("force_schnet", "force_painn", "force_hdnnp2nd", "force_hdnnp4th",
-           "energy_hdnnp4th", "charge_hdnnp4th", "energy_hdnnp2nd")
+           "energy_hdnnp4th", "charge_hdnnp4th", "energy_hdnnp2nd", "force_inverse_distances")
 # the entry points that run a trained ensemble or search, each a ``main(argv)``
 # that takes ``--device``; ``retrieve_trial`` reads JSON only
 WORKFLOW = ("evaluate_models", "calc_prediction_std", "load_model", "transfer_learning",
@@ -130,6 +130,9 @@ def test_scan_sees_the_package():
                                    "MolDynamicsModelPredictor", "hdnnp4th.make_model_behler",
                                    "hdnnp4th.make_model_rep", "hdnnp4th.make_model_learn",
                                    "hdnnp4th.make_model_behler_charge_separat", "ScannedMD",
+                                   "hdnnp2nd.make_model", "hdnnp2nd.make_model_weighted",
+                                   "hdnnp2nd.make_model_atom_wise",
+                                   "hdnnp2nd.make_model_inverse_distances",
                                    "painn.make_model", "painn.make_crystal_model",
                                    "gcn.make_model", "gcn.make_model_weighted",
                                    "MLMMEnergyForceModel", "GraphBatchLoader",
@@ -157,6 +160,11 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_pat
         "hdnnp4th.make_model_behler_charge_separat":
             lambda **kw: hdnnp4th.make_model_behler_charge_separat(**kw),
         "ScannedMD": lambda **kw: ScannedMD(make_model(device="cpu", depth=1), dt=1e-3, **kw),
+        "hdnnp2nd.make_model": lambda **kw: hdnnp2nd.make_model(**kw),
+        "hdnnp2nd.make_model_weighted": lambda **kw: hdnnp2nd.make_model_weighted(**kw),
+        "hdnnp2nd.make_model_atom_wise": lambda **kw: hdnnp2nd.make_model_atom_wise(**kw),
+        "hdnnp2nd.make_model_inverse_distances":
+            lambda **kw: hdnnp2nd.make_model_inverse_distances(**kw),
         "painn.make_model": lambda **kw: painn.make_model(depth=1, **kw),
         "painn.make_crystal_model": lambda **kw: painn.make_crystal_model(depth=1, **kw),
         "gcn.make_model": lambda **kw: gcn.make_model(in_features=8, **kw),

@@ -23,7 +23,6 @@ from gcnn_keras_tpu.moldyn.base import MolDynamicsModelPredictor as JPredictor
 from gcnn_keras_tpu_torch.batch import batch_graphs
 from gcnn_keras_tpu_torch.graph.preprocess import set_range
 from gcnn_keras_tpu_torch.layers import geometry
-from gcnn_keras_tpu_torch.layers.mlp import MLP
 from gcnn_keras_tpu_torch.model.force import EnergyForceModel
 from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
 from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
@@ -186,17 +185,6 @@ def test_geometry_matches_jax():
     _close(d, jgeo.edge_distances(jb))
     _close(geometry.gauss_basis(d, bins=7, offset=0.2, sigma=0.3),
            jgeo.gauss_basis(jgeo.edge_distances(jb), bins=7, offset=0.2, sigma=0.3))
-
-
-@pytest.mark.parametrize("kw", [dict(dense_block=True), dict(remat=True), dict(dtype="bfloat16")])
-def test_unported_modes_raise(kw):
-    with pytest.raises(NotImplementedError):
-        make_model(device="cpu", **kw)
-
-
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        MLP(4, [4, 4], use_normalization=True)
 
 
 def test_params_from_jax_rejects_mismatch():

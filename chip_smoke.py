@@ -180,9 +180,30 @@ order, each raising on a failed check:
    ``apply_multistate`` evaluation of 3 states against the CPU; PAiNN MD at
    the bench width (phase 14's 21-atom molecule with its NVE drift, and 64
    replicas through ``ScannedMD``) against the CPU; ``force_inverse_distances``
-   through phase 19's ``phase_script``; last, the device's busy share of
-   each of phase 21's serving and training paths (``busy_share``,
-   ``torch.profiler``), after every timed part of the script.
+   through phase 19's ``phase_script``. The device's busy share of each of
+   phase 21's serving and training paths (``busy_share``,
+   ``torch.profiler``) is taken at the end of the script, after every timed
+   part.
+
+22. The zoo's first group (``phase_zoo``): GIN, GraphSAGE, GAT, GATv2, RGCN,
+   GNN-FiLM and INorp (``ZOO_MODELS``) at their ``model_default`` widths on
+   phase 4's 512 molecules (``zoo_graphs``: integer edge attributes, edge
+   relations and INorp's graph attributes drawn from a seed). For each: a
+   graph-level forward against the same weights on the CPU (GIN also with
+   ``train=True``, its batch statistics and running averages), every
+   segment-sum call of one forward and of one training step against its
+   plain version (each new shape timed with its bound and ``index_add_``),
+   the first step (Adam 1e-3, a masked graph MAE on seeded labels; on the
+   first 64 molecules) against the CPU's, then ``ZOO_STEPS`` steps with
+   falling losses; launches per forward and per step held to
+   ``ZOO_LAUNCHES``, host syncs of each (``host_syncs``), ms per forward and
+   per step. Then the graph-learning
+   drivers (``ZOO_DRIVERS``: ``train_tudataset`` with GIN,
+   ``train_moleculenet`` with GIN and GAT) through their ``main``, cut to 3
+   epochs of 2 folds: finite losses, the score file, the first step against
+   the CPU and its kernel calls against their plain versions, every step's
+   launches; ms per step and per epoch. The busy share of one training
+   step of each model is taken at the end of the script, after phase 21's.
 
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it; the
@@ -733,11 +754,11 @@ def busy_share(run, reps=5):
             "busy_share": dev_ms / wall_ms if dev_ms else None}
 
 
-def run_profiles(profiles):
-    """``busy_share`` of each ``(label, run)`` of ``profiles``, in turn,
-    logged as ``<label> busy share: {...}``."""
+def run_profiles(profiles, reps=5):
+    """``busy_share`` of each ``(label, run)`` of ``profiles`` over ``reps``
+    calls, in turn, logged as ``<label> busy share: {...}``."""
     for label, run in profiles:
-        log(f"{label} busy share: " + json.dumps(busy_share(run)))
+        log(f"{label} busy share: " + json.dumps(busy_share(run, reps)))
 
 
 def phase_device():
@@ -3805,12 +3826,12 @@ def phase_painn_md(smi, device="cuda", steps=MD_STEPS, pairs=MD_PAIRS,
     return {"painn_md_single": single_launches, "painn_md_ensemble": ensemble_launches}, recs
 
 
-def phase_options(requests, batch0, smi, unfused_answers):
-    """Phase 21: every option of the potentials (see the
-    module docstring); then the device's busy share of an evaluation or a
-    step of each serving and training path (``run_profiles``). Returns the
-    launch counts of each main path and the kernel records."""
-    by_path, records, profiles = {}, {}, []
+def phase_options(requests, batch0, smi, unfused_answers, profiles):
+    """Phase 21: every option of the potentials (see the module
+    docstring), an evaluation or a step of each serving and training path
+    queued on ``profiles`` for ``run_profiles``. Returns the launch counts
+    of each main path and the kernel records."""
+    by_path, records = {}, {}
 
     def add(recs):
         for name, rs in recs.items():
@@ -3830,8 +3851,291 @@ def phase_options(requests, batch0, smi, unfused_answers):
     add(recs)
     by_path["force_inverse_distances_script"], recs = phase_script("force_inverse_distances", smi)
     add(recs)
-    run_profiles(profiles)
     return by_path, records
+
+
+# ------------------------------------------- phase 22: the zoo's first group
+
+# the seven model modules of the zoo's first group (registry name, module)
+# at their model_default widths, each with the inputs it reads besides the
+# node numbers, drawn per molecule: integer edge attributes below 5 (GAT,
+# GATv2, GraphSAGE: their input_embedding["edge"]) or 15 (INorp), INorp's
+# integer graph attribute below 32, edge relations below 20 (RGCN, GNN-FiLM)
+ZOO_MODELS = {"GIN": ("gin", {}), "GraphSAGE": ("sage", {"edge_classes": 5}),
+              "GAT": ("gat", {"edge_classes": 5}), "GATv2": ("gatv2", {"edge_classes": 5}),
+              "RGCN": ("rgcn", {"relations": 20}), "GNNFilm": ("gnnfilm", {"relations": 20}),
+              "INorp": ("inorp", {"edge_classes": 15, "graph_classes": 32})}
+# segment-sum launches (forward, training step) of each at those widths. The
+# step's loss is a masked graph MAE (no force pass): its reverse pass adds
+# the transpose of each sender gather whose input depends on the parameters
+# (a sum's backward is a gather, no launch):
+# - GIN (depth 3): 3 edge sums and 4 graph mean pools (the input's and each
+#   layer's embedding); + 3 transposes;
+# - GAT (5 heads, depth 1): 5 attention sums and the graph pool; + 5 (W n_j);
+# - GATv2: 5 + 1; + 10 (n_j and W n_j of each head);
+# - GraphSAGE (depth 3): 3 mean pools and the graph pool; its gathers are
+#   plain, + 0;
+# - RGCN (depth 5): 5 sums and the graph pool; + 5;
+# - GNN-FiLM (depth 5): 5 + 1; plain gathers, + 0;
+# - INorp (depth 3): 3 sum pools and the graph pool; plain gathers, + 0.
+ZOO_LAUNCHES = {"GIN": (7, 10), "GraphSAGE": (4, 4), "GAT": (6, 11), "GATv2": (6, 16),
+                "RGCN": (6, 11), "GNNFilm": (6, 6), "INorp": (4, 4)}
+ZOO_STEPS = 5
+# the first step is held against the CPU's on the first ZOO_FIRST_STEP_MOLS
+# molecules, as phase 10 takes a 64-molecule batch for it, which keeps the
+# CPU's share of the phase small
+ZOO_FIRST_STEP_MOLS = 64
+# the graph-learning drivers, (script, --model), each cut to 3 epochs (60) of
+# 2 folds (3), no PNGs (no matplotlib on the card's machine)
+ZOO_DRIVERS = (("train_tudataset", "GIN"), ("train_moleculenet", "GIN"),
+               ("train_moleculenet", "GAT"))
+ZOO_DRIVER_ARGS = ["--epochs", "3", "--folds", "2", "--no-plots"]
+
+
+def zoo_graphs(name, n_mols=512):
+    """The molecules of ``labelled_mols(0, n_mols)`` (phase 4's) with a
+    graph label and the inputs of ``ZOO_MODELS[name]``, drawn from
+    ``RandomState(1000)``."""
+    rs = np.random.RandomState(1000)
+    inputs = ZOO_MODELS[name][1]
+    graphs = labelled_mols(0, n_mols)
+    for g in graphs:
+        m = len(g["edge_indices"])
+        g["graph_labels"] = rs.randn(1).astype(np.float32)
+        if "edge_classes" in inputs:
+            g["edge_attributes"] = rs.randint(0, inputs["edge_classes"], size=m)
+        if "relations" in inputs:
+            g["edge_relations"] = rs.randint(0, inputs["relations"], size=m)
+        if "graph_classes" in inputs:
+            g["graph_attributes"] = rs.randint(0, inputs["graph_classes"], size=1)
+    return graphs
+
+
+def zoo_batch(name, device, n_mols=512):
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    keys = ("graph_labels",) + (("graph_attributes",) if name == "INorp" else ())
+    return batch_graphs(zoo_graphs(name, n_mols), global_keys=keys, device=device)
+
+
+def zoo_model(name, device, **kw):
+    """``ZOO_MODELS[name]`` at its ``model_default`` widths, weights from
+    seed 0 (INorp told its graph attributes' width, 1)."""
+    mod = importlib.import_module(f"gcnn_keras_tpu_torch.models.{ZOO_MODELS[name][0]}")
+    if name == "INorp":
+        kw.setdefault("graph_in_features", 1)
+    return mod.make_model(device=device, generator=torch.Generator().manual_seed(0), **kw)
+
+
+def zoo_trainer(name, device):
+    """``(model, Trainer, TrainState)``: the masked graph MAE against the
+    batch's ``graph_labels``, ``torch.optim.Adam`` at 1e-3."""
+    from gcnn_keras_tpu_torch.training import Trainer
+    from gcnn_keras_tpu_torch.training.losses import masked_graph_mae
+    model = zoo_model(name, device)
+
+    def loss_fn(b):
+        return masked_graph_mae(model(b)["output"], b.globals["graph_labels"],
+                                b.globals["graph_mask"]), {}
+    trainer = Trainer(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3))
+    return model, trainer, trainer.init_state(model.parameters())
+
+
+def host_syncs(fn):
+    """``fn()``'s synchronizing operations, as ``torch.cuda``'s sync debug
+    mode warns of them (``.tolist()``, ``nonzero``, ``bincount``, ...)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def zoo_kernel_calls(calls, label, path, timed_shapes):
+    """Each captured segment-sum call against its plain version; the first
+    call of each (rows, columns, segments) shape not in ``timed_shapes``
+    is timed, and its shape added."""
+    recs = []
+    for name, arg_list in calls.items():
+        for i, args in enumerate(arg_list):
+            shape = (args[0].shape[0], args[0].shape[1], args[2])
+            recs.append(dict(check_kernel_call(name, args, f"{label}, call {i + 1} of "
+                                               f"{len(arg_list)}",
+                                               timed=shape not in timed_shapes), path=path))
+            timed_shapes.add(shape)
+    return recs
+
+
+def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512):
+    """Phase 22 for one model: a graph-level forward against the CPU's on the
+    same weights (GIN also with ``train=True``, its batch statistics and
+    running averages), every kernel call of one forward against its plain
+    version (new shapes timed), the forward's launches, host syncs and time;
+    the first training step against the CPU's (on ``ZOO_FIRST_STEP_MOLS``
+    molecules), every kernel call of a step against its plain version, then
+    ``ZOO_STEPS`` steps with their launches, losses, times and host syncs.
+    Returns the launch counts of the forward and the steps, and the kernel
+    records. ``device`` and ``n_mols`` (phase
+    4's 512 on the card) let it run on the CPU at a small size."""
+    t_start = time.perf_counter()
+    batch = zoo_batch(name, device, n_mols=n_mols)
+    if n_mols == 512 and (batch.n_node, batch.n_edge, batch.n_graphs) != (8192, 54784, 513):
+        raise AssertionError(f"{name}: shapes {batch.n_node} {batch.n_edge} {batch.n_graphs}")
+    cpu_batch, fwd_want, step_want = batch.to("cpu"), *ZOO_LAUNCHES[name]
+    gpu = zoo_model(name, device)
+    with torch.no_grad():
+        out = gpu(batch)["output"]
+        ref = zoo_model(name, "cpu")(cpu_batch)["output"]
+    if out.shape != (batch.n_graphs, 1) or not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: output {tuple(out.shape)} or not finite")
+    rec = {"model": name, "card": smi, "N_pad": batch.n_node, "E_pad": batch.n_edge,
+           "G": batch.n_graphs,
+           "forward_rel_err": check_close(f"{name} forward", out.cpu(), ref)}
+    if name == "GIN":
+        models = {dev: zoo_model(name, dev) for dev in (device, "cpu")}
+        got = models[device](batch, train=True)["output"].detach().cpu()
+        rec["train_forward_rel_err"] = check_close(
+            "GIN train=True forward", got, models["cpu"](cpu_batch, train=True)["output"].detach())
+        cpu_stats = dict(models["cpu"].named_buffers())
+        rec["running_stats_rel_err"] = max(
+            check_close(f"GIN {n}", b.cpu(), cpu_stats[n])
+            for n, b in models[device].named_buffers())
+    with captured_calls() as calls, torch.no_grad():
+        gpu(batch)
+        torch.cuda.synchronize()
+    counts = {k: len(v) for k, v in calls.items() if v}
+    if counts != {"sorted_segment_sum": fwd_want}:
+        raise AssertionError(f"{name} forward: kernel calls {counts}, expected {fwd_want}")
+    recs = zoo_kernel_calls(calls, f"{name}_zoo_forward", f"{name}_zoo_forward", timed_shapes)
+    del calls
+
+    def forward():
+        with torch.no_grad():
+            return gpu(batch)
+    # the forward's main path: every count set to 0 just before, read just after
+    reset_counts()
+    forward()
+    torch.cuda.synchronize()
+    fwd_launches = kernel_counts()
+    rec.update(ms_per_forward=synced_ms(forward, 5), syncs_per_forward=host_syncs(forward))
+
+    first, small = [], zoo_batch(name, "cpu", n_mols=min(n_mols, ZOO_FIRST_STEP_MOLS))
+    for dev, b in ((device, small.to(device)), ("cpu", small)):
+        model, trainer, state = zoo_trainer(name, dev)
+        _, metrics = trainer.step(state, b)
+        first.append((float(metrics["loss"]),
+                      {n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
+    (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = first
+    if not abs(loss_gpu - loss_cpu) <= TRAIN_TOL * abs(loss_cpu):
+        raise AssertionError(f"{name}: first loss {loss_gpu} on the card, {loss_cpu} on the CPU")
+    rec["first_step"] = {"loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "max_rel_grad_err": max(
+        check_close(f"{name} gradient of {n}", grads_gpu[n], g, TRAIN_TOL)
+        for n, g in grads_cpu.items())}
+    _, trainer, state = zoo_trainer(name, device)
+    with captured_calls() as calls:
+        trainer.step(state, batch)
+        torch.cuda.synchronize()
+    counts = {k: len(v) for k, v in calls.items() if v}
+    if counts != {"sorted_segment_sum": step_want}:
+        raise AssertionError(f"{name} step: kernel calls {counts}, expected {step_want}")
+    recs += zoo_kernel_calls(calls, f"{name}_zoo_train", f"{name}_zoo_train", timed_shapes)
+    del calls
+
+    _, trainer, state = zoo_trainer(name, device)
+    torch.cuda.synchronize()
+    # the steps' main path: every count set to 0 just before, read just after
+    reset_counts()
+    losses, times, per_step = [], [], []
+    for _ in range(ZOO_STEPS):
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(metrics["loss"]))
+        per_step.append({k: v - before[k] for k, v in kernel_counts().items()})
+    step_launches = kernel_counts()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: losses {losses}")
+    if any(c != launch_counts(sorted_segment_sum=step_want) for c in per_step):
+        raise AssertionError(f"{name}: step launches {per_step}, expected {step_want}")
+    rec.update(losses=losses, ms_per_step=float(np.median(times[1:])),
+               ms_first_step=times[0], launches_per_forward=fwd_want,
+               launches_per_step=step_want,
+               syncs_per_step=host_syncs(lambda: trainer.step(state, batch)),
+               s_phase=time.perf_counter() - t_start)
+    log(f"{name} zoo: " + json.dumps(rec))
+    profiles.append((f"{name} zoo step", lambda: trainer.step(state, batch)))
+    return {f"{name}_zoo_forward": fwd_launches, f"{name}_zoo_train": step_launches}, recs
+
+
+def phase_zoo_driver(script, model, smi, device="cuda"):
+    """Phase 22 for one driver: its ``main`` with ``ZOO_DRIVER_ARGS`` on the
+    card in a scratch directory, every count set to 0 just before and read
+    just after, its ``Trainer`` recording (``RecordingTrainer``); then the
+    score file, finite losses, the first step against the same step on the
+    CPU (the driver's model, weights and batch), its kernel calls against
+    their plain versions and every later step's launches. Prints ms per
+    step and per epoch. Returns the run's launch counts and the kernel
+    records. ``device`` lets it run on the CPU."""
+    from gcnn_keras_tpu_torch.training import graph_driver
+    mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{script}")
+    rec = RecordingTrainer(graph_driver.Trainer)
+    label = f"{script}_{model}"
+    with tempfile.TemporaryDirectory(prefix="_phase22_", dir=os.getcwd()) as workdir, \
+            contextlib.chdir(workdir), patched(graph_driver, "Trainer", rec.cls):
+        # the main path: every count set to 0 just before, read just after
+        reset_counts()
+        t0 = time.perf_counter()
+        score = mod.main(ZOO_DRIVER_ARGS + ["--model", model, "--device", device])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = kernel_counts()
+        path = f"results/{script.split('_')[1]}/{model}_score"
+        if not (os.path.exists(path + ".yaml") or os.path.exists(path + ".json")):
+            raise AssertionError(f"{label}: no score file {path}.yaml")
+    if not np.isfinite(score["loss"]).all():
+        raise AssertionError(f"{label}: losses {score['loss']}")
+    ds = mod.synthetic_dataset(42)  # the drivers' default --seed
+    n_out = mod.n_classes(ds) if script == "train_tudataset" else 1
+    cpu_model = graph_driver.build_model(model, n_out, graph_driver.input_widths(ds),
+                                         device="cpu")
+    first = check_first_step_on_cpu(label, rec.first, list(cpu_model.named_parameters()),
+                                    mod.loss_fn(cpu_model), TRAIN_TOL)
+    recs = kernel_call_records(rec.first["calls"], f"{label}, first step", label)
+    out = {"script": script, "model": model, "card": smi, "args": ZOO_DRIVER_ARGS,
+           "steps": len(rec.steps) + 1, "launches_per_step": rec.check_steps(label),
+           "ms_per_step": float(np.median([ms for _, ms, _ in rec.steps])),
+           "ms_per_epoch": 1e3 * score["epoch_time_mean"], "s_run": run_s,
+           "losses": score["loss"], "first_step": first, "launches_run": launches}
+    log(f"{label} driver: " + json.dumps(out))
+    return {label: launches}, recs
+
+
+def phase_zoo(smi, profiles):
+    """Phase 22: each model of ``ZOO_MODELS`` (``phase_zoo_model``; a
+    training step of each queued on ``profiles`` for ``run_profiles``),
+    then the drivers of ``ZOO_DRIVERS`` (``phase_zoo_driver``). Returns the
+    launch counts of each main path and the kernel records."""
+    by_path, recs, timed_shapes = {}, [], set()
+    seconds = [time.perf_counter()]
+    for name in ZOO_MODELS:
+        paths, rs = phase_zoo_model(name, smi, timed_shapes, profiles)
+        by_path.update(paths)
+        recs += rs
+    seconds.append(time.perf_counter())
+    for script, model in ZOO_DRIVERS:
+        paths, rs = phase_zoo_driver(script, model, smi)
+        by_path.update(paths)
+        for name_rs in rs.values():
+            recs += name_rs
+    seconds.append(time.perf_counter())
+    log("phase 22 seconds: " + json.dumps(dict(zip(("models", "drivers"),
+                                                   np.diff(seconds).tolist()))))
+    return by_path, {"sorted_segment_sum": recs}
 
 
 def kernels_line(records, by_path, second_order):
@@ -3983,10 +4287,22 @@ def main():
     by_path.update(paths)
     for kname, rs in search_recs.items():
         records[kname].extend(rs)
-    paths, option_recs = phase_options(requests, batch0, smi, unfused_answers)
+    option_profiles, zoo_profiles = [], []
+    paths, option_recs = phase_options(requests, batch0, smi, unfused_answers, option_profiles)
     by_path.update(paths)
     for kname, rs in option_recs.items():
         records.setdefault(kname, []).extend(rs)
+    paths, zoo_recs = phase_zoo(smi, zoo_profiles)
+    by_path.update(paths)
+    for kname, rs in zoo_recs.items():
+        records[kname].extend(rs)
+    # the busy shares last, after every timed part of the script; one
+    # profiled step of each zoo model: RGCN's and GNN-FiLM's 4300 and 12600
+    # kernels a step take the profiler about 10 s a step to collect
+    t0 = time.perf_counter()
+    run_profiles(option_profiles)
+    run_profiles(zoo_profiles, reps=1)
+    log(f"busy shares: {time.perf_counter() - t0:.1f} s")
 
     kernels = kernels_line(records, by_path, second_order)
     print(json.dumps({"kernels": kernels}))

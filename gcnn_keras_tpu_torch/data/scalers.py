@@ -1,8 +1,9 @@
-"""Extensive label scalers; counterpart of ``gcnn_keras_tpu/data/scalers.py``
-(``ExtensiveMolecularLabelScaler``, ``EnergyForceExtensiveLabelScaler``,
+"""Label scalers; counterpart of ``gcnn_keras_tpu/data/scalers.py``
+(``StandardLabelScaler``, ``StandardScaler``,
+``ExtensiveMolecularLabelScaler``, ``EnergyForceExtensiveLabelScaler`` and
 ``composition_matrix``), copied so that the port imports nothing of the
 JAX package. The same data give the same numbers and the same
-``scaler.json``. The other scalers of that module are not ported.
+``scaler.json``. ``QMGraphLabelScaler`` is not ported.
 """
 from __future__ import annotations
 
@@ -12,6 +13,61 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 _MAX_Z = 96
+
+
+class StandardLabelScaler:
+    """``y <- (y - mean) / std`` per column; a column of zero spread keeps
+    a scale of 1."""
+
+    def __init__(self, with_mean: bool = True, with_std: bool = True, **kwargs):
+        self.with_mean = with_mean
+        self.with_std = with_std
+        self.mean_: Optional[np.ndarray] = None
+        self.scale_: Optional[np.ndarray] = None
+
+    def fit(self, y: np.ndarray, **kwargs):
+        y = np.asarray(y, dtype=np.float64)
+        self.mean_ = y.mean(axis=0) if self.with_mean else np.zeros(y.shape[1:])
+        std = y.std(axis=0) if self.with_std else np.ones(y.shape[1:])
+        self.scale_ = np.where(std > 0, std, 1.0)
+        return self
+
+    def transform(self, y: np.ndarray) -> np.ndarray:
+        return (np.asarray(y) - self.mean_) / self.scale_
+
+    def inverse_transform(self, y: np.ndarray) -> np.ndarray:
+        return np.asarray(y) * self.scale_ + self.mean_
+
+    def fit_transform(self, y, **kwargs):
+        return self.fit(y, **kwargs).transform(y)
+
+    def get_scaling(self) -> np.ndarray:
+        return self.scale_
+
+    def get_config(self) -> dict:
+        return {"with_mean": self.with_mean, "with_std": self.with_std,
+                "mean_": None if self.mean_ is None else np.asarray(self.mean_).tolist(),
+                "scale_": None if self.scale_ is None else np.asarray(self.scale_).tolist()}
+
+    def set_config(self, cfg: dict):
+        self.with_mean = cfg.get("with_mean", True)
+        self.with_std = cfg.get("with_std", True)
+        self.mean_ = None if cfg.get("mean_") is None else np.array(cfg["mean_"])
+        self.scale_ = None if cfg.get("scale_") is None else np.array(cfg["scale_"])
+        return self
+
+
+class StandardScaler(StandardLabelScaler):
+    """The same standardization of a property of every graph of a dataset
+    (per-node or per-graph feature matrices, stacked)."""
+
+    def fit_dataset(self, dataset, key: str = "node_attributes"):
+        return self.fit(np.concatenate([np.asarray(g[key]) for g in dataset], axis=0))
+
+    def transform_dataset(self, dataset, key: str = "node_attributes"):
+        for g in dataset:
+            g[key] = self.transform(np.asarray(g[key])).astype(np.float32)
+        return dataset
 
 
 def composition_matrix(atomic_numbers: Sequence[np.ndarray],

@@ -16,7 +16,7 @@ from ..batch import GraphBatch
 from ..ops.cuda.bilinear import bilinear_gather_mul_segsum
 from ..ops.cuda.fused_aggregate import (gather_mul_segsum_auto,
                                        gather_with_sorted_transpose)
-from ..ops.segment import segment_ops_by_name
+from ..ops.segment import segment_ops_by_name, segment_softmax
 
 Tensor = torch.Tensor
 
@@ -43,6 +43,11 @@ def gather_receiver_nodes(batch: GraphBatch, values: Tensor) -> Tensor:
     return gather_with_sorted_transpose(values, batch.receivers, None)
 
 
+def gather_state(state: Tensor, batch: GraphBatch) -> Tensor:
+    """Broadcast per-graph state ``(G, ...)`` to the nodes ``(N, ...)``."""
+    return state.index_select(0, batch.graph_id)
+
+
 def pool_edges_to_nodes(batch: GraphBatch, edge_values: Tensor,
                         mode: str = "sum",
                         pooling_method: Optional[str] = None) -> Tensor:
@@ -66,6 +71,27 @@ def pool_weighted_edges_to_nodes(batch: GraphBatch, edge_values: Tensor,
     if normalize:
         out = out / pool_edges_to_nodes(batch, w).clamp_min(1e-12)
     return out
+
+
+def pool_edges_to_nodes_attention(batch: GraphBatch, edge_values: Tensor,
+                                  attention_logits: Tensor) -> Tensor:
+    """The sum onto the receivers of ``edge_values`` weighted by the softmax
+    of ``attention_logits`` over each receiver's real edges."""
+    coeff = segment_softmax(attention_logits, batch.receivers, batch.n_node,
+                            mask=batch.edge_mask)
+    return pool_edges_to_nodes(batch, edge_values * coeff)
+
+
+def relational_pool_edges_to_nodes(batch: GraphBatch, edge_values: Tensor,
+                                   edge_relations: Tensor, num_relations: int,
+                                   mode: str = "sum") -> Tensor:
+    """Per-relation aggregation ``(E, ...) -> (N, num_relations, ...)``: one
+    segment reduction over the combined id ``receiver * num_relations +
+    relation``. Those ids are not sorted, so a sum takes ``index_add_``, as
+    the JAX package takes XLA's scatter for them."""
+    combined = batch.receivers.long() * num_relations + edge_relations.long()
+    out = segment_ops_by_name(mode, edge_values, combined, batch.n_node * num_relations)
+    return out.reshape((batch.n_node, num_relations) + tuple(edge_values.shape[1:]))
 
 
 def gather_mul_pool_edges(batch: GraphBatch, nodes: Tensor,
@@ -105,3 +131,19 @@ def pool_nodes_to_graph(batch: GraphBatch, node_values: Tensor,
     mode = pooling_method or mode
     return segment_ops_by_name(mode, node_values, batch.graph_id,
                                batch.n_graphs, indices_are_sorted=True)
+
+
+def pool_nodes_to_graph_attention(batch: GraphBatch, node_values: Tensor,
+                                  attention_logits: Tensor) -> Tensor:
+    """Graph readout weighted by the softmax of ``attention_logits`` over
+    each graph's real nodes."""
+    coeff = segment_softmax(attention_logits, batch.graph_id, batch.n_graphs,
+                            mask=batch.node_mask)
+    return pool_nodes_to_graph(batch, node_values * coeff)
+
+
+def pool_edges_to_graph(batch: GraphBatch, edge_values: Tensor,
+                        mode: str = "sum") -> Tensor:
+    """Readout over edges ``(E, ...) -> (G, ...)`` by ``edge_graph_id``,
+    taken as unsorted (``index_add_`` for a sum), as in the JAX package."""
+    return segment_ops_by_name(mode, edge_values, batch.edge_graph_id, batch.n_graphs)

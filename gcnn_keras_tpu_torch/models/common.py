@@ -1,9 +1,10 @@
 """Shared model-building blocks; counterpart of
 ``gcnn_keras_tpu/models/common.py`` (``OptionalInputEmbedding`` and
-``GraphOutputHead``)."""
+``GraphOutputHead``), with the port's input widths at build
+(``input_embedding``, ``embed_input``, ``edge_input``)."""
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -31,6 +32,61 @@ class OptionalInputEmbedding(nn.Module):
         if not x.is_floating_point() and x.dim() == 1:
             return F.embedding(x, self.weight)
         return x
+
+
+# what an input is called when it is embedded, by kind
+_INTEGER_INPUT = {"node": "integer node numbers", "edge": "integer edge attributes"}
+_WIDTH_KEY = {"node": "in_features", "edge": "edge_in_features"}
+
+
+def input_embedding(cfg: Dict[str, Any], in_features: Optional[int],
+                    generator: Optional[torch.Generator]
+                    ) -> Tuple[Optional[OptionalInputEmbedding], int]:
+    """``(embedding, width)`` of one input: for integer input
+    (``in_features`` None) the ``OptionalInputEmbedding`` of ``cfg`` and its
+    ``output_dim``; for float features of width ``in_features`` no table
+    (the JAX module creates none for float input) and that width; for an
+    input the batches do not hold (``in_features`` 0) neither."""
+    if in_features is None:
+        return OptionalInputEmbedding(**cfg, generator=generator), cfg["output_dim"]
+    return None, in_features
+
+
+def mlp_width(units: Union[int, Sequence[int]]) -> int:
+    """The output width of an MLP of ``units``."""
+    return units[-1] if isinstance(units, (list, tuple)) else int(units)
+
+
+def edge_input(batch: GraphBatch, embedding: Optional[OptionalInputEmbedding],
+               edge_in_features: Optional[int]) -> Optional[Tensor]:
+    """The batch's ``edge_attributes`` through :func:`embed_input`, or None
+    where the model was built without them (``edge_in_features`` 0); raises
+    ``ValueError`` where the batch and the build disagree on having them."""
+    ed = batch.edges.get("edge_attributes")
+    if (ed is None) != (edge_in_features == 0):
+        raise ValueError(f"the model was built with edge_in_features={edge_in_features}, "
+                         f"the batch has {'no ' if ed is None else ''}edge_attributes "
+                         "(0 builds it for batches without them)")
+    return None if ed is None else embed_input(ed, embedding, edge_in_features, "edge")
+
+
+def embed_input(x: Tensor, embedding: Optional[OptionalInputEmbedding],
+                in_features: Optional[int], kind: str = "node") -> Tensor:
+    """``x`` through ``embedding``, or as it is where the model was built for
+    float features (``embedding`` None); raises ``ValueError`` on input of
+    the other kind or width, naming the build argument (``kind`` "node":
+    ``in_features``, "edge": ``edge_in_features``)."""
+    float_input = x.is_floating_point() or x.dim() != 1
+    if embedding is None:
+        if not float_input or x.shape[-1] != in_features:
+            raise ValueError(f"the model was built for float {kind} features of width "
+                             f"{in_features} ({_WIDTH_KEY[kind]}), got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        return x
+    if float_input:
+        raise ValueError(f"the model was built for {_INTEGER_INPUT[kind]}; give make_model "
+                         f"the feature width ({_WIDTH_KEY[kind]})")
+    return embedding(x)
 
 
 class GraphOutputHead(nn.Module):

@@ -25,7 +25,7 @@ from ..layers.aggr import pool_nodes_to_graph
 from ..layers.conv.gcn import GCNConv
 from ..layers.mlp import MLP, Dense
 from ..utils.devices import DeviceLike, resolve_device
-from .common import GraphOutputHead, OptionalInputEmbedding
+from .common import GraphOutputHead, embed_input, input_embedding
 from .registry import update_model_kwargs
 
 Tensor = torch.Tensor
@@ -62,13 +62,8 @@ class _GCNStack(nn.Module):
 
     def _build_stack(self, cfg: Dict[str, Any], generator: Optional[torch.Generator]) -> None:
         self.config = cfg
-        emb = cfg["input_embedding"]["node"]
-        if cfg["in_features"] is None:
-            self.embedding = OptionalInputEmbedding(**emb, generator=generator)
-            width = emb["output_dim"]
-        else:
-            self.embedding = None
-            width = cfg["in_features"]
+        self.embedding, width = input_embedding(cfg["input_embedding"]["node"],
+                                                cfg["in_features"], generator)
         units = cfg["gcn_args"]["units"]
         self.embed_to_units = Dense(width, units, generator=generator)
         for i in range(cfg["depth"]):
@@ -78,17 +73,7 @@ class _GCNStack(nn.Module):
     def _node_features(self, batch: GraphBatch) -> Tensor:
         cfg = self.config
         x = batch.nodes.get(cfg["node_key"], batch.nodes.get("node_number"))
-        float_input = x.is_floating_point() or x.dim() != 1
-        if self.embedding is None:
-            if not float_input or x.shape[-1] != cfg["in_features"]:
-                raise ValueError(f"the model was built for float node features of width "
-                                 f"{cfg['in_features']}, got {x.dtype} {tuple(x.shape)}")
-            h = x
-        else:
-            if float_input:
-                raise ValueError("the model was built for integer node numbers; "
-                                 "give make_model the feature width (in_features)")
-            h = self.embedding(x)
+        h = embed_input(x, self.embedding, cfg["in_features"])
         ew = batch.edges[cfg["edge_weight_key"]]
         if ew.dim() == 1:
             ew = ew[:, None]

@@ -5,11 +5,12 @@
 A name is a model module's short name (``"Schnet"``), or a path that ends
 in one (``"kgcnn.literature.Schnet"``); a name the table does not hold is
 imported as a module path, one under ``gcnn_keras_tpu.`` from the port's
-package of the same layout. The port holds five of the JAX package's model
-modules, each with every builder of its JAX module (HDNNP2nd's
+package of the same layout. The port holds twelve of the JAX package's
+model modules, each with every builder of its JAX module (HDNNP2nd's
 ``make_model``, ``make_model_weighted``, ``make_model_behler``,
-``make_model_atom_wise`` and ``make_model_inverse_distances`` among them);
-the others raise ``ValueError``, by short name or by file.
+``make_model_atom_wise`` and ``make_model_inverse_distances`` among them;
+GIN's ``make_model_edge``; GAT's ``make_model_v2``); the others raise
+``ValueError``, by short name or by file.
 """
 from __future__ import annotations
 
@@ -19,18 +20,23 @@ from typing import Any, Callable, Dict
 # module name -> import path, the ported part of the JAX package's table
 _MODULES = {
     "GCN": "gcnn_keras_tpu_torch.models.gcn",
+    "GIN": "gcnn_keras_tpu_torch.models.gin",
+    "GAT": "gcnn_keras_tpu_torch.models.gat",
+    "GATv2": "gcnn_keras_tpu_torch.models.gatv2",
+    "GraphSAGE": "gcnn_keras_tpu_torch.models.sage",
     "Schnet": "gcnn_keras_tpu_torch.models.schnet",
     "PAiNN": "gcnn_keras_tpu_torch.models.painn",
     "HDNNP2nd": "gcnn_keras_tpu_torch.models.hdnnp2nd",
     "HDNNP4th": "gcnn_keras_tpu_torch.models.hdnnp4th",
+    "RGCN": "gcnn_keras_tpu_torch.models.rgcn",
+    "GNNFilm": "gcnn_keras_tpu_torch.models.gnnfilm",
+    "INorp": "gcnn_keras_tpu_torch.models.inorp",
 }
 # the rest of the JAX package's table, not ported yet: module name -> file
-_ZOO = {"GIN": "gin", "GAT": "gat", "GATv2": "gatv2", "GraphSAGE": "sage",
-        "DimeNetPP": "dimenet_pp", "Megnet": "megnet", "NMPN": "nmpn",
+_ZOO = {"DimeNetPP": "dimenet_pp", "Megnet": "megnet", "NMPN": "nmpn",
         "AttentiveFP": "attentivefp", "DMPNN": "dmpnn", "CGCNN": "cgcnn", "EGNN": "egnn",
-        "RGCN": "rgcn", "GNNFilm": "gnnfilm", "INorp": "inorp", "MXMNet": "mxmnet",
-        "HamNet": "hamnet", "MAT": "mat", "CMPNN": "cmpnn", "Unet": "unet",
-        "MEGAN": "megan", "GNNExplain": "gnnexplain"}
+        "MXMNet": "mxmnet", "HamNet": "hamnet", "MAT": "mat", "CMPNN": "cmpnn",
+        "Unet": "unet", "MEGAN": "megan", "GNNExplain": "gnnexplain"}
 
 
 def get_model_class(module_name: str, class_name: str = "make_model") -> Callable:

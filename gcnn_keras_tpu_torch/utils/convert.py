@@ -9,7 +9,9 @@ Four node types carry weights in their own layout:
 - ``RelationalDense``: ``<path>/kernel`` (R, in, out) and ``<path>/bias``
   (R, out), as they are;
 - ``OptionalInputEmbedding``: ``<path>/Embed_0/embedding``; its flax name
-  is ``OptionalInputEmbedding_0`` where the port says ``embedding``;
+  is ``OptionalInputEmbedding_0`` where the port says ``embedding``, and
+  ``OptionalInputEmbedding_1`` (the zoo's edge input, called second) where
+  it says ``edge_embedding``;
 - ``GraphLayerNorm``: ``<path>/LayerNorm_0/scale`` and
   ``<path>/LayerNorm_0/bias``.
 
@@ -35,7 +37,8 @@ from ..layers.mlp import Dense, RelationalDense
 from ..layers.norm import GraphBatchNorm, GraphLayerNorm
 from ..models.common import OptionalInputEmbedding
 
-_FLAX_NAMES = {"embedding": "OptionalInputEmbedding_0"}
+_FLAX_NAMES = {"embedding": "OptionalInputEmbedding_0",
+               "edge_embedding": "OptionalInputEmbedding_1"}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:

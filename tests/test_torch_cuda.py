@@ -50,7 +50,10 @@ def _sorted_case(seed, e, n, f, layout="every third row empty"):
     (7000, 300, 3, "one long row"), (7000, 300, 64, "one long row"),
     (7000, 300, 130, "one long row"),
     # PAiNN's equivariant messages (E, 3 x 128) and GCN's at Cora scale
-    (54784, 8192, 384, "every third row empty"), (21000, 2709, 140, "every third row empty")])
+    (54784, 8192, 384, "every third row empty"), (21000, 2709, 140, "every third row empty"),
+    # the zoo's: GIN's, GAT's and RGCN's messages, INorp's, SAGE's readout
+    (54784, 8192, 64, "every third row empty"), (54784, 8192, 50, "every third row empty"),
+    (8192, 513, 32, "every third row empty")])
 def test_kernel_matches_plain(cuda_device, e, n, f, layout):
     vals, ids = _sorted_case(e + f, e, n, f, layout)
     v = torch.from_numpy(vals).to(cuda_device)
@@ -1283,3 +1286,33 @@ def test_search_phase_on_the_card(cuda_device, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     paths, recs = chip_smoke.phase_searches("test", "cuda", frames=40)
     assert len(paths) == 5 and recs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["GIN", "GraphSAGE", "GAT", "GATv2", "RGCN", "GNNFilm",
+                                  "INorp"])
+def test_zoo_phase_on_the_card(cuda_device, name):
+    """``chip_smoke.py`` phase 22's checks of one model on 32 molecules: the
+    forward and first step against the CPU, every kernel call against its
+    plain version, the launches of a forward and of every step."""
+    import chip_smoke
+
+    class Everything(set):
+        def __contains__(self, item):
+            return True
+    paths, recs = chip_smoke.phase_zoo_model(name, "card test", Everything(), [],
+                                             device="cuda", n_mols=32)
+    fwd, step = chip_smoke.ZOO_LAUNCHES[name]
+    assert paths[f"{name}_zoo_forward"]["sorted_segment_sum"] == fwd
+    assert paths[f"{name}_zoo_train"]["sorted_segment_sum"] == chip_smoke.ZOO_STEPS * step
+    assert len(recs) == fwd + step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("script,model", [("train_tudataset", "GIN"),
+                                          ("train_moleculenet", "GAT")])
+def test_zoo_driver_phase_on_the_card(cuda_device, script, model):
+    import chip_smoke
+    paths, recs = chip_smoke.phase_zoo_driver(script, model, "card test")
+    assert len(recs["sorted_segment_sum"]) == chip_smoke.ZOO_LAUNCHES[model][1]
+    assert paths[f"{script}_{model}"]["sorted_segment_sum"] > 0

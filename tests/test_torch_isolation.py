@@ -21,7 +21,8 @@ from gcnn_keras_tpu_torch.data.dataset import MemoryGraphDataset
 from gcnn_keras_tpu_torch.data.loader import GraphBatchLoader
 from gcnn_keras_tpu_torch.model.force import EnergyForceModel
 from gcnn_keras_tpu_torch.model.mlmm import MLMMEnergyForceModel
-from gcnn_keras_tpu_torch.models import gcn, hdnnp2nd, hdnnp4th, painn
+from gcnn_keras_tpu_torch.models import (gat, gcn, gin, gnnfilm, hdnnp2nd, hdnnp4th, inorp,
+                                         painn, rgcn, sage)
 from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
 from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
 from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
@@ -45,6 +46,10 @@ WORKFLOW = ("evaluate_models", "calc_prediction_std", "load_model", "transfer_le
             "force_schnet_hyp_param_search", "force_painn_hyp_param_search",
             "force_hdnnp2nd_hyp_param_search", "force_hdnnp4th_hyp_param_search",
             "charge_hyp_param_search")
+
+
+# the graph-learning drivers, each a ``main(argv)`` that takes ``--device``
+DRIVERS = ("train_tudataset", "train_moleculenet")
 
 
 def _script(name):
@@ -96,6 +101,12 @@ def _run_workflow(name, monkeypatch, device=None):
     return mod.main(argv + (["--device", device] if device else []))
 
 
+def _run_driver(name, device=None):
+    """A graph-learning driver's ``main``: one epoch of two folds."""
+    return _script(name).main(["--epochs", "1", "--folds", "2", "--no-plots"]
+                              + (["--device", device] if device else []))
+
+
 def _imported_modules(source):
     for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
@@ -118,6 +129,12 @@ def test_no_jax_import(path):
 
 def test_scan_sees_the_package():
     assert len(SOURCES) > 10 and (ROOT / "chip_smoke.py").exists()
+    package = ROOT / "gcnn_keras_tpu_torch"
+    for rel in ("models/gin.py", "models/sage.py", "models/gat.py", "models/gatv2.py",
+                "models/rgcn.py", "models/gnnfilm.py", "models/inorp.py",
+                "layers/conv/basic.py", "training/graph_driver.py",
+                *(f"scripts/{name}.py" for name in DRIVERS)):
+        assert package / rel in SOURCES, rel
     src = ("import jax\nfrom flax import linen\n"
            "def f():\n    import gcnn_keras_tpu.batch\n"
            "importlib.import_module('optax')\n")
@@ -135,11 +152,15 @@ def test_scan_sees_the_package():
                                    "hdnnp2nd.make_model_inverse_distances",
                                    "painn.make_model", "painn.make_crystal_model",
                                    "gcn.make_model", "gcn.make_model_weighted",
+                                   "gin.make_model", "gin.make_model_edge", "sage.make_model",
+                                   "gat.make_model", "gat.make_model_v2", "rgcn.make_model",
+                                   "gnnfilm.make_model", "inorp.make_model",
                                    "MLMMEnergyForceModel", "GraphBatchLoader",
                                    "MemoryGraphDataset.to_batch", "run_force_training",
                                    "HyperParameter.make_model",
                                    *(f"scripts.{name}" for name in SCRIPTS),
-                                   *(f"scripts.{name}" for name in WORKFLOW)])
+                                   *(f"scripts.{name}" for name in WORKFLOW),
+                                   *(f"scripts.{name}" for name in DRIVERS)])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)  # the training entry points write their artifacts here
@@ -169,6 +190,14 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_pat
         "painn.make_crystal_model": lambda **kw: painn.make_crystal_model(depth=1, **kw),
         "gcn.make_model": lambda **kw: gcn.make_model(in_features=8, **kw),
         "gcn.make_model_weighted": lambda **kw: gcn.make_model_weighted(**kw),
+        "gin.make_model": lambda **kw: gin.make_model(depth=1, **kw),
+        "gin.make_model_edge": lambda **kw: gin.make_model_edge(edge_in_features=4, **kw),
+        "sage.make_model": lambda **kw: sage.make_model(depth=1, **kw),
+        "gat.make_model": lambda **kw: gat.make_model(**kw),
+        "gat.make_model_v2": lambda **kw: gat.make_model_v2(**kw),
+        "rgcn.make_model": lambda **kw: rgcn.make_model(depth=1, **kw),
+        "gnnfilm.make_model": lambda **kw: gnnfilm.make_model(depth=1, **kw),
+        "inorp.make_model": lambda **kw: inorp.make_model(depth=1, **kw),
         "MLMMEnergyForceModel": lambda **kw: MLMMEnergyForceModel(EnergyForceModel(
             hdnnp4th.make_model_behler(device="cpu"), use_esp_coupling=True, **kw)),
         "GraphBatchLoader": lambda **kw: GraphBatchLoader([graph], 1, **kw),
@@ -181,6 +210,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_pat
         **{f"scripts.{name}": functools.partial(_run_script, name) for name in SCRIPTS},
         **{f"scripts.{name}": functools.partial(_run_workflow, name, monkeypatch)
            for name in WORKFLOW},
+        **{f"scripts.{name}": functools.partial(_run_driver, name) for name in DRIVERS},
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -205,6 +205,13 @@ order, each raising on a failed check:
    launches; ms per step and per epoch. The busy share of one training
    step of each model is taken at the end of the script, after phase 21's.
 
+23. The zoo's second group (``phase_zoo`` again): DMPNN, CMPNN, NMPN,
+   AttentiveFP, HamNet and MEGAN, the rows of ``ZOO_MODELS`` in phase 23,
+   checked as phase 22's models (every output against the CPU: MEGAN's
+   node and edge importances too), with the peak memory of a forward and
+   of a step; their first steps take ``check_grads``' float64 rules. Then
+   ``train_moleculenet`` with AttentiveFP, as phase 22's drivers.
+
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it; the
 segment-sum's bfloat16 instance has an entry of its own
@@ -3032,6 +3039,83 @@ def capture_first_step(first, step, state, batch, **extra):
     return state, metrics
 
 
+# the float64 rules of ``check_grads``. A tested gradient may lie up to
+# ARBITER_FACTOR times as far from float64 as its reference: two float32
+# implementations that are both right differ so, tensor by tensor. On the
+# CPU, over the tensors of CMPNN at its default widths whose float32
+# gradient in JAX lies past TRAIN_TOL / (ARBITER_FACTOR + 1) from float64,
+# the port's lie up to 7.4 times as far as JAX's (16 molecules;
+# ``tests/test_torch_zoo_b.py`` holds that spread under this factor)
+ARBITER_FACTOR = 8.0
+# a float64 gradient below this share of a float32 one (the reference's or
+# the tested) is 0 in exact arithmetic (an attention logit's bias, by the
+# softmax's shift invariance), the float32 ones rounding alone
+NOUGHT = 1e-6
+
+
+def float64_grads(model, loss_fn, batch):
+    """``{name: gradient}`` of ``loss_fn(model, batch)`` with ``model`` (on the
+    CPU, changed in place) and the batch's floats in float64."""
+    model.double()
+    batch = batch._map(lambda v: v.double() if v.is_floating_point() else v)
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss_fn(model, batch), params, allow_unused=True)
+    return {n: g for n, g in zip(names, grads) if g is not None}
+
+
+def check_grads(label, grads, ref, tol, exact=None):
+    """Each tested gradient ``grads[name]`` within ``tol`` of the largest
+    entry of the reference's ``ref[name]`` (None: zeros). A tensor outside
+    that passes only where ``exact()`` is given (the float64 gradients of
+    the same loss, by name) and one of two rules on its float64 gradient
+    ``x`` holds:
+    - ``x`` is nought to rounding (its largest entry below ``NOUGHT`` of the
+      reference's or the tested one's, of which the other may be exactly
+      0): the gradient is 0 in exact arithmetic, and the tested one must
+      lie within ``tol`` of the largest reference entry of all the tensors;
+    - the reference's float32 gradient itself lies further than
+      ``tol / (ARBITER_FACTOR + 1)`` of ``x``'s largest entry from ``x``
+      (closer, a tested gradient up to ``ARBITER_FACTOR`` times as far
+      meets ``tol`` against it, and the rule would pass nothing more): the
+      tested one must lie no further from ``x`` than ``ARBITER_FACTOR``
+      times the reference's.
+    Returns the largest ratio to ``tol``'s scale, and each tensor passed by
+    a rule on float64 with the tested and the reference's distances from
+    ``x`` and ``x``'s largest entry."""
+    worst, arbitrated, x = 0.0, {}, None
+    top = max((r.detach().abs().max().item() for r in ref.values() if r is not None),
+              default=0.0)
+    for name, g in grads.items():
+        r = ref.get(name)
+        g = g.detach().double().cpu()
+        r = torch.zeros_like(g) if r is None else r.detach().double().cpu()
+        err, scale = (g - r).abs().max().item(), r.abs().max().item()
+        if err <= tol * scale:
+            worst = max(worst, err / scale if scale else 0.0)
+            continue
+        fail = f"{label}: gradient of {name}: max|diff|={err} > {tol}*{scale}"
+        if exact is None:
+            raise AssertionError(fail)
+        if x is None:
+            x = {n: v.detach().double().cpu() for n, v in exact().items()}
+        xn = x.get(name, torch.zeros_like(g))
+        x_scale = xn.abs().max().item()
+        tested, own = (g - xn).abs().max().item(), (r - xn).abs().max().item()
+        g_scale = g.abs().max().item()
+        if x_scale <= NOUGHT * max(scale, g_scale):
+            if not g_scale <= tol * top:
+                raise AssertionError(f"{fail}; 0 in float64 ({x_scale}), and "
+                                     f"{g_scale} > {tol}*{top}")
+        elif not own > tol / (ARBITER_FACTOR + 1) * x_scale:
+            raise AssertionError(f"{fail}; the reference lies {own} from float64 "
+                                 f"(scale {x_scale}): float32 resolves it")
+        elif not tested <= ARBITER_FACTOR * own:
+            raise AssertionError(f"{fail}; {tested} from float64 against the "
+                                 f"reference's {own}")
+        arbitrated[name] = {"tested": tested, "reference": own, "scale": x_scale}
+    return worst, arbitrated
+
+
 def check_first_step_on_cpu(label, first, named_params, loss_fn, grad_tol):
     """The recorded first step against the same step on the CPU:
     ``named_params`` (the CPU model's trained tensors, with their names)
@@ -3854,21 +3938,36 @@ def phase_options(requests, batch0, smi, unfused_answers, profiles):
     return by_path, records
 
 
-# ------------------------------------------- phase 22: the zoo's first group
+# ------------------------------------------- phases 22 and 23: the zoo
 
-# the seven model modules of the zoo's first group (registry name, module)
-# at their model_default widths, each with the inputs it reads besides the
-# node numbers, drawn per molecule: integer edge attributes below 5 (GAT,
-# GATv2, GraphSAGE: their input_embedding["edge"]) or 15 (INorp), INorp's
-# integer graph attribute below 32, edge relations below 20 (RGCN, GNN-FiLM)
-ZOO_MODELS = {"GIN": ("gin", {}), "GraphSAGE": ("sage", {"edge_classes": 5}),
-              "GAT": ("gat", {"edge_classes": 5}), "GATv2": ("gatv2", {"edge_classes": 5}),
-              "RGCN": ("rgcn", {"relations": 20}), "GNNFilm": ("gnnfilm", {"relations": 20}),
-              "INorp": ("inorp", {"edge_classes": 15, "graph_classes": 32})}
+# the model modules of the zoo, registry name: (module, inputs, phase), at
+# their model_default widths, each with the inputs it reads besides the node
+# numbers, drawn per molecule. Phase 22, the first group: integer edge
+# attributes below 5 (GAT, GATv2, GraphSAGE: their input_embedding["edge"])
+# or 15 (INorp), INorp's integer graph attribute below 32, edge relations
+# below 20 (RGCN, GNN-FiLM). Phase 23, the second group, with inputs of the
+# kind their golden recipes give them: integer edge classes below 5 where the
+# model embeds its edges, float edge features of the goldens' width 5 where
+# they enter a Dense (CMPNN) or a concatenation (MEGAN) as they are, and
+# reverse edges for DMPNN and CMPNN; HamNet reads the molecules'
+# node_coordinates, which every zoo batch carries
+ZOO_MODELS = {"GIN": ("gin", {}, 22), "GraphSAGE": ("sage", {"edge_classes": 5}, 22),
+              "GAT": ("gat", {"edge_classes": 5}, 22),
+              "GATv2": ("gatv2", {"edge_classes": 5}, 22),
+              "RGCN": ("rgcn", {"relations": 20}, 22),
+              "GNNFilm": ("gnnfilm", {"relations": 20}, 22),
+              "INorp": ("inorp", {"edge_classes": 15, "graph_classes": 32}, 22),
+              "DMPNN": ("dmpnn", {"edge_classes": 5, "reverse_edges": True}, 23),
+              "CMPNN": ("cmpnn", {"edge_features": 5, "reverse_edges": True}, 23),
+              "NMPN": ("nmpn", {"edge_classes": 5}, 23),
+              "AttentiveFP": ("attentivefp", {"edge_classes": 5}, 23),
+              "HamNet": ("hamnet", {"edge_classes": 5}, 23),
+              "MEGAN": ("megan", {"edge_features": 5}, 23)}
 # segment-sum launches (forward, training step) of each at those widths. The
 # step's loss is a masked graph MAE (no force pass): its reverse pass adds
 # the transpose of each sender gather whose input depends on the parameters
-# (a sum's backward is a gather, no launch):
+# (a sum's backward is a gather, no launch; a plain gather, ``index_select``,
+# has ``index_add_`` for its backward):
 # - GIN (depth 3): 3 edge sums and 4 graph mean pools (the input's and each
 #   layer's embedding); + 3 transposes;
 # - GAT (5 heads, depth 1): 5 attention sums and the graph pool; + 5 (W n_j);
@@ -3877,18 +3976,36 @@ ZOO_MODELS = {"GIN": ("gin", {}), "GraphSAGE": ("sage", {"edge_classes": 5}),
 #   plain, + 0;
 # - RGCN (depth 5): 5 sums and the graph pool; + 5;
 # - GNN-FiLM (depth 5): 5 + 1; plain gathers, + 0;
-# - INorp (depth 3): 3 sum pools and the graph pool; plain gathers, + 0.
+# - INorp (depth 3): 3 sum pools and the graph pool; plain gathers, + 0;
+# and the second group, whose gathers are all plain, so that a step launches
+# what its forward does:
+# - DMPNN (depth 5): 6 edge sums (5 rounds and the readout's) and the graph sum;
+# - CMPNN (depth 5): the booster's sum in each of 4 rounds and in the last;
+#   its maxima are ``scatter_reduce``, its GRU readout launches none;
+# - NMPN (depth 3): 3 message sums; Set2Set's sums are unsorted;
+# - AttentiveFP: 2 heads' attention sums, the readout's sum pool and its 2
+#   attention rounds;
+# - HamNet (depth 1): 1 attention sum, the fingerprint's mean pool and its 2
+#   attention rounds;
+# - MEGAN (3 layers of 2 heads): 6 attention sums, the mean onto the receivers
+#   (onto the senders it is unsorted) and the 2 channels' graph sums.
+# Every softmax's denominator is an ``index_add_``.
 ZOO_LAUNCHES = {"GIN": (7, 10), "GraphSAGE": (4, 4), "GAT": (6, 11), "GATv2": (6, 16),
-                "RGCN": (6, 11), "GNNFilm": (6, 6), "INorp": (4, 4)}
+                "RGCN": (6, 11), "GNNFilm": (6, 6), "INorp": (4, 4),
+                "DMPNN": (7, 7), "CMPNN": (5, 5), "NMPN": (3, 3), "AttentiveFP": (5, 5),
+                "HamNet": (4, 4), "MEGAN": (9, 9)}
 ZOO_STEPS = 5
 # the first step is held against the CPU's on the first ZOO_FIRST_STEP_MOLS
 # molecules, as phase 10 takes a 64-molecule batch for it, which keeps the
 # CPU's share of the phase small
 ZOO_FIRST_STEP_MOLS = 64
-# the graph-learning drivers, (script, --model), each cut to 3 epochs (60) of
-# 2 folds (3), no PNGs (no matplotlib on the card's machine)
-ZOO_DRIVERS = (("train_tudataset", "GIN"), ("train_moleculenet", "GIN"),
-               ("train_moleculenet", "GAT"))
+# the graph-learning drivers, (phase, script, --model), each cut to 3 epochs
+# (60) of 2 folds (3), no PNGs (no matplotlib on the card's machine); the JAX
+# moleculenet driver runs NMPN, AttentiveFP, HamNet and MEGAN of the second
+# group on its data (DMPNN and CMPNN stop at its assert): phase 23 runs
+# AttentiveFP there
+ZOO_DRIVERS = ((22, "train_tudataset", "GIN"), (22, "train_moleculenet", "GIN"),
+               (22, "train_moleculenet", "GAT"), (23, "train_moleculenet", "AttentiveFP"))
 ZOO_DRIVER_ARGS = ["--epochs", "3", "--folds", "2", "--no-plots"]
 
 
@@ -3904,6 +4021,8 @@ def zoo_graphs(name, n_mols=512):
         g["graph_labels"] = rs.randn(1).astype(np.float32)
         if "edge_classes" in inputs:
             g["edge_attributes"] = rs.randint(0, inputs["edge_classes"], size=m)
+        if "edge_features" in inputs:
+            g["edge_attributes"] = rs.randn(m, inputs["edge_features"]).astype(np.float32)
         if "relations" in inputs:
             g["edge_relations"] = rs.randint(0, inputs["relations"], size=m)
         if "graph_classes" in inputs:
@@ -3914,29 +4033,37 @@ def zoo_graphs(name, n_mols=512):
 def zoo_batch(name, device, n_mols=512):
     from gcnn_keras_tpu_torch.batch import batch_graphs
     keys = ("graph_labels",) + (("graph_attributes",) if name == "INorp" else ())
-    return batch_graphs(zoo_graphs(name, n_mols), global_keys=keys, device=device)
+    return batch_graphs(zoo_graphs(name, n_mols), global_keys=keys, device=device,
+                        compute_reverse_edges=ZOO_MODELS[name][1].get("reverse_edges", False))
 
 
 def zoo_model(name, device, **kw):
-    """``ZOO_MODELS[name]`` at its ``model_default`` widths, weights from
-    seed 0 (INorp told its graph attributes' width, 1)."""
-    mod = importlib.import_module(f"gcnn_keras_tpu_torch.models.{ZOO_MODELS[name][0]}")
+    """``ZOO_MODELS[name]``'s model at its ``model_default`` widths, weights
+    from seed 0 (INorp told its graph attributes' width, 1; CMPNN and MEGAN
+    their float edge features')."""
+    module, inputs, _ = ZOO_MODELS[name]
+    mod = importlib.import_module(f"gcnn_keras_tpu_torch.models.{module}")
     if name == "INorp":
         kw.setdefault("graph_in_features", 1)
+    if "edge_features" in inputs:
+        kw.setdefault("edge_in_features", inputs["edge_features"])
     return mod.make_model(device=device, generator=torch.Generator().manual_seed(0), **kw)
 
 
-def zoo_trainer(name, device):
-    """``(model, Trainer, TrainState)``: the masked graph MAE against the
-    batch's ``graph_labels``, ``torch.optim.Adam`` at 1e-3."""
-    from gcnn_keras_tpu_torch.training import Trainer
+def zoo_loss(model, b):
+    """The masked graph MAE of ``model`` on ``b`` against its ``graph_labels``."""
     from gcnn_keras_tpu_torch.training.losses import masked_graph_mae
-    model = zoo_model(name, device)
+    return masked_graph_mae(model(b)["output"], b.globals["graph_labels"],
+                            b.globals["graph_mask"])
 
-    def loss_fn(b):
-        return masked_graph_mae(model(b)["output"], b.globals["graph_labels"],
-                                b.globals["graph_mask"]), {}
-    trainer = Trainer(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3))
+
+def zoo_trainer(name, device):
+    """``(model, Trainer, TrainState)``: ``zoo_loss``, ``torch.optim.Adam``
+    at 1e-3."""
+    from gcnn_keras_tpu_torch.training import Trainer
+    model = zoo_model(name, device)
+    trainer = Trainer(lambda b: (zoo_loss(model, b), {}),
+                      functools.partial(torch.optim.Adam, lr=1e-3))
     return model, trainer, trainer.init_state(model.parameters())
 
 
@@ -3969,31 +4096,50 @@ def zoo_kernel_calls(calls, label, path, timed_shapes):
     return recs
 
 
+def peak_mb(device):
+    """The card's peak allocation since the last reset, in MiB (None on the
+    CPU)."""
+    return torch.cuda.max_memory_allocated() / 2**20 if device == "cuda" else None
+
+
+def reset_peak(device):
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
 def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512):
-    """Phase 22 for one model: a graph-level forward against the CPU's on the
-    same weights (GIN also with ``train=True``, its batch statistics and
-    running averages), every kernel call of one forward against its plain
-    version (new shapes timed), the forward's launches, host syncs and time;
-    the first training step against the CPU's (on ``ZOO_FIRST_STEP_MOLS``
+    """Phases 22 and 23 for one model: a graph-level forward against the
+    CPU's on the same weights (every output: MEGAN's importances too; GIN
+    also with ``train=True``, its batch statistics and running averages),
+    every kernel call of one forward against its plain version (new shapes
+    timed), the forward's launches, host syncs, time and peak memory; the
+    first training step against the CPU's (on ``ZOO_FIRST_STEP_MOLS``
     molecules), every kernel call of a step against its plain version, then
-    ``ZOO_STEPS`` steps with their launches, losses, times and host syncs.
-    Returns the launch counts of the forward and the steps, and the kernel
-    records. ``device`` and ``n_mols`` (phase
-    4's 512 on the card) let it run on the CPU at a small size."""
+    ``ZOO_STEPS`` steps with their launches, losses, times, host syncs and
+    peak memory. Returns the launch counts of the forward and the steps,
+    and the kernel records. ``device`` and ``n_mols`` (phase 4's 512 on the
+    card) let it run on the CPU at a small size."""
     t_start = time.perf_counter()
     batch = zoo_batch(name, device, n_mols=n_mols)
     if n_mols == 512 and (batch.n_node, batch.n_edge, batch.n_graphs) != (8192, 54784, 513):
         raise AssertionError(f"{name}: shapes {batch.n_node} {batch.n_edge} {batch.n_graphs}")
-    cpu_batch, fwd_want, step_want = batch.to("cpu"), *ZOO_LAUNCHES[name]
+    cpu_batch, (fwd_want, step_want) = batch.to("cpu"), ZOO_LAUNCHES[name]
     gpu = zoo_model(name, device)
+    reset_peak(device)
     with torch.no_grad():
-        out = gpu(batch)["output"]
-        ref = zoo_model(name, "cpu")(cpu_batch)["output"]
+        outs = gpu(batch)
+        peak_forward = peak_mb(device)
+        refs = zoo_model(name, "cpu")(cpu_batch)
+    out = outs["output"]
     if out.shape != (batch.n_graphs, 1) or not torch.isfinite(out).all():
         raise AssertionError(f"{name}: output {tuple(out.shape)} or not finite")
     rec = {"model": name, "card": smi, "N_pad": batch.n_node, "E_pad": batch.n_edge,
-           "G": batch.n_graphs,
-           "forward_rel_err": check_close(f"{name} forward", out.cpu(), ref)}
+           "G": batch.n_graphs, "max_nodes": batch.max_nodes,
+           "forward_rel_err": check_close(f"{name} forward", out.cpu(), refs["output"])}
+    for key in sorted(set(refs) - {"output"}):
+        if not torch.isfinite(outs[key]).all():
+            raise AssertionError(f"{name}: {key} not finite")
+        rec[f"{key}_rel_err"] = check_close(f"{name} {key}", outs[key].cpu(), refs[key])
     if name == "GIN":
         models = {dev: zoo_model(name, dev) for dev in (device, "cpu")}
         got = models[device](batch, train=True)["output"].detach().cpu()
@@ -4020,7 +4166,8 @@ def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512
     forward()
     torch.cuda.synchronize()
     fwd_launches = kernel_counts()
-    rec.update(ms_per_forward=synced_ms(forward, 5), syncs_per_forward=host_syncs(forward))
+    rec.update(ms_per_forward=synced_ms(forward, 5), syncs_per_forward=host_syncs(forward),
+               peak_mem_mb_forward=peak_forward)
 
     first, small = [], zoo_batch(name, "cpu", n_mols=min(n_mols, ZOO_FIRST_STEP_MOLS))
     for dev, b in ((device, small.to(device)), ("cpu", small)):
@@ -4031,9 +4178,15 @@ def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512
     (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = first
     if not abs(loss_gpu - loss_cpu) <= TRAIN_TOL * abs(loss_cpu):
         raise AssertionError(f"{name}: first loss {loss_gpu} on the card, {loss_cpu} on the CPU")
-    rec["first_step"] = {"loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "max_rel_grad_err": max(
-        check_close(f"{name} gradient of {n}", grads_gpu[n], g, TRAIN_TOL)
-        for n, g in grads_cpu.items())}
+    # the second group's first steps take ``check_grads``' float64 rules
+    # (CMPNN's float32 gradients at its default widths, HamNet's
+    # attention-logit biases); the first group's never needed them
+    worst, arbitrated = check_grads(
+        name, grads_gpu, grads_cpu, TRAIN_TOL,
+        (lambda: float64_grads(zoo_model(name, "cpu"), zoo_loss, small))
+        if ZOO_MODELS[name][2] == 23 else None)
+    rec["first_step"] = {"loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "max_rel_grad_err": worst,
+                         **({"float64_arbiter": arbitrated} if arbitrated else {})}
     _, trainer, state = zoo_trainer(name, device)
     with captured_calls() as calls:
         trainer.step(state, batch)
@@ -4046,6 +4199,7 @@ def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512
 
     _, trainer, state = zoo_trainer(name, device)
     torch.cuda.synchronize()
+    reset_peak(device)
     # the steps' main path: every count set to 0 just before, read just after
     reset_counts()
     losses, times, per_step = [], [], []
@@ -4063,8 +4217,8 @@ def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512
     if any(c != launch_counts(sorted_segment_sum=step_want) for c in per_step):
         raise AssertionError(f"{name}: step launches {per_step}, expected {step_want}")
     rec.update(losses=losses, ms_per_step=float(np.median(times[1:])),
-               ms_first_step=times[0], launches_per_forward=fwd_want,
-               launches_per_step=step_want,
+               ms_first_step=times[0], peak_mem_mb_step=peak_mb(device),
+               launches_per_forward=fwd_want, launches_per_step=step_want,
                syncs_per_step=host_syncs(lambda: trainer.step(state, batch)),
                s_phase=time.perf_counter() - t_start)
     log(f"{name} zoo: " + json.dumps(rec))
@@ -4085,7 +4239,7 @@ def phase_zoo_driver(script, model, smi, device="cuda"):
     mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{script}")
     rec = RecordingTrainer(graph_driver.Trainer)
     label = f"{script}_{model}"
-    with tempfile.TemporaryDirectory(prefix="_phase22_", dir=os.getcwd()) as workdir, \
+    with tempfile.TemporaryDirectory(prefix="_zoo_driver_", dir=os.getcwd()) as workdir, \
             contextlib.chdir(workdir), patched(graph_driver, "Trainer", rec.cls):
         # the main path: every count set to 0 just before, read just after
         reset_counts()
@@ -4115,26 +4269,28 @@ def phase_zoo_driver(script, model, smi, device="cuda"):
     return {label: launches}, recs
 
 
-def phase_zoo(smi, profiles):
-    """Phase 22: each model of ``ZOO_MODELS`` (``phase_zoo_model``; a
-    training step of each queued on ``profiles`` for ``run_profiles``),
-    then the drivers of ``ZOO_DRIVERS`` (``phase_zoo_driver``). Returns the
-    launch counts of each main path and the kernel records."""
-    by_path, recs, timed_shapes = {}, [], set()
+def phase_zoo(smi, profiles, timed_shapes, phase):
+    """Phase 22 or 23: each model of ``ZOO_MODELS`` in ``phase``
+    (``phase_zoo_model``; a training step of each queued on ``profiles``
+    for ``run_profiles``), then its drivers of ``ZOO_DRIVERS``
+    (``phase_zoo_driver``); the segment-sum shapes in ``timed_shapes`` are
+    not timed again. Returns the launch counts of each main path and the
+    kernel records."""
+    by_path, recs = {}, []
     seconds = [time.perf_counter()]
-    for name in ZOO_MODELS:
+    for name in [n for n, entry in ZOO_MODELS.items() if entry[2] == phase]:
         paths, rs = phase_zoo_model(name, smi, timed_shapes, profiles)
         by_path.update(paths)
         recs += rs
     seconds.append(time.perf_counter())
-    for script, model in ZOO_DRIVERS:
+    for _, script, model in [d for d in ZOO_DRIVERS if d[0] == phase]:
         paths, rs = phase_zoo_driver(script, model, smi)
         by_path.update(paths)
         for name_rs in rs.values():
             recs += name_rs
     seconds.append(time.perf_counter())
-    log("phase 22 seconds: " + json.dumps(dict(zip(("models", "drivers"),
-                                                   np.diff(seconds).tolist()))))
+    log(f"phase {phase} seconds: " + json.dumps(dict(zip(("models", "drivers"),
+                                                         np.diff(seconds).tolist()))))
     return by_path, {"sorted_segment_sum": recs}
 
 
@@ -4292,10 +4448,12 @@ def main():
     by_path.update(paths)
     for kname, rs in option_recs.items():
         records.setdefault(kname, []).extend(rs)
-    paths, zoo_recs = phase_zoo(smi, zoo_profiles)
-    by_path.update(paths)
-    for kname, rs in zoo_recs.items():
-        records[kname].extend(rs)
+    timed_shapes = set()
+    for phase in (22, 23):
+        paths, zoo_recs = phase_zoo(smi, zoo_profiles, timed_shapes, phase)
+        by_path.update(paths)
+        for kname, rs in zoo_recs.items():
+            records[kname].extend(rs)
     # the busy shares last, after every timed part of the script; one
     # profiled step of each zoo model: RGCN's and GNN-FiLM's 4300 and 12600
     # kernels a step take the profiler about 10 s a step to collect

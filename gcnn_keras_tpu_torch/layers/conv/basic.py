@@ -1,5 +1,5 @@
 """Generic GNN convolutions: GIN and GINE, the GAT and GATv2 attention
-heads, and the relational GCN convolution; counterpart of
+heads, the relational GCN convolution and the GRU updates; counterpart of
 ``gcnn_keras_tpu/layers/conv/basic.py``.
 
 Each sum onto the receivers runs on the sorted segment-sum kernel, the
@@ -9,9 +9,14 @@ needs its input widths when it is built, where flax reads them from the
 first call: ``in_features`` (the node features) and, for the attention
 heads, ``edge_features`` (0 for none).
 
-Not ported yet: ``GRUUpdate``, ``KerasGRUSequencePooling`` and
-``KerasGRUCellUpdate``, which only CMPNN and HamNet use (ROADMAP.md, "the
-rest of the zoo").
+The GRUs: ``KerasGRUCellUpdate`` (NMPN, AttentiveFP, HamNet) and
+``KerasGRUSequencePooling`` (CMPNN's readout) hold keras's layout as their
+own parameters, ``kernel`` (F, 3U) with the gates [z | r | h],
+``recurrent_kernel`` (U, 3U) and ``bias`` (2, 3U) as [input, recurrent],
+with keras's ``reset_after=True``; ``GRUUpdate`` is flax's ``GRUCell``,
+whose Denses ``GRUCell_0/{ir,iz,in,hr,hz,hn}`` hold flax's ``kernel``
+(in, out) and ``bias``. None of them is ``torch.nn.GRUCell``, which orders
+its gates [r | z | n] and splits its biases another way.
 """
 from __future__ import annotations
 
@@ -20,11 +25,11 @@ from typing import Any, Optional
 import torch
 import torch.nn as nn
 
-from ...batch import GraphBatch
+from ...batch import GraphBatch, flat_to_padded
 from ...ops.activ import get_activation
 from ..aggr import (gather_nodes, gather_sender_nodes, pool_edges_to_nodes,
                     pool_edges_to_nodes_attention)
-from ..mlp import Dense, RelationalDense
+from ..mlp import Dense, RelationalDense, lecun_normal_
 
 Tensor = torch.Tensor
 
@@ -187,3 +192,110 @@ class RelationalGCNConv(nn.Module):
         if edge_weights is not None:
             rel_msg = rel_msg * edge_weights.reshape(edge_weights.shape[0], -1)[:, :1]
         return self._act(self.self_dense(nodes) + pool_edges_to_nodes(batch, rel_msg))
+
+
+def _keras_gru_weights(module: nn.Module, in_features: int, units: int,
+                       generator: Optional[torch.Generator]) -> None:
+    """keras's GRU parameters on ``module``, drawn as the JAX package draws
+    them: ``kernel`` lecun-normal, ``recurrent_kernel`` orthogonal, ``bias``
+    zeros."""
+    module.kernel = nn.Parameter(lecun_normal_(torch.empty(in_features, 3 * units),
+                                               in_features, generator))
+    module.recurrent_kernel = nn.Parameter(nn.init.orthogonal_(
+        torch.empty(units, 3 * units), generator=generator))
+    module.bias = nn.Parameter(torch.zeros(2, 3 * units))
+
+
+def _keras_gru_step(xw: Tensor, state: Tensor, recurrent_kernel: Tensor,
+                    recurrent_bias: Tensor) -> Tensor:
+    """One keras GRU step (``reset_after=True``) from the input's projection
+    ``xw = x @ kernel + bias[0]``."""
+    xz, xr, xh = xw.chunk(3, dim=-1)
+    rz, rr, rh = (state @ recurrent_kernel + recurrent_bias).chunk(3, dim=-1)
+    z = torch.sigmoid(xz + rz)
+    r = torch.sigmoid(xr + rr)
+    return z * state + (1.0 - z) * torch.tanh(xh + r * rh)
+
+
+class KerasGRUCellUpdate(nn.Module):
+    """One keras ``GRUCell`` step: the new state of ``state`` (U wide) given
+    ``inputs`` (``in_features`` wide)."""
+
+    def __init__(self, in_features: int, units: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _keras_gru_weights(self, in_features, units, generator)
+
+    def forward(self, state: Tensor, inputs: Tensor) -> Tensor:
+        return _keras_gru_step(inputs @ self.kernel + self.bias[0], state,
+                               self.recurrent_kernel, self.bias[1])
+
+
+class KerasGRUSequencePooling(nn.Module):
+    """Graph readout: a keras GRU from a zero state over each graph's nodes
+    in order, ``(N, in_features) -> (G, units)``, its last state per graph.
+    The graphs are padded to ``batch.max_nodes`` (``flat_to_padded``) and
+    each of the ``max_nodes`` steps keeps a graph's state where it has no
+    node left (``h (1 - m) + h_new m``), as the JAX ``lax.scan`` does; the
+    loop's length is the batch's, so it needs no sync with the host."""
+
+    def __init__(self, in_features: int, units: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.units = units
+        _keras_gru_weights(self, in_features, units, generator)
+
+    def forward(self, batch: GraphBatch, nodes: Tensor) -> Tensor:
+        xw = flat_to_padded(nodes, batch) @ self.kernel + self.bias[0]  # (G, M, 3U)
+        mask = flat_to_padded(batch.node_mask.to(nodes.dtype), batch)  # (G, M)
+        h = nodes.new_zeros(xw.shape[0], self.units)
+        for t in range(xw.shape[1]):
+            m = mask[:, t, None]
+            h_new = _keras_gru_step(xw[:, t], h, self.recurrent_kernel, self.bias[1])
+            h = h * (1 - m) + h_new * m
+        return h
+
+
+class _FlaxDense(nn.Module):
+    """A flax ``nn.Dense`` in its own layout: ``kernel`` (in, out) and
+    ``bias``."""
+
+    def __init__(self, kernel: Tensor, use_bias: bool):
+        super().__init__()
+        self.kernel = nn.Parameter(kernel)
+        self.register_parameter(
+            "bias", nn.Parameter(torch.zeros(kernel.shape[1])) if use_bias else None)
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
+
+
+class GRUUpdate(nn.Module):
+    """flax's ``GRUCell`` as a node update, the state ``nodes`` (``units``
+    wide) and the input ``messages`` (``in_features`` wide):
+    ``r = sigmoid(ir(x) + hr(h))``, ``z = sigmoid(iz(x) + hz(h))``,
+    ``n = tanh(in(x) + r hn(h))``, ``h' = (1 - z) n + z h``; the input
+    Denses and ``hn`` carry a bias. Its weights start as flax draws them:
+    input kernels lecun-normal, recurrent ones orthogonal. No model of the
+    JAX package uses it."""
+
+    def __init__(self, in_features: int, units: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cell = nn.Module()
+        for gate in ("r", "z", "n"):
+            cell.add_module(f"i{gate}", _FlaxDense(lecun_normal_(
+                torch.empty(in_features, units), in_features, generator), True))
+        for gate in ("r", "z", "n"):
+            cell.add_module(f"h{gate}", _FlaxDense(nn.init.orthogonal_(
+                torch.empty(units, units), generator=generator), gate == "n"))
+        self.GRUCell_0 = cell
+
+    def forward(self, nodes: Tensor, messages: Tensor) -> Tensor:
+        cell = self.GRUCell_0
+        gate = {name: getattr(cell, name) for name in ("ir", "iz", "in", "hr", "hz", "hn")}
+        r = torch.sigmoid(gate["ir"](messages) + gate["hr"](nodes))
+        z = torch.sigmoid(gate["iz"](messages) + gate["hz"](nodes))
+        n = torch.tanh(gate["in"](messages) + r * gate["hn"](nodes))
+        return (1.0 - z) * n + z * nodes

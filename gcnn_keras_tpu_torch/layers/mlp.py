@@ -39,6 +39,13 @@ def glorot_uniform_(w: Tensor, generator: Optional[torch.Generator]) -> Tensor:
     return nn.init.uniform_(w, -limit, limit, generator=generator)
 
 
+def lecun_normal_(w: Tensor, fan_in: int, generator: Optional[torch.Generator]) -> Tensor:
+    """flax's ``lecun_normal``: a normal truncated at two deviations, scaled
+    to variance ``1 / fan_in``."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
 def compute_dtype(dtype: Any) -> Optional[torch.dtype]:
     """A model's ``dtype`` option as a torch dtype: None for float32 (the
     parameters' own), ``torch.bfloat16`` for ``"bfloat16``."""

@@ -14,7 +14,11 @@ the width of ``globals['graph_attributes']`` ``(G, k)``, taken as floats
 (0, the default: batches without them, and 8 zeros per graph). The JAX
 model embeds neither graph attributes nor anything by
 ``input_embedding["graph"]``; neither does this one. ``use_set2set=True``
-raises ``ValueError``: the Set2Set readout is not ported yet.
+reads the graph out by ``Set2Set(**set2set_args)`` (unsorted sums,
+``index_add_``, as in JAX), which needs the nodes as wide as its
+``channels``: the last of ``node_mlp_args["units"]``. The defaults (50 and
+32) do not agree, so the port raises ``ValueError`` when built, where the
+JAX model fails at its first call.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch.nn as nn
 from ..batch import GraphBatch
 from ..layers.aggr import gather_nodes, gather_state, pool_edges_to_nodes, pool_nodes_to_graph
 from ..layers.mlp import MLP
+from ..layers.pool.set2set import Set2Set
 from ..utils.devices import DeviceLike, resolve_device
 from .common import edge_input, embed_input, input_embedding, mlp_width
 from .registry import update_model_kwargs
@@ -58,9 +63,6 @@ class INorp(nn.Module):
         cfg = self.config = config
         if cfg["output_embedding"] not in ("graph", "node"):
             raise ValueError(f"unknown output_embedding {cfg['output_embedding']}")
-        if cfg["use_set2set"] and cfg["output_embedding"] == "graph":
-            raise ValueError("INorp(use_set2set=True): the Set2Set readout is not ported yet "
-                             "(ROADMAP.md, 'the rest of the zoo')")
         self.embedding, width = input_embedding(cfg["input_embedding"]["node"],
                                                 cfg["in_features"], generator)
         self.edge_embedding, e_width = input_embedding(
@@ -77,6 +79,15 @@ class INorp(nn.Module):
                                                  node["units"], activation=node["activation"],
                                                  generator=generator))
             width = mlp_width(node["units"])
+        self.set2set = None
+        if cfg["use_set2set"] and cfg["output_embedding"] == "graph":
+            channels = cfg["set2set_args"]["channels"]
+            if width != channels:
+                raise ValueError(f"INorp(use_set2set=True): Set2Set reads nodes as wide as "
+                                 f"set2set_args' channels ({channels}); node_mlp_args gives "
+                                 f"{width}")
+            self.set2set = Set2Set(**cfg["set2set_args"], generator=generator)
+            width = 2 * channels
         self.out_mlp = MLP(width, out["units"], activation=out["activation"],
                            generator=generator)
 
@@ -107,9 +118,10 @@ class INorp(nn.Module):
             pooled = pool_edges_to_nodes(batch, eu, **cfg["pooling_args"])
             n = getattr(self, f"node_mlp_{i}")(torch.cat([n, pooled, us], dim=-1))
         if cfg["output_embedding"] == "graph":
+            n = n * batch.node_mask[:, None].to(n.dtype)
             # the readout pools by pooling_args too
-            n = pool_nodes_to_graph(batch, n * batch.node_mask[:, None].to(n.dtype),
-                                    **cfg["pooling_args"])
+            n = self.set2set(batch, n) if self.set2set is not None else \
+                pool_nodes_to_graph(batch, n, **cfg["pooling_args"])
         return {"output": self.out_mlp(n)}
 
 

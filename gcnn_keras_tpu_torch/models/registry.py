@@ -5,12 +5,13 @@
 A name is a model module's short name (``"Schnet"``), or a path that ends
 in one (``"kgcnn.literature.Schnet"``); a name the table does not hold is
 imported as a module path, one under ``gcnn_keras_tpu.`` from the port's
-package of the same layout. The port holds twelve of the JAX package's
+package of the same layout. The port holds eighteen of the JAX package's
 model modules, each with every builder of its JAX module (HDNNP2nd's
 ``make_model``, ``make_model_weighted``, ``make_model_behler``,
 ``make_model_atom_wise`` and ``make_model_inverse_distances`` among them;
-GIN's ``make_model_edge``; GAT's ``make_model_v2``); the others raise
-``ValueError``, by short name or by file.
+GIN's ``make_model_edge``; GAT's ``make_model_v2``; NMPN's
+``make_crystal_model``); the other eight raise ``ValueError``, by short
+name or by file.
 """
 from __future__ import annotations
 
@@ -31,12 +32,16 @@ _MODULES = {
     "RGCN": "gcnn_keras_tpu_torch.models.rgcn",
     "GNNFilm": "gcnn_keras_tpu_torch.models.gnnfilm",
     "INorp": "gcnn_keras_tpu_torch.models.inorp",
+    "DMPNN": "gcnn_keras_tpu_torch.models.dmpnn",
+    "CMPNN": "gcnn_keras_tpu_torch.models.cmpnn",
+    "NMPN": "gcnn_keras_tpu_torch.models.nmpn",
+    "AttentiveFP": "gcnn_keras_tpu_torch.models.attentivefp",
+    "HamNet": "gcnn_keras_tpu_torch.models.hamnet",
+    "MEGAN": "gcnn_keras_tpu_torch.models.megan",
 }
 # the rest of the JAX package's table, not ported yet: module name -> file
-_ZOO = {"DimeNetPP": "dimenet_pp", "Megnet": "megnet", "NMPN": "nmpn",
-        "AttentiveFP": "attentivefp", "DMPNN": "dmpnn", "CGCNN": "cgcnn", "EGNN": "egnn",
-        "MXMNet": "mxmnet", "HamNet": "hamnet", "MAT": "mat", "CMPNN": "cmpnn",
-        "Unet": "unet", "MEGAN": "megan", "GNNExplain": "gnnexplain"}
+_ZOO = {"DimeNetPP": "dimenet_pp", "Megnet": "megnet", "CGCNN": "cgcnn", "EGNN": "egnn",
+        "MXMNet": "mxmnet", "MAT": "mat", "Unet": "unet", "GNNExplain": "gnnexplain"}
 
 
 def get_model_class(module_name: str, class_name: str = "make_model") -> Callable:

@@ -46,8 +46,15 @@ def segment_mean(data: Tensor, segment_ids: Tensor, num_segments: int,
 def _segment_reduce(data: Tensor, segment_ids: Tensor, num_segments: int,
                     reduce: str) -> Tensor:
     index = _bcast(segment_ids.long(), data).expand_as(data)
-    out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=data.dtype,
-                      device=data.device)
+    # a float start value is the reduction's identity: torch's backward
+    # splits the gradient among every entry equal to the result, the excluded
+    # start value too, so a start of 0 would take a share wherever the
+    # extremum is 0; JAX splits it among the segment's ties alone. Integers
+    # have no gradient and keep a start of 0 (an empty segment's value)
+    start = (float("-inf") if reduce == "amax" else float("inf")) \
+        if data.is_floating_point() else 0
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), start, dtype=data.dtype,
+                     device=data.device)
     out = out.scatter_reduce(0, index, data, reduce=reduce, include_self=False)
     # empty segments (and non-finite results) are 0, as in the JAX package
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))

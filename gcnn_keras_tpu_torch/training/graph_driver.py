@@ -90,15 +90,21 @@ def build_model(name: str, n_out: int, widths: Dict[str, Optional[int]],
                 device=None, generator: Optional[torch.Generator] = None):
     """The drivers' model: GIN at ``GIN_DRIVER_KW`` with a linear output of
     ``n_out``, any other registry name at its defaults, its output MLP's
-    last layer made ``n_out`` linear units where the default has another
-    width (the JAX drivers keep the default there, whose one output is no
-    classifier of two classes); each with the ``widths`` its
-    ``model_default`` names."""
+    last layer (MEGAN's last ``final_units``) made ``n_out`` linear units
+    where the default has another width (the JAX drivers keep the default
+    there, whose one output is no classifier of two classes); each with the
+    ``widths`` its ``model_default`` names. DMPNN and CMPNN then raise
+    ``ValueError`` at their first batch, which has no reverse edges, as the
+    JAX drivers stop at their assert."""
     builder = get_model_class(name)
     defaults = importlib.import_module(builder.__module__).model_default
     kw = {k: v for k, v in widths.items() if k in defaults}
     if name == "GIN":
         kw.update(GIN_DRIVER_KW, output_mlp={"units": [n_out], "activation": ["linear"]})
+    elif "output_mlp" not in defaults:
+        if defaults["final_units"][-1] != n_out:
+            kw.update(final_units=list(defaults["final_units"][:-1]) + [n_out],
+                      final_activation="linear")
     elif mlp_width(defaults["output_mlp"]["units"]) != n_out:
         out = defaults["output_mlp"]
         units, acts = list(out["units"]), list(out["activation"])

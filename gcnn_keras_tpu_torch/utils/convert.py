@@ -17,9 +17,14 @@ Four node types carry weights in their own layout:
 
 Any other module's own parameters are bare flax leaves of the same name,
 ``<path>/<name>``, as they are: the per-element tables ``hardness_j`` and
-``sigma`` of the HDNNP4th electrostatics, and ``scale`` and ``bias`` of
-``GraphBatchNorm``. ``flax_leaf_names`` gives each port parameter's flax
-path.
+``sigma`` of the HDNNP4th electrostatics, ``scale`` and ``bias`` of
+``GraphBatchNorm``, the keras-layout ``kernel``, ``recurrent_kernel`` and
+``bias`` of the GRUs (``KerasGRUCellUpdate``, ``KerasGRUSequencePooling``)
+and of ``Set2Set``'s LSTM, and the ``kernel`` and ``bias`` of the flax
+``nn.Dense`` leaves of ``GRUUpdate``'s cell (``<path>/GRUCell_0/ir/kernel``
+...: the port names its submodules after them). MEGAN's heads are port
+``Dense`` modules named as the flax ones, ``att_i/head_k_linear``.
+``flax_leaf_names`` gives each port parameter's flax path.
 
 ``GraphBatchNorm``'s running ``mean`` and ``var`` are the flax
 ``batch_stats`` collection, ``batch_stats/<path>/mean`` and ``/var``; they

@@ -1290,11 +1290,13 @@ def test_search_phase_on_the_card(cuda_device, tmp_path, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["GIN", "GraphSAGE", "GAT", "GATv2", "RGCN", "GNNFilm",
-                                  "INorp"])
+                                  "INorp", "DMPNN", "CMPNN", "NMPN", "AttentiveFP", "HamNet",
+                                  "MEGAN"])
 def test_zoo_phase_on_the_card(cuda_device, name):
-    """``chip_smoke.py`` phase 22's checks of one model on 32 molecules: the
-    forward and first step against the CPU, every kernel call against its
-    plain version, the launches of a forward and of every step."""
+    """``chip_smoke.py`` phase 22's (23's) checks of one model on 32
+    molecules: the forward and first step against the CPU, every kernel call
+    against its plain version, the launches of a forward and of every
+    step."""
     import chip_smoke
 
     class Everything(set):
@@ -1310,7 +1312,8 @@ def test_zoo_phase_on_the_card(cuda_device, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("script,model", [("train_tudataset", "GIN"),
-                                          ("train_moleculenet", "GAT")])
+                                          ("train_moleculenet", "GAT"),
+                                          ("train_moleculenet", "AttentiveFP")])
 def test_zoo_driver_phase_on_the_card(cuda_device, script, model):
     import chip_smoke
     paths, recs = chip_smoke.phase_zoo_driver(script, model, "card test")

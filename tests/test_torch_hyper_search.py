@@ -252,8 +252,8 @@ def test_make_model_loads_the_jax_params(name):
                                    atol=OUTPUT_TOL * np.abs(r).max(), err_msg=k)
 
 
-@pytest.mark.parametrize("module", ["DMPNN", "kgcnn.literature.MEGAN", "DimeNetPP",
-                                    "gcnn_keras_tpu.models.cmpnn",
+@pytest.mark.parametrize("module", ["Megnet", "kgcnn.literature.CGCNN", "DimeNetPP",
+                                    "gcnn_keras_tpu.models.egnn",
                                     "gcnn_keras_tpu.models.dimenet_pp"])
 def test_unported_model_module_raises_naming_the_zoo(module):
     with pytest.raises(ValueError, match="'the rest of the zoo'"):

@@ -21,7 +21,8 @@ from gcnn_keras_tpu_torch.data.dataset import MemoryGraphDataset
 from gcnn_keras_tpu_torch.data.loader import GraphBatchLoader
 from gcnn_keras_tpu_torch.model.force import EnergyForceModel
 from gcnn_keras_tpu_torch.model.mlmm import MLMMEnergyForceModel
-from gcnn_keras_tpu_torch.models import (gat, gcn, gin, gnnfilm, hdnnp2nd, hdnnp4th, inorp,
+from gcnn_keras_tpu_torch.models import (attentivefp, cmpnn, dmpnn, gat, gcn, gin, gnnfilm,
+                                         hamnet, hdnnp2nd, hdnnp4th, inorp, megan, nmpn,
                                          painn, rgcn, sage)
 from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
 from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
@@ -132,6 +133,9 @@ def test_scan_sees_the_package():
     package = ROOT / "gcnn_keras_tpu_torch"
     for rel in ("models/gin.py", "models/sage.py", "models/gat.py", "models/gatv2.py",
                 "models/rgcn.py", "models/gnnfilm.py", "models/inorp.py",
+                "models/dmpnn.py", "models/cmpnn.py", "models/nmpn.py",
+                "models/attentivefp.py", "models/hamnet.py", "models/megan.py",
+                "layers/pool/__init__.py", "layers/pool/set2set.py",
                 "layers/conv/basic.py", "training/graph_driver.py",
                 *(f"scripts/{name}.py" for name in DRIVERS)):
         assert package / rel in SOURCES, rel
@@ -155,6 +159,9 @@ def test_scan_sees_the_package():
                                    "gin.make_model", "gin.make_model_edge", "sage.make_model",
                                    "gat.make_model", "gat.make_model_v2", "rgcn.make_model",
                                    "gnnfilm.make_model", "inorp.make_model",
+                                   "dmpnn.make_model", "cmpnn.make_model", "nmpn.make_model",
+                                   "nmpn.make_crystal_model", "attentivefp.make_model",
+                                   "hamnet.make_model", "megan.make_model",
                                    "MLMMEnergyForceModel", "GraphBatchLoader",
                                    "MemoryGraphDataset.to_batch", "run_force_training",
                                    "HyperParameter.make_model",
@@ -198,6 +205,13 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_pat
         "rgcn.make_model": lambda **kw: rgcn.make_model(depth=1, **kw),
         "gnnfilm.make_model": lambda **kw: gnnfilm.make_model(depth=1, **kw),
         "inorp.make_model": lambda **kw: inorp.make_model(depth=1, **kw),
+        "dmpnn.make_model": lambda **kw: dmpnn.make_model(depth=1, **kw),
+        "cmpnn.make_model": lambda **kw: cmpnn.make_model(depth=2, **kw),
+        "nmpn.make_model": lambda **kw: nmpn.make_model(depth=1, **kw),
+        "nmpn.make_crystal_model": lambda **kw: nmpn.make_crystal_model(depth=1, **kw),
+        "attentivefp.make_model": lambda **kw: attentivefp.make_model(**kw),
+        "hamnet.make_model": lambda **kw: hamnet.make_model(**kw),
+        "megan.make_model": lambda **kw: megan.make_model(**kw),
         "MLMMEnergyForceModel": lambda **kw: MLMMEnergyForceModel(EnergyForceModel(
             hdnnp4th.make_model_behler(device="cpu"), use_esp_coupling=True, **kw)),
         "GraphBatchLoader": lambda **kw: GraphBatchLoader([graph], 1, **kw),

@@ -34,6 +34,7 @@ from gcnn_keras_tpu.training import losses as jlosses
 from gcnn_keras_tpu_torch.batch import batch_graphs
 from gcnn_keras_tpu_torch.layers import aggr
 from gcnn_keras_tpu_torch.layers.conv import basic
+from gcnn_keras_tpu_torch.layers.pool import Set2Set
 from gcnn_keras_tpu_torch.models import gat, gatv2, gin, gnnfilm, inorp, registry, rgcn, sage
 from gcnn_keras_tpu_torch.training import losses
 from gcnn_keras_tpu_torch.utils.convert import params_from_jax
@@ -413,11 +414,18 @@ def test_model_default_widths_build():
 
 @pytest.mark.parametrize("name", ["GIN", "GAT", "GATv2", "GraphSAGE", "RGCN", "GNNFilm",
                                   "INorp", "gcnn_keras_tpu.models.sage",
-                                  "kgcnn.literature.GNNFilm"])
+                                  "kgcnn.literature.GNNFilm", "DMPNN", "CMPNN", "NMPN",
+                                  "AttentiveFP", "HamNet", "MEGAN",
+                                  "gcnn_keras_tpu.models.cmpnn", "kgcnn.literature.MEGAN"])
 def test_registry_resolves_the_group(name):
+    """The zoo's first and second groups (short names and module
+    paths)."""
+    from gcnn_keras_tpu_torch.models import attentivefp, cmpnn, dmpnn, hamnet, megan, nmpn
     mods = {"GIN": gin, "GAT": gat, "GATv2": gatv2, "GraphSAGE": sage, "RGCN": rgcn,
             "GNNFilm": gnnfilm, "INorp": inorp, "gcnn_keras_tpu.models.sage": sage,
-            "kgcnn.literature.GNNFilm": gnnfilm}
+            "kgcnn.literature.GNNFilm": gnnfilm, "DMPNN": dmpnn, "CMPNN": cmpnn,
+            "NMPN": nmpn, "AttentiveFP": attentivefp, "HamNet": hamnet, "MEGAN": megan,
+            "gcnn_keras_tpu.models.cmpnn": cmpnn, "kgcnn.literature.MEGAN": megan}
     assert registry.get_model_class(name) is mods[name].make_model
 
 
@@ -430,9 +438,23 @@ def test_registry_still_raises_on_the_rest_of_the_zoo(name):
 
 
 def test_inorp_set2set_raises_when_built():
-    with pytest.raises(ValueError, match="'the rest of the zoo'"):
+    """``use_set2set=True`` builds Set2Set where the nodes are as wide as its
+    channels, and then matches JAX; at the defaults (50 against 32) it
+    raises ``ValueError`` when built, where the JAX model fails at its first
+    call. A node output builds no readout."""
+    with pytest.raises(ValueError, match="channels"):
         inorp.make_model(device="cpu", use_set2set=True)
     inorp.make_model(device="cpu", use_set2set=True, output_embedding="node")
+    kw = dict(depth=2, input_embedding={**NODE16, "edge": {"input_dim": 15, "output_dim": 8}},
+              node_mlp_args={"units": [24, 8], "activation": ["relu", "linear"]},
+              edge_mlp_args={"units": [24, 16], "activation": "relu"}, use_set2set=True,
+              set2set_args={"channels": 8, "T": 2}, output_mlp=OUT)
+    jb, tb = _batches(_graphs(32, edge_classes=15))
+    jm = jinorp.make_model(**kw)
+    variables = _perturbed(jm.init(jax.random.PRNGKey(0), jb), 33)
+    model = params_from_jax(inorp.make_model(device="cpu", **kw), variables)
+    assert isinstance(model.set2set, Set2Set)
+    _close(model(tb)["output"], jm.apply(variables, jb)["output"])
 
 
 @pytest.mark.parametrize("case", ["float nodes to an embedding", "integer nodes, width given",

@@ -23,7 +23,7 @@ import jax
 
 from gcnn_keras_tpu.data import scalers as jscalers
 from gcnn_keras_tpu_torch.data import scalers
-from gcnn_keras_tpu_torch.models import gat, gin
+from gcnn_keras_tpu_torch.models import gat, registry
 from gcnn_keras_tpu_torch.scripts import train_moleculenet, train_tudataset
 from gcnn_keras_tpu_torch.training import graph_driver
 from gcnn_keras_tpu_torch.training.history import load_history_score
@@ -130,7 +130,8 @@ def _same_graphs(ours, ref):
 
 @pytest.mark.parametrize("name,model", [("train_tudataset", "GIN"),
                                         ("train_moleculenet", "GIN"),
-                                        ("train_moleculenet", "GAT")])
+                                        ("train_moleculenet", "GAT"),
+                                        ("train_moleculenet", "AttentiveFP")])
 def test_first_step_matches_the_jax_driver(name, model, monkeypatch, tmp_path):
     monkeypatch.chdir(tmp_path)
     argv = ["--model", model, "--epochs", "1", "--folds", "3", "--no-plots"]
@@ -151,8 +152,7 @@ def test_first_step_matches_the_jax_driver(name, model, monkeypatch, tmp_path):
     names, params = zip(*tmodel.named_parameters())
     grads = torch.autograd.grad(loss, params)
     kw = {k: v for k, v in tmodel.config.items()}
-    make = gin.make_model if model == "GIN" else gat.make_model
-    ref = dict(params_from_jax(make(device="cpu", **kw), {
+    ref = dict(params_from_jax(registry.get_model_class(model)(device="cpu", **kw), {
         **variables, "params": jax.tree_util.tree_map(np.asarray, ref_grads["params"])}
     ).named_parameters())
     for n, g in zip(names, grads):
@@ -200,6 +200,29 @@ def test_driver_trains_and_writes_its_score(name, model, tmp_path, monkeypatch):
     assert score["number_histories"] == 2 and np.isfinite(score["loss"]).all()
 
 
+@pytest.mark.parametrize("model", ["NMPN", "AttentiveFP", "HamNet", "MEGAN"])
+def test_moleculenet_driver_trains_the_second_group(model, tmp_path, monkeypatch):
+    """The four of the zoo's second group that the JAX driver runs on its
+    synthetic data (16 float node and 8 float edge features), one epoch of
+    two folds: finite losses, the score file."""
+    monkeypatch.chdir(tmp_path)
+    score = train_moleculenet.main(["--device", "cpu", "--epochs", "1", "--folds", "2",
+                                    "--no-plots", "--model", model])
+    assert (tmp_path / "results" / "moleculenet" / f"{model}_score.yaml").exists() or \
+        (tmp_path / "results" / "moleculenet" / f"{model}_score.json").exists()
+    assert score["number_histories"] == 2 and np.isfinite(score["loss"]).all()
+
+
+@pytest.mark.parametrize("model", ["DMPNN", "CMPNN"])
+def test_moleculenet_driver_stops_where_jax_asserts(model, tmp_path, monkeypatch):
+    """The drivers batch no reverse edges, so DMPNN and CMPNN stop at their
+    first batch: the port's ``ValueError`` where the JAX driver asserts."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(ValueError, match="compute_reverse_edges=True"):
+        train_moleculenet.main(["--device", "cpu", "--epochs", "1", "--folds", "2",
+                                "--no-plots", "--model", model])
+
+
 def test_moleculenet_driver_draws_its_plots(tmp_path, monkeypatch):
     pytest.importorskip("matplotlib")
     monkeypatch.chdir(tmp_path)
@@ -228,6 +251,12 @@ def test_input_widths_follow_the_data():
                                           "activation": ["relu", "relu", "linear"]}
     assert graph_driver.build_model("GAT", 1, {}, device="cpu").config["output_mlp"] == \
         gat.model_default["output_mlp"]
+    # MEGAN's output is its last final_units
+    megan = graph_driver.build_model("MEGAN", 2, graph_driver.input_widths(tu), device="cpu")
+    assert megan.config["final_units"] == [16, 2] and \
+        megan.config["final_activation"] == "linear"
+    assert graph_driver.build_model("MEGAN", 1, graph_driver.input_widths(mol),
+                                    device="cpu").config["final_units"] == [16, 1]
 
 
 # --------------------------------------------------------- chip_smoke phase 22
@@ -275,8 +304,43 @@ def test_chip_smoke_phase_22_model_runs_on_the_cpu(name, counted_kernels):
     assert len(recs) == fwd + step and len(profiles) == 1
 
 
+@pytest.mark.parametrize("name", ["DMPNN", "CMPNN", "NMPN", "AttentiveFP", "HamNet", "MEGAN"])
+def test_chip_smoke_phase_23_model_runs_on_the_cpu(name, counted_kernels):
+    """Phase 23's checks of the zoo's second group on 16 molecules, as phase
+    22's: every output and the first step against the CPU, every kernel
+    call against its plain version, the derived launches
+    (``ZOO_LAUNCHES``) of a forward and of every step."""
+    cs = counted_kernels
+    profiles = []
+    paths, recs = cs.phase_zoo_model(name, "cpu", _Everything(), profiles, device="cpu",
+                                     n_mols=16)
+    fwd, step = cs.ZOO_LAUNCHES[name]
+    assert paths[f"{name}_zoo_forward"] == cs.launch_counts(sorted_segment_sum=fwd)
+    assert paths[f"{name}_zoo_train"] == cs.launch_counts(
+        sorted_segment_sum=cs.ZOO_STEPS * step)
+    assert len(recs) == fwd + step and len(profiles) == 1
+
+
+def test_zoo_b_inputs_follow_the_golden_recipes():
+    """Phase 23's batches: float edge features of width 5 for CMPNN and
+    MEGAN, integer classes below 5 for the others, reverse edges for DMPNN
+    and CMPNN, coordinates for all."""
+    import chip_smoke as cs
+    for name in [n for n, entry in cs.ZOO_MODELS.items() if entry[2] == 23]:
+        b = cs.zoo_batch(name, "cpu", n_mols=4)
+        ed = b.edges["edge_attributes"]
+        if name in ("CMPNN", "MEGAN"):
+            assert ed.dtype == torch.float32 and ed.shape[1] == 5, name
+            assert cs.zoo_model(name, "cpu").config["edge_in_features"] == 5
+        else:
+            assert ed.dim() == 1 and int(ed.max()) < 5, name
+        assert ("edge_pair_index" in b.edges) == (name in ("DMPNN", "CMPNN")), name
+        assert "node_coordinates" in b.nodes
+
+
 @pytest.mark.parametrize("script,model", [("train_tudataset", "GIN"),
-                                          ("train_moleculenet", "GAT")])
+                                          ("train_moleculenet", "GAT"),
+                                          ("train_moleculenet", "AttentiveFP")])
 def test_chip_smoke_phase_22_driver_runs_on_the_cpu(script, model, counted_kernels):
     cs = counted_kernels
     paths, recs = cs.phase_zoo_driver(script, model, "cpu", device="cpu")

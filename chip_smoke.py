@@ -212,6 +212,26 @@ order, each raising on a failed check:
    of a step; their first steps take ``check_grads``' float64 rules. Then
    ``train_moleculenet`` with AttentiveFP, as phase 22's drivers.
 
+24. The zoo's third group (``phase_zoo`` again): the energy and force
+   potentials EGNN, Megnet, DimeNet++ and MXMNet on ``train_force``'s 512
+   frames of ``SyntheticMDDataset`` at seed 0, with the driver's edges and
+   scaled labels (``force_frames``; DimeNet++ with the
+   ``set_angle_edge_pairs`` of the edges, MXMNet on the driver's multiplex
+   graphs); CGCNN on phase 4's 512 molecules; and the
+   ``make_crystal_model`` of CGCNN, Megnet and DimeNet++ on the goldens'
+   periodic cells repeated to 512 graphs (``zoo_crystals``). DimeNet++'s
+   and MXMNet's zero-initialised output heads are filled from a seed
+   (``fill_zero_heads``). Each batch's shapes, pairs included, are held to
+   ``ZOO_SHAPES``. Checked as phase 23's models, with a fresh set of timed
+   shapes; the potentials train as ``EnergyForceModel`` with
+   ``create_graph`` on ``train_force``'s loss (energy MAE + 50 x force MAE,
+   under its warm-up), their energies and forces held against the CPU's by
+   ``check_grads``' float64 rules; the rest train on the masked graph MAE. Then ``train_force`` with MXMNet and EGNN
+   (``phase_zoo_driver``), as phase 22's drivers, and the force steps of
+   DimeNet++ and MXMNet with the spherical basis's radial part in its one
+   recursion and in the JAX package's recursion per order, in turns
+   (``phase_bessel_forms``).
+
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it; the
 segment-sum's bfloat16 instance has an entry of its own
@@ -3116,12 +3136,13 @@ def check_grads(label, grads, ref, tol, exact=None):
     return worst, arbitrated
 
 
-def check_first_step_on_cpu(label, first, named_params, loss_fn, grad_tol):
+def check_first_step_on_cpu(label, first, named_params, loss_fn, grad_tol, exact=None):
     """The recorded first step against the same step on the CPU:
     ``named_params`` (the CPU model's trained tensors, with their names)
     take the recorded weights, then the loss within ``TRAIN_TOL`` of the
     CPU's and each gradient within ``grad_tol`` of that tensor's largest
-    entry on the CPU."""
+    entry on the CPU, or, with ``exact(batch)`` (the float64 gradients by
+    name), by ``check_grads``' float64 rules."""
     names, params = zip(*named_params)
     with torch.no_grad():
         for p, w in zip(params, first["weights"]):
@@ -3130,12 +3151,11 @@ def check_first_step_on_cpu(label, first, named_params, loss_fn, grad_tol):
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     if not abs(first["loss"] - loss.item()) <= TRAIN_TOL * abs(loss.item()):
         raise AssertionError(f"{label}: first loss {first['loss']}, {loss.item()} on the CPU")
-    worst = 0.0
-    for pname, g, ref in zip(names, first["grads"], grads):
-        ref = torch.zeros_like(g) if ref is None else ref
-        worst = max(worst, check_close(f"{label}: gradient of {pname}", g, ref, grad_tol))
+    worst, arbitrated = check_grads(
+        label, dict(zip(names, first["grads"])), dict(zip(names, grads)), grad_tol,
+        exact and (lambda: exact(first["batch"])))
     return {"loss_gpu": first["loss"], "loss_cpu": loss.item(), "params": len(params),
-            "max_rel_grad_err": worst}
+            "max_rel_grad_err": worst, **({"float64_arbiter": arbitrated} if arbitrated else {})}
 
 
 def check_first_script_step(name, mod, cfg, first, grad_tol):
@@ -3950,7 +3970,11 @@ def phase_options(requests, batch0, smi, unfused_answers, profiles):
 # model embeds its edges, float edge features of the goldens' width 5 where
 # they enter a Dense (CMPNN) or a concatenation (MEGAN) as they are, and
 # reverse edges for DMPNN and CMPNN; HamNet reads the molecules'
-# node_coordinates, which every zoo batch carries
+# node_coordinates, which every zoo batch carries. Phase 24, the third
+# group: the force potentials (``force``: EGNN, Megnet, DimeNet++, MXMNet)
+# train on ``train_force``'s frames (``force_frames``), DimeNet++ with the
+# ``angle_pairs`` of ``set_angle_edge_pairs``, MXMNet on the driver's
+# ``multiplex`` graphs; the ``crystal`` models on a golden's cells
 ZOO_MODELS = {"GIN": ("gin", {}, 22), "GraphSAGE": ("sage", {"edge_classes": 5}, 22),
               "GAT": ("gat", {"edge_classes": 5}, 22),
               "GATv2": ("gatv2", {"edge_classes": 5}, 22),
@@ -3962,7 +3986,16 @@ ZOO_MODELS = {"GIN": ("gin", {}, 22), "GraphSAGE": ("sage", {"edge_classes": 5},
               "NMPN": ("nmpn", {"edge_classes": 5}, 23),
               "AttentiveFP": ("attentivefp", {"edge_classes": 5}, 23),
               "HamNet": ("hamnet", {"edge_classes": 5}, 23),
-              "MEGAN": ("megan", {"edge_features": 5}, 23)}
+              "MEGAN": ("megan", {"edge_features": 5}, 23),
+              "EGNN": ("egnn", {"force": True}, 24),
+              "Megnet": ("megnet", {"force": True}, 24),
+              "CGCNN": ("cgcnn", {}, 24),
+              "DimeNetPP": ("dimenet_pp", {"force": True, "angle_pairs": True}, 24),
+              "MXMNet": ("mxmnet", {"force": True, "multiplex": True}, 24),
+              "CGCNN-crystal": ("cgcnn", {"crystal": "cgcnn"}, 24),
+              "Megnet-crystal": ("megnet", {"crystal": "megnet_crystal"}, 24),
+              "DimeNetPP-crystal": ("dimenet_pp", {"crystal": "cgcnn", "angle_pairs": True},
+                                    24)}
 # segment-sum launches (forward, training step) of each at those widths. The
 # step's loss is a masked graph MAE (no force pass): its reverse pass adds
 # the transpose of each sender gather whose input depends on the parameters
@@ -3989,36 +4022,120 @@ ZOO_MODELS = {"GIN": ("gin", {}, 22), "GraphSAGE": ("sage", {"edge_classes": 5},
 #   attention rounds;
 # - MEGAN (3 layers of 2 heads): 6 attention sums, the mean onto the receivers
 #   (onto the senders it is unsorted) and the 2 channels' graph sums.
-# Every softmax's denominator is an ``index_add_``.
+# Every softmax's denominator is an ``index_add_``. The third group: a
+# forward's sums onto the receivers and the graphs; the crystal models' and
+# CGCNN's steps (a masked graph MAE) add none, as the second group's. A
+# force step (``zoo_force_loss``) takes the forces by a first reverse pass
+# and differentiates it: each sum's reverse is a gather (no launch), whose
+# own reverse, in the second pass, launches the sum again wherever its
+# cotangent depends on the parameters; a position gather with a sorted
+# transpose (``edge_vectors``) launches its transpose in the first pass:
+# - EGNN (depth 4): 4 coordinate means, 4 message sums and the graph sum;
+#   + 8 (the last coordinate mean is read by nothing);
+# - Megnet (3 blocks): 3 means onto the nodes, 3 onto the graphs (the edges'
+#   mean per graph is unsorted); + 2 (``edge_vectors``' transposes) + 6;
+# - CGCNN (depth 4): 4 message sums and the graph mean;
+# - DimeNet++ (4 blocks): 5 output blocks' sums and the graph sum (its
+#   position gathers are plain); + 5 (the graph sum's cotangent is the
+#   constant mask: the readout is linear);
+# - MXMNet: the graph sum (every other sum is unsorted); + 1.
 ZOO_LAUNCHES = {"GIN": (7, 10), "GraphSAGE": (4, 4), "GAT": (6, 11), "GATv2": (6, 16),
                 "RGCN": (6, 11), "GNNFilm": (6, 6), "INorp": (4, 4),
                 "DMPNN": (7, 7), "CMPNN": (5, 5), "NMPN": (3, 3), "AttentiveFP": (5, 5),
-                "HamNet": (4, 4), "MEGAN": (9, 9)}
+                "HamNet": (4, 4), "MEGAN": (9, 9),
+                "EGNN": (9, 17), "Megnet": (6, 14), "CGCNN": (5, 5), "DimeNetPP": (6, 11),
+                "MXMNet": (1, 2), "CGCNN-crystal": (5, 5), "Megnet-crystal": (6, 6),
+                "DimeNetPP-crystal": (6, 6)}
 ZOO_STEPS = 5
 # the first step is held against the CPU's on the first ZOO_FIRST_STEP_MOLS
 # molecules, as phase 10 takes a 64-molecule batch for it, which keeps the
 # CPU's share of the phase small
 ZOO_FIRST_STEP_MOLS = 64
-# the graph-learning drivers, (phase, script, --model), each cut to 3 epochs
-# (60) of 2 folds (3), no PNGs (no matplotlib on the card's machine); the JAX
-# moleculenet driver runs NMPN, AttentiveFP, HamNet and MEGAN of the second
-# group on its data (DMPNN and CMPNN stop at its assert): phase 23 runs
-# AttentiveFP there
+# the drivers, (phase, script, --model): the graph-learning ones each cut to
+# 3 epochs (60) of 2 folds (3), no PNGs (no matplotlib on the card's
+# machine); the JAX moleculenet driver runs NMPN, AttentiveFP, HamNet and
+# MEGAN of the second group on its data (DMPNN and CMPNN stop at its
+# assert): phase 23 runs AttentiveFP there; phase 24 runs ``train_force``
 ZOO_DRIVERS = ((22, "train_tudataset", "GIN"), (22, "train_moleculenet", "GIN"),
-               (22, "train_moleculenet", "GAT"), (23, "train_moleculenet", "AttentiveFP"))
+               (22, "train_moleculenet", "GAT"), (23, "train_moleculenet", "AttentiveFP"),
+               (24, "train_force", "MXMNet"), (24, "train_force", "EGNN"))
 ZOO_DRIVER_ARGS = ["--epochs", "3", "--folds", "2", "--no-plots"]
+# train_force at its default 128 frames, cut to 3 epochs (50) of one fold
+FORCE_DRIVER_ARGS = ["--epochs", "3", "--folds", "1", "--no-plots"]
+# each phase 24 batch at 512 frames, molecules or graphs: nodes, edges,
+# graphs, the pairs of angle_edges and angle_edges_2 and the second edge
+# set's edges (None where the batch has none), with their padding
+ZOO_SHAPES = {"EGNN": (4736, 34560, 513, None, None, None),
+              "Megnet": (4736, 34560, 513, None, None, None),
+              "CGCNN": (8192, 54784, 513, None, None, None),
+              "DimeNetPP": (4736, 34560, 513, 225920, None, None),
+              "MXMNet": (4736, 13056, 513, 28160, 41216, 34560),
+              "CGCNN-crystal": (1408, 8704, 513, None, None, None),
+              "Megnet-crystal": (9856, 176640, 513, None, None, None),
+              "DimeNetPP-crystal": (1408, 8704, 513, 38400, None, None)}
+
+
+def zoo_crystals(golden, n_graphs, rs):
+    """The periodic cells of ``tests/assets/ref_golden_<golden>.npz`` (node
+    numbers, positions, edges, lattice images, lattice; Megnet's cells
+    their state), repeated to ``n_graphs``, each with a graph label drawn
+    from ``rs``."""
+    d = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "assets",
+                             f"ref_golden_{golden}.npz"))
+    cells = []
+    for i in range(int(d["n_graphs"])):
+        lattice = d[f"g{i}_lattice"].astype(np.float32)
+        pos = d[f"g{i}_frac"] @ d[f"g{i}_lattice"] if f"g{i}_frac" in d.files \
+            else d[f"g{i}_xyz"]
+        image = d[f"g{i}_cell_translations"] if f"g{i}_cell_translations" in d.files \
+            else d[f"g{i}_edge_image"]
+        cell = {"node_number": d[f"g{i}_z"].astype(np.int64),
+                "node_coordinates": np.asarray(pos, np.float32),
+                "edge_indices": d[f"g{i}_edge_indices"].astype(np.int64),
+                "range_image": image.astype(np.int64), "graph_lattice": lattice}
+        if f"g{i}_graph_attributes" in d.files:
+            cell["graph_attributes"] = d[f"g{i}_graph_attributes"].astype(np.float32)
+        cells.append(cell)
+    graphs = [dict(cells[i % len(cells)]) for i in range(n_graphs)]
+    for g in graphs:
+        g["graph_labels"] = rs.randn(1).astype(np.float32)
+    return graphs
+
+
+def force_frames(name, n_frames):
+    """``train_force``'s frames for ``--model name --frames n_frames --seed
+    0``: ``SyntheticMDDataset``'s geometries of one molecule with the
+    driver's edges (MXMNet's multiplex graphs), their energies and forces
+    scaled by an ``EnergyForceExtensiveLabelScaler`` fit on them, as the
+    driver scales a fold's."""
+    from gcnn_keras_tpu_torch.data.scalers import EnergyForceExtensiveLabelScaler
+    from gcnn_keras_tpu_torch.scripts import train_force
+    ds, _ = train_force.load_dataset(train_force.parser().parse_args(
+        ["--model", name, "--frames", str(n_frames), "--seed", "0"]))
+    scaler = EnergyForceExtensiveLabelScaler()
+    scaler.fit_dataset(ds)
+    scaler.transform_dataset(ds)
+    return list(ds)
 
 
 def zoo_graphs(name, n_mols=512):
     """The molecules of ``labelled_mols(0, n_mols)`` (phase 4's) with a
     graph label and the inputs of ``ZOO_MODELS[name]``, drawn from
-    ``RandomState(1000)``."""
+    ``RandomState(1000)``; a ``force`` potential's graphs are
+    ``train_force``'s frames (``force_frames``), a ``crystal`` model's its
+    golden's cells (``zoo_crystals``)."""
+    from gcnn_keras_tpu_torch.graph.preprocess import set_angle_edge_pairs
     rs = np.random.RandomState(1000)
     inputs = ZOO_MODELS[name][1]
-    graphs = labelled_mols(0, n_mols)
+    if "crystal" in inputs:
+        graphs = zoo_crystals(inputs["crystal"], n_mols, rs)
+    elif inputs.get("force"):
+        graphs = force_frames(name, n_mols)
+    else:
+        graphs = labelled_mols(0, n_mols)
     for g in graphs:
         m = len(g["edge_indices"])
-        g["graph_labels"] = rs.randn(1).astype(np.float32)
+        g.setdefault("graph_labels", rs.randn(1).astype(np.float32))
         if "edge_classes" in inputs:
             g["edge_attributes"] = rs.randint(0, inputs["edge_classes"], size=m)
         if "edge_features" in inputs:
@@ -4027,27 +4144,87 @@ def zoo_graphs(name, n_mols=512):
             g["edge_relations"] = rs.randint(0, inputs["relations"], size=m)
         if "graph_classes" in inputs:
             g["graph_attributes"] = rs.randint(0, inputs["graph_classes"], size=1)
+    if inputs.get("angle_pairs"):
+        # a repeated cell's pairs are its first copy's
+        pairs = {}
+        for g in graphs:
+            key = id(g["edge_indices"])
+            if key not in pairs:
+                pairs[key] = set_angle_edge_pairs(
+                    g, range_indices="edge_indices")["angle_indices"]
+            g["angle_indices"] = pairs[key]
     return graphs
+
+
+def zoo_batch_kw(name):
+    """``batch_graphs``' keywords for ``ZOO_MODELS[name]``: its global keys,
+    reverse edges, pair lists and second edge set."""
+    inputs = ZOO_MODELS[name][1]
+    keys = ("graph_labels",) + (("graph_attributes",) if name in ("INorp", "Megnet-crystal")
+                                else ()) \
+        + (("energy",) if inputs.get("force") else ()) \
+        + (("graph_lattice",) if "crystal" in inputs else ())
+    kw = dict(global_keys=keys, compute_reverse_edges=inputs.get("reverse_edges", False))
+    if inputs.get("angle_pairs"):
+        kw["angle_edge_index_key"] = "angle_indices"
+    if inputs.get("multiplex"):
+        from gcnn_keras_tpu_torch.scripts.train_force import MXMNET_BATCH_KW
+        kw.update(MXMNET_BATCH_KW)
+    return kw
 
 
 def zoo_batch(name, device, n_mols=512):
     from gcnn_keras_tpu_torch.batch import batch_graphs
-    keys = ("graph_labels",) + (("graph_attributes",) if name == "INorp" else ())
-    return batch_graphs(zoo_graphs(name, n_mols), global_keys=keys, device=device,
-                        compute_reverse_edges=ZOO_MODELS[name][1].get("reverse_edges", False))
+    return batch_graphs(zoo_graphs(name, n_mols), device=device, **zoo_batch_kw(name))
+
+
+def zoo_shapes(batch):
+    """``(nodes, edges, graphs, pairs, second pairs, second edges)`` of a
+    batch, padding included (None where it has none)."""
+    return (batch.n_node, batch.n_edge, batch.n_graphs,
+            None if batch.angle_edges is None else int(batch.angle_edges.shape[0]),
+            None if batch.angle_edges_2 is None else int(batch.angle_edges_2.shape[0]),
+            None if batch.senders2 is None else int(batch.senders2.shape[0]))
+
+
+def fill_zero_heads(model, generator):
+    """DimeNet++'s and MXMNet's output heads start at zeros (the JAX
+    package's defaults), so a fresh model's output is a constant: fill them
+    as JAX's alternatives draw them, DimeNet++'s ``out`` by
+    ``glorot_orthogonal`` and MXMNet's ``y_W`` by glorot-uniform, from
+    ``generator`` on the CPU."""
+    from gcnn_keras_tpu_torch.layers.mlp import glorot_uniform_
+    from gcnn_keras_tpu_torch.models.dimenet_pp import DimNetOutputBlock
+    from gcnn_keras_tpu_torch.models.mxmnet import MXMLocalMP
+    from gcnn_keras_tpu_torch.ops.initializers import glorot_orthogonal_
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, DimNetOutputBlock):
+                w = module.out.weight
+                w.copy_(glorot_orthogonal_(torch.empty(w.shape), generator))
+            elif isinstance(module, MXMLocalMP):
+                w = module.y_W.weight
+                w.copy_(glorot_uniform_(torch.empty(w.shape), generator))
+    return model
 
 
 def zoo_model(name, device, **kw):
     """``ZOO_MODELS[name]``'s model at its ``model_default`` widths, weights
     from seed 0 (INorp told its graph attributes' width, 1; CMPNN and MEGAN
-    their float edge features')."""
+    their float edge features'; Megnet's crystal model its cells' state's,
+    1); a ``crystal`` model by ``make_crystal_model``; DimeNet++'s and
+    MXMNet's zero heads filled from seed 1 (``fill_zero_heads``)."""
     module, inputs, _ = ZOO_MODELS[name]
     mod = importlib.import_module(f"gcnn_keras_tpu_torch.models.{module}")
-    if name == "INorp":
+    if name in ("INorp", "Megnet-crystal"):
         kw.setdefault("graph_in_features", 1)
     if "edge_features" in inputs:
         kw.setdefault("edge_in_features", inputs["edge_features"])
-    return mod.make_model(device=device, generator=torch.Generator().manual_seed(0), **kw)
+    make = mod.make_crystal_model if "crystal" in inputs else mod.make_model
+    model = make(device="cpu", generator=torch.Generator().manual_seed(0), **kw)
+    if module in ("dimenet_pp", "mxmnet"):
+        fill_zero_heads(model, torch.Generator().manual_seed(1))
+    return model.to(device)
 
 
 def zoo_loss(model, b):
@@ -4057,13 +4234,35 @@ def zoo_loss(model, b):
                             b.globals["graph_mask"])
 
 
+def zoo_force_loss(model, b):
+    """``train_force``'s loss of ``model`` as an energy and force potential
+    at the driver's default weights (the energies' MAE + 50 x the forces'
+    MAE; ``EnergyForceModel``, the forces with their graph)."""
+    from gcnn_keras_tpu_torch.scripts import train_force
+    args = train_force.parser().parse_args([])
+    fmodel = train_force.EnergyForceModel(model, device=b.node_mask.device)
+    return train_force.loss_fn(fmodel, args.energy_weight, args.force_weight)(b)[0]
+
+
+def zoo_loss_of(name):
+    """The training loss of ``ZOO_MODELS[name]``: ``zoo_force_loss`` for a
+    force potential, else ``zoo_loss``."""
+    return zoo_force_loss if ZOO_MODELS[name][1].get("force") else zoo_loss
+
+
 def zoo_trainer(name, device):
-    """``(model, Trainer, TrainState)``: ``zoo_loss``, ``torch.optim.Adam``
-    at 1e-3."""
+    """``(model, Trainer, TrainState)``: ``zoo_loss_of(name)``,
+    ``torch.optim.Adam`` at 1e-3; a force potential under ``train_force``'s
+    schedule at its defaults (50 epochs of 128 frames: a warm-up from 0 to
+    1e-3 over 40 steps), without which Adam's first steps at 1e-3 overshoot
+    a force loss (DimeNet++'s rose 20-fold)."""
+    from gcnn_keras_tpu_torch.scripts import train_force
     from gcnn_keras_tpu_torch.training import Trainer
-    model = zoo_model(name, device)
-    trainer = Trainer(lambda b: (zoo_loss(model, b), {}),
-                      functools.partial(torch.optim.Adam, lr=1e-3))
+    model, loss = zoo_model(name, device), zoo_loss_of(name)
+    schedule = train_force.schedule_for(train_force.parser().parse_args([])) \
+        if ZOO_MODELS[name][1].get("force") else None
+    trainer = Trainer(lambda b: (loss(model, b), {}),
+                      functools.partial(torch.optim.Adam, lr=1e-3), schedule=schedule)
     return model, trainer, trainer.init_state(model.parameters())
 
 
@@ -4108,9 +4307,11 @@ def reset_peak(device):
 
 
 def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512):
-    """Phases 22 and 23 for one model: a graph-level forward against the
+    """Phases 22 to 24 for one model: a graph-level forward against the
     CPU's on the same weights (every output: MEGAN's importances too; GIN
-    also with ``train=True``, its batch statistics and running averages),
+    also with ``train=True``, its batch statistics and running averages; a
+    force potential's energies and forces by ``check_grads``' float64
+    rules),
     every kernel call of one forward against its plain version (new shapes
     timed), the forward's launches, host syncs, time and peak memory; the
     first training step against the CPU's (on ``ZOO_FIRST_STEP_MOLS``
@@ -4121,8 +4322,10 @@ def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512
     card) let it run on the CPU at a small size."""
     t_start = time.perf_counter()
     batch = zoo_batch(name, device, n_mols=n_mols)
-    if n_mols == 512 and (batch.n_node, batch.n_edge, batch.n_graphs) != (8192, 54784, 513):
-        raise AssertionError(f"{name}: shapes {batch.n_node} {batch.n_edge} {batch.n_graphs}")
+    host_ms_batch = 1e3 * (time.perf_counter() - t_start)
+    shapes = zoo_shapes(batch)
+    if n_mols == 512 and shapes != ZOO_SHAPES.get(name, (8192, 54784, 513, None, None, None)):
+        raise AssertionError(f"{name}: shapes {shapes}")
     cpu_batch, (fwd_want, step_want) = batch.to("cpu"), ZOO_LAUNCHES[name]
     gpu = zoo_model(name, device)
     reset_peak(device)
@@ -4135,11 +4338,36 @@ def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512
         raise AssertionError(f"{name}: output {tuple(out.shape)} or not finite")
     rec = {"model": name, "card": smi, "N_pad": batch.n_node, "E_pad": batch.n_edge,
            "G": batch.n_graphs, "max_nodes": batch.max_nodes,
-           "forward_rel_err": check_close(f"{name} forward", out.cpu(), refs["output"])}
+           **({"pairs_pad": shapes[3], "pairs_2_pad": shapes[4], "E2_pad": shapes[5],
+               "pairs_real": None if batch.angle_edge_mask is None
+               else int(batch.angle_edge_mask.sum()),
+               "host_ms_batch": host_ms_batch} if ZOO_MODELS[name][2] == 24 else {})}
+    force = ZOO_MODELS[name][1].get("force")
+    if not force:
+        rec["forward_rel_err"] = check_close(f"{name} forward", out.cpu(), refs["output"])
     for key in sorted(set(refs) - {"output"}):
         if not torch.isfinite(outs[key]).all():
             raise AssertionError(f"{name}: {key} not finite")
         rec[f"{key}_rel_err"] = check_close(f"{name} {key}", outs[key].cpu(), refs[key])
+    if force:
+        # a potential's answers, its energies and forces, by ``check_grads``'
+        # float64 rules: MXMNet's forces, some 1e7 from its filled heads, lie
+        # 6.4e-4 of the largest from float64 in the CPU's float32 (an H100's
+        # 4.3e-4); an H100's Megnet energies lie 6.9e-5 from the CPU's
+        from gcnn_keras_tpu_torch.model.force import EnergyForceModel
+
+        def answers(model, b, dev):
+            got = EnergyForceModel(model, device=dev).apply(b)
+            return {k: got[k].detach().cpu() for k in ("energy", "force")}
+        got = answers(gpu, batch, device)
+        if not all(torch.isfinite(v).all() for v in got.values()):
+            raise AssertionError(f"{name}: energies or forces not finite")
+        rec["answers_rel_err"], arbitrated = check_grads(
+            name, got, answers(zoo_model(name, "cpu"), cpu_batch, "cpu"), SERVE_TOL,
+            lambda: answers(zoo_model(name, "cpu").double(), cpu_batch._map(
+                lambda v: v.double() if v.is_floating_point() else v), "cpu"))
+        if arbitrated:
+            rec["answers_float64_arbiter"] = arbitrated
     if name == "GIN":
         models = {dev: zoo_model(name, dev) for dev in (device, "cpu")}
         got = models[device](batch, train=True)["output"].detach().cpu()
@@ -4178,13 +4406,13 @@ def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512
     (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = first
     if not abs(loss_gpu - loss_cpu) <= TRAIN_TOL * abs(loss_cpu):
         raise AssertionError(f"{name}: first loss {loss_gpu} on the card, {loss_cpu} on the CPU")
-    # the second group's first steps take ``check_grads``' float64 rules
-    # (CMPNN's float32 gradients at its default widths, HamNet's
+    # the second and third groups' first steps take ``check_grads``' float64
+    # rules (CMPNN's float32 gradients at its default widths, HamNet's
     # attention-logit biases); the first group's never needed them
     worst, arbitrated = check_grads(
         name, grads_gpu, grads_cpu, TRAIN_TOL,
-        (lambda: float64_grads(zoo_model(name, "cpu"), zoo_loss, small))
-        if ZOO_MODELS[name][2] == 23 else None)
+        (lambda: float64_grads(zoo_model(name, "cpu"), zoo_loss_of(name), small))
+        if ZOO_MODELS[name][2] >= 23 else None)
     rec["first_step"] = {"loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "max_rel_grad_err": worst,
                          **({"float64_arbiter": arbitrated} if arbitrated else {})}
     _, trainer, state = zoo_trainer(name, device)
@@ -4226,25 +4454,60 @@ def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512
     return {f"{name}_zoo_forward": fwd_launches, f"{name}_zoo_train": step_launches}, recs
 
 
-def phase_zoo_driver(script, model, smi, device="cuda"):
-    """Phase 22 for one driver: its ``main`` with ``ZOO_DRIVER_ARGS`` on the
-    card in a scratch directory, every count set to 0 just before and read
-    just after, its ``Trainer`` recording (``RecordingTrainer``); then the
-    score file, finite losses, the first step against the same step on the
-    CPU (the driver's model, weights and batch), its kernel calls against
-    their plain versions and every later step's launches. Prints ms per
-    step and per epoch. Returns the run's launch counts and the kernel
-    records. ``device`` lets it run on the CPU."""
+def graph_driver_cpu_step(script, model):
+    """A graph-learning driver's model on the CPU (its default seed 42, the
+    widths of its data) with its loss; its first step takes ``TRAIN_TOL``
+    alone."""
     from gcnn_keras_tpu_torch.training import graph_driver
     mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{script}")
-    rec = RecordingTrainer(graph_driver.Trainer)
+    ds = mod.synthetic_dataset(42)  # the drivers' default --seed
+    n_out = mod.n_classes(ds) if script == "train_tudataset" else 1
+    cpu_model = graph_driver.build_model(model, n_out, graph_driver.input_widths(ds),
+                                         device="cpu")
+    return list(cpu_model.named_parameters()), mod.loss_fn(cpu_model), None
+
+
+def force_driver_cpu_step(script, model):
+    """``train_force``'s model on the CPU (its default seed 42) with its
+    loss, and the float64 gradients of that loss for ``check_grads``'
+    rules."""
+    from gcnn_keras_tpu_torch.scripts import train_force
+    args = train_force.parser().parse_args([])
+    fmodel = train_force.build_model(model, "cpu", torch.Generator().manual_seed(args.seed))
+    loss_fn = train_force.loss_fn(fmodel, args.energy_weight, args.force_weight)
+    return (list(fmodel.energy_model.named_parameters()), loss_fn,
+            lambda batch: float64_grads(fmodel.energy_model, lambda m, b: loss_fn(b)[0], batch))
+
+
+# each driver script's run: the module whose ``Trainer`` the phase records,
+# its arguments, and its CPU model and loss for the first step
+ZOO_DRIVER_RUNS = {
+    "train_tudataset": ("training.graph_driver", ZOO_DRIVER_ARGS, graph_driver_cpu_step),
+    "train_moleculenet": ("training.graph_driver", ZOO_DRIVER_ARGS, graph_driver_cpu_step),
+    "train_force": ("scripts.train_force", FORCE_DRIVER_ARGS, force_driver_cpu_step)}
+
+
+def phase_zoo_driver(script, model, smi, device="cuda"):
+    """Phase 22 for one driver: its ``main`` with its arguments
+    (``ZOO_DRIVER_RUNS``) on the card in a scratch directory, every count
+    set to 0 just before and read just after, its ``Trainer`` recording
+    (``RecordingTrainer``); then the score file, finite losses, the first
+    step against the same step on the CPU (the driver's model, weights and
+    batch; ``check_first_step_on_cpu``), its kernel calls against their
+    plain versions and every later step's launches. Prints ms per step and
+    per epoch. Returns the run's launch counts and the kernel records.
+    ``device`` lets it run on the CPU."""
+    module, argv, cpu_step = ZOO_DRIVER_RUNS[script]
+    mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{script}")
+    trained = importlib.import_module(f"gcnn_keras_tpu_torch.{module}")
+    rec = RecordingTrainer(trained.Trainer)
     label = f"{script}_{model}"
     with tempfile.TemporaryDirectory(prefix="_zoo_driver_", dir=os.getcwd()) as workdir, \
-            contextlib.chdir(workdir), patched(graph_driver, "Trainer", rec.cls):
+            contextlib.chdir(workdir), patched(trained, "Trainer", rec.cls):
         # the main path: every count set to 0 just before, read just after
         reset_counts()
         t0 = time.perf_counter()
-        score = mod.main(ZOO_DRIVER_ARGS + ["--model", model, "--device", device])
+        score = mod.main(argv + ["--model", model, "--device", device])
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = kernel_counts()
@@ -4253,14 +4516,10 @@ def phase_zoo_driver(script, model, smi, device="cuda"):
             raise AssertionError(f"{label}: no score file {path}.yaml")
     if not np.isfinite(score["loss"]).all():
         raise AssertionError(f"{label}: losses {score['loss']}")
-    ds = mod.synthetic_dataset(42)  # the drivers' default --seed
-    n_out = mod.n_classes(ds) if script == "train_tudataset" else 1
-    cpu_model = graph_driver.build_model(model, n_out, graph_driver.input_widths(ds),
-                                         device="cpu")
-    first = check_first_step_on_cpu(label, rec.first, list(cpu_model.named_parameters()),
-                                    mod.loss_fn(cpu_model), TRAIN_TOL)
+    named_params, loss_fn, exact = cpu_step(script, model)
+    first = check_first_step_on_cpu(label, rec.first, named_params, loss_fn, TRAIN_TOL, exact)
     recs = kernel_call_records(rec.first["calls"], f"{label}, first step", label)
-    out = {"script": script, "model": model, "card": smi, "args": ZOO_DRIVER_ARGS,
+    out = {"script": script, "model": model, "card": smi, "args": argv,
            "steps": len(rec.steps) + 1, "launches_per_step": rec.check_steps(label),
            "ms_per_step": float(np.median([ms for _, ms, _ in rec.steps])),
            "ms_per_epoch": 1e3 * score["epoch_time_mean"], "s_run": run_s,
@@ -4292,6 +4551,45 @@ def phase_zoo(smi, profiles, timed_shapes, phase):
     log(f"phase {phase} seconds: " + json.dumps(dict(zip(("models", "drivers"),
                                                          np.diff(seconds).tolist()))))
     return by_path, {"sorted_segment_sum": recs}
+
+
+def bessel_per_order(x):
+    """The spherical basis's radial part as the JAX package computes it
+    (``models/dimenet_pp.py``): ``spherical_bessel_jn_all`` of each order's
+    arguments ``x[..., l, :]``, order ``l`` taken."""
+    from gcnn_keras_tpu_torch.ops.polynom import spherical_bessel_jn_all
+    n = x.shape[-2]
+    return torch.stack([spherical_bessel_jn_all(x[..., l, :], n)[..., l] for l in range(n)],
+                       dim=-2)
+
+
+def phase_bessel_forms(smi, device="cuda", n_mols=512, reps=3):
+    """What the radial part's one recursion over all orders
+    (``spherical_bessel_jn_diagonal``) saves against ``bessel_per_order``:
+    the force steps of DimeNet++ and MXMNet on phase 24's batches with each,
+    in turns (one, the other, the other, the one), each a fresh trainer, one
+    step untimed, then the median ms of ``reps`` and the peak MB; the first
+    losses agree within ``TRAIN_TOL``. Returns the records."""
+    from gcnn_keras_tpu_torch.models import dimenet_pp
+    out = {}
+    for name in ("DimeNetPP", "MXMNet"):
+        batch, rec = zoo_batch(name, device, n_mols=n_mols), {}
+        for form in ("diagonal", "per_order", "per_order", "diagonal"):
+            fn = bessel_per_order if form == "per_order" \
+                else dimenet_pp.spherical_bessel_jn_diagonal
+            with patched(dimenet_pp, "spherical_bessel_jn_diagonal", fn):
+                _, trainer, state = zoo_trainer(name, device)
+                loss = float(trainer.step(state, batch)[1]["loss"])
+                reset_peak(device)
+                ms = synced_ms(lambda: trainer.step(state, batch), reps)
+            rec.setdefault(form, []).append({"ms": ms, "loss": loss,
+                                             "peak_mb": peak_mb(device)})
+        losses = [r["loss"] for rs in rec.values() for r in rs]
+        if not max(losses) - min(losses) <= TRAIN_TOL * abs(losses[0]):
+            raise AssertionError(f"{name} Bessel forms: first losses {losses}")
+        out[name] = rec
+    log("Bessel forms: " + json.dumps({"card": smi, "n_mols": n_mols, **out}))
+    return out
 
 
 def kernels_line(records, by_path, second_order):
@@ -4449,11 +4747,14 @@ def main():
     for kname, rs in option_recs.items():
         records.setdefault(kname, []).extend(rs)
     timed_shapes = set()
-    for phase in (22, 23):
+    for phase in (22, 23, 24):
+        if phase == 24:  # the third group's shapes timed on its own paths
+            timed_shapes = set()
         paths, zoo_recs = phase_zoo(smi, zoo_profiles, timed_shapes, phase)
         by_path.update(paths)
         for kname, rs in zoo_recs.items():
             records[kname].extend(rs)
+    phase_bessel_forms(smi)
     # the busy shares last, after every timed part of the script; one
     # profiled step of each zoo model: RGCN's and GNN-FiLM's 4300 and 12600
     # kernels a step take the profiler about 10 s a step to collect

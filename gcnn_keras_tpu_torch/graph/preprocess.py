@@ -2,7 +2,9 @@
 ``gcnn_keras_tpu/graph/preprocess.py``.
 
 Carried so far: the dense cutoff neighbour list (``set_range``), the
-node-triple angle list (``set_angle``), GCN's edge weights
+node-triple angle list (``set_angle``), the edge-pair angle lists of
+DimeNet++ (``set_angle_edge_pairs``) and MXMNet
+(``set_angle_pairs_kgcnn``), GCN's edge weights
 (``set_edge_weights_uniform``, ``normalize_edge_weights_symmetric``) and
 the registry that names them (``get_preprocessor``, which
 ``GraphDict.apply_preprocessor`` and ``map_list`` reach). The C++
@@ -97,6 +99,71 @@ def set_angle(graph: Dict[str, np.ndarray], range_indices: str = "range_indices"
     return out
 
 
+def set_angle_edge_pairs(graph: Dict[str, np.ndarray],
+                         range_indices: str = "range_indices",
+                         allow_backtrack: bool = False) -> Dict[str, np.ndarray]:
+    """DimeNet's edge-pair angle list ``angle_indices`` (P, 2): the pairs
+    ``(e1, e2)`` with ``receiver(e1) == sender(e2)``, without the
+    backtracking pair (``sender(e1) == receiver(e2)``) unless
+    ``allow_backtrack``. In the JAX package's order: by ``e2``, then by
+    ``e1`` in the stable receiver order."""
+    ei = np.asarray(graph[range_indices])
+    recv, send = ei[:, 0], ei[:, 1]
+    pairs = []
+    order = np.argsort(recv, kind="stable")
+    recv_s = recv[order]
+    n_max = int(recv.max()) + 2 if len(recv) else 1
+    bounds = np.searchsorted(recv_s, np.arange(n_max))
+    for e2 in range(len(ei)):
+        j, i = send[e2], recv[e2]
+        if j + 1 >= len(bounds):
+            continue
+        in_j = order[bounds[j]:bounds[j + 1]]  # the edges into j
+        if not allow_backtrack:
+            in_j = in_j[send[in_j] != i]
+        if len(in_j):
+            pairs.append(np.stack([in_j, np.full(len(in_j), e2)], axis=1))
+    out = dict(graph)
+    out["angle_indices"] = (np.concatenate(pairs, axis=0) if pairs
+                            else np.zeros((0, 2), dtype=np.int64))
+    return out
+
+
+def set_angle_pairs_kgcnn(graph: Dict[str, np.ndarray],
+                          range_indices: str = "edge_indices",
+                          edge_pairing: str = "jk",
+                          out_key: str = "angle_indices_1",
+                          allow_self_edges: bool = False,
+                          allow_multi_edges: bool = False,
+                          allow_reverse_edges: bool = False) -> Dict[str, np.ndarray]:
+    """The edge-pair list of kgcnn's ``get_angle_indices`` with its
+    ``edge_pairing`` (MXMNet: ``"jk"``, and ``"ik"`` with self edges):
+    edge ``n = (i, j)`` pairs with every edge ``m`` whose ``pos_fix`` index
+    equals ``n``'s ``pos_ij`` index, ``k`` being ``m``'s other end. One
+    (E, E) match per graph; pairs in row-major order of ``(n, m)``, as the
+    JAX package gives them."""
+    ei = np.asarray(graph[range_indices], dtype=np.int64)
+    out = dict(graph)
+    if len(ei) == 0:
+        out[out_key] = np.zeros((0, 2), dtype=np.int64)
+        return out
+    if "k" not in edge_pairing or ("i" not in edge_pairing and "j" not in edge_pairing):
+        raise ValueError(f"Invalid edge_pairing {edge_pairing!r}")
+    pos_fix = 0 if edge_pairing[0] != "k" else 1
+    pos_ij = 0 if "i" in edge_pairing else 1
+    n_e = len(ei)
+    match = ei[None, :, pos_fix] == ei[:, None, pos_ij]
+    if not allow_multi_edges:
+        match &= ~((ei[None, :, 0] == ei[:, None, 0]) & (ei[None, :, 1] == ei[:, None, 1]))
+    if not allow_reverse_edges:
+        match &= ~((ei[None, :, 0] == ei[:, None, 1]) & (ei[None, :, 1] == ei[:, None, 0]))
+    diag = np.arange(n_e)
+    match[diag, diag] = bool(allow_self_edges)
+    n_idx, m_idx = np.nonzero(match)
+    out[out_key] = np.stack([n_idx, m_idx], axis=1).astype(np.int64)
+    return out
+
+
 def set_edge_weights_uniform(graph: Dict[str, np.ndarray], value: float = 1.0,
                              edge_indices: str = "edge_indices") -> Dict[str, np.ndarray]:
     """``edge_weights`` (M, 1) float32, all ``value``."""
@@ -153,6 +220,8 @@ class GraphPreprocessorBase:
 _PREPROCESSORS = {
     "set_range": set_range,
     "set_angle": set_angle,
+    "set_angle_edge_pairs": set_angle_edge_pairs,
+    "set_angle_pairs_kgcnn": set_angle_pairs_kgcnn,
     "set_edge_weights_uniform": set_edge_weights_uniform,
     "normalize_edge_weights_symmetric": normalize_edge_weights_symmetric,
 }

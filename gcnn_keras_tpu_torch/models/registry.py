@@ -5,13 +5,13 @@
 A name is a model module's short name (``"Schnet"``), or a path that ends
 in one (``"kgcnn.literature.Schnet"``); a name the table does not hold is
 imported as a module path, one under ``gcnn_keras_tpu.`` from the port's
-package of the same layout. The port holds eighteen of the JAX package's
-model modules, each with every builder of its JAX module (HDNNP2nd's
-``make_model``, ``make_model_weighted``, ``make_model_behler``,
+package of the same layout. The port holds twenty-three of the JAX
+package's model modules, each with every builder of its JAX module
+(HDNNP2nd's ``make_model``, ``make_model_weighted``, ``make_model_behler``,
 ``make_model_atom_wise`` and ``make_model_inverse_distances`` among them;
-GIN's ``make_model_edge``; GAT's ``make_model_v2``; NMPN's
-``make_crystal_model``); the other eight raise ``ValueError``, by short
-name or by file.
+GIN's ``make_model_edge``; GAT's ``make_model_v2``; the
+``make_crystal_model`` of NMPN, CGCNN, Megnet and DimeNet++); the other
+three raise ``ValueError``, by short name or by file.
 """
 from __future__ import annotations
 
@@ -38,10 +38,14 @@ _MODULES = {
     "AttentiveFP": "gcnn_keras_tpu_torch.models.attentivefp",
     "HamNet": "gcnn_keras_tpu_torch.models.hamnet",
     "MEGAN": "gcnn_keras_tpu_torch.models.megan",
+    "DimeNetPP": "gcnn_keras_tpu_torch.models.dimenet_pp",
+    "Megnet": "gcnn_keras_tpu_torch.models.megnet",
+    "CGCNN": "gcnn_keras_tpu_torch.models.cgcnn",
+    "EGNN": "gcnn_keras_tpu_torch.models.egnn",
+    "MXMNet": "gcnn_keras_tpu_torch.models.mxmnet",
 }
 # the rest of the JAX package's table, not ported yet: module name -> file
-_ZOO = {"DimeNetPP": "dimenet_pp", "Megnet": "megnet", "CGCNN": "cgcnn", "EGNN": "egnn",
-        "MXMNet": "mxmnet", "MAT": "mat", "Unet": "unet", "GNNExplain": "gnnexplain"}
+_ZOO = {"MAT": "mat", "Unet": "unet", "GNNExplain": "gnnexplain"}
 
 
 def get_model_class(module_name: str, class_name: str = "make_model") -> Callable:

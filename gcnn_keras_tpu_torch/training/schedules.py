@@ -4,9 +4,11 @@ which the training engine uses.
 
 ``Trainer(schedule=...)`` sets update k's learning rate to ``schedule(k)``,
 k counted from 0, as optax's ``scale_by_learning_rate`` does with its step
-count. ``linear_schedule`` computes in float32 as optax does and returns
-its values exactly; the others compute in double precision, where the JAX
-package's computes in float32.
+count. ``linear_schedule`` and ``warmup_cosine_decay_schedule`` (the
+``optax`` schedules of the training scripts) compute in float32 as optax
+does: the first returns its values exactly, the second within a float32
+rounding (numpy's float32 cosine is not XLA's); the others compute in
+double precision, where the JAX package's computes in float32.
 """
 from __future__ import annotations
 
@@ -32,6 +34,33 @@ def linear_schedule(init_value: float, end_value: float, transition_steps: int,
         count = min(max(count - transition_begin, 0), transition_steps)
         frac = np.float32(1) - np.float32(count) / np.float32(transition_steps)
         return float(delta * frac + end)
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0,
+                                 exponent: float = 1.0) -> Schedule:
+    """``optax.warmup_cosine_decay_schedule``: linear from ``init_value`` to
+    ``peak_value`` over ``warmup_steps``, then ``peak_value`` times the
+    cosine decay ``(1 - alpha) (0.5 (1 + cos(pi t / T)))^exponent + alpha``
+    over ``T = decay_steps - warmup_steps`` steps (``alpha = end_value /
+    peak_value``), then ``end_value``."""
+    if not decay_steps - warmup_steps > 0:
+        raise ValueError("warmup_cosine_decay_schedule needs decay_steps > warmup_steps, "
+                         f"got {decay_steps} and {warmup_steps}")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    warmup = linear_schedule(init_value, peak_value, warmup_steps)
+    t_decay = np.float32(decay_steps - warmup_steps)
+    one, half, f32 = np.float32(1), np.float32(0.5), np.float32
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return warmup(count)
+        t = min(f32(count - warmup_steps), t_decay)
+        cosine = half * (one + np.cos(f32(np.pi) * t / t_decay, dtype=np.float32))
+        decayed = (one - f32(alpha)) * cosine ** f32(exponent) + f32(alpha)
+        return float(f32(peak_value) * decayed)
 
     return schedule
 

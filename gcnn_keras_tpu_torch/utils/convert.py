@@ -23,8 +23,12 @@ Any other module's own parameters are bare flax leaves of the same name,
 and of ``Set2Set``'s LSTM, and the ``kernel`` and ``bias`` of the flax
 ``nn.Dense`` leaves of ``GRUUpdate``'s cell (``<path>/GRUCell_0/ir/kernel``
 ...: the port names its submodules after them). MEGAN's heads are port
-``Dense`` modules named as the flax ones, ``att_i/head_k_linear``.
-``flax_leaf_names`` gives each port parameter's flax path.
+``Dense`` modules named as the flax ones, ``att_i/head_k_linear``. The
+flax ``nn.Embed`` tables of DimeNet++ and MXMNet are bare leaves too,
+``embed_z/embedding`` (``models/dimenet_pp.py`` ``NodeEmbedding``). A
+module called at two sites (MXMNet's ``x_edge_mlp``, ``linear`` and
+``h_mlp``) is one flax leaf and one port parameter: ``named_modules``
+gives it once. ``flax_leaf_names`` gives each port parameter's flax path.
 
 ``GraphBatchNorm``'s running ``mean`` and ``var`` are the flax
 ``batch_stats`` collection, ``batch_stats/<path>/mean`` and ``/var``; they

@@ -1291,9 +1291,10 @@ def test_search_phase_on_the_card(cuda_device, tmp_path, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["GIN", "GraphSAGE", "GAT", "GATv2", "RGCN", "GNNFilm",
                                   "INorp", "DMPNN", "CMPNN", "NMPN", "AttentiveFP", "HamNet",
-                                  "MEGAN"])
+                                  "MEGAN", "EGNN", "Megnet", "CGCNN", "DimeNetPP", "MXMNet",
+                                  "CGCNN-crystal", "Megnet-crystal", "DimeNetPP-crystal"])
 def test_zoo_phase_on_the_card(cuda_device, name):
-    """``chip_smoke.py`` phase 22's (23's) checks of one model on 32
+    """``chip_smoke.py`` phase 22's (23's, 24's) checks of one model on 32
     molecules: the forward and first step against the CPU, every kernel call
     against its plain version, the launches of a forward and of every
     step."""
@@ -1319,3 +1320,34 @@ def test_zoo_driver_phase_on_the_card(cuda_device, script, model):
     paths, recs = chip_smoke.phase_zoo_driver(script, model, "card test")
     assert len(recs["sorted_segment_sum"]) == chip_smoke.ZOO_LAUNCHES[model][1]
     assert paths[f"{script}_{model}"]["sorted_segment_sum"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["MXMNet", "EGNN"])
+def test_force_driver_phase_on_the_card(cuda_device, model):
+    """``chip_smoke.py`` phase 24's ``train_force`` run: the first step
+    against the CPU, its kernel calls against their plain versions, every
+    step's launches."""
+    import chip_smoke
+    paths, recs = chip_smoke.phase_zoo_driver("train_force", model, "card test")
+    assert len(recs["sorted_segment_sum"]) == chip_smoke.ZOO_LAUNCHES[model][1]
+    assert paths[f"train_force_{model}"]["sorted_segment_sum"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", range(7))
+def test_spherical_bessel_gradients_finite_on_the_card(cuda_device, order):
+    """``j_l`` and its first two derivatives at 1e-6 to 20 on the card: the
+    CPU's values, and finite."""
+    from gcnn_keras_tpu_torch.ops import polynom
+    pts = torch.tensor([1e-6, 1e-3, 0.5, 1.0, 3.0, 7.0, 20.0])
+    outs = []
+    for dev in ("cpu", cuda_device):
+        x = pts.to(dev).requires_grad_(True)
+        y = polynom.spherical_bessel_jn_all(x, 7)[..., order]
+        d1, = torch.autograd.grad(y.sum(), x, create_graph=True)
+        d2, = torch.autograd.grad(d1.sum(), x)
+        outs.append([t.detach().cpu() for t in (y, d1, d2)])
+    for got, want in zip(*outs[::-1]):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 1e-5 * (1 + want.abs().max())

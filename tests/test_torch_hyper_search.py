@@ -252,9 +252,9 @@ def test_make_model_loads_the_jax_params(name):
                                    atol=OUTPUT_TOL * np.abs(r).max(), err_msg=k)
 
 
-@pytest.mark.parametrize("module", ["Megnet", "kgcnn.literature.CGCNN", "DimeNetPP",
-                                    "gcnn_keras_tpu.models.egnn",
-                                    "gcnn_keras_tpu.models.dimenet_pp"])
+@pytest.mark.parametrize("module", ["MAT", "kgcnn.literature.Unet", "GNNExplain",
+                                    "gcnn_keras_tpu.models.mat",
+                                    "gcnn_keras_tpu.models.gnnexplain"])
 def test_unported_model_module_raises_naming_the_zoo(module):
     with pytest.raises(ValueError, match="'the rest of the zoo'"):
         registry.get_model_class(module)

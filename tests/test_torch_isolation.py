@@ -21,9 +21,9 @@ from gcnn_keras_tpu_torch.data.dataset import MemoryGraphDataset
 from gcnn_keras_tpu_torch.data.loader import GraphBatchLoader
 from gcnn_keras_tpu_torch.model.force import EnergyForceModel
 from gcnn_keras_tpu_torch.model.mlmm import MLMMEnergyForceModel
-from gcnn_keras_tpu_torch.models import (attentivefp, cmpnn, dmpnn, gat, gcn, gin, gnnfilm,
-                                         hamnet, hdnnp2nd, hdnnp4th, inorp, megan, nmpn,
-                                         painn, rgcn, sage)
+from gcnn_keras_tpu_torch.models import (attentivefp, cgcnn, cmpnn, dimenet_pp, dmpnn, egnn,
+                                         gat, gcn, gin, gnnfilm, hamnet, hdnnp2nd, hdnnp4th,
+                                         inorp, megan, megnet, mxmnet, nmpn, painn, rgcn, sage)
 from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
 from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
 from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
@@ -49,8 +49,9 @@ WORKFLOW = ("evaluate_models", "calc_prediction_std", "load_model", "transfer_le
             "charge_hyp_param_search")
 
 
-# the graph-learning drivers, each a ``main(argv)`` that takes ``--device``
-DRIVERS = ("train_tudataset", "train_moleculenet")
+# the graph-learning drivers and the force driver, each a ``main(argv)``
+# that takes ``--device``
+DRIVERS = ("train_tudataset", "train_moleculenet", "train_force")
 
 
 def _script(name):
@@ -103,8 +104,10 @@ def _run_workflow(name, monkeypatch, device=None):
 
 
 def _run_driver(name, device=None):
-    """A graph-learning driver's ``main``: one epoch of two folds."""
+    """A driver's ``main``: one epoch of two folds (``train_force``: of 32
+    frames)."""
     return _script(name).main(["--epochs", "1", "--folds", "2", "--no-plots"]
+                              + (["--frames", "32"] if name == "train_force" else [])
                               + (["--device", device] if device else []))
 
 
@@ -135,6 +138,9 @@ def test_scan_sees_the_package():
                 "models/rgcn.py", "models/gnnfilm.py", "models/inorp.py",
                 "models/dmpnn.py", "models/cmpnn.py", "models/nmpn.py",
                 "models/attentivefp.py", "models/hamnet.py", "models/megan.py",
+                "models/egnn.py", "models/cgcnn.py", "models/megnet.py",
+                "models/dimenet_pp.py", "models/mxmnet.py", "ops/polynom.py",
+                "ops/initializers.py", "graph/preprocess.py", "training/schedules.py",
                 "layers/pool/__init__.py", "layers/pool/set2set.py",
                 "layers/conv/basic.py", "training/graph_driver.py",
                 *(f"scripts/{name}.py" for name in DRIVERS)):
@@ -162,6 +168,10 @@ def test_scan_sees_the_package():
                                    "dmpnn.make_model", "cmpnn.make_model", "nmpn.make_model",
                                    "nmpn.make_crystal_model", "attentivefp.make_model",
                                    "hamnet.make_model", "megan.make_model",
+                                   "egnn.make_model", "cgcnn.make_model",
+                                   "cgcnn.make_crystal_model", "megnet.make_model",
+                                   "megnet.make_crystal_model", "dimenet_pp.make_model",
+                                   "dimenet_pp.make_crystal_model", "mxmnet.make_model",
                                    "MLMMEnergyForceModel", "GraphBatchLoader",
                                    "MemoryGraphDataset.to_batch", "run_force_training",
                                    "HyperParameter.make_model",
@@ -212,6 +222,15 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_pat
         "attentivefp.make_model": lambda **kw: attentivefp.make_model(**kw),
         "hamnet.make_model": lambda **kw: hamnet.make_model(**kw),
         "megan.make_model": lambda **kw: megan.make_model(**kw),
+        "egnn.make_model": lambda **kw: egnn.make_model(depth=1, **kw),
+        "cgcnn.make_model": lambda **kw: cgcnn.make_model(depth=1, **kw),
+        "cgcnn.make_crystal_model": lambda **kw: cgcnn.make_crystal_model(depth=1, **kw),
+        "megnet.make_model": lambda **kw: megnet.make_model(nblocks=1, **kw),
+        "megnet.make_crystal_model": lambda **kw: megnet.make_crystal_model(nblocks=1, **kw),
+        "dimenet_pp.make_model": lambda **kw: dimenet_pp.make_model(num_blocks=1, **kw),
+        "dimenet_pp.make_crystal_model":
+            lambda **kw: dimenet_pp.make_crystal_model(num_blocks=1, **kw),
+        "mxmnet.make_model": lambda **kw: mxmnet.make_model(depth=1, **kw),
         "MLMMEnergyForceModel": lambda **kw: MLMMEnergyForceModel(EnergyForceModel(
             hdnnp4th.make_model_behler(device="cpu"), use_esp_coupling=True, **kw)),
         "GraphBatchLoader": lambda **kw: GraphBatchLoader([graph], 1, **kw),

@@ -230,7 +230,25 @@ order, each raising on a failed check:
    (``phase_zoo_driver``), as phase 22's drivers, and the force steps of
    DimeNet++ and MXMNet with the spherical basis's radial part in its one
    recursion and in the JAX package's recursion per order, in turns
-   (``phase_bessel_forms``).
+   (``phase_bessel_forms``, after phase 25).
+
+25. The padded-form models, the configuration library and the kgcnn
+   compatibility layer (``phase_zoo`` again, a fresh set of timed shapes):
+   MAT as the port's ``HyperParameter`` builds ``hyper_esol.py``'s entry,
+   and the Graph U-Net at its ``model_default``, on phase 4's 512
+   molecules, checked as phase 23's models; they launch no kernel
+   (``ZOO_LAUNCHES`` (0, 0)). The U-Net's gPool selections are held equal
+   to the CPU's first (``check_selection``: a difference only at a near
+   tie is recorded, and the answers are then held with the CPU's
+   selections imposed). Then ``train_force --hyper
+   training/hyper/hyper_synthetic_md.py`` with SchNet and PAiNN at the
+   config's widths on its 256 frames, cut to 3 epochs of one fold, as
+   phase 22's drivers; then the compatibility layer on the seed-0 request
+   at 128 columns (``phase_compat``): ``PoolingLocalEdges``,
+   ``PoolingNodes``, ``PoolingGlobalEdges`` and a ``MessagePassing``
+   subclass (their segment-sum calls against the plain version, 3
+   launches a pass), ``PoolingLocalEdgesLSTM`` and ``PoolingTopK`` against
+   the CPU; each layer's ms. Prints the phase's seconds.
 
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it; the
@@ -3974,7 +3992,12 @@ def phase_options(requests, batch0, smi, unfused_answers, profiles):
 # group: the force potentials (``force``: EGNN, Megnet, DimeNet++, MXMNet)
 # train on ``train_force``'s frames (``force_frames``), DimeNet++ with the
 # ``angle_pairs`` of ``set_angle_edge_pairs``, MXMNet on the driver's
-# ``multiplex`` graphs; the ``crystal`` models on a golden's cells
+# ``multiplex`` graphs; the ``crystal`` models on a golden's cells. Phase 25,
+# the padded-form models: MAT as ``hyper_esol.py``'s entry builds it
+# (``hyper``: the library file and its key; depth 5, 8 heads of 8, 64 units),
+# on the node numbers and coordinates, its adjacency of ones; the Graph U-Net
+# at its ``model_default`` on integer edge attributes below 5 (its edge
+# ``input_embedding``), since ``hyper_mutag.py``'s entry fails in JAX too
 ZOO_MODELS = {"GIN": ("gin", {}, 22), "GraphSAGE": ("sage", {"edge_classes": 5}, 22),
               "GAT": ("gat", {"edge_classes": 5}, 22),
               "GATv2": ("gatv2", {"edge_classes": 5}, 22),
@@ -3995,7 +4018,9 @@ ZOO_MODELS = {"GIN": ("gin", {}, 22), "GraphSAGE": ("sage", {"edge_classes": 5},
               "CGCNN-crystal": ("cgcnn", {"crystal": "cgcnn"}, 24),
               "Megnet-crystal": ("megnet", {"crystal": "megnet_crystal"}, 24),
               "DimeNetPP-crystal": ("dimenet_pp", {"crystal": "cgcnn", "angle_pairs": True},
-                                    24)}
+                                    24),
+              "MAT": ("mat", {"hyper": ("hyper_esol.py", "MAT")}, 25),
+              "Unet": ("unet", {"edge_classes": 5}, 25)}
 # segment-sum launches (forward, training step) of each at those widths. The
 # step's loss is a masked graph MAE (no force pass): its reverse pass adds
 # the transpose of each sender gather whose input depends on the parameters
@@ -4039,13 +4064,17 @@ ZOO_MODELS = {"GIN": ("gin", {}, 22), "GraphSAGE": ("sage", {"edge_classes": 5},
 #   position gathers are plain); + 5 (the graph sum's cotangent is the
 #   constant mask: the readout is linear);
 # - MXMNet: the graph sum (every other sum is unsorted); + 1.
+# Phase 25's MAT and Graph U-Net run on padded per-graph tensors: their
+# sums over a graph's nodes or its adjacency are dense reductions and
+# matmuls, their adjacency a scatter (JAX takes XLA's scatter and dot for
+# them, no Pallas kernel), so they launch no kernel of the port.
 ZOO_LAUNCHES = {"GIN": (7, 10), "GraphSAGE": (4, 4), "GAT": (6, 11), "GATv2": (6, 16),
                 "RGCN": (6, 11), "GNNFilm": (6, 6), "INorp": (4, 4),
                 "DMPNN": (7, 7), "CMPNN": (5, 5), "NMPN": (3, 3), "AttentiveFP": (5, 5),
                 "HamNet": (4, 4), "MEGAN": (9, 9),
                 "EGNN": (9, 17), "Megnet": (6, 14), "CGCNN": (5, 5), "DimeNetPP": (6, 11),
                 "MXMNet": (1, 2), "CGCNN-crystal": (5, 5), "Megnet-crystal": (6, 6),
-                "DimeNetPP-crystal": (6, 6)}
+                "DimeNetPP-crystal": (6, 6), "MAT": (0, 0), "Unet": (0, 0)}
 ZOO_STEPS = 5
 # the first step is held against the CPU's on the first ZOO_FIRST_STEP_MOLS
 # molecules, as phase 10 takes a 64-molecule batch for it, which keeps the
@@ -4055,13 +4084,21 @@ ZOO_FIRST_STEP_MOLS = 64
 # 3 epochs (60) of 2 folds (3), no PNGs (no matplotlib on the card's
 # machine); the JAX moleculenet driver runs NMPN, AttentiveFP, HamNet and
 # MEGAN of the second group on its data (DMPNN and CMPNN stop at its
-# assert): phase 23 runs AttentiveFP there; phase 24 runs ``train_force``
+# assert): phase 23 runs AttentiveFP there; phase 24 runs ``train_force``;
+# phase 25 ``train_force --hyper`` (``train_force_hyper``) of the library's
+# ``hyper_synthetic_md.py`` with its two models
 ZOO_DRIVERS = ((22, "train_tudataset", "GIN"), (22, "train_moleculenet", "GIN"),
                (22, "train_moleculenet", "GAT"), (23, "train_moleculenet", "AttentiveFP"),
-               (24, "train_force", "MXMNet"), (24, "train_force", "EGNN"))
+               (24, "train_force", "MXMNet"), (24, "train_force", "EGNN"),
+               (25, "train_force_hyper", "Schnet"), (25, "train_force_hyper", "PAiNN"))
 ZOO_DRIVER_ARGS = ["--epochs", "3", "--folds", "2", "--no-plots"]
 # train_force at its default 128 frames, cut to 3 epochs (50) of one fold
 FORCE_DRIVER_ARGS = ["--epochs", "3", "--folds", "1", "--no-plots"]
+# the configuration library, and the one config whose dataset is ported:
+# SchNet (depth 4, 128 units, 25 bins, 5 A) and PAiNN (depth 3, 128 units,
+# 20 Bessel radials, cutoff 5) on 256 frames of ``SyntheticMDDataset``
+HYPER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "training", "hyper")
+HYPER_MD = os.path.join(HYPER_DIR, "hyper_synthetic_md.py")
 # each phase 24 batch at 512 frames, molecules or graphs: nodes, edges,
 # graphs, the pairs of angle_edges and angle_edges_2 and the second edge
 # set's edges (None where the batch has none), with their padding
@@ -4213,8 +4250,15 @@ def zoo_model(name, device, **kw):
     from seed 0 (INorp told its graph attributes' width, 1; CMPNN and MEGAN
     their float edge features'; Megnet's crystal model its cells' state's,
     1); a ``crystal`` model by ``make_crystal_model``; DimeNet++'s and
-    MXMNet's zero heads filled from seed 1 (``fill_zero_heads``)."""
+    MXMNet's zero heads filled from seed 1 (``fill_zero_heads``); a
+    ``hyper`` model as the port's ``HyperParameter`` builds the library
+    file's entry."""
     module, inputs, _ = ZOO_MODELS[name]
+    if "hyper" in inputs:
+        from gcnn_keras_tpu_torch.training.hyper import HyperParameter
+        path, key = inputs["hyper"]
+        return HyperParameter(os.path.join(HYPER_DIR, path), model_name=key).make_model(
+            device="cpu", generator=torch.Generator().manual_seed(0), **kw).to(device)
     mod = importlib.import_module(f"gcnn_keras_tpu_torch.models.{module}")
     if name in ("INorp", "Megnet-crystal"):
         kw.setdefault("graph_in_features", 1)
@@ -4306,6 +4350,46 @@ def reset_peak(device):
         torch.cuda.reset_peak_memory_stats()
 
 
+def check_selection(name, gpu, batch, outs, refs):
+    """The card's gPool selections (``keep``, one mask a level) against the
+    CPU's ``refs``: equal, or differing only at a near tie of the
+    selection, which is discontinuous. At the first level that differs, each
+    node that changes side must lie on the CPU within twice the card's
+    largest score difference from the CPU's at that level (float32
+    rounding) of the nearest score on the other side of its graph's cut;
+    the card's answers with the CPU's selections imposed then take the
+    place of its own for the checks that follow. Returns ``(outs,
+    record)``."""
+    keep, ref_keep = outs["keep"].cpu(), refs["keep"]
+    rec = {"levels": int(ref_keep.shape[0]), "nodes_differing": 0}
+    if torch.equal(keep, ref_keep):
+        return outs, rec
+    level = int((keep != ref_keep).flatten(1).any(1).nonzero()[0, 0])
+    current = ref_keep[level - 1] if level else flat_to_padded_mask(batch).cpu()
+    score, ref_score = outs["score"][level].cpu(), refs["score"][level]
+    spread = float((score - ref_score).abs()[current > 0].max())
+    gaps = []
+    for g, i in (keep[level] != ref_keep[level]).nonzero().tolist():
+        kept = ref_keep[level, g] > 0
+        other = ref_score[g][(current[g] > 0) & (kept if not kept[i] else ~kept)]
+        gaps.append(float((other - ref_score[g, i]).abs().min()))
+    rec.update(nodes_differing=len(gaps), level=level, max_gap=max(gaps), score_spread=spread,
+               graphs=int((keep[level] != ref_keep[level]).any(1).sum()))
+    if not max(gaps) <= 2 * spread:
+        raise AssertionError(f"{name}: gPool selections differ at level {level} beyond a near "
+                             f"tie: {rec}")
+    log(f"{name}: gPool selection differs at a near tie: " + json.dumps(rec))
+    with torch.no_grad():
+        outs = gpu(batch, selection=[k.to(batch.node_mask.device) for k in ref_keep])
+    return outs, rec
+
+
+def flat_to_padded_mask(batch):
+    """The ``(G, M)`` mask of a batch's real nodes in padded form."""
+    from gcnn_keras_tpu_torch.batch import flat_to_padded
+    return flat_to_padded(batch.node_mask[:, None].to(torch.float32), batch)[..., 0]
+
+
 def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512):
     """Phases 22 to 24 for one model: a graph-level forward against the
     CPU's on the same weights (every output: MEGAN's importances too; GIN
@@ -4333,11 +4417,15 @@ def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512
         outs = gpu(batch)
         peak_forward = peak_mb(device)
         refs = zoo_model(name, "cpu")(cpu_batch)
+    selection = None
+    if "keep" in refs:
+        outs, selection = check_selection(name, gpu, batch, outs, refs)
     out = outs["output"]
     if out.shape != (batch.n_graphs, 1) or not torch.isfinite(out).all():
         raise AssertionError(f"{name}: output {tuple(out.shape)} or not finite")
     rec = {"model": name, "card": smi, "N_pad": batch.n_node, "E_pad": batch.n_edge,
            "G": batch.n_graphs, "max_nodes": batch.max_nodes,
+           **({"selection": selection} if selection else {}),
            **({"pairs_pad": shapes[3], "pairs_2_pad": shapes[4], "E2_pad": shapes[5],
                "pairs_real": None if batch.angle_edge_mask is None
                else int(batch.angle_edge_mask.sum()),
@@ -4381,7 +4469,7 @@ def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512
         gpu(batch)
         torch.cuda.synchronize()
     counts = {k: len(v) for k, v in calls.items() if v}
-    if counts != {"sorted_segment_sum": fwd_want}:
+    if counts != ({"sorted_segment_sum": fwd_want} if fwd_want else {}):
         raise AssertionError(f"{name} forward: kernel calls {counts}, expected {fwd_want}")
     recs = zoo_kernel_calls(calls, f"{name}_zoo_forward", f"{name}_zoo_forward", timed_shapes)
     del calls
@@ -4420,7 +4508,7 @@ def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512
         trainer.step(state, batch)
         torch.cuda.synchronize()
     counts = {k: len(v) for k, v in calls.items() if v}
-    if counts != {"sorted_segment_sum": step_want}:
+    if counts != ({"sorted_segment_sum": step_want} if step_want else {}):
         raise AssertionError(f"{name} step: kernel calls {counts}, expected {step_want}")
     recs += zoo_kernel_calls(calls, f"{name}_zoo_train", f"{name}_zoo_train", timed_shapes)
     del calls
@@ -4454,7 +4542,7 @@ def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512
     return {f"{name}_zoo_forward": fwd_launches, f"{name}_zoo_train": step_launches}, recs
 
 
-def graph_driver_cpu_step(script, model):
+def graph_driver_cpu_step(script, model, argv=()):
     """A graph-learning driver's model on the CPU (its default seed 42, the
     widths of its data) with its loss; its first step takes ``TRAIN_TOL``
     alone."""
@@ -4467,24 +4555,30 @@ def graph_driver_cpu_step(script, model):
     return list(cpu_model.named_parameters()), mod.loss_fn(cpu_model), None
 
 
-def force_driver_cpu_step(script, model):
-    """``train_force``'s model on the CPU (its default seed 42) with its
-    loss, and the float64 gradients of that loss for ``check_grads``'
-    rules."""
+def force_driver_cpu_step(script, model, argv=()):
+    """``train_force``'s model on the CPU (its default seed 42; the
+    ``--hyper`` config's model where ``argv`` has one) with its loss, and
+    the float64 gradients of that loss for ``check_grads``' rules."""
     from gcnn_keras_tpu_torch.scripts import train_force
-    args = train_force.parser().parse_args([])
-    fmodel = train_force.build_model(model, "cpu", torch.Generator().manual_seed(args.seed))
+    args = train_force.parser().parse_args(list(argv) + ["--model", model])
+    fmodel = train_force.build_model(model, "cpu", torch.Generator().manual_seed(args.seed),
+                                     train_force.load_hyper(args))
     loss_fn = train_force.loss_fn(fmodel, args.energy_weight, args.force_weight)
     return (list(fmodel.energy_model.named_parameters()), loss_fn,
             lambda batch: float64_grads(fmodel.energy_model, lambda m, b: loss_fn(b)[0], batch))
 
 
-# each driver script's run: the module whose ``Trainer`` the phase records,
-# its arguments, and its CPU model and loss for the first step
+# each driver run: the module whose ``Trainer`` the phase records, its
+# arguments, its CPU model and loss for the first step, and its script
 ZOO_DRIVER_RUNS = {
-    "train_tudataset": ("training.graph_driver", ZOO_DRIVER_ARGS, graph_driver_cpu_step),
-    "train_moleculenet": ("training.graph_driver", ZOO_DRIVER_ARGS, graph_driver_cpu_step),
-    "train_force": ("scripts.train_force", FORCE_DRIVER_ARGS, force_driver_cpu_step)}
+    "train_tudataset": ("training.graph_driver", ZOO_DRIVER_ARGS, graph_driver_cpu_step,
+                        "train_tudataset"),
+    "train_moleculenet": ("training.graph_driver", ZOO_DRIVER_ARGS, graph_driver_cpu_step,
+                          "train_moleculenet"),
+    "train_force": ("scripts.train_force", FORCE_DRIVER_ARGS, force_driver_cpu_step,
+                    "train_force"),
+    "train_force_hyper": ("scripts.train_force", FORCE_DRIVER_ARGS + ["--hyper", HYPER_MD],
+                          force_driver_cpu_step, "train_force")}
 
 
 def phase_zoo_driver(script, model, smi, device="cuda"):
@@ -4497,8 +4591,8 @@ def phase_zoo_driver(script, model, smi, device="cuda"):
     plain versions and every later step's launches. Prints ms per step and
     per epoch. Returns the run's launch counts and the kernel records.
     ``device`` lets it run on the CPU."""
-    module, argv, cpu_step = ZOO_DRIVER_RUNS[script]
-    mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{script}")
+    module, argv, cpu_step, script_name = ZOO_DRIVER_RUNS[script]
+    mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{script_name}")
     trained = importlib.import_module(f"gcnn_keras_tpu_torch.{module}")
     rec = RecordingTrainer(trained.Trainer)
     label = f"{script}_{model}"
@@ -4511,12 +4605,12 @@ def phase_zoo_driver(script, model, smi, device="cuda"):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = kernel_counts()
-        path = f"results/{script.split('_')[1]}/{model}_score"
+        path = f"results/{script_name.split('_')[1]}/{model}_score"
         if not (os.path.exists(path + ".yaml") or os.path.exists(path + ".json")):
             raise AssertionError(f"{label}: no score file {path}.yaml")
     if not np.isfinite(score["loss"]).all():
         raise AssertionError(f"{label}: losses {score['loss']}")
-    named_params, loss_fn, exact = cpu_step(script, model)
+    named_params, loss_fn, exact = cpu_step(script, model, argv)
     first = check_first_step_on_cpu(label, rec.first, named_params, loss_fn, TRAIN_TOL, exact)
     recs = kernel_call_records(rec.first["calls"], f"{label}, first step", label)
     out = {"script": script, "model": model, "card": smi, "args": argv,
@@ -4528,13 +4622,143 @@ def phase_zoo_driver(script, model, smi, device="cuda"):
     return {label: launches}, recs
 
 
+# phase 25's kgcnn compatibility layer on the seed-0 request: its edge and
+# node values COMPAT_WIDTH wide, the LSTM pool's units, its neighbour slots
+COMPAT_WIDTH = 128
+COMPAT_LSTM = dict(units=128, max_neighbors=32)
+COMPAT_TOP_K = 0.3
+# the segment-sums of one pass: PoolingLocalEdges' sum onto the receivers,
+# PoolingNodes' onto the graphs, the MessagePassing subclass's; the sum of
+# PoolingGlobalEdges onto the graphs is unsorted (``index_add_``)
+COMPAT_LAUNCHES = 3
+
+
+def compat_layers(generator):
+    """The kgcnn names phase 25 runs, built from ``generator``: the pools
+    of ``layers/pooling.py``, a ``MessagePassing`` subclass (a Dense of
+    both ends and the edge values, relu, summed; a residual update),
+    ``PoolingLocalEdgesLSTM`` and ``PoolingTopK``."""
+    from gcnn_keras_tpu_torch.layers.message import MessagePassing
+    from gcnn_keras_tpu_torch.layers.mlp import Dense
+    from gcnn_keras_tpu_torch.layers.pool import PoolingLocalEdgesLSTM, PoolingTopK
+    from gcnn_keras_tpu_torch.layers.pooling import (PoolingGlobalEdges, PoolingLocalEdges,
+                                                     PoolingNodes)
+
+    class Messages(MessagePassing):
+        def __init__(self, units):
+            super().__init__("sum")
+            self.dense = Dense(3 * units, units, activation="relu", generator=generator)
+
+        def message_function(self, x_i, x_j, edge_attr):
+            return self.dense(torch.cat([x_i, x_j, edge_attr], dim=-1))
+
+        def update_nodes(self, nodes, aggregated):
+            return nodes + aggregated
+    return {"PoolingLocalEdges": PoolingLocalEdges("segment_sum"),
+            "PoolingNodes": PoolingNodes("sum"), "PoolingGlobalEdges": PoolingGlobalEdges("sum"),
+            "MessagePassing": Messages(COMPAT_WIDTH),
+            "PoolingLocalEdgesLSTM": PoolingLocalEdgesLSTM(COMPAT_WIDTH, **COMPAT_LSTM,
+                                                           generator=generator),
+            "PoolingTopK": PoolingTopK(COMPAT_WIDTH, k=COMPAT_TOP_K, generator=generator)}
+
+
+# each compat layer's inputs after the batch, of the edge and node values
+COMPAT_INPUTS = {"PoolingLocalEdges": lambda ev, nv: (ev,), "PoolingNodes": lambda ev, nv: (nv,),
+                 "PoolingGlobalEdges": lambda ev, nv: (ev,),
+                 "MessagePassing": lambda ev, nv: (nv, ev),
+                 "PoolingLocalEdgesLSTM": lambda ev, nv: (ev,),
+                 "PoolingTopK": lambda ev, nv: (nv,)}
+
+
+def compat_calls(layers, batch, ev, nv):
+    """Each layer of ``layers`` (``compat_layers``) on ``batch``'s edge
+    values ``ev`` and node values ``nv``: ``{name: output}``
+    (``PoolingTopK``'s its gated nodes, keep mask and scores)."""
+    return {name: layer(batch, *COMPAT_INPUTS[name](ev, nv)) for name, layer in layers.items()}
+
+
+def check_top_k(got, ref, graph_id):
+    """``PoolingTopK`` on the card against the CPU: the same keep mask, or
+    one that differs only at near ties (a node that changes side lies on
+    the CPU within twice the largest score difference of the nearest score
+    on the other side of its graph's cut); the gated nodes where the masks
+    agree. Returns the record."""
+    (gated, keep, score), (ref_gated, ref_keep, ref_score) = [
+        [t.detach().cpu() for t in out] for out in (got, ref)]
+    rec = {"nodes_differing": int((keep != ref_keep).sum())}
+    if rec["nodes_differing"]:
+        spread = float((score - ref_score).abs().max())
+        gaps = []
+        for i in (keep != ref_keep).nonzero()[:, 0].tolist():
+            side = (graph_id == graph_id[i]) & (ref_score != 0) & (ref_keep != ref_keep[i])
+            gaps.append(float((ref_score[side] - ref_score[i]).abs().min()))
+        rec.update(max_gap=max(gaps), score_spread=spread)
+        if not max(gaps) <= 2 * spread:
+            raise AssertionError(f"PoolingTopK: keep masks differ beyond a near tie: {rec}")
+    agree = keep == ref_keep
+    rec["gated_rel_err"] = check_close("PoolingTopK gated", gated[agree], ref_gated[agree])
+    rec["score_rel_err"] = check_close("PoolingTopK score", score, ref_score)
+    return rec
+
+
+def phase_compat(smi, timed_shapes, device="cuda", n_mols=512):
+    """Phase 25's compatibility layer (``compat_layers``) on the seed-0
+    request at ``COMPAT_WIDTH`` columns: each output against the CPU's on
+    the same weights and values (``PoolingTopK`` by ``check_top_k``), every
+    segment-sum call of one pass against its plain version (shapes not in
+    ``timed_shapes`` timed), the pass's launches with every count set to 0
+    just before and read just after, and each layer's ms. Returns the launch
+    counts and the kernel records."""
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    t_start = time.perf_counter()
+    cpu_batch = batch_graphs(labelled_mols(0, n_mols), device="cpu")
+    batch = cpu_batch.to(device)
+    rs = np.random.RandomState(25)
+    ev_cpu = torch.from_numpy(rs.randn(batch.n_edge, COMPAT_WIDTH).astype(np.float32))
+    nv_cpu = torch.from_numpy(rs.randn(batch.n_node, COMPAT_WIDTH).astype(np.float32))
+    ev, nv = ev_cpu.to(device), nv_cpu.to(device)
+    layers = {k: v.to(device) if isinstance(v, torch.nn.Module) else v
+              for k, v in compat_layers(torch.Generator().manual_seed(0)).items()}
+    with torch.no_grad():
+        refs = compat_calls(compat_layers(torch.Generator().manual_seed(0)), cpu_batch,
+                            ev_cpu, nv_cpu)
+        with captured_calls() as calls:
+            outs = compat_calls(layers, batch, ev, nv)
+            torch.cuda.synchronize()
+    counts = {k: len(v) for k, v in calls.items() if v}
+    if counts != {"sorted_segment_sum": COMPAT_LAUNCHES}:
+        raise AssertionError(f"compat layer: kernel calls {counts}, expected {COMPAT_LAUNCHES}")
+    recs = zoo_kernel_calls(calls, "compat_pools", "compat_pools", timed_shapes)
+    del calls
+    rec = {"card": smi, "N_pad": batch.n_node, "E_pad": batch.n_edge, "G": batch.n_graphs,
+           "width": COMPAT_WIDTH, **COMPAT_LSTM, "k": COMPAT_TOP_K}
+    for name, out in outs.items():
+        if name == "PoolingTopK":
+            rec[name] = check_top_k(out, refs[name], cpu_batch.graph_id)
+        else:
+            rec[name] = {"rel_err": check_close(f"compat {name}", out.cpu(), refs[name])}
+    with torch.no_grad():
+        # the main path: every count set to 0 just before, read just after
+        reset_counts()
+        compat_calls(layers, batch, ev, nv)
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        for name in outs:
+            rec[name]["ms"] = synced_ms(lambda name=name: compat_calls(
+                {name: layers[name]}, batch, ev, nv), 5)
+    rec.update(launches=launches["sorted_segment_sum"], s_phase=time.perf_counter() - t_start)
+    log("compat layer: " + json.dumps(rec))
+    return {"compat_pools": launches}, recs
+
+
 def phase_zoo(smi, profiles, timed_shapes, phase):
-    """Phase 22 or 23: each model of ``ZOO_MODELS`` in ``phase``
+    """Phase 22, 23, 24 or 25: each model of ``ZOO_MODELS`` in ``phase``
     (``phase_zoo_model``; a training step of each queued on ``profiles``
     for ``run_profiles``), then its drivers of ``ZOO_DRIVERS``
-    (``phase_zoo_driver``); the segment-sum shapes in ``timed_shapes`` are
-    not timed again. Returns the launch counts of each main path and the
-    kernel records."""
+    (``phase_zoo_driver``), and in phase 25 the compatibility layer
+    (``phase_compat``); the segment-sum shapes in ``timed_shapes`` are not
+    timed again. Returns the launch counts of each main path and the kernel
+    records."""
     by_path, recs = {}, []
     seconds = [time.perf_counter()]
     for name in [n for n, entry in ZOO_MODELS.items() if entry[2] == phase]:
@@ -4548,8 +4772,15 @@ def phase_zoo(smi, profiles, timed_shapes, phase):
         for name_rs in rs.values():
             recs += name_rs
     seconds.append(time.perf_counter())
-    log(f"phase {phase} seconds: " + json.dumps(dict(zip(("models", "drivers"),
-                                                         np.diff(seconds).tolist()))))
+    parts = ["models", "drivers"]
+    if phase == 25:
+        paths, rs = phase_compat(smi, timed_shapes)
+        by_path.update(paths)
+        recs += rs
+        seconds.append(time.perf_counter())
+        parts.append("compat")
+    times = dict(zip(parts, np.diff(seconds).tolist()), total=seconds[-1] - seconds[0])
+    log(f"phase {phase} seconds: " + json.dumps(times))
     return by_path, {"sorted_segment_sum": recs}
 
 
@@ -4747,8 +4978,8 @@ def main():
     for kname, rs in option_recs.items():
         records.setdefault(kname, []).extend(rs)
     timed_shapes = set()
-    for phase in (22, 23, 24):
-        if phase == 24:  # the third group's shapes timed on its own paths
+    for phase in (22, 23, 24, 25):
+        if phase >= 24:  # the third group's and phase 25's shapes timed on their own paths
             timed_shapes = set()
         paths, zoo_recs = phase_zoo(smi, zoo_profiles, timed_shapes, phase)
         by_path.update(paths)

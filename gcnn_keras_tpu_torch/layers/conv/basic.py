@@ -29,7 +29,7 @@ from ...batch import GraphBatch, flat_to_padded
 from ...ops.activ import get_activation
 from ..aggr import (gather_nodes, gather_sender_nodes, pool_edges_to_nodes,
                     pool_edges_to_nodes_attention)
-from ..mlp import Dense, RelationalDense, lecun_normal_
+from ..mlp import Dense, FlaxDense, RelationalDense, lecun_normal_
 
 Tensor = torch.Tensor
 
@@ -256,21 +256,6 @@ class KerasGRUSequencePooling(nn.Module):
         return h
 
 
-class _FlaxDense(nn.Module):
-    """A flax ``nn.Dense`` in its own layout: ``kernel`` (in, out) and
-    ``bias``."""
-
-    def __init__(self, kernel: Tensor, use_bias: bool):
-        super().__init__()
-        self.kernel = nn.Parameter(kernel)
-        self.register_parameter(
-            "bias", nn.Parameter(torch.zeros(kernel.shape[1])) if use_bias else None)
-
-    def forward(self, x: Tensor) -> Tensor:
-        y = x @ self.kernel
-        return y if self.bias is None else y + self.bias
-
-
 class GRUUpdate(nn.Module):
     """flax's ``GRUCell`` as a node update, the state ``nodes`` (``units``
     wide) and the input ``messages`` (``in_features`` wide):
@@ -285,10 +270,9 @@ class GRUUpdate(nn.Module):
         super().__init__()
         cell = nn.Module()
         for gate in ("r", "z", "n"):
-            cell.add_module(f"i{gate}", _FlaxDense(lecun_normal_(
-                torch.empty(in_features, units), in_features, generator), True))
+            cell.add_module(f"i{gate}", FlaxDense.lecun(in_features, units, True, generator))
         for gate in ("r", "z", "n"):
-            cell.add_module(f"h{gate}", _FlaxDense(nn.init.orthogonal_(
+            cell.add_module(f"h{gate}", FlaxDense(nn.init.orthogonal_(
                 torch.empty(units, units), generator=generator), gate == "n"))
         self.GRUCell_0 = cell
 

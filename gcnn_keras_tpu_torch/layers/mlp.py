@@ -80,6 +80,28 @@ class Dense(nn.Module):
         return self._act(F.linear(x, w, b))
 
 
+class FlaxDense(nn.Module):
+    """A flax ``nn.Dense`` in its own layout: ``kernel`` (in, out) and
+    ``bias``, bare leaves of the module's flax path. ``kernel`` is the
+    starting kernel; :meth:`lecun` draws flax's default one."""
+
+    def __init__(self, kernel: Tensor, use_bias: bool):
+        super().__init__()
+        self.kernel = nn.Parameter(kernel)
+        self.register_parameter(
+            "bias", nn.Parameter(torch.zeros(kernel.shape[1])) if use_bias else None)
+
+    @classmethod
+    def lecun(cls, in_features: int, units: int, use_bias: bool = True,
+              generator: Optional[torch.Generator] = None) -> "FlaxDense":
+        return cls(lecun_normal_(torch.empty(in_features, units), in_features, generator),
+                   use_bias)
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
+
+
 class MLP(nn.Module):
     """Stack of Dense layers ``dense_0 ... dense_{k-1}`` with per-layer
     unit / activation / bias lists.

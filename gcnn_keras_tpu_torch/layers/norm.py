@@ -44,6 +44,13 @@ class GraphLayerNorm(nn.Module):
         return y
 
 
+class LayerNorm(GraphLayerNorm):
+    """flax's ``nn.LayerNorm`` where a model names it as a module of its own
+    (MAT's ``ln1_i``, ``ln2_i``, ``ln_out``): the statistics of
+    ``GraphLayerNorm``, whose ``scale`` and ``bias`` are here bare leaves of
+    the module's flax path (``GraphLayerNorm`` wraps a ``LayerNorm_0``)."""
+
+
 class GraphBatchNorm(nn.Module):
     """BatchNorm across the valid rows of a flat batch over the last axis:
     a learned ``scale`` (ones) and ``bias`` (zeros) of ``features``

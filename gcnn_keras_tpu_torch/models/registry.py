@@ -5,18 +5,21 @@
 A name is a model module's short name (``"Schnet"``), or a path that ends
 in one (``"kgcnn.literature.Schnet"``); a name the table does not hold is
 imported as a module path, one under ``gcnn_keras_tpu.`` from the port's
-package of the same layout. The port holds twenty-three of the JAX
-package's model modules, each with every builder of its JAX module
-(HDNNP2nd's ``make_model``, ``make_model_weighted``, ``make_model_behler``,
-``make_model_atom_wise`` and ``make_model_inverse_distances`` among them;
-GIN's ``make_model_edge``; GAT's ``make_model_v2``; the
-``make_crystal_model`` of NMPN, CGCNN, Megnet and DimeNet++); the other
-three raise ``ValueError``, by short name or by file.
+package of the same layout. The port holds twenty-five of the JAX
+package's twenty-six model modules, each with every builder of its JAX
+module (HDNNP2nd's ``make_model``, ``make_model_weighted``,
+``make_model_behler``, ``make_model_atom_wise`` and
+``make_model_inverse_distances`` among them; GIN's ``make_model_edge``;
+GAT's ``make_model_v2``; the ``make_crystal_model`` of NMPN, CGCNN, Megnet
+and DimeNet++); the last, ``GNNExplain``, raises ``ValueError``, by short
+name or by file.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Any, Callable, Dict
+
+from ..utils.port_modules import port_path
 
 # module name -> import path, the ported part of the JAX package's table
 _MODULES = {
@@ -43,9 +46,12 @@ _MODULES = {
     "CGCNN": "gcnn_keras_tpu_torch.models.cgcnn",
     "EGNN": "gcnn_keras_tpu_torch.models.egnn",
     "MXMNet": "gcnn_keras_tpu_torch.models.mxmnet",
+    "MAT": "gcnn_keras_tpu_torch.models.mat",
+    "Unet": "gcnn_keras_tpu_torch.models.unet",
 }
-# the rest of the JAX package's table, not ported yet: module name -> file
-_ZOO = {"MAT": "mat", "Unet": "unet", "GNNExplain": "gnnexplain"}
+# the rest of the JAX package's table, not ported yet (it comes with xai/):
+# module name -> file
+_ZOO = {"GNNExplain": "gnnexplain"}
 
 
 def get_model_class(module_name: str, class_name: str = "make_model") -> Callable:
@@ -55,10 +61,7 @@ def get_model_class(module_name: str, class_name: str = "make_model") -> Callabl
     if short in _ZOO or short in _ZOO.values():
         raise ValueError(f"model module {short!r} is not ported yet "
                          "(ROADMAP.md, 'the rest of the zoo')")
-    path = _MODULES.get(short, module_name)
-    if path.startswith("gcnn_keras_tpu."):
-        path = "gcnn_keras_tpu_torch." + path[len("gcnn_keras_tpu."):]
-    mod = importlib.import_module(path)
+    mod = importlib.import_module(port_path(_MODULES.get(short, module_name)))
     return getattr(mod, class_name)
 
 

@@ -2,9 +2,10 @@
 root ``training/train_force.py``.
 
     python -m gcnn_keras_tpu_torch.scripts.train_force [--device cpu]
-        [--model Schnet] [--epochs 50] [--batch-size 16] [--frames 128]
-        [--energy-weight 1] [--force-weight 50] [--seed 42] [--folds 1]
-        [--checkpoint-dir DIR] [--early-stopping N] [--use-wandb] [--no-plots]
+        [--model Schnet] [--hyper CONFIG] [--epochs 50] [--batch-size 16]
+        [--frames 128] [--energy-weight 1] [--force-weight 50] [--seed 42]
+        [--folds 1] [--checkpoint-dir DIR] [--early-stopping N] [--use-wandb]
+        [--no-plots]
 
 The data are ``SyntheticMDDataset(num_frames=--frames, seed=--seed)``. Each
 molecule's edges come from ``set_range(4.0, 15)``; MXMNet takes its
@@ -26,8 +27,16 @@ test frames. The score goes to ``results/force/<model>_score.yaml``, with
 true scatters beside it; ``--checkpoint-dir`` keeps the last fold's weights,
 optimizer state and scaler.
 
-``--hyper`` raises: the configurations of ``training/hyper`` need the rest
-of the training library (``data/serial.py``, ``hyper_templates``).
+With ``--hyper`` (a config of ``training/hyper``, e.g.
+``training/hyper/hyper_synthetic_md.py``) the entry ``--model`` of the
+config (``HyperParameter``) gives the dataset (``data/serial.py``
+``deserialize``, its methods run), the model at the config's widths and
+the optimizer (``make_optimizer``, no schedule), as the JAX driver reads
+them; the driver's own edges, folds, epochs, batch size and loss weights
+still apply (the config's ``loss_weights`` are not read, in JAX either). Of
+the library's datasets only the synthetic ones are ported: any other
+raises ``ValueError`` ("the rest of the host side"), where the JAX driver
+would download it.
 ``--n-devices`` above 1 and ``--distributed`` raise: the data-parallel step
 is not ported. ``--steps-per-dispatch`` changes nothing (``Trainer.fit_epoch``).
 """
@@ -91,10 +100,6 @@ def parser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(args) -> None:
-    if args.hyper:
-        raise ValueError(f"--hyper {args.hyper}: the hyper-parameter configurations need the "
-                         "rest of the training library (data/serial.py, hyper_templates), "
-                         "which is not ported yet (ROADMAP.md); leave --hyper out")
     if (args.n_devices and args.n_devices > 1) or args.distributed:
         raise ValueError("--n-devices > 1 and --distributed need the data-parallel step, "
                          "which is not ported yet (ROADMAP.md, 'Parallel'); train on one "
@@ -116,11 +121,24 @@ def multiplex_graph(graph: dict) -> dict:
                                  allow_self_edges=True, out_key="angle_indices_2")
 
 
-def load_dataset(args):
+def load_hyper(args):
+    """The ``--hyper`` config's entry for ``--model``, or None."""
+    if not args.hyper:
+        return None
+    from gcnn_keras_tpu_torch.training.hyper import HyperParameter
+    return HyperParameter(args.hyper, model_name=args.model)
+
+
+def load_dataset(args, hyper=None):
     """The frames with their edges (module docstring), and the batch
-    keywords that read MXMNet's second edge set and pair lists."""
-    from gcnn_keras_tpu_torch.data.datasets.synthetic import SyntheticMDDataset
-    ds = SyntheticMDDataset(num_frames=args.frames, seed=args.seed)
+    keywords that read MXMNet's second edge set and pair lists; the frames
+    of ``hyper``'s dataset where given."""
+    if hyper is not None:
+        from gcnn_keras_tpu_torch.data.serial import deserialize
+        ds = deserialize(hyper["data"]["dataset"])
+    else:
+        from gcnn_keras_tpu_torch.data.datasets.synthetic import SyntheticMDDataset
+        ds = SyntheticMDDataset(num_frames=args.frames, seed=args.seed)
     if args.model == "MXMNet":
         return ds.map_list(multiplex_graph), dict(MXMNET_BATCH_KW)
     ds.map_list("set_range", max_distance=4.0, max_neighbours=15)
@@ -139,9 +157,16 @@ def fold_indices(n: int, folds: int, seed: int):
             for f in range(k)]
 
 
-def build_model(name: str, device, generator: torch.Generator) -> EnergyForceModel:
-    from gcnn_keras_tpu_torch.models.registry import get_model_class
-    model = get_model_class(name)(device=device, generator=generator, **DRIVER_KW.get(name, {}))
+def build_model(name: str, device, generator: torch.Generator,
+                hyper=None) -> EnergyForceModel:
+    """``EnergyForceModel`` of the registry's ``name`` at the driver's
+    widths, or of ``hyper``'s model."""
+    if hyper is not None:
+        model = hyper.make_model(device=device, generator=generator)
+    else:
+        from gcnn_keras_tpu_torch.models.registry import get_model_class
+        model = get_model_class(name)(device=device, generator=generator,
+                                      **DRIVER_KW.get(name, {}))
     return EnergyForceModel(model, device=device)
 
 
@@ -167,9 +192,17 @@ def loss_fn(fmodel: EnergyForceModel, energy_weight: float, force_weight: float)
     return fn
 
 
-def run_fold(args, ds, train_idx, test_idx, batch_kw, fold, device):
+def optimizer_for(args, hyper=None):
+    """``(optimizer factory, schedule)``: ``hyper``'s optimizer at its
+    rate, else Adam under ``schedule_for(args)``."""
+    if hyper is not None:
+        return hyper.make_optimizer(), None
+    return functools.partial(torch.optim.Adam, lr=1e-3), schedule_for(args)
+
+
+def run_fold(args, ds, train_idx, test_idx, batch_kw, fold, device, hyper=None):
     """One fold: ``(history, seconds, EnergyForceModel, TrainState, scaler,
-    test batch)``."""
+    test batch)``; ``hyper`` builds the model and optimizer."""
     from gcnn_keras_tpu_torch.data.loader import GraphBatchLoader
     from gcnn_keras_tpu_torch.data.scalers import EnergyForceExtensiveLabelScaler
     from gcnn_keras_tpu_torch.training.fit import fit_model
@@ -185,9 +218,11 @@ def run_fold(args, ds, train_idx, test_idx, batch_kw, fold, device):
     loader = GraphBatchLoader(list(train), args.batch_size, shuffle=True,
                               seed=args.seed + fold + 1, global_keys=GLOBAL_KEYS, device=device,
                               **train.batch_shape_hint(args.batch_size), **batch_kw)
-    fmodel = build_model(args.model, device, torch.Generator().manual_seed(args.seed + fold))
-    trainer = Trainer(loss_fn(fmodel, args.energy_weight, args.force_weight),
-                      functools.partial(torch.optim.Adam, lr=1e-3), schedule=schedule_for(args))
+    fmodel = build_model(args.model, device, torch.Generator().manual_seed(args.seed + fold),
+                         hyper)
+    optimizer, schedule = optimizer_for(args, hyper)
+    trainer = Trainer(loss_fn(fmodel, args.energy_weight, args.force_weight), optimizer,
+                      schedule=schedule)
     state = trainer.init_state(fmodel.energy_model.parameters())
     test_batch = test.to_batch(global_keys=GLOBAL_KEYS, device=device, **batch_kw)
 
@@ -237,11 +272,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = parser().parse_args(argv)
     refuse_unported(args)
     device = resolve_device(args.device)
-    ds, batch_kw = load_dataset(args)
+    hyper = load_hyper(args)
+    ds, batch_kw = load_dataset(args, hyper)
     histories, times = [], []
     for fold, (test_idx, train_idx) in enumerate(fold_indices(len(ds), args.folds, args.seed)):
         hist, seconds, fmodel, state, scaler, test_batch = run_fold(
-            args, ds, train_idx, test_idx, batch_kw, fold, device)
+            args, ds, train_idx, test_idx, batch_kw, fold, device, hyper)
         histories.append(hist)
         times.append(seconds)
         if args.plots:

@@ -9,17 +9,51 @@ keyed by model name. ``make_model`` builds the model through
 optimizer of ``training.compile.optimizer`` with optax's update rule
 (``training/optimizers.py``). A serialized schedule (``{"class_name",
 "config"}``) as the learning rate goes through ``training/schedules.py``.
+
+A ``.py`` config runs with its imports of the JAX package read as the
+port's: ``from gcnn_keras_tpu.training.hyper_templates import ...`` (as
+29 of the 30 files of the ``training/hyper`` library begin) takes
+``gcnn_keras_tpu_torch.training.hyper_templates``, and any other
+``gcnn_keras_tpu.X`` the port's ``X``, or raises ``ValueError`` naming
+the module where the port has none. The file is not changed, and
+``sys.modules`` gains no module of the JAX package.
 """
 from __future__ import annotations
 
-import importlib.util
+import builtins
 import json
 import os
+import types
 from typing import Any, Callable, Optional
 
+from ..utils.port_modules import is_jax_path, port_module, port_path
 from . import optimizers
 from .optimizers import Adan  # noqa: F401  (the JAX package's name for it here)
 from .schedules import get_schedule
+
+
+def _import_as_port(name, globals=None, locals=None, fromlist=(), level=0):
+    """``__import__`` with the JAX package's absolute module paths read as
+    the port's; raises ``ValueError`` naming a module the port lacks."""
+    if level == 0 and is_jax_path(name):
+        port = port_module(name)
+        if port is None:
+            raise ValueError(f"the config imports {name}, which the port does not have "
+                             f"({port_path(name)}; ROADMAP.md)")
+        name = port
+    return builtins.__import__(name, globals, locals, fromlist, level)
+
+
+def _run_config(path: str) -> types.ModuleType:
+    """The module of the ``.py`` config at ``path``, run with
+    ``_import_as_port`` as its ``__import__``."""
+    mod = types.ModuleType("hyper_config")
+    mod.__file__ = os.path.abspath(path)
+    mod.__builtins__ = dict(vars(builtins), __import__=_import_as_port)
+    with open(path) as f:
+        source = f.read()
+    exec(compile(source, mod.__file__, "exec"), vars(mod))
+    return mod
 
 
 class HyperParameter:
@@ -50,10 +84,7 @@ class HyperParameter:
             with open(path) as f:
                 return yaml.safe_load(f)
         if path.endswith(".py"):
-            spec = importlib.util.spec_from_file_location("hyper_config", path)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            return mod.hyper
+            return _run_config(path).hyper
         raise ValueError(f"unknown config format: {path}")
 
     def _select(self, h: dict) -> dict:

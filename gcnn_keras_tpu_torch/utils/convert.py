@@ -13,7 +13,7 @@ Four node types carry weights in their own layout:
   ``OptionalInputEmbedding_1`` (the zoo's edge input, called second) where
   it says ``edge_embedding``;
 - ``GraphLayerNorm``: ``<path>/LayerNorm_0/scale`` and
-  ``<path>/LayerNorm_0/bias``.
+  ``<path>/LayerNorm_0/bias`` (not its subclass ``LayerNorm``, below).
 
 Any other module's own parameters are bare flax leaves of the same name,
 ``<path>/<name>``, as they are: the per-element tables ``hardness_j`` and
@@ -25,7 +25,14 @@ and of ``Set2Set``'s LSTM, and the ``kernel`` and ``bias`` of the flax
 ...: the port names its submodules after them). MEGAN's heads are port
 ``Dense`` modules named as the flax ones, ``att_i/head_k_linear``. The
 flax ``nn.Embed`` tables of DimeNet++ and MXMNet are bare leaves too,
-``embed_z/embedding`` (``models/dimenet_pp.py`` ``NodeEmbedding``). A
+``embed_z/embedding`` (``models/dimenet_pp.py`` ``NodeEmbedding``).
+MAT's bias-free flax ``nn.Dense`` layers (``proj``, ``adj_proj``,
+``merge_i``, ``ff_proj_i``) and its heads' ``dense_q/k/v`` are
+``FlaxDense`` modules, ``<path>/kernel`` (in, out) and ``<path>/bias``
+where they have one; its flax ``nn.LayerNorm`` layers (``ln1_i``,
+``ln2_i``, ``ln_out``) are ``LayerNorm`` modules with bare ``scale`` and
+``bias``; the Graph U-Net's gPool vectors are raw parameters of the model,
+``topk_{i}_score`` (1, units). A
 module called at two sites (MXMNet's ``x_edge_mlp``, ``linear`` and
 ``h_mlp``) is one flax leaf and one port parameter: ``named_modules``
 gives it once. ``flax_leaf_names`` gives each port parameter's flax path.
@@ -43,7 +50,7 @@ import torch
 import torch.nn as nn
 
 from ..layers.mlp import Dense, RelationalDense
-from ..layers.norm import GraphBatchNorm, GraphLayerNorm
+from ..layers.norm import GraphBatchNorm, GraphLayerNorm, LayerNorm
 from ..models.common import OptionalInputEmbedding
 
 _FLAX_NAMES = {"embedding": "OptionalInputEmbedding_0",
@@ -83,7 +90,7 @@ def _flax_leaves(model: nn.Module) -> Iterator[Tuple[str, torch.Tensor, bool]]:
                 yield leaf("bias"), module.bias, False
         elif isinstance(module, OptionalInputEmbedding):
             yield leaf("Embed_0", "embedding"), module.weight, False
-        elif isinstance(module, GraphLayerNorm):
+        elif isinstance(module, GraphLayerNorm) and not isinstance(module, LayerNorm):
             for pname, p in module.named_parameters(recurse=False):
                 yield leaf("LayerNorm_0", pname), p, False
         else:

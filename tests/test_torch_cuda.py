@@ -1292,7 +1292,8 @@ def test_search_phase_on_the_card(cuda_device, tmp_path, monkeypatch):
 @pytest.mark.parametrize("name", ["GIN", "GraphSAGE", "GAT", "GATv2", "RGCN", "GNNFilm",
                                   "INorp", "DMPNN", "CMPNN", "NMPN", "AttentiveFP", "HamNet",
                                   "MEGAN", "EGNN", "Megnet", "CGCNN", "DimeNetPP", "MXMNet",
-                                  "CGCNN-crystal", "Megnet-crystal", "DimeNetPP-crystal"])
+                                  "CGCNN-crystal", "Megnet-crystal", "DimeNetPP-crystal",
+                                  "MAT", "Unet"])
 def test_zoo_phase_on_the_card(cuda_device, name):
     """``chip_smoke.py`` phase 22's (23's, 24's) checks of one model on 32
     molecules: the forward and first step against the CPU, every kernel call
@@ -1332,6 +1333,30 @@ def test_force_driver_phase_on_the_card(cuda_device, model):
     paths, recs = chip_smoke.phase_zoo_driver("train_force", model, "card test")
     assert len(recs["sorted_segment_sum"]) == chip_smoke.ZOO_LAUNCHES[model][1]
     assert paths[f"train_force_{model}"]["sorted_segment_sum"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["Schnet", "PAiNN"])
+def test_hyper_force_driver_phase_on_the_card(cuda_device, model):
+    """``chip_smoke.py`` phase 25's ``train_force --hyper
+    hyper_synthetic_md.py`` run at the config's widths: the first step
+    against the CPU, its kernel calls against their plain versions, every
+    step's launches."""
+    import chip_smoke
+    paths, recs = chip_smoke.phase_zoo_driver("train_force_hyper", model, "card test")
+    assert len(recs["sorted_segment_sum"]) == {"Schnet": 19, "PAiNN": 25}[model]
+    assert paths[f"train_force_hyper_{model}"]["sorted_segment_sum"] > 0
+
+
+@pytest.mark.cuda
+def test_compat_phase_on_the_card(cuda_device):
+    """``chip_smoke.py`` phase 25's compatibility layer on 64 molecules:
+    every output against the CPU, the segment-sum calls against their plain
+    version, 3 launches a pass."""
+    import chip_smoke
+    paths, recs = chip_smoke.phase_compat("card test", set(), n_mols=64)
+    assert paths["compat_pools"]["sorted_segment_sum"] == chip_smoke.COMPAT_LAUNCHES
+    assert len(recs) == chip_smoke.COMPAT_LAUNCHES
 
 
 @pytest.mark.cuda

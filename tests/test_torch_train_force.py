@@ -90,12 +90,9 @@ FIELDS = ("senders", "receivers", "edge_mask", "node_mask", "angle_edges", "angl
           "angle_edges_2", "angle_edge_mask_2", "senders2", "receivers2", "edge2_mask")
 
 
-@pytest.mark.parametrize("model", ["MXMNet", "EGNN"])
-def test_first_step_matches_the_jax_driver(model, monkeypatch, tmp_path):
-    """The fold's frames (MXMNet's multiplex graphs and pair lists
-    included), the first batch and the first step of 32 frames."""
-    monkeypatch.chdir(tmp_path)
-    argv = ["--model", model, "--frames", "32", "--epochs", "2", "--no-plots"]
+def _first_step_matches(argv, model, monkeypatch):
+    """The fold's frames, the first batch and the first step of the two
+    drivers run with ``argv``."""
     jtrainer, jstate, jloader = _jax_driver(argv, monkeypatch)
     fmodel, trainer, loader = _port_driver(argv, monkeypatch)
     _same_graphs(loader.graphs, jloader.graphs)
@@ -122,7 +119,9 @@ def test_first_step_matches_the_jax_driver(model, monkeypatch, tmp_path):
         np.testing.assert_allclose(float(aux[k]), float(ref_aux[k]), rtol=1e-5)
     names, params = zip(*fmodel.energy_model.named_parameters())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    builder = train_force.build_model(model, "cpu", torch.Generator().manual_seed(0))
+    args = train_force.parser().parse_args(argv)
+    builder = train_force.build_model(model, "cpu", torch.Generator().manual_seed(0),
+                                      train_force.load_hyper(args))
     ref = {n: p.detach() for n, p in params_from_jax(builder.energy_model, {
         "params": jax.tree_util.tree_map(np.asarray, ref_grads["params"])}).named_parameters()}
     import chip_smoke
@@ -138,6 +137,49 @@ def test_first_step_matches_the_jax_driver(model, monkeypatch, tmp_path):
     for n, g in zip(names, grads):
         if g is None:  # the forces do not see the last bias
             assert not ref[n].any(), n
+
+
+@pytest.mark.parametrize("model", ["MXMNet", "EGNN"])
+def test_first_step_matches_the_jax_driver(model, monkeypatch, tmp_path):
+    """The fold's frames (MXMNet's multiplex graphs and pair lists
+    included), the first batch and the first step of 32 frames."""
+    monkeypatch.chdir(tmp_path)
+    _first_step_matches(["--model", model, "--frames", "32", "--epochs", "2", "--no-plots"],
+                        model, monkeypatch)
+
+
+HYPER_MD = os.path.join(ROOT, "training", "hyper", "hyper_synthetic_md.py")
+
+
+@pytest.mark.parametrize("model", ["Schnet", "PAiNN"])
+def test_hyper_first_step_matches_the_jax_driver(model, monkeypatch, tmp_path):
+    """``--hyper hyper_synthetic_md.py``: the config's dataset (256 frames,
+    its ``set_range`` method, then the driver's), its model at the config's
+    widths and its optimizer; the fold's frames, the first batch and the
+    first step against the JAX driver's."""
+    monkeypatch.chdir(tmp_path)
+    _first_step_matches(["--hyper", HYPER_MD, "--model", model, "--epochs", "1",
+                         "--no-plots"], model, monkeypatch)
+
+
+def test_hyper_driver_trains_with_the_configs_optimizer(tmp_path, monkeypatch):
+    """The ``--hyper`` run's model and optimizer are the config's (Adam at
+    its constant 1e-3, no schedule); it trains and writes its score."""
+    from gcnn_keras_tpu_torch.training import optimizers
+    monkeypatch.chdir(tmp_path)
+    args = train_force.parser().parse_args(["--hyper", HYPER_MD, "--model", "PAiNN"])
+    hyper = train_force.load_hyper(args)
+    factory, schedule = train_force.optimizer_for(args, hyper)
+    assert schedule is None
+    opt = factory([torch.nn.Parameter(torch.zeros(2))])
+    assert isinstance(opt, optimizers.OptaxAdam) and opt.param_groups[0]["lr"] == 1e-3
+    fm = train_force.build_model("PAiNN", "cpu", torch.Generator().manual_seed(0), hyper)
+    assert fm.energy_model.config["depth"] == 3
+    score = train_force.main(["--device", "cpu", "--hyper", HYPER_MD, "--model", "Schnet",
+                              "--epochs", "1", "--batch-size", "64", "--no-plots"])
+    assert np.isfinite(score["loss"]).all()
+    assert (tmp_path / "results/force/Schnet_score.yaml").exists() or \
+        (tmp_path / "results/force/Schnet_score.json").exists()
 
 
 def test_the_schedule_is_optax_warmup_cosine_decay():
@@ -156,8 +198,10 @@ def test_the_schedule_is_optax_warmup_cosine_decay():
         schedules.warmup_cosine_decay_schedule(0.0, 1e-3, 5, 5)
 
 
-@pytest.mark.parametrize("argv,match", [(["--hyper", "hyper_md17.py"],
-                                         "the rest of the training library"),
+@pytest.mark.parametrize("argv,match", [(["--hyper", os.path.join(ROOT, "training", "hyper",
+                                                                 "hyper_md17.py"),
+                                          "--model", "Schnet.EnergyForceModel"],
+                                         "the rest of the host side"),
                                         (["--n-devices", "2"], "Parallel"),
                                         (["--distributed"], "Parallel")])
 def test_unported_options_raise(argv, match, tmp_path, monkeypatch):
@@ -383,3 +427,19 @@ def test_bessel_forms_phase_runs_on_the_cpu(counted_kernels):
         assert [len(out[name][f]) for f in ("diagonal", "per_order")] == [2, 2]
         assert all(r["ms"] > 0 and r["peak_mb"] is None
                    for rs in out[name].values() for r in rs)
+
+
+# --------------------------------------------------------- chip_smoke phase 25
+
+
+@pytest.mark.parametrize("model,per_step", [("Schnet", 19), ("PAiNN", 25)])
+def test_chip_smoke_phase_25_hyper_driver_runs_on_the_cpu(model, per_step, counted_kernels):
+    """Phase 25's ``train_force --hyper hyper_synthetic_md.py`` run: the
+    config's model on its 256 frames, 3 epochs of one fold; the first step
+    against the CPU, its segment-sum calls (kernel #1, grad-of-grad) against
+    the plain version, every step's launches."""
+    cs = counted_kernels
+    paths, recs = cs.phase_zoo_driver("train_force_hyper", model, "cpu", device="cpu")
+    assert len(recs["sorted_segment_sum"]) == per_step
+    steps = 3 * ((256 - 256 // 5) // 16)  # 3 epochs of the fold's full batches
+    assert paths[f"train_force_hyper_{model}"]["sorted_segment_sum"] >= steps * per_step

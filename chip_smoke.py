@@ -250,6 +250,27 @@ order, each raising on a failed check:
    launches a pass), ``PoolingLocalEdgesLSTM`` and ``PoolingTopK`` against
    the CPU; each layer's ms. Prints the phase's seconds.
 
+26. The reverse-over-forward force step (``phase_fast_step``,
+   ``FAST_PATHS``; ``training/fast_force_step.py``): for phase 10's
+   ``schnet_train`` (also with ``fused_aggregate`` and with ``remat``),
+   ``painn_train``, ``hdnnp2nd_train`` and ``hdnnp4th_train``, on the
+   path's model, seed-0 weights and full batch, with the loss the fast step
+   computes (energy MAE + the path's force weight x force MAE; HDNNP4th
+   without its charge term and ESP force coupling, which the JAX fast step
+   has neither of): its first step on the card against the CPU's on the
+   first-step batch; one step of ``make_force_train_step`` against one
+   ``Trainer`` step (reverse over reverse) on the same weights, the loss,
+   both metrics and every gradient within the path's tolerance; then
+   ``FAST_STEPS`` steps of each, every step's launches against the derived
+   counts, the ms a step (the median after the first) and, with the other
+   profiles at the end, each step's busy share. Then each kernel
+   Function's ``jvp`` on the card against forward-mode AD of its plain
+   version at a path's shapes (``phase_jvp_rules``: #1 and gms at
+   ``schnet_train``'s, the G4 and G2 tangents at ``hdnnp2nd_train``'s, the
+   SPD solve at ``hdnnp4th_train``'s Qeq system), and the three
+   reverse-only SchNet modes raising in forward mode, each naming its mode
+   (``phase_reverse_only``).
+
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it; the
 segment-sum's bfloat16 instance has an entry of its own
@@ -4823,6 +4844,298 @@ def phase_bessel_forms(smi, device="cuda", n_mols=512, reps=3):
     return out
 
 
+# ------------------------------------------- phase 26: the fast force step
+
+# The fast step's paths: phase 10's paths and seed-0 weights, each also
+# timed as a Trainer step of the same loss (reverse over reverse). Launches
+# a step, derived: pass 1 (the forces) is one evaluation; the surrogate's
+# forward runs each kernel of the energy pass on the primal and once more on
+# its tangent where its input carries one (the Function's jvp); the reverse
+# pass over the surrogate runs the backward of both.
+# - SchNet: evaluation 10; forward 4 edge pools and the graph pool, each
+#   again on its tangent (10); reverse the transposes of the sender gathers
+#   of interactions 0-3 (the energy term, as the Trainer step's) and of the
+#   tangents' sender gathers in interactions 1-3 (7). Trainer step 19.
+# - fused: evaluation 4 gms + 6; forward 4 gms and the graph pool on the
+#   primals, 7 gms on tangents (the filter's in each interaction, the node
+#   features' in 1-3) and the pool's tangent; reverse ct_x of the 11 gms
+#   applications (11 segment-sums; ct_m is gathers). Trainer step 4 gms +
+#   19 (the fused mode's evaluation and its ct_x in the loss pass).
+# - remat: the SchNet step and pass 1's reverse rerunning the 4
+#   checkpointed edge pools; the surrogate runs unchecked
+#   (models/schnet.py). Trainer step schnet_launches' remat step.
+# - PAiNN: evaluation 13; forward 7 pools, each again on its tangent (14);
+#   reverse the Trainer step's 5 sender-gather transposes of the energy
+#   term and 4 of the tangents' (dphi and dv in convs 1-2). Trainer step 25.
+# - HDNNP2nd: evaluation the G2 and G4 fwd and vjp kernels and 1
+#   segment-sum; forward the fwd kernels on the positions, the jvp kernels on
+#   their tangent, the graph pool and its tangent; the reverse pass reaches
+#   no kernel (the descriptors' tangent depends on no parameter).
+# - HDNNP4th: evaluation as HDNNP2nd's with 2 SPD solves and 5 segment-
+#   sums; forward 3 segment-sums and 1 solve, each again on its tangent
+#   (SPDSolve.jvp: one more solve), and the ACSF kernels as HDNNP2nd's;
+#   reverse 4 segment-sums and 2 solves (the backward of the primal and of
+#   the tangent solve). Trainer step that path's (7 and 4), which the
+#   charge term and the ESP coupling leave as they are.
+_ACSF_FAST = dict(g2_fwd=2, g4_fwd=2, g2_vjp=1, g4_vjp=1, g2_jvp=1, g4_jvp=1)
+FAST_PATHS = {
+    "schnet_fast": dict(path="schnet_train", fast=launch_counts(sorted_segment_sum=27),
+                        trainer=schnet_launches("unfused", train=True)),
+    "schnet_fused_fast": dict(path="schnet_train", mode="fused",
+                              fast=launch_counts(gather_mul_segsum=15, sorted_segment_sum=19),
+                              trainer=launch_counts(gather_mul_segsum=4,
+                                                    sorted_segment_sum=19)),
+    "schnet_remat_fast": dict(path="schnet_train", model_kw={"remat": True},
+                              fast=launch_counts(sorted_segment_sum=31),
+                              trainer=schnet_launches("unfused", remat=True, train=True)),
+    "painn_fast": dict(path="painn_train", fast=launch_counts(sorted_segment_sum=36),
+                       trainer=launch_counts(sorted_segment_sum=25)),
+    "hdnnp2nd_fast": dict(path="hdnnp2nd_train",
+                          fast=launch_counts(sorted_segment_sum=3, **_ACSF_FAST),
+                          trainer=TRAIN_PATHS["hdnnp2nd_train"]["launches"]),
+    "hdnnp4th_fast": dict(path="hdnnp4th_train",
+                          fast=launch_counts(sorted_segment_sum=15, spd_solve=6, **_ACSF_FAST),
+                          trainer=TRAIN_PATHS["hdnnp4th_train"]["launches"]),
+}
+FAST_STEPS = 6  # each step kind: a warm-up, then the median of 5
+# the SchNet modes whose kernels are reverse mode only (a custom_vjp in the
+# JAX package), with the name each error must give
+REVERSE_ONLY_MODES = {"fused_aggregate": {"fused_aggregate": "vjp"},
+                      "accurate_cfconv": {"accurate_cfconv": True},
+                      "fused_chain": {"fused_chain": True}}
+
+
+def fast_model(name, device):
+    """The ``EnergyForceModel`` of fast path ``name``: its training path's
+    model and seed-0 weights, forces without ESP coupling."""
+    from gcnn_keras_tpu_torch.model.force import EnergyForceModel
+    cfg = FAST_PATHS[name]
+    fm = energy_force_model(TRAIN_PATHS[cfg["path"]]["model"], device,
+                            cfg.get("mode", "unfused"), **cfg.get("model_kw", {}))
+    return EnergyForceModel(fm.energy_model, device=device)
+
+
+def fast_loss_fn(fmodel, force_weight):
+    """The fast step's loss, ``E_MAE + force_weight * F_MAE``, reverse over
+    reverse (the forces with ``create_graph``), with its metrics."""
+    from gcnn_keras_tpu_torch.training.losses import masked_graph_mae, masked_node_mae
+
+    def loss_fn(b):
+        out = fmodel.apply(b, create_graph=True)
+        e = masked_graph_mae(out["energy"], b.globals["energy"], b.globals["graph_mask"])
+        f = force_weight * masked_node_mae(out["force"], b.nodes["force"], b.node_mask)
+        return e + f, {"energy_loss": e.detach(), "force_loss": f.detach()}
+    return loss_fn
+
+
+def fast_step(name, device, kind):
+    """``(model, step, state)`` of fast path ``name`` on the seed-0 weights,
+    ``step(state, batch) -> (state, loss, metrics)``: the fast step
+    (``make_force_train_step``, ``kind="fast"``) or the ``Trainer`` step of
+    the same loss (``kind="trainer"``), each with ``torch.optim.Adam`` (lr
+    1e-3)."""
+    from gcnn_keras_tpu_torch.training import Trainer
+    from gcnn_keras_tpu_torch.training.fast_force_step import make_force_train_step
+    force_weight = TRAIN_PATHS[FAST_PATHS[name]["path"]]["force_weight"]
+    adam = functools.partial(torch.optim.Adam, lr=1e-3)
+    fm = fast_model(name, device)
+    if kind == "fast":
+        step = make_force_train_step(fm.energy_model, adam, force_weight=force_weight)
+        return fm.energy_model, step, step.init_state()
+    trainer = Trainer(fast_loss_fn(fm, force_weight), adam)
+
+    def trainer_step(state, batch):
+        state, metrics = trainer.step(state, batch)
+        return state, metrics["loss"], metrics
+    return fm.energy_model, trainer_step, trainer.init_state(fm.energy_model.parameters())
+
+
+def step_record(model, loss, metrics):
+    """A step's loss, metrics and each parameter's gradient, on the CPU."""
+    return (float(loss), {k: float(metrics[k]) for k in ("energy_loss", "force_loss")},
+            {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+             if p.requires_grad})
+
+
+def compare_steps(label, got, ref, loss_tol, grad_tol):
+    """Two ``step_record``s: the loss and each metric within ``loss_tol``
+    of the reference's, each gradient within ``grad_tol`` of that tensor's
+    largest reference entry (``check_grads``)."""
+    for key, a, b in (("loss", got[0], ref[0]), *((k, got[1][k], ref[1][k]) for k in ref[1])):
+        if not abs(a - b) <= loss_tol * abs(b):
+            raise AssertionError(f"{label}: {key} {a} against {b}")
+    worst, _ = check_grads(label, got[2], ref[2], grad_tol)
+    return {"loss": got[0], "loss_ref": ref[0], **{k: got[1][k] for k in got[1]},
+            "params": len(ref[2]), "max_rel_grad_err": worst}
+
+
+def phase_fast_step(name, smi, profiles=None, device="cuda", size=None, first=(2, 64),
+                    steps=FAST_STEPS):
+    """Phase 26 for one fast path: the first fast step against the CPU's on
+    the first-step batch; one fast step against one ``Trainer`` step on the
+    path's full batch (``size`` molecules of its seed instead, where given)
+    from the same weights; then ``steps`` steps of each, every step's
+    launches against the derived counts, the ms a step; given
+    ``profiles``, a step of each queued for ``run_profiles``. Returns the
+    launches of each main path, ``{"<name>_step": ..., "<name>_trainer":
+    ...}``."""
+    cfg = FAST_PATHS[name]
+    path = cfg["path"]
+    base = TRAIN_PATHS[path]
+    loss_tol, grad_tol = base.get("loss_tol", TRAIN_TOL), base.get("grad_tol", TRAIN_TOL)
+    firsts = {}
+    for dev in dict.fromkeys((device, "cpu")):  # once where device is the CPU
+        model, step, state = fast_step(name, dev, "fast")
+        _, loss, metrics = step(state, train_batch(path, *first, dev))
+        firsts[dev] = step_record(model, loss, metrics)
+    rec = {"path": name, "card": smi, "first_step_against_cpu": compare_steps(
+        f"{name} first fast step, {device} against the CPU", firsts[device], firsts["cpu"],
+        loss_tol, grad_tol)}
+    batch = full_batch(path, device) if size is None \
+        else train_batch(path, base["seed"], size, device)
+    rec.update(size=size or base["size"], N_pad=batch.n_node, E_pad=batch.n_edge,
+               G=batch.n_graphs)
+    firsts, by_path = {}, {}
+    for kind in ("fast", "trainer"):
+        model, step, state = fast_step(name, device, kind)
+        reset_counts()
+        times, per_step = [], []
+        for i in range(steps):
+            before = kernel_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            per_step.append({k: v - before[k] for k, v in kernel_counts().items()})
+            if i == 0:
+                firsts[kind] = step_record(model, loss, metrics)
+        for i, counts in enumerate(per_step):
+            if counts != cfg[kind]:
+                raise AssertionError(f"{name} {kind} step {i}: launches {counts}, "
+                                     f"expected {cfg[kind]}")
+        by_path[f"{name}_{'step' if kind == 'fast' else 'trainer'}"] = kernel_counts()
+        rec[f"{kind}_ms_per_step"] = float(np.median(times[1:]))
+        rec[f"{kind}_ms_first_step"] = times[0]
+        rec[f"{kind}_launches_per_step"] = {k: v for k, v in cfg[kind].items() if v}
+        if profiles is not None:
+            profiles.append((f"{name} {kind} step",
+                             lambda step=step, state=state: step(state, batch)))
+    rec["fast_against_trainer"] = compare_steps(
+        f"{name} fast step against the Trainer step", firsts["fast"], firsts["trainer"],
+        loss_tol, grad_tol)
+    rec["speedup"] = rec["trainer_ms_per_step"] / rec["fast_ms_per_step"]
+    log(f"{name} fast step: " + json.dumps(rec))
+    return by_path
+
+
+def check_jvp_rule(label, fn, plain, primals, tangents, tol, expected):
+    """The tangent of ``fn(*primals)`` along ``tangents`` (None: none) through
+    the kernel Functions' ``jvp`` against forward-mode AD of ``plain`` on
+    the same inputs: ``max|kernel - plain| <= tol * (1 + max|plain|)``; the
+    kernel calls of the dual evaluation must be ``expected`` (the primal's
+    and the tangent's)."""
+    import torch.autograd.forward_ad as fwAD
+
+    def tangent(f):
+        with fwAD.dual_level():
+            duals = [p if t is None else fwAD.make_dual(p, t) for p, t in zip(primals, tangents)]
+            return fwAD.unpack_dual(f(*duals)).tangent
+
+    with captured_calls() as calls:
+        got = tangent(fn)
+    counts = {k: len(c) for k, c in calls.items() if c}
+    if counts != expected:
+        raise AssertionError(f"jvp {label}: kernel calls {counts}, expected {expected}")
+    ref = tangent(plain)
+    err, scale = (got - ref).abs().max().item(), 1.0 + ref.abs().max().item()
+    if not (torch.isfinite(got).all() and err <= tol * scale):
+        raise AssertionError(f"jvp {label}: max|kernel-plain|={err} > {tol}*{scale}")
+    rec = {"case": label, "shape": list(got.shape), "max_abs_err": err, "tol": tol * scale,
+           "kernel_calls": counts}
+    log("jvp rule: " + json.dumps(rec))
+    return rec
+
+
+def phase_jvp_rules(device="cuda", sizes=None):
+    """Each kernel Function's ``jvp`` against forward-mode AD of its plain
+    version at a training path's shapes (``sizes``: molecules per path
+    instead of the full batches): the segment-sum (#1) and gms (#2b) at
+    ``schnet_train``'s edge pool, the G4 (#9 as the tangent of #8) and G2
+    (#12 of #11) descriptors at ``hdnnp2nd_train``'s, and the SPD solve
+    (#3a) at ``hdnnp4th_train``'s Qeq system."""
+    from gcnn_keras_tpu_torch.ops.cuda import acsf as ka
+    from gcnn_keras_tpu_torch.ops.cuda import bilinear as kb
+    from gcnn_keras_tpu_torch.ops.cuda import fused_aggregate as fa
+    from gcnn_keras_tpu_torch.ops.cuda import segment_sum as ss
+    from gcnn_keras_tpu_torch.ops.cuda import spd_solve as ks
+    sizes = sizes or {}
+
+    def batch_of(path):
+        cfg = TRAIN_PATHS[path]
+        return train_batch(path, cfg["seed"], sizes.get(path, cfg["size"]), device)
+
+    gen = torch.Generator(device=device).manual_seed(26)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    recs = []
+    b = batch_of("schnet_train")
+    e, n, f = b.n_edge, b.n_node, 128
+    recv, send = b.receivers.to(torch.int32), b.senders.to(torch.int32)
+    perm = b.edges["sender_perm"].to(torch.int32)
+    recs.append(check_jvp_rule(
+        f"sorted_segment_sum, schnet_train edge pool ({e}, {f}) -> {n}",
+        lambda v: ss.SortedSegmentSum.apply(v, recv, n),
+        lambda v: ss.segment_sum_plain(v, recv, n), [rand(e, f)], [rand(e, f)], KERNEL_TOL,
+        {"sorted_segment_sum": 2}))
+    recs.append(check_jvp_rule(
+        f"gather_mul_segsum (GMS), schnet_train ({n}, {f}) x ({e}, {f})",
+        lambda x, m: kb.gms(x, m, send, recv, perm),
+        lambda x, m: fa.fused_gather_mul_segsum_plain(x, m, send, recv, n),
+        [rand(n, f), rand(e, f)], [rand(n, f), rand(e, f)], KERNEL_TOL,
+        {"gather_mul_segsum": 3}))
+    b = batch_of("hdnnp2nd_train")
+    model = energy_force_model("hdnnp2nd", device).energy_model
+    for kind in ("g4", "g2"):
+        (pos, *rest), _ = acsf_args(f"{kind}_fwd", b)
+        st = getattr(model, f"acsf_{kind}")._static
+        fn = ka.G4Fn.apply if kind == "g4" else ka.G2Fn.apply
+        plain = getattr(ka, f"{kind}_forward_plain")
+        recs.append(check_jvp_rule(
+            f"acsf {kind}_jvp as the tangent of {kind}_fwd, hdnnp2nd_train ({b.n_node} atoms)",
+            lambda p, fn=fn: fn(p, *rest, st), lambda p, plain=plain: plain(p, *rest, st),
+            [pos], [rand(*pos.shape)], ACSF_VJP_TOL, {f"{kind}_fwd": 1, f"{kind}_jvp": 1}))
+    b = batch_of("hdnnp4th_train")
+    model = energy_force_model("hdnnp4th", device).energy_model
+    a, rhs, *_ = qeq_system(model, b)
+    half = rand(*a.shape)
+    recs.append(check_jvp_rule(
+        f"spd_solve, hdnnp4th_train Qeq system {list(a.shape)} x {rhs.shape[2]}",
+        ks.SPDSolve.apply, ks.spd_solve_plain, [a, rhs],
+        [0.1 * (half + half.transpose(1, 2)), rand(*rhs.shape)], SPD_TOL, {"spd_solve": 2}))
+    return recs
+
+
+def phase_reverse_only(device="cuda", n_mols=16):
+    """Forward mode through SchNet's reverse-only modes raises
+    ``NotImplementedError`` naming the mode: the fast step of each on
+    ``n_mols`` molecules of ``schnet_train``'s kind."""
+    from gcnn_keras_tpu_torch.training.fast_force_step import energy_force_value_and_grad
+    batch = train_batch("schnet_train", 2, n_mols, device)
+    for mode, inter in REVERSE_ONLY_MODES.items():
+        model = schnet_model("unfused", device, interaction_args=inter)
+        try:
+            energy_force_value_and_grad(model)(batch)
+        except NotImplementedError as err:
+            if mode not in str(err):
+                raise AssertionError(f"forward mode through {mode}: {err}") from err
+            log(f"reverse-only {mode}: raises NotImplementedError naming it")
+            continue
+        raise AssertionError(f"forward mode through {mode} did not raise")
+
+
 def kernels_line(records, by_path, second_order):
     """The ``kernels`` entries of the result line: each kernel's source, the
     TPU kernel it replaces, its launches on each main path, its largest
@@ -4986,12 +5299,20 @@ def main():
         for kname, rs in zoo_recs.items():
             records[kname].extend(rs)
     phase_bessel_forms(smi)
+    t0 = time.perf_counter()
+    fast_profiles = []
+    for name in FAST_PATHS:
+        by_path.update(phase_fast_step(name, smi, fast_profiles))
+    phase_jvp_rules()
+    phase_reverse_only()
+    log(f"phase 26 seconds: {time.perf_counter() - t0:.1f}")
     # the busy shares last, after every timed part of the script; one
     # profiled step of each zoo model: RGCN's and GNN-FiLM's 4300 and 12600
     # kernels a step take the profiler about 10 s a step to collect
     t0 = time.perf_counter()
     run_profiles(option_profiles)
     run_profiles(zoo_profiles, reps=1)
+    run_profiles(fast_profiles, reps=1)  # some 1300-1850 kernels a step
     log(f"busy shares: {time.perf_counter() - t0:.1f} s")
 
     kernels = kernels_line(records, by_path, second_order)

@@ -1,9 +1,9 @@
 """Label scalers; counterpart of ``gcnn_keras_tpu/data/scalers.py``
-(``StandardLabelScaler``, ``StandardScaler``,
+(``StandardLabelScaler``, ``StandardScaler``, ``QMGraphLabelScaler``,
 ``ExtensiveMolecularLabelScaler``, ``EnergyForceExtensiveLabelScaler`` and
 ``composition_matrix``), copied so that the port imports nothing of the
 JAX package. The same data give the same numbers and the same
-``scaler.json``. ``QMGraphLabelScaler`` is not ported.
+``scaler.json``.
 """
 from __future__ import annotations
 
@@ -68,6 +68,52 @@ class StandardScaler(StandardLabelScaler):
         for g in dataset:
             g[key] = self.transform(np.asarray(g[key])).astype(np.float32)
         return dataset
+
+
+class QMGraphLabelScaler:
+    """One scaler per target column of multi-target QM labels: a
+    ``StandardLabelScaler`` or an ``ExtensiveMolecularLabelScaler``, given
+    as an instance or as ``{"class_name": ..., "config": {...}}``."""
+
+    def __init__(self, scaler: List):
+        self.scalers = []
+        for s in scaler:
+            if isinstance(s, dict):
+                cls = {"StandardLabelScaler": StandardLabelScaler,
+                       "ExtensiveMolecularLabelScaler": ExtensiveMolecularLabelScaler}[
+                    s["class_name"]]
+                self.scalers.append(cls(**s.get("config", {})))
+            else:
+                self.scalers.append(s)
+
+    def fit_transform(self, y: np.ndarray, atomic_number=None) -> np.ndarray:
+        """Fit each column's scaler (the extensive ones on ``atomic_number``,
+        one array a molecule) and return the scaled labels (M, T)."""
+        y = np.asarray(y, dtype=np.float64)
+        out = np.zeros_like(y)
+        for i, s in enumerate(self.scalers):
+            col = y[:, i]
+            if isinstance(s, ExtensiveMolecularLabelScaler):
+                out[:, i] = s.fit(col, atomic_number).transform(col, atomic_number)
+            else:
+                out[:, i] = s.fit(col[:, None]).transform(col[:, None])[:, 0]
+        return out
+
+    def inverse_transform(self, y: np.ndarray, atomic_number=None) -> np.ndarray:
+        y = np.asarray(y, dtype=np.float64)
+        out = np.zeros_like(y)
+        for i, s in enumerate(self.scalers):
+            col = y[:, i]
+            if isinstance(s, ExtensiveMolecularLabelScaler):
+                out[:, i] = s.inverse_transform(col, atomic_number)
+            else:
+                out[:, i] = s.inverse_transform(col[:, None])[:, 0]
+        return out
+
+    def get_scaling(self) -> np.ndarray:
+        """Each column's scale."""
+        return np.array([np.asarray(s.get_scaling()).reshape(-1)[0]
+                         for s in self.scalers])
 
 
 def composition_matrix(atomic_numbers: Sequence[np.ndarray],

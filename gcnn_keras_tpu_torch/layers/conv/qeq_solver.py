@@ -66,6 +66,38 @@ def solve_qeq_dense_cholesky(a_core: Tensor, border: Tensor, b: Tensor,
     return y1 - lam[:, None] * y2
 
 
+def _row_blocks(pos: Tensor, sigma: Tensor, mask: Tensor, block: int):
+    """The erf-kernel matrix's geometry ``block`` rows at a time: ``(pad,
+    mask_p, blocks)``, ``pad(t)`` padding a ``(G, M, ...)`` tensor's rows to
+    a multiple of ``block`` with zeros, ``mask_p`` the padded mask, and
+    ``blocks()`` an iterator that computes, one block at a time (so a call
+    holds O(M * block) values), each block's row slice, ``r_i - r_j``,
+    ``d_ij``, ``gamma_ij`` and the mask that zeroes the diagonal and the
+    padded columns. ``sigma`` pads with 1.0."""
+    m = mask.shape[1]
+    m_pad = -(-m // block) * block
+
+    def pad(t: Tensor) -> Tensor:
+        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, m_pad - m))
+
+    pos_p = pad(pos)
+    sig_p = F.pad(sigma, (0, m_pad - m), value=1.0)
+    mask_p = pad(mask.to(pos.dtype))
+    cols = torch.arange(m_pad, device=pos.device)
+    rows_in_block = torch.arange(block, device=pos.device)[:, None]
+
+    def blocks():
+        for r0 in range(0, m_pad, block):
+            rows = slice(r0, r0 + block)
+            diff = pos_p[:, rows, None, :] - pos_p[:, None, :, :]
+            d = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)      # (G, block, M_pad)
+            gamma = torch.sqrt(sig_p[:, rows, None] ** 2 + sig_p[:, None, :] ** 2 + 1e-12)
+            keep = (cols != rows_in_block + r0) * mask_p[:, None, :]
+            yield rows, diff, d, gamma, keep
+
+    return pad, mask_p, blocks
+
+
 def _erf_kernel_matvec(pos: Tensor, sigma: Tensor, diag: Tensor, mask: Tensor,
                        block: int = 128) -> Callable[[Tensor], Tensor]:
     """Matrix-free SPD matvec of a batch of molecules: ``pos (G, M, 3)``,
@@ -76,30 +108,57 @@ def _erf_kernel_matvec(pos: Tensor, sigma: Tensor, diag: Tensor, mask: Tensor,
     ``gamma_ij = sqrt(sigma_i^2 + sigma_j^2 + 1e-12)``, ``sigma`` padded
     with 1.0 up to a multiple of ``block``. The returned function takes
     ``q (G, M, K)`` and computes the rows ``block`` at a time."""
+    pad, mask_p, blocks = _row_blocks(pos, sigma, mask, block)
     m = mask.shape[1]
-    m_pad = -(-m // block) * block
-    pos_p = F.pad(pos, (0, 0, 0, m_pad - m))
-    sig_p = F.pad(sigma, (0, m_pad - m), value=1.0)
-    mask_p = F.pad(mask.to(pos.dtype), (0, m_pad - m))
-    cols = torch.arange(m_pad, device=pos.device)
-    rows = torch.arange(block, device=pos.device)[:, None]
 
     def matvec(q: Tensor) -> Tensor:
-        q_p = F.pad(q, (0, 0, 0, m_pad - m))
-        out = []
-        for r0 in range(0, m_pad, block):
-            diff = pos_p[:, r0:r0 + block, None, :] - pos_p[:, None, :, :]
-            d = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)      # (G, block, M_pad)
-            sr = sig_p[:, r0:r0 + block, None]
-            gamma = torch.sqrt(sr ** 2 + sig_p[:, None, :] ** 2 + 1e-12)
-            off = torch.erf(d / (gamma * math.sqrt(2.0))) / d
-            # zero the diagonal and the padded rows and columns
-            off = torch.where(cols == rows + r0, torch.zeros_like(off), off)
-            off = off * mask_p[:, None, :]
-            out.append((off @ q_p) * mask_p[:, r0:r0 + block, None])
+        q_p = pad(q)
+        out = [((torch.erf(d / (gamma * math.sqrt(2.0))) / d * keep) @ q_p)
+               * mask_p[:, rows, None] for rows, _, d, gamma, keep in blocks()]
         return torch.cat(out, dim=1)[:, :m] + diag[..., None] * q
 
     return matvec
+
+
+def _erf_kernel_matvec_jvp(pos: Tensor, sigma: Tensor, diag: Tensor, mask: Tensor,
+                           block: int = 128) -> Callable:
+    """The tangent of :func:`_erf_kernel_matvec`'s ``A q`` at a fixed ``q``
+    along the matrix's inputs: the returned function takes ``q (G, M, K)``
+    and the tangents ``dpos``, ``dsigma``, ``ddiag`` (each None where it is
+    zero) and gives ``(dA) q``, ``block`` rows at a time. With
+    ``u = d / (sqrt(2) gamma)`` and ``off = erf(u) / d``:
+    ``d off = (erf'(u) u - erf(u)) / d^2 dd - erf'(u) / (sqrt(2) gamma^2)
+    dgamma``, ``dd = (r_i - r_j).(dr_i - dr_j) / d``, ``dgamma = (sigma_i
+    dsigma_i + sigma_j dsigma_j) / gamma``. Written out in ordinary
+    operations (a Function's ``jvp`` runs no forward mode of its own), so a
+    reverse pass reaches the inputs and ``q`` through them."""
+    pad, mask_p, blocks = _row_blocks(pos, sigma, mask, block)
+    m = mask.shape[1]
+
+    def tangent(q: Tensor, dpos: Optional[Tensor], dsigma: Optional[Tensor],
+                ddiag: Optional[Tensor]) -> Tensor:
+        out = torch.zeros_like(q) if ddiag is None else ddiag[..., None] * q
+        if dpos is None and dsigma is None:
+            return out
+        q_p = pad(q)
+        dpos_p = None if dpos is None else pad(dpos)
+        sds_p = None if dsigma is None else pad(sigma * dsigma)
+        rows_out = []
+        for rows, diff, d, gamma, keep in blocks():
+            u = d / (gamma * math.sqrt(2.0))
+            derf = (2.0 / math.sqrt(math.pi)) * torch.exp(-u * u)
+            doff = torch.zeros_like(d)
+            if dpos_p is not None:
+                ddiff = dpos_p[:, rows, None, :] - dpos_p[:, None, :, :]
+                dd = torch.sum(diff * ddiff, dim=-1) / d
+                doff = doff + (derf * u - torch.erf(u)) / (d * d) * dd
+            if sds_p is not None:
+                dgamma = (sds_p[:, rows, None] + sds_p[:, None, :]) / gamma
+                doff = doff - derf / (math.sqrt(2.0) * gamma * gamma) * dgamma
+            rows_out.append(((doff * keep) @ q_p) * mask_p[:, rows, None])
+        return out + torch.cat(rows_out, dim=1)[:, :m]
+
+    return tangent
 
 
 def _pcg(matvec: Callable[[Tensor], Tensor], b: Tensor, inv_diag: Tensor,
@@ -146,7 +205,8 @@ class _CGSolve(torch.autograd.Function):
     ``lax.custom_linear_solve(symmetric=True)``: the cotangent of ``b`` is
     ``lambda = A^-1 x_bar``, a solve of the same system, and that of each
     matvec input ``theta`` is ``-<lambda, d(A x)/d theta>`` at the solution
-    ``x``."""
+    ``x``. Its ``jvp`` is one more solve, ``dx = A^-1 (db - (dA) x)``
+    (:func:`_erf_kernel_matvec_jvp`), as ``custom_linear_solve``'s."""
 
     @staticmethod
     def forward(ctx, b, pos, sigma, diag, mask, block, tol, maxiter):
@@ -154,11 +214,26 @@ class _CGSolve(torch.autograd.Function):
             matvec = _erf_kernel_matvec(pos, sigma, diag, mask, block)
             x = _pcg(matvec, b, 1.0 / torch.clamp_min(diag, 1e-6), tol, maxiter)
         ctx.save_for_backward(x, pos, sigma, diag, mask)
+        ctx.save_for_forward(x, pos, sigma, diag, mask)
+        # an input without a tangent reaches jvp as None, not as zeros (and
+        # an output without a cotangent the backward)
+        ctx.set_materialize_grads(False)
         ctx.config = (block, tol, maxiter)
         return x
 
     @staticmethod
+    def jvp(ctx, db, dpos, dsigma, ddiag, *_):
+        x, pos, sigma, diag, mask = ctx.saved_tensors
+        block, tol, maxiter = ctx.config
+        rhs = -_erf_kernel_matvec_jvp(pos, sigma, diag, mask, block)(x, dpos, dsigma, ddiag)
+        if db is not None:
+            rhs = rhs + db
+        return _CGSolve.apply(rhs, pos, sigma, diag, mask, block, tol, maxiter)
+
+    @staticmethod
     def backward(ctx, x_bar):
+        if x_bar is None:  # materialize_grads is off
+            return (None,) * 8
         x, pos, sigma, diag, mask = ctx.saved_tensors
         block, tol, maxiter = ctx.config
         lam = _CGSolve.apply(x_bar, pos, sigma, diag, mask, block, tol, maxiter)

@@ -93,8 +93,8 @@ class SchNetCFconv(nn.Module):
                                  f"filter of {in_basis} inputs")
         self.cfconv_pool = cfconv_pool
         # the fused gms kernel takes float32 (the JAX gate sends other types
-        # to the unfused chain)
-        self.fused_aggregate = fused_aggregate and not lower
+        # to the unfused chain); "vjp" stays "vjp", the custom-VJP route
+        self.fused_aggregate = False if lower else fused_aggregate
         self.accurate_cfconv = accurate_cfconv
         self.filter_1 = Dense(in_basis, units, activation=activation,
                               use_bias=use_bias, generator=generator, dtype=dtype)

@@ -19,7 +19,12 @@ Three more options, each on the same parameter tree:
   ``torch.utils.checkpoint(use_reentrant=False)`` (the JAX package's
   ``nn.remat``): its activations are not kept but recomputed in the
   backward, kernels included, so a kernel's launches per training step
-  grow by the forward launches of the interactions recomputed.
+  grow by the forward launches of the interactions recomputed. While its
+  inputs carry forward-mode tangents (the fast force step's surrogate,
+  ``training/fast_force_step.py``) an interaction runs unchecked: the
+  checkpoint's recomputation in a later reverse pass runs without those
+  tangents and saves other tensors than the forward did, which the
+  checkpoint refuses (JAX's ``remat`` composes with ``jvp``).
 
 Periodic support is implicit: a batch that carries ``edges['range_image']``
 and ``globals['graph_lattice']`` gets the lattice shift in its edge vectors.
@@ -34,6 +39,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
+import torch.autograd.forward_ad as fwAD
 from torch.utils.checkpoint import checkpoint
 
 from ..batch import GraphBatch, flat_to_padded, padded_to_flat
@@ -65,6 +71,15 @@ model_default = dict(
     dense_block=False,
     remat=False,
 )
+
+
+def _has_tangent(args) -> bool:
+    """Whether an interaction's arguments carry a forward-mode tangent: a
+    tensor's own, or a batch's coordinates'."""
+    tensors = [a.nodes.get("node_coordinates") if isinstance(a, GraphBatch) else a
+               for a in args]
+    return any(isinstance(t, Tensor) and fwAD.unpack_dual(t).tangent is not None
+               for t in tensors)
 
 
 class Schnet(nn.Module):
@@ -110,7 +125,7 @@ class Schnet(nn.Module):
                               generator=generator) if cfg["use_output_mlp"] else None
 
     def _interact(self, inter: nn.Module, *args) -> Tensor:
-        if self.config.get("remat"):
+        if self.config.get("remat") and not _has_tangent(args):
             return checkpoint(inter, *args, use_reentrant=False)
         return inter(*args)
 

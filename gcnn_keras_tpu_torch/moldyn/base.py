@@ -1,6 +1,7 @@
 """MD inference pipeline; counterpart of ``gcnn_keras_tpu/moldyn/base.py``
-(``MolDynamicsModelPredictor``): graph preprocessors -> bucketed batch ->
-energy+force forward -> per-graph outputs -> postprocessors.
+(``MolDynamicsModelPredictor``, ``ExtensiveEnergyForceScalerPostprocessor``):
+graph preprocessors -> bucketed batch -> energy+force forward -> per-graph
+outputs -> postprocessors.
 
 Pads are bucketed as in the JAX package, so the batch shapes of successive
 MD steps repeat.
@@ -87,3 +88,27 @@ class MolDynamicsModelPredictor:
                 res = dict(res, **post(res, g))
             results.append(res)
         return results
+
+
+class ExtensiveEnergyForceScalerPostprocessor:
+    """A graph postprocessor that undoes the label scaling of a model
+    trained on scaled labels: the energy through the scaler's
+    ``inverse_transform`` on the graph's atomic numbers, the forces times
+    its scale (``scaler`` an ``EnergyForceExtensiveLabelScaler``, fitted)."""
+
+    def __init__(self, scaler, energy: str = "energy", force: str = "force",
+                 atomic_number: str = "node_number"):
+        self.scaler = scaler
+        self.energy = energy
+        self.force = force
+        self.atomic_number = atomic_number
+
+    def __call__(self, result: dict, graph: dict) -> dict:
+        out = dict(result)
+        z = [np.asarray(graph[self.atomic_number])]
+        if self.energy in result:
+            e = np.atleast_1d(np.asarray(result[self.energy]).reshape(-1)[0])
+            out[self.energy] = self.scaler.inverse_transform(e, z)
+        if self.force in result:
+            out[self.force] = np.asarray(result[self.force]) * self.scaler.scale_[0]
+        return out

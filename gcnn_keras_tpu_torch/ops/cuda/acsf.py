@@ -30,6 +30,12 @@ derivative of the force pass along positions (a position Hessian) is not
 computed, and asking for it raises ``NotImplementedError``; derivatives
 along everything else (a force loss's parameter gradients) work.
 
+Forward mode (``training/fast_force_step.py``) takes the JAX package's
+``custom_jvp``: the tangent of ``G*Fn`` along positions is ``G*JvpFn`` (the
+jvp kernel) on the position tangent, and each of the pair is linear in its
+tensor argument, so its tangent is itself on that argument's tangent. A
+tangent on the pair's positions raises, as its backward does.
+
 A CPU tensor takes the plain version (the closed forms of
 ``_rep_coeffs``/``_dv_from_coeffs``, ``_drep_rows`` and ``_g2_drep_dr``, not
 autograd); a CUDA tensor launches the kernel or raises. ``launches[name]``
@@ -628,7 +634,10 @@ def g2_jvp(pos: Tensor, z: Tensor, senders: Tensor, receivers: Tensor,
 #
 # Each Function of the pair takes ``pos`` as an input so that its backward
 # can mark positions constant again, and returns no gradient for it: the
-# derivative along positions is what ``_held_constant`` refuses.
+# derivative along positions is what ``_held_constant`` refuses. In forward
+# mode G*Fn's jvp is G*JvpFn on the position tangent; the pair's jvp is the
+# Function itself on its first argument's tangent and raises on a tangent
+# along positions (``_linear_jvp``).
 
 _POSITION_HESSIAN = (
     "the ACSF kernels' autograd Functions hold positions constant, as the JAX "
@@ -639,7 +648,8 @@ _POSITION_HESSIAN = (
 
 
 class _PositionsHeldConstant(torch.autograd.Function):
-    """A zero on ``pos`` whose backward raises ``NotImplementedError``."""
+    """A zero on ``pos`` whose backward raises ``NotImplementedError``; its
+    tangent is zero."""
 
     @staticmethod
     def forward(ctx, pos):
@@ -648,6 +658,26 @@ class _PositionsHeldConstant(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         raise NotImplementedError(_POSITION_HESSIAN)
+
+    @staticmethod
+    def jvp(ctx, dpos):
+        return dpos.new_zeros(())
+
+
+def _forward_saves(ctx, pos, *rest) -> None:
+    """Save for a G*Fn's or the pair's ``jvp``: its constants. An input
+    without a tangent then reaches the ``jvp`` as None, not as zeros, and
+    so does an output without a cotangent the backward."""
+    ctx.save_for_forward(pos, *rest)
+    ctx.set_materialize_grads(False)
+
+
+def _linear_jvp(fn, ctx, dt, dpos):
+    """The tangent of a Function of the pair, linear in its first argument
+    ``t``: ``fn`` on ``dt``. A tangent along positions raises."""
+    if dpos is not None:
+        raise NotImplementedError(_POSITION_HESSIAN)
+    return fn.apply(dt.contiguous(), *ctx.saved_tensors, ctx.st)
 
 
 def _held_constant(out: Tensor, pos: Tensor) -> Tensor:
@@ -668,14 +698,21 @@ class G4Fn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pos, z, angles, angle_mask, st):
         ctx.save_for_backward(pos, z, angles, angle_mask)
+        _forward_saves(ctx, pos, z, angles, angle_mask)
         ctx.st = st
         return g4_forward(pos, z, angles, angle_mask, st)
 
     @staticmethod
     def backward(ctx, ct):
+        if ct is None:  # materialize_grads is off
+            return (None,) * 5
         pos, z, angles, angle_mask = ctx.saved_tensors
         dpos = G4VjpFn.apply(ct.contiguous(), pos, z, angles, angle_mask, ctx.st)
         return _held_constant(dpos, pos), None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, dpos, *_):
+        return G4JvpFn.apply(dpos.contiguous(), *ctx.saved_tensors, ctx.st)
 
 
 class G4VjpFn(torch.autograd.Function):
@@ -685,14 +722,21 @@ class G4VjpFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ct, pos, z, angles, angle_mask, st):
         ctx.save_for_backward(pos, z, angles, angle_mask)
+        _forward_saves(ctx, pos, z, angles, angle_mask)
         ctx.st = st
         return g4_vjp(pos, z, angles, angle_mask, ct, st)
 
     @staticmethod
     def backward(ctx, grad):
+        if grad is None:  # materialize_grads is off
+            return (None,) * 6
         pos, z, angles, angle_mask = ctx.saved_tensors
         dct = G4JvpFn.apply(grad.contiguous(), pos, z, angles, angle_mask, ctx.st)
         return _held_constant(dct, pos), None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, dct, dpos, *_):
+        return _linear_jvp(G4VjpFn, ctx, dct, dpos)
 
 
 class G4JvpFn(torch.autograd.Function):
@@ -702,14 +746,21 @@ class G4JvpFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dpos, pos, z, angles, angle_mask, st):
         ctx.save_for_backward(pos, z, angles, angle_mask)
+        _forward_saves(ctx, pos, z, angles, angle_mask)
         ctx.st = st
         return g4_jvp(pos, z, angles, angle_mask, dpos, st)
 
     @staticmethod
     def backward(ctx, grad):
+        if grad is None:  # materialize_grads is off
+            return (None,) * 6
         pos, z, angles, angle_mask = ctx.saved_tensors
         ddpos = G4VjpFn.apply(grad.contiguous(), pos, z, angles, angle_mask, ctx.st)
         return _held_constant(ddpos, pos), None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, ddpos, dpos, *_):
+        return _linear_jvp(G4JvpFn, ctx, ddpos, dpos)
 
 
 class G2Fn(torch.autograd.Function):
@@ -719,15 +770,22 @@ class G2Fn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pos, z, senders, receivers, edge_mask, st):
         ctx.save_for_backward(pos, z, senders, receivers, edge_mask)
+        _forward_saves(ctx, pos, z, senders, receivers, edge_mask)
         ctx.st = st
         return g2_forward(pos, z, senders, receivers, edge_mask, st)
 
     @staticmethod
     def backward(ctx, ct):
+        if ct is None:  # materialize_grads is off
+            return (None,) * 6
         pos, z, senders, receivers, edge_mask = ctx.saved_tensors
         dpos = G2VjpFn.apply(ct.contiguous(), pos, z, senders, receivers,
                              edge_mask, ctx.st)
         return _held_constant(dpos, pos), None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, dpos, *_):
+        return G2JvpFn.apply(dpos.contiguous(), *ctx.saved_tensors, ctx.st)
 
 
 class G2VjpFn(torch.autograd.Function):
@@ -737,15 +795,22 @@ class G2VjpFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ct, pos, z, senders, receivers, edge_mask, st):
         ctx.save_for_backward(pos, z, senders, receivers, edge_mask)
+        _forward_saves(ctx, pos, z, senders, receivers, edge_mask)
         ctx.st = st
         return g2_vjp(pos, z, senders, receivers, edge_mask, ct, st)
 
     @staticmethod
     def backward(ctx, grad):
+        if grad is None:  # materialize_grads is off
+            return (None,) * 7
         pos, z, senders, receivers, edge_mask = ctx.saved_tensors
         dct = G2JvpFn.apply(grad.contiguous(), pos, z, senders, receivers,
                             edge_mask, ctx.st)
         return _held_constant(dct, pos), None, None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, dct, dpos, *_):
+        return _linear_jvp(G2VjpFn, ctx, dct, dpos)
 
 
 class G2JvpFn(torch.autograd.Function):
@@ -755,12 +820,19 @@ class G2JvpFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dpos, pos, z, senders, receivers, edge_mask, st):
         ctx.save_for_backward(pos, z, senders, receivers, edge_mask)
+        _forward_saves(ctx, pos, z, senders, receivers, edge_mask)
         ctx.st = st
         return g2_jvp(pos, z, senders, receivers, edge_mask, dpos, st)
 
     @staticmethod
     def backward(ctx, grad):
+        if grad is None:  # materialize_grads is off
+            return (None,) * 7
         pos, z, senders, receivers, edge_mask = ctx.saved_tensors
         ddpos = G2VjpFn.apply(grad.contiguous(), pos, z, senders, receivers,
                               edge_mask, ctx.st)
         return _held_constant(ddpos, pos), None, None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, ddpos, dpos, *_):
+        return _linear_jvp(G2JvpFn, ctx, ddpos, dpos)

@@ -14,11 +14,11 @@ port's differentiable Functions:
   each a :class:`GatherWithSortedTranspose`.
 
 Each of those is linear with a backward of any order, so the closure holds
-to any order (force training differentiates the forces again). As in JAX
-reverse mode, the kernel runs on forward (primal) applications only; the
-JAX package's bilinear JVP rule, which binds ``gms`` on tangents, is its
-forward-mode route for ``fast_force_step`` and waits for that port (a
-``jvp`` staticmethod here).
+to any order (force training differentiates the forces again). In reverse
+mode the kernel runs on forward (primal) applications only. Forward mode
+(``training/fast_force_step.py``) takes the JAX package's bilinear JVP rule,
+``GMS(dx, m) + GMS(x, dm)``: the kernel runs on the tangents too, and a
+reverse pass over the tangent reaches the backward above.
 
 Index invariants (GraphBatch): ``sidx`` ascending, ``gperm`` a permutation
 that makes ``gidx`` ascending (``batch.edges['sender_perm']``).
@@ -45,11 +45,13 @@ def invert_perm(perm: Tensor) -> Tensor:
 
 class PermuteRows(torch.autograd.Function):
     """``vals[perm]``, whose backward is the inverse permutation (a gather,
-    not a scatter); linear, so of any order."""
+    not a scatter) and whose ``jvp`` is the same permutation of the tangent;
+    linear, so of any order."""
 
     @staticmethod
     def forward(ctx, vals: Tensor, perm: Tensor, inv: Tensor) -> Tensor:
         ctx.save_for_backward(perm, inv)
+        ctx.save_for_forward(perm, inv)
         return vals.index_select(0, perm)
 
     @staticmethod
@@ -57,21 +59,33 @@ class PermuteRows(torch.autograd.Function):
         perm, inv = ctx.saved_tensors
         return PermuteRows.apply(ct, inv, perm), None, None
 
+    @staticmethod
+    def jvp(ctx, dvals: Tensor, *_):
+        perm, inv = ctx.saved_tensors
+        return PermuteRows.apply(dvals, perm, inv)
+
 
 class GMS(torch.autograd.Function):
     """``out[s] = sum_{e: sidx[e] = s} x[gidx[e]] * m[e]`` with x (N, F),
     m (E, F); ``gidx_sorted = gidx[gperm]`` and ``inv = invert_perm(gperm)``
-    are passed in so that they are computed once."""
+    are passed in so that they are computed once. The ``jvp`` launches the
+    kernel once for each input that has a tangent (the JAX ``_gms_jvp``)."""
 
     @staticmethod
     def forward(ctx, x: Tensor, m: Tensor, gidx: Tensor, sidx: Tensor, gperm: Tensor,
                 gidx_sorted: Tensor, inv: Tensor) -> Tensor:
         ctx.save_for_backward(x, m, gidx, sidx, gperm, gidx_sorted, inv)
+        ctx.save_for_forward(x, m, gidx, sidx, gperm, gidx_sorted, inv)
+        # an input without a tangent reaches jvp as None, not as zeros (and
+        # an output without a cotangent the backward)
+        ctx.set_materialize_grads(False)
         return fused_aggregate.fused_gather_mul_segsum_kernel(
             x.contiguous(), m.contiguous(), gidx, sidx, x.shape[0])
 
     @staticmethod
     def backward(ctx, ct: Tensor):
+        if ct is None:  # materialize_grads is off
+            return (None,) * 7
         x, m, gidx, sidx, gperm, gidx_sorted, inv = ctx.saved_tensors
         ct_x = ct_m = None
         need_x, need_m = input_needed(ctx, 0), input_needed(ctx, 1)
@@ -83,6 +97,13 @@ class GMS(torch.autograd.Function):
         if need_m:
             ct_m = ct_e * GatherWithSortedTranspose.apply(x, gidx, gperm, gidx_sorted)
         return ct_x, ct_m, None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, dx, dm, *_):
+        x, m, *idx = ctx.saved_tensors
+        terms = [GMS.apply(a, b, *idx) for a, b in ((dx, m), (x, dm))
+                 if a is not None and b is not None]
+        return terms[0] if len(terms) == 1 else terms[0] + terms[1]
 
 
 def gms(x: Tensor, m: Tensor, gidx: Tensor, sidx: Tensor, gperm: Tensor, *,

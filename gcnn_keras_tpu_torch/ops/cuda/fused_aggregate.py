@@ -34,6 +34,13 @@ Tensor = torch.Tensor
 
 launches = 0
 
+_REVERSE_ONLY = (
+    "the custom-VJP gather-multiply-segment-sum (SchNet fused_aggregate='vjp', or "
+    "fused_aggregate=True on a batch without sender_perm) is reverse mode only, as the "
+    "JAX package's custom_vjp, which jax.jvp refuses: forward mode (the fast force step, "
+    "training/fast_force_step.py) does not run it. Use fused_aggregate=True on a batch "
+    "with sender_perm (the AD-closed GMS) or the default mode; the parameters are the same")
+
 
 def fused_gather_mul_segsum_plain(x: Tensor, filt: Tensor, senders: Tensor,
                                   receivers: Tensor, num_segments: int) -> Tensor:
@@ -111,7 +118,9 @@ class FusedGatherMulSegsum(torch.autograd.Function):
     ``ct[receivers] * filt`` by sender, on the sorted segment-sum through
     ``sender_perm`` (``index_add_`` without one). Force training can
     differentiate the backward again; the kernel runs on forward
-    applications only."""
+    applications only. Reverse mode only: a ``custom_vjp`` in the JAX
+    package, where ``jax.jvp`` refuses it, so its ``jvp`` raises
+    (``_REVERSE_ONLY``)."""
 
     @staticmethod
     def forward(ctx, x: Tensor, filt: Tensor, senders: Tensor, receivers: Tensor,
@@ -135,6 +144,10 @@ class FusedGatherMulSegsum(torch.autograd.Function):
         if input_needed(ctx, 1):
             d_filt = x.index_select(0, senders) * ct_e
         return d_x, d_filt, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, *_):
+        raise NotImplementedError(_REVERSE_ONLY)
 
 
 def gather_mul_segsum_auto(x: Tensor, filt: Tensor, senders: Tensor,

@@ -145,6 +145,13 @@ def fused_cfconv_kernel(basis: Tensor, xj: Tensor, receivers: Tensor, num_nodes:
     return out
 
 
+_REVERSE_ONLY = (
+    "FusedCfconv (SchNet accurate_cfconv=True) is reverse mode only, as the JAX "
+    "package's fused cfconv, a custom_vjp that jax.jvp refuses: forward mode (the fast "
+    "force step, training/fast_force_step.py) does not run it. Use the default or the "
+    "fused_aggregate mode, whose parameters are the same")
+
+
 class FirstOrderOnly(torch.autograd.Function):
     """``value`` as it is, on a node that depends on ``deps``; its backward
     raises: a derivative of :class:`FusedCfconv`'s backward."""
@@ -161,11 +168,17 @@ class FirstOrderOnly(torch.autograd.Function):
             "(a force loss in training) does not. Train with the default or the "
             "fused_aggregate mode, whose parameters are the same.")
 
+    @staticmethod
+    def jvp(ctx, *_):
+        raise NotImplementedError(_REVERSE_ONLY)
+
 
 class FusedCfconv(torch.autograd.Function):
     """The fused cfconv with the JAX package's first-order VJP (``_bwd``):
     the filter recomputed, then the cotangents of basis, xj and the four
-    weights. A second derivative raises (:class:`FirstOrderOnly`)."""
+    weights. A second derivative raises (:class:`FirstOrderOnly`), and so
+    does forward mode: the JAX kernel is a ``custom_vjp``, which ``jax.jvp``
+    refuses (``_REVERSE_ONLY``)."""
 
     @staticmethod
     def forward(ctx, basis: Tensor, xj: Tensor, receivers: Tensor, w1: Tensor,
@@ -194,6 +207,10 @@ class FusedCfconv(torch.autograd.Function):
             deps = [t for t in (g, *saved) if t.is_floating_point()]
             grads = [None if t is None else FirstOrderOnly.apply(t, *deps) for t in grads]
         return (*grads, None)
+
+    @staticmethod
+    def jvp(ctx, *_):
+        raise NotImplementedError(_REVERSE_ONLY)
 
 
 def fused_cfconv_auto(basis: Tensor, xj: Tensor, receivers: Tensor, num_nodes: int,

@@ -338,6 +338,17 @@ def cf_hesjvp(x, pos, w1, b1, w2, b2, ct, u_x, u_pos, u_w1, u_b1, u_w2, u_b2,
 
 # ---------------------------------------------------------------- autograd
 
+_REVERSE_ONLY = (
+    "the fused interaction chain (SchNet fused_chain=True) is reverse mode only, as the "
+    "JAX package's nested custom_vjp, which jax.jvp refuses: forward mode (the fast "
+    "force step, training/fast_force_step.py) does not run it. Use the default SchNet "
+    "mode for it; the parameters are the same")
+
+
+def _reverse_only(ctx, *_):
+    raise NotImplementedError(_REVERSE_ONLY)
+
+
 class SecondOrderOnly(torch.autograd.Function):
     """``value`` as it is, on a node that depends on ``deps``; its backward
     raises: a derivative of :class:`BWD`'s backward."""
@@ -353,6 +364,8 @@ class SecondOrderOnly(torch.autograd.Function):
             "order, the reverse over reverse of force training, as the JAX package's: a "
             "third derivative is not computed. Use the default SchNet mode for it; the "
             "parameters are the same.")
+
+    jvp = staticmethod(_reverse_only)
 
 
 class BWD(torch.autograd.Function):
@@ -380,6 +393,8 @@ class BWD(torch.autograd.Function):
             grads = [SecondOrderOnly.apply(t, *deps) for t in grads]
         return (*grads, None, None, None, None)
 
+    jvp = staticmethod(_reverse_only)
+
 
 class CF(torch.autograd.Function):
     """The chain's forward (kernel #5); its backward is :class:`BWD`."""
@@ -396,6 +411,8 @@ class CF(torch.autograd.Function):
         grads = BWD.apply(ct, x, pos, w1, b1, w2, b2, senders, receivers,
                           edge_mask, ctx.st)
         return (*grads, None, None, None, None)
+
+    jvp = staticmethod(_reverse_only)
 
 
 def cfconv_fused_chain(x: Tensor, pos: Tensor, w1: Tensor, b1: Tensor, w2: Tensor,

@@ -112,11 +112,15 @@ class SortedSegmentSum(torch.autograd.Function):
 
     Linear in ``values``; its backward is the gather ``ct[ids]``, run as
     :class:`GatherWithSortedTranspose`, whose own backward is this sum
-    again, so derivatives of any order stay on the kernel."""
+    again, so derivatives of any order stay on the kernel. Its ``jvp`` is
+    the sum of the tangent (the JAX package's ``linear_call``), so forward
+    mode launches the kernel too."""
 
     @staticmethod
     def forward(ctx, values: Tensor, ids: Tensor, num_segments: int) -> Tensor:
         ctx.save_for_backward(ids)
+        ctx.save_for_forward(ids)
+        ctx.num_segments = num_segments
         flat = values.reshape(values.shape[0], -1).contiguous()
         out = segment_sum(flat, ids, num_segments)
         return out.reshape((num_segments,) + tuple(values.shape[1:]))
@@ -128,6 +132,11 @@ class SortedSegmentSum(torch.autograd.Function):
             return None, None, None
         return GatherWithSortedTranspose.apply(ct, ids, None, ids), None, None
 
+    @staticmethod
+    def jvp(ctx, dvalues: Tensor, *_):
+        (ids,) = ctx.saved_tensors
+        return SortedSegmentSum.apply(dvalues, ids, ctx.num_segments)
+
 
 class GatherWithSortedTranspose(torch.autograd.Function):
     """values (N, ...) -> values[indices] (E, ...).
@@ -135,13 +144,15 @@ class GatherWithSortedTranspose(torch.autograd.Function):
     Its backward, the scatter-add by ``indices``, runs as the sorted sum:
     the cotangent is permuted by ``sender_perm`` (the stable argsort of
     ``indices``; None when ``indices`` is already ascending) and summed by
-    ``indices_sorted = indices[sender_perm]``."""
+    ``indices_sorted = indices[sender_perm]``. Its ``jvp`` is this gather
+    of the tangent, whose transpose is the sorted sum again."""
 
     @staticmethod
     def forward(ctx, values: Tensor, indices: Tensor,
                 sender_perm: Optional[Tensor], indices_sorted: Tensor) -> Tensor:
         ctx.save_for_backward(sender_perm if sender_perm is not None
                               else indices_sorted, indices_sorted)
+        ctx.save_for_forward(indices, sender_perm, indices_sorted)
         ctx.has_perm = sender_perm is not None
         ctx.n = values.shape[0]
         return values.index_select(0, indices)
@@ -155,3 +166,8 @@ class GatherWithSortedTranspose(torch.autograd.Function):
             ct = ct.index_select(0, perm)
         return (SortedSegmentSum.apply(ct, indices_sorted, ctx.n),
                 None, None, None)
+
+    @staticmethod
+    def jvp(ctx, dvalues: Tensor, *_):
+        indices, perm, indices_sorted = ctx.saved_tensors
+        return GatherWithSortedTranspose.apply(dvalues, indices, perm, indices_sorted)

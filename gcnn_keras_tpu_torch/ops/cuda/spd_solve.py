@@ -145,17 +145,30 @@ class SPDSolve(torch.autograd.Function):
     transpose): ``gb = a^-1 g`` and ``ga = -gb x^T``, written with
     ``SPDSolve.apply`` and differentiable operations, so that derivatives of
     any order stay on the kernel. Like the JAX solve, the ``ga`` it returns
-    is right along symmetric directions of ``a``."""
+    is right along symmetric directions of ``a``. The ``jvp`` is one more
+    solve, ``dx = a^-1 (db - da x)``, on the kernel."""
 
     @staticmethod
     def forward(ctx, a: Tensor, b: Tensor) -> Tensor:
         x = spd_solve(a.contiguous(), b.contiguous())
         ctx.save_for_backward(a, x)
+        ctx.save_for_forward(a, x)
+        # an input without a tangent reaches jvp as None, not as zeros (and
+        # an output without a cotangent the backward)
+        ctx.set_materialize_grads(False)
         return x
 
     @staticmethod
     def backward(ctx, g: Tensor):
+        if g is None:  # materialize_grads is off
+            return None, None
         a, x = ctx.saved_tensors
         gb = SPDSolve.apply(a, g)
         ga = -(gb @ x.transpose(-1, -2)) if ctx.needs_input_grad[0] else None
         return ga, gb
+
+    @staticmethod
+    def jvp(ctx, da: Tensor, db: Tensor) -> Tensor:
+        a, x = ctx.saved_tensors
+        rhs = db if da is None else (-(da @ x) if db is None else db - da @ x)
+        return SPDSolve.apply(a, rhs)

@@ -1,13 +1,44 @@
-"""Extended-xyz output; counterpart of
-``gcnn_keras_tpu/utils/save_load_utils.py`` (``save_extxyz``; its history
-and split-index helpers are not ported)."""
+"""History, split-index and extended-xyz files; counterpart of
+``gcnn_keras_tpu/utils/save_load_utils.py`` (``save_history``,
+``load_history``, ``save_training_indices``, ``load_training_indices``,
+``save_extxyz``). A history file ending in ``.json`` is JSON, any other a
+pickle; split indices are a pickled list of arrays, as the JAX package
+writes them."""
 from __future__ import annotations
 
-from typing import Sequence
+import json
+import pickle
+from typing import Dict, List, Sequence
 
 import numpy as np
 
 from ..mol.io import PERIODIC_TABLE
+
+
+def save_history(history: Dict[str, List[float]], filename: str):
+    with open(filename, "w" if filename.endswith(".json") else "wb") as f:
+        if filename.endswith(".json"):
+            json.dump({k: [float(x) for x in v] for k, v in history.items()}, f)
+        else:
+            pickle.dump(history, f)
+
+
+def load_history(filename: str) -> Dict[str, List[float]]:
+    if filename.endswith(".json"):
+        with open(filename) as f:
+            return json.load(f)
+    with open(filename, "rb") as f:
+        return pickle.load(f)
+
+
+def save_training_indices(indices: Sequence[np.ndarray], filename: str):
+    with open(filename, "wb") as f:
+        pickle.dump([np.asarray(i) for i in indices], f)
+
+
+def load_training_indices(filename: str) -> List[np.ndarray]:
+    with open(filename, "rb") as f:
+        return pickle.load(f)
 
 
 def save_extxyz(filename: str, frames: Sequence[dict],

@@ -9,6 +9,9 @@ process has JAX loaded already.
 import ast
 import functools
 import json
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -143,6 +146,8 @@ def test_scan_sees_the_package():
                 "ops/initializers.py", "graph/preprocess.py", "training/schedules.py",
                 "layers/pool/__init__.py", "layers/pool/set2set.py",
                 "layers/conv/basic.py", "training/graph_driver.py",
+                "training/fast_force_step.py", "graph/postprocess.py",
+                "scripts/plot_learning_curve.py", "scripts/kgcnn_plot.py",
                 *(f"scripts/{name}.py" for name in DRIVERS)):
         assert package / rel in SOURCES, rel
     src = ("import jax\nfrom flax import linen\n"
@@ -150,6 +155,37 @@ def test_scan_sees_the_package():
            "importlib.import_module('optax')\n")
     assert set(_imported_modules(src)) == {
         "jax", "flax", "gcnn_keras_tpu.batch", "optax"}
+
+
+_FAST_STEP_ALONE = """
+import sys
+import numpy as np
+import torch
+from gcnn_keras_tpu_torch.batch import batch_graphs
+from gcnn_keras_tpu_torch.models.schnet import make_model
+from gcnn_keras_tpu_torch.training.fast_force_step import make_force_train_step
+f32 = lambda v: np.asarray(v, dtype=np.float32)
+graph = {"node_number": [1, 8, 1], "node_coordinates": f32([[0, 0, 0], [0, 0, 1], [0, 1, 0]]),
+         "edge_indices": [[0, 1], [1, 0], [1, 2], [2, 1]], "energy": f32([0.5]),
+         "force": f32([[0, 0, 0.1], [0, 0, -0.1], [0, 0, 0]])}
+batch = batch_graphs([graph], global_keys=("energy",), device="cpu")
+step = make_force_train_step(make_model(depth=1, device="cpu"), torch.optim.Adam)
+state, loss, metrics = step(step.init_state(), batch)
+print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax',
+                                                             'gcnn_keras_tpu')),
+      bool(torch.isfinite(loss)), sorted(metrics))
+"""
+
+
+def test_fresh_interpreter_runs_the_fast_step_without_jax():
+    """``training/fast_force_step.py`` imported and one step run on a CPU
+    batch in a fresh interpreter: no module of JAX, flax, optax or the JAX
+    package is loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _FAST_STEP_ALONE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[0] == "[] True ['energy_loss', 'force_loss']", out.stdout
 
 
 @pytest.mark.parametrize("entry", ["batch_graphs", "make_model", "make_crystal_model",

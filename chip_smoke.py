@@ -4111,10 +4111,22 @@ ZOO_FIRST_STEP_MOLS = 64
 ZOO_DRIVERS = ((22, "train_tudataset", "GIN"), (22, "train_moleculenet", "GIN"),
                (22, "train_moleculenet", "GAT"), (23, "train_moleculenet", "AttentiveFP"),
                (24, "train_force", "MXMNet"), (24, "train_force", "EGNN"),
-               (25, "train_force_hyper", "Schnet"), (25, "train_force_hyper", "PAiNN"))
+               (25, "train_force_hyper", "Schnet"), (25, "train_force_hyper", "PAiNN"),
+               (27, "train_citation", "GCN"), (27, "train_qm", "Schnet"),
+               (27, "train_crystal", "Schnet"), (27, "train_crystal", "CGCNN"),
+               (27, "train_vgd_mock", "MEGAN"), (27, "train_vgd_rb_motifs", "MEGAN"))
 ZOO_DRIVER_ARGS = ["--epochs", "3", "--folds", "2", "--no-plots"]
 # train_force at its default 128 frames, cut to 3 epochs (50) of one fold
 FORCE_DRIVER_ARGS = ["--epochs", "3", "--folds", "1", "--no-plots"]
+# phase 27's drivers at their widths on data of a real size: GCN on a graph
+# of Cora's 2708 nodes, 20 epochs (100) of 2 folds (5); SchNet on 512
+# molecules, 2 epochs (60) of 2 folds (3); the crystal SchNet and CGCNN on
+# 512 structures, 2 epochs (40) of the one fold; MEGAN on 512 graphs of
+# each visual-graph dataset, 20 epochs (100): each run records a loss
+CITATION_ARGS = ["--nodes", "2708", "--epochs", "20", "--folds", "2", "--no-plots"]
+QM_ARGS = ["--molecules", "512", "--epochs", "2", "--folds", "2", "--no-plots"]
+CRYSTAL_ARGS = ["--structures", "512", "--epochs", "2", "--no-plots"]
+VGD_ARGS = ["--graphs", "512", "--epochs", "20", "--no-plots"]
 # the configuration library, and the one config whose dataset is ported:
 # SchNet (depth 4, 128 units, 25 bins, 5 A) and PAiNN (depth 3, 128 units,
 # 20 Bessel radials, cutoff 5) on 256 frames of ``SyntheticMDDataset``
@@ -4589,6 +4601,52 @@ def force_driver_cpu_step(script, model, argv=()):
             lambda batch: float64_grads(fmodel.energy_model, lambda m, b: loss_fn(b)[0], batch))
 
 
+def citation_cpu_step(script, model, argv=()):
+    """``train_citation``'s model and first fold's loss on the CPU (its
+    default seed 42, ``argv``'s node count)."""
+    from gcnn_keras_tpu_torch.data.datasets.synthetic import SyntheticCitationDataset
+    from gcnn_keras_tpu_torch.scripts import train_citation as tc
+    from gcnn_keras_tpu_torch.training import graph_driver
+    args = tc.parser().parse_args(list(argv) + ["--model", model])
+    ds = SyntheticCitationDataset(num_nodes=args.nodes, seed=args.seed)
+    batch, y, n_classes = tc.graph_inputs(ds, "cpu")
+    train_mask, test_mask = tc.fold_masks(int(batch.node_mask.sum()), batch.n_node,
+                                          args.folds, args.seed, "cpu")[0]
+    cpu_model = tc.build_model(model, n_classes, graph_driver.input_widths(ds), "cpu")
+    return (list(cpu_model.named_parameters()),
+            tc.loss_fn(cpu_model, y, train_mask, test_mask), None)
+
+
+def qm_cpu_step(script, model, argv=()):
+    """``train_qm``'s model on the CPU with its loss (the recorded batch
+    carries the fold's scaled labels)."""
+    from gcnn_keras_tpu_torch.scripts import train_qm
+    from gcnn_keras_tpu_torch.training import graph_driver
+    widths = graph_driver.input_widths(train_qm.synthetic_dataset(1, 42))
+    cpu_model = train_qm.build_model(model, widths, "cpu")
+    return list(cpu_model.named_parameters()), train_qm.loss_fn(cpu_model), None
+
+
+def crystal_cpu_step(script, model, argv=()):
+    """``train_crystal``'s crystal model on the CPU with its loss."""
+    from gcnn_keras_tpu_torch.scripts import train_crystal
+    from gcnn_keras_tpu_torch.training import graph_driver
+    widths = graph_driver.input_widths(train_crystal.synthetic_crystals(1, 42))
+    cpu_model = train_crystal.build_model(model, widths, "cpu")
+    return list(cpu_model.named_parameters()), train_crystal.loss_fn(cpu_model), None
+
+
+def vgd_cpu_step(script, model, argv=()):
+    """``train_visual_graph_dataset``'s MEGAN on the CPU with its loss, at
+    the widths of ``argv``'s dataset."""
+    from gcnn_keras_tpu_torch.scripts import train_visual_graph_dataset as tv
+    from gcnn_keras_tpu_torch.training import graph_driver
+    args = tv.parser().parse_args(list(argv) + ["--model", model])
+    widths = graph_driver.input_widths(tv.load_dataset(args.dataset, 1, args.seed))
+    cpu_model = tv.build_model(widths, "cpu")
+    return list(cpu_model.named_parameters()), tv.loss_fn(cpu_model), None
+
+
 # each driver run: the module whose ``Trainer`` the phase records, its
 # arguments, its CPU model and loss for the first step, and its script
 ZOO_DRIVER_RUNS = {
@@ -4599,7 +4657,24 @@ ZOO_DRIVER_RUNS = {
     "train_force": ("scripts.train_force", FORCE_DRIVER_ARGS, force_driver_cpu_step,
                     "train_force"),
     "train_force_hyper": ("scripts.train_force", FORCE_DRIVER_ARGS + ["--hyper", HYPER_MD],
-                          force_driver_cpu_step, "train_force")}
+                          force_driver_cpu_step, "train_force"),
+    "train_citation": ("scripts.train_citation", CITATION_ARGS, citation_cpu_step,
+                       "train_citation"),
+    "train_qm": ("training.graph_driver", QM_ARGS, qm_cpu_step, "train_qm"),
+    "train_crystal": ("training.graph_driver", CRYSTAL_ARGS, crystal_cpu_step, "train_crystal"),
+    "train_vgd_mock": ("scripts.train_visual_graph_dataset",
+                       VGD_ARGS + ["--dataset", "VgdMockDataset"], vgd_cpu_step,
+                       "train_visual_graph_dataset"),
+    "train_vgd_rb_motifs": ("scripts.train_visual_graph_dataset",
+                            VGD_ARGS + ["--dataset", "VgdRbMotifsDataset"], vgd_cpu_step,
+                            "train_visual_graph_dataset")}
+# each script's folder under results/ where it is not the second word of its name
+RESULTS_DIRS = {"train_visual_graph_dataset": "vgd"}
+
+
+def driver_epochs(argv):
+    """The ``--epochs`` of a driver's arguments."""
+    return int(argv[list(argv).index("--epochs") + 1])
 
 
 def phase_zoo_driver(script, model, smi, device="cuda"):
@@ -4626,7 +4701,7 @@ def phase_zoo_driver(script, model, smi, device="cuda"):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = kernel_counts()
-        path = f"results/{script_name.split('_')[1]}/{model}_score"
+        path = f"results/{RESULTS_DIRS.get(script_name, script_name.split('_')[1])}/{model}_score"
         if not (os.path.exists(path + ".yaml") or os.path.exists(path + ".json")):
             raise AssertionError(f"{label}: no score file {path}.yaml")
     if not np.isfinite(score["loss"]).all():
@@ -4637,7 +4712,9 @@ def phase_zoo_driver(script, model, smi, device="cuda"):
     out = {"script": script, "model": model, "card": smi, "args": argv,
            "steps": len(rec.steps) + 1, "launches_per_step": rec.check_steps(label),
            "ms_per_step": float(np.median([ms for _, ms, _ in rec.steps])),
-           "ms_per_epoch": 1e3 * score["epoch_time_mean"], "s_run": run_s,
+           "ms_per_epoch": 1e3 * (score["epoch_time_mean"] if "epoch_time_mean" in score
+                                  else np.mean(score["execute_time"]) / driver_epochs(argv)),
+           "s_run": run_s,
            "losses": score["loss"], "first_step": first, "launches_run": launches}
     log(f"{label} driver: " + json.dumps(out))
     return {label: launches}, recs
@@ -4773,13 +4850,14 @@ def phase_compat(smi, timed_shapes, device="cuda", n_mols=512):
 
 
 def phase_zoo(smi, profiles, timed_shapes, phase):
-    """Phase 22, 23, 24 or 25: each model of ``ZOO_MODELS`` in ``phase``
+    """Phase 22, 23, 24, 25 or 27: each model of ``ZOO_MODELS`` in ``phase``
     (``phase_zoo_model``; a training step of each queued on ``profiles``
     for ``run_profiles``), then its drivers of ``ZOO_DRIVERS``
-    (``phase_zoo_driver``), and in phase 25 the compatibility layer
-    (``phase_compat``); the segment-sum shapes in ``timed_shapes`` are not
-    timed again. Returns the launch counts of each main path and the kernel
-    records."""
+    (``phase_zoo_driver``), in phase 25 the compatibility layer
+    (``phase_compat``), in phase 27 periodic MD (``phase_periodic_md``) and
+    the fork's workflow chain (``phase_fork_chain``); the segment-sum
+    shapes in ``timed_shapes`` are not timed again. Returns the launch
+    counts of each main path and the kernel records by kernel."""
     by_path, recs = {}, []
     seconds = [time.perf_counter()]
     for name in [n for n, entry in ZOO_MODELS.items() if entry[2] == phase]:
@@ -4800,9 +4878,254 @@ def phase_zoo(smi, profiles, timed_shapes, phase):
         recs += rs
         seconds.append(time.perf_counter())
         parts.append("compat")
+    other = {}
+    if phase == 27:
+        for part, run in (("periodic_md", phase_periodic_md), ("workflow", phase_fork_chain)):
+            paths, rs = run(smi)
+            by_path.update(paths)
+            for kname, krs in rs.items():
+                other.setdefault(kname, []).extend(krs)
+            seconds.append(time.perf_counter())
+            parts.append(part)
     times = dict(zip(parts, np.diff(seconds).tolist()), total=seconds[-1] - seconds[0])
     log(f"phase {phase} seconds: " + json.dumps(times))
-    return by_path, {"sorted_segment_sum": recs}
+    other.setdefault("sorted_segment_sum", []).extend(recs)
+    return by_path, other
+
+
+# phase 27's periodic MD: SchNet's crystal model at its defaults (depth 4,
+# 128 units) over train_crystal's first structures, each atom started at a
+# seeded velocity of about 1 A per unit time (from rest its untrained forces
+# would move no coordinate by a float32 ulp in these steps); the card's
+# energies and positions against the CPU's, within MD_TOL of their scale
+PERIODIC_MD_STRUCTURES = 64
+PERIODIC_MD_SEGMENTS = 3
+PERIODIC_MD_STEPS = 10
+PERIODIC_MD_DT = 1e-3
+
+
+def periodic_md_run(device, n_segments=PERIODIC_MD_SEGMENTS, segment_steps=PERIODIC_MD_STEPS):
+    """``ScannedMD.run_ensemble`` of the crystal SchNet (seed-0 weights) over
+    ``PERIODIC_MD_STRUCTURES`` periodic structures of ``train_crystal``,
+    re-neighboured with ``set_range_periodic`` (4 A, 12) each segment;
+    returns its output and the systems."""
+    from gcnn_keras_tpu_torch.models.schnet import make_crystal_model
+    from gcnn_keras_tpu_torch.moldyn.trajectory import ScannedMD
+    from gcnn_keras_tpu_torch.scripts.train_crystal import synthetic_crystals
+    rs = np.random.RandomState(0)
+    systems = [{"node_number": g["node_number"], "node_coordinates": g["node_coordinates"],
+                "graph_lattice": g["graph_lattice"],
+                "velocities": rs.randn(len(g["node_number"]), 3).astype(np.float32)}
+               for g in synthetic_crystals(PERIODIC_MD_STRUCTURES, seed=0)]
+    md = ScannedMD(make_crystal_model(device=device, generator=torch.Generator().manual_seed(0)),
+                   dt=PERIODIC_MD_DT, segment_steps=segment_steps, max_distance=4.0,
+                   max_neighbours=12, device=device)
+    return md.run_ensemble(systems, n_segments), systems
+
+
+def image_distance(a, b, lattice):
+    """The largest distance between ``a`` and ``b`` (n, 3) up to a lattice
+    vector, so that an atom wrapped on the other side of the cell on one
+    device counts by its true offset."""
+    frac = (np.asarray(a, np.float64) - b) @ np.linalg.inv(np.asarray(lattice, np.float64))
+    return float(np.abs((frac - np.round(frac)) @ lattice).max())
+
+
+def phase_periodic_md(smi, device="cuda"):
+    """Phase 27 (b): periodic ``ScannedMD`` (``periodic_md_run``) on the card,
+    every count set to 0 just before and read just after: the launches of
+    every evaluation (``segments * (steps + 1)`` SchNet evaluations), the
+    energies and final positions against the CPU's, every kernel call of a
+    one-step segment against its plain version, and the time per MD step.
+    Returns the run's launch counts and the kernel records."""
+    with captured_calls() as calls:
+        periodic_md_run(device, n_segments=1, segment_steps=1)
+    recs = {k: [dict(r, path="periodic_md") for r in rs]
+            for k, rs in check_captured(calls, "periodic MD, one step").items()}
+    torch.cuda.synchronize()
+    # the main path: every count set to 0 just before, read just after
+    reset_counts()
+    t0 = time.perf_counter()
+    out, systems = periodic_md_run(device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts()
+    evals = PERIODIC_MD_SEGMENTS * (PERIODIC_MD_STEPS + 1)
+    want = {k: evals * v for k, v in schnet_launches("unfused").items()}
+    if launches != want:
+        raise AssertionError(f"periodic MD: launches {launches}, expected {want}")
+    ref, _ = periodic_md_run("cpu")
+    if not (np.isfinite(out["e_pot"]).all() and np.isfinite(out["e_kin"]).all()):
+        raise AssertionError("periodic MD: energies not finite")
+    e_err = float(np.abs(out["e_pot"] - ref["e_pot"]).max())
+    e_scale = float(np.abs(ref["e_pot"]).max())
+    pos_err = max(image_distance(p, r, s["graph_lattice"])
+                  for p, r, s in zip(out["pos"], ref["pos"], systems))
+    pos_scale = max(float(np.abs(s["graph_lattice"]).max()) for s in systems)
+    if not (e_err <= MD_TOL * e_scale and pos_err <= MD_TOL * pos_scale):
+        raise AssertionError(f"periodic MD: e_pot off the CPU's by {e_err} (scale {e_scale}), "
+                             f"positions by {pos_err}")
+    steps = PERIODIC_MD_SEGMENTS * PERIODIC_MD_STEPS
+    log("periodic md: " + json.dumps({
+        "structures": PERIODIC_MD_STRUCTURES, "segments": PERIODIC_MD_SEGMENTS,
+        "segment_steps": PERIODIC_MD_STEPS, "edge_counts": out["edge_counts"],
+        "e_pot_max_abs_err_vs_cpu": e_err, "e_pot_scale": e_scale,
+        "pos_max_abs_err_vs_cpu": pos_err, "ms_per_step": 1e3 * seconds / steps,
+        "launches_per_evaluation": schnet_launches("unfused"), "card": smi}))
+    return {"periodic_md": launches}, recs
+
+
+# phase 27's fork workflow chain: SyntheticMDDataset frames as an extxyz
+# file, prepare_data, one epoch of force_schnet (its three members) on the
+# pickle, then each golden-IO harness recorded on the CPU and checked on the
+# card on HARNESS_INPUTS molecules
+WORKFLOW_FRAMES = 512
+HARNESS_INPUTS = 16
+HARNESS_ATOL = 1e-4  # the harnesses' default --atol
+
+
+def write_extxyz(path, graphs):
+    """Frames with their energies and forces as an extended-xyz file."""
+    from gcnn_keras_tpu_torch.mol.io import PERIODIC_TABLE
+    with open(path, "w") as f:
+        for g in graphs:
+            f.write(f"{len(g['node_number'])}\n")
+            f.write(f"energy={float(g['energy'][0])!r} "
+                    "Properties=species:S:1:pos:R:3:forces:R:3\n")
+            for z, x, force in zip(g["node_number"], g["node_coordinates"], g["force"]):
+                f.write(" ".join([PERIODIC_TABLE[int(z)]]
+                                 + [repr(float(v)) for v in (*x, *force)]) + "\n")
+
+
+def write_harness_inputs(prefix, graphs, esp=None):
+    """``<prefix>NN.txt`` input files: ``z x y z`` rows, with an ESP column
+    where ``esp`` gives one a graph."""
+    for i, g in enumerate(graphs):
+        with open(f"{prefix}{i:02d}.txt", "w") as f:
+            f.write(f"{len(g['node_number'])}\n")
+            for a, (z, x) in enumerate(zip(g["node_number"], g["node_coordinates"])):
+                cols = [str(int(z))] + [repr(float(v)) for v in x]
+                if esp is not None:
+                    cols.append(repr(float(esp[i][a])))
+                f.write(" ".join(cols) + "\n")
+
+
+def harness_float64_gap(harness, script, argv):
+    """The largest gap between a harness's float32 predictions on the CPU
+    and the same predictions in float64 (``script``'s model and the batch),
+    over energies, forces and charges."""
+    import gcnn_keras_tpu_torch.batch as tb
+    from gcnn_keras_tpu_torch.training import force_script
+    f32 = harness.main(argv + ["--record", "--golden", "_f32.json", "--device", "cpu"])
+    mod = force_script.script_module(script)
+    build_batch, build_model = tb.batch_graphs, mod.build_model
+
+    def double_batch(*a, **kw):
+        return build_batch(*a, **kw)._map(lambda v: v.double() if v.is_floating_point() else v)
+
+    def double_model(cfg, device=None):
+        fm = build_model(cfg, device=device)
+        fm.energy_model.double()
+        return fm
+    with patched(tb, "batch_graphs", double_batch), patched(mod, "build_model", double_model):
+        f64 = harness.main(argv + ["--record", "--golden", "_f64.json", "--device", "cpu"])
+    gap = 0.0
+    for a, b in zip(f32["results"], f64["results"]):
+        for key in ("energy", "force", "charge"):
+            if key in a:
+                gap = max(gap, float(np.abs(np.array(a[key]) - np.array(b[key])).max()))
+    return gap
+
+
+def harness_check(name, script, argv, smi, device):
+    """A harness recorded on the CPU, then checked on the card inside
+    ``captured_calls``, every count set to 0 just before and read just
+    after, at ``HARNESS_ATOL`` or, where float32 cannot hold that at these
+    values, ``ARBITER_FACTOR`` times the CPU's float32-to-float64 gap.
+    Returns the record, the run's launch counts and the kernel records."""
+    harness = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{name}")
+    argv = argv + ["--script", script]
+    gap = harness_float64_gap(harness, script, argv)
+    atol = max(HARNESS_ATOL, ARBITER_FACTOR * gap)
+    harness.main(argv + ["--record", "--device", "cpu"])
+    torch.cuda.synchronize()
+    with captured_calls() as calls:
+        # the main path: every count set to 0 just before, read just after
+        reset_counts()
+        t0 = time.perf_counter()
+        res = harness.main(argv + ["--device", device, "--atol", repr(atol)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernel_counts()
+    if not res["ok"]:
+        raise AssertionError(f"{name}: the card's predictions miss the CPU's golden "
+                             f"at --atol {atol}")
+    recs = {k: [dict(r, path=name) for r in rs]
+            for k, rs in check_captured(calls, f"{name} on the card").items()}
+    rec = {"float64_gap_cpu": gap, "atol": atol, "s_check": seconds,
+           "launches": {k: v for k, v in launches.items() if v}, "card": smi}
+    return rec, launches, recs
+
+
+def phase_fork_chain(smi, device="cuda"):
+    """Phase 27 (c): the fork's workflow on the port, in a scratch
+    directory: ``WORKFLOW_FRAMES`` frames of ``SyntheticMDDataset`` (seed 0)
+    written as extxyz, ``prepare_data`` on it (the pickle's energies,
+    forces and positions against the frames), one epoch of
+    ``force_schnet`` (its three members, its widths) on that pickle through
+    ``data_path`` (every count set to 0 just before, read just after), then
+    ``test_model_force_schnet_painn`` on its checkpoint and
+    ``test_model_force_hdnnp`` on a seed-0 ``force_hdnnp4th`` checkpoint,
+    each recorded on the CPU and checked on the card (``harness_check``).
+    Returns the launch counts of each run and the kernel records."""
+    from gcnn_keras_tpu_torch.data.datasets.synthetic import SyntheticMDDataset
+    from gcnn_keras_tpu_torch.scripts import prepare_data
+    from gcnn_keras_tpu_torch.training import force_script
+    from gcnn_keras_tpu_torch.utils.checkpoint import save_checkpoint
+    out, by_path, recs = {"card": smi}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="_fork_chain_", dir=os.getcwd()) as workdir, \
+            contextlib.chdir(workdir):
+        frames = SyntheticMDDataset(num_frames=WORKFLOW_FRAMES, seed=0)
+        write_extxyz("frames.extxyz", frames)
+        ds = prepare_data.main(["--extxyz", "frames.extxyz", "--out", "prepared"])
+        for g, fr in zip(ds, frames):
+            for key in ("energy", "force", "node_coordinates", "node_number"):
+                if not np.array_equal(np.asarray(g[key]), np.asarray(fr[key])):
+                    raise AssertionError(f"prepare_data: {key} differs from the frame's")
+        mod = force_script.script_module("force_schnet")
+        cfg = dict(force_script.load_config(mod, data_path="prepared/dataset.pickle"),
+                   epochs=1, make_plots=False, device=device)
+        reset_counts()
+        t0 = time.perf_counter()
+        force_script.run_force_training(mod.build_model, cfg)
+        torch.cuda.synchronize()
+        out["force_schnet_s"] = time.perf_counter() - t0
+        by_path["fork_force_schnet"] = kernel_counts()
+        write_harness_inputs("input_", frames[:HARNESS_INPUTS])
+        out["schnet_harness"], by_path["fork_schnet_harness"], rs = harness_check(
+            "test_model_force_schnet_painn", "force_schnet",
+            ["--checkpoint", "model_schnet_force_0"], smi, device)
+        for k, v in rs.items():
+            recs.setdefault(k, []).extend(v)
+        hmod = force_script.script_module("force_hdnnp4th")
+        hcfg = force_script.load_config(hmod)
+        save_checkpoint("hdnnp4th_seed0", hmod.build_model(
+            hcfg, device="cpu", generator=torch.Generator().manual_seed(0)).energy_model)
+        # the script's elements, and ESPs, drawn for the HDNNP4th inputs
+        draw = np.random.RandomState(0)
+        graphs = [dict(g, node_number=draw.choice(hcfg["elements"], size=len(g["node_number"])))
+                  for g in frames[:HARNESS_INPUTS]]
+        write_harness_inputs("hdnnp_input_", graphs,
+                             esp=[draw.randn(len(g["node_number"])) * 0.01 for g in graphs])
+        out["hdnnp_harness"], by_path["fork_hdnnp_harness"], rs = harness_check(
+            "test_model_force_hdnnp", "force_hdnnp4th",
+            ["--checkpoint", "hdnnp4th_seed0", "--inputs", "hdnnp_input_*.txt",
+             "--golden", "hdnnp_output.json"], smi, device)
+        for k, v in rs.items():
+            recs.setdefault(k, []).extend(v)
+    out["force_schnet_launches"] = {k: v for k, v in by_path["fork_force_schnet"].items() if v}
+    log("fork chain: " + json.dumps(out))
+    return by_path, recs
 
 
 def bessel_per_order(x):
@@ -5306,6 +5629,10 @@ def main():
     phase_jvp_rules()
     phase_reverse_only()
     log(f"phase 26 seconds: {time.perf_counter() - t0:.1f}")
+    paths, root_recs = phase_zoo(smi, zoo_profiles, set(), 27)
+    by_path.update(paths)
+    for kname, rs in root_recs.items():
+        records[kname].extend(rs)
     # the busy shares last, after every timed part of the script; one
     # profiled step of each zoo model: RGCN's and GNN-FiLM's 4300 and 12600
     # kernels a step take the profiler about 10 s a step to collect

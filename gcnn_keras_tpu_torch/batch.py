@@ -83,6 +83,9 @@ class GraphBatch:
     def replace_nodes(self, **kv) -> "GraphBatch":
         return self.replace(nodes={**self.nodes, **kv})
 
+    def replace_globals(self, **kv) -> "GraphBatch":
+        return self.replace(globals={**self.globals, **kv})
+
     def _map(self, fn) -> "GraphBatch":
         """The batch with ``fn`` applied to every array (tensor, or numpy
         array of a batch built with ``np_out=True``)."""

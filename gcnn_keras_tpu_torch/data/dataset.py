@@ -7,8 +7,8 @@ an index array it gives a new ``MemoryGraphList`` of copies of the dicts
 (the arrays are shared), so that a split can be relabelled in place, as a
 scaler does, without touching the dataset. ``to_batch``/``to_batches``
 build the port's ``GraphBatch`` on ``device`` (the CUDA card unless
-``device="cpu"``). Not ported: ``assign_property``/``obtain_property`` on
-the list, ``clean``, ``read_in_table_file``, ``assert_valid_model_input``.
+``device="cpu"``). ``read_in_table_file`` imports pandas when it is
+called, as the JAX method does.
 """
 from __future__ import annotations
 
@@ -49,12 +49,39 @@ class MemoryGraphList(MutableSequence):
     def insert(self, idx, value):
         self._list.insert(idx, GraphDict(value))
 
+    def assign_property(self, key: str, values: Sequence) -> "MemoryGraphList":
+        """Set ``key`` of each graph to the value of the same position (a
+        None leaves that graph as it is)."""
+        if len(values) != len(self._list):
+            raise ValueError(f"assign_property({key!r}): {len(values)} values for "
+                             f"{len(self._list)} graphs")
+        for g, v in zip(self._list, values):
+            g.assign_property(key, v)
+        return self
+
+    def obtain_property(self, key: str) -> List:
+        """``key`` of each graph, None where a graph lacks it."""
+        return [g.obtain_property(key) for g in self._list]
+
     def map_list(self, method, **kwargs) -> "MemoryGraphList":
         """Apply a preprocessor (by its registered name or as a callable)
         to every graph, in place."""
         for g in self._list:
             g.apply_preprocessor(method, **kwargs)
         return self
+
+    def clean(self, inputs: Sequence[str]) -> np.ndarray:
+        """Drop the graphs that lack any of ``inputs`` (absent, None or
+        empty); returns the indices of the graphs kept."""
+        keep, removed = [], []
+        for i, g in enumerate(self._list):
+            ok = all(k in g and g[k] is not None and np.asarray(g[k]).size > 0
+                     for k in inputs)
+            (keep if ok else removed).append(i)
+        if removed:
+            logger.warning("clean: removing %d graphs missing %s", len(removed), inputs)
+        self._list = [self._list[i] for i in keep]
+        return np.array(keep)
 
     def to_batch(self, **kwargs) -> GraphBatch:
         """All graphs in one ``GraphBatch`` (``batch_graphs``' keywords)."""
@@ -102,8 +129,8 @@ class MemoryGraphList(MutableSequence):
 
 
 class MemoryGraphDataset(MemoryGraphList):
-    """A ``MemoryGraphList`` with a location on disk and pickle
-    ``save``/``load``."""
+    """A ``MemoryGraphList`` with a location on disk, pickle
+    ``save``/``load`` and a table of labels."""
 
     def __init__(self, data_directory: Optional[str] = None,
                  dataset_name: Optional[str] = None,
@@ -142,3 +169,17 @@ class MemoryGraphDataset(MemoryGraphList):
             self._list = [GraphDict(g) for g in pickle.load(f)]
         logger.info("loaded %d graphs from %s", len(self), path)
         return self
+
+    def read_in_table_file(self, file_path: Optional[str] = None, **kwargs):
+        """Read a CSV table (``file_path``, else ``file_path`` of the
+        dataset) into ``data_frame`` with ``pandas.read_csv(**kwargs)``."""
+        import pandas as pd
+        self.data_frame = pd.read_csv(file_path or self.file_path, **kwargs)
+        return self
+
+    def assert_valid_model_input(self, inputs: Sequence[str]):
+        """Raise ``ValueError`` naming the ``inputs`` that some graph
+        lacks."""
+        missing = {k for g in self._list for k in inputs if k not in g}
+        if missing:
+            raise ValueError(f"dataset missing model inputs: {sorted(missing)}")

@@ -37,6 +37,15 @@ class SyntheticQM9Dataset(MemoryGraphDataset):
                          "graph_labels": np.array([energy], dtype=np.float32),
                          "energy": np.array([energy], dtype=np.float32)})
 
+    def prepare_data(self, **kwargs):
+        """Nothing to download or convert: the molecules are made in
+        ``__init__``."""
+        return self
+
+    def read_in_memory(self, **kwargs):
+        """Nothing to read: the molecules are in memory already."""
+        return self
+
     def set_ranges(self, max_distance: float = 4.0, max_neighbours: int = 15):
         return self.map_list("set_range", max_distance=max_distance,
                              max_neighbours=max_neighbours)

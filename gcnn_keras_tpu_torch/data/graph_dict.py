@@ -4,7 +4,8 @@
 A dict subclass: keys are property names (``node_number``,
 ``node_coordinates``, ``edge_indices``, ``range_indices``,
 ``angle_indices_nodes``, ``energy``, ``force``, ``esp``, ...), values
-numpy arrays. ``to_networkx`` is not ported.
+numpy arrays. ``to_networkx`` imports networkx when it is called, as the
+JAX method does.
 """
 from __future__ import annotations
 
@@ -42,6 +43,21 @@ class GraphDict(dict):
             else name_or_fn
         self.update(fn(dict(self)))
         return self
+
+    def to_networkx(self, edge_indices: str = "edge_indices"):
+        """A networkx ``DiGraph``: a node per graph node with its ``node_*``
+        values as attributes, an edge ``sender -> receiver`` per row
+        ``[receiver, sender]`` of ``edge_indices``."""
+        import networkx as nx
+        g = nx.DiGraph()
+        n = self._num_nodes(edge_indices)
+        for i in range(n):
+            attrs = {k: np.asarray(v)[i] for k, v in self.items()
+                     if k.startswith("node_") and np.asarray(v).shape[:1] == (n,)}
+            g.add_node(i, **attrs)
+        for r, s in np.asarray(self.get(edge_indices, np.zeros((0, 2)))):
+            g.add_edge(int(s), int(r))
+        return g
 
     def _num_nodes(self, edge_indices: str = "edge_indices") -> int:
         for key in ("node_number", "node_coordinates", "node_attributes"):

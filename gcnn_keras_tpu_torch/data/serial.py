@@ -4,7 +4,8 @@ module_name, config, methods}`` -> the dataset, with the listed methods run
 on it in order.
 
 The table holds the JAX package's dataset names. The three synthetic
-datasets are ported (``data/datasets/synthetic.py``); every other name of
+datasets (``data/datasets/synthetic.py``) and the two visual-graph ones
+made from a seed (``data/datasets/vgd.py``) are ported; every other name of
 the table raises ``ValueError``: its class reads files that are not in the
 repository, and waits for the rest of the host side (ROADMAP.md). Nothing
 is downloaded or read. A ``module_name`` under ``gcnn_keras_tpu.`` is read
@@ -22,6 +23,8 @@ _DATASET_MODULES = {
     "SyntheticQM9Dataset": _SYNTHETIC,
     "SyntheticMDDataset": _SYNTHETIC,
     "SyntheticCitationDataset": _SYNTHETIC,
+    "VgdMockDataset": "gcnn_keras_tpu_torch.data.datasets.vgd",
+    "VgdRbMotifsDataset": "gcnn_keras_tpu_torch.data.datasets.vgd",
 }
 # the rest of the JAX package's table: name -> its module there
 _HOST_SIDE = {
@@ -40,7 +43,6 @@ _HOST_SIDE = {
         "MatProjectDielectricDataset", "MatProjectJdft2dDataset",
         "MatProjectLogGVRHDataset", "MatProjectLogKVRHDataset",
         "MatProjectPerovskitesDataset", "MatProjectPhononsDataset", "MatBenchDataset2020")},
-    **{n: "data.datasets.vgd" for n in ("VgdMockDataset", "VgdRbMotifsDataset")},
     "VisualGraphDataset": "data.visual_graph",
 }
 
@@ -48,7 +50,7 @@ _HOST_SIDE = {
 def _not_ported(name: str, module: str) -> ValueError:
     return ValueError(f"dataset {name} ({module}) is not ported yet: its class reads files "
                       "that are not in the repository (ROADMAP.md, 'the rest of the host "
-                      "side'); the synthetic datasets are " + ", ".join(_DATASET_MODULES))
+                      "side'); the ported ones are " + ", ".join(_DATASET_MODULES))
 
 
 def deserialize(config: Dict[str, Any]):

@@ -1,19 +1,20 @@
 """Host-side graph preprocessing (numpy); counterpart of
 ``gcnn_keras_tpu/graph/preprocess.py``.
 
-Carried so far: the dense cutoff neighbour list (``set_range``), the
-node-triple angle list (``set_angle``), the edge-pair angle lists of
-DimeNet++ (``set_angle_edge_pairs``) and MXMNet
-(``set_angle_pairs_kgcnn``), GCN's edge weights
-(``set_edge_weights_uniform``, ``normalize_edge_weights_symmetric``) and
-the registry that names them (``get_preprocessor``, which
-``GraphDict.apply_preprocessor`` and ``map_list`` reach). The C++
-cell-list backend of the JAX package (``native/neighborlist.cpp``) is a
-later slice.
+Every preprocessor of the JAX module, under its registered name
+(``get_preprocessor``, which ``GraphDict.apply_preprocessor`` and
+``map_list`` reach): the dense cutoff neighbour lists, molecular
+(``set_range``) and periodic (``set_range_periodic``), the node-triple
+angle list (``set_angle``), the edge-pair angle lists of DimeNet++
+(``set_angle_edge_pairs``) and MXMNet (``set_angle_pairs_kgcnn``), GCN's
+edge weights, and the edge-list and property utilities. The C++ cell-list
+backend of the JAX package (``native/neighborlist.cpp``) is not ported:
+``backend="native"`` raises and ``"auto"`` takes the dense path at every
+size.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 
@@ -57,6 +58,63 @@ def set_range(graph: Dict[str, np.ndarray], max_distance: float = 4.0,
     out = dict(graph)
     out["range_indices"] = np.stack([recv, send], axis=1).astype(np.int64)
     out["range_attributes"] = attr[:, None]
+    return out
+
+
+def set_range_periodic(graph: Dict[str, np.ndarray], max_distance: float = 4.0,
+                       max_neighbours: Optional[int] = None,
+                       node_coordinates: str = "node_coordinates",
+                       lattice: str = "graph_lattice",
+                       exclusive: bool = True,
+                       backend: str = "auto") -> Dict[str, np.ndarray]:
+    """Periodic neighbour list over the lattice's images ->
+    ``range_indices`` (M,2) [receiver, sender], ``range_image`` (M,3), the
+    integer image of the SENDER (``d = x_i - (x_j + s @ L)``), and
+    ``range_attributes`` (M,1) distances, in (receiver, sender) order.
+
+    The images span the cutoff over the lattice's plane spacings; a
+    receiver keeps its ``max_neighbours`` nearest. Every backend but
+    ``'native'`` takes this dense O(images n^2) path, which is the JAX
+    package's ``backend='numpy'``; ``'native'`` raises
+    ``NotImplementedError``.
+    """
+    if backend == "native":
+        raise NotImplementedError(
+            "set_range_periodic(backend='native'): the C++ neighbour list is not "
+            "ported yet; use backend='numpy'")
+    xyz = np.asarray(graph[node_coordinates], dtype=np.float64)
+    lat = np.asarray(graph[lattice], dtype=np.float64)  # rows = lattice vectors
+    n = xyz.shape[0]
+    # images needed along each lattice direction: cutoff / plane spacing
+    recip = np.linalg.inv(lat).T
+    spacing = 1.0 / np.maximum(np.linalg.norm(recip, axis=1), 1e-12)
+    n_img = np.maximum(np.ceil(max_distance / spacing).astype(int), 1)
+    images = np.stack(np.meshgrid(*[np.arange(-k, k + 1) for k in n_img], indexing="ij"),
+                      axis=-1).reshape(-1, 3)
+    shifts = images @ lat  # (I, 3)
+    # receiver i at xyz[i], sender j at xyz[j] + shift: x_i - (x_j + s)
+    diff = xyz[None, :, None, :] - shifts[:, None, None, :] - xyz[None, None, :, :]
+    dist = np.linalg.norm(diff, axis=-1)  # (I, n_recv, n_send)
+    mask = dist <= max_distance if exclusive else np.ones_like(dist, dtype=bool)
+    central = int(np.nonzero(np.all(images == 0, axis=1))[0][0])
+    mask[central][np.diag_indices(n)] = False  # no self pair in the central cell
+
+    img_idx, recv, send = np.nonzero(mask)
+    d = dist[img_idx, recv, send]
+    if max_neighbours is not None:
+        keep = np.zeros(len(d), dtype=bool)
+        for r in range(n):
+            sel = np.nonzero(recv == r)[0]
+            if len(sel) > max_neighbours:
+                sel = sel[np.argsort(d[sel], kind="stable")[:max_neighbours]]
+            keep[sel] = True
+        img_idx, recv, send, d = img_idx[keep], recv[keep], send[keep], d[keep]
+
+    order = np.lexsort((send, recv))
+    out = dict(graph)
+    out["range_indices"] = np.stack([recv, send], axis=1)[order].astype(np.int64)
+    out["range_image"] = images[img_idx][order].astype(np.int64)
+    out["range_attributes"] = d[order][:, None].astype(np.float32)
     return out
 
 
@@ -192,6 +250,99 @@ def normalize_edge_weights_symmetric(graph: Dict[str, np.ndarray],
     return out
 
 
+def make_undirected_edges(graph: Dict[str, np.ndarray],
+                          edge_indices: str = "edge_indices") -> Dict[str, np.ndarray]:
+    """``edge_indices`` with every edge's reverse added, each pair once, in
+    sorted order."""
+    ei = np.asarray(graph[edge_indices])
+    out = dict(graph)
+    out[edge_indices] = np.unique(np.concatenate([ei, ei[:, ::-1]], axis=0),
+                                  axis=0).astype(np.int64)
+    return out
+
+
+def add_edge_self_loops(graph: Dict[str, np.ndarray],
+                        edge_indices: str = "edge_indices") -> Dict[str, np.ndarray]:
+    """``edge_indices`` followed by a self loop ``[i, i]`` of every node."""
+    ei = np.asarray(graph[edge_indices])
+    loops = np.stack([np.arange(_num_nodes(graph, ei))] * 2, axis=1)
+    out = dict(graph)
+    out[edge_indices] = np.concatenate([ei, loops], axis=0).astype(np.int64)
+    return out
+
+
+def sort_edge_indices(graph: Dict[str, np.ndarray],
+                      edge_indices: str = "edge_indices",
+                      edge_attributes: Sequence[str] = ()) -> Dict[str, np.ndarray]:
+    """``edge_indices`` in (receiver, sender) order, and each of
+    ``edge_attributes`` that the graph has in the same order."""
+    ei = np.asarray(graph[edge_indices])
+    order = np.lexsort((ei[:, 1], ei[:, 0]))
+    out = dict(graph)
+    out[edge_indices] = ei[order]
+    for k in edge_attributes:
+        if k in graph:
+            out[k] = np.asarray(graph[k])[order]
+    return out
+
+
+def compute_reverse_edges_index_map(graph: Dict[str, np.ndarray],
+                                    edge_indices: str = "edge_indices") -> Dict[str, np.ndarray]:
+    """``edge_indices_reverse`` (M, 1): the position of each edge's
+    reverse, or the edge's own position where it has none."""
+    ei = np.asarray(graph[edge_indices])
+    key = {(int(a), int(b)): i for i, (a, b) in enumerate(ei)}
+    rev = np.array([key.get((int(b), int(a)), i) for i, (a, b) in enumerate(ei)],
+                   dtype=np.int64)
+    out = dict(graph)
+    out["edge_indices_reverse"] = rev[:, None]
+    return out
+
+
+def count_nodes_and_edges(graph: Dict[str, np.ndarray],
+                          edge_indices: str = "edge_indices") -> Dict[str, np.ndarray]:
+    """``total_nodes`` and ``total_edges`` as 0-d arrays."""
+    ei = np.asarray(graph[edge_indices])
+    out = dict(graph)
+    out["total_nodes"] = np.array(_num_nodes(graph, ei))
+    out["total_edges"] = np.array(ei.shape[0])
+    return out
+
+
+def pad_property(graph: Dict[str, np.ndarray], key: str, pad_width, value=0):
+    """``key`` padded by ``np.pad(..., pad_width, constant_values=value)``."""
+    out = dict(graph)
+    out[key] = np.pad(np.asarray(graph[key]), pad_width, constant_values=value)
+    return out
+
+
+def shift_to_unit_cell(graph: Dict[str, np.ndarray],
+                       node_coordinates: str = "node_coordinates",
+                       lattice: str = "graph_lattice") -> Dict[str, np.ndarray]:
+    """The coordinates wrapped into the unit cell (fractional coordinates
+    modulo 1), float32."""
+    xyz = np.asarray(graph[node_coordinates], dtype=np.float64)
+    lat = np.asarray(graph[lattice], dtype=np.float64)
+    frac = (xyz @ np.linalg.inv(lat)) % 1.0
+    out = dict(graph)
+    out[node_coordinates] = (frac @ lat).astype(np.float32)
+    return out
+
+
+def expand_distance_gauss_basis(graph: Dict[str, np.ndarray], bins: int = 20,
+                                distance: float = 4.0, sigma: float = 0.4,
+                                offset: float = 0.0,
+                                range_attributes: str = "range_attributes") -> Dict[str, np.ndarray]:
+    """``range_attributes`` expanded on the host into ``bins`` Gaussians
+    centred on ``linspace(offset, distance, bins)`` (endpoint included;
+    the models expand on the device instead)."""
+    d = np.asarray(graph[range_attributes]).reshape(-1, 1)
+    centers = np.linspace(offset, distance, bins)
+    out = dict(graph)
+    out[range_attributes] = np.exp(-0.5 / sigma**2 * (d - centers[None]) ** 2).astype(np.float32)
+    return out
+
+
 def _num_nodes(graph: Dict[str, np.ndarray], ei: np.ndarray) -> int:
     """The node count of the first node array present, else one past the
     largest node id of ``ei``."""
@@ -216,14 +367,23 @@ class GraphPreprocessorBase:
         return dict(self._config)
 
 
-# the JAX package's registry, as far as the port has its preprocessors
+# the JAX package's registry
 _PREPROCESSORS = {
     "set_range": set_range,
     "set_angle": set_angle,
     "set_angle_edge_pairs": set_angle_edge_pairs,
-    "set_angle_pairs_kgcnn": set_angle_pairs_kgcnn,
+    "set_range_periodic": set_range_periodic,
+    "make_undirected_edges": make_undirected_edges,
+    "add_edge_self_loops": add_edge_self_loops,
+    "sort_edge_indices": sort_edge_indices,
     "set_edge_weights_uniform": set_edge_weights_uniform,
     "normalize_edge_weights_symmetric": normalize_edge_weights_symmetric,
+    "set_edge_indices_reverse": compute_reverse_edges_index_map,
+    "count_nodes_and_edges": count_nodes_and_edges,
+    "pad_property": pad_property,
+    "shift_to_unit_cell": shift_to_unit_cell,
+    "expand_distance_gauss_basis": expand_distance_gauss_basis,
+    "set_angle_pairs_kgcnn": set_angle_pairs_kgcnn,
 }
 
 

@@ -1,6 +1,7 @@
-"""Geometric edge features; counterpart of ``gcnn_keras_tpu/layers/geometry.py``
-(edge vectors, distances and directions, the Gauss and Bessel radial bases
-and the cutoff envelopes so far)."""
+"""Geometric edge features; counterpart of ``gcnn_keras_tpu/layers/geometry.py``:
+edge vectors, distances and directions, the Gauss, Bessel and Fourier
+radial bases, the cutoff envelopes, the fractional and cartesian
+coordinates of a periodic batch and the geometry of angle triples."""
 from __future__ import annotations
 
 import math
@@ -118,3 +119,61 @@ def cosine_cutoff_envelope(distance: Tensor, cutoff: float) -> Tensor:
 def cosine_cutoff(values: Tensor, distance: Tensor, cutoff: float) -> Tensor:
     """``values`` times the cosine cutoff of ``distance``."""
     return values * cosine_cutoff_envelope(distance, cutoff)
+
+
+def fourier_basis(distance: Tensor, bins: int = 20, distance_max: float = 4.0) -> Tensor:
+    """Positional-encoding basis ``(E, 1) -> (E, bins)``: column ``k`` is
+    ``sin`` (even ``k``) or ``cos`` (odd ``k``) of ``d pi (k // 2 + 1) /
+    distance_max``."""
+    k = torch.arange(bins, dtype=distance.dtype, device=distance.device)
+    arg = distance * (math.pi / distance_max * (torch.div(k, 2, rounding_mode="floor") + 1))[None, :]
+    return torch.where((k % 2 == 0)[None, :], torch.sin(arg), torch.cos(arg))
+
+
+def frac_to_real_coordinates(batch: GraphBatch, frac: Optional[Tensor] = None,
+                             lattice_key: str = "graph_lattice") -> Tensor:
+    """Fractional -> cartesian coordinates of each node by its graph's
+    lattice (rows are the lattice vectors); ``frac`` defaults to the
+    batch's ``node_coordinates``."""
+    f = frac if frac is not None else batch.nodes["node_coordinates"]
+    lat = batch.globals[lattice_key].to(f.dtype)[batch.graph_id]  # (N, 3, 3)
+    return torch.einsum("ni,nij->nj", f, lat)
+
+
+def real_to_frac_coordinates(batch: GraphBatch, cart: Optional[Tensor] = None,
+                             lattice_key: str = "graph_lattice") -> Tensor:
+    """Cartesian -> fractional coordinates, the inverse of
+    ``frac_to_real_coordinates``; every graph's lattice, the padding
+    graph's too, must be invertible."""
+    x = cart if cart is not None else batch.nodes["node_coordinates"]
+    inv = torch.linalg.inv(batch.globals[lattice_key].to(x.dtype))[batch.graph_id]
+    return torch.einsum("ni,nij->nj", x, inv)
+
+
+def displacement_vectors_unit_cell(batch: GraphBatch,
+                                   positions: Optional[Tensor] = None) -> Tensor:
+    """``edge_vectors`` under kgcnn's name: with ``range_image`` and
+    ``graph_lattice`` in the batch, the sender shifted by its image."""
+    return edge_vectors(batch, positions)
+
+
+def angle_triples(batch: GraphBatch, positions: Optional[Tensor] = None,
+                  key: str = "node_coordinates", eps: float = 1e-12
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The geometry of each angle triple ``(i, j, k)`` of ``batch.angles``
+    with centre ``i``: ``(cos_theta, r_ij, r_ik)``, each ``(A, 1)``; a
+    zero-length leg gives 0 for its distance and for the cosine."""
+    if batch.angles is None:
+        raise ValueError("angle_triples: the batch has no angle triples")
+    pos = positions if positions is not None else batch.nodes[key]
+    i, j, k = batch.angles[:, 0], batch.angles[:, 1], batch.angles[:, 2]
+    vij = pos[j] - pos[i]
+    vik = pos[k] - pos[i]
+    r2ij = torch.sum(vij * vij, dim=-1, keepdim=True)
+    r2ik = torch.sum(vik * vik, dim=-1, keepdim=True)
+    rij = torch.sqrt(r2ij.clamp_min(eps))
+    rik = torch.sqrt(r2ik.clamp_min(eps))
+    cos = (torch.sum(vij * vik, dim=-1, keepdim=True) / (rij * rik)).clamp(-1.0, 1.0)
+    zero = torch.zeros_like(cos)
+    return (torch.where((r2ij > eps) & (r2ik > eps), cos, zero),
+            torch.where(r2ij > eps, rij, zero), torch.where(r2ik > eps, rik, zero))

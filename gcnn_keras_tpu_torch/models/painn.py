@@ -73,7 +73,9 @@ class PAiNN(nn.Module):
                               activation=cfg["output_mlp"]["activation"],
                               generator=generator)
 
-    def forward(self, batch: GraphBatch) -> Dict[str, Tensor]:
+    def forward(self, batch: GraphBatch, train: bool = False) -> Dict[str, Tensor]:
+        """``train`` is accepted, as the JAX model takes it, and changes
+        nothing: PAiNN has no dropout or batch statistics."""
         cfg = self.config
         zin = batch.nodes.get("node_attributes", batch.nodes.get("node_number"))
         s = self.embedding(zin)

@@ -1,6 +1,6 @@
 """Model constructors by name and config helpers; counterpart of
 ``gcnn_keras_tpu/models/registry.py`` (``get_model_class``,
-``make_model_by_name``, ``update_model_kwargs``).
+``make_model_by_name``, ``update_model_kwargs``, ``register_model``).
 
 A name is a model module's short name (``"Schnet"``), or a path that ends
 in one (``"kgcnn.literature.Schnet"``); a name the table does not hold is
@@ -20,6 +20,10 @@ import importlib
 from typing import Any, Callable, Dict
 
 from ..utils.port_modules import port_path
+
+# the builders ``register_model`` records, by name (as in the JAX package,
+# ``get_model_class`` does not read it)
+_REGISTRY: Dict[str, Callable] = {}
 
 # module name -> import path, the ported part of the JAX package's table
 _MODULES = {
@@ -49,9 +53,19 @@ _MODULES = {
     "MAT": "gcnn_keras_tpu_torch.models.mat",
     "Unet": "gcnn_keras_tpu_torch.models.unet",
 }
-# the rest of the JAX package's table, not ported yet (it comes with xai/):
+# the rest of the JAX package's table, not ported yet (it comes with the rest of
+# xai/):
 # module name -> file
 _ZOO = {"GNNExplain": "gnnexplain"}
+
+
+def register_model(name: str):
+    """A decorator that records its function in ``_REGISTRY`` under
+    ``name`` and returns it unchanged."""
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
 
 
 def get_model_class(module_name: str, class_name: str = "make_model") -> Callable:

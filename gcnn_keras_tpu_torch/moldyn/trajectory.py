@@ -11,10 +11,12 @@ repeat. A ``skin`` widens the neighbour cutoff at build time, so that pairs
 entering the model's cutoff mid-segment are already edges.
 
 Many replicas run in one disjoint batch (``run_ensemble``): one reverse
-pass over the summed energies gives every replica's forces. Not ported
-yet, and raising: ``n_devices > 1`` (replica parallelism over cards,
-ROADMAP.md's "Parallel") and periodic systems (``graph_lattice``; the
-port has no ``set_range_periodic``).
+pass over the summed energies gives every replica's forces. A periodic
+system (one with ``graph_lattice``) is wrapped into its cell before each
+segment and re-neighboured with ``set_range_periodic``; the model's
+``range_image`` path carries the shifts. Not ported yet, and raising:
+``n_devices > 1`` (replica parallelism over cards, ROADMAP.md's
+"Parallel").
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from ..batch import GraphBatch, batch_graphs
-from ..graph.preprocess import set_angle, set_range
+from ..graph.preprocess import set_angle, set_range, set_range_periodic
 from ..utils.constants import masses_from_numbers
 from ..utils.devices import DeviceLike, resolve_device
 from .integrate import baoab_step, ou_coefficients, verlet_step
@@ -173,16 +175,21 @@ class ScannedMD:
         e_pot, e_kin, edge_counts = [], [], []
         for _ in range(n_segments):
             gs = []
-            for z, p, ex in zip(zs, pos, extras):
+            for i, (z, p, ex) in enumerate(zip(zs, pos, extras)):
                 g = {"node_number": z, "node_coordinates": p}
                 g.update(self.graph_extras)
                 g.update(ex)
                 if "graph_lattice" in g:
-                    raise NotImplementedError(
-                        "ScannedMD of a periodic system (graph_lattice) needs "
-                        "set_range_periodic, which is not ported yet")
-                g = set_range(g, max_distance=self.max_distance + self.skin,
-                              max_neighbours=self.max_neighbours)
+                    # wrap into the cell before the neighbour build; the
+                    # images carry the rest
+                    lat = np.asarray(g["graph_lattice"], np.float32)
+                    frac = np.asarray(p, np.float64) @ np.linalg.inv(lat)
+                    pos[i] = g["node_coordinates"] = (np.mod(frac, 1.0) @ lat).astype(np.float32)
+                    g = set_range_periodic(g, max_distance=self.max_distance + self.skin,
+                                           max_neighbours=self.max_neighbours)
+                else:
+                    g = set_range(g, max_distance=self.max_distance + self.skin,
+                                  max_neighbours=self.max_neighbours)
                 g["edge_indices"] = g.pop("range_indices")
                 if self.with_angles:
                     g = set_angle(g, range_indices="edge_indices")

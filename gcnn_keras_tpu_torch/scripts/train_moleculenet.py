@@ -54,14 +54,8 @@ def synthetic_dataset(seed: int):
     return ds
 
 
-def loss_fn(model):
-    """The masked graph MAE against the scaled ``graph_labels``."""
-    from gcnn_keras_tpu_torch.training.losses import masked_graph_mae
-
-    def fn(b):
-        return masked_graph_mae(model(b)["output"], b.globals["graph_labels"],
-                                b.globals["graph_mask"]), {}
-    return fn
+# the masked graph MAE against the scaled ``graph_labels``
+loss_fn = graph_driver.graph_mae_loss
 
 
 def scaled_split(ds, y, tr, te):
@@ -116,16 +110,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         times.append(seconds)
         print(f"fold {fold}: val_scaled_mae={hist['val_scaled_mae'][-1]:.4f}", flush=True)
         if args.plots:
-            from gcnn_keras_tpu_torch.utils.plots import plot_predict_true
-            with torch.no_grad():
-                out = model(test_batch)["output"].cpu().numpy().reshape(-1)
-            gm = test_batch.globals["graph_mask"].cpu().numpy().astype(bool).reshape(-1)
-            plot_predict_true(out[gm],
-                              test_batch.globals["graph_labels"].cpu().numpy().reshape(-1)[gm],
-                              model_name=args.model, dataset_name="SyntheticMolNet",
-                              target_names="graph_labels",
-                              filepath=f"results/moleculenet/{args.model}_fold{fold}",
-                              file_name="predict.png")
+            graph_driver.plot_fold(model, test_batch, args.model, "SyntheticMolNet",
+                                   f"results/moleculenet/{args.model}_fold{fold}")
     if args.plots:
         from gcnn_keras_tpu_torch.utils.plots import plot_train_test_loss
         plot_train_test_loss(histories, loss_name="loss", val_loss_name="val_loss",

@@ -6,6 +6,7 @@ from __future__ import annotations
 import time
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -65,3 +66,8 @@ class TrainingTimer:
     def epoch_end(self):
         if self._t0 is not None:
             self.epoch_times.append(time.perf_counter() - self._t0)
+
+    @property
+    def mean_epoch_time(self) -> float:
+        """The mean of ``epoch_times``, 0 before the first epoch ends."""
+        return float(np.mean(self.epoch_times)) if self.epoch_times else 0.0

@@ -1,8 +1,11 @@
 """What the graph-learning drivers share (``scripts/train_tudataset.py``,
-``scripts/train_moleculenet.py``; the root ``training/`` drivers of the
+``train_moleculenet.py``, ``train_qm.py``, ``train_crystal.py``, and the
+widths and ``--hyper`` helpers of ``train_citation.py`` and
+``train_visual_graph_dataset.py``; the root ``training/`` drivers of the
 same names in the JAX package keep these steps inline): their command
-line, the model by registry name at the dataset's input widths, and one
-fold's training through ``Trainer`` and ``fit_model``.
+line, the model by registry name or ``--hyper`` config at the dataset's
+input widths, and one fold's training through ``Trainer`` and
+``fit_model``.
 
 A torch module needs its input widths when it is built, so
 ``input_widths`` reads them from the dataset's graphs: float
@@ -34,12 +37,14 @@ GIN_DRIVER_KW = dict(depth=3, gin_mlp={"units": [64, 64], "activation": ["relu",
 LEARNING_RATE = 1e-3  # optax.adam(1e-3) in the JAX drivers
 
 
-def driver_parser(description: str, dataset_help: str) -> argparse.ArgumentParser:
-    """The JAX drivers' arguments, and ``--device`` (the CUDA card unless
-    ``cpu``)."""
+def driver_parser(description: str, dataset_help: Optional[str] = None
+                  ) -> argparse.ArgumentParser:
+    """The JAX drivers' arguments (``--dataset`` where ``dataset_help`` is
+    given), and ``--device`` (the CUDA card unless ``cpu``)."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--model", default="GIN")
-    ap.add_argument("--dataset", default=None, help=dataset_help)
+    if dataset_help is not None:
+        ap.add_argument("--dataset", default=None, help=dataset_help)
     ap.add_argument("--epochs", type=int, default=60)
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--folds", type=int, default=3)
@@ -86,6 +91,33 @@ def input_widths(graphs: Sequence[dict]) -> Dict[str, Optional[int]]:
     return widths
 
 
+def widths_for(builder: Callable, widths: Dict[str, Optional[int]]) -> Dict[str, Optional[int]]:
+    """The entries of ``widths`` that ``builder``'s module's
+    ``model_default`` names."""
+    defaults = importlib.import_module(builder.__module__).model_default
+    return {k: v for k, v in widths.items() if k in defaults}
+
+
+def load_hyper(path: str, model: str):
+    """``(HyperParameter of path's entry for model, its dataset)``; the
+    dataset through ``data/serial.py``, which raises on one that is not
+    ported ("the rest of the host side")."""
+    from ..data.serial import deserialize
+    from .hyper import HyperParameter
+    hyper = HyperParameter(path, model_name=model)
+    return hyper, deserialize(hyper["data"]["dataset"])
+
+
+def build_hyper_model(hyper, widths: Dict[str, Optional[int]], device=None,
+                      generator: Optional[torch.Generator] = None):
+    """``hyper``'s model at the config's widths and the data's ``widths``
+    that its ``model_default`` names."""
+    m = hyper["model"]
+    builder = get_model_class(m.get("module_name", hyper.model_module or hyper.model_name),
+                              m.get("class_name", hyper.model_class))
+    return hyper.make_model(device=device, generator=generator, **widths_for(builder, widths))
+
+
 def build_model(name: str, n_out: int, widths: Dict[str, Optional[int]],
                 device=None, generator: Optional[torch.Generator] = None):
     """The drivers' model: GIN at ``GIN_DRIVER_KW`` with a linear output of
@@ -98,7 +130,7 @@ def build_model(name: str, n_out: int, widths: Dict[str, Optional[int]],
     JAX drivers stop at their assert."""
     builder = get_model_class(name)
     defaults = importlib.import_module(builder.__module__).model_default
-    kw = {k: v for k, v in widths.items() if k in defaults}
+    kw = widths_for(builder, widths)
     if name == "GIN":
         kw.update(GIN_DRIVER_KW, output_mlp={"units": [n_out], "activation": ["linear"]})
     elif "output_mlp" not in defaults:
@@ -113,12 +145,37 @@ def build_model(name: str, n_out: int, widths: Dict[str, Optional[int]],
     return builder(device=device, generator=generator, **kw)
 
 
+def graph_mae_loss(model, **call_kw) -> Callable:
+    """The masked MAE of the model's graph ``output`` (called with
+    ``call_kw``) against ``graph_labels``, with no metrics."""
+    from .losses import masked_graph_mae
+
+    def fn(b):
+        return masked_graph_mae(model(b, **call_kw)["output"], b.globals["graph_labels"],
+                                b.globals["graph_mask"]), {}
+    return fn
+
+
+def holdout_folds(n: int, folds: int, seed: int):
+    """``(test, train)`` index arrays of each of ``folds`` folds (at least
+    one) of a seeded permutation of ``range(n)``, as the JAX crystal and
+    visual-graph drivers cut it: a fifth of it as the test set with one
+    fold, a k-th with more; the training indices sorted."""
+    idx = np.random.RandomState(seed).permutation(n)
+    k = max(folds, 1)
+    size = max(n // (5 if k == 1 else k), 1)
+    return [(idx[f * size:(f + 1) * size], np.setdiff1d(idx, idx[f * size:(f + 1) * size]))
+            for f in range(k)]
+
+
 def train_fold(model, loss_fn: Callable, loader, eval_fn: Callable, args, fold: int,
-               run_name: str):
-    """One fold: Adam (``LEARNING_RATE``) over the model's parameters,
-    ``fit_model`` for ``args.epochs`` with the driver's early stopping and
-    wandb run; returns the history and the fold's seconds."""
-    trainer = Trainer(loss_fn, functools.partial(torch.optim.Adam, lr=LEARNING_RATE))
+               run_name: str, optimizer: Optional[Callable] = None):
+    """One fold: ``optimizer`` (Adam at ``LEARNING_RATE`` if None) over the
+    model's parameters, ``fit_model`` for ``args.epochs`` with the driver's
+    early stopping and wandb run; returns the history and the fold's
+    seconds."""
+    trainer = Trainer(loss_fn, optimizer or functools.partial(torch.optim.Adam,
+                                                              lr=LEARNING_RATE))
     state = trainer.init_state(model.parameters())
     if args.use_wandb:
         init_wandb("gcnn_keras_tpu", name=f"{run_name}_fold{fold}", config=vars(args))
@@ -139,3 +196,16 @@ def evaluation(fn: Callable) -> Callable:
         with torch.no_grad():
             return fn()
     return eval_fn
+
+
+def plot_fold(model, test_batch, model_name: str, dataset_name: str, filepath: str,
+              **call_kw) -> None:
+    """The fold's predicted-against-true graph labels as
+    ``<filepath>/predict.png`` (needs matplotlib)."""
+    from ..utils.plots import plot_predict_true
+    with torch.no_grad():
+        out = model(test_batch, **call_kw)["output"].cpu().numpy().reshape(-1)
+    gm = test_batch.globals["graph_mask"].cpu().numpy().astype(bool).reshape(-1)
+    plot_predict_true(out[gm], test_batch.globals["graph_labels"].cpu().numpy().reshape(-1)[gm],
+                      model_name=model_name, dataset_name=dataset_name,
+                      target_names="graph_labels", filepath=filepath, file_name="predict.png")

@@ -1,10 +1,29 @@
-"""Atomic masses for the MD integrators; counterpart of
-``gcnn_keras_tpu/utils/constants.py`` (``atomic_masses``,
-``masses_from_numbers``), copied so that the port imports nothing of the
-JAX package."""
+"""Unit constants and atomic masses; counterpart of
+``gcnn_keras_tpu/utils/constants.py`` (kgcnn's ``utils/constants.py``),
+copied so that the port imports nothing of the JAX package."""
 from __future__ import annotations
 
 import numpy as np
+
+# length
+angstrom_to_bohr = 1.8897261254578281
+bohr_to_angstrom = 1.0 / angstrom_to_bohr
+
+# energy
+hartree_to_ev = 27.211386245988
+ev_to_hartree = 1.0 / hartree_to_ev
+hartree_to_kcalmol = 627.509474063
+kcalmol_to_hartree = 1.0 / hartree_to_kcalmol
+kjmol_to_hartree = 1.0 / 2625.4996394799
+hartree_to_kjmol = 2625.4996394799
+
+# force
+hartree_bohr_to_ev_angstrom = hartree_to_ev * angstrom_to_bohr
+hartree_bohr_to_kcalmol_angstrom = hartree_to_kcalmol * angstrom_to_bohr
+
+# charge / esp
+coulomb_constant_au = 1.0  # atomic units
+debye_to_eA = 0.20819434
 
 # standard atomic weights (amu), Z = 1..36 plus common heavier elements
 atomic_masses = {

@@ -1359,6 +1359,58 @@ def test_compat_phase_on_the_card(cuda_device):
     assert len(recs) == chip_smoke.COMPAT_LAUNCHES
 
 
+# phase 27's drivers, cut to small data: each run's #1 calls of a first step
+ROOT_DRIVER_RUNS = {
+    "train_citation": ("GCN", ["--nodes", "500", "--epochs", "10", "--folds", "2"], 6),
+    "train_qm": ("Schnet", ["--molecules", "64", "--epochs", "1", "--folds", "2"], 7),
+    "train_crystal": ("CGCNN", ["--structures", "64", "--epochs", "1"], 4),
+    "train_vgd_rb_motifs": ("MEGAN", ["--graphs", "64", "--epochs", "10",
+                                      "--dataset", "VgdRbMotifsDataset"], 7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", list(ROOT_DRIVER_RUNS))
+def test_root_driver_phase_on_the_card(cuda_device, run, monkeypatch):
+    """``chip_smoke.py`` phase 27's driver runs on small data: the first
+    step against the CPU, its kernel calls against their plain versions,
+    every step's launches."""
+    import chip_smoke
+    model, argv, calls = ROOT_DRIVER_RUNS[run]
+    module, _, cpu_step, script = chip_smoke.ZOO_DRIVER_RUNS[run]
+    monkeypatch.setitem(chip_smoke.ZOO_DRIVER_RUNS, run,
+                        (module, argv + ["--no-plots"], cpu_step, script))
+    paths, recs = chip_smoke.phase_zoo_driver(run, model, "card test")
+    assert len(recs["sorted_segment_sum"]) == calls
+    assert paths[f"{run}_{model}"]["sorted_segment_sum"] > calls
+
+
+@pytest.mark.cuda
+def test_periodic_md_phase_on_the_card(cuda_device, monkeypatch):
+    """Phase 27's periodic ``ScannedMD`` of the crystal SchNet on 8
+    structures: energies and positions against the CPU, the launches of
+    every evaluation, the calls of a one-step segment against plain."""
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "PERIODIC_MD_STRUCTURES", 8)
+    paths, recs = chip_smoke.phase_periodic_md("card test")
+    evals = chip_smoke.PERIODIC_MD_SEGMENTS * (chip_smoke.PERIODIC_MD_STEPS + 1)
+    assert paths["periodic_md"]["sorted_segment_sum"] == 10 * evals
+    assert len(recs["sorted_segment_sum"]) == 2 * 10
+
+
+@pytest.mark.cuda
+def test_fork_chain_phase_on_the_card(cuda_device, monkeypatch):
+    """Phase 27's workflow chain on 48 frames and 4 harness inputs: the
+    extxyz file through ``prepare_data`` and ``force_schnet``, then both
+    harnesses recorded on the CPU and checked on the card."""
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "WORKFLOW_FRAMES", 48)
+    monkeypatch.setattr(chip_smoke, "HARNESS_INPUTS", 4)
+    paths, recs = chip_smoke.phase_fork_chain("card test")
+    assert paths["fork_schnet_harness"]["sorted_segment_sum"] == 10
+    assert paths["fork_hdnnp_harness"] == chip_smoke.HDNNP4TH_LAUNCHES
+    assert len(recs["spd_solve"]) == 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("order", range(7))
 def test_spherical_bessel_gradients_finite_on_the_card(cuda_device, order):

@@ -158,8 +158,9 @@ def test_graph_dict_api_matches_jax():
     ref.apply_preprocessor("set_range", max_distance=2.0)
     _assert_graphs_equal([got], [ref])
     assert preprocess.get_preprocessor("set_angle").get_config() == {}
+    assert preprocess.get_preprocessor("set_range_periodic").get_config() == {}
     with pytest.raises(KeyError):
-        preprocess.get_preprocessor("set_range_periodic")
+        preprocess.get_preprocessor("set_range_nowhere")
 
 
 @pytest.mark.parametrize("batch_size", [1, 4, 16])

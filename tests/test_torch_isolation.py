@@ -31,8 +31,10 @@ from gcnn_keras_tpu_torch.models.hdnnp2nd import make_model_behler
 from gcnn_keras_tpu_torch.models.schnet import make_crystal_model, make_model
 from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
 from gcnn_keras_tpu_torch.moldyn.trajectory import ScannedMD
+from gcnn_keras_tpu_torch.training import force_script
 from gcnn_keras_tpu_torch.training.force_script import run_force_training
 from gcnn_keras_tpu_torch.training.hyper import HyperParameter
+from gcnn_keras_tpu_torch.utils.checkpoint import save_checkpoint
 
 torch.set_num_threads(1)
 
@@ -55,6 +57,15 @@ WORKFLOW = ("evaluate_models", "calc_prediction_std", "load_model", "transfer_le
 # the graph-learning drivers and the force driver, each a ``main(argv)``
 # that takes ``--device``
 DRIVERS = ("train_tudataset", "train_moleculenet", "train_force")
+# the last root drivers, each a ``main(argv)`` that takes ``--device``, with
+# the arguments of a tiny run; and the golden-IO harnesses (``prepare_data``
+# runs on the host only and takes no device)
+ROOT_DRIVERS = {"train_citation": ["--nodes", "40", "--epochs", "2", "--folds", "2"],
+                "train_qm": ["--molecules", "12", "--epochs", "1", "--folds", "2",
+                             "--batch-size", "4"],
+                "train_crystal": ["--structures", "10", "--epochs", "1", "--batch-size", "4"],
+                "train_visual_graph_dataset": ["--graphs", "10", "--epochs", "2"]}
+HARNESSES = ("test_model_force_schnet_painn", "test_model_force_hdnnp")
 
 
 def _script(name):
@@ -114,6 +125,25 @@ def _run_driver(name, device=None):
                               + (["--device", device] if device else []))
 
 
+def _run_root_driver(name, device=None):
+    return _script(name).main(ROOT_DRIVERS[name] + ["--no-plots"]
+                              + (["--device", device] if device else []))
+
+
+def _run_harness(name, device=None):
+    """A harness recording one molecule through a fresh checkpoint of its
+    script's model at narrow widths (``--conf``)."""
+    script = "force_schnet" if name.endswith("schnet_painn") else "force_hdnnp4th"
+    with open("conf.json", "w") as f:
+        json.dump({"schnet": _tiny("force_schnet")["schnet"], "mlp_units": [8, 1]}, f)
+    cfg = force_script.load_config(_script(script), conf="conf.json")
+    save_checkpoint("ckpt", _script(script).build_model(cfg, device="cpu").energy_model)
+    with open("input_00.txt", "w") as f:
+        f.write("3\n1 0 0 0 0.01\n6 0 0 1.1 -0.02\n1 0 1 1.3 0.0\n")
+    return _script(name).main(["--checkpoint", "ckpt", "--script", script, "--conf", "conf.json",
+                               "--record"] + (["--device", device] if device else []))
+
+
 def _imported_modules(source):
     for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
@@ -148,7 +178,9 @@ def test_scan_sees_the_package():
                 "layers/conv/basic.py", "training/graph_driver.py",
                 "training/fast_force_step.py", "graph/postprocess.py",
                 "scripts/plot_learning_curve.py", "scripts/kgcnn_plot.py",
-                *(f"scripts/{name}.py" for name in DRIVERS)):
+                "crystal/graph_builder.py", "xai/testing.py", "data/datasets/vgd.py",
+                "mol/io.py", "scripts/prepare_data.py",
+                *(f"scripts/{name}.py" for name in (*DRIVERS, *ROOT_DRIVERS, *HARNESSES))):
         assert package / rel in SOURCES, rel
     src = ("import jax\nfrom flax import linen\n"
            "def f():\n    import gcnn_keras_tpu.batch\n"
@@ -213,7 +245,9 @@ def test_fresh_interpreter_runs_the_fast_step_without_jax():
                                    "HyperParameter.make_model",
                                    *(f"scripts.{name}" for name in SCRIPTS),
                                    *(f"scripts.{name}" for name in WORKFLOW),
-                                   *(f"scripts.{name}" for name in DRIVERS)])
+                                   *(f"scripts.{name}" for name in DRIVERS),
+                                   *(f"scripts.{name}" for name in ROOT_DRIVERS),
+                                   *(f"scripts.{name}" for name in HARNESSES)])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)  # the training entry points write their artifacts here
@@ -280,6 +314,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_pat
         **{f"scripts.{name}": functools.partial(_run_workflow, name, monkeypatch)
            for name in WORKFLOW},
         **{f"scripts.{name}": functools.partial(_run_driver, name) for name in DRIVERS},
+        **{f"scripts.{name}": functools.partial(_run_root_driver, name)
+           for name in ROOT_DRIVERS},
+        **{f"scripts.{name}": functools.partial(_run_harness, name) for name in HARNESSES},
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

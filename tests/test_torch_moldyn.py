@@ -197,9 +197,6 @@ def test_scanned_md_refuses_what_is_not_ported(md_models):
     md = ScannedMD(tm, dt=1e-3, device="cpu")
     with pytest.raises(NotImplementedError, match="'Parallel'"):
         md.run_ensemble(systems[:2], 1, n_devices=2)
-    periodic = dict(systems[0], graph_lattice=np.eye(3, dtype=np.float32) * 10.0)
-    with pytest.raises(NotImplementedError, match="set_range_periodic"):
-        md.run_ensemble([periodic], 1)
     with pytest.raises(ValueError):
         ScannedMD(tm, dt=1e-3, thermostat="langevin", device="cpu")
 

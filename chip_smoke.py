@@ -271,6 +271,26 @@ order, each raising on a failed check:
    reverse-only SchNet modes raising in forward mode, each naming its mode
    (``phase_reverse_only``).
 
+27. The last root drivers (``phase_zoo`` again, ``ZOO_DRIVERS``' phase-27
+   rows): ``train_citation``, ``train_qm``, ``train_crystal`` (SchNet,
+   CGCNN) and ``train_visual_graph_dataset`` (both datasets) through
+   ``phase_zoo_driver``; periodic ``ScannedMD`` of the crystal SchNet
+   against the CPU (``phase_periodic_md``); the fork's chain, extxyz,
+   ``prepare_data``, ``force_schnet`` and both harnesses
+   (``phase_fork_chain``).
+
+28. The dataset layer (``phase_datasets``): Cora at graph2gauss's
+   published shape, 2048 QM9 molecules, 1000 rMD17 aspirin frames and
+   MUTAG at its published counts, written in their published layouts into
+   a temporary dataset root (no fetch leaves the machine), each built as
+   its driver builds it and timed on the host; then ``train_citation
+   --hyper hyper_cora.py``, ``train_qm --hyper hyper_qm9_energies.py``,
+   ``train_force --hyper hyper_md17_revised.py`` and ``train_tudataset
+   --dataset MUTAG`` through ``phase_zoo_driver`` (first steps against the
+   CPU, every #1 call against its plain version, every step's launches);
+   a missing file raises ``FileNotFoundError`` and ESOL, without RDKit,
+   its ``ImportError`` after reading its CSV.
+
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it; the
 segment-sum's bfloat16 instance has an entry of its own
@@ -293,6 +313,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -4107,14 +4128,18 @@ ZOO_FIRST_STEP_MOLS = 64
 # MEGAN of the second group on its data (DMPNN and CMPNN stop at its
 # assert): phase 23 runs AttentiveFP there; phase 24 runs ``train_force``;
 # phase 25 ``train_force --hyper`` (``train_force_hyper``) of the library's
-# ``hyper_synthetic_md.py`` with its two models
+# ``hyper_synthetic_md.py`` with its two models; phase 28 the dataset
+# layer's runs (``phase_datasets``)
 ZOO_DRIVERS = ((22, "train_tudataset", "GIN"), (22, "train_moleculenet", "GIN"),
                (22, "train_moleculenet", "GAT"), (23, "train_moleculenet", "AttentiveFP"),
                (24, "train_force", "MXMNet"), (24, "train_force", "EGNN"),
                (25, "train_force_hyper", "Schnet"), (25, "train_force_hyper", "PAiNN"),
                (27, "train_citation", "GCN"), (27, "train_qm", "Schnet"),
                (27, "train_crystal", "Schnet"), (27, "train_crystal", "CGCNN"),
-               (27, "train_vgd_mock", "MEGAN"), (27, "train_vgd_rb_motifs", "MEGAN"))
+               (27, "train_vgd_mock", "MEGAN"), (27, "train_vgd_rb_motifs", "MEGAN"),
+               (28, "train_citation_cora", "GCN"), (28, "train_qm_qm9", "Schnet"),
+               (28, "train_force_rmd17", "Schnet.EnergyForceModel"),
+               (28, "train_tudataset_mutag", "GIN"))
 ZOO_DRIVER_ARGS = ["--epochs", "3", "--folds", "2", "--no-plots"]
 # train_force at its default 128 frames, cut to 3 epochs (50) of one fold
 FORCE_DRIVER_ARGS = ["--epochs", "3", "--folds", "1", "--no-plots"]
@@ -4577,12 +4602,15 @@ def phase_zoo_model(name, smi, timed_shapes, profiles, device="cuda", n_mols=512
 
 def graph_driver_cpu_step(script, model, argv=()):
     """A graph-learning driver's model on the CPU (its default seed 42, the
-    widths of its data) with its loss; its first step takes ``TRAIN_TOL``
-    alone."""
+    widths of its data: ``argv``'s ``--dataset``, else the synthetic ones)
+    with its loss; its first step takes ``TRAIN_TOL`` alone."""
     from gcnn_keras_tpu_torch.training import graph_driver
-    mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{script}")
-    ds = mod.synthetic_dataset(42)  # the drivers' default --seed
-    n_out = mod.n_classes(ds) if script == "train_tudataset" else 1
+    name = ZOO_DRIVER_RUNS[script][3]
+    mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{name}")
+    dataset = graph_driver.driver_parser("", "").parse_args(list(argv)).dataset
+    # the drivers' default --seed
+    ds = DATASET_CACHE[dataset] if dataset in DATASET_CACHE else mod.load_dataset(dataset, 42)
+    n_out = mod.n_classes(ds) if name == "train_tudataset" else 1
     cpu_model = graph_driver.build_model(model, n_out, graph_driver.input_widths(ds),
                                          device="cpu")
     return list(cpu_model.named_parameters()), mod.loss_fn(cpu_model), None
@@ -4647,6 +4675,239 @@ def vgd_cpu_step(script, model, argv=()):
     return list(cpu_model.named_parameters()), tv.loss_fn(cpu_model), None
 
 
+# phase 28: the dataset layer. Each archive in its published layout,
+# written by the writers below into a temporary dataset root (the port's
+# ``data.download.DATASET_ROOT`` patched), where each class finds it
+# without a fetch; a fetch of anything but a ``file://`` URL raises
+# (``local_fetches_only``). Sizes: Cora at graph2gauss's published shape
+# (19793 nodes, 8710 binary features about 18 a row, 65311 directed links,
+# 70 classes); QM9 cut to 2048 molecules (133885) of 9-29 atoms over H, C,
+# N, O, F; rMD17 aspirin cut to 1000 frames (100000) of its 21 atoms;
+# MUTAG at its published counts (188 graphs, about 17.9 nodes and 19.8
+# edges a graph, 7 node and 4 edge labels, graph labels 1 and -1).
+CORA_SIZE = dict(nodes=19793, features=8710, links=65311, classes=70, per_row=18)
+QM9_MOLECULES = 2048
+RMD17_FRAMES = 1000
+MUTAG_GRAPHS = 188
+HYPER_CORA = os.path.join(HYPER_DIR, "hyper_cora.py")
+HYPER_QM9 = os.path.join(HYPER_DIR, "hyper_qm9_energies.py")
+HYPER_RMD17 = os.path.join(HYPER_DIR, "hyper_md17_revised.py")
+# the runs' epochs: GCN 20 (the driver's 100) of 2 folds (5); SchNet on
+# QM9 1 epoch (60) of 2 folds (3), on rMD17 2 epochs (50) of one fold (the
+# driver's 3 at 5 folds' split); GIN on MUTAG 3 epochs (60) of 2 folds (3)
+CORA_ARGS = ["--epochs", "20", "--folds", "2", "--no-plots", "--hyper", HYPER_CORA]
+QM9_ARGS = ["--epochs", "1", "--folds", "2", "--no-plots", "--hyper", HYPER_QM9]
+RMD17_ARGS = ["--epochs", "2", "--folds", "1", "--no-plots", "--hyper", HYPER_RMD17]
+MUTAG_ARGS = ZOO_DRIVER_ARGS + ["--dataset", "MUTAG"]
+# each dataset of the phase, built as the driver builds it, by the driver
+# run whose first step on the CPU reads it (``DATASET_CACHE``)
+DATASET_CACHE = {}
+
+
+def dataset_folder(root, name):
+    path = os.path.join(root, name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def write_cora_npz(root, nodes, features, links, classes, per_row, seed=0):
+    """graph2gauss's ``Cora/cora.npz``: the adjacency and the binary
+    attributes as scipy CSR triplets, and the labels. Three links in four
+    join nodes of one class; half of each node's features come from a band
+    of its class."""
+    import scipy.sparse as sp
+    rs = np.random.RandomState(seed)
+    labels = rs.randint(classes, size=nodes)
+    order = np.argsort(labels, kind="stable")
+    counts = np.bincount(labels, minlength=classes)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    src = rs.randint(nodes, size=2 * links)
+    c = labels[src]
+    same = order[starts[c] + (rs.rand(2 * links) * counts[c]).astype(np.int64)]
+    dst = np.where(rs.rand(2 * links) < 0.75, same, rs.randint(nodes, size=2 * links))
+    pairs = np.stack([src, dst], axis=1)[src != dst]
+    _, first = np.unique(pairs, axis=0, return_index=True)
+    pairs = pairs[np.sort(first)][:links]
+    adj = sp.csr_matrix((np.ones(len(pairs), np.float32), (pairs[:, 0], pairs[:, 1])),
+                        shape=(nodes, nodes))
+    band = features // classes
+    cols = rs.randint(features, size=(nodes, per_row))
+    cols[:, :per_row // 2] = labels[:, None] * band + rs.randint(band, size=(nodes, per_row // 2))
+    attr = sp.csr_matrix((np.ones(cols.size, np.float32),
+                          (np.repeat(np.arange(nodes), per_row), cols.reshape(-1))),
+                         shape=(nodes, features))
+    attr.data[:] = 1.0
+    np.savez(os.path.join(dataset_folder(root, "Cora"), "cora.npz"),
+             adj_data=adj.data, adj_indices=adj.indices, adj_indptr=adj.indptr,
+             adj_shape=np.array(adj.shape), attr_data=attr.data, attr_indices=attr.indices,
+             attr_indptr=attr.indptr, attr_shape=np.array(attr.shape), labels=labels)
+
+
+def qm9_like_molecule(rs):
+    """9 to 29 atoms: up to 9 of C, N, O, F on a random walk of 1.45 A
+    bonds, the rest hydrogens 1.09 A from a random one of them."""
+    n = rs.randint(9, 30)
+    heavy = rs.choice([6, 7, 8, 9], size=min(9, max(1, int(round(0.45 * n)))),
+                      p=[0.72, 0.12, 0.15, 0.01])
+    steps = rs.randn(len(heavy), 3)
+    pos = np.cumsum(1.45 * steps / np.linalg.norm(steps, axis=1, keepdims=True), axis=0)
+    h_dirs = rs.randn(n - len(heavy), 3)
+    h_pos = pos[rs.randint(len(heavy), size=n - len(heavy))] + \
+        1.09 * h_dirs / np.linalg.norm(h_dirs, axis=1, keepdims=True)
+    return np.concatenate([heavy, np.ones(n - len(heavy), np.int64)]), \
+        np.concatenate([pos, h_pos])
+
+
+QM9_COLUMNS = ["mol_id", "A", "B", "C", "mu", "alpha", "homo", "lumo", "gap", "r2", "zpve",
+               "u0", "u298", "h298", "g298", "cv"]
+
+
+def write_qm9_zip(root, n_mols, seed=0):
+    """The deepchem ``QM9/qm9.zip``: ``gdb9.sdf`` (MDL V2000 records) and
+    ``gdb9.sdf.csv`` with the release's header; ``u0`` in Hartree is the
+    atoms' energies plus noise."""
+    rs = np.random.RandomState(seed)
+    atom_e = {1: -0.5, 6: -37.85, 7: -54.6, 8: -75.1, 9: -99.75}
+    symbols = {1: "H", 6: "C", 7: "N", 8: "O", 9: "F"}
+    sdf, rows = [], [",".join(QM9_COLUMNS)]
+    for i in range(n_mols):
+        z, pos = qm9_like_molecule(rs)
+        lines = [f"gdb_{i + 1}", "  synthetic 3D", "",
+                 f"{len(z):3d}  0  0  0  0  0  0  0  0  0999 V2000"]
+        lines += [f"{x:10.4f}{y:10.4f}{w:10.4f} {symbols[int(a)]:<3s} 0  0  0  0  0  0  0  0"
+                  "  0  0  0  0" for a, (x, y, w) in zip(z, pos)]
+        sdf.append("\n".join(lines + ["M  END", "$$$$"]) + "\n")
+        u0 = sum(atom_e[int(a)] for a in z) + 0.05 * rs.randn()
+        vals = list(np.round(rs.randn(10), 6)) + [u0, u0 + 0.01, u0 + 0.011, u0 - 0.03,
+                                                    abs(rs.randn()) * 30]
+        rows.append(f"gdb_{i + 1}," + ",".join(repr(float(v)) for v in vals))
+    with zipfile.ZipFile(os.path.join(dataset_folder(root, "QM9"), "qm9.zip"), "w") as zf:
+        zf.writestr("gdb9.sdf", "".join(sdf))
+        zf.writestr("gdb9.sdf.csv", "\n".join(rows) + "\n")
+
+
+def write_rmd17_npz(root, n_frames, seed=0):
+    """Materials Cloud's ``MD17Revised.aspirin/rmd17_aspirin.npz``: aspirin's
+    21 atoms (C9H8O4) in frames about one geometry, energies (kcal/mol) and
+    forces, and the release's ``old_*`` keys."""
+    rs = np.random.RandomState(seed)
+    z = np.array([6] * 9 + [8] * 4 + [1] * 8, dtype=np.int64)
+    rs.shuffle(z)
+    base = np.cumsum(rs.randn(21, 3), axis=0) * 0.8
+    coords = base + 0.05 * rs.randn(n_frames, 21, 3)
+    energies = -406757.0 + 2.0 * rs.randn(n_frames)
+    forces = 30.0 * rs.randn(n_frames, 21, 3)
+    np.savez(os.path.join(dataset_folder(root, "MD17Revised.aspirin"), "rmd17_aspirin.npz"),
+             nuclear_charges=z, coords=coords, energies=energies, forces=forces,
+             old_indices=np.arange(n_frames), old_energies=energies + rs.randn(n_frames),
+             old_forces=forces + rs.randn(n_frames, 21, 3))
+
+
+def write_tu_zip(root, name, n_graphs, seed=0):
+    """The TUDataset ``<name>/<name>.zip`` of ``n_graphs`` graphs at MUTAG's
+    statistics: about 17.9 nodes and 19.8 undirected edges a graph (each
+    both ways in ``_A.txt``, 1-based), 7 node labels, 4 edge labels, graph
+    labels 1 (two in three) and -1."""
+    rs = np.random.RandomState(seed)
+    files = {k: [] for k in ("A", "graph_indicator", "graph_labels", "node_labels",
+                             "edge_labels")}
+    first = 1
+    for g in range(n_graphs):
+        n = int(np.clip(round(rs.normal(17.93, 4.6)), 10, 28))
+        pairs = {(i, int(rs.randint(i))) for i in range(1, n)}
+        while len(pairs) < n - 1 + int(round(rs.normal(0.104 * n, 1.0))):
+            a, b = sorted(rs.randint(n, size=2))
+            if a != b:
+                pairs.add((int(b), int(a)))
+        for a, b in sorted(pairs):
+            label = str(rs.choice(4, p=[0.6, 0.05, 0.05, 0.3]))
+            for s, t in ((a, b), (b, a)):
+                files["A"].append(f"{first + s}, {first + t}")
+                files["edge_labels"].append(label)
+        files["graph_indicator"] += [str(g + 1)] * n
+        files["node_labels"] += [str(v) for v in rs.choice(
+            7, size=n, p=[0.72, 0.07, 0.15, 0.02, 0.02, 0.01, 0.01])]
+        files["graph_labels"].append("1" if rs.rand() < 0.665 else "-1")
+        first += n
+    with zipfile.ZipFile(os.path.join(dataset_folder(root, name), f"{name}.zip"), "w") as z:
+        for stem, lines in files.items():
+            z.writestr(f"{name}/{name}_{stem}.txt", "\n".join(lines) + "\n")
+
+
+def write_esol_csv(root):
+    """MoleculeNet's ``ESOL/delaney-processed.csv`` with its published
+    header, three molecules."""
+    rows = ["Compound ID,ESOL predicted log solubility in mols per litre,Minimum Degree,"
+            "Molecular Weight,Number of H-Bond Donors,Number of Rings,"
+            "Number of Rotatable Bonds,Polar Surface Area,"
+            "measured log solubility in mols per litre,smiles",
+            "Ethanol,-0.7,1,46.069,1,0,0,20.23,-0.24,CCO",
+            "Benzene,-2.0,2,78.114,0,1,0,0.0,-1.64,c1ccccc1",
+            "Acetic acid,0.02,1,60.052,1,0,0,37.3,1.22,CC(=O)O"]
+    with open(os.path.join(dataset_folder(root, "ESOL"), "delaney-processed.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+@contextlib.contextmanager
+def local_fetches_only():
+    """``urllib.request.urlretrieve`` refusing any URL but ``file://``: a
+    dataset fetch that would leave the machine fails (``DownloadDataset``
+    logs it) instead."""
+    import urllib.request
+    fetch = urllib.request.urlretrieve
+
+    def local(url, *a, **kw):
+        if not url.startswith("file://"):
+            raise OSError(f"no fetch of {url}: the datasets are written locally")
+        return fetch(url, *a, **kw)
+    with patched(urllib.request, "urlretrieve", local):
+        yield
+
+
+def build_phase_dataset(key):
+    """Dataset ``key`` of phase 28 as its driver builds it: a ``--hyper``
+    config's dataset through ``deserialize`` (its methods run), or a
+    ``--dataset`` TUDataset read in memory; cached in ``DATASET_CACHE``."""
+    from gcnn_keras_tpu_torch.data.serial import deserialize
+    from gcnn_keras_tpu_torch.scripts import train_tudataset
+    from gcnn_keras_tpu_torch.training.hyper import HyperParameter
+    model = {HYPER_CORA: "GCN", HYPER_QM9: "Schnet",
+             HYPER_RMD17: "Schnet.EnergyForceModel"}.get(key)
+    ds = deserialize(HyperParameter(key, model_name=model)["data"]["dataset"]) if model \
+        else train_tudataset.load_dataset(key, 42)
+    DATASET_CACHE[key] = ds
+    return ds
+
+
+def citation_hyper_cpu_step(script, model, argv=()):
+    """``train_citation --hyper``'s model and first fold's loss on the CPU,
+    on the dataset the phase built."""
+    from gcnn_keras_tpu_torch.scripts import train_citation as tc
+    from gcnn_keras_tpu_torch.training import graph_driver
+    from gcnn_keras_tpu_torch.training.hyper import HyperParameter
+    args = tc.parser().parse_args(list(argv) + ["--model", model])
+    ds = DATASET_CACHE[args.hyper]
+    batch, y, _ = tc.graph_inputs(ds, "cpu")
+    train_mask, test_mask = tc.fold_masks(int(batch.node_mask.sum()), batch.n_node,
+                                          args.folds, args.seed, "cpu")[0]
+    cpu_model = graph_driver.build_hyper_model(HyperParameter(args.hyper, model_name=model),
+                                               graph_driver.input_widths(ds), "cpu")
+    return (list(cpu_model.named_parameters()),
+            tc.loss_fn(cpu_model, y, train_mask, test_mask), None)
+
+
+def qm_hyper_cpu_step(script, model, argv=()):
+    """``train_qm --hyper``'s model on the CPU with its loss, at the widths
+    of the dataset the phase built."""
+    from gcnn_keras_tpu_torch.scripts import train_qm
+    from gcnn_keras_tpu_torch.training import graph_driver
+    from gcnn_keras_tpu_torch.training.hyper import HyperParameter
+    path = argv[list(argv).index("--hyper") + 1]
+    cpu_model = train_qm.build_model(model, graph_driver.input_widths(DATASET_CACHE[path]),
+                                     "cpu", hyper=HyperParameter(path, model_name=model))
+    return list(cpu_model.named_parameters()), train_qm.loss_fn(cpu_model), None
+
+
 # each driver run: the module whose ``Trainer`` the phase records, its
 # arguments, its CPU model and loss for the first step, and its script
 ZOO_DRIVER_RUNS = {
@@ -4667,7 +4928,14 @@ ZOO_DRIVER_RUNS = {
                        "train_visual_graph_dataset"),
     "train_vgd_rb_motifs": ("scripts.train_visual_graph_dataset",
                             VGD_ARGS + ["--dataset", "VgdRbMotifsDataset"], vgd_cpu_step,
-                            "train_visual_graph_dataset")}
+                            "train_visual_graph_dataset"),
+    "train_citation_cora": ("scripts.train_citation", CORA_ARGS, citation_hyper_cpu_step,
+                            "train_citation"),
+    "train_qm_qm9": ("training.graph_driver", QM9_ARGS, qm_hyper_cpu_step, "train_qm"),
+    "train_force_rmd17": ("scripts.train_force", RMD17_ARGS, force_driver_cpu_step,
+                          "train_force"),
+    "train_tudataset_mutag": ("training.graph_driver", MUTAG_ARGS, graph_driver_cpu_step,
+                              "train_tudataset")}
 # each script's folder under results/ where it is not the second word of its name
 RESULTS_DIRS = {"train_visual_graph_dataset": "vgd"}
 
@@ -5127,6 +5395,88 @@ def phase_fork_chain(smi, device="cuda"):
     log("fork chain: " + json.dumps(out))
     return by_path, recs
 
+
+def phase_datasets(smi, device="cuda", sizes=None):
+    """Phase 28: the dataset layer, in a temporary dataset root (the port's
+    ``DATASET_ROOT`` patched; no fetch leaves the machine). Writes the
+    archives (``write_cora_npz``, ``write_qm9_zip``, ``write_rmd17_npz``,
+    ``write_tu_zip``, ``write_esol_csv``; ``sizes`` overrides their sizes),
+    builds each dataset as its driver does and times it apart from
+    training (unpack, parse, the config's methods; the archive is in
+    place, so nothing is fetched), times the full Cora graph's batch onto
+    ``device`` (``train_citation.graph_inputs``), then runs the drivers of
+    ``ZOO_DRIVERS``' phase-28 rows (``phase_zoo_driver``: the first step
+    against the CPU within ``TRAIN_TOL``, every #1 call against its plain
+    version, every step's launches). Then no fallback: a dataset whose
+    file is missing (``CoraLuDataset``) raises ``FileNotFoundError``, and
+    ``ESOLDataset`` reads its CSV and, without RDKit, raises its
+    ``ImportError``. Returns the launch counts of each run and the kernel
+    records."""
+    import importlib.util
+    from gcnn_keras_tpu_torch.data import download
+    from gcnn_keras_tpu_torch.data.datasets.citation import CoraLuDataset
+    from gcnn_keras_tpu_torch.data.datasets.moleculenet import ESOLDataset
+    from gcnn_keras_tpu_torch.scripts import train_citation
+    sizes = dict(dict(cora=CORA_SIZE, qm9=QM9_MOLECULES, rmd17=RMD17_FRAMES,
+                      mutag=MUTAG_GRAPHS), **(sizes or {}))
+    out, by_path, recs = {"card": smi, "sizes": sizes}, {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="_datasets_", dir=os.getcwd()) as root, \
+            patched(download, "DATASET_ROOT", root), local_fetches_only():
+        t0 = time.perf_counter()
+        write_cora_npz(root, **sizes["cora"])
+        write_qm9_zip(root, sizes["qm9"])
+        write_rmd17_npz(root, sizes["rmd17"])
+        write_tu_zip(root, "MUTAG", sizes["mutag"])
+        write_esol_csv(root)
+        out["write_s"] = time.perf_counter() - t0
+        build = {}
+        for label, key in (("Cora", HYPER_CORA), ("QM9", HYPER_QM9),
+                           ("MD17Revised.aspirin", HYPER_RMD17), ("MUTAG", "MUTAG")):
+            t0 = time.perf_counter()
+            ds = build_phase_dataset(key)
+            build[label] = {"host_s": time.perf_counter() - t0, "graphs": len(ds),
+                            "nodes": int(sum(len(g["node_number"]) if "node_number" in g
+                                             else len(g["node_attributes"]) for g in ds))}
+        cora = DATASET_CACHE[HYPER_CORA][0]
+        build["Cora"].update(features=int(cora["node_attributes"].shape[1]),
+                             edges=int(len(cora["edge_indices"])))
+        t0 = time.perf_counter()
+        batch, _, _ = train_citation.graph_inputs(DATASET_CACHE[HYPER_CORA], device)
+        torch.cuda.synchronize()
+        build["Cora"]["graph_inputs_s"] = time.perf_counter() - t0
+        del batch
+        out["build"] = build
+        log("datasets: " + json.dumps(out))
+        for _, script, model in [d for d in ZOO_DRIVERS if d[0] == 28]:
+            paths, rs = phase_zoo_driver(script, model, smi, device)
+            by_path.update(paths)
+            for kname, krs in rs.items():
+                recs.setdefault(kname, []).extend(krs)
+        try:
+            CoraLuDataset().read_in_memory()
+        except FileNotFoundError:
+            pass
+        else:
+            raise AssertionError("CoraLuDataset built without its file")
+        esol = ESOLDataset()
+        if importlib.util.find_spec("rdkit") is None:  # as on the card's machine
+            try:
+                esol.read_in_memory()
+            except ImportError as e:
+                if "rdkit is required" not in str(e):
+                    raise
+            else:
+                raise AssertionError("ESOLDataset built its graphs without RDKit")
+            if len(esol.table) != 3 or len(esol):
+                raise AssertionError(f"ESOL: {len(esol.table)} rows read, {len(esol)} graphs")
+        else:
+            esol.read_in_memory()
+            if len(esol) != 3:
+                raise AssertionError(f"ESOL: {len(esol)} graphs of 3 SMILES")
+    DATASET_CACHE.clear()
+    log(f"phase 28 seconds: {time.perf_counter() - t_phase:.1f}")
+    return by_path, recs
 
 def bessel_per_order(x):
     """The spherical basis's radial part as the JAX package computes it
@@ -5632,6 +5982,10 @@ def main():
     paths, root_recs = phase_zoo(smi, zoo_profiles, set(), 27)
     by_path.update(paths)
     for kname, rs in root_recs.items():
+        records[kname].extend(rs)
+    paths, dataset_recs = phase_datasets(smi)
+    by_path.update(paths)
+    for kname, rs in dataset_recs.items():
         records[kname].extend(rs)
     # the busy shares last, after every timed part of the script; one
     # profiled step of each zoo model: RGCN's and GNN-FiLM's 4300 and 12600

@@ -20,8 +20,9 @@ every tenth epoch and at the last, and every epoch under
 restored). The score goes to ``results/citation/<model>_score.yaml``, the
 curves (with ``--plots``, which needs matplotlib) beside it. With
 ``--hyper`` the config's entry for ``--model`` gives the dataset
-(``data/serial.py``: the citation datasets raise, "the rest of the host
-side"), the model and the optimizer.
+(``data/serial.py``; ``hyper_cora.py``'s ``CoraDataset`` reads
+``<DATASET_ROOT>/Cora/cora.npz``, fetched there where it is missing), the
+model and the optimizer.
 """
 from __future__ import annotations
 

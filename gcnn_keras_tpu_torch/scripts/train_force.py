@@ -33,10 +33,10 @@ config (``HyperParameter``) gives the dataset (``data/serial.py``
 ``deserialize``, its methods run), the model at the config's widths and
 the optimizer (``make_optimizer``, no schedule), as the JAX driver reads
 them; the driver's own edges, folds, epochs, batch size and loss weights
-still apply (the config's ``loss_weights`` are not read, in JAX either). Of
-the library's datasets only the synthetic ones are ported: any other
-raises ``ValueError`` ("the rest of the host side"), where the JAX driver
-would download it.
+still apply (the config's ``loss_weights`` are not read, in JAX either).
+A library dataset reads its archive under ``data/download.py``'s
+``DATASET_ROOT`` (e.g. ``MD17Revised.aspirin/rmd17_aspirin.npz`` for
+``hyper_md17_revised.py``), fetched there where it is missing.
 ``--n-devices`` above 1 and ``--distributed`` raise: the data-parallel step
 is not ported. ``--steps-per-dispatch`` changes nothing (``Trainer.fit_epoch``).
 """

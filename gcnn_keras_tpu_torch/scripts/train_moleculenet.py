@@ -2,19 +2,22 @@
 of the root ``training/train_moleculenet.py``.
 
     python -m gcnn_keras_tpu_torch.scripts.train_moleculenet [--device cpu]
-        [--model GIN] [--epochs 60] [--batch-size 32] [--folds 3] [--seed 42]
-        [--early-stopping N] [--use-wandb] [--no-plots]
+        [--model GIN] [--dataset NAME] [--epochs 60] [--batch-size 32] [--folds 3]
+        [--seed 42] [--early-stopping N] [--use-wandb] [--no-plots]
 
-The data are the JAX driver's synthetic ones: 96 random molecular graphs
-from ``--seed`` (5-14 nodes, a random tree and extra bonds both ways) with
-16 float node features, 8 float edge features and a label that depends on
-both. Each of ``--folds`` folds standardizes the labels on its training
+With ``--dataset NAME`` (ESOL, FreeSolv, Lipop, ClinTox, ...) the data are
+``<NAME>Dataset`` of ``data/datasets/moleculenet.py``, read in memory: its
+CSV from ``<DATASET_ROOT>/<NAME>/`` (fetched there where it is missing),
+each SMILES made a graph by RDKit, which raises ``ImportError`` where it is
+not installed. Without it the data are the JAX driver's synthetic ones: 96
+random molecular graphs from ``--seed`` (5-14 nodes, a random tree and
+extra bonds both ways) with 16 float node features, 8 float edge features
+and a label that depends on both. Each of ``--folds`` folds standardizes the labels on its training
 split (``StandardLabelScaler``), trains the model (``--model``, a registry
 name; GIN at the driver's width) with Adam 1e-3 on the masked graph MAE
 and validates its MAE, scaled and in label units; the score goes to
 ``results/moleculenet/<model>_score.yaml``, with ``--plots`` (matplotlib)
 the loss curves and each fold's predicted-against-true scatter beside it.
-``--dataset`` raises: the MoleculeNet files are not read yet.
 """
 from __future__ import annotations
 
@@ -54,6 +57,15 @@ def synthetic_dataset(seed: int):
     return ds
 
 
+def load_dataset(name: Optional[str], seed: int):
+    """``<name>Dataset`` of the MoleculeNet module read in memory, or the
+    synthetic data of ``seed`` where ``name`` is None."""
+    if not name:
+        return synthetic_dataset(seed)
+    from gcnn_keras_tpu_torch.data.datasets import moleculenet
+    return getattr(moleculenet, f"{name}Dataset")().read_in_memory()
+
+
 # the masked graph MAE against the scaled ``graph_labels``
 loss_fn = graph_driver.graph_mae_loss
 
@@ -79,10 +91,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from gcnn_keras_tpu_torch.utils.data_splitter import kfold_indices
     from gcnn_keras_tpu_torch.utils.devices import resolve_device
     args = graph_driver.driver_parser(__doc__.splitlines()[0],
-                                      "ESOL/FreeSolv/Lipop (not ported)").parse_args(argv)
-    graph_driver.refuse_dataset(args.dataset)
+                                      "ESOL/FreeSolv/Lipop; default synthetic").parse_args(argv)
     dev = resolve_device(args.device)
-    ds = synthetic_dataset(args.seed)
+    ds = load_dataset(args.dataset, args.seed)
     y = np.array([float(np.asarray(g["graph_labels"]).reshape(-1)[0]) for g in ds])
     widths = graph_driver.input_widths(ds)
     histories, times = [], []
@@ -110,15 +121,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
         times.append(seconds)
         print(f"fold {fold}: val_scaled_mae={hist['val_scaled_mae'][-1]:.4f}", flush=True)
         if args.plots:
-            graph_driver.plot_fold(model, test_batch, args.model, "SyntheticMolNet",
+            graph_driver.plot_fold(model, test_batch, args.model,
+                                   args.dataset or "SyntheticMolNet",
                                    f"results/moleculenet/{args.model}_fold{fold}")
     if args.plots:
         from gcnn_keras_tpu_torch.utils.plots import plot_train_test_loss
         plot_train_test_loss(histories, loss_name="loss", val_loss_name="val_loss",
-                             model_name=args.model, dataset_name="SyntheticMolNet",
+                             model_name=args.model,
+                             dataset_name=args.dataset or "SyntheticMolNet",
                              filepath="results/moleculenet", file_name=f"{args.model}_loss.png")
     score = save_history_score(histories, f"results/moleculenet/{args.model}_score.yaml",
-                               model_name=args.model, dataset_name="synthetic",
+                               model_name=args.model, dataset_name=args.dataset or "synthetic",
                                seed=args.seed, time_list=times)
     print(json.dumps({"val_scaled_mae_mean": score.get("val_scaled_mae_mean")}))
     return score

@@ -17,8 +17,9 @@ molecules (``val_loss``, and ``val_scaled_mae`` in the labels' units). The
 score goes to ``results/qm/<model>_score.yaml``; with ``--plots``
 (matplotlib) the loss curves and each fold's predicted-against-true
 scatter beside it. With ``--hyper`` the config's entry for ``--model``
-gives the dataset (``data/serial.py``: the QM datasets raise, "the rest
-of the host side"), the model and the optimizer. ``--steps-per-dispatch``
+gives the dataset (``data/serial.py``; e.g. ``hyper_qm7.py``'s
+``QM7Dataset`` reads ``<DATASET_ROOT>/QM7/qm7.mat``, fetched there where it
+is missing), the model and the optimizer. ``--steps-per-dispatch``
 changes nothing (``Trainer.fit_epoch``).
 """
 from __future__ import annotations

@@ -2,17 +2,20 @@
 ``training/train_tudataset.py``.
 
     python -m gcnn_keras_tpu_torch.scripts.train_tudataset [--device cpu]
-        [--model GIN] [--epochs 60] [--batch-size 32] [--folds 3] [--seed 42]
-        [--early-stopping N] [--use-wandb] [--no-plots]
+        [--model GIN] [--dataset NAME] [--epochs 60] [--batch-size 32] [--folds 3]
+        [--seed 42] [--early-stopping N] [--use-wandb] [--no-plots]
 
-The data are the JAX driver's synthetic ones: 96 QM9-like molecules from
-``--seed``, their neighbours within 4 A (at most 10) as the edges, labelled
-1 where a molecule has more than 9 atoms. Each of ``--folds`` folds trains
-the model (``--model``, a registry name; GIN at the driver's width) with
-Adam 1e-3 on the masked categorical cross-entropy and validates its
-accuracy; the score goes to ``results/tudataset/<model>_score.yaml``, the
+With ``--dataset`` (e.g. MUTAG) the data are that TUDataset collection
+(``GraphTUDataset2020``, read from ``<DATASET_ROOT>/<name>/<name>.zip``,
+fetched there where it is missing); its graph labels are the classes (the
+largest + 1 of them; MUTAG's -1 gives a one-hot row of zeros, as
+``jax.nn.one_hot`` does). Without it the data are the JAX driver's
+synthetic ones: 96 QM9-like molecules from ``--seed``, their neighbours
+within 4 A (at most 10) as the edges, labelled 1 where a molecule has more
+than 9 atoms. Each of ``--folds`` folds trains the model (``--model``, a
+registry name; GIN at the driver's width) with Adam 1e-3 on the masked
+categorical cross-entropy and validates its accuracy; the score goes to ``results/tudataset/<model>_score.yaml``, the
 loss curves (with ``--plots``, which needs matplotlib) beside it.
-``--dataset`` raises: the TUDataset files are not read yet.
 """
 from __future__ import annotations
 
@@ -36,6 +39,15 @@ def synthetic_dataset(seed: int):
         g["edge_indices"] = g["range_indices"]
         g["graph_labels"] = np.array([float(len(g["node_number"]) > 9)], dtype=np.float32)
     return ds
+
+
+def load_dataset(name: Optional[str], seed: int):
+    """The TUDataset collection ``name`` read in memory, or the synthetic
+    data of ``seed`` where ``name`` is None."""
+    if not name:
+        return synthetic_dataset(seed)
+    from gcnn_keras_tpu_torch.data.datasets.tudataset import GraphTUDataset2020
+    return GraphTUDataset2020(dataset_name=name).read_in_memory()
 
 
 def n_classes(ds) -> int:
@@ -62,11 +74,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from gcnn_keras_tpu_torch.training.losses import masked_accuracy
     from gcnn_keras_tpu_torch.utils.data_splitter import kfold_indices
     from gcnn_keras_tpu_torch.utils.devices import resolve_device
-    args = graph_driver.driver_parser(__doc__.splitlines()[0], "TUDataset name (not ported)"
+    args = graph_driver.driver_parser(__doc__.splitlines()[0],
+                                      "TUDataset name (e.g. MUTAG); default synthetic"
                                       ).parse_args(argv)
-    graph_driver.refuse_dataset(args.dataset)
     dev = resolve_device(args.device)
-    ds = synthetic_dataset(args.seed)
+    ds = load_dataset(args.dataset, args.seed)
     labels = np.array([int(np.asarray(g["graph_labels"]).reshape(-1)[0]) for g in ds])
     widths = graph_driver.input_widths(ds)
     histories, times = [], []
@@ -97,10 +109,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.plots:
         from gcnn_keras_tpu_torch.utils.plots import plot_train_test_loss
         plot_train_test_loss(histories, loss_name="loss", val_loss_name="val_accuracy",
-                             model_name=args.model, dataset_name="synthetic",
+                             model_name=args.model, dataset_name=args.dataset or "synthetic",
                              filepath="results/tudataset", file_name=f"{args.model}_loss.png")
     score = save_history_score(histories, f"results/tudataset/{args.model}_score.yaml",
-                               model_name=args.model, dataset_name="synthetic",
+                               model_name=args.model, dataset_name=args.dataset or "synthetic",
                                seed=args.seed, time_list=times)
     print(json.dumps({"val_accuracy_mean": score.get("val_accuracy_mean")}))
     return score

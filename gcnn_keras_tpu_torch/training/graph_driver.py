@@ -62,15 +62,6 @@ def driver_parser(description: str, dataset_help: Optional[str] = None
     return ap
 
 
-def refuse_dataset(name: Optional[str]) -> None:
-    """The dataset classes read files that are not in the repository and
-    are not ported; only the synthetic data run."""
-    if name:
-        raise ValueError(f"--dataset {name}: the dataset classes are not ported yet "
-                         "(ROADMAP.md, 'the rest of the host side'); leave --dataset out "
-                         "for the synthetic data")
-
-
 def input_widths(graphs: Sequence[dict]) -> Dict[str, Optional[int]]:
     """The build widths of the graphs' inputs (module docstring)."""
     g = graphs[0]
@@ -100,8 +91,8 @@ def widths_for(builder: Callable, widths: Dict[str, Optional[int]]) -> Dict[str,
 
 def load_hyper(path: str, model: str):
     """``(HyperParameter of path's entry for model, its dataset)``; the
-    dataset through ``data/serial.py``, which raises on one that is not
-    ported ("the rest of the host side")."""
+    dataset through ``data/serial.py``'s ``deserialize`` with the config's
+    methods."""
     from ..data.serial import deserialize
     from .hyper import HyperParameter
     hyper = HyperParameter(path, model_name=model)

@@ -49,9 +49,12 @@ def force_loss(pred_force: Tensor, target_force: Tensor, node_mask: Tensor,
 
 def masked_categorical_crossentropy(logits: Tensor, labels: Tensor,
                                     mask: Tensor) -> Tensor:
-    """Softmax cross-entropy over valid rows; ``labels`` one-hot or int."""
+    """Softmax cross-entropy over valid rows; ``labels`` one-hot or int. An
+    int label outside ``[0, classes)`` (MUTAG's -1) is a row of zeros, as
+    ``jax.nn.one_hot`` makes it: no loss, but a row of the mean."""
     if labels.dim() == logits.dim() - 1:
-        labels = F.one_hot(labels.long(), logits.shape[-1]).to(logits.dtype)
+        classes = torch.arange(logits.shape[-1], device=labels.device)
+        labels = (labels.long()[..., None] == classes).to(logits.dtype)
     logp = F.log_softmax(logits, dim=-1)
     ce = -(labels * logp).sum(-1)
     m = mask.to(ce.dtype)

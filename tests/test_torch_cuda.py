@@ -1385,6 +1385,24 @@ def test_root_driver_phase_on_the_card(cuda_device, run, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_dataset_phase_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """``chip_smoke.py`` phase 28 at small sizes (as
+    ``tests/test_torch_datasets_phase.py`` runs it on the CPU): the four
+    driver runs on their archives, each first step against the CPU, each #1
+    call against its plain version."""
+    import chip_smoke
+    monkeypatch.chdir(tmp_path)
+    small = dict(cora=dict(nodes=300, features=140, links=900, classes=70, per_row=6),
+                 qm9=128, rmd17=80, mutag=140)
+    paths, recs = chip_smoke.phase_datasets("card test", sizes=small)
+    assert sorted(paths) == sorted(["train_citation_cora_GCN", "train_qm_qm9_Schnet",
+                                    "train_force_rmd17_Schnet.EnergyForceModel",
+                                    "train_tudataset_mutag_GIN"])
+    assert all(p["sorted_segment_sum"] > 0 for p in paths.values())
+    assert len(recs["sorted_segment_sum"]) == 6 + 9 + 19 + 10
+
+
+@pytest.mark.cuda
 def test_periodic_md_phase_on_the_card(cuda_device, monkeypatch):
     """Phase 27's periodic ``ScannedMD`` of the crystal SchNet on 8
     structures: energies and positions against the CPU, the launches of

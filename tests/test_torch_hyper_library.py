@@ -4,8 +4,9 @@ has JAX loaded), the port's ``hyper_templates`` gives the JAX module's
 dicts, every model key builds on the CPU, representative configurations
 run as the JAX package's on shared weights (outputs within ``rtol=1e-5``,
 ``atol=1e-6`` of the output's scale), and ``data/serial.py``'s
-``deserialize`` builds the synthetic datasets bit for bit as JAX's and
-raises on the others.
+``deserialize`` builds every dataset of the JAX table bit for bit as
+JAX's: the synthetic ones, and the others from archives written by
+``tests/test_torch_datasets.py`` and served through ``file://``.
 """
 import glob
 import importlib.util
@@ -28,6 +29,9 @@ from gcnn_keras_tpu_torch.data import serial
 from gcnn_keras_tpu_torch.training import hyper_templates
 from gcnn_keras_tpu_torch.training.hyper import HyperParameter
 from gcnn_keras_tpu_torch.utils.convert import params_from_jax
+from tests.test_torch_datasets import CASES as DATASET_CASES
+from tests.test_torch_datasets import (MOLECULENET, archives, same_errors,  # noqa: F401
+                                       same_graphs, serve)
 from tests.test_torch_zoo import _close, _perturbed
 
 torch.set_num_threads(1)
@@ -252,24 +256,62 @@ def test_deserialize_of_the_library_synthetic_md_config():
 
 
 def test_deserialize_table_is_the_jax_table():
-    assert set(serial._DATASET_MODULES) | set(serial._HOST_SIDE) == \
-        set(jserial._DATASET_MODULES)
-    assert not set(serial._DATASET_MODULES) & set(serial._HOST_SIDE)
-    for name, module in serial._HOST_SIDE.items():
-        assert jserial._DATASET_MODULES[name] == "gcnn_keras_tpu." + module
+    assert set(serial._DATASET_MODULES) == set(jserial._DATASET_MODULES)
+    for name, module in serial._DATASET_MODULES.items():
+        assert module == "gcnn_keras_tpu_torch." + \
+            jserial._DATASET_MODULES[name][len("gcnn_keras_tpu."):]
+    assert not hasattr(serial, "_HOST_SIDE")
 
 
-@pytest.mark.parametrize("name", sorted(serial._HOST_SIDE))
-def test_deserialize_raises_on_the_rest_of_the_host_side(name):
-    """Every dataset of the JAX table but the synthetic ones: ``ValueError``
-    naming the item; nothing is downloaded or read."""
-    with pytest.raises(ValueError, match="the rest of the host side"):
-        serial.deserialize({"class_name": name, "config": {}})
+def _file_config(name, srv):
+    """``name``'s dataset section with its case's config and
+    ``read_in_memory`` keywords as a method."""
+    config, read_kw = DATASET_CASES[name]
+    if name == "VisualGraphDataset":
+        config = dict(config, data_directory=os.path.join(srv, "vgd"))
+    return {"class_name": name, "config": config, "methods": [{"read_in_memory": read_kw}]}
+
+
+@pytest.mark.parametrize("name", sorted(DATASET_CASES))
+def test_deserialize_builds_the_file_datasets_as_jax(name, archives, monkeypatch, tmp_path):
+    """Every dataset of the JAX table that reads files, through both
+    packages' ``deserialize`` on the same archives (served by ``file://``):
+    the same graphs bit for bit; the MoleculeNet names fetch and read their
+    CSV and then raise the same ``ImportError`` where RDKit is absent."""
+    serve(monkeypatch, archives, tmp_path)
+    cfg = _file_config(name, archives)
+    got = {}
+    for key, module in (("ref", jserial), ("ours", serial)):
+        try:
+            got[key] = module.deserialize(cfg)
+        except ImportError as e:
+            got[key] = e
+    if name in MOLECULENET and isinstance(got["ref"], ImportError):
+        same_errors(got["ours"], got["ref"])
+    else:
+        same_graphs(got["ours"], got["ref"])
+
+
+@pytest.mark.parametrize("fname,model", [("hyper_cora.py", "GCN"),
+                                         ("hyper_md17_revised.py", "Schnet.EnergyForceModel")])
+def test_deserialize_reads_a_config_dataset_that_names_no_read(fname, model, archives,
+                                                               monkeypatch, tmp_path):
+    """A library config whose methods name no ``read_in_memory``: the JAX
+    package builds its dataset empty, the port reads it first, as kgcnn's
+    classes do in their constructors; the graphs are the JAX ones read
+    before the same methods."""
+    serve(monkeypatch, archives, tmp_path)
+    cfg = HyperParameter(os.path.join(HYPER_DIR, fname), model_name=model)["data"]["dataset"]
+    assert not any("read_in_memory" in m for m in cfg.get("methods", []))
+    assert len(jserial.deserialize(cfg)) == 0
+    ref = jserial.deserialize(dict(cfg, methods=[{"read_in_memory": {}}]
+                                   + list(cfg.get("methods", []))))
+    same_graphs(serial.deserialize(cfg), ref)
 
 
 def test_deserialize_raises_on_an_unknown_name_or_module():
     with pytest.raises(ValueError, match="unknown dataset Nothing"):
         serial.deserialize({"class_name": "Nothing"})
-    with pytest.raises(ValueError, match="the rest of the host side"):
+    with pytest.raises(ValueError, match="no module gcnn_keras_tpu.data.datasets.nothing"):
         serial.deserialize({"class_name": "QM9Dataset",
-                            "module_name": "gcnn_keras_tpu.data.datasets.qm"})
+                            "module_name": "gcnn_keras_tpu.data.datasets.nothing"})

@@ -7,8 +7,11 @@ graphs are the same arrays, the first batch is the same batch, and with
 the JAX driver's initial weights carried into the port model the loss is
 the JAX step's within ``rtol 1e-5`` and each gradient within ``1e-5`` of
 its tensor's largest entry (the citation driver's test accuracy, read from
-the same forward, equal). Each driver also runs end to end.
+the same forward, equal). Each driver also runs end to end. The
+``--hyper`` runs of ``hyper_cora.py`` and ``hyper_qm7.py`` read archives
+written by ``tests/test_torch_datasets.py`` and served through ``file://``.
 """
+import copy
 import importlib
 import importlib.util
 import sys
@@ -37,6 +40,8 @@ from gcnn_keras_tpu_torch.scripts import (train_citation, train_crystal,  # noqa
 from gcnn_keras_tpu_torch.training import graph_driver  # noqa: E402
 from gcnn_keras_tpu_torch.training.history import load_history_score  # noqa: E402
 from gcnn_keras_tpu_torch.utils.convert import params_from_jax  # noqa: E402
+from tests.test_torch_datasets import (archives, reading_jax_deserialize,  # noqa: E402,F401
+                                       serve)
 
 torch.set_num_threads(1)
 
@@ -345,14 +350,106 @@ def test_vgd_driver_takes_the_library_config(tmp_path, monkeypatch):
     assert len(score["loss"]) == 1 and np.isfinite(score["val_mae"]).all()
 
 
-@pytest.mark.parametrize("mod,config", [(train_citation, "hyper_cora.py"),
-                                        (train_qm, "hyper_qm7.py")])
-def test_library_datasets_raise_naming_the_host_side(mod, config, tmp_path, monkeypatch):
+def test_citation_hyper_cora_first_step_matches_jax(archives, monkeypatch, tmp_path):
+    """``train_citation --hyper hyper_cora.py --model GCN`` on a
+    synthesized ``cora.npz``: fold 0's graph batch, the config's GCN on the
+    JAX weights, its loss and gradients and the test accuracy of the same
+    forward, against the JAX driver's."""
+    from gcnn_keras_tpu_torch.data.serial import deserialize
+    from gcnn_keras_tpu_torch.training.hyper import HyperParameter
+    serve(monkeypatch, archives, tmp_path)
+    reading_jax_deserialize(monkeypatch)
     monkeypatch.chdir(tmp_path)
-    model = "GCN" if mod is train_citation else "Schnet"
-    with pytest.raises(ValueError, match="'the rest of the host side'"):
-        mod.main(["--hyper", str(ROOT / "training/hyper" / config), "--model", model,
-                  "--device", "cpu", "--no-plots"])
+    path = str(ROOT / "training/hyper/hyper_cora.py")
+    argv = ["--hyper", path, "--model", "GCN", "--epochs", "1", "--folds", "3", "--no-plots"]
+    jseen, seen = {}, {}
+    get = jregistry.get_model_class
+    monkeypatch.setattr(jregistry, "get_model_class", lambda *a, **kw: _recording(
+        jseen, "model", get(*a, **kw)))
+    monkeypatch.setattr(optax, "adam", _recording_adam(jseen))
+    monkeypatch.setattr(jbatch, "batch_graphs", _recording(jseen, "batch", jbatch.batch_graphs))
+    monkeypatch.setattr(jhistory, "save_history_score", _recording(
+        jseen, "score", jhistory.save_history_score))
+    monkeypatch.setattr(sys, "argv", ["train_citation.py"] + argv)
+    _root_script("training/train_citation.py", "train_citation").main()
+
+    class Stopped(train_citation.Trainer):
+        def step(self, state, batch):
+            seen.update(loss_fn=self.loss_fn, batch=batch)
+            raise _Stop
+    monkeypatch.setattr(train_citation, "Trainer", Stopped)
+    monkeypatch.setattr(graph_driver, "build_hyper_model", _recording(
+        seen, "model", graph_driver.build_hyper_model))
+    with pytest.raises(_Stop):
+        train_citation.main(argv + ["--device", "cpu"])
+
+    jb, b = jseen["batch"][0], seen["batch"]
+    for key, k in (("nodes", "node_attributes"), ("edges", "edge_weights")):
+        np.testing.assert_array_equal(getattr(b, key)[k].numpy(), np.asarray(getattr(jb, key)[k]))
+    np.testing.assert_array_equal(b.receivers.numpy(), np.asarray(jb.receivers))
+    hyper = HyperParameter(path, model_name="GCN")
+    ds = deserialize(hyper["data"]["dataset"])
+    _, y, _ = train_citation.graph_inputs(ds, "cpu")
+    train_mask, _ = train_citation.fold_masks(int(b.node_mask.sum()), b.n_node, 3, 42, "cpu")[0]
+
+    jmodel, jparams = jseen["model"][0], jseen["params"][0]
+    variables = jax.tree_util.tree_map(np.asarray, jparams)
+    tmodel = params_from_jax(seen["model"][0], variables)
+    loss, metrics = seen["loss_fn"](b)
+    score = jseen["score"][0]
+    np.testing.assert_allclose(loss.item(), score["loss"][0], rtol=1e-5)
+    assert float(metrics["val_categorical_accuracy"]) == score["val_categorical_accuracy"][0]
+
+    def jloss(p):
+        return jmasked_cce(jmodel.apply(p, jb)["output"], jax.numpy.asarray(y.numpy()),
+                           jax.numpy.asarray(train_mask.numpy()))
+    ref_loss, ref_grads = jax.value_and_grad(jloss)(jparams)
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-5)
+    grads = torch.autograd.grad(loss, [p for _, p in tmodel.named_parameters()])
+    widths = graph_driver.input_widths(ds)
+    _grads_close(tmodel, grads, graph_driver.build_hyper_model(hyper, widths, "cpu"),
+                 variables, ref_grads)
+
+
+def test_qm_hyper_qm7_first_step_matches_jax(archives, monkeypatch, tmp_path):
+    """``train_qm --hyper hyper_qm7.py --model Schnet`` on a synthesized
+    ``qm7.mat`` (its ``read_in_memory``, ``set_range`` and ``set_angle``
+    methods): the fold's graphs, the first batch, and the config's SchNet's
+    first step on the JAX weights, against the JAX driver's."""
+    from gcnn_keras_tpu_torch.training.hyper import HyperParameter
+    serve(monkeypatch, archives, tmp_path)
+    monkeypatch.chdir(tmp_path)
+    path = str(ROOT / "training/hyper/hyper_qm7.py")
+    argv = ["--hyper", path, "--model", "Schnet", "--epochs", "1", "--folds", "2",
+            "--batch-size", "2", "--no-plots"]
+    jmodel, jtrainer, jstate, jloader = _jax_fit_driver("training/train_qm.py", argv, monkeypatch)
+    tmodel, loss_fn, loader = _port_fit_driver(train_qm, argv, monkeypatch)
+    _same_graphs(loader.graphs, jloader.graphs)
+    assert len(loader.graphs) > 0
+    jb, b = next(iter(jloader)), next(iter(loader))
+    np.testing.assert_array_equal(b.globals["graph_labels"].numpy(),
+                                  np.asarray(jb.globals["graph_labels"]))
+    np.testing.assert_array_equal(b.receivers.numpy(), np.asarray(jb.receivers))
+    variables = jax.tree_util.tree_map(np.asarray, jstate.params)
+    params_from_jax(tmodel, variables)
+    (ref_loss, _), ref_grads = jax.value_and_grad(jtrainer.loss_fn, has_aux=True)(
+        jstate.params, jb)
+    loss, _ = loss_fn(b)
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-5)
+    names, params = zip(*tmodel.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    widths = graph_driver.input_widths(loader.graphs)
+    hyper = HyperParameter(path, model_name="Schnet")
+    ref = dict(params_from_jax(train_qm.build_model("Schnet", widths, "cpu", hyper=hyper), {
+        **variables, "params": jax.tree_util.tree_map(np.asarray, ref_grads["params"])}
+    ).named_parameters())
+    import chip_smoke
+    # the config's SchNet (128 units, 25 bins) sums some gradients with
+    # cancellation: a tensor outside GRAD_TOL is held by the float64 rules
+    chip_smoke.check_grads("train_qm --hyper hyper_qm7.py", dict(zip(names, grads)), ref,
+                           GRAD_TOL, lambda: chip_smoke.float64_grads(
+                               copy.deepcopy(tmodel), lambda m, bb: train_qm.loss_fn(m)(bb)[0],
+                               b))
 
 
 def test_driver_draws_its_plots(tmp_path, monkeypatch):

@@ -26,6 +26,7 @@ from gcnn_keras_tpu_torch.scripts import train_force
 from gcnn_keras_tpu_torch.training import fit, schedules
 from gcnn_keras_tpu_torch.training.history import load_history_score
 from gcnn_keras_tpu_torch.utils.convert import params_from_jax
+from tests.test_torch_datasets import archives, reading_jax_deserialize, serve  # noqa: F401
 from tests.test_torch_zoo_scripts import _Everything, counted_kernels  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
@@ -198,11 +199,22 @@ def test_the_schedule_is_optax_warmup_cosine_decay():
         schedules.warmup_cosine_decay_schedule(0.0, 1e-3, 5, 5)
 
 
-@pytest.mark.parametrize("argv,match", [(["--hyper", os.path.join(ROOT, "training", "hyper",
-                                                                 "hyper_md17.py"),
-                                          "--model", "Schnet.EnergyForceModel"],
-                                         "the rest of the host side"),
-                                        (["--n-devices", "2"], "Parallel"),
+def test_hyper_md17_first_step_matches_the_jax_driver(archives, monkeypatch, tmp_path):
+    """``--hyper hyper_md17.py --model Schnet.EnergyForceModel`` on a
+    synthesized ``aspirin_ccsd`` trajectory served by ``file://``: the
+    config's ``MD17Dataset`` read (the JAX one read too, where its
+    ``deserialize`` builds it empty), then the fold's frames, the first
+    batch and the first step against the JAX driver's."""
+    serve(monkeypatch, archives, tmp_path)
+    reading_jax_deserialize(monkeypatch)
+    monkeypatch.chdir(tmp_path)
+    model = "Schnet.EnergyForceModel"
+    _first_step_matches(["--hyper", os.path.join(ROOT, "training", "hyper", "hyper_md17.py"),
+                         "--model", model, "--epochs", "1", "--batch-size", "2", "--no-plots"],
+                        model, monkeypatch)
+
+
+@pytest.mark.parametrize("argv,match", [(["--n-devices", "2"], "Parallel"),
                                         (["--distributed"], "Parallel")])
 def test_unported_options_raise(argv, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)

@@ -28,6 +28,7 @@ from gcnn_keras_tpu_torch.scripts import train_moleculenet, train_tudataset
 from gcnn_keras_tpu_torch.training import graph_driver
 from gcnn_keras_tpu_torch.training.history import load_history_score
 from gcnn_keras_tpu_torch.utils.convert import params_from_jax
+from tests.test_torch_datasets import archives, serve  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -128,13 +129,9 @@ def _same_graphs(ours, ref):
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
 
 
-@pytest.mark.parametrize("name,model", [("train_tudataset", "GIN"),
-                                        ("train_moleculenet", "GIN"),
-                                        ("train_moleculenet", "GAT"),
-                                        ("train_moleculenet", "AttentiveFP")])
-def test_first_step_matches_the_jax_driver(name, model, monkeypatch, tmp_path):
-    monkeypatch.chdir(tmp_path)
-    argv = ["--model", model, "--epochs", "1", "--folds", "3", "--no-plots"]
+def _first_step_matches(name, model, argv, monkeypatch):
+    """The fold's graphs, the first batch and the first step of the two
+    drivers run with ``argv``."""
     jmodel, jtrainer, jstate, jloader = _jax_driver(name, argv, monkeypatch)
     tmodel, loss_fn, loader = _port_driver(name, argv, monkeypatch)
     _same_graphs(loader.graphs, jloader.graphs)
@@ -158,6 +155,16 @@ def test_first_step_matches_the_jax_driver(name, model, monkeypatch, tmp_path):
     for n, g in zip(names, grads):
         r = ref[n].detach().numpy()
         assert np.abs(g.numpy() - r).max() <= GRAD_TOL * np.abs(r).max(), n
+
+
+@pytest.mark.parametrize("name,model", [("train_tudataset", "GIN"),
+                                        ("train_moleculenet", "GIN"),
+                                        ("train_moleculenet", "GAT"),
+                                        ("train_moleculenet", "AttentiveFP")])
+def test_first_step_matches_the_jax_driver(name, model, monkeypatch, tmp_path):
+    monkeypatch.chdir(tmp_path)
+    _first_step_matches(name, model, ["--model", model, "--epochs", "1", "--folds", "3",
+                                      "--no-plots"], monkeypatch)
 
 
 def test_jax_driver_steps_gin_running_statistics_the_port_keeps(monkeypatch, tmp_path):
@@ -231,10 +238,33 @@ def test_moleculenet_driver_draws_its_plots(tmp_path, monkeypatch):
     assert (tmp_path / "results/moleculenet/GIN_fold1/predict.png").exists()
 
 
-@pytest.mark.parametrize("name", list(DRIVERS))
-def test_driver_dataset_raises_naming_the_host_side(name):
-    with pytest.raises(ValueError, match="'the rest of the host side'"):
-        DRIVERS[name].main(["--dataset", "MUTAG", "--device", "cpu"])
+@pytest.mark.parametrize("name,dataset", [("train_tudataset", "MUTAG"),
+                                          ("train_moleculenet", "ESOL")])
+def test_driver_dataset_first_step_matches_jax(name, dataset, archives, monkeypatch, tmp_path):
+    """``--dataset`` on archives written by ``tests/test_torch_datasets.py``
+    and served by ``file://``: MUTAG's graphs (labels 1 and -1, the -1 a
+    row of zeros in both packages' one-hot), the first batch and GIN's
+    first step against the JAX driver's; ESOL fetches and reads its CSV
+    and then, without RDKit, raises the same ``ImportError`` in both."""
+    serve(monkeypatch, archives, tmp_path)
+    monkeypatch.chdir(tmp_path)
+    argv = ["--dataset", dataset, "--model", "GIN", "--epochs", "1", "--folds", "3",
+            "--batch-size", "2", "--no-plots"]
+    try:
+        import rdkit  # noqa: F401
+    except ImportError:
+        if name == "train_moleculenet":
+            errors = []
+            for run in (lambda: _jax_driver(name, argv, monkeypatch),
+                        lambda: DRIVERS[name].main(argv + ["--device", "cpu"])):
+                with pytest.raises(ImportError, match="rdkit is required") as e:
+                    run()
+                errors.append(str(e.value))
+            assert errors[0] == errors[1]
+            return
+    labels = {float(g["graph_labels"][0]) for g in train_tudataset.load_dataset(dataset, 42)}
+    assert labels == {1.0, -1.0}
+    _first_step_matches(name, "GIN", argv, monkeypatch)
 
 
 def test_input_widths_follow_the_data():

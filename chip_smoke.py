@@ -7,7 +7,9 @@ order, each raising on a failed check:
 
 1. device: card name and power limit, torch and CUDA versions; TF32 off.
 2. build: every kernel in ``gcnn_keras_tpu_torch/csrc`` is compiled with
-   nvcc (one process per source, all started together).
+   nvcc (one process per source, all started together), and the C++
+   neighbour list (``native/neighborlist.cpp``) with g++ by the port's
+   loader; the phase fails if either does not build.
 3. kernel: the sorted segment-sum against its plain PyTorch version at the
    shapes of the SchNet serving path and at edge cases, with times and
    bounds.
@@ -290,6 +292,26 @@ order, each raising on a failed check:
    CPU, every #1 call against its plain version, every step's launches);
    a missing file raises ``FileNotFoundError`` and ESOL, without RDKit,
    its ``ImportError`` after reading its CSV.
+
+29. Slice 19 (``phase_slice19``): (a) the C++ neighbour lists
+   (``phase_native_lists``) at phase 18's 520 and 2080 atoms and on a
+   216-atom periodic cell against the dense lists (equal indices and
+   images, distances within ``NATIVE_DIST_RTOL``), the host ms of each
+   backend in turns; SchNet at ``make_model()``'s widths in ``ScannedMD``
+   over a 288-atom helix re-neighboured through ``"auto"``, and so the C++
+   list, each segment (``phase_native_md``: launches, energies and
+   positions against the CPU within ``MD_TOL``, ms per step); phases 18
+   and 27 print which list they took. (b) ``GNNExplainer`` at its defaults
+   on phase 10's GCN at Cora scale (``phase_explainer``): every kernel call
+   of the target's forward and of one epoch against its plain version, the
+   first epoch's loss and mask gradients against the CPU within
+   ``TRAIN_TOL``, the launches of 100 epochs, the losses falling, ms an
+   epoch, host syncs, the final masks against a CPU run; (c) the ASE
+   bridge's ``calculator_results`` on a stand-in ``Atoms`` through the
+   SchNet and HDNNP4th predictors (``phase_ase_bridge``: launches, energy,
+   forces and charges against the CPU); (d) ``ThroughputMeter`` over (b)'s
+   epochs, ``device_memory_stats``, and ``trace`` around one serving
+   evaluation naming #1's kernel (``phase_trace``).
 
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it; the
@@ -861,7 +883,9 @@ def phase_device():
 
 def phase_build(names=None):
     """A fresh build of the named sources of ``csrc/`` (all by default),
-    with each kernel's registers as ptxas reports them."""
+    with each kernel's registers as ptxas reports them, and of the C++
+    neighbour list (``native/neighborlist.cpp``, by the port's loader)."""
+    from gcnn_keras_tpu_torch import native
     from gcnn_keras_tpu_torch.ops.cuda import build
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)  # always a fresh build
     t0 = time.perf_counter()
@@ -872,6 +896,11 @@ def phase_build(names=None):
             # "ptxas info" lines, and the stack and spill line of each kernel
             if "ptxas info" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("build: the C++ neighbour list did not build")
+    log(f"build: {native.library_path().name} in {time.perf_counter() - t0:.2f} s, "
+        f"openmp={native.has_openmp()}")
 
 
 def check_segment_sum(values, ids, n, label, timed):
@@ -2805,7 +2834,8 @@ def phase_mol_serving(n, smi, device="cuda"):
     from gcnn_keras_tpu_torch.batch import batch_graphs
     from gcnn_keras_tpu_torch.layers.conv import qeq_solver as qs
     path, expected = f"hdnnp4th_mol{n}_serving", mol_launches(n)
-    g = large_mol_graph(n)
+    with native_calls() as lists:
+        g = large_mol_graph(n)
     fm = energy_force_model("hdnnp4th_mol", device)
     batch = batch_graphs([g], global_keys=("energy", "total_charge"), device=device)
     with captured_calls() as calls:
@@ -2858,7 +2888,8 @@ def phase_mol_serving(n, smi, device="cuda"):
            "ms_per_eval_min": float(np.min(times)),
            "peak_mem_mb": (torch.cuda.max_memory_allocated() / 2**20
                            if device == "cuda" else None),
-           "launches_per_eval": expected, "card": smi}
+           "launches_per_eval": expected,
+           "neighbour_list": "native" if lists["neighbor_list"] else "numpy", "card": smi}
     log(f"{path}: " + json.dumps(rec))
     return launches, recs
 
@@ -5214,7 +5245,8 @@ def phase_periodic_md(smi, device="cuda"):
     # the main path: every count set to 0 just before, read just after
     reset_counts()
     t0 = time.perf_counter()
-    out, systems = periodic_md_run(device)
+    with native_calls() as lists:
+        out, systems = periodic_md_run(device)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernel_counts()
@@ -5239,7 +5271,8 @@ def phase_periodic_md(smi, device="cuda"):
         "segment_steps": PERIODIC_MD_STEPS, "edge_counts": out["edge_counts"],
         "e_pot_max_abs_err_vs_cpu": e_err, "e_pot_scale": e_scale,
         "pos_max_abs_err_vs_cpu": pos_err, "ms_per_step": 1e3 * seconds / steps,
-        "launches_per_evaluation": schnet_launches("unfused"), "card": smi}))
+        "launches_per_evaluation": schnet_launches("unfused"),
+        "native_lists": lists["neighbor_list_periodic"], "card": smi}))
     return {"periodic_md": launches}, recs
 
 
@@ -5809,6 +5842,396 @@ def phase_reverse_only(device="cuda", n_mols=16):
         raise AssertionError(f"forward mode through {mode} did not raise")
 
 
+# ------------------------------------------- phase 29: slice 19
+
+
+# (a) the C++ neighbour lists at phase 18's 520 and 2080 atoms (its
+# set_range cutoff, 3.5 A and 12 neighbours) and on a periodic cell above
+# the 192-atom switch (a 6 x 6 x 6 simple-cubic cell 2 A apart, jittered so
+# that no cap cuts a tie; phase 27's 4 A and 12 neighbours), each against
+# the dense numpy lists on the same coordinates, timed in turns; then
+# SchNet at make_model()'s widths in ScannedMD over a 288-atom helix
+# (md_system) whose re-neighbouring takes "auto", and so the C++ list,
+# every segment, started at seeded velocities as phase 27's crystals
+NATIVE_MOL_SIZES = MOL_SIZES[1:]
+NATIVE_MOL_KW = dict(max_distance=3.5, max_neighbours=12)
+NATIVE_CELL, NATIVE_SPACING = 6, 2.0
+NATIVE_PERIODIC_KW = dict(max_distance=4.0, max_neighbours=12)
+NATIVE_REPS = 5
+NATIVE_DIST_RTOL = 1e-6
+NATIVE_MD_ATOMS = 288
+NATIVE_MD_SEGMENTS = 3
+NATIVE_MD_STEPS = 10
+# (b) GNNExplainer at its defaults (100 epochs, Adam 1e-2, a feature mask
+# over the 1433 features) on phase 10's GCN at Cora scale (GCN_CORA_KW,
+# seed-0 weights, gcn_cora_train's citation graph); (c) the ASE bridge
+# through the SchNet and HDNNP4th serving models, on a stand-in Atoms of the
+# seed-0 request's first molecule
+ASE_PREDICTORS = ("schnet", "hdnnp4th")
+
+
+def native_cell(n=NATIVE_CELL, spacing=NATIVE_SPACING, seed=0):
+    """A periodic cell of ``n**3`` atoms on a jittered simple-cubic grid."""
+    rs = np.random.RandomState(seed)
+    grid = np.stack(np.meshgrid(*[np.arange(n) * spacing] * 3, indexing="ij"), -1)
+    return {"node_coordinates": grid.reshape(-1, 3) + rs.randn(n ** 3, 3) * 0.1,
+            "graph_lattice": np.eye(3) * n * spacing}
+
+
+@contextlib.contextmanager
+def native_calls():
+    """Inside the block, the calls of the C++ neighbour lists; yields
+    ``{"neighbor_list": n, "neighbor_list_periodic": n}``."""
+    from gcnn_keras_tpu_torch import native
+    counts = {"neighbor_list": 0, "neighbor_list_periodic": 0}
+    originals = {name: getattr(native, name) for name in counts}
+
+    def counted(name):
+        def fn(*args, **kwargs):
+            counts[name] += 1
+            return originals[name](*args, **kwargs)
+        return fn
+    for name in counts:
+        setattr(native, name, counted(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in originals.items():
+            setattr(native, name, fn)
+
+
+def phase_native_lists(smi, sizes=NATIVE_MOL_SIZES, cell=NATIVE_CELL):
+    """Phase 29 (a): the C++ lists, built by the port's loader (the phase
+    fails without them), against the dense lists: equal indices and images,
+    distances within ``NATIVE_DIST_RTOL``; the host ms of each backend,
+    measured in turns."""
+    from gcnn_keras_tpu_torch import native
+    from gcnn_keras_tpu_torch.graph.preprocess import set_range, set_range_periodic
+    if not native.available():
+        raise AssertionError("phase 29: the C++ neighbour list did not build")
+    systems = [(f"molecule_{n}", set_range, {"node_coordinates": large_mol_graph(n)[
+        "node_coordinates"]}, NATIVE_MOL_KW, ("range_indices",)) for n in sizes]
+    systems.append((f"periodic_{cell ** 3}", set_range_periodic, native_cell(cell),
+                    NATIVE_PERIODIC_KW, ("range_indices", "range_image")))
+    rec = {"openmp": native.has_openmp(), "card": smi}
+    for label, fn, g, kw, keys in systems:
+        times, out = {"native": [], "numpy": []}, {}
+        for _ in range(NATIVE_REPS):
+            for backend in times:
+                t0 = time.perf_counter()
+                with native_calls() as calls:
+                    out[backend] = fn(dict(g), backend=backend, **kw)
+                times[backend].append(1e3 * (time.perf_counter() - t0))
+                if any(calls.values()) != (backend == "native"):
+                    raise AssertionError(f"{label}: backend {backend} took {calls}")
+        for key in keys:
+            if not np.array_equal(out["native"][key], out["numpy"][key]):
+                raise AssertionError(f"{label}: native {key} differs from the dense list's")
+        d_nat, d_ref = out["native"]["range_attributes"], out["numpy"]["range_attributes"]
+        err = float(np.abs(d_nat / d_ref - 1).max()) if len(d_ref) else 0.0
+        if not (d_nat.dtype == d_ref.dtype == np.float32 and err <= NATIVE_DIST_RTOL):
+            raise AssertionError(f"{label}: distances {err} > {NATIVE_DIST_RTOL} relative")
+        ms = {k: float(np.median(v)) for k, v in times.items()}
+        rec[label] = {"atoms": len(g["node_coordinates"]), "pairs": len(d_ref),
+                      "native_host_ms": ms["native"], "numpy_host_ms": ms["numpy"],
+                      "numpy_over_native": ms["numpy"] / ms["native"],
+                      "dist_max_rel_err": err}
+    log("native lists: " + json.dumps(rec))
+
+
+def native_md_run(device, n_segments=NATIVE_MD_SEGMENTS, segment_steps=NATIVE_MD_STEPS,
+                  n_atoms=NATIVE_MD_ATOMS):
+    """``ScannedMD.run_ensemble`` of SchNet at ``make_model()``'s widths
+    (seed-0 weights) over a helix of ``n_atoms`` atoms from seeded
+    velocities, re-neighboured by ``set_range`` (4 A, 25; ``"auto"``) each
+    segment; returns its output and the system."""
+    from gcnn_keras_tpu_torch.moldyn.trajectory import ScannedMD
+    rs = np.random.RandomState(7)
+    system = md_system(rs, n_atoms, np.arange(n_atoms) * 1.2)
+    system["velocities"] = rs.randn(n_atoms, 3).astype(np.float32)
+    md = ScannedMD(schnet_model("unfused", device), dt=MD_DT, segment_steps=segment_steps,
+                   max_distance=4.0, max_neighbours=25, device=device)
+    return md.run_ensemble([system], n_segments), system
+
+
+def phase_native_md(smi, device="cuda", n_atoms=NATIVE_MD_ATOMS):
+    """Phase 29 (a): ``native_md_run`` on the card, every count set to 0 just
+    before and read just after: a C++ list each segment, the launches of
+    every evaluation (``segments * (steps + 1)``), the energies and final
+    positions against the CPU's within ``MD_TOL`` of their scale (the
+    positions' their displacement), every kernel call of a one-step segment
+    against its plain version, the time per MD step. Returns the run's
+    launch counts and the kernel records."""
+    with captured_calls() as calls:
+        native_md_run(device, n_segments=1, segment_steps=1, n_atoms=n_atoms)
+    recs = {k: [dict(r, path="native_md") for r in rs]
+            for k, rs in check_captured(calls, "native-list MD, one step").items()}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with native_calls() as lists:
+        out, system = native_md_run(device, n_atoms=n_atoms)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts()
+    evals = NATIVE_MD_SEGMENTS * (NATIVE_MD_STEPS + 1)
+    want = {k: evals * v for k, v in schnet_launches("unfused").items()}
+    if launches != want or lists["neighbor_list"] != NATIVE_MD_SEGMENTS:
+        raise AssertionError(f"native-list MD: launches {launches} and lists {lists}, "
+                             f"expected {want} and {NATIVE_MD_SEGMENTS}")
+    ref, _ = native_md_run("cpu", n_atoms=n_atoms)
+    if not (np.isfinite(out["e_pot"]).all() and np.isfinite(out["e_kin"]).all()):
+        raise AssertionError("native-list MD: energies not finite")
+    e_err = float(np.abs(out["e_pot"] - ref["e_pot"]).max())
+    e_scale = float(np.abs(ref["e_pot"]).max())
+    # the positions by their displacement from the start (the helix spans
+    # some 350 A)
+    pos_err = float(np.abs(out["pos"][0] - ref["pos"][0]).max())
+    pos_scale = float(np.abs(ref["pos"][0] - system["node_coordinates"]).max())
+    if out["edge_counts"] != ref["edge_counts"] or not (
+            e_err <= MD_TOL * e_scale and pos_err <= MD_TOL * pos_scale):
+        raise AssertionError(f"native-list MD: edges {out['edge_counts']} against "
+                             f"{ref['edge_counts']}, e_pot off the CPU's by {e_err} (scale "
+                             f"{e_scale}), positions by {pos_err}")
+    steps = NATIVE_MD_SEGMENTS * NATIVE_MD_STEPS
+    log("native md: " + json.dumps({
+        "atoms": n_atoms, "segments": NATIVE_MD_SEGMENTS, "segment_steps": NATIVE_MD_STEPS,
+        "native_lists": lists, "edge_counts": out["edge_counts"],
+        "e_pot_max_abs_err_vs_cpu": e_err, "e_pot_scale": e_scale,
+        "pos_max_abs_err_vs_cpu": pos_err, "ms_per_step": 1e3 * seconds / steps,
+        "launches_per_evaluation": schnet_launches("unfused"), "card": smi}))
+    return {"native_md": launches}, recs
+
+
+def explainer_setup(device, n_nodes=None):
+    """Phase 10's GCN at Cora scale (seed-0 weights) and ``gcn_cora_train``'s
+    citation graph (``n_nodes`` of it, all by default)."""
+    from gcnn_keras_tpu_torch.models import gcn
+    cfg = TRAIN_PATHS["gcn_cora_train"]
+    model = gcn.make_model(device=device, generator=torch.Generator().manual_seed(0),
+                           **GCN_CORA_KW)
+    return model, citation_batch(cfg["seed"], n_nodes or cfg["size"], device)
+
+
+def explainer_first_epoch(explainer, model, batch):
+    """The first epoch's loss and mask gradients (a mask the loss does not
+    reach: zeros)."""
+    with torch.no_grad():
+        target = model(batch)[explainer.output_key]
+    masks = explainer.initial_masks(batch)
+    loss = explainer.loss(model, batch, masks, target)
+    grads = torch.autograd.grad(loss, list(masks.values()), allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(m) if g is None else g
+                           for (k, m), g in zip(masks.items(), grads)}
+
+
+def phase_explainer(smi, device="cuda", n_nodes=None, epochs=None):
+    """Phase 29 (b) and (d): ``GNNExplainer`` (``models/gnnexplain.py``'s
+    ``make_model``) at its defaults on phase 10's GCN at Cora scale. Every
+    kernel call of the target's forward and of one epoch against its plain
+    version; the first epoch's loss and mask gradients against the CPU's
+    within ``TRAIN_TOL``; then the whole explanation with every count set to
+    0 just before and read just after, held to the target's launches plus
+    ``epochs`` times an epoch's; the losses falling from the first epoch to
+    the last; the ms an epoch, the host syncs of a 2- and a 4-epoch
+    explanation, the final masks' largest distance from the CPU's;
+    ``ThroughputMeter`` over the epochs (the graph's real counts) and
+    ``device_memory_stats``. Returns the explanation's launch counts and the
+    kernel records."""
+    from gcnn_keras_tpu_torch.models.gnnexplain import make_model as make_explainer
+    from gcnn_keras_tpu_torch.utils.profiling import ThroughputMeter, device_memory_stats
+    model, batch = explainer_setup(device, n_nodes)
+    explainer = make_explainer(device=device, **({"epochs": epochs} if epochs else {}))
+    with captured_calls() as target_calls:
+        model(batch)
+    with captured_calls() as calls:
+        make_explainer(device=device, epochs=1).explain(model, batch)
+    torch.cuda.synchronize()
+    recs = {k: [dict(r, path="gnn_explainer") for r in rs] for k, rs in check_captured(
+        calls, "explainer, the target and one epoch").items()}
+    per_epoch = {k: len(calls[k]) - len(target_calls.get(k, ())) for k in calls}
+    want = {k: 0 for k in kernel_counts()}
+    for k, c in target_calls.items():
+        want[k] += len(c) + explainer.epochs * per_epoch[k]
+
+    loss, grads = explainer_first_epoch(explainer, model, batch)
+    cpu_model, cpu_batch = explainer_setup("cpu", n_nodes)
+    cpu_loss, cpu_grads = explainer_first_epoch(explainer, cpu_model, cpu_batch)
+    first = {"loss": abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())}
+    for k, g in cpu_grads.items():
+        scale = g.abs().max().item()
+        first[f"{k}_grad"] = (grads[k].cpu() - g).abs().max().item() / (scale or 1.0)
+    if not all(v <= TRAIN_TOL for v in first.values()):
+        raise AssertionError(f"explainer: first epoch against the CPU {first} > {TRAIN_TOL}")
+
+    meter = ThroughputMeter()
+    reset_counts()
+    meter.start()
+    t0 = time.perf_counter()
+    ex = explainer.explain(model, batch)
+    for _ in range(explainer.epochs):
+        meter.step(batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts()
+    if launches != want:
+        raise AssertionError(f"explainer: launches {launches}, expected {want}")
+    counts = meter.counts()
+    real = {"steps": 1, "edges": int(batch.edge_mask.sum().item()),
+            "nodes": int(batch.node_mask.sum().item()), "graphs": 1}
+    if counts != {k: explainer.epochs * v for k, v in real.items()}:
+        raise AssertionError(f"ThroughputMeter: {counts} for {explainer.epochs} x {real}")
+    losses = ex["losses"].cpu().numpy()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"explainer: losses {losses[0]} -> {losses[-1]}")
+    stats = device_memory_stats(device)
+    if device != "cpu" and not stats:
+        raise AssertionError("device_memory_stats: empty on the card")
+    # the host syncs of a 2- and a 4-epoch explanation: equal where no epoch syncs
+    syncs = [host_syncs(lambda n=n: make_explainer(device=device, epochs=n).explain(model, batch))
+             for n in (2, 4)]
+    cpu_ex = make_explainer(device="cpu", epochs=explainer.epochs).explain(cpu_model, cpu_batch)
+    mask_err = max((ex[k].cpu() - cpu_ex[k]).abs().max().item()
+                   for k in ("edge_mask", "feature_mask", "node_mask"))
+    log("gnn explainer: " + json.dumps({
+        "N_pad": batch.n_node, "E_pad": batch.n_edge, "features": CORA_FEATURES,
+        "epochs": explainer.epochs, "ms_per_epoch": 1e3 * seconds / explainer.epochs,
+        "launches_per_epoch": {k: v for k, v in per_epoch.items() if v},
+        "target_launches": {k: len(c) for k, c in target_calls.items() if c},
+        "first_epoch_vs_cpu": first, "loss_first": float(losses[0]),
+        "loss_last": float(losses[-1]), "host_syncs_2_and_4_epochs": syncs,
+        "final_masks_max_abs_diff_vs_cpu": mask_err,
+        "losses_max_rel_diff_vs_cpu": float(np.abs(
+            losses / cpu_ex["losses"].numpy() - 1).max()),
+        "throughput": meter.report(),
+        "peak_allocated_mb": stats.get("allocated_bytes.all.peak", 0) / 2 ** 20,
+        "card": smi}))
+    return {"gnn_explainer": launches}, recs
+
+
+class AtomsStandIn:
+    """The part of ``ase.Atoms`` the ASE bridge reads (ASE is not installed
+    on the card's machine): float64 positions, as ASE gives them."""
+
+    def __init__(self, numbers, positions, cell=None, pbc=False):
+        self.numbers = np.asarray(numbers)
+        self.positions = np.asarray(positions, dtype=np.float64)
+        self.cell = np.zeros((3, 3)) if cell is None else np.asarray(cell, dtype=np.float64)
+        self.pbc = np.array([pbc] * 3)
+
+    def get_atomic_numbers(self):
+        return self.numbers
+
+    def get_positions(self):
+        return self.positions
+
+    def get_cell(self):
+        return self.cell
+
+
+def ase_predictor(kind, device):
+    """The serving model of ``kind`` (phase 4's SchNet, phase 8's HDNNP4th)
+    behind a predictor that makes its own neighbour list (4 A, 25) and, for
+    HDNNP4th, its angles: what the calculator gets is numbers and
+    positions."""
+    from gcnn_keras_tpu_torch.graph.preprocess import set_angle, set_range
+    from gcnn_keras_tpu_torch.moldyn.base import MolDynamicsModelPredictor
+    pre = [functools.partial(set_range, max_distance=4.0, max_neighbours=25)]
+    if kind == "hdnnp4th":
+        pre.append(functools.partial(set_angle, range_indices="range_indices"))
+    return MolDynamicsModelPredictor(energy_force_model(kind, device),
+                                     graph_preprocessors=pre, device=device)
+
+
+def phase_ase_bridge(smi, device="cuda"):
+    """Phase 29 (c): ``moldyn/ase_calc.py``'s ``calculator_results`` for a
+    stand-in ``Atoms`` (the seed-0 request's first molecule) through the
+    SchNet and HDNNP4th predictors (no ESP, the total charge the predictor
+    takes for a graph without one: 0): every kernel call of the evaluation
+    against its plain version, then the evaluation with every count set to
+    0 just before and read just after (``schnet_launches("unfused")``,
+    ``HDNNP4TH_LAUNCHES``), energy, forces and charges against the CPU
+    within ``SERVE_TOL`` of their scale, the charges summing to 0. Returns
+    the launch counts and the kernel records."""
+    from gcnn_keras_tpu_torch.moldyn.ase_calc import AtomsToGraphConverter, calculator_results
+    g = qm9_like_mols(0, 1)[0]
+    atoms = AtomsStandIn(g["node_number"], g["node_coordinates"])
+    conv = AtomsToGraphConverter()
+    by_path, recs, rec = {}, {}, {"atoms": len(atoms.numbers), "card": smi}
+    for kind in ASE_PREDICTORS:
+        path = f"ase_{kind}"
+        expected = schnet_launches("unfused") if kind == "schnet" else HDNNP4TH_LAUNCHES
+        gpu = ase_predictor(kind, device)
+        with captured_calls() as calls:
+            calculator_results(gpu, conv, atoms)
+        torch.cuda.synchronize()
+        for k, rs in check_captured(calls, f"{path}, one evaluation").items():
+            recs.setdefault(k, []).extend(dict(r, path=path) for r in rs)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = calculator_results(gpu, conv, atoms)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        by_path[path] = kernel_counts()
+        if by_path[path] != expected:
+            raise AssertionError(f"{path}: launches {by_path[path]}, expected {expected}")
+        ref = calculator_results(ase_predictor(kind, "cpu"), conv, atoms)
+        keys = ["energy", "forces"] + (["charges"] if kind == "hdnnp4th" else [])
+        if sorted(res) != sorted(keys) or not isinstance(res["energy"], float):
+            raise AssertionError(f"{path}: results {sorted(res)}")
+        errs = {}
+        for k in keys:
+            a, b = np.asarray(res[k], np.float64), np.asarray(ref[k], np.float64)
+            if a.shape != b.shape or not np.isfinite(a).all():
+                raise AssertionError(f"{path}: {k} of shape {a.shape}, the CPU's {b.shape}")
+            errs[k] = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+            if errs[k] > SERVE_TOL:
+                raise AssertionError(f"{path}: {k} off the CPU's by {errs[k]} of its scale")
+        if kind == "hdnnp4th" and abs(float(res["charges"].sum())) > CHARGE_TOL * (
+                1.0 + np.abs(res["charges"]).sum()):
+            raise AssertionError(f"{path}: charges sum to {res['charges'].sum()}")
+        rec[kind] = {"vs_cpu": errs, "ms_per_call": ms, "energy": res["energy"]}
+    log("ase bridge: " + json.dumps(rec))
+    return by_path, recs
+
+
+def phase_trace(smi, requests, device="cuda"):
+    """Phase 29 (d): ``utils/profiling.py``'s ``trace`` around one serving
+    evaluation of phase 4's SchNet (the seed-2 request) writes a Chrome
+    trace that names the segment-sum kernel (#1)."""
+    from gcnn_keras_tpu_torch.utils.profiling import TRACE_FILE, trace
+    gpu = make_predictor(device)
+    gpu(requests[2][1])  # warm
+    with tempfile.TemporaryDirectory(prefix="_phase29_", dir=os.getcwd()) as workdir:
+        with trace(os.path.join(workdir, "trace")) as logdir:
+            gpu(requests[2][1])
+        path = os.path.join(logdir, TRACE_FILE)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path)
+    kernels = sorted({e["name"] for e in events if "sorted_segment_sum" in e.get("name", "")})
+    if device != "cpu" and not kernels:
+        raise AssertionError("trace: no event names the segment-sum kernel")
+    log("trace: " + json.dumps({"events": len(events), "bytes": size,
+                                "segment_sum_events": kernels, "card": smi}))
+
+
+def phase_slice19(smi, requests):
+    """Phase 29: slice 19 on the card. Returns the launch counts of its main
+    paths and the kernel records."""
+    t0 = time.perf_counter()
+    by_path, records = {}, {}
+    phase_native_lists(smi)
+    for run in (phase_native_md, phase_explainer, phase_ase_bridge):
+        paths, recs = run(smi)
+        by_path.update(paths)
+        for k, rs in recs.items():
+            records.setdefault(k, []).extend(rs)
+    phase_trace(smi, requests)
+    log(f"phase 29 seconds: {time.perf_counter() - t0:.1f}")
+    return by_path, records
+
+
 def kernels_line(records, by_path, second_order):
     """The ``kernels`` entries of the result line: each kernel's source, the
     TPU kernel it replaces, its launches on each main path, its largest
@@ -5986,6 +6409,10 @@ def main():
     paths, dataset_recs = phase_datasets(smi)
     by_path.update(paths)
     for kname, rs in dataset_recs.items():
+        records[kname].extend(rs)
+    paths, slice19_recs = phase_slice19(smi, requests)
+    by_path.update(paths)
+    for kname, rs in slice19_recs.items():
         records[kname].extend(rs)
     # the busy shares last, after every timed part of the script; one
     # profiled step of each zoo model: RGCN's and GNN-FiLM's 4300 and 12600

@@ -3,20 +3,23 @@
 
 Every preprocessor of the JAX module, under its registered name
 (``get_preprocessor``, which ``GraphDict.apply_preprocessor`` and
-``map_list`` reach): the dense cutoff neighbour lists, molecular
+``map_list`` reach): the cutoff neighbour lists, molecular
 (``set_range``) and periodic (``set_range_periodic``), the node-triple
 angle list (``set_angle``), the edge-pair angle lists of DimeNet++
 (``set_angle_edge_pairs``) and MXMNet (``set_angle_pairs_kgcnn``), GCN's
-edge weights, and the edge-list and property utilities. The C++ cell-list
-backend of the JAX package (``native/neighborlist.cpp``) is not ported:
-``backend="native"`` raises and ``"auto"`` takes the dense path at every
-size.
+edge weights, and the edge-list and property utilities. The two neighbour
+lists take the C++ cell list of ``native/neighborlist.cpp`` (through the
+port's ``native`` loader) as the JAX package's do: under
+``backend="auto"`` from 256 atoms (192 for periodic cells), and always
+under ``"native"``.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
+
+from .. import native
 
 
 def set_range(graph: Dict[str, np.ndarray], max_distance: float = 4.0,
@@ -26,16 +29,30 @@ def set_range(graph: Dict[str, np.ndarray], max_distance: float = 4.0,
     """Cutoff/kNN neighbour list -> ``range_indices`` (M,2) [receiver, sender]
     + ``range_attributes`` (M,1) distances.
 
-    Every backend but ``'native'`` takes the dense O(n^2) numpy path, which
-    is what the JAX package runs for molecules under 256 atoms.
-    ``backend='native'`` raises ``NotImplementedError``.
+    ``backend='auto'`` takes the C++ cell list (``native/neighborlist.cpp``,
+    O(n)) for an exclusive cutoff without self loops under a neighbour cap
+    from 256 atoms, and the dense O(n^2) numpy path otherwise; ``'numpy'``
+    forces the dense path; ``'native'`` requires the library and raises
+    ``RuntimeError`` without it.
     """
-    if backend == "native":
-        raise NotImplementedError(
-            "set_range(backend='native'): the C++ neighbour list is not "
-            "ported yet; use backend='numpy'")
     xyz = np.asarray(graph[node_coordinates], dtype=np.float64)
     n = xyz.shape[0]
+
+    use_native = (backend in ("auto", "native") and exclusive
+                  and not self_loops and max_neighbours is not None
+                  and (backend == "native" or n >= 256))
+    if use_native:
+        res = native.neighbor_list(xyz, max_distance, max_neighbours)
+        if res is not None:
+            pairs, d = res
+            attr = (1.0 / np.maximum(d, 1e-12) if do_invert_distance else d).astype(np.float32)
+            out = dict(graph)
+            out["range_indices"] = pairs
+            out["range_attributes"] = attr[:, None]
+            return out
+        if backend == "native":
+            raise RuntimeError("native neighbour list unavailable "
+                               "(g++ missing and no prebuilt library)")
     diff = xyz[:, None, :] - xyz[None, :, :]
     dist = np.linalg.norm(diff, axis=-1)
     mask = np.ones((n, n), dtype=bool)
@@ -73,18 +90,30 @@ def set_range_periodic(graph: Dict[str, np.ndarray], max_distance: float = 4.0,
     ``range_attributes`` (M,1) distances, in (receiver, sender) order.
 
     The images span the cutoff over the lattice's plane spacings; a
-    receiver keeps its ``max_neighbours`` nearest. Every backend but
-    ``'native'`` takes this dense O(images n^2) path, which is the JAX
-    package's ``backend='numpy'``; ``'native'`` raises
-    ``NotImplementedError``.
+    receiver keeps its ``max_neighbours`` nearest. ``backend='auto'`` takes
+    the C++ periodic cell list for an exclusive cutoff from 192 atoms, and
+    this dense O(images n^2) path otherwise; ``'numpy'`` forces the dense
+    path; ``'native'`` requires the library and raises ``RuntimeError``
+    without it.
     """
-    if backend == "native":
-        raise NotImplementedError(
-            "set_range_periodic(backend='native'): the C++ neighbour list is not "
-            "ported yet; use backend='numpy'")
     xyz = np.asarray(graph[node_coordinates], dtype=np.float64)
     lat = np.asarray(graph[lattice], dtype=np.float64)  # rows = lattice vectors
     n = xyz.shape[0]
+
+    use_native = (backend in ("auto", "native") and exclusive
+                  and (backend == "native" or n >= 192))
+    if use_native:
+        res = native.neighbor_list_periodic(xyz, lat, max_distance, max_neighbours)
+        if res is not None:
+            pairs, imgs, d = res
+            out = dict(graph)
+            out["range_indices"] = pairs
+            out["range_image"] = imgs
+            out["range_attributes"] = d[:, None].astype(np.float32)
+            return out
+        if backend == "native":
+            raise RuntimeError("native neighbour list unavailable "
+                               "(g++ missing and no prebuilt library)")
     # images needed along each lattice direction: cutoff / plane spacing
     recip = np.linalg.inv(lat).T
     spacing = 1.0 / np.maximum(np.linalg.norm(recip, axis=1), 1e-12)

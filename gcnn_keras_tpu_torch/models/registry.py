@@ -5,14 +5,13 @@
 A name is a model module's short name (``"Schnet"``), or a path that ends
 in one (``"kgcnn.literature.Schnet"``); a name the table does not hold is
 imported as a module path, one under ``gcnn_keras_tpu.`` from the port's
-package of the same layout. The port holds twenty-five of the JAX
-package's twenty-six model modules, each with every builder of its JAX
-module (HDNNP2nd's ``make_model``, ``make_model_weighted``,
-``make_model_behler``, ``make_model_atom_wise`` and
-``make_model_inverse_distances`` among them; GIN's ``make_model_edge``;
-GAT's ``make_model_v2``; the ``make_crystal_model`` of NMPN, CGCNN, Megnet
-and DimeNet++); the last, ``GNNExplain``, raises ``ValueError``, by short
-name or by file.
+package of the same layout. The port holds all twenty-six of the JAX
+package's model modules, each with every builder of its JAX module
+(HDNNP2nd's ``make_model``, ``make_model_weighted``, ``make_model_behler``,
+``make_model_atom_wise`` and ``make_model_inverse_distances`` among them;
+GIN's ``make_model_edge``; GAT's ``make_model_v2``; the
+``make_crystal_model`` of NMPN, CGCNN, Megnet and DimeNet++;
+``GNNExplain``'s ``make_model``, a ``GNNExplainer``).
 """
 from __future__ import annotations
 
@@ -25,7 +24,7 @@ from ..utils.port_modules import port_path
 # ``get_model_class`` does not read it)
 _REGISTRY: Dict[str, Callable] = {}
 
-# module name -> import path, the ported part of the JAX package's table
+# module name -> import path, the JAX package's table
 _MODULES = {
     "GCN": "gcnn_keras_tpu_torch.models.gcn",
     "GIN": "gcnn_keras_tpu_torch.models.gin",
@@ -52,11 +51,8 @@ _MODULES = {
     "MXMNet": "gcnn_keras_tpu_torch.models.mxmnet",
     "MAT": "gcnn_keras_tpu_torch.models.mat",
     "Unet": "gcnn_keras_tpu_torch.models.unet",
+    "GNNExplain": "gcnn_keras_tpu_torch.models.gnnexplain",
 }
-# the rest of the JAX package's table, not ported yet (it comes with the rest of
-# xai/):
-# module name -> file
-_ZOO = {"GNNExplain": "gnnexplain"}
 
 
 def register_model(name: str):
@@ -72,9 +68,6 @@ def get_model_class(module_name: str, class_name: str = "make_model") -> Callabl
     """The function ``class_name`` (``make_model`` by default) of a model
     module."""
     short = module_name.split(".")[-1]
-    if short in _ZOO or short in _ZOO.values():
-        raise ValueError(f"model module {short!r} is not ported yet "
-                         "(ROADMAP.md, 'the rest of the zoo')")
     mod = importlib.import_module(port_path(_MODULES.get(short, module_name)))
     return getattr(mod, class_name)
 

@@ -1,6 +1,6 @@
-"""Explanation tooling; counterpart of ``gcnn_keras_tpu/xai``. Ported so far:
-the test doubles of ``testing.py`` (``MockImportanceModel``,
-``VgdMockDataset``). ``ExplanationMixin``, ``ImportanceExplanationMethod``
-and ``GNNExplainer`` (``xai/base.py``, ``xai/gnn_explainer.py``) wait for
-the rest of the zoo (ROADMAP.md)."""
+"""Explanation tooling; counterpart of ``gcnn_keras_tpu/xai``: the
+interfaces (``base.py``), ``GNNExplainer`` and the test doubles of
+``testing.py`` (``MockImportanceModel``, ``VgdMockDataset``)."""
+from .base import ExplanationMixin, ImportanceExplanationMethod
+from .gnn_explainer import GNNExplainer
 from .testing import MockImportanceModel, VgdMockDataset

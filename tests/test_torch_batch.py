@@ -145,9 +145,19 @@ def test_set_range_matches(kw):
             np.testing.assert_array_equal(a[key], b[key])
 
 
-def test_set_range_native_raises():
-    g = {"node_coordinates": np.zeros((3, 3), np.float32)}
-    with pytest.raises(NotImplementedError):
+def test_set_range_native_raises(monkeypatch):
+    """``backend="native"`` gives the JAX dense lists through the C++ cell
+    list, and raises ``RuntimeError`` only where no library loads."""
+    from gcnn_keras_tpu_torch import native
+    rs = np.random.RandomState(5)
+    g = {"node_coordinates": (rs.randn(30, 3) * 1.7).astype(np.float32)}
+    kw = dict(max_distance=3.0, max_neighbours=8)
+    got, ref = tpre.set_range(g, backend="native", **kw), jpre.set_range(g, backend="numpy", **kw)
+    for key in ("range_indices", "range_attributes"):
+        assert got[key].dtype == ref[key].dtype
+        np.testing.assert_array_equal(got[key], ref[key])
+    monkeypatch.setattr(native, "_load", lambda: None)
+    with pytest.raises(RuntimeError, match="unavailable"):
         tpre.set_range(g, backend="native")
 
 

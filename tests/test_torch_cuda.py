@@ -1446,3 +1446,40 @@ def test_spherical_bessel_gradients_finite_on_the_card(cuda_device, order):
     for got, want in zip(*outs[::-1]):
         assert torch.isfinite(got).all()
         assert (got - want).abs().max() <= 1e-5 * (1 + want.abs().max())
+
+
+@pytest.mark.cuda
+def test_native_list_phase_on_the_card(cuda_device):
+    """Phase 29 (a) at small sizes: the C++ lists against the dense ones at
+    520 atoms and on the 216-atom cell, then SchNet ``ScannedMD`` over a
+    260-atom helix re-neighboured through them, against the CPU."""
+    import chip_smoke
+    chip_smoke.phase_native_lists("card test", sizes=(520,))
+    paths, recs = chip_smoke.phase_native_md("card test", n_atoms=260)
+    evals = chip_smoke.NATIVE_MD_SEGMENTS * (chip_smoke.NATIVE_MD_STEPS + 1)
+    assert paths["native_md"]["sorted_segment_sum"] == 10 * evals
+    assert len(recs["sorted_segment_sum"]) == 10 * 2
+
+
+@pytest.mark.cuda
+def test_explainer_phase_on_the_card(cuda_device):
+    """Phase 29 (b) on 600 nodes of the citation graph for 10 epochs: the
+    first epoch against the CPU, the launches of every epoch, the losses
+    falling, the kernel calls of an epoch against their plain versions."""
+    import chip_smoke
+    paths, recs = chip_smoke.phase_explainer("card test", n_nodes=600, epochs=10)
+    launches = paths["gnn_explainer"]["sorted_segment_sum"]
+    assert launches > 3 and (launches - 3) % 10 == 0
+    assert len(recs["sorted_segment_sum"]) == 3 + (launches - 3) // 10
+
+
+@pytest.mark.cuda
+def test_ase_bridge_and_trace_phase_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """Phase 29 (c) and (d): the calculator's results through the SchNet and
+    HDNNP4th predictors against the CPU, and a trace naming #1's kernel."""
+    import chip_smoke
+    monkeypatch.chdir(tmp_path)
+    paths, _ = chip_smoke.phase_ase_bridge("card test")
+    assert paths["ase_schnet"] == chip_smoke.schnet_launches("unfused")
+    assert paths["ase_hdnnp4th"] == chip_smoke.HDNNP4TH_LAUNCHES
+    chip_smoke.phase_trace("card test", [None, None, ("4 mols", chip_smoke.qm9_like_mols(2, 4))])

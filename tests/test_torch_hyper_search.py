@@ -256,17 +256,18 @@ def test_make_model_loads_the_jax_params(name):
                                     "gcnn_keras_tpu.models.mat",
                                     "gcnn_keras_tpu.models.gnnexplain"])
 def test_unported_model_module_raises_naming_the_zoo(module):
-    """GNNExplain still raises; MAT and Unet (slice 15) resolve to the
-    port's modules and build through ``HyperParameter``."""
-    hyper = HyperParameter({"model": {"module_name": module, "config": {"depth": 1}}})
-    if "nnexplain" in module.lower():
-        with pytest.raises(ValueError, match="'the rest of the zoo'"):
-            registry.get_model_class(module)
-        with pytest.raises(ValueError, match="'the rest of the zoo'"):
-            hyper.make_model(device="cpu")
-        return
+    """MAT and Unet (slice 15) and GNNExplain (slice 19) resolve to the
+    port's modules and build through ``HyperParameter``; none raises any
+    more. GNNExplain builds a ``GNNExplainer`` that takes the ``device``
+    the hyper path passes."""
     file = module.split(".")[-1].lower()
     assert registry.get_model_class(module).__module__ == f"gcnn_keras_tpu_torch.models.{file}"
+    if "nnexplain" in module.lower():
+        hyper = HyperParameter({"model": {"module_name": module, "config": {"epochs": 3}}})
+        explainer = hyper.make_model(device="cpu")
+        assert (explainer.epochs, explainer.device) == (3, torch.device("cpu"))
+        return
+    hyper = HyperParameter({"model": {"module_name": module, "config": {"depth": 1}}})
     assert hyper.make_model(device="cpu").config["depth"] == 1
 
 
@@ -274,8 +275,7 @@ def test_zoo_is_the_rest_of_the_jax_table():
     from gcnn_keras_tpu.models import registry as jregistry
     jax_table = {name: path.rsplit(".", 1)[1] for name, path in jregistry._MODULES.items()}
     ported = {name: path.rsplit(".", 1)[1] for name, path in registry._MODULES.items()}
-    assert {**ported, **registry._ZOO} == jax_table
-    assert not set(ported) & set(registry._ZOO)
+    assert ported == jax_table
 
 
 def test_registry_takes_the_jax_paths():

@@ -179,7 +179,8 @@ def test_scan_sees_the_package():
                 "training/fast_force_step.py", "graph/postprocess.py",
                 "scripts/plot_learning_curve.py", "scripts/kgcnn_plot.py",
                 "crystal/graph_builder.py", "xai/testing.py", "data/datasets/vgd.py",
-                "mol/io.py", "scripts/prepare_data.py",
+                "mol/io.py", "scripts/prepare_data.py", *(f"{m.replace('.', '/')}.py"
+                                                          for m in SLICE_19),
                 *(f"scripts/{name}.py" for name in (*DRIVERS, *ROOT_DRIVERS, *HARNESSES))):
         assert package / rel in SOURCES, rel
     src = ("import jax\nfrom flax import linen\n"
@@ -207,6 +208,32 @@ print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax
                                                              'gcnn_keras_tpu')),
       bool(torch.isfinite(loss)), sorted(metrics))
 """
+
+
+# slice 19's modules (``native`` is a package: its ``__init__.py``)
+SLICE_19 = ("native.__init__", "moldyn.ase_calc", "utils.profiling", "utils.tools",
+            "mol.convert", "mol.graph_babel", "xai.base", "xai.gnn_explainer",
+            "models.gnnexplain")
+
+
+def test_fresh_interpreter_imports_slice_19_without_jax():
+    """Each of slice 19's modules imported in a fresh interpreter, and a
+    300-atom ``set_range`` run through the native list: no module of JAX,
+    flax, optax or the JAX package is loaded."""
+    code = "\n".join([
+        "import sys, importlib, numpy as np",
+        *(f"importlib.import_module('gcnn_keras_tpu_torch.{m.removesuffix('.__init__')}')"
+          for m in SLICE_19),
+        "from gcnn_keras_tpu_torch.graph.preprocess import set_range",
+        "g = set_range({'node_coordinates': np.random.RandomState(0).rand(300, 3) * 5},"
+        " max_distance=2.0, max_neighbours=10)",
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'flax', 'optax', 'gcnn_keras_tpu')), len(g['range_indices']) > 0)"])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[0] == "[] True", out.stdout
 
 
 def test_fresh_interpreter_runs_the_fast_step_without_jax():

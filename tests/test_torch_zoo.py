@@ -435,16 +435,10 @@ REST_OF_THE_ZOO = {"GNNExplain": "gnnexplain", "MAT": "mat", "Unet": "unet"}
 
 @pytest.mark.parametrize("name", sorted(REST_OF_THE_ZOO))
 def test_registry_still_raises_on_the_rest_of_the_zoo(name):
-    """MAT and Unet (slice 15) resolve to the port's modules, by short name
-    and by file; GNNExplain still raises."""
+    """MAT and Unet (slice 15) and GNNExplain (slice 19) resolve to the
+    port's modules, by short name and by file: none raises any more."""
     import importlib
     path = f"gcnn_keras_tpu.models.{REST_OF_THE_ZOO[name]}"
-    if name in registry._ZOO:
-        with pytest.raises(ValueError, match="'the rest of the zoo'"):
-            registry.get_model_class(name)
-        with pytest.raises(ValueError, match="'the rest of the zoo'"):
-            registry.get_model_class(path)
-        return
     mod = importlib.import_module(f"gcnn_keras_tpu_torch.models.{REST_OF_THE_ZOO[name]}")
     assert registry.get_model_class(name) is mod.make_model
     assert registry.get_model_class(path) is mod.make_model

@@ -313,6 +313,34 @@ order, each raising on a failed check:
    epochs, ``device_memory_stats``, and ``trace`` around one serving
    evaluation naming #1's kernel (``phase_trace``).
 
+30. Slice 20, ``parallel/`` (``phase_parallel``), on 2 ranks that share
+   the one card over gloo (NCCL refuses two ranks on one card; the
+   collectives gloo takes on the CPU only stage through page-locked host
+   memory). (a) ``Trainer(mesh=...)`` on ``schnet_train`` and
+   ``hdnnp4th_train`` (each rank its own batch of the path's size, seeds
+   ``seed`` and ``seed + 1``): the first step's loss and averaged
+   gradients against the mean of the two single-rank steps on the card
+   within ``TRAIN_TOL``, then ``TRAIN_STEPS`` steps (losses finite and
+   falling, each step's launches the path's, the replicas' parameters equal
+   bit for bit), ms a data-parallel step beside the single-rank step's.
+   (b) SchNet at ``make_model()``'s widths on the ``PARTITION_NODES``-node
+   chain of ``tests/test_partitioned_model.py`` (the port's C++ list),
+   partitioned over the 2 ranks: energy per node and forces against the
+   same model on one rank (``PARTITION_E_TOL``, ``PARTITION_F_TOL``, the
+   JAX test's), one partitioned step's parameter gradients against the
+   oracle's within ``TRAIN_TOL``, every #1 call of rank 0 against its plain
+   version, one evaluation with ``fused_aggregate=True`` (the unfused route
+   on a shard: no fused launch, the same energy and forces), the halo, ms an evaluation and a step beside the oracle's, the
+   backend and what was staged. (c) ``ScannedMD.run_ensemble(n_devices=2)``
+   of phase 14's 64-replica ensemble against ``n_devices=1`` within
+   ``MD_TOL``. (d) ``train_force --distributed`` as 2 ranks that join from
+   a launcher's variables (torchrun's ``WORLD_SIZE``, ``RANK`` and
+   ``LOCAL_RANK``, a file store's address as ``JAX_COORDINATOR_ADDRESS``;
+   ``run_zoo_driver`` in each): the first step's
+   loss and averaged gradients against the mean of the CPU's steps on the
+   two ranks' batches. Each rank's launches are a path of the ``kernels``
+   line. Nothing is timed across two cards: there is one.
+
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it; the
 segment-sum's bfloat16 instance has an entry of its own
@@ -1873,23 +1901,25 @@ def node_class_loss_fn(model):
     return loss_fn
 
 
-def make_trainer(path, device, solver=None):
+def make_trainer(path, device, solver=None, mesh=None):
     """``(model, Trainer, TrainState)`` of a training path, ``model`` the
     module whose parameters train: weights from seed 0, ``torch.optim.Adam``
     for ``optax.adam`` (lr 1e-3; GCN 1e-2); ``solver``, the Qeq solver of
-    the molecule-scale paths."""
+    the molecule-scale paths; ``mesh``, the ranks of a data-parallel
+    ``Trainer`` (phase 30)."""
     from gcnn_keras_tpu_torch.models import gcn
     from gcnn_keras_tpu_torch.training import Trainer
     cfg = TRAIN_PATHS[path]
     if cfg["model"] == "gcn":
         model = gcn.make_model(device=device, generator=torch.Generator().manual_seed(0),
                                **GCN_CORA_KW)
-        trainer = Trainer(node_class_loss_fn(model), functools.partial(torch.optim.Adam, lr=1e-2))
+        trainer = Trainer(node_class_loss_fn(model), functools.partial(torch.optim.Adam, lr=1e-2),
+                          mesh=mesh)
         return model, trainer, trainer.init_state(model.parameters())
     fm = energy_force_model(cfg["model"], device, cfg.get("mode", "unfused"), solver,
                             **cfg.get("model_kw", {}))
     trainer = Trainer(ef_loss_fn(fm, cfg["force_weight"], cfg["charge_weight"]),
-                      functools.partial(torch.optim.Adam, lr=1e-3))
+                      functools.partial(torch.optim.Adam, lr=1e-3), mesh=mesh)
     return fm.energy_model, trainer, trainer.init_state(fm.energy_model.parameters())
 
 
@@ -4966,7 +4996,10 @@ ZOO_DRIVER_RUNS = {
     "train_force_rmd17": ("scripts.train_force", RMD17_ARGS, force_driver_cpu_step,
                           "train_force"),
     "train_tudataset_mutag": ("training.graph_driver", MUTAG_ARGS, graph_driver_cpu_step,
-                              "train_tudataset")}
+                              "train_tudataset"),
+    # phase 30 (d): each rank of a launcher's group (phase_distributed_driver)
+    "train_force_distributed": ("scripts.train_force", FORCE_DRIVER_ARGS + ["--distributed"],
+                                force_driver_cpu_step, "train_force")}
 # each script's folder under results/ where it is not the second word of its name
 RESULTS_DIRS = {"train_visual_graph_dataset": "vgd"}
 
@@ -4976,17 +5009,13 @@ def driver_epochs(argv):
     return int(argv[list(argv).index("--epochs") + 1])
 
 
-def phase_zoo_driver(script, model, smi, device="cuda"):
-    """Phase 22 for one driver: its ``main`` with its arguments
-    (``ZOO_DRIVER_RUNS``) on the card in a scratch directory, every count
-    set to 0 just before and read just after, its ``Trainer`` recording
-    (``RecordingTrainer``); then the score file, finite losses, the first
-    step against the same step on the CPU (the driver's model, weights and
-    batch; ``check_first_step_on_cpu``), its kernel calls against their
-    plain versions and every later step's launches. Prints ms per step and
-    per epoch. Returns the run's launch counts and the kernel records.
-    ``device`` lets it run on the CPU."""
-    module, argv, cpu_step, script_name = ZOO_DRIVER_RUNS[script]
+def run_zoo_driver(script, model, device="cuda"):
+    """A driver's ``main`` with its arguments (``ZOO_DRIVER_RUNS``) on
+    ``device`` in a scratch directory, every count set to 0 just before and
+    read just after, its ``Trainer`` recording (``RecordingTrainer``).
+    Returns the recorder, the score (None on a rank but 0 of a
+    data-parallel run), the launch counts and the run's seconds."""
+    module, argv, _, script_name = ZOO_DRIVER_RUNS[script]
     mod = importlib.import_module(f"gcnn_keras_tpu_torch.scripts.{script_name}")
     trained = importlib.import_module(f"gcnn_keras_tpu_torch.{module}")
     rec = RecordingTrainer(trained.Trainer)
@@ -5001,8 +5030,22 @@ def phase_zoo_driver(script, model, smi, device="cuda"):
         run_s = time.perf_counter() - t0
         launches = kernel_counts()
         path = f"results/{RESULTS_DIRS.get(script_name, script_name.split('_')[1])}/{model}_score"
-        if not (os.path.exists(path + ".yaml") or os.path.exists(path + ".json")):
+        if score is not None and not (os.path.exists(path + ".yaml")
+                                      or os.path.exists(path + ".json")):
             raise AssertionError(f"{label}: no score file {path}.yaml")
+    return rec, score, launches, run_s
+
+
+def phase_zoo_driver(script, model, smi, device="cuda"):
+    """Phase 22 for one driver: ``run_zoo_driver``; then the score file,
+    finite losses, the first step against the same step on the CPU (the
+    driver's model, weights and batch; ``check_first_step_on_cpu``), its
+    kernel calls against their plain versions and every later step's
+    launches. Prints ms per step and per epoch. Returns the run's launch
+    counts and the kernel records. ``device`` lets it run on the CPU."""
+    _, argv, cpu_step, _ = ZOO_DRIVER_RUNS[script]
+    label = f"{script}_{model}"
+    rec, score, launches, run_s = run_zoo_driver(script, model, device)
     if not np.isfinite(score["loss"]).all():
         raise AssertionError(f"{label}: losses {score['loss']}")
     named_params, loss_fn, exact = cpu_step(script, model, argv)
@@ -6232,6 +6275,482 @@ def phase_slice19(smi, requests):
     return by_path, records
 
 
+# ------------------------------------------------- phase 30: parallel/
+
+PARALLEL_RANKS = 2
+PARALLEL_DP_PATHS = ("schnet_train", "hdnnp4th_train")
+PARTITION_NODES = 100_000
+# tests/test_partitioned_model.py test_partitioned_schnet_100k_nodes: E / n
+# within rtol 1e-5 / atol 1e-6, forces within rtol 1e-3 / atol 5e-5
+PARTITION_E_TOL = (1e-5, 1e-6)
+PARTITION_F_TOL = (1e-3, 5e-5)
+# the partitioned step's loss: w_e (E - E_ref)^2 + w_f mean (F - F_ref)^2,
+# E_ref 0 and w_e small beside E^2 over 1e5 nodes
+PARTITION_W = {"w_energy": 1e-6, "w_force": 10.0}
+PARALLEL_TIMEOUT_S = 600.0
+# the sizes of phase 30 on the card: molecules a rank of each path, chain
+# nodes, and the ensemble's replicas, steps a segment and segments
+PARALLEL_SIZES = {"dp": {p: TRAIN_PATHS[p]["size"] for p in PARALLEL_DP_PATHS},
+                  "nodes": PARTITION_NODES,
+                  "md": (ENSEMBLE_REPLICAS, ENSEMBLE_SEGMENT_STEPS, ENSEMBLE_SEGMENTS)}
+
+
+def count_kernels_on_cpu():
+    """A CPU rehearsal's rank: each kernel wrapper call counted as the card
+    counts its launches, ``torch.cuda.synchronize`` a no-op (as the tests'
+    ``counted_kernels`` fixture does in their process)."""
+    torch.cuda.synchronize = lambda *a, **k: None
+    for kname, (mod, attr, _) in kernel_wrappers().items():
+        def counted(*args, _run=getattr(mod, attr), _mod=mod, _name=kname):
+            if isinstance(_mod.launches, dict):
+                _mod.launches[_name] += 1
+            else:
+                _mod.launches += 1
+            return _run(*args)
+        setattr(mod, attr, counted)
+
+
+def chain_system(n, k=6, seed=3, box_aspect=50.0):
+    """``tests/test_partitioned_model.py`` ``_chain_system``: points in a
+    long box with their ``k`` nearest neighbours within 0.35 (the port's C++
+    list); ``(z, pos, senders, receivers)``."""
+    from gcnn_keras_tpu_torch import native
+    rs = np.random.RandomState(seed)
+    pos = rs.rand(n, 3).astype(np.float32)
+    pos[:, 0] *= box_aspect
+    res = native.neighbor_list(pos, cutoff=0.35, max_neighbors=k)
+    if res is None:
+        raise RuntimeError("the C++ neighbour list did not build")
+    pairs, _ = res
+    z = rs.choice([1, 6, 8], size=n).astype(np.int32)
+    return z, pos, pairs[:, 1].astype(np.int64), pairs[:, 0].astype(np.int64)
+
+
+def rank_threads():
+    """Torch's CPU threads for each of phase 30's ranks: the host's cores
+    shared among them."""
+    return max((os.cpu_count() or 1) // PARALLEL_RANKS, 1)
+
+
+def ensemble_systems(replicas=ENSEMBLE_REPLICAS):
+    """Phase 14's replicas of the 21-atom molecule."""
+    n = 21
+    t = np.arange(n) * 1.2
+    return [md_system(np.random.RandomState(100 + s), n, t) for s in range(replicas)]
+
+
+def ensemble_md(device, segment_steps=ENSEMBLE_SEGMENT_STEPS):
+    from gcnn_keras_tpu_torch.moldyn.trajectory import ScannedMD
+    return ScannedMD(schnet_model("unfused", device), dt=MD_DT,
+                     segment_steps=segment_steps, max_distance=4.0,
+                     max_neighbours=25, device=device)
+
+
+def dp_steps(path, mesh, size):
+    """(a) on one rank: ``TRAIN_STEPS`` data-parallel steps of ``path`` on
+    this rank's batch of ``size``, every count set to 0 just before and read
+    just after."""
+    cfg = TRAIN_PATHS[path]
+    batch = train_batch(path, cfg["seed"] + mesh.rank, size, mesh.device)
+    model, trainer, state = make_trainer(path, mesh.device, mesh=mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, times, per_step, first = [], [], [], None
+    for i in range(TRAIN_STEPS):
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(metrics["loss"]))
+        per_step.append({k: v - before[k] for k, v in kernel_counts().items()})
+        if i == 0:
+            first = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    return {"losses": losses, "ms_per_step": float(np.median(times[1:])), "first_grads": first,
+            "params": [p.detach().cpu() for p in model.parameters()],
+            "launches": kernel_counts(), "per_step": per_step}
+
+
+def partitioned_steps(mesh, pin, f_target):
+    """(b) on one rank: a warm-up evaluation and step with rank 0's kernel
+    calls captured and checked, then the main path, three evaluations and
+    three steps' gradients, timed."""
+    from gcnn_keras_tpu_torch.parallel import partitioned as part
+    from gcnn_keras_tpu_torch.parallel.collectives import all_gather_tiled
+    model = schnet_model("unfused", mesh.device)
+    shard = part.rank_shard(pin, mesh)
+    efn = part.make_partitioned_energy_force(model, mesh)
+    step = part.make_partitioned_train_step(model, mesh, functools.partial(torch.optim.SGD,
+                                                                            lr=1.0),
+                                            **PARTITION_W)
+    state = step.init_state()
+    f_ref = torch.as_tensor(part.shard_node_array(pin, f_target)[mesh.rank]).to(mesh.device)
+    with captured_calls() if mesh.rank == 0 else contextlib.nullcontext({}) as calls:
+        efn(shard)
+        step.grads(state, shard, 0.0, f_ref)
+    torch.cuda.synchronize()
+    recs = check_captured({k: v for k, v in calls.items() if k == "sorted_segment_sum"},
+                          "partitioned SchNet, rank 0") if calls else {}
+    del calls
+    torch.cuda.synchronize()
+    reset_counts()
+    ev_ms, st_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        e, f = efn(shard)
+        torch.cuda.synchronize()
+        ev_ms.append(1e3 * (time.perf_counter() - t0))
+    for _ in range(3):
+        t0 = time.perf_counter()
+        grads, metrics, _ = step.grads(state, shard, 0.0, f_ref)
+        torch.cuda.synchronize()
+        st_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = kernel_counts()
+    forces = all_gather_tiled(f, mesh).cpu().numpy()
+    # JAX's MD default, fused_aggregate=True, on the same shard: the unfused
+    # route (no fused launch), the same energy and forces
+    reset_counts()
+    e_fu, f_fu = part.make_partitioned_energy_force(schnet_model("fused", mesh.device),
+                                                    mesh)(shard)
+    torch.cuda.synchronize()
+    rtol, atol = PARTITION_F_TOL
+    fused = {"energy": float(e_fu), "launches": kernel_counts(),
+             "max_force_diff": float((f_fu - f).abs().max()),
+             "forces_agree": bool(((f_fu - f).abs() <= atol + rtol * f.abs()).all())}
+    out = {"launches": launches, "ms_eval": float(np.median(ev_ms)),
+           "ms_step": float(np.median(st_ms)), "loss": float(metrics["loss"]),
+           "energy": float(e), "records": recs, "evals": 3, "steps": 3, "fused": fused}
+    if mesh.rank == 0:
+        out.update(forces=forces, grads={n: g.detach().cpu() for (n, _), g in
+                                         zip(model.named_parameters(), grads)})
+    return out
+
+
+def replica_md(mesh, systems, segment_steps, segments):
+    """(c) on one rank: a warm-up run, then the main path."""
+    md = ensemble_md(mesh.device, segment_steps)
+    md.run_ensemble(systems, 1, n_devices=mesh.size)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = md.run_ensemble(systems, segments, n_devices=mesh.size)
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0, "launches": kernel_counts(),
+            "e_pot": out["e_pot"], "e_kin": out["e_kin"], "pos": out["pos"]}
+
+
+def parallel_rank(mesh, sizes, pin, f_target, systems):
+    """Phase 30 (a)-(c) on one rank; returns its results and the
+    collectives' transport counts."""
+    if mesh.device.type == "cpu":
+        count_kernels_on_cpu()
+    out = {path: dp_steps(path, mesh, sizes["dp"][path]) for path in PARALLEL_DP_PATHS}
+    torch.cuda.empty_cache()
+    out["partitioned"] = partitioned_steps(mesh, pin, f_target)
+    torch.cuda.empty_cache()
+    out["md"] = replica_md(mesh, systems, *sizes["md"][1:])
+    out["transport"] = {k: dict(v) for k, v in mesh.transport.items()}
+    out["backend"] = mesh.backend
+    return out
+
+
+def single_rank_steps(path, size, device="cuda"):
+    """(a)'s reference: one single-rank ``Trainer`` step on each rank's
+    batch (the loss and gradients of each), and the median ms of
+    ``TRAIN_STEPS`` steps on the first."""
+    cfg = TRAIN_PATHS[path]
+    firsts, times = [], []
+    for r in range(PARALLEL_RANKS):
+        batch = train_batch(path, cfg["seed"] + r, size, device)
+        model, trainer, state = make_trainer(path, device)
+        for i in range(TRAIN_STEPS if r == 0 else 1):
+            t0 = time.perf_counter()
+            state, metrics = trainer.step(state, batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if i == 0:
+                firsts.append((float(metrics["loss"]), {n: p.grad.detach().cpu()
+                                                        for n, p in model.named_parameters()}))
+    loss = float(np.mean([f[0] for f in firsts]))
+    grads = {n: sum(f[1][n] for f in firsts) / len(firsts) for n in firsts[0][1]}
+    return loss, grads, float(np.median(times[1:TRAIN_STEPS]))
+
+
+def partition_oracle(z, pos, send, recv, f_target, device="cuda"):
+    """(b)'s reference: the same SchNet on the whole graph on one rank:
+    energy, forces, the partitioned loss's parameter gradients, and the ms
+    of an evaluation and of the gradients."""
+    from gcnn_keras_tpu_torch.parallel.partitioned import single_graph_batch
+    model = schnet_model("unfused", device)
+    ob = single_graph_batch(z, pos, send, recv, device=device)
+    n = len(z)
+    f_pad = torch.zeros(ob.n_node, 3, device=device)
+    f_pad[:n] = torch.as_tensor(f_target, device=device)
+    mask = ob.node_mask.float()[:, None]
+    params = list(model.parameters())
+
+    def run(grad):
+        p = ob.nodes["node_coordinates"].detach().requires_grad_(True)
+        e = model(ob.replace_nodes(node_coordinates=p))["output"][0, 0]
+        (g,) = torch.autograd.grad(e, p, create_graph=grad)
+        if not grad:
+            return e.detach(), -g
+        df = (-g - f_pad) * mask
+        loss = PARTITION_W["w_energy"] * e ** 2 + PARTITION_W["w_force"] * (df * df).sum() / (
+            3.0 * n)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    ms = {}
+    for grad in (False, True):
+        run(grad)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = run(grad)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms["step" if grad else "eval"] = float(np.median(times))
+        if grad:
+            loss, grads = out
+        else:
+            e, f = out
+    return (float(e), f.detach().cpu().numpy()[:n], float(loss),
+            {name: g.cpu() for (name, _), g in zip(model.named_parameters(), grads)}, ms)
+
+
+def distributed_driver_rank(out_path, device="cuda"):
+    """(d) on one rank that joined from a launcher's variables: ``train_force
+    --distributed`` through ``run_zoo_driver``; writes its first step (batch
+    on the CPU, weights, loss, gradients), its kernel records, every later
+    step's launches, the run's launches and score to ``out_path``."""
+    import pickle
+    if device == "cpu":
+        count_kernels_on_cpu()
+    script, model = "train_force_distributed", "Schnet"
+    rec, score, launches, run_s = run_zoo_driver(script, model, device)
+    label = f"{script}_{model}"
+    first = {k: rec.first[k] for k in ("batch", "weights", "loss", "grads")}
+    out = {"first": first, "launches": launches, "run_s": run_s, "score": score,
+           "records": kernel_call_records(rec.first["calls"], f"{label}, first step", label),
+           "launches_per_step": rec.check_steps(label),
+           "ms_per_step": float(np.median([ms for _, ms, _ in rec.steps])),
+           "steps": len(rec.steps) + 1}
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def phase_distributed_driver(smi, n_ranks=PARALLEL_RANKS, device="cuda"):
+    """Phase 30 (d): ``n_ranks`` processes with a launcher's variables, each
+    ``distributed_driver_rank``; their first step against the mean of the
+    CPU's steps on their batches."""
+    import pickle
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="_phase30_", dir=os.getcwd()) as workdir:
+        procs = []
+        # the group meets at a file store of this phase's own, so no TCP
+        # port can be taken between its choice and its use
+        store = os.path.join(workdir, "store")
+        for r in range(n_ranks):
+            env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "MASTER_PORT")}
+            env.update(JAX_COORDINATOR_ADDRESS=f"file://{store}",
+                       WORLD_SIZE=str(n_ranks), RANK=str(r), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(n_ranks), OMP_NUM_THREADS=str(rank_threads()))
+            out = os.path.join(workdir, f"rank_{r}.pkl")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.distributed_driver_rank(*sys.argv[1:])", out, device],
+                cwd=here, env=env), out))
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        try:
+            for p, _ in procs:
+                p.wait(max(deadline - time.monotonic(), 1.0))
+        finally:
+            for p, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = []
+        for r, (p, out) in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f"train_force --distributed: rank {r} exit {p.returncode}")
+            with open(out, "rb") as f:
+                ranks.append(pickle.load(f))
+    label = "train_force_distributed_Schnet"
+    if ranks[0]["score"] is None or not np.isfinite(ranks[0]["score"]["loss"]).all():
+        raise AssertionError(f"{label}: score {ranks[0]['score']}")
+    firsts = [r["first"] for r in ranks]
+    for f in firsts[1:]:
+        if f["loss"] != firsts[0]["loss"] or not all(
+                torch.equal(a, b) for a, b in zip(f["weights"], firsts[0]["weights"])):
+            raise AssertionError(f"{label}: the ranks' first steps differ")
+    named_params, loss_fn, exact = force_driver_cpu_step(
+        "train_force_distributed", "Schnet", ZOO_DRIVER_RUNS["train_force_distributed"][1])
+    names, params = zip(*named_params)
+    losses, grads, exacts = [], [], []
+    for f in firsts:
+        with torch.no_grad():
+            for p, w in zip(params, f["weights"]):
+                p.copy_(w)
+        loss, _ = loss_fn(f["batch"])
+        losses.append(loss.item())
+        grads.append(torch.autograd.grad(loss, params, allow_unused=True))
+    mean_loss = float(np.mean(losses))
+    if not abs(firsts[0]["loss"] - mean_loss) <= TRAIN_TOL * abs(mean_loss):
+        raise AssertionError(f"{label}: first loss {firsts[0]['loss']}, the CPU's mean "
+                             f"{mean_loss}")
+    ref = {n: None if gs[0] is None else sum(gs) / len(gs)
+           for n, gs in zip(names, zip(*grads))}
+
+    def mean_exact():
+        xs = []
+        for f in firsts:
+            with torch.no_grad():
+                for p, w in zip(params, f["weights"]):
+                    p.copy_(w)
+            xs.append(exact(f["batch"]))
+        return {n: sum(x[n] for x in xs) / len(xs) for n in xs[0]}
+    worst, arbitrated = check_grads(label, dict(zip(names, firsts[0]["grads"])), ref,
+                                    TRAIN_TOL, mean_exact)
+    by_path = {f"{label}_rank{r}": rk["launches"] for r, rk in enumerate(ranks)}
+    log(f"{label} driver: " + json.dumps({
+        "ranks": n_ranks, "card": smi, "loss_gpu": firsts[0]["loss"], "loss_cpu_mean": mean_loss,
+        "max_rel_grad_err": worst, **({"float64_arbiter": arbitrated} if arbitrated else {}),
+        "steps": ranks[0]["steps"], "ms_per_step": [rk["ms_per_step"] for rk in ranks],
+        "launches_per_step": ranks[0]["launches_per_step"], "losses": ranks[0]["score"]["loss"],
+        "launches_run": by_path}))
+    return by_path, ranks[0]["records"]
+
+
+def phase_parallel(smi, device="cuda", sizes=None):
+    """Phase 30 (the module docstring) at ``sizes`` (``PARALLEL_SIZES``'
+    keys; a CPU rehearsal takes small ones). Returns the launch counts of
+    its paths, by rank, and the kernel records."""
+    from gcnn_keras_tpu_torch.parallel import launch
+    from gcnn_keras_tpu_torch.parallel.partitioned import prepare_partitioned, unshard_node_array
+    sizes = sizes or PARALLEL_SIZES
+    replicas, segment_steps, segments = sizes["md"]
+    t0 = time.perf_counter()
+    # the references on one rank first, while the card is the parent's alone
+    dp_ref = {path: single_rank_steps(path, sizes["dp"][path], device)
+              for path in PARALLEL_DP_PATHS}
+    z, pos, send, recv = chain_system(sizes["nodes"])
+    f_target = (np.random.RandomState(5).randn(len(z), 3) * 0.1).astype(np.float32)
+    oracle = partition_oracle(z, pos, send, recv, f_target, device)
+    torch.cuda.empty_cache()
+    pin = prepare_partitioned(z, pos, send, recv, PARALLEL_RANKS)
+    systems = ensemble_systems(replicas)
+    md_ref = ensemble_md(device, segment_steps).run_ensemble(systems, segments)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the host's cores shared among the ranks (each rank's own default takes
+    # them all, and spinning thread pools oversubscribe them)
+    ranks = launch.spawn(parallel_rank, PARALLEL_RANKS, sizes, pin, f_target, systems,
+                         device=device, share_device=device != "cpu",
+                         timeout_s=PARALLEL_TIMEOUT_S, threads=rank_threads())
+    by_path, records = {}, {"sorted_segment_sum": []}
+    # (a)
+    for path in PARALLEL_DP_PATHS:
+        cfg = TRAIN_PATHS[path]
+        loss_ref, grads_ref, ms_ref = dp_ref[path]
+        res = [rk[path] for rk in ranks]
+        label = f"parallel_{path}"
+        if not abs(res[0]["losses"][0] - loss_ref) <= TRAIN_TOL * abs(loss_ref):
+            raise AssertionError(f"{label}: first loss {res[0]['losses'][0]}, the single-rank "
+                                 f"steps' mean {loss_ref}")
+        worst, _ = check_grads(label, res[0]["first_grads"], grads_ref, TRAIN_TOL)
+        for r, rr in enumerate(res):
+            if not all(np.isfinite(rr["losses"])) or not rr["losses"][-1] < rr["losses"][0]:
+                raise AssertionError(f"{label} rank {r}: losses {rr['losses']}")
+            for i, counts in enumerate(rr["per_step"]):
+                if counts != cfg["launches"]:
+                    raise AssertionError(f"{label} rank {r} step {i}: launches {counts}, "
+                                         f"expected {cfg['launches']}")
+            if rr["losses"] != res[0]["losses"] or not all(
+                    torch.equal(a, b) for a, b in zip(rr["params"], res[0]["params"])):
+                raise AssertionError(f"{label}: rank {r}'s replica differs from rank 0's")
+            by_path[f"{label}_rank{r}"] = rr["launches"]
+        log(f"{label}: " + json.dumps({
+            "ranks": PARALLEL_RANKS, "size_per_rank": sizes["dp"][path], "card": smi,
+            "loss_first": res[0]["losses"][0], "loss_single_rank_mean": loss_ref,
+            "max_rel_grad_err": worst, "losses": res[0]["losses"],
+            "ms_per_dp_step": [rr["ms_per_step"] for rr in res], "ms_single_rank_step": ms_ref,
+            "launches_per_step_per_rank": {k: v for k, v in cfg["launches"].items() if v},
+            "params_equal_across_ranks": True}))
+    # (b)
+    e_ref, f_ref, loss_ref, grads_ref, ms_ref = oracle
+    part = [rk["partitioned"] for rk in ranks]
+    n = len(z)
+    f = unshard_node_array(pin, part[0]["forces"].reshape(pin.z.shape + (3,)))
+    rtol, atol = PARTITION_E_TOL
+    if not all(abs(p_["energy"] / n - e_ref / n) <= atol + rtol * abs(e_ref / n) for p_ in part):
+        raise AssertionError(f"partitioned SchNet: energies {[p_['energy'] for p_ in part]}, "
+                             f"the oracle's {e_ref}")
+    rtol, atol = PARTITION_F_TOL
+    ferr = np.abs(f - f_ref)
+    if not np.all(ferr <= atol + rtol * np.abs(f_ref)) or not np.isfinite(f).all():
+        raise AssertionError(f"partitioned SchNet: forces off the oracle's by {ferr.max()}")
+    if not abs(part[0]["loss"] - loss_ref) <= TRAIN_TOL * abs(loss_ref):
+        raise AssertionError(f"partitioned SchNet: loss {part[0]['loss']}, oracle {loss_ref}")
+    worst, _ = check_grads("partitioned SchNet step", part[0]["grads"], grads_ref, TRAIN_TOL)
+    rtol, atol = PARTITION_E_TOL
+    for r, p_ in enumerate(part):
+        if not p_["launches"]["sorted_segment_sum"]:
+            raise AssertionError(f"partitioned SchNet rank {r}: #1 not launched")
+        fu = p_["fused"]
+        if (fu["launches"]["gather_mul_segsum"] or not fu["launches"]["sorted_segment_sum"]
+                or not fu["forces_agree"] or not abs(fu["energy"] - p_["energy"]) / n
+                <= atol + rtol * abs(p_["energy"] / n)):
+            raise AssertionError(f"partitioned SchNet rank {r}: fused_aggregate=True gives "
+                                 f"{fu}, the unfused energy {p_['energy']}")
+        by_path[f"partitioned_schnet_rank{r}"] = p_["launches"]
+    records["sorted_segment_sum"].extend(
+        dict(rec, path="partitioned_schnet_rank0") for rec in
+        part[0]["records"].get("sorted_segment_sum", []))
+    if not records["sorted_segment_sum"]:
+        raise AssertionError("partitioned SchNet: rank 0 captured no #1 call")
+    log("partitioned schnet: " + json.dumps({
+        "nodes": n, "edges": int(len(send)), "ranks": PARALLEL_RANKS, "card": smi,
+        "halo_size": pin.halo_size, "remote_fraction": pin.remote_fraction,
+        "n_local": int(pin.z.shape[1]), "energy": part[0]["energy"], "energy_oracle": e_ref,
+        "max_force_err": float(ferr.max()), "loss": part[0]["loss"], "loss_oracle": loss_ref,
+        "max_rel_grad_err": worst,
+        "fused_aggregate_max_force_diff": max(p_["fused"]["max_force_diff"] for p_ in part),
+        "ms_eval": [p_["ms_eval"] for p_ in part],
+        "ms_step": [p_["ms_step"] for p_ in part], "ms_eval_oracle": ms_ref["eval"],
+        "ms_step_oracle": ms_ref["step"], "checked_calls": len(records["sorted_segment_sum"]),
+        "launches_per_rank": {k: v for k, v in part[0]["launches"].items() if v},
+        "backend": ranks[0]["backend"], "transport": ranks[0]["transport"]}))
+    # (c)
+    scale = float(np.abs(md_ref["e_pot"]).max())
+    for r, rk in enumerate(ranks):
+        md = rk["md"]
+        if md["e_pot"].shape != md_ref["e_pot"].shape:
+            raise AssertionError(f"replica MD rank {r}: e_pot {md['e_pot'].shape}")
+        err = float(np.abs(md["e_pot"] - md_ref["e_pot"]).max())
+        perr = max(float(np.abs(a - b).max()) for a, b in zip(md["pos"], md_ref["pos"]))
+        if not err <= MD_TOL * scale or not perr <= MD_TOL * 10:
+            raise AssertionError(f"replica MD rank {r}: e_pot off n_devices=1 by {err}, "
+                                 f"positions by {perr}")
+        evals = segments * (segment_steps + 1)
+        want = {k: evals * v for k, v in schnet_launches("unfused").items()}
+        got = {k: v for k, v in md["launches"].items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"replica MD rank {r}: launches {got}, expected {want}")
+        by_path[f"replica_md_rank{r}"] = md["launches"]
+    steps = segments * segment_steps
+    log("replica md: " + json.dumps({
+        "replicas": replicas, "ranks": PARALLEL_RANKS, "card": smi,
+        "e_pot_max_abs_err_vs_one_device": err, "pos_max_abs_err": perr,
+        "ms_per_step": [1e3 * rk["md"]["seconds"] / steps for rk in ranks]}))
+    # (d)
+    paths, driver_recs = phase_distributed_driver(smi, device=device)
+    by_path.update(paths)
+    for name, rs in driver_recs.items():
+        records.setdefault(name, []).extend(rs)
+    log(f"phase 30 seconds: {time.perf_counter() - t0:.1f}")
+    return by_path, records
+
+
 def kernels_line(records, by_path, second_order):
     """The ``kernels`` entries of the result line: each kernel's source, the
     TPU kernel it replaces, its launches on each main path, its largest
@@ -6413,6 +6932,10 @@ def main():
     paths, slice19_recs = phase_slice19(smi, requests)
     by_path.update(paths)
     for kname, rs in slice19_recs.items():
+        records[kname].extend(rs)
+    paths, parallel_recs = phase_parallel(smi)
+    by_path.update(paths)
+    for kname, rs in parallel_recs.items():
         records[kname].extend(rs)
     # the busy shares last, after every timed part of the script; one
     # profiled step of each zoo model: RGCN's and GNN-FiLM's 4300 and 12600

@@ -24,7 +24,7 @@ step turns the arrays into tensors on the chosen device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -64,6 +64,14 @@ class GraphBatch:
     # rows of its receiver / centre (always True for max_nodes <= 128)
     edge_window_local: bool = False
     angle_window_local: bool = False
+    # set on one shard of an edge-partitioned graph (parallel/partitioned.py):
+    # the mesh the shards live on (its axis name on a stacked host batch);
+    # ``senders`` then index the table ``sender_node_table`` builds, the
+    # rows [left halo | local | right halo] when ``halo_size > 0``, else
+    # every shard's rows
+    part_axis: Any = None
+    halo_size: int = 0
+    n_shards: int = 1
 
     @property
     def n_node(self) -> int:
@@ -508,10 +516,45 @@ def padded_to_flat(padded: Tensor, batch: GraphBatch) -> Tensor:
     return torch.where(_bcast(batch.node_mask, vals), vals, vals.new_zeros(()))
 
 
+def sender_node_table(batch: GraphBatch, values: Tensor) -> Tensor:
+    """The node table ``batch.senders`` indexes: ``values`` itself, or on a
+    shard of an edge-partitioned graph the halo exchange, each shard's
+    boundary slabs sent to its ring neighbours and concatenated as [left
+    halo | local | right halo] (``halo_size > 0``), else the tiled
+    all-gather of every shard's rows. Both collectives are autograd
+    Functions whose transposes return each neighbour's share of a gradient
+    (the forces on the halo rows) to the shard that owns the rows."""
+    if batch.part_axis is None:
+        return values
+    from .parallel.collectives import all_gather, ppermute
+    h = batch.halo_size
+    if h < 0:
+        raise ValueError("halo_size must be >= 0")
+    if h > 0:
+        from_left = ppermute(values[-h:], batch.part_axis, 1)
+        from_right = ppermute(values[:h], batch.part_axis, -1)
+        return torch.cat([from_left, values, from_right], dim=0)
+    return all_gather(values, batch.part_axis)
+
+
+def refuse_partitioned(batch: GraphBatch, layer: str) -> None:
+    """Raise where ``layer`` meets a shard of an edge-partitioned graph it
+    has no port for: its neighbour ids there index the halo-exchanged
+    table, not the shard's own nodes, so it would compute wrong numbers."""
+    if batch.part_axis is not None:
+        raise NotImplementedError(
+            f"{layer} on an edge-partitioned batch (the partitioned HDNNP4th) is not ported "
+            f"yet (ROADMAP.md, 'Parallel')")
+
+
 def graph_psum(batch: GraphBatch, per_graph: Tensor) -> Tensor:
-    """The global per-graph value of a per-graph reduction. The identity:
-    the port's batch holds whole graphs (no ``part_axis``)."""
-    return per_graph
+    """The global per-graph value of a shard-local per-graph reduction
+    ``(G, ...)``: the sum over the shards of an edge-partitioned batch, the
+    identity otherwise."""
+    if batch.part_axis is None:
+        return per_graph
+    from .parallel.collectives import psum
+    return psum(per_graph, batch.part_axis)
 
 
 def _bcast(mask: Tensor, ref: Tensor) -> Tensor:

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from ..batch import GraphBatch
+from ..batch import GraphBatch, _bcast, graph_psum, sender_node_table
 from ..ops.cuda.bilinear import bilinear_gather_mul_segsum
 from ..ops.cuda.fused_aggregate import (gather_mul_segsum_auto,
                                        gather_with_sorted_transpose)
@@ -30,7 +30,10 @@ def gather_nodes(values: Tensor, indices: Tensor) -> Tensor:
 def gather_sender_nodes(batch: GraphBatch, values: Tensor) -> Tensor:
     """Sender-side gather whose transpose runs on the sorted segment-sum
     through the build-time ``sender_perm``; a plain gather when the batch
-    has none."""
+    has none. On a partitioned shard it reads the halo-exchanged table
+    (its transpose an ``index_add_``: a shard carries no ``sender_perm``)."""
+    if batch.part_axis is not None:
+        return gather_nodes(sender_node_table(batch, values), batch.senders)
     perm = batch.edges.get("sender_perm")
     if perm is None:
         return gather_nodes(values, batch.senders)
@@ -52,8 +55,14 @@ def pool_edges_to_nodes(batch: GraphBatch, edge_values: Tensor,
                         mode: str = "sum",
                         pooling_method: Optional[str] = None) -> Tensor:
     """Aggregate edge messages ``(E, ...)`` onto receiving nodes ``(N, ...)``.
-    ``pooling_method`` is an alias for ``mode``."""
+    ``pooling_method`` is an alias for ``mode``. A partitioned shard masks
+    its padding edges' messages and sums only."""
     mode = pooling_method or mode
+    if batch.part_axis is not None:
+        if mode != "sum":
+            raise NotImplementedError(
+                f"partitioned graphs only support sum aggregation, got {mode}")
+        edge_values = edge_values * _bcast(batch.edge_mask, edge_values).to(edge_values.dtype)
     return segment_ops_by_name(mode, edge_values, batch.receivers, batch.n_node,
                                indices_are_sorted=True)
 
@@ -107,7 +116,12 @@ def gather_mul_pool_edges(batch: GraphBatch, nodes: Tensor,
     ``gather_mul_segsum_auto`` (the custom-VJP route). A batch without a
     perm was built unsorted, so its receivers are not taken as sorted there
     (the JAX package passes them as sorted). The default is unfused: a
-    sender gather, a multiply and a sorted sum."""
+    sender gather, a multiply and a sorted sum. A partitioned shard takes
+    the unfused route in every mode: its senders index the halo-exchanged
+    table and its padding edges are masked."""
+    if batch.part_axis is not None:
+        xj = gather_sender_nodes(batch, nodes)
+        return pool_edges_to_nodes(batch, xj * edge_filter, mode=mode)
     perm = batch.edges.get("sender_perm")
     if fused and mode == "sum":
         if fused != "vjp" and perm is not None and nodes.dim() == 2 \
@@ -127,10 +141,22 @@ def pool_nodes_to_graph(batch: GraphBatch, node_values: Tensor,
                         mode: str = "sum",
                         pooling_method: Optional[str] = None) -> Tensor:
     """Whole-graph readout ``(N, ...) -> (G, ...)``. Padding nodes all live
-    in the padding graph slot, so no masking is needed."""
+    in the padding graph slot, so no masking is needed.
+
+    On a partitioned shard the result is the global per-graph sum (the
+    shards' sums summed, on every shard): the readout MLPs after it are
+    nonlinear. Its derivatives follow JAX's recipe: differentiate
+    ``output / n_shards`` (``parallel/partitioned.py``), since the sum
+    over the shards is its own transpose."""
     mode = pooling_method or mode
-    return segment_ops_by_name(mode, node_values, batch.graph_id,
-                               batch.n_graphs, indices_are_sorted=True)
+    out = segment_ops_by_name(mode, node_values, batch.graph_id,
+                              batch.n_graphs, indices_are_sorted=True)
+    if batch.part_axis is not None:
+        if mode != "sum":
+            raise NotImplementedError(
+                f"partitioned graphs only support sum readout, got {mode}")
+        out = graph_psum(batch, out)
+    return out
 
 
 def pool_nodes_to_graph_attention(batch: GraphBatch, node_values: Tensor,

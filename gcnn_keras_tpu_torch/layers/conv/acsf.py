@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ...batch import GraphBatch
+from ...batch import GraphBatch, refuse_partitioned
 from ...ops.cuda import acsf as kacsf
 
 Tensor = torch.Tensor
@@ -134,6 +134,7 @@ class ACSFG2(nn.Module):
 
     def forward(self, batch: GraphBatch, z: Optional[Tensor] = None,
                 positions: Optional[Tensor] = None) -> Tensor:
+        refuse_partitioned(batch, "ACSFG2")
         z, pos = _node_inputs(batch, z, positions)
         if _dispatch("ACSFG2", self.fused, self.kernel_reasons(batch), pos.device):
             return kacsf.G2Fn.apply(pos, z.to(torch.int32), batch.senders,
@@ -249,6 +250,7 @@ class ACSFG4(nn.Module):
 
     def forward(self, batch: GraphBatch, z: Optional[Tensor] = None,
                 positions: Optional[Tensor] = None) -> Tensor:
+        refuse_partitioned(batch, "ACSFG4")
         if batch.angles is None:
             raise ValueError("ACSFG4 needs angle triples in the batch")
         z, pos = _node_inputs(batch, z, positions)

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ...batch import GraphBatch, flat_to_padded, graph_psum, padded_to_flat
+from ...batch import (GraphBatch, flat_to_padded, graph_psum, padded_to_flat,
+                      refuse_partitioned)
 from ...ops.segment import segment_sum
 from ..aggr import gather_receiver_nodes, gather_sender_nodes
 from .qeq_solver import solve_qeq_dense_cholesky, solve_qeq_iterative_batch
@@ -197,6 +198,7 @@ class CENTCharge(nn.Module):
 
     def forward(self, batch: GraphBatch, chi: Tensor,
                 positions: Optional[Tensor] = None) -> Tensor:
+        refuse_partitioned(batch, "CENTCharge")
         if self.solver == "iterative" or (
                 self.solver == "auto" and max(batch.max_nodes, 1) >= self.iterative_threshold):
             x_pad, b, sig, diag, mask, qtot = self.tables(batch, chi, positions)

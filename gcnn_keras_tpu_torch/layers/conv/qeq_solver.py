@@ -12,8 +12,11 @@ The dense solve builds ``A`` as a padded ``(G, M, M)`` batch. The iterative
 one never does: Jacobi-preconditioned conjugate gradients on the erf-kernel
 matvec, computed in row blocks of ``block`` rows, so it holds O(M * block)
 values at a time (its derivatives, like the JAX package's ``lax.map``
-under autodiff, keep each block's intermediates). The row-sharded solvers of
-the JAX module are not ported yet.
+under autodiff, keep each block's intermediates).
+
+``solve_qeq_batch_sharded`` shares the G dense solves of a batch over the
+ranks of a mesh, with no collective in the solve. The row-sharded CG
+solvers of the JAX module (the partitioned HDNNP4th's) are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +34,21 @@ Tensor = torch.Tensor
 # and the rounds they took, summed
 solves = 0
 rounds = 0
+
+
+def solve_qeq_batch_sharded(a: Tensor, rhs: Tensor, mesh) -> Tensor:
+    """The batched dense solve ``a (G, K, K) @ x = rhs (G, K)`` with the G
+    systems shared over the mesh's ranks: each rank LU-solves its
+    contiguous G / D, as the JAX function's ``jnp.linalg.solve``, and the
+    solutions are gathered in order on every rank, differentiably. G must
+    divide by the mesh size (pad with identity systems)."""
+    from ...parallel.collectives import all_gather
+    g, d = a.shape[0], mesh.size
+    if g % d:
+        raise ValueError(f"{g} systems do not divide over {d} ranks; pad with identity systems")
+    lo, hi = mesh.rank * (g // d), (mesh.rank + 1) * (g // d)
+    x = torch.linalg.solve(a[lo:hi], rhs[lo:hi, :, None])
+    return all_gather(x[..., 0], mesh)
 
 
 def solve_qeq_dense_cholesky(a_core: Tensor, border: Tensor, b: Tensor,

@@ -117,6 +117,11 @@ class SchNetCFconv(nn.Module):
                 nodes, batch.nodes["node_coordinates"], *self.filter_weights(),
                 batch.senders, batch.receivers, batch.edge_mask, self.chain_static)
         if self.accurate_cfconv:
+            if batch.part_axis is not None:
+                # the fused cfconv sums every edge it is given, and a
+                # shard's padding edges point at a slot that may be real
+                raise ValueError("accurate_cfconv on an edge-partitioned batch: the fused "
+                                 "cfconv does not mask padding edges; use the default cfconv")
             return fused_cfconv_auto(
                 edge_basis, gather_sender_nodes(batch, nodes), batch.receivers,
                 nodes.shape[0], *self.filter_weights())

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ...batch import GraphBatch
+from ...batch import GraphBatch, refuse_partitioned
 from ...ops.segment import segment_sum
 
 Tensor = torch.Tensor
@@ -96,6 +96,7 @@ class wACSFRad(_Table):
     def forward(self, batch: GraphBatch, z: Optional[Tensor] = None,
                 positions: Optional[Tensor] = None,
                 external_weights: Optional[Tensor] = None) -> Tensor:
+        refuse_partitioned(batch, "wACSFRad")
         z, pos = _inputs(batch, z, positions)
         recv, send = batch.receivers.long(), batch.senders.long()
         rij = _dist(pos[recv] - pos[send])  # (E, 1)
@@ -122,6 +123,7 @@ class wACSFAng(_Table):
     def forward(self, batch: GraphBatch, z: Optional[Tensor] = None,
                 positions: Optional[Tensor] = None,
                 external_weights: Optional[Tensor] = None) -> Tensor:
+        refuse_partitioned(batch, "wACSFAng")
         if batch.angles is None:
             raise ValueError("wACSFAng needs angle triples in the batch")
         z, pos = _inputs(batch, z, positions)

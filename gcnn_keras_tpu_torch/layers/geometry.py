@@ -9,7 +9,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..batch import GraphBatch
+from ..batch import GraphBatch, sender_node_table
 from ..ops.cuda.fused_aggregate import gather_with_sorted_transpose
 
 Tensor = torch.Tensor
@@ -22,11 +22,17 @@ def edge_vectors(batch: GraphBatch, positions: Optional[Tensor] = None,
     Both position gathers have the sorted segment-sum as their transpose
     (the d_pos scatter of every force pass). Periodic batches, which carry
     ``edges['range_image']`` and ``globals['graph_lattice']``, shift the
-    SENDER by its lattice image: ``d = x_i - (x_j + s @ L)``.
+    SENDER by its lattice image: ``d = x_i - (x_j + s @ L)``. On a shard of
+    an edge-partitioned graph the senders' positions come from the
+    halo-exchanged table (``batch.sender_node_table``).
     """
     pos = positions if positions is not None else batch.nodes[key]
     perm = batch.edges.get("sender_perm")
-    if perm is None:
+    if batch.part_axis is not None:
+        # a shard's receivers are sorted, its senders index the table
+        pos_j = sender_node_table(batch, pos).index_select(0, batch.senders)
+        pos_i = gather_with_sorted_transpose(pos, batch.receivers)
+    elif perm is None:
         # no perm: the edges are in no known order, so neither transpose
         # may be a sorted sum
         pos_j = pos.index_select(0, batch.senders)

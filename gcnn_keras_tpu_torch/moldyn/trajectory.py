@@ -14,9 +14,15 @@ Many replicas run in one disjoint batch (``run_ensemble``): one reverse
 pass over the summed energies gives every replica's forces. A periodic
 system (one with ``graph_lattice``) is wrapped into its cell before each
 segment and re-neighboured with ``set_range_periodic``; the model's
-``range_image`` path carries the shifts. Not ported yet, and raising:
-``n_devices > 1`` (replica parallelism over cards, ROADMAP.md's
-"Parallel").
+``range_image`` path carries the shifts.
+
+``run_ensemble(n_devices=D)`` is replica parallelism over the D ranks of
+this process's group (``parallel/mesh.py``): each rank integrates its
+contiguous chunk of the replicas, with no collective in the loop, and the
+results are gathered in replica order. Rank r's Langevin noise in segment
+k comes from a ``torch.Generator`` seeded with
+``SeedSequence([seed, k, r])`` (the JAX package splits the segment's key
+over the devices).
 """
 from __future__ import annotations
 
@@ -83,11 +89,13 @@ class ScannedMD:
         self.with_angles = with_angles
         self.graph_extras = dict(graph_extras or {})
         self.global_keys = tuple(global_keys)
+        self.seed = int(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._shapes_seen = set()
 
     # -- one segment on the device ---------------------------------------
-    def _segment(self, batch: GraphBatch, pos: Tensor, vel: Tensor, m: Tensor):
+    def _segment(self, batch: GraphBatch, pos: Tensor, vel: Tensor, m: Tensor,
+                 generator: torch.Generator):
         """``segment_steps`` steps; returns the final positions and
         velocities and the per-step, per-graph ``e_pot`` and ``e_kin``
         (steps, G), all on the device."""
@@ -114,7 +122,7 @@ class ScannedMD:
             c1, c2 = ou_coefficients(self.friction, dt, self.kT, pos)
 
             def step(p, v, f):
-                return baoab_step(efn, p, v, f, m, mask, dt, c1, c2, self.generator)
+                return baoab_step(efn, p, v, f, m, mask, dt, c1, c2, generator)
         else:
             def step(p, v, f):
                 return verlet_step(efn, p, v, f, m, mask, dt)
@@ -155,11 +163,36 @@ class ScannedMD:
         ``pos``/``vel`` lists (numpy), ``e_pot``/``e_kin`` of shape
         (steps, S), the real edge count of each segment, and
         ``n_shapes_compiled``: the distinct padded batch shapes seen (the
-        JAX ScannedMD compiles one runner per shape; nothing compiles here)."""
-        if n_devices is not None and int(n_devices) > 1:
-            raise NotImplementedError(
-                "ScannedMD.run_ensemble(n_devices > 1): replica parallelism over "
-                "cards is not ported yet (ROADMAP.md, 'Parallel')")
+        JAX ScannedMD compiles one runner per shape; nothing compiles here).
+        ``n_devices``: the replicas shared over the ranks of this process's
+        group of that size (the module docstring); S must divide by it."""
+        S = len(systems)
+        D = int(n_devices) if n_devices else 1
+        if S % D != 0:
+            raise ValueError(f"{S} replicas not divisible by n_devices={D}")
+        if D == 1:
+            return self._run(systems, n_segments, lambda seg: self.generator)
+        from ..parallel.collectives import all_gather_object
+        from ..parallel.mesh import make_mesh
+        mesh = make_mesh(D, device=self.device)
+        chunk = S // D
+
+        def generator(seg):
+            seed = np.random.SeedSequence([self.seed, seg, mesh.rank]).generate_state(1)[0]
+            return torch.Generator(device=self.device).manual_seed(int(seed))
+
+        outs = all_gather_object(self._run(
+            systems[mesh.rank * chunk:(mesh.rank + 1) * chunk], n_segments, generator), mesh)
+        return {"pos": [p for o in outs for p in o["pos"]],
+                "vel": [v for o in outs for v in o["vel"]],
+                "e_pot": np.concatenate([o["e_pot"] for o in outs], axis=1),
+                "e_kin": np.concatenate([o["e_kin"] for o in outs], axis=1),
+                "edge_counts": [int(sum(c)) for c in zip(*(o["edge_counts"] for o in outs))],
+                "n_shapes_compiled": max(o["n_shapes_compiled"] for o in outs)}
+
+    def _run(self, systems, n_segments: int, generator) -> Dict[str, Any]:
+        """``run_ensemble`` on this device; ``generator(k)`` is segment k's
+        generator of the Langevin noise."""
         zs = [np.asarray(s["node_number"]) for s in systems]
         ns = [z.shape[0] for z in zs]
         pos = [np.asarray(s["node_coordinates"], np.float32) for s in systems]
@@ -173,7 +206,7 @@ class ScannedMD:
         offs = np.concatenate([[0], np.cumsum(ns)]).astype(int)
 
         e_pot, e_kin, edge_counts = [], [], []
-        for _ in range(n_segments):
+        for seg in range(n_segments):
             gs = []
             for i, (z, p, ex) in enumerate(zip(zs, pos, extras)):
                 g = {"node_number": z, "node_coordinates": p}
@@ -206,7 +239,8 @@ class ScannedMD:
                 pos_pad[o:o + n] = pos[i]
                 vel_pad[o:o + n] = vel[i]
             p, v, ep, ek = self._segment(
-                batch, *(torch.from_numpy(a).to(self.device) for a in (pos_pad, vel_pad, m_pad)))
+                batch, *(torch.from_numpy(a).to(self.device) for a in (pos_pad, vel_pad, m_pad)),
+                generator(seg))
             p, v = p.cpu().numpy(), v.cpu().numpy()
             pos = [p[o:o + n] for o, n in zip(offs[:-1], ns)]
             vel = [v[o:o + n] for o, n in zip(offs[:-1], ns)]

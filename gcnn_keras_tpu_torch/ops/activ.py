@@ -2,7 +2,11 @@
 
 Each entry computes what its JAX counterpart computes. ``softplus`` is
 ``logaddexp(x, 0)`` as in ``jax.nn.softplus``: ``F.softplus`` turns into the
-identity above its ``threshold`` and would not match.
+identity above its ``threshold`` and would not match. Its derivative is
+``sigmoid(x)`` (``_Softplus``), so that every derivative stays finite:
+``torch.logaddexp``'s own second derivative is ``inf / inf`` (NaN) once
+``exp(x)`` overflows (x above about 88), where a force loss through a
+readout of many atoms puts it.
 """
 from __future__ import annotations
 
@@ -15,8 +19,34 @@ import torch.nn.functional as F
 _LOG2 = math.log(2.0)
 
 
+class _Softplus(torch.autograd.Function):
+    """``logaddexp(x, 0)`` with ``sigmoid(x)`` as its derivative, in reverse
+    and forward mode; ``torch.sigmoid``'s own derivatives are finite."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.sigmoid(x)
+
+    @staticmethod
+    def jvp(ctx, t):
+        (x,) = ctx.saved_tensors
+        return t * torch.sigmoid(x)
+
+
 def softplus(x):
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return _Softplus.apply(x)
 
 
 def shifted_softplus(x):

@@ -433,6 +433,8 @@ def fused_chain_ineligibility(batch) -> list:
     windows, ``bins`` < 128, ``E >= 8192``) weigh TPU costs and are not
     kept; U beyond the kernels' shared memory raises on the card."""
     reasons = []
+    if batch.part_axis is not None:
+        reasons.append("edge-partitioned batch")
     if "range_image" in batch.edges:
         reasons.append("periodic batch (range_image shifts)")
     if "sender_perm" not in batch.edges:

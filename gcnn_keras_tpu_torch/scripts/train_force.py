@@ -37,8 +37,18 @@ still apply (the config's ``loss_weights`` are not read, in JAX either).
 A library dataset reads its archive under ``data/download.py``'s
 ``DATASET_ROOT`` (e.g. ``MD17Revised.aspirin/rmd17_aspirin.npz`` for
 ``hyper_md17_revised.py``), fetched there where it is missing.
-``--n-devices`` above 1 and ``--distributed`` raise: the data-parallel step
-is not ported. ``--steps-per-dispatch`` changes nothing (``Trainer.fit_epoch``).
+``--n-devices N`` (above 1) trains data-parallel on N ranks the driver
+starts itself, one a card (more than the machine has raise ``ValueError``),
+or N gloo ranks under ``--device cpu``: each rank takes its batch of each
+group of N consecutive batches of the shared loader, as the JAX driver's
+devices do, and the gradients are averaged. ``--distributed`` joins the
+process group a launcher set up (torchrun's variables or the JAX ones,
+``parallel/distributed.py``): each rank trains on its host's shard of each
+fold's training frames (``host_shard_indices``) with the gradients averaged
+over the group, as the JAX driver with ``--n-devices`` equal to its device
+count; ``--n-devices``, if given, must equal the group's size. Rank 0 alone
+writes and prints. ``--steps-per-dispatch`` changes nothing
+(``Trainer.fit_epoch``).
 """
 from __future__ import annotations
 
@@ -97,13 +107,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
     return ap
-
-
-def refuse_unported(args) -> None:
-    if (args.n_devices and args.n_devices > 1) or args.distributed:
-        raise ValueError("--n-devices > 1 and --distributed need the data-parallel step, "
-                         "which is not ported yet (ROADMAP.md, 'Parallel'); train on one "
-                         "device")
 
 
 def multiplex_graph(graph: dict) -> dict:
@@ -200,15 +203,20 @@ def optimizer_for(args, hyper=None):
     return functools.partial(torch.optim.Adam, lr=1e-3), schedule_for(args)
 
 
-def run_fold(args, ds, train_idx, test_idx, batch_kw, fold, device, hyper=None):
+def run_fold(args, ds, train_idx, test_idx, batch_kw, fold, device, hyper=None, mesh=None):
     """One fold: ``(history, seconds, EnergyForceModel, TrainState, scaler,
-    test batch)``; ``hyper`` builds the model and optimizer."""
+    test batch)``; ``hyper`` builds the model and optimizer; ``mesh``
+    trains data-parallel over its ranks."""
+    from gcnn_keras_tpu_torch.parallel.data_parallel import dp_batch_iterator
     from gcnn_keras_tpu_torch.data.loader import GraphBatchLoader
     from gcnn_keras_tpu_torch.data.scalers import EnergyForceExtensiveLabelScaler
     from gcnn_keras_tpu_torch.training.fit import fit_model
     from gcnn_keras_tpu_torch.training.losses import masked_graph_mae, masked_node_mae
     from gcnn_keras_tpu_torch.utils.wandb_wizard import finish_wandb, init_wandb
     train, test = ds[train_idx], ds[test_idx]
+    if args.distributed:
+        from gcnn_keras_tpu_torch.parallel.distributed import host_shard_indices
+        train = train[host_shard_indices(len(train), seed=args.seed)]
     scaler = EnergyForceExtensiveLabelScaler()
     scaler.fit_dataset(train)
     scaler.transform_dataset(train)
@@ -222,7 +230,7 @@ def run_fold(args, ds, train_idx, test_idx, batch_kw, fold, device, hyper=None):
                          hyper)
     optimizer, schedule = optimizer_for(args, hyper)
     trainer = Trainer(loss_fn(fmodel, args.energy_weight, args.force_weight), optimizer,
-                      schedule=schedule)
+                      mesh=mesh, schedule=schedule)
     state = trainer.init_state(fmodel.energy_model.parameters())
     test_batch = test.to_batch(global_keys=GLOBAL_KEYS, device=device, **batch_kw)
 
@@ -235,18 +243,22 @@ def run_fold(args, ds, train_idx, test_idx, batch_kw, fold, device, hyper=None):
         return {"val_loss": args.energy_weight * ve + args.force_weight * vf,
                 "val_energy_mae": ve, "val_force_mae": vf}
 
-    if args.use_wandb:
+    writer = mesh is None or mesh.rank == 0
+    if args.use_wandb and writer:
         init_wandb("gcnn_keras_tpu", name=f"{args.model}_fold{fold}", config=vars(args))
+    batches = loader if mesh is None or mesh.size == 1 \
+        else (lambda: dp_batch_iterator(loader, mesh))
     t0 = time.perf_counter()
-    state, hist = fit_model(trainer, state, loader, eval_fn, args.epochs,
+    state, hist = fit_model(trainer, state, batches, eval_fn, args.epochs,
                             steps_per_dispatch=args.steps_per_dispatch,
                             early_stopping=args.early_stopping, fold=fold)
     seconds = time.perf_counter() - t0
-    if args.use_wandb:
+    if args.use_wandb and writer:
         finish_wandb()
     if "loss" not in hist:
         raise RuntimeError("the epochs took no training step: the loader needs at least one "
-                           "full batch (raise --frames or lower --batch-size)")
+                           "full batch, with --n-devices at least n_devices (raise --frames "
+                           "or lower --batch-size)")
     return hist, seconds, fmodel, state, scaler, test_batch
 
 
@@ -267,21 +279,33 @@ def plot_fold(args, fmodel, test_batch, fold):
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
+    """The driver (module docstring); returns the score (None on ranks but
+    0 of a data-parallel run)."""
+    from gcnn_keras_tpu_torch.parallel.launch import run_on_ranks
+    args = parser().parse_args(argv)
+    return run_on_ranks(run, args, n_devices=args.n_devices, distributed=args.distributed,
+                        device=args.device)
+
+
+def run(mesh, args) -> Optional[dict]:
+    """The folds of ``args`` on this process's device (``mesh`` None), or on
+    ``mesh``'s ranks; rank 0 alone writes."""
     from gcnn_keras_tpu_torch.training.history import save_history_score
     from gcnn_keras_tpu_torch.utils.devices import resolve_device
-    args = parser().parse_args(argv)
-    refuse_unported(args)
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    writer = mesh is None or mesh.rank == 0
     hyper = load_hyper(args)
     ds, batch_kw = load_dataset(args, hyper)
     histories, times = [], []
     for fold, (test_idx, train_idx) in enumerate(fold_indices(len(ds), args.folds, args.seed)):
         hist, seconds, fmodel, state, scaler, test_batch = run_fold(
-            args, ds, train_idx, test_idx, batch_kw, fold, device, hyper)
+            args, ds, train_idx, test_idx, batch_kw, fold, device, hyper, mesh)
         histories.append(hist)
         times.append(seconds)
-        if args.plots:
+        if args.plots and writer:
             plot_fold(args, fmodel, test_batch, fold)
+    if not writer:
+        return None
     if args.checkpoint_dir:
         from gcnn_keras_tpu_torch.utils.checkpoint import save_checkpoint
         save_checkpoint(args.checkpoint_dir, fmodel.energy_model, state.optimizer,

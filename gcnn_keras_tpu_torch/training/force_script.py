@@ -15,8 +15,16 @@ checkpoint, ``scaler.json`` and the evaluator's artifacts into
 fold's CPU time (``time.process_time``, as in the JAX package).
 
 Everything runs on ``cfg["device"]``: the CUDA card unless it is
-``"cpu"``. ``n_devices > 1`` and ``distributed`` raise: data parallelism
-is not ported.
+``"cpu"``. ``n_devices > 1`` trains data-parallel on that many ranks, which
+the engine starts itself (one a card, or gloo ranks on the CPU under
+``"cpu"``; more ranks than cards raise ``ValueError``): each rank takes
+its batch of each group of ``n_devices`` consecutive batches of the shared
+loader, as the JAX package's devices do, and the gradients are averaged.
+``distributed`` joins the process group a launcher set up
+(``parallel/distributed.py``), each rank training on its host's shard of
+the dataset (``host_shard_indices``) with the gradients averaged over the
+group. Only rank 0 writes checkpoints, scalers, artifacts and scores, and
+prints; the other ranks return None.
 """
 from __future__ import annotations
 
@@ -63,7 +71,7 @@ DEFAULTS = {
     "synthetic_frames": 64,
     "use_esp_coupling": False,
     "outputs": ("energy", "force"),
-    # data parallelism (not ported: a value that asks for it raises)
+    # data parallelism: ranks started by the engine, or a launcher's group
     "n_devices": 0,
     "distributed": False,
     # the JAX package's K steps a compiled dispatch; eager PyTorch runs
@@ -77,10 +85,6 @@ DEFAULTS = {
     "wandb_project": "gcnn_keras_tpu",
     "make_plots": True,
 }
-
-_NOT_PORTED_PARALLEL = (
-    "run_force_training: n_devices > 1 and distributed need the data-parallel "
-    "step, which is not ported yet (ROADMAP.md, 'Parallel'); train on one device")
 
 
 def script_config(mod, **overrides) -> Dict:
@@ -218,10 +222,14 @@ def validation_fn(fmodel, w: Dict[str, float], val_batch) -> Callable:
 def train_folds(build_model: Callable, cfg: Dict, ds, device: torch.device,
                 global_keys: Sequence[str], *, evaluate_all_splits: bool,
                 model_name: str, dataset_name: str, loss_file: str,
-                score_file: str) -> Dict:
+                score_file: str, mesh=None) -> Dict:
     """The fold loop of ``run_force_training`` on a loaded ``ds``; the
     evaluator takes the test split, or with ``evaluate_all_splits`` every
-    split (``force_hdnnp4th``'s own loop). Returns the score."""
+    split (``force_hdnnp4th``'s own loop). ``mesh``: train data-parallel
+    over its ranks, rank 0 alone writing. Returns the score (None on the
+    other ranks)."""
+    from ..parallel.data_parallel import dp_batch_iterator
+    writer = mesh is None or mesh.rank == 0
     w = normalized_loss_weights(cfg)
     global_keys = tuple(global_keys)
     histories, times = [], []
@@ -244,30 +252,34 @@ def train_folds(build_model: Callable, cfg: Dict, ds, device: torch.device,
         steps = cfg["epochs"] * max(len(loader), 1)
         trainer = Trainer(force_loss_fn(fmodel, w),
                           functools.partial(torch.optim.Adam, lr=cfg["learning_rate_start"]),
-                          schedule=linear_schedule(cfg["learning_rate_start"],
-                                                   cfg["learning_rate_stop"], steps))
+                          mesh=mesh, schedule=linear_schedule(cfg["learning_rate_start"],
+                                                              cfg["learning_rate_stop"], steps))
         state = trainer.init_state(fmodel.energy_model.parameters())
         eval_fn = validation_fn(fmodel, w, val.to_batch(global_keys=global_keys,
                                                         device=device))
 
-        if cfg["use_wandb"]:
+        if cfg["use_wandb"] and writer:
             init_wandb(cfg["wandb_project"], name=f"{cfg['model_prefix']}_fold{fold}",
                        config=cfg)
         t0 = time.process_time()
         print(f"fold {fold}: training {cfg['epochs']} epochs of {len(loader)} steps "
               f"on {device}...", flush=True)
+        batches = loader if mesh is None or mesh.size == 1 \
+            else (lambda: dp_batch_iterator(loader, mesh))
         state, hist = fit_model(
-            trainer, state, loader, eval_fn, cfg["epochs"],
+            trainer, state, batches, eval_fn, cfg["epochs"],
             steps_per_dispatch=cfg.get("steps_per_dispatch", 1),
             early_stopping=cfg.get("early_stopping", 0), fold=fold)
         times.append(time.process_time() - t0)
-        if cfg["use_wandb"]:
+        if cfg["use_wandb"] and writer:
             finish_wandb()
         if "loss" not in hist:
             raise RuntimeError("epoch produced no training steps: the loader must yield "
-                               "at least one batch per epoch (raise synthetic_frames or "
-                               "lower batch_size)")
+                               "at least one batch per epoch, with n_devices > 1 at least "
+                               "n_devices (raise synthetic_frames or lower batch_size)")
         histories.append(hist)
+        if not writer:
+            continue
         outdir = f"{cfg['model_prefix']}_{fold}"
         save_checkpoint(outdir, fmodel.energy_model, state.optimizer, step=cfg["epochs"])
         scaler.save(os.path.join(outdir, "scaler.json"))
@@ -286,6 +298,8 @@ def train_folds(build_model: Callable, cfg: Dict, ds, device: torch.device,
                        dataset_name="force", model_name=model_name,
                        global_keys=global_keys, make_plots=cfg["make_plots"])
 
+    if not writer:
+        return None
     if cfg["make_plots"]:
         from ..utils.plots import plot_train_test_loss
         plot_train_test_loss(histories, loss_name="loss", val_loss_name="val_loss",
@@ -299,16 +313,24 @@ def run_force_training(build_model: Callable, cfg: Dict) -> Dict:
     """Train ``build_model(cfg, device=..., generator=...)`` (an
     ``EnergyForceModel``) as the module docstring says; ``cfg`` goes over
     ``DEFAULTS``. Returns the score."""
+    from ..parallel.launch import run_on_ranks
     cfg = {**DEFAULTS, **cfg}
-    if cfg["distributed"] or (cfg["n_devices"] and cfg["n_devices"] > 1):
-        raise NotImplementedError(_NOT_PORTED_PARALLEL)
-    device = resolve_device(cfg.get("device"))
+    return run_on_ranks(_run_force_training, build_model, cfg, n_devices=cfg["n_devices"],
+                        distributed=cfg["distributed"], device=cfg.get("device"))
+
+
+def _run_force_training(mesh, build_model: Callable, cfg: Dict) -> Dict:
+    device = mesh.device if mesh is not None else resolve_device(cfg.get("device"))
     ds = load_force_dataset(cfg)
+    if cfg["distributed"]:
+        from ..parallel.distributed import host_shard_indices
+        ds = ds[host_shard_indices(len(ds), seed=cfg["seed"])]
     global_keys = ("energy", "total_charge") if cfg["need_esp"] else ("energy",)
     prefix = cfg["model_prefix"]
     return train_folds(build_model, cfg, ds, device, global_keys, evaluate_all_splits=False,
                        model_name=prefix, dataset_name=cfg.get("data_path") or "synthetic",
-                       loss_file=f"{prefix}_loss.png", score_file=f"results/{prefix}_score.yaml")
+                       loss_file=f"{prefix}_loss.png", score_file=f"results/{prefix}_score.yaml",
+                       mesh=mesh)
 
 
 def parse_config_cli(defaults: Dict) -> Dict:
@@ -322,9 +344,11 @@ def parse_config_cli(defaults: Dict) -> Dict:
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--data-path", default=None)
     ap.add_argument("--n-devices", type=int, default=None,
-                    help="data-parallel over the first N devices (not ported)")
+                    help="data-parallel over N ranks the script starts (one a card, or "
+                         "gloo ranks under --device cpu)")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host data parallelism (not ported)")
+                    help="join the process group a launcher set up (torchrun's or the "
+                         "JAX variables) and train data-parallel on per-host shards")
     ap.add_argument("--device", default=None,
                     help="the device to train on: the CUDA card unless 'cpu'")
     args = ap.parse_args()

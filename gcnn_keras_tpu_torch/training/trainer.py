@@ -1,4 +1,4 @@
-"""Training loop on one device; counterpart of
+"""The training loop; counterpart of
 ``gcnn_keras_tpu/training/trainer.py`` (``Trainer``, ``TrainState``).
 
 A ``Trainer`` owns the optimizer and runs ``step(state, batch)``: the loss,
@@ -6,7 +6,11 @@ its gradients along the parameters by ``torch.autograd.grad`` (the
 counterpart of ``jax.value_and_grad`` over the params tree), then the
 optimizer's update of the parameters in place. PyTorch runs eagerly, so
 there is no jit, no donation and no scan of several steps in one dispatch.
-The data-parallel step over a mesh is not ported yet.
+
+With a mesh (``parallel/mesh.py``) the step is the data-parallel one of
+``parallel/data_parallel.py``: each rank passes its own sub-batch, the
+gradients and metrics are averaged over the ranks, and ``init_state``
+starts every replica from rank 0's parameters.
 """
 from __future__ import annotations
 
@@ -17,10 +21,6 @@ import torch
 import torch.nn as nn
 
 Tensor = torch.Tensor
-
-_NOT_PORTED_MESH = (
-    "Trainer(mesh=...): the data-parallel step is not ported yet (ROADMAP.md, "
-    "'Parallel'); run one device without a mesh")
 
 
 @dataclasses.dataclass
@@ -40,35 +40,30 @@ class Trainer:
     ``optax.adam(1e-3)``, whose ``b1``, ``b2`` and ``eps`` are PyTorch's
     defaults. ``schedule(k)``, if given, is update k's learning rate (k
     counted from 0): the counterpart of an optax chain that holds a
-    schedule, e.g. ``optax.adam(optax.linear_schedule(...))``."""
+    schedule, e.g. ``optax.adam(optax.linear_schedule(...))``. ``mesh``:
+    train data-parallel over its ranks (the module docstring)."""
 
     def __init__(self, loss_fn: Callable,
                  optimizer: Callable[[List[nn.Parameter]], torch.optim.Optimizer],
                  mesh=None, schedule: Optional[Callable[[int], float]] = None):
-        if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED_MESH)
+        from ..parallel.data_parallel import device_train_step
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.mesh = mesh
         self.schedule = schedule
+        self._step = device_train_step(loss_fn, mesh, schedule)
 
     def init_state(self, params: Iterable[nn.Parameter]) -> TrainState:
         params = [p for p in params if p.requires_grad]
+        if self.mesh is not None:
+            from ..parallel.collectives import broadcast_tensors_
+            broadcast_tensors_(params, self.mesh)
         return TrainState(params=params, optimizer=self.optimizer(params))
 
     def step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Tensor]]:
-        """One step: the loss, its gradients, the optimizer's update."""
-        loss, metrics = self.loss_fn(batch)
-        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
-        for p, g in zip(state.params, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
-        if self.schedule is not None:
-            lr = self.schedule(state.step)
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr
-        state.optimizer.step()
-        metrics = dict(metrics)
-        metrics["loss"] = loss.detach()
-        return dataclasses.replace(state, step=state.step + 1), metrics
+        """One step: the loss, its gradients (averaged over the mesh's
+        ranks), the optimizer's update."""
+        return self._step(state, batch)
 
     def step_fn(self) -> Callable:
         """:meth:`step`, under the JAX package's name for its jitted step."""

@@ -1483,3 +1483,21 @@ def test_ase_bridge_and_trace_phase_on_the_card(cuda_device, tmp_path, monkeypat
     assert paths["ase_schnet"] == chip_smoke.schnet_launches("unfused")
     assert paths["ase_hdnnp4th"] == chip_smoke.HDNNP4TH_LAUNCHES
     chip_smoke.phase_trace("card test", [None, None, ("4 mols", chip_smoke.qm9_like_mols(2, 4))])
+
+
+@pytest.mark.cuda
+def test_parallel_phase_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """Phase 30 at small sizes on 2 ranks sharing the card: the data-parallel
+    steps against the single-rank mean, the partitioned SchNet on a
+    20 000-node chain against the oracle, replica MD against one device,
+    and ``train_force --distributed`` against the CPU."""
+    import chip_smoke
+    monkeypatch.chdir(tmp_path)
+    sizes = {"dp": {"schnet_train": 32, "hdnnp4th_train": 16}, "nodes": 20_000,
+             "md": (8, 10, 2)}
+    paths, recs = chip_smoke.phase_parallel("card test", sizes=sizes)
+    for r in range(chip_smoke.PARALLEL_RANKS):
+        assert paths[f"parallel_schnet_train_rank{r}"]["sorted_segment_sum"] == \
+            chip_smoke.TRAIN_STEPS * 19
+        assert paths[f"partitioned_schnet_rank{r}"]["sorted_segment_sum"] > 0
+    assert recs["sorted_segment_sum"]

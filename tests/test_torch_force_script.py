@@ -169,11 +169,24 @@ def test_parse_config_cli_takes_the_device(tmp_path, monkeypatch):
     assert "device" not in force_script.parse_config_cli(_port("force_schnet").CONFIG)
 
 
-@pytest.mark.parametrize("over", [{"n_devices": 2}, {"distributed": True}])
-def test_data_parallel_raises_naming_the_roadmap_item(over):
-    with pytest.raises(NotImplementedError, match="'Parallel'"):
-        force_script.run_force_training(_port("force_schnet").build_model,
-                                        _tiny("force_schnet", device="cpu", **over))
+@pytest.mark.parametrize("over", [{"n_devices": 2}, {"distributed": True, "n_devices": 2}])
+def test_data_parallel_raises_naming_the_roadmap_item(over, monkeypatch):
+    """The engine's data-parallel options run (``tests/test_torch_parallel.py``);
+    what they still refuse: ``n_devices`` ranks on a machine with fewer
+    cards, and ``distributed`` with an ``n_devices`` other than the
+    group's size (no launcher here: 1 rank). Each raise names both counts."""
+    for name in ("MASTER_ADDR", "WORLD_SIZE", "RANK", "JAX_COORDINATOR_ADDRESS",
+                 "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    cfg = _tiny("force_schnet", **over)
+    if over.get("distributed"):
+        cfg["device"] = "cpu"
+        match = r"make_mesh\(n_devices=2\).*1 rank"
+    else:
+        match = "2 ranks need 2 CUDA devices, but this machine has 1"
+    with pytest.raises(ValueError, match=match):
+        force_script.run_force_training(_port("force_schnet").build_model, cfg)
 
 
 # ---------------------------------------------------------- schedules

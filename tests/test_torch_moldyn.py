@@ -193,10 +193,16 @@ def test_scanned_md_single_molecule_and_langevin(md_models):
 
 
 def test_scanned_md_refuses_what_is_not_ported(md_models):
+    """Replica parallelism runs on a group of ranks
+    (``tests/test_torch_parallel.py``); outside one, ``n_devices=2`` raises
+    naming both counts, and replicas that do not divide over the devices
+    raise as in JAX."""
     systems, (_, _, tm) = md_models
     md = ScannedMD(tm, dt=1e-3, device="cpu")
-    with pytest.raises(NotImplementedError, match="'Parallel'"):
+    with pytest.raises(ValueError, match=r"make_mesh\(n_devices=2\).*1 rank"):
         md.run_ensemble(systems[:2], 1, n_devices=2)
+    with pytest.raises(ValueError, match="not divisible by n_devices=2"):
+        md.run_ensemble(systems[:3], 1, n_devices=2)
     with pytest.raises(ValueError):
         ScannedMD(tm, dt=1e-3, thermostat="langevin", device="cpu")
 

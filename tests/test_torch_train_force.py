@@ -214,12 +214,23 @@ def test_hyper_md17_first_step_matches_the_jax_driver(archives, monkeypatch, tmp
                         model, monkeypatch)
 
 
-@pytest.mark.parametrize("argv,match", [(["--n-devices", "2"], "Parallel"),
-                                        (["--distributed"], "Parallel")])
+@pytest.mark.parametrize("argv,match", [
+    pytest.param(["--n-devices", "2"], "2 ranks need 2 CUDA devices, but this machine has 1",
+                 id="argv0-Parallel"),
+    pytest.param(["--distributed", "--n-devices", "2", "--device", "cpu"],
+                 r"make_mesh\(n_devices=2\).*1 rank", id="argv1-Parallel")])
 def test_unported_options_raise(argv, match, tmp_path, monkeypatch):
+    """``--n-devices`` and ``--distributed`` run (``tests/test_torch_parallel.py``
+    holds ``--n-devices 2 --device cpu`` against the JAX driver); what they
+    still refuse: more ranks than the machine has cards, and an
+    ``--n-devices`` other than the launcher's group (none here: 1 rank)."""
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for name in ("MASTER_ADDR", "WORLD_SIZE", "RANK", "JAX_COORDINATOR_ADDRESS",
+                 "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
     with pytest.raises(ValueError, match=match):
-        train_force.main(argv + ["--device", "cpu", "--frames", "16"])
+        train_force.main(argv + ["--frames", "16"])
 
 
 def test_dimenet_stops_at_its_first_batch_in_both_packages(tmp_path, monkeypatch):

@@ -244,8 +244,25 @@ def test_fit_epoch_steps_per_dispatch_equals_sequential_steps():
 
 
 def test_trainer_with_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="'Parallel'"):
-        Trainer(lambda b: (torch.zeros(()), {}), ADAM, mesh=object())
+    """A mesh of this process alone takes the step without a mesh (the
+    data-parallel step on 2 and more ranks: ``tests/test_torch_parallel.py``);
+    a mesh of more ranks than the process group has raises, naming both
+    counts, as does ``steps_per_dispatch`` 0."""
+    from gcnn_keras_tpu_torch.parallel.mesh import make_mesh
+    graphs = _mols(np.random.RandomState(21), 2)
+    results = []
+    for mesh in (None, make_mesh(1, device="cpu")):
+        fm = EnergyForceModel(schnet.make_model(device="cpu", **MODELS["schnet"]["kw"]),
+                              device="cpu")
+        tr = Trainer(chip_smoke.ef_loss_fn(fm, 100.0), ADAM, mesh=mesh)
+        state = tr.init_state(fm.energy_model.parameters())
+        state, metrics = tr.step(state, batch_graphs(graphs, global_keys=("energy",),
+                                                     device="cpu"))
+        results.append((metrics["loss"], [p.detach().clone() for p in state.params]))
+    (l0, p0), (l1, p1) = results
+    assert l0 == l1 and all(torch.equal(a, b) for a, b in zip(p0, p1))
+    with pytest.raises(ValueError, match=r"make_mesh\(n_devices=2\).*1 rank"):
+        make_mesh(2, device="cpu")
     with pytest.raises(ValueError, match="steps_per_dispatch"):
         Trainer(lambda b: (torch.zeros(()), {}), ADAM).fit_epoch(None, [], 0)
 

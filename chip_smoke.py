@@ -340,6 +340,30 @@ order, each raising on a failed check:
    loss and averaged gradients against the mean of the CPU's steps on the
    two ranks' batches. Each rank's launches are a path of the ``kernels``
    line. Nothing is timed across two cards: there is one.
+31. Slice 21, the partitioned HDNNP4th (``phase_partitioned_hdnnp``), on 2
+   ranks sharing the card over gloo as in phase 30: the flagship HDNNP4th
+   (``HDNNP4TH_KW``, ESP coupling, weights from seed 0) on
+   ``bench_large_mol_step``'s ``PART_HDNNP_ATOMS``-atom helix
+   (``large_mol_graph``: ``set_range`` at 3.5 with 12 neighbours, then
+   ``set_angle``; total charge 0). (a) The single-rank oracle first, while
+   the card is this process's alone: the same model with the dense Qeq
+   (Cholesky) on the whole molecule. (b) The partitioned evaluation
+   (``make_partitioned_energy_force``, the charges through the row-sharded
+   CG to ``PART_HDNNP_CG_TOL``): energy, forces and charges against the
+   oracle, the charges summing to the total charge across the shards, at
+   ``tests/test_partitioned_model.py``'s tolerances (``PART_HDNNP_TOL``).
+   (c) One partitioned step of the flagship loss (``PART_HDNNP_W``: 50 q
+   + 1 E + 200 F against the molecule's labels): its loss and parameter
+   gradients against the oracle's. Every #1 call of rank 0's warm-up
+   against its plain version; each rank's launches over the timed
+   evaluations and steps: #1 above 0, #3 and #8-#13 none (a shard's ACSF
+   layers run plain, as in the JAX package, and its Qeq is the CG). The
+   halo, the remote share, the CG rounds a solve, ms an evaluation and a
+   step (wall; and rank 0's device ms under ``torch.profiler``) beside the
+   oracle's. (d) ``python -m
+   gcnn_keras_tpu_torch.scripts.partitioned_giant_graph`` with
+   ``PART_EXAMPLE_ARGS`` (``--check``: its energy and forces against one
+   device) exits 0.
 
 Each kernel's ``ms`` and ``bound_ms`` in the ``kernels`` line are those of
 its timed check at the shapes of the first path that launched it; the
@@ -6751,6 +6775,259 @@ def phase_parallel(smi, device="cuda", sizes=None):
     return by_path, records
 
 
+# ------------------------------------- phase 31: the partitioned HDNNP4th
+
+PART_HDNNP_ATOMS = 2080
+# tests/test_partitioned_model.py's HDNNP cases: energy rtol 1e-5, forces
+# rtol 1e-3 / atol 1e-5, charges atol 5e-6 with |sum q - q_tot| < 1e-5,
+# the flagship step's gradients within 3e-4 of each tensor's largest entry
+# and its loss within rtol 1e-4
+PART_HDNNP_TOL = {"energy_rtol": 1e-5, "force": (1e-3, 1e-5), "charge_atol": 5e-6,
+                  "charge_sum": 1e-5, "grad": 3e-4, "loss_rtol": 1e-4}
+# the flagship loss (bench.py _hdnnp_setup; force_hdnnp4th.py's 1/200/50)
+PART_HDNNP_W = {"w_energy": 1.0, "w_force": 200.0, "w_charge": 50.0}
+# the row-sharded CG's relative residual: the JAX tests' (_hdnnp_model)
+PART_HDNNP_CG_TOL = 1e-10
+PART_HDNNP_REPS = 3
+# the kernels a shard must not launch: the SPD solve (#3) and the ACSF ones
+PART_HDNNP_NONE = ("spd_solve", "g2_fwd", "g4_fwd", "g4_vjp", "g2_vjp", "g4_jvp", "g2_jvp")
+# (d): the JAX example's default 20 000-node chain and SchNet at depth 4,
+# 64 units, over the 2 ranks, two Adam steps, checked against one device
+PART_EXAMPLE_ARGS = ["--nodes", "20000", "--devices", "2", "--train-steps", "2", "--check"]
+PART_HDNNP_SIZES = {"atoms": PART_HDNNP_ATOMS, "reps": PART_HDNNP_REPS,
+                    "example": PART_EXAMPLE_ARGS}
+
+
+def part_hdnnp_model(device, solver):
+    """The flagship HDNNP4th (weights from seed 0) with the Qeq ``solver``
+    (a shard takes the row-sharded CG whatever it says)."""
+    from gcnn_keras_tpu_torch.models import hdnnp4th
+    kw = dict(HDNNP4TH_KW, electrostatic_kwargs={"param_trainable": False, "solver": solver,
+                                                 "cg_tol": PART_HDNNP_CG_TOL})
+    return hdnnp4th.make_model_behler(device=device, generator=torch.Generator().manual_seed(0),
+                                      **kw)
+
+
+def part_hdnnp_loss(out, e_ref, f, f_ref, q_ref, mask):
+    """The flagship loss of one molecule: ``w_e (E - E_ref)^2 + w_f mean
+    (F - F_ref)^2 + w_q mean (q - q_ref)^2`` over its real atoms."""
+    w = PART_HDNNP_W
+    q = out["charge"].reshape(-1)
+    df, dq = (f - f_ref) * mask[:, None], (q - q_ref) * mask
+    n = mask.sum()
+    return (w["w_energy"] * (out["output"][0, 0] - e_ref) ** 2
+            + w["w_force"] * (df * df).sum() / (3.0 * n) + w["w_charge"] * (dq * dq).sum() / n)
+
+
+def part_hdnnp_oracle(g, device="cuda", reps=PART_HDNNP_REPS):
+    """(a): the flagship HDNNP4th with the dense Qeq on the whole molecule
+    on one rank: energy, forces, charges, the flagship loss and its
+    parameter gradients, and the ms of an evaluation and of the
+    gradients."""
+    from gcnn_keras_tpu_torch.batch import batch_graphs
+    model = part_hdnnp_model(device, "dense")
+    ob = batch_graphs([g], global_keys=("energy", "total_charge"), device=device)
+    mask = ob.node_mask.float()
+    params = list(model.parameters())
+
+    def run(grad):
+        p = ob.nodes["node_coordinates"].detach().requires_grad_(True)
+        out = model(ob.replace_nodes(node_coordinates=p))
+        (gp,) = torch.autograd.grad(out["output"][0, 0], p, create_graph=grad)
+        if not grad:
+            return out["output"][0, 0].detach(), -gp, out["charge"].reshape(-1).detach()
+        loss = part_hdnnp_loss(out, ob.globals["energy"][0, 0], -gp, ob.nodes["force"],
+                               ob.nodes["charge"], mask)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    ms = {}
+    for grad in (False, True):
+        run(grad)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = run(grad)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms["step" if grad else "eval"] = float(np.median(times))
+        if grad:
+            loss, grads = out
+        else:
+            e, f, q = out
+    n = len(g["node_number"])
+    return {"energy": float(e), "force": f.detach().cpu().numpy()[:n],
+            "charge": q.cpu().numpy()[:n], "loss": float(loss), "ms": ms,
+            "grads": {name: gr.cpu() for (name, _), gr in zip(model.named_parameters(), grads)}}
+
+
+def part_hdnnp_rank(mesh, pin, g, reps):
+    """(b) and (c) on one rank: a warm-up evaluation and step with rank 0's
+    kernel calls captured and checked, then the main path, ``reps``
+    evaluations and ``reps`` steps' gradients, timed, every count set to
+    0 just before and read just after; rank 0's device ms of one of each
+    under ``torch.profiler``; the forces and charges gathered."""
+    from gcnn_keras_tpu_torch.layers.conv import qeq_solver
+    from gcnn_keras_tpu_torch.parallel import partitioned as part
+    from gcnn_keras_tpu_torch.parallel.collectives import all_gather_tiled
+    if mesh.device.type == "cpu":
+        count_kernels_on_cpu()
+    model = part_hdnnp_model(mesh.device, "auto")
+    shard = part.rank_shard(pin, mesh, node_props={"esp": g["esp"]},
+                            global_props={"total_charge": g["total_charge"]})
+    efn = part.make_partitioned_energy_force(model, mesh)
+    step = part.make_partitioned_train_step(
+        model, mesh, functools.partial(torch.optim.SGD, lr=1.0), **PART_HDNNP_W)
+    state = step.init_state()
+    f_ref, q_ref = (torch.as_tensor(part.shard_node_array(pin, g[k])[mesh.rank]).to(mesh.device)
+                    for k in ("force", "charge"))
+    e_ref = float(g["energy"][0])
+
+    def evaluate():
+        return efn(shard)
+
+    def grads():
+        return step.grads(state, shard, e_ref, f_ref, q_ref)
+
+    with captured_calls() if mesh.rank == 0 else contextlib.nullcontext({}) as calls:
+        evaluate()
+        grads()
+    torch.cuda.synchronize()
+    recs = check_captured({k: v for k, v in calls.items() if k == "sorted_segment_sum"},
+                          "partitioned HDNNP4th, rank 0") if calls else {}
+    del calls
+    torch.cuda.synchronize()
+    reset_counts()
+    solves0, rounds0 = qeq_solver.solves, qeq_solver.rounds
+    ev_ms, st_ms = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        e, f = evaluate()
+        torch.cuda.synchronize()
+        ev_ms.append(1e3 * (time.perf_counter() - t0))
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        gr, metrics, _ = grads()
+        torch.cuda.synchronize()
+        st_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = kernel_counts()
+    cg = {"solves": qeq_solver.solves - solves0, "rounds": qeq_solver.rounds - rounds0}
+    with torch.no_grad():
+        q = model(shard)["charge"]
+    out = {"launches": launches, "ms_eval": float(np.median(ev_ms)),
+           "ms_step": float(np.median(st_ms)), "metrics": {k: float(v) for k, v in
+                                                           metrics.items()},
+           "energy": float(e), "records": recs, "cg": cg,
+           "force": all_gather_tiled(f, mesh).cpu().numpy(),
+           "charge": all_gather_tiled(q, mesh).cpu().numpy()}
+    # rank 0's device time of one evaluation and one step; every rank runs
+    # them alike, since each call meets the other ranks in its collectives
+    if mesh.device.type == "cuda":
+        for key, fn in (("eval", evaluate), ("step", grads)):
+            if mesh.rank == 0:
+                out[f"profile_{key}"] = busy_share(fn, reps=1)
+            else:
+                for _ in range(3):  # busy_share's two warm calls and one traced
+                    fn()
+    out["transport"] = {k: dict(v) for k, v in mesh.transport.items()}
+    if mesh.rank == 0:
+        out["grads"] = {n: t.detach().cpu() for (n, _), t in zip(model.named_parameters(), gr)}
+    return out
+
+
+def run_example(device, args):
+    """(d): the example's counterpart in a process of its own (its ranks
+    sharing the card); its output lines and seconds."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gcnn_keras_tpu_torch.scripts."
+                           "partitioned_giant_graph", *args, "--device", device],
+                          cwd=here, capture_output=True, text=True, timeout=PARALLEL_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"partitioned_giant_graph {' '.join(args)}: exit "
+                             f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout.strip().splitlines(), seconds
+
+
+def phase_partitioned_hdnnp(smi, device="cuda", sizes=None):
+    """Phase 31 (the module docstring) at ``sizes`` (``PART_HDNNP_SIZES``'
+    keys; a CPU rehearsal takes small ones). Returns the launch counts of
+    its paths, by rank, and the kernel records."""
+    from gcnn_keras_tpu_torch.parallel import launch
+    from gcnn_keras_tpu_torch.parallel.partitioned import prepare_partitioned, unshard_node_array
+    sizes = sizes or PART_HDNNP_SIZES
+    t0 = time.perf_counter()
+    g = large_mol_graph(sizes["atoms"])
+    n = len(g["node_number"])
+    oracle = part_hdnnp_oracle(g, device, sizes["reps"])
+    torch.cuda.empty_cache()
+    send, recv = g["edge_indices"][:, 1], g["edge_indices"][:, 0]
+    pin = prepare_partitioned(g["node_number"], g["node_coordinates"], send, recv,
+                              PARALLEL_RANKS, angles=g["angle_indices_nodes"])
+    ranks = launch.spawn(part_hdnnp_rank, PARALLEL_RANKS, pin, g, sizes["reps"], device=device,
+                         share_device=device != "cpu", timeout_s=PARALLEL_TIMEOUT_S,
+                         threads=rank_threads())
+    tol = PART_HDNNP_TOL
+    label = "partitioned HDNNP4th"
+    # (b)
+    for r, rk in enumerate(ranks):
+        if not abs(rk["energy"] - oracle["energy"]) <= tol["energy_rtol"] * abs(oracle["energy"]):
+            raise AssertionError(f"{label} rank {r}: energy {rk['energy']}, the oracle's "
+                                 f"{oracle['energy']}")
+    f = unshard_node_array(pin, ranks[0]["force"].reshape(pin.z.shape + (3,)))
+    q = unshard_node_array(pin, ranks[0]["charge"].reshape(pin.z.shape))
+    rtol, atol = tol["force"]
+    ferr = np.abs(f - oracle["force"])
+    if not np.isfinite(f).all() or not np.all(ferr <= atol + rtol * np.abs(oracle["force"])):
+        raise AssertionError(f"{label}: forces off the oracle's by {ferr.max()}")
+    qerr = np.abs(q - oracle["charge"])
+    qsum = abs(float(q.sum()) - float(g["total_charge"][0]))
+    if not qerr.max() <= tol["charge_atol"] or not qsum < tol["charge_sum"]:
+        raise AssertionError(f"{label}: charges off the oracle's by {qerr.max()}, their sum "
+                             f"off the total charge by {qsum}")
+    # (c)
+    loss = ranks[0]["metrics"]["loss"]
+    if not abs(loss - oracle["loss"]) <= tol["loss_rtol"] * abs(oracle["loss"]):
+        raise AssertionError(f"{label}: loss {loss}, the oracle's {oracle['loss']}")
+    worst, _ = check_grads(f"{label} step", ranks[0]["grads"], oracle["grads"], tol["grad"])
+    by_path, records = {}, {"sorted_segment_sum": []}
+    for r, rk in enumerate(ranks):
+        if not rk["launches"]["sorted_segment_sum"] or any(rk["launches"][k]
+                                                           for k in PART_HDNNP_NONE):
+            raise AssertionError(f"{label} rank {r}: launches {rk['launches']}")
+        by_path[f"partitioned_hdnnp4th_rank{r}"] = rk["launches"]
+    records["sorted_segment_sum"].extend(
+        dict(rec, path="partitioned_hdnnp4th_rank0") for rec in
+        ranks[0]["records"].get("sorted_segment_sum", []))
+    if not records["sorted_segment_sum"]:
+        raise AssertionError(f"{label}: rank 0 captured no #1 call")
+    cg = ranks[0]["cg"]
+    log("partitioned hdnnp4th: " + json.dumps({
+        "atoms": n, "edges": int(len(send)), "angles": int(len(g["angle_indices_nodes"])),
+        "ranks": PARALLEL_RANKS, "card": smi, "halo_size": pin.halo_size,
+        "remote_fraction": pin.remote_fraction, "n_local": int(pin.z.shape[1]),
+        "energy": ranks[0]["energy"], "energy_oracle": oracle["energy"],
+        "max_force_err": float(ferr.max()), "max_charge_err": float(qerr.max()),
+        "charge_sum_err": qsum, "loss": loss, "loss_oracle": oracle["loss"],
+        "metrics": ranks[0]["metrics"], "max_rel_grad_err": worst,
+        "cg_solves": cg["solves"], "cg_rounds": cg["rounds"],
+        "cg_rounds_per_solve": cg["rounds"] / max(cg["solves"], 1),
+        "ms_eval": [rk["ms_eval"] for rk in ranks], "ms_step": [rk["ms_step"] for rk in ranks],
+        "ms_eval_oracle": oracle["ms"]["eval"], "ms_step_oracle": oracle["ms"]["step"],
+        "profile_eval_rank0": ranks[0].get("profile_eval"),
+        "profile_step_rank0": ranks[0].get("profile_step"),
+        "evals": sizes["reps"], "steps": sizes["reps"],
+        "checked_calls": len(records["sorted_segment_sum"]),
+        "launches_per_rank": [{k: v for k, v in rk["launches"].items() if v} for rk in ranks],
+        "backend": "gloo", "transport": ranks[0]["transport"]}))
+    # (d)
+    lines, seconds = run_example(device, sizes["example"])
+    log("partitioned_giant_graph: " + json.dumps({"args": sizes["example"], "card": smi,
+                                                  "seconds": seconds, "output": lines}))
+    log(f"phase 31 seconds: {time.perf_counter() - t0:.1f}")
+    return by_path, records
+
+
 def kernels_line(records, by_path, second_order):
     """The ``kernels`` entries of the result line: each kernel's source, the
     TPU kernel it replaces, its launches on each main path, its largest
@@ -6936,6 +7213,10 @@ def main():
     paths, parallel_recs = phase_parallel(smi)
     by_path.update(paths)
     for kname, rs in parallel_recs.items():
+        records[kname].extend(rs)
+    paths, part_recs = phase_partitioned_hdnnp(smi)
+    by_path.update(paths)
+    for kname, rs in part_recs.items():
         records[kname].extend(rs)
     # the busy shares last, after every timed part of the script; one
     # profiled step of each zoo model: RGCN's and GNN-FiLM's 4300 and 12600

@@ -538,13 +538,14 @@ def sender_node_table(batch: GraphBatch, values: Tensor) -> Tensor:
 
 
 def refuse_partitioned(batch: GraphBatch, layer: str) -> None:
-    """Raise where ``layer`` meets a shard of an edge-partitioned graph it
-    has no port for: its neighbour ids there index the halo-exchanged
-    table, not the shard's own nodes, so it would compute wrong numbers."""
+    """Raise where ``layer``, which reads no halo table, meets a shard of an
+    edge-partitioned graph: its neighbour ids there index the
+    halo-exchanged table, not the shard's own nodes, so it would compute
+    wrong numbers (the JAX package's computes them without a word)."""
     if batch.part_axis is not None:
         raise NotImplementedError(
-            f"{layer} on an edge-partitioned batch (the partitioned HDNNP4th) is not ported "
-            f"yet (ROADMAP.md, 'Parallel')")
+            f"{layer} on an edge-partitioned batch: the layer reads no halo table, as in the "
+            f"JAX package, so the shard's neighbour ids would index the wrong nodes")
 
 
 def graph_psum(batch: GraphBatch, per_graph: Tensor) -> Tensor:

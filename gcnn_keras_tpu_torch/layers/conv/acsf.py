@@ -16,8 +16,11 @@ Neither layer has parameters. Each has two paths:
 ``fused``: ``None`` takes the kernels when the configuration is one they
 cover, and otherwise the plain path on the CPU; on a CUDA tensor an
 uncovered configuration raises ``NotImplementedError`` rather than running
-plain operations on the card. ``True`` raises ``ValueError`` for an uncovered
-configuration. ``False`` runs the plain path on any device.
+plain operations on the card, but for a shard of an edge-partitioned batch,
+which no kernel takes and which runs plain on any device, as in the JAX
+package (its neighbour ids index the halo-exchanged node table,
+``batch.sender_node_table``). ``True`` raises ``ValueError`` for an
+uncovered configuration. ``False`` runs the plain path on any device.
 On a CPU tensor the kernels' autograd Functions run their plain versions.
 """
 from __future__ import annotations
@@ -29,12 +32,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ...batch import GraphBatch, refuse_partitioned
+from ...batch import GraphBatch, sender_node_table
 from ...ops.cuda import acsf as kacsf
 
 Tensor = torch.Tensor
 
 _MAX_Z = 96
+# the reason a shard of an edge-partitioned batch gives (JAX's wording)
+PARTITIONED = "edge-partitioned batch"
 
 
 def _relational_pool(rep: Tensor, target: Tensor, relation: Tensor,
@@ -76,7 +81,7 @@ def _dispatch(layer: str, fused: Optional[bool], reasons: List[str],
     if reasons and fused:
         raise ValueError(f"{layer}(fused=True) but the configuration is not "
                          "eligible for the CUDA kernels: " + "; ".join(reasons))
-    if reasons and device.type == "cuda":
+    if reasons and device.type == "cuda" and PARTITIONED not in reasons:
         raise NotImplementedError(
             f"{layer}: the CUDA kernels do not cover this configuration ("
             + "; ".join(reasons) + "); pass fused=False to run plain "
@@ -126,6 +131,8 @@ class ACSFG2(nn.Module):
         """Why the kernels cannot take this layer on ``batch``; empty if
         they can."""
         reasons = list(self._table_reasons)
+        if batch.part_axis is not None:
+            reasons.insert(0, PARTITIONED)
         if "range_image" in batch.edges and "graph_lattice" in batch.globals:
             reasons.append("periodic batch (range_image shifts)")
         if "sender_perm" not in batch.edges:
@@ -134,7 +141,6 @@ class ACSFG2(nn.Module):
 
     def forward(self, batch: GraphBatch, z: Optional[Tensor] = None,
                 positions: Optional[Tensor] = None) -> Tensor:
-        refuse_partitioned(batch, "ACSFG2")
         z, pos = _node_inputs(batch, z, positions)
         if _dispatch("ACSFG2", self.fused, self.kernel_reasons(batch), pos.device):
             return kacsf.G2Fn.apply(pos, z.to(torch.int32), batch.senders,
@@ -142,18 +148,21 @@ class ACSFG2(nn.Module):
         return self.forward_plain(batch, z, pos)
 
     def forward_plain(self, batch: GraphBatch, z: Tensor, pos: Tensor) -> Tensor:
-        """The JAX package's unfused ACSFG2."""
+        """The JAX package's unfused ACSFG2. On a shard of an
+        edge-partitioned batch the senders index the halo-exchanged tables
+        of ``z`` and ``pos``."""
         dev = pos.device
         tab = torch.as_tensor(self.table, device=dev)
         rev = torch.as_tensor(_reverse_mapping(self.element_mapping), device=dev)
         recv, send = batch.receivers.long(), batch.senders.long()
+        z_tab, pos_tab = sender_node_table(batch, z), sender_node_table(batch, pos)
         zi = z[recv].long().clamp(0, _MAX_Z - 1)
-        zj = z[send].long().clamp(0, _MAX_Z - 1)
+        zj = z_tab[send].long().clamp(0, _MAX_Z - 1)
         zi_map, zj_map = rev[zi], rev[zj]
         params = tab[zi_map, zj_map] if self.per_target else tab[zj_map]  # (E, m, 3)
         eta, rs, rc = params[..., 0], params[..., 1], params[..., 2]
 
-        vec = pos[recv] - pos[send]
+        vec = pos[recv] - pos_tab[send]
         if "range_image" in batch.edges and "graph_lattice" in batch.globals:
             image = batch.edges["range_image"].to(pos.dtype)
             lat_e = batch.globals["graph_lattice"].to(pos.dtype)[batch.edge_graph_id.long()]
@@ -246,11 +255,10 @@ class ACSFG4(nn.Module):
     def kernel_reasons(self, batch: GraphBatch) -> List[str]:
         """Why the kernels cannot take this layer; empty if they can (angles
         are centre-sorted by every batch)."""
-        return list(self._reasons)
+        return ([PARTITIONED] if batch.part_axis is not None else []) + self._reasons
 
     def forward(self, batch: GraphBatch, z: Optional[Tensor] = None,
                 positions: Optional[Tensor] = None) -> Tensor:
-        refuse_partitioned(batch, "ACSFG4")
         if batch.angles is None:
             raise ValueError("ACSFG4 needs angle triples in the batch")
         z, pos = _node_inputs(batch, z, positions)
@@ -262,12 +270,16 @@ class ACSFG4(nn.Module):
     def forward_plain(self, batch: GraphBatch, z: Tensor, pos: Tensor) -> Tensor:
         """The JAX package's unfused ACSFG4. A shared grid-constant table
         with the default pair mapping over sorted elements takes the G4
-        kernel's plain version: each transcendental once per unique value."""
+        kernel's plain version: each transcendental once per unique value.
+        On a shard of an edge-partitioned batch an angle's centre ``i`` is
+        local and its neighbours ``j``, ``k`` index the halo-exchanged
+        tables of ``z`` and ``pos``."""
+        z_tab, pos_tab = sender_node_table(batch, z), sender_node_table(batch, pos)
         if self._static is not None and not (
                 {"custom element_pair_mapping", "unsorted element_mapping"}
                 & set(self._reasons)):
             return kacsf.g4_forward_plain(pos, z, batch.angles, batch.angle_mask,
-                                          self._static)
+                                          self._static, nbr_pos=pos_tab, nbr_z=z_tab)
         dev = pos.device
         rev = torch.as_tensor(_reverse_mapping(self.element_mapping), device=dev)
         rev_pair = torch.as_tensor(self._rev_pair, device=dev)
@@ -275,15 +287,15 @@ class ACSFG4(nn.Module):
 
         i, j, k = batch.angles.long().unbind(1)
         zi = z[i].long().clamp(0, _MAX_Z - 1)
-        zj = z[j].long().clamp(0, _MAX_Z - 1)
-        zk = z[k].long().clamp(0, _MAX_Z - 1)
+        zj = z_tab[j].long().clamp(0, _MAX_Z - 1)
+        zk = z_tab[k].long().clamp(0, _MAX_Z - 1)
         zi_map = rev[zi]
         zjk_map = rev_pair[zj, zk]
         params = tab[zi_map, zjk_map] if self.per_target else tab[zjk_map]  # (A, m, 4)
         eta, zeta, lamda, rc = (params[..., 0], params[..., 1], params[..., 2],
                                 params[..., 3])
 
-        pj, pk = pos[j], pos[k]
+        pj, pk = pos_tab[j], pos_tab[k]
         vij, vik, vjk = pj - pos[i], pk - pos[i], pk - pj
 
         def dist(v):

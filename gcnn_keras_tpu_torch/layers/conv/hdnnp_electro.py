@@ -6,8 +6,9 @@ The Qeq system of each molecule is padded to ``M = batch.max_nodes`` atoms:
 padding atoms get identity rows, and the total-charge constraint is
 eliminated by a Schur complement (``qeq_solver.py``). The dense solve builds
 the ``(G, M, M)`` matrices; the iterative one (matrix-free CG) only their
-per-atom tables. The row-sharded solver of the JAX package is not ported
-yet.
+per-atom tables. On a shard of an edge-partitioned molecule the solve is
+the row-sharded CG over the ranks (``qeq_solver.solve_qeq_rows``), whatever
+``solver`` says, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -18,11 +19,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ...batch import (GraphBatch, flat_to_padded, graph_psum, padded_to_flat,
-                      refuse_partitioned)
+from ...batch import GraphBatch, flat_to_padded, graph_psum, padded_to_flat
 from ...ops.segment import segment_sum
 from ..aggr import gather_receiver_nodes, gather_sender_nodes
-from .qeq_solver import solve_qeq_dense_cholesky, solve_qeq_iterative_batch
+from .qeq_solver import solve_qeq_dense_cholesky, solve_qeq_iterative_batch, solve_qeq_rows
 
 Tensor = torch.Tensor
 
@@ -128,7 +128,9 @@ class CENTCharge(nn.Module):
     ``solver``: ``"dense"``; ``"iterative"``, the matrix-free CG of
     ``qeq_solver.py`` to the relative residual ``cg_tol``; or ``"auto"``,
     iterative from ``iterative_threshold`` atoms per molecule up, dense
-    below. Any other value raises ``ValueError``.
+    below. Any other value raises ``ValueError``. A shard of an
+    edge-partitioned batch takes the row-sharded CG (:meth:`forward_rows`)
+    whatever ``solver`` says.
     ``dense_impl``: ``"cholesky"`` (Schur-eliminated constraint, the SPD
     solve) or ``"lu"`` (the bordered ``(G, M+1, M+1)`` system through
     ``torch.linalg.solve``, in :class:`LinearSolve`); anything else raises
@@ -198,7 +200,8 @@ class CENTCharge(nn.Module):
 
     def forward(self, batch: GraphBatch, chi: Tensor,
                 positions: Optional[Tensor] = None) -> Tensor:
-        refuse_partitioned(batch, "CENTCharge")
+        if batch.part_axis is not None:
+            return self.forward_rows(batch, chi, positions)
         if self.solver == "iterative" or (
                 self.solver == "auto" and max(batch.max_nodes, 1) >= self.iterative_threshold):
             x_pad, b, sig, diag, mask, qtot = self.tables(batch, chi, positions)
@@ -217,6 +220,24 @@ class CENTCharge(nn.Module):
             rhs = torch.cat([b, qtot[:, None]], dim=1)                 # (G, M+1)
             q_pad = LinearSolve.apply(a, rhs[..., None])[..., 0][:, :M]
         q = padded_to_flat(q_pad, batch)
+        return q * batch.node_mask.to(q.dtype)
+
+    def forward_rows(self, batch: GraphBatch, chi: Tensor,
+                     positions: Optional[Tensor] = None) -> Tensor:
+        """The charges of this rank's shard of one edge-partitioned
+        molecule: its atoms are rows of the molecule's Qeq system, solved by
+        the row-sharded CG over ``batch.part_axis`` to ``cg_tol``."""
+        z = _atomic_numbers(batch)
+        pos = positions if positions is not None else batch.nodes["node_coordinates"]
+        qtot = batch.globals.get("total_charge")
+        qtot = (pos.new_zeros(()) if qtot is None
+                else qtot.reshape(batch.n_graphs, -1)[0, 0].to(pos.dtype))
+        sig = self.sigma[z]
+        diag = torch.where(batch.node_mask,
+                           self.hardness_j[z] + 1.0 / (sig * math.sqrt(math.pi) + 1e-12),
+                           torch.ones_like(sig))
+        q = solve_qeq_rows(pos, sig, diag, batch.node_mask, chi.reshape(chi.shape[0], -1)[:, 0],
+                           qtot, batch.part_axis, tol=self.cg_tol)
         return q * batch.node_mask.to(q.dtype)
 
 

@@ -15,8 +15,20 @@ values at a time (its derivatives, like the JAX package's ``lax.map``
 under autodiff, keep each block's intermediates).
 
 ``solve_qeq_batch_sharded`` shares the G dense solves of a batch over the
-ranks of a mesh, with no collective in the solve. The row-sharded CG
-solvers of the JAX module (the partitioned HDNNP4th's) are not ported yet.
+ranks of a mesh, with no collective in the solve.
+
+The row-sharded CG (``solve_qeq_rows``, the partitioned HDNNP4th's; and
+``solve_qeq_iterative_sharded``, one molecule's rows over a group) keeps
+one giant molecule's M rows on D ranks, M / D each: a CG round computes
+this rank's row block of the erf-kernel matvec (O(M^2 / D), never an
+M x M matrix) and all-gathers it, so the iterate, the CG's scalars and its
+stopping test are the same on every rank. The JAX package wraps its solve
+in a ``custom_jvp`` that solves the bordered tangent system with the same
+solve; here the solve is an autograd Function (:class:`_RowsCGSolve`) whose
+backward solves the adjoint system by calling itself, with rank-local
+right-hand sides and solutions, so that a backward through it can itself be
+differentiated (the partitioned train step's force term, reverse over
+reverse), and whose ``jvp`` is one more call.
 """
 from __future__ import annotations
 
@@ -27,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.cuda.spd_solve import SPDSolve, fits_shared_memory
+from ...parallel.collectives import all_gather, all_gather_tiled, psum
 
 Tensor = torch.Tensor
 
@@ -311,3 +324,230 @@ def solve_qeq_iterative(pos: Tensor, sigma: Tensor, hardness_diag: Tensor,
                                                   device=pos.device).reshape(1),
                                   mask[None], block=block, tol=tol, maxiter=maxiter)
     return q[0]
+
+
+# ------------------------------------------------ row-sharded, one molecule
+
+
+def _shard_pairs(pos_loc: Tensor, sig_loc: Tensor, pos_all: Tensor, sig_all: Tensor,
+                 mask_all: Tensor, row0: int):
+    """This rank's rows of the erf kernel's geometry against every atom:
+    ``r_i - r_j``, ``d_ij``, ``gamma_ij`` (as :func:`_row_blocks`) and the
+    mask that zeroes the diagonal (row ``row0 + i`` at column ``row0 + i``)
+    and the padded columns, each ``(M_loc, M, ...)``."""
+    diff = pos_loc[:, None, :] - pos_all[None, :, :]
+    dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
+    gamma = torch.sqrt(sig_loc[:, None] ** 2 + sig_all[None, :] ** 2 + 1e-12)
+    rows = torch.arange(pos_loc.shape[0], device=pos_loc.device)[:, None] + row0
+    cols = torch.arange(pos_all.shape[0], device=pos_loc.device)[None, :]
+    return diff, dist, gamma, (rows != cols).to(dist.dtype) * mask_all[None, :]
+
+
+def _shard_off(pos_loc: Tensor, sig_loc: Tensor, pos_all: Tensor, sig_all: Tensor,
+               mask_all: Tensor, row0: int) -> Tensor:
+    """This rank's rows of the erf kernel's off-diagonal part, ``(M_loc,
+    M)``, the diagonal and the padded columns zeroed (JAX's ``matvec`` of
+    ``_qeq_rows_primal``)."""
+    _, dist, gamma, keep = _shard_pairs(pos_loc, sig_loc, pos_all, sig_all, mask_all, row0)
+    return torch.erf(dist / (gamma * math.sqrt(2.0))) / dist * keep
+
+
+def _shard_rows(pos_loc: Tensor, sig_loc: Tensor, diag_loc: Tensor, maskf_loc: Tensor,
+                q_all: Tensor, mesh) -> Tensor:
+    """This rank's rows of ``A(pos, sigma, diag) @ q``, ``q (M, K)`` the
+    whole (replicated) vector held fixed; differentiable along the rank's
+    ``pos``, ``sigma`` and ``diag`` through the all-gathers, whose
+    transposes bring each rank's share of the other rows' gradient home."""
+    m_loc, row0 = pos_loc.shape[0], mesh.rank * pos_loc.shape[0]
+    off = _shard_off(pos_loc, sig_loc, all_gather(pos_loc, mesh), all_gather(sig_loc, mesh),
+                     all_gather_tiled(maskf_loc, mesh), row0)
+    return (off @ q_all) * maskf_loc[:, None] + diag_loc[:, None] * q_all[row0:row0 + m_loc]
+
+
+def _shard_rows_jvp(pos_loc: Tensor, sig_loc: Tensor, maskf_loc: Tensor, q_all: Tensor,
+                    dpos_loc: Optional[Tensor], dsig_loc: Optional[Tensor],
+                    ddiag_loc: Optional[Tensor], mesh) -> Tensor:
+    """The tangent of :func:`_shard_rows` at a fixed ``q`` along ``dpos``,
+    ``dsigma``, ``ddiag`` (each None where it is zero): the terms of
+    :func:`_erf_kernel_matvec_jvp` on this rank's rows, the tangents of the
+    other rows all-gathered. Written in ordinary operations and
+    differentiable collectives, so a reverse pass reaches every input."""
+    m_loc, row0 = pos_loc.shape[0], mesh.rank * pos_loc.shape[0]
+    out = torch.zeros_like(q_all[:m_loc])
+    if ddiag_loc is not None:
+        out = out + ddiag_loc[:, None] * q_all[row0:row0 + m_loc]
+    if dpos_loc is None and dsig_loc is None:
+        return out
+    diff, d, gamma, keep = _shard_pairs(pos_loc, sig_loc, all_gather(pos_loc, mesh),
+                                        all_gather(sig_loc, mesh),
+                                        all_gather_tiled(maskf_loc, mesh), row0)
+    u = d / (gamma * math.sqrt(2.0))
+    derf = (2.0 / math.sqrt(math.pi)) * torch.exp(-u * u)
+    doff = torch.zeros_like(d)
+    if dpos_loc is not None:
+        dpos_all = all_gather(dpos_loc, mesh)
+        ddiff = dpos_loc[:, None, :] - dpos_all[None, :, :]
+        dd = torch.sum(diff * ddiff, dim=-1) / d
+        doff = doff + (derf * u - torch.erf(u)) / (d * d) * dd
+    if dsig_loc is not None:
+        sds_loc = sig_loc * dsig_loc
+        dgamma = (sds_loc[:, None] + all_gather(sds_loc, mesh)[None, :]) / gamma
+        doff = doff - derf / (math.sqrt(2.0) * gamma * gamma) * dgamma
+    return out + ((doff * keep) @ q_all) * maskf_loc[:, None]
+
+
+class _RowsCGSolve(torch.autograd.Function):
+    """``x = A^-1 b`` for one molecule whose rows are shared over the ranks
+    of ``mesh``: ``b (M_loc, K)`` this rank's rows of the right-hand sides,
+    ``x`` this rank's rows of the solutions. The forward runs :func:`_pcg`
+    under no graph on the whole (replicated) vectors: a round computes this
+    rank's rows of ``A p`` from a block of the matrix built once
+    (:func:`_shard_off`) and all-gathers them. The backward's cotangent of
+    ``b`` is this Function again on the rows of ``x_bar`` (``A`` is
+    symmetric: the adjoint system is the same system, its right-hand side
+    gathered from every rank's rows), and that of ``pos``, ``sigma``,
+    ``diag`` is ``-<lambda, d(A x)/d theta>`` through
+    :func:`_shard_rows`; its ``jvp`` solves ``A dx = db - (dA) x``
+    (:func:`_shard_rows_jvp`)."""
+
+    @staticmethod
+    def forward(ctx, b, pos, sigma, diag, maskf, mesh, tol, maxiter):
+        m_loc, row0 = b.shape[0], mesh.rank * b.shape[0]
+        with torch.no_grad():
+            # one all-gather of every per-atom table
+            tab = all_gather_tiled(torch.cat(
+                [pos, sigma[:, None], maskf[:, None],
+                 1.0 / torch.clamp_min(diag, 1e-6)[:, None], b], dim=1), mesh)
+            pos_all, sig_all, mask_all = tab[:, :3], tab[:, 3], tab[:, 4]
+            off = _shard_off(pos, sigma, pos_all, sig_all, mask_all, row0)
+
+            def matvec(p):
+                p = p[0]
+                ap = (off @ p) * maskf[:, None] + diag[:, None] * p[row0:row0 + m_loc]
+                return all_gather_tiled(ap, mesh)[None]
+
+            x = _pcg(matvec, tab[None, :, 6:], tab[None, :, 5], tol, maxiter)[0]
+            x = x[row0:row0 + m_loc].clone()
+        ctx.save_for_backward(x, pos, sigma, diag, maskf)
+        ctx.save_for_forward(x, pos, sigma, diag, maskf)
+        ctx.set_materialize_grads(False)
+        ctx.config = (mesh, tol, maxiter)
+        return x
+
+    @staticmethod
+    def jvp(ctx, db, dpos, dsigma, ddiag, *_):
+        x, pos, sigma, diag, maskf = ctx.saved_tensors
+        mesh, tol, maxiter = ctx.config
+        x_all = all_gather(x, mesh)
+        rhs = -_shard_rows_jvp(pos, sigma, maskf, x_all, dpos, dsigma, ddiag, mesh)
+        if db is not None:
+            rhs = rhs + db
+        return _RowsCGSolve.apply(rhs, pos, sigma, diag, maskf, mesh, tol, maxiter)
+
+    @staticmethod
+    def backward(ctx, x_bar):
+        if x_bar is None:  # materialize_grads is off (alike on every rank)
+            return (None,) * 8
+        x, pos, sigma, diag, maskf = ctx.saved_tensors
+        mesh, tol, maxiter = ctx.config
+        lam = _RowsCGSolve.apply(x_bar, pos, sigma, diag, maskf, mesh, tol, maxiter)
+        needed = [i for i in range(3) if ctx.needs_input_grad[1 + i]]
+        grads = [None, None, None]
+        if needed:
+            # grad mode is on here only when the caller asked for a graph
+            create = torch.is_grad_enabled()
+            with torch.enable_grad():
+                theta = [t.view_as(t) if create else t.detach().requires_grad_(i in needed)
+                         for i, t in enumerate((pos, sigma, diag))]
+                x_all = all_gather(x, mesh) if create else all_gather_tiled(x.detach(), mesh)
+                ax = _shard_rows(*theta, maskf, x_all, mesh)
+                vjp = torch.autograd.grad(ax, [theta[i] for i in needed], lam,
+                                          create_graph=create)
+            for i, g in zip(needed, vjp):
+                grads[i] = -g
+        return (lam, *grads, None, None, None, None)
+
+
+def solve_qeq_rows(pos_loc: Tensor, sig_loc: Tensor, diag_loc: Tensor, mask_loc: Tensor,
+                   chi_loc: Tensor, qtot: Tensor, mesh, tol: float = 1e-6,
+                   maxiter: Optional[int] = None) -> Tensor:
+    """The constrained Qeq solve of ONE molecule whose M atoms lie on the
+    ranks of ``mesh``, M / D consecutive ones on each (the JAX package's
+    ``solve_qeq_rows_in_shard_map``): ``pos_loc (M_loc, 3)``, ``sig_loc``,
+    ``diag_loc`` (hardness + 1/(sigma sqrt(pi)), 1.0 on padding rows),
+    ``mask_loc`` bool, ``chi_loc`` ``(M_loc,)`` this rank's rows; ``qtot``
+    the molecule's total charge, the same on every rank. Returns this
+    rank's charges ``(M_loc,)``, zero on padding.
+
+    ``A x1 = chi mask`` and ``A x2 = mask`` run as one CG
+    (:class:`_RowsCGSolve`, ``maxiter`` defaulting to 10 M rounds); the
+    multiplier comes from their sums over every rank (one ``psum``, its
+    own transpose), as JAX's from its two solves. Every rank must call it
+    together."""
+    maskf = mask_loc.to(pos_loc.dtype)
+    if maxiter is None:
+        maxiter = 10 * pos_loc.shape[0] * mesh.size
+    b = torch.stack([chi_loc * maskf, maskf], dim=-1)                  # (M_loc, 2)
+    xs = _RowsCGSolve.apply(b, pos_loc, sig_loc, diag_loc, maskf, mesh, tol, maxiter)
+    sums = psum(torch.sum(maskf[:, None] * xs, dim=0), mesh)          # (2,)
+    den = sums[1]
+    lam = (sums[0] - qtot) / torch.where(den != 0, den, torch.ones_like(den))
+    return (xs[:, 0] - lam * xs[:, 1]) * maskf
+
+
+class _RowsOfReplicated(torch.autograd.Function):
+    """This rank's M / D rows of a tensor that is the same on every rank;
+    its transpose gathers every rank's rows (:class:`_GatherReplicated`),
+    so that each rank holds the whole gradient of a replicated input."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, mesh) -> Tensor:
+        ctx.mesh = mesh
+        m_loc = x.shape[0] // mesh.size
+        return x[mesh.rank * m_loc:(mesh.rank + 1) * m_loc].clone()
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return _GatherReplicated.apply(g, ctx.mesh), None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """Every rank's rows gathered into a tensor that is the same on every
+    rank; its transpose takes this rank's rows of the (replicated)
+    cotangent, counting it once (JAX's ``_gather_r``), where the summing
+    transpose of the all-gather would count it once a rank."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, mesh) -> Tensor:
+        ctx.mesh = mesh
+        return all_gather_tiled(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return _RowsOfReplicated.apply(g, ctx.mesh), None
+
+
+def solve_qeq_iterative_sharded(pos: Tensor, sigma: Tensor, hardness_diag: Tensor,
+                                chi: Tensor, qtot: Tensor, mask: Tensor, mesh,
+                                tol: float = 1e-6, maxiter: Optional[int] = None) -> Tensor:
+    """ONE molecule's constrained Qeq solve with the matvec's rows shared
+    over the ranks of ``mesh`` (every rank calls it together): the
+    arguments as :func:`solve_qeq_iterative`'s, the same on every rank,
+    ``M`` a multiple of the ranks (pad with masked rows). Each rank solves
+    its ``M / D`` rows (:func:`solve_qeq_rows`); returns the charges
+    ``(M,)`` on every rank. Differentiable: each rank's gradient of a
+    replicated input is the whole gradient of a loss of the charges that
+    every rank computes alike."""
+    m, d = pos.shape[0], mesh.size
+    if m % d:
+        raise ValueError(f"pad M={m} to a multiple of the {d} ranks")
+    if d == 1:
+        return solve_qeq_iterative(pos, sigma, hardness_diag, chi, qtot, mask, tol=tol,
+                                   maxiter=maxiter)
+    rows = lambda t: _RowsOfReplicated.apply(t, mesh)  # noqa: E731
+    qtot = torch.as_tensor(qtot, dtype=pos.dtype, device=pos.device).reshape(())
+    q_loc = solve_qeq_rows(rows(pos), rows(sigma), rows(hardness_diag),
+                           mask[mesh.rank * (m // d):(mesh.rank + 1) * (m // d)],
+                           rows(chi), qtot, mesh, tol=tol,
+                           maxiter=10 * m if maxiter is None else maxiter)
+    return _GatherReplicated.apply(q_loc, mesh)

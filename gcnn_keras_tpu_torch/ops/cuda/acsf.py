@@ -46,7 +46,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -193,9 +193,10 @@ def _dist(v: Tensor) -> Tensor:
     return torch.sqrt(torch.clamp((v * v).sum(-1), min=EPS))
 
 
-def _g4_geometry(pos: Tensor, angles: Tensor):
+def _g4_geometry(pos: Tensor, angles: Tensor, nbr_pos: Optional[Tensor] = None):
     i, j, k = angles.long().unbind(1)
-    pi, pj, pk = pos[i], pos[j], pos[k]
+    nbr = pos if nbr_pos is None else nbr_pos
+    pi, pj, pk = pos[i], nbr[j], nbr[k]
     vij, vik, vjk = pj - pi, pk - pi, pk - pj
     rij, rik, rjk = _dist(vij), _dist(vik), _dist(vjk)
     cos = (vij * vik).sum(-1) / rij / rik
@@ -239,16 +240,21 @@ def _g4_tables(st: G4Static, rij, rik, rjk, cos, with_derivs: bool):
 
 
 def g4_forward_plain(pos: Tensor, z: Tensor, angles: Tensor, angle_mask: Tensor,
-                     st: G4Static) -> Tensor:
-    """The G4 fwd kernel's plain PyTorch version: (N, R*m)."""
+                     st: G4Static, nbr_pos: Optional[Tensor] = None,
+                     nbr_z: Optional[Tensor] = None) -> Tensor:
+    """The G4 fwd kernel's plain PyTorch version: (N, R*m). ``nbr_pos``,
+    ``nbr_z``: the tables an angle's neighbours ``j``, ``k`` index, where
+    they are not ``pos`` and ``z`` (a shard's halo-exchanged tables); its
+    centre ``i`` indexes ``pos``."""
     n, m = pos.shape[0], len(st.eta_inv)
-    i, j, k, _, _, _, rij, rik, rjk, cos = _g4_geometry(pos, angles)
+    i, j, k, _, _, _, rij, rik, rjk, cos = _g4_geometry(pos, angles, nbr_pos)
+    nbr_z = z if nbr_z is None else nbr_z
     tabs = _g4_tables(st, rij, rik, rjk, cos, with_derivs=False)
     kk = tabs["k"]
     rep = (tabs["c"][:, kk["zl_inv"]] * tabs["e"][:, kk["eta_inv"]]
            * tabs["f"][:, kk["rc_inv"]] * st.scale)
     rep = rep * angle_mask[:, None].to(rep.dtype)
-    rel = g4_relation(z[j], z[k], st)
+    rel = g4_relation(nbr_z[j], nbr_z[k], st)
     out = torch.zeros(n * st.num_rel, m, dtype=pos.dtype, device=pos.device)
     return out.index_add_(0, i * st.num_rel + rel, rep).reshape(n, st.num_rel * m)
 

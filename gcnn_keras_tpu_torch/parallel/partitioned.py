@@ -17,15 +17,18 @@ The execution half: ``make_partitioned_energy_force`` gives the energy and
 this rank's forces, the gradient of ``E / n_shards`` (the graph readout is
 summed over the shards, a sum that is its own transpose, so each shard's
 cotangent arrives once: JAX's recipe). ``make_partitioned_train_step`` takes
-an optimizer step on ``w_e (E - E_ref)^2 + w_f mean (F - F_ref)^2``: the
-energy term through the surrogate ``coeff * E / n_shards`` with ``coeff =
-2 w_e (E - E_ref)`` held constant, the force term reverse over reverse
-through the collectives (their backward passes are collectives too), the
-parameter gradients summed over the ranks. The JAX package takes the
-force term reverse over forward because its distributed CG solve was wrong
-at second order; no CG solve is on this path. The charge term and any model
-that reaches ACSF or ``CENTCharge`` on a partitioned batch (the partitioned
-HDNNP4th) raise ``NotImplementedError``.
+an optimizer step on ``w_e (E - E_ref)^2 + w_f mean (F - F_ref)^2 + w_q mean
+(q - q_ref)^2``: the energy term through the surrogate ``coeff * E /
+n_shards`` with ``coeff = 2 w_e (E - E_ref)`` held constant, the force and
+charge terms reverse over reverse through the collectives (their backward
+passes are collectives too), the parameter gradients summed over the
+ranks. The flagship HDNNP4th runs partitioned too: its ACSF layers read the
+halo-encoded angle triples, its Qeq solve is the row-sharded CG
+(``layers/conv/qeq_solver.solve_qeq_rows``), whose backward solves the
+adjoint system through the same autograd Function, so its force term's
+second derivative stays reverse over reverse; the JAX package takes the
+force term reverse over forward because its distributed CG was wrong at
+second order.
 """
 from __future__ import annotations
 
@@ -263,13 +266,18 @@ def rank_shard(pin: PartitionedInputs, mesh: Mesh, **props) -> GraphBatch:
     return shard_stacked_batch(build_partitioned_batch(pin, mesh.axis, **props), mesh)
 
 
-def _energy_scaled(model, lb: GraphBatch, pos: Tensor, energy_key: str) -> Tensor:
-    """``E / n_shards``, the differentiable share of each shard: the
-    readout is summed over the shards, so differentiating the replicated
+def _energy_scaled(model, lb: GraphBatch, pos: Tensor, energy_key: str):
+    """``(E / n_shards, this shard's charges (N_loc,) or None)``:
+    ``E / n_shards`` is the differentiable share of each shard, since the
+    readout is summed over the shards and differentiating the replicated
     ``E`` itself would count every path before the readout ``n_shards``
-    times."""
+    times; the charges are the model's ``"charge"`` output where it has
+    one."""
     out = model(lb.replace_nodes(node_coordinates=pos))
-    return out[energy_key][0, 0] / lb.n_shards
+    q = out.get("charge")
+    if q is not None:
+        q = q.reshape(q.shape[0], -1)[:, 0]
+    return out[energy_key][0, 0] / lb.n_shards, q
 
 
 def make_partitioned_energy_force(model, mesh: Mesh, energy_key: str = "output") -> Callable:
@@ -280,7 +288,7 @@ def make_partitioned_energy_force(model, mesh: Mesh, energy_key: str = "output")
     def fn(batch: GraphBatch) -> Tuple[Tensor, Tensor]:
         pos = batch.nodes["node_coordinates"].detach().requires_grad_(True)
         with torch.enable_grad():
-            e_s = _energy_scaled(model, batch, pos, energy_key)
+            e_s, _ = _energy_scaled(model, batch, pos, energy_key)
             (g,) = torch.autograd.grad(e_s, pos)
         return (e_s * batch.n_shards).detach(), -g
     return fn
@@ -306,57 +314,63 @@ class PartitionedTrainState:
 
 
 class PartitionedTrainStep:
-    """``state, metrics = step(state, batch, e_ref, f_ref)`` on this rank's
-    shard ``batch``: ``e_ref`` the whole graph's energy, ``f_ref (N_loc, 3)``
-    this shard's reference forces (``shard_node_array``). The loss is
-    ``w_energy (E - E_ref)^2 + w_force mean_{n, xyz} (F - F_ref)^2`` (the
-    module docstring); ``metrics`` holds ``loss``, ``energy`` and
-    ``force_loss``. ``init_state()`` starts from rank 0's parameters."""
+    """``state, metrics = step(state, batch, e_ref, f_ref, q_ref=None)`` on
+    this rank's shard ``batch``: ``e_ref`` the whole graph's energy, ``f_ref
+    (N_loc, 3)`` and ``q_ref (N_loc,)`` this shard's reference forces and
+    charges (``shard_node_array``; ``q_ref`` None: zeros). The loss is
+    ``w_energy (E - E_ref)^2 + w_force mean_{n, xyz} (F - F_ref)^2 +
+    w_charge mean_n (q - q_ref)^2`` over the real nodes of the whole graph
+    (the module docstring; the charge term where the model outputs
+    ``"charge"``); ``metrics`` holds ``loss``, ``energy``, ``force_loss`` and
+    ``charge_loss``. ``init_state()`` starts from rank 0's parameters."""
 
     def __init__(self, model, mesh: Mesh, optimizer: Callable, energy_key: str = "output",
                  w_energy: float = 1.0, w_force: float = 1.0, w_charge: float = 0.0):
-        if w_charge:
-            raise NotImplementedError(
-                "make_partitioned_train_step(w_charge > 0): the charge loss of the partitioned "
-                "HDNNP4th is not ported yet (ROADMAP.md, 'Parallel')")
         self.model, self.mesh, self.optimizer = model, mesh, optimizer
         self.energy_key, self.w_energy, self.w_force = energy_key, w_energy, w_force
+        self.w_charge = w_charge
 
     def init_state(self) -> PartitionedTrainState:
         params = [p for p in self.model.parameters() if p.requires_grad]
         broadcast_tensors_(params, self.mesh)
         return PartitionedTrainState(params=params, optimizer=self.optimizer(params))
 
-    def grads(self, state: PartitionedTrainState, batch: GraphBatch, e_ref, f_ref):
+    def grads(self, state: PartitionedTrainState, batch: GraphBatch, e_ref, f_ref, q_ref=None):
         """``(parameter gradients summed over the ranks, metrics, this
         shard's forces)``: the step without its update."""
         mesh = self.mesh
-        mask = batch.node_mask.to(f_ref.dtype)[:, None]
-        n_tot3 = 3.0 * psum(mask.sum().detach(), mesh)
+        mask = batch.node_mask.to(f_ref.dtype)
+        n_tot = psum(mask.sum().detach(), mesh)
         pos = batch.nodes["node_coordinates"].detach().requires_grad_(True)
         with torch.enable_grad():
-            e_s = _energy_scaled(self.model, batch, pos, self.energy_key)
-            (g,) = torch.autograd.grad(e_s, pos, create_graph=self.w_force != 0)
+            e_s, q = _energy_scaled(self.model, batch, pos, self.energy_key)
+            # the graph is kept for the surrogate's reverse pass (with a
+            # force term create_graph keeps it anyway)
+            (g,) = torch.autograd.grad(e_s, pos, create_graph=self.w_force != 0,
+                                       retain_graph=True)
             f_pred = -g
             e = (e_s * batch.n_shards).detach()
             coeff = 2.0 * self.w_energy * (e - e_ref)
-            df = (f_pred - f_ref) * mask
-            lf_loc = self.w_force * torch.sum(df * df) / n_tot3
+            df = (f_pred - f_ref) * mask[:, None]
+            lf_loc = self.w_force * torch.sum(df * df) / (3.0 * n_tot)
             surrogate = coeff * e_s + (lf_loc if self.w_force else 0.0)
+            lq_loc = torch.zeros((), dtype=f_ref.dtype, device=f_ref.device)
+            if q is not None:
+                dq = (q - (torch.zeros_like(q) if q_ref is None else q_ref)) * mask
+                lq_loc = self.w_charge * torch.sum(dq * dq) / n_tot
+                if self.w_charge:
+                    surrogate = surrogate + lq_loc
             grads = torch.autograd.grad(surrogate, state.params, allow_unused=True)
         grads = [torch.zeros_like(p) if gr is None else gr for p, gr in zip(state.params, grads)]
         grads = psum_tensors(grads, mesh)
-        lf = psum(lf_loc.detach(), mesh)
-        metrics = {"loss": self.w_energy * (e - e_ref) ** 2 + lf, "energy": e,
-                   "force_loss": lf}
+        lf, lq = psum(torch.stack([lf_loc.detach(), lq_loc.detach()]), mesh).unbind()
+        metrics = {"loss": self.w_energy * (e - e_ref) ** 2 + lf + lq, "energy": e,
+                   "force_loss": lf, "charge_loss": lq}
         return grads, metrics, f_pred.detach()
 
     def __call__(self, state: PartitionedTrainState, batch: GraphBatch, e_ref, f_ref,
                  q_ref=None):
-        if q_ref is not None:
-            raise NotImplementedError(
-                "a partitioned charge loss (q_ref) is not ported yet (ROADMAP.md, 'Parallel')")
-        grads, metrics, _ = self.grads(state, batch, e_ref, f_ref)
+        grads, metrics, _ = self.grads(state, batch, e_ref, f_ref, q_ref)
         for p, gr in zip(state.params, grads):
             p.grad = gr
         state.optimizer.step()
@@ -369,7 +383,7 @@ def make_partitioned_train_step(model, mesh: Mesh, optimizer: Callable,
                                 ) -> PartitionedTrainStep:
     """An optimizer step over the sharded graph (``PartitionedTrainStep``).
     ``optimizer`` makes the optimizer from the parameters, e.g.
-    ``functools.partial(torch.optim.SGD, lr=1.0)``; ``w_charge > 0``
-    raises."""
+    ``functools.partial(torch.optim.SGD, lr=1.0)``; ``w_charge`` weighs the
+    charge term (the flagship HDNNP4th's 50 q + 1 E + 200 F)."""
     return PartitionedTrainStep(model, mesh, optimizer, energy_key, w_energy, w_force,
                                 w_charge)

@@ -67,6 +67,7 @@ from gcnn_keras_tpu_torch.training.losses import masked_graph_mae  # noqa: E402
 from gcnn_keras_tpu_torch.utils import plots, wandb_wizard  # noqa: E402
 from gcnn_keras_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from gcnn_keras_tpu_torch.utils.convert import params_from_jax  # noqa: E402
+from tests.torch_jax_jit import JitApply  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -529,15 +530,16 @@ def test_evaluate_model_matches_jax_with_charges_on_every_split(tmp_path):
     ds = importlib.import_module("force_hdnnp4th").load_dataset(cfg)
     pds = _port("force_hdnnp4th").load_dataset(cfg)
     jm = importlib.import_module("force_hdnnp4th").build_model(cfg)
-    params = jm.init(jax.random.PRNGKey(1), JDataset(graphs=list(ds)).to_batch(
-        global_keys=("energy", "total_charge")), train=False)
+    params = jax.jit(lambda k, b: jm.init(k, b, train=False))(
+        jax.random.PRNGKey(1), JDataset(graphs=list(ds)).to_batch(
+            global_keys=("energy", "total_charge")))
     fm = _port("force_hdnnp4th").build_model(cfg, device="cpu")
     params_from_jax(fm.energy_model, jax.tree_util.tree_map(np.asarray, params))
     indices = (np.arange(4), np.arange(4, 6), np.arange(6, 9))
     scaler, jscaler = EnergyForceExtensiveLabelScaler(), jscalers.EnergyForceExtensiveLabelScaler()
     scaler.fit_dataset(pds[:4])
     jscaler.fit_dataset(ds[:4])
-    ref = jevaluate(JDataset(graphs=list(ds)), jm, params, indices, scaler=jscaler,
+    ref = jevaluate(JDataset(graphs=list(ds)), JitApply(jm), params, indices, scaler=jscaler,
                     output_dir=str(tmp_path / "jax"), make_plots=False, eval_batch_size=4)
     got = evaluate_model(MemoryGraphDataset(graphs=list(pds)), fm, indices, scaler=scaler,
                          output_dir=str(tmp_path / "port"), make_plots=False, eval_batch_size=4)

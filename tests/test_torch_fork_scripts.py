@@ -47,6 +47,7 @@ from gcnn_keras_tpu.utils.checkpoint import save_checkpoint as jsave_checkpoint 
 from gcnn_keras_tpu_torch.training import force_script  # noqa: E402
 from gcnn_keras_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from gcnn_keras_tpu_torch.utils.convert import flax_leaf_names, params_from_jax  # noqa: E402
+from tests.torch_jax_jit import JitApply  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -80,7 +81,7 @@ def ensemble(request, tmp_path_factory):
     batch = JDataset(graphs=list(ds)).to_batch(global_keys=("energy", "total_charge"))
     jm = importlib.import_module(name).build_model(cfg)
     for i in range(2):
-        params = jm.init(jax.random.PRNGKey(i), batch, train=False)
+        params = jax.jit(lambda k, b: jm.init(k, b, train=False))(jax.random.PRNGKey(i), batch)
         scaler = JScaler()
         scaler.fit_dataset(ds[list(range(i, FRAMES, 2))])
         jdir = base / "jax" / f"{PREFIX}_{i}"
@@ -94,8 +95,17 @@ def ensemble(request, tmp_path_factory):
     return name, base / "jax", base / "port", str(conf)
 
 
+def _jit_jax_models(monkeypatch):
+    """The JAX scripts' models with ``apply`` under ``jax.jit``."""
+    for script in ENSEMBLES:
+        mod = importlib.import_module(script)
+        monkeypatch.setattr(mod, "build_model",
+                            lambda *a, _build=mod.build_model, **kw: JitApply(_build(*a, **kw)))
+
+
 def _jax_main(module, argv, workdir, monkeypatch, capsys):
     """The root script's ``main`` in ``workdir``; its printed JSON."""
+    _jit_jax_models(monkeypatch)
     monkeypatch.chdir(workdir)
     monkeypatch.setattr(sys, "argv", [module + ".py"] + argv)
     capsys.readouterr()
@@ -170,6 +180,7 @@ def test_calc_prediction_std_matches_jax(ensemble, monkeypatch, capsys):
 def test_load_model_matches_jax(ensemble, monkeypatch):
     name, jdir, pdir, _ = ensemble
     load_model = importlib.import_module("load_model")
+    _jit_jax_models(monkeypatch)
     monkeypatch.chdir(jdir)
     ref = load_model.load_and_predict(f"{PREFIX}_1", name, n_frames=5)
     monkeypatch.chdir(pdir)
@@ -188,8 +199,8 @@ def test_freeze_mask_labels_the_jax_leaves(name, prefixes):
     cfg = jfs.script_config(importlib.import_module(name), synthetic_frames=3)
     batch = JDataset(graphs=list(_jax_dataset(name, cfg))).to_batch(
         global_keys=("energy", "total_charge"))
-    params = importlib.import_module(name).build_model(cfg).init(
-        jax.random.PRNGKey(0), batch, train=False)
+    jm = importlib.import_module(name).build_model(cfg)
+    params = jax.jit(lambda k, b: jm.init(k, b, train=False))(jax.random.PRNGKey(0), batch)
     ref = {"/".join(str(p.key) for p in path): label for path, label in
            jax.tree_util.tree_leaves_with_path(transfer.freeze_mask(params, prefixes))}
     model = _port(name).build_model(cfg, device="cpu").energy_model

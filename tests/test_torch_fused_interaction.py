@@ -457,7 +457,7 @@ def test_model_energy_force_match_the_jax_fused_chain(monkeypatch):
     graphs = [{k: v for k, v in g.items() if k not in ("energy", "force")}
               for g in _mols(np.random.RandomState(0), 6)]
     jm, params, jb, tm, tb = _shared(graphs, monkeypatch=monkeypatch)
-    ref = jm.apply(params, jb, train=False)
+    ref = jax.jit(lambda p, b: jm.apply(p, b, train=False))(params, jb)
     out = tm.apply(tb)
     e_ref = np.asarray(ref["energy"])
     _close(out["energy"], e_ref, 1e-5, 1e-5 * np.abs(e_ref).max())

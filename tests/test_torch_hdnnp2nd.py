@@ -86,7 +86,7 @@ def test_energy_force_matches_jax(fused):
     graphs = _graphs(0, 7)
     jb = jbatch_graphs(graphs)
     jm, params, tm = _shared(kw, jb)
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     before = dict(kacsf.launches)
     out = tm.apply(batch_graphs(graphs, device="cpu"))
     assert kacsf.launches == before  # nothing launches on the CPU
@@ -103,7 +103,7 @@ def test_options_match_jax(extra):
     graphs = _graphs(8, 5)
     jb = jbatch_graphs(graphs)
     jm, params, tm = _shared(kw, jb)
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     out = tm.apply(batch_graphs(graphs, device="cpu"))
     _close(out["energy"], ref["energy"], E_TOL)
     _close(out["force"], ref["force"], F_TOL)
@@ -120,7 +120,7 @@ def test_default_config_matches_jax():
         graphs.append(jpre.set_angle(g, range_indices="edge_indices"))
     jb = jbatch_graphs(graphs)
     jm, params, tm = _shared({}, jb)
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     out = tm.apply(batch_graphs(graphs, device="cpu"))
     _close(out["energy"], ref["energy"], E_TOL)
     _close(out["force"], ref["force"], F_TOL)

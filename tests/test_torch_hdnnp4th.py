@@ -104,7 +104,7 @@ def test_energy_charge_force_match_jax(extra, perturb):
     kw = dict(BENCH, **extra)
     graphs = _graphs(0, 8)
     jm, params, tm = _shared(kw, jbatch_graphs(graphs, global_keys=GLOBALS), perturb)
-    ref = jm.apply(params, jbatch_graphs(graphs, global_keys=GLOBALS))
+    ref = jax.jit(jm.apply)(params, jbatch_graphs(graphs, global_keys=GLOBALS))
     before = (kseg.launches, kspd.launches, dict(kacsf.launches))
     out = tm.apply(batch_graphs(graphs, global_keys=GLOBALS, device="cpu"))
     assert (kseg.launches, kspd.launches, dict(kacsf.launches)) == before
@@ -196,9 +196,9 @@ def _jax_cent_orders(jb, chi, impl):
         return jnp.sum(jnp.sin(q) * jb.node_mask), q
 
     pos0 = jb.nodes["node_coordinates"]
-    q = f(pos0)[1]
-    g = jax.grad(lambda p: f(p)[0])(pos0)
-    h = jax.grad(lambda p: jnp.sum(jax.grad(lambda pp: f(pp)[0])(p) ** 2))(pos0)
+    q = jax.jit(f)(pos0)[1]
+    g = jax.jit(jax.grad(lambda p: f(p)[0]))(pos0)
+    h = jax.jit(jax.grad(lambda p: jnp.sum(jax.grad(lambda pp: f(pp)[0])(p) ** 2)))(pos0)
     return np.asarray(q), np.asarray(g), np.asarray(h)
 
 
@@ -322,7 +322,7 @@ def test_rep_and_learn_models_match_jax():
     graphs, jb, tb = _rep_learn_batches(8)
     kw = {k: BENCH[k] for k in ("g2_kwargs", "g4_kwargs")}
     jrep = jhdnnp4th.make_model_rep(**kw)
-    ref_rep = jrep.apply(jrep.init(jax.random.PRNGKey(0), jb), jb)["output"]
+    ref_rep = jax.jit(jrep.apply)(jax.jit(jrep.init)(jax.random.PRNGKey(0), jb), jb)["output"]
     rep_model = hdnnp4th.make_model_rep(device="cpu", **kw)
     assert not list(rep_model.parameters())
     rep = rep_model(tb)["output"]
@@ -331,8 +331,8 @@ def test_rep_and_learn_models_match_jax():
     lkw = {k: BENCH[k] for k in ("mlp_charge_kwargs", "mlp_local_kwargs")}
     jlearn = jhdnnp4th.make_model_learn(**lkw)
     jbl = jb.replace_nodes(rep=ref_rep)
-    params = _tree(jlearn.init(jax.random.PRNGKey(2), jbl))
-    ref = jlearn.apply(params, jbl)
+    params = _tree(jax.jit(jlearn.init)(jax.random.PRNGKey(2), jbl))
+    ref = jax.jit(jlearn.apply)(params, jbl)
     learn = hdnnp4th.make_model_learn(device="cpu", rep_features=rep.shape[1], **lkw)
     params_from_jax(learn, params)
     out = learn(tb.replace_nodes(rep=rep.detach()))
@@ -346,9 +346,9 @@ def test_charge_separat_models_match_jax():
     graphs, jb, tb = _rep_learn_batches(9)
     for jm, tm in zip(jhdnnp4th.make_model_behler_charge_separat(**BENCH),
                       hdnnp4th.make_model_behler_charge_separat(device="cpu", **BENCH)):
-        params = _tree(jm.init(jax.random.PRNGKey(4), jb))
+        params = _tree(jax.jit(jm.init)(jax.random.PRNGKey(4), jb))
         params_from_jax(tm, params)
-        ref, out = jm.apply(params, jb), tm(tb)
+        ref, out = jax.jit(jm.apply)(params, jb), tm(tb)
         for key in ("output", "charge"):
             _close(out[key], ref[key])
     assert out["output"].shape == (tb.n_graphs, 1)
@@ -409,7 +409,7 @@ def test_params_from_jax_carries_the_tables_exactly():
     jb = jbatch_graphs(graphs, global_keys=GLOBALS)
     trainable = dict(BENCH, electrostatic_kwargs={"param_trainable": True})
     jm = jhdnnp4th.make_model_behler(**trainable)
-    tree = _tree(jm.init(jax.random.PRNGKey(0), jb))
+    tree = _tree(jax.jit(jm.init)(jax.random.PRNGKey(0), jb))
     tm = params_from_jax(hdnnp4th.make_model_behler(device="cpu", **trainable), tree)
     cent = tree["params"]["cent_electrostatic"]
     assert torch.equal(tm.cent_electrostatic.cent_charge.hardness_j,
@@ -418,7 +418,7 @@ def test_params_from_jax_carries_the_tables_exactly():
                        torch.tensor(cent["electrostatic_energy"]["sigma"]))
     with pytest.raises(KeyError):  # the tables are left over
         params_from_jax(hdnnp4th.make_model_behler(device="cpu", **BENCH), tree)
-    plain = _tree(jhdnnp4th.make_model_behler(**BENCH).init(jax.random.PRNGKey(0), jb))
+    plain = _tree(jax.jit(jhdnnp4th.make_model_behler(**BENCH).init)(jax.random.PRNGKey(0), jb))
     with pytest.raises(KeyError):  # the tables are missing
         params_from_jax(hdnnp4th.make_model_behler(device="cpu", **trainable), plain)
 

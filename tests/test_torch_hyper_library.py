@@ -212,7 +212,7 @@ def test_representative_forward_matches_jax(key, fname, style, widths):
         variables["batch_stats"] = jax.tree_util.tree_map(np.abs, variables["batch_stats"])
     model = params_from_jax(HyperParameter(path, model_name=key).make_model(
         device="cpu", **widths), variables)
-    ref, out = jm.apply(variables, jb), model(tb)
+    ref, out = jax.jit(jm.apply)(variables, jb), model(tb)
     name = "output" if "output" in ref else list(ref)[0]
     r = np.asarray(ref[name])
     assert np.isfinite(r).all()

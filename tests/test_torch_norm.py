@@ -194,10 +194,11 @@ def test_hdnnp4th_behler_with_normalize_kwargs_matches_jax():
     gradients."""
     jb, tb = _hdnnp4th_graphs(12, 3)
     jm = JEnergyForceModel(jhdnnp4th.make_model_behler(**KW4), use_esp_coupling=True)
-    params = _perturb(_tree(jm.init(jax.random.PRNGKey(3), jb)), np.random.RandomState(7))
+    params = _perturb(_tree(jax.jit(jm.init)(jax.random.PRNGKey(3), jb)),
+                      np.random.RandomState(7))
     tm = params_from_jax(hdnnp4th.make_model_behler(device="cpu", **KW4), params)
     fm = EnergyForceModel(tm, use_esp_coupling=True, device="cpu")
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     out = fm.apply(tb)
     for key in ("energy", "charge", "force"):
         np.testing.assert_allclose(_np(out[key]), np.asarray(ref[key]), rtol=RTOL, atol=ATOL)
@@ -209,7 +210,7 @@ def test_hdnnp4th_behler_with_normalize_kwargs_matches_jax():
                 + jnp.sum(jnp.abs(o["energy"][:, 0] - jb.globals["energy"][:, 0])
                           * jb.globals["graph_mask"])
                 + 200.0 * jnp.sum(jnp.abs(o["force"] - jb.nodes["force"]) * m))
-    ref_grads = jax.grad(jloss)(params)
+    ref_grads = jax.jit(jax.grad(jloss))(params)
     o = fm.apply(tb, create_graph=True)
     m = tb.node_mask[:, None]
     loss = (50.0 * ((o["charge"] - tb.nodes["charge"]).abs() * tb.node_mask).sum()
@@ -233,7 +234,8 @@ def test_hdnnp4th_learn_with_normalize_kwargs_matches_jax(train):
     kw = dict(mlp_charge_kwargs=_MLP, mlp_local_kwargs=_MLP,
               normalize_kwargs={"momentum": 0.9})
     jmodel = jhdnnp4th.make_model_learn(**kw)
-    params = _perturb(_tree(jmodel.init(jax.random.PRNGKey(4), jb)), np.random.RandomState(8))
+    params = _perturb(_tree(jax.jit(jmodel.init)(jax.random.PRNGKey(4), jb)),
+                      np.random.RandomState(8))
     tm = params_from_jax(hdnnp4th.make_model_learn(device="cpu", rep_features=12, **kw), params)
     if train:
         ref, state = jmodel.apply(params, jb, train=True, mutable=["batch_stats"])

@@ -208,7 +208,7 @@ def test_energy_force_matches_jax(norms):
     graphs = _mols(0, 6)
     jb = jbatch_graphs(graphs)
     jm, params, tm = _shared(kw, jb, seed=1)
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     out = tm.apply(batch_graphs(graphs, device="cpu"))
     _close(out["energy"], ref["energy"])
     _close(out["force"], ref["force"])
@@ -220,7 +220,7 @@ def test_default_width_model_matches_jax():
     jb = jbatch_graphs(graphs)
     jm, params, tm = _shared(dict(depth=1, conv_args={"units": 128, "cutoff": 5.0}), jb, seed=2)
     out = tm.apply(batch_graphs(graphs, device="cpu"))
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     _close(out["energy"], ref["energy"])
     _close(out["force"], ref["force"])
 
@@ -239,7 +239,7 @@ def test_periodic_crystal_matches_jax():
     graphs = _crystals(2, 3)
     jb = jbatch_graphs(graphs)
     jm, params, tm = _shared(SMALL, jb, seed=4, crystal=True)
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     out = tm.apply(batch_graphs(graphs, device="cpu"))
     _close(out["energy"], ref["energy"])
     _close(out["force"], ref["force"])
@@ -276,7 +276,7 @@ def test_forces_finite_on_tetrahedral_methane():
     jm, params, tm = _shared(dict(depth=2), jb, seed=5)
     out = tm.apply(batch_graphs([ch4], device="cpu"), create_graph=True)
     assert torch.isfinite(out["force"]).all()
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     _close(out["force"], ref["force"])
     (g,) = torch.autograd.grad(out["force"].square().sum(), tm.energy_model.update_1.lin_v.weight)
     assert torch.isfinite(g).all()

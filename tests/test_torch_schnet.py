@@ -92,7 +92,7 @@ def test_energy_force_matches_jax(depth):
     graphs = _mols(0, 6)
     jb = jbatch_graphs(graphs)
     jm, params, tm = _shared(kw, jb)
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     out = tm.apply(batch_graphs(graphs, device="cpu"))
     _close(out["energy"], ref["energy"])
     _close(out["force"], ref["force"])
@@ -103,7 +103,7 @@ def test_default_width_model_matches_jax():
     jb = jbatch_graphs(graphs)
     jm, params, tm = _shared(dict(depth=1), jb)
     out = tm.apply(batch_graphs(graphs, device="cpu"))
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     _close(out["energy"], ref["energy"])
     _close(out["force"], ref["force"])
 
@@ -112,7 +112,7 @@ def test_periodic_crystal_matches_jax():
     graphs = _crystals(2, 3)
     jb = jbatch_graphs(graphs)
     jm, params, tm = _shared(SMALL, jb, crystal=True)
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     out = tm.apply(batch_graphs(graphs, device="cpu"))
     _close(out["energy"], ref["energy"])
     _close(out["force"], ref["force"])
@@ -122,7 +122,7 @@ def test_esp_coupling_matches_jax():
     graphs = _mols(3, 4, with_esp=True)
     jb = jbatch_graphs(graphs)
     jm, params, tm = _shared(SMALL, jb, use_esp_coupling=True)
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     out = tm.apply(batch_graphs(graphs, device="cpu"))
     _close(out["force"], ref["force"])
 

@@ -74,7 +74,7 @@ def test_mode_energy_force_matches_jax(mode):
     graphs = [{k: v for k, v in g.items() if k not in ("energy", "force")}
               for g in _mols(np.random.RandomState(0), 6)]
     jm, params, jb, tm, tb = _shared(mode, graphs)
-    ref = jm.apply(params, jb, train=False)
+    ref = jax.jit(lambda p, b: jm.apply(p, b, train=False))(params, jb)
     out = tm.apply(tb)
     _close(out["energy"], ref["energy"])
     _close(out["force"], ref["force"])

@@ -453,7 +453,7 @@ def test_dense_block_matches_jax_and_the_flat_path(case):
     kw = {**SMALL, **DENSE_CASES[case], "dense_block": True}
     jm, params, fm = _shared(kw, jb)
     assert isinstance(fm.energy_model.interaction_0, SchNetInteractionDense)
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     out = fm.apply(tb)
     flat = EnergyForceModel(params_from_jax(make_model(
         device="cpu", **{**kw, "dense_block": False}), params), device="cpu").apply(tb)
@@ -537,7 +537,7 @@ def test_remat_matches_jax_and_accurate_stays_first_order():
     graphs = _graphs(7, 3)
     jb, tb = _batches(graphs)
     jm, params, fm = _shared({**SMALL, "remat": True}, jb)
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     out = fm.apply(tb)
     _energies_close(out["energy"][:3], np.asarray(ref["energy"])[:3])
     assert _rel(out["force"], ref["force"]) <= F_TOL

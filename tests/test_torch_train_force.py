@@ -26,6 +26,7 @@ from gcnn_keras_tpu_torch.scripts import train_force
 from gcnn_keras_tpu_torch.training import fit, schedules
 from gcnn_keras_tpu_torch.training.history import load_history_score
 from gcnn_keras_tpu_torch.utils.convert import params_from_jax
+from tests.torch_jax_jit import jit_energy_force_init
 from tests.test_torch_datasets import archives, reading_jax_deserialize, serve  # noqa: F401
 from tests.test_torch_zoo_scripts import _Everything, counted_kernels  # noqa: F401 (a fixture)
 
@@ -54,6 +55,7 @@ def _jax_driver(argv, monkeypatch):
         raise _Stop
     monkeypatch.setattr(jfit, "fit_model", stop)
     monkeypatch.setattr(sys, "argv", ["train_force"] + argv)
+    jit_energy_force_init(monkeypatch)
     with pytest.raises(_Stop):
         mod.main()
     return seen["trainer"], seen["state"], seen["loader"]
@@ -112,7 +114,7 @@ def _first_step_matches(argv, model, monkeypatch):
 
     variables = jax.tree_util.tree_map(np.asarray, jstate.params)
     params_from_jax(fmodel.energy_model, variables)
-    (ref_loss, ref_aux), ref_grads = jax.value_and_grad(jtrainer.loss_fn, has_aux=True)(
+    (ref_loss, ref_aux), ref_grads = jax.jit(jax.value_and_grad(jtrainer.loss_fn, has_aux=True))(
         jstate.params, jbatch)
     loss, aux = trainer.loss_fn(batch)
     np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-5)

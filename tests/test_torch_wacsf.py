@@ -202,7 +202,7 @@ def test_hdnnp2nd_energies_forces_and_force_loss_gradients_match_jax(mode):
     default ``train=False`` normalizes by them, in both packages)."""
     jb, tb = _batches(7, 3)
     jm, params, fm = _shared(mode, jb)
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     out = fm.apply(tb)
     _close(out["energy"], ref["energy"], VAL_TOL)
     _close(out["force"], ref["force"], FORCE_TOL)
@@ -291,7 +291,7 @@ def test_inverse_distance_model_matches_jax():
                          params)
     assert tm.mlp.dense_0.weight.shape == (16, 21)
     fm = EnergyForceModel(tm, device="cpu")
-    ref = jm.apply(params, jb)
+    ref = jax.jit(jm.apply)(params, jb)
     out = fm.apply(tb)
     _close(out["energy"], ref["energy"], VAL_TOL)
     _close(out["force"], ref["force"], FORCE_TOL)

@@ -665,7 +665,7 @@ def _shared(name, seed=60):
 def test_model_matches_jax(name):
     """Every output (MEGAN's importances too) against JAX."""
     jm, variables, model, jb, tb = _shared(name)
-    ref, out = jm.apply(variables, jb), model(tb)
+    ref, out = jax.jit(jm.apply)(variables, jb), model(tb)
     assert sorted(out) == sorted(ref)
     for k in ref:
         _close(out[k], ref[k])

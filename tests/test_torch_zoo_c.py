@@ -513,7 +513,7 @@ def _float64(loss_of, model, tb):
 @pytest.mark.parametrize("name", list(MODELS))
 def test_model_matches_jax(name):
     jm, variables, model, jb, tb = _case(name)
-    out, ref = model(tb)["output"], jm.apply(variables, jb)["output"]
+    out, ref = model(tb)["output"], jax.jit(jm.apply)(variables, jb)["output"]
     assert torch.isfinite(out).all()
     _close(out, ref, 1e-5, 1e-6 * max(1.0, float(np.abs(np.asarray(ref)).max())))
 
@@ -564,7 +564,7 @@ def test_force_model_matches_jax(name):
     variables = _perturbed(jax.jit(jfm.init)(jax.random.PRNGKey(0), jb), 72)
     fm = EnergyForceModel(params_from_jax(_port_builder(name)(device="cpu", **kw), variables),
                           device="cpu")
-    ref = jfm.apply(variables, jb)
+    ref = jax.jit(jfm.apply)(variables, jb)
     out = fm.apply(tb, create_graph=True)
     _close(out["energy"], ref["energy"])
     _close(out["force"], ref["force"], 1e-5, 1e-5 * np.abs(np.asarray(ref["force"])).max())
@@ -599,9 +599,9 @@ def test_megnet_set2set_force_loss_gradients_are_finite():
     jfm = JEnergyForceModel(jmegnet.make_model(**{k: v for k, v in kw.items()
                                                   if not k.endswith("in_features")}))
     variables = _perturbed(jax.jit(jfm.init)(jax.random.PRNGKey(0), jb), 72)
-    ref = jfm.apply(variables, jb)
-    jgrads = jax.grad(lambda p: _force_loss(jfm.apply({"params": p}, jb), jb, jlosses))(
-        variables["params"])
+    ref = jax.jit(jfm.apply)(variables, jb)
+    jgrads = jax.jit(jax.grad(lambda p: _force_loss(jfm.apply({"params": p}, jb), jb,
+                                                    jlosses)))(variables["params"])
     assert not all(np.isfinite(np.asarray(g)).all() for g in jax.tree_util.tree_leaves(jgrads))
     model = params_from_jax(megnet.make_model(device="cpu", **kw), variables)
     out = EnergyForceModel(model, device="cpu").apply(tb, create_graph=True)
@@ -712,7 +712,8 @@ def test_default_zero_heads_build_and_run_as_jax():
     jb = jbatch_graphs(graphs, angle_edge_index_key="angle_indices")
     from gcnn_keras_tpu.models import dimenet_pp as jdime
     jm = jdime.make_model(num_blocks=1)
-    assert not np.asarray(jm.apply(jm.init(jax.random.PRNGKey(0), jb), jb)["output"]).any()
+    assert not np.asarray(jax.jit(jm.apply)(jax.jit(jm.init)(jax.random.PRNGKey(0), jb),
+                                            jb)["output"]).any()
     mgraphs = _multiplex(_mols(75))
     mb = batch_graphs(mgraphs, second_edge_index_key="range_indices", device="cpu", **MXM_KEYS)
     mxm = mxmnet.make_model(device="cpu", depth=1)

@@ -1,4 +1,5 @@
-"""The rank side of ``tests/test_torch_parallel.py``.
+"""The rank side of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_partitioned_hdnnp.py``.
 
 ``gcnn_keras_tpu_torch.parallel.launch.spawn`` runs :func:`run_checks` on
 each of D gloo ranks on the CPU. It imports neither ``jax`` nor the JAX
@@ -31,6 +32,15 @@ DP_SCHNET_KW = dict(depth=2, interaction_args={"units": 32},
                     last_mlp={"units": [32, 16]}, output_mlp={"units": [16, 1]})
 DP_WEIGHTS = {"schnet": (0.0, 100.0), "hdnnp4th": (50.0, 200.0)}
 DP_KEYS = {"schnet": ("energy",), "hdnnp4th": ("energy", "total_charge")}
+# tests/test_partitioned_model.py _hdnnp_model("auto"): the partitioned
+# HDNNP4th, its CG to a relative residual of 1e-10
+HDNNP_PART_KW = dict(
+    g2_kwargs={"eta": [0.0, 0.3], "rs": [0.0, 2.5], "rc": 3.0, "elements": [1, 6, 8]},
+    g4_kwargs={"eta": [0.0, 0.3], "lamda": [-1.0, 1.0], "rc": 3.0, "zeta": [1.0, 4.0],
+               "elements": [1, 6, 8], "multiplicity": 2.0},
+    mlp_charge_kwargs={"units": [16, 1], "num_relations": 6, "activation": ["swish", "linear"]},
+    mlp_local_kwargs={"units": [16, 1], "num_relations": 6, "activation": ["swish", "linear"]},
+    electrostatic_kwargs={"param_trainable": False, "solver": "auto", "cg_tol": 1e-10})
 MD_KW = dict(depth=2, interaction_args={"units": 32},
              gauss_args={"bins": 16, "distance_max": 4.0, "sigma": 0.4},
              last_mlp={"units": [32, 16], "activation": ["shifted_softplus"] * 2},
@@ -54,7 +64,8 @@ def port_model(kind, tree):
                 "schnet_fused": (schnet.make_model, SCHNET_FUSED_KW),
                 "md_schnet": (schnet.make_model, MD_KW),
                 "dp_schnet": (schnet.make_model, DP_SCHNET_KW),
-                "dp_hdnnp4th": (hdnnp4th.make_model_behler, None)}[kind]
+                "dp_hdnnp4th": (hdnnp4th.make_model_behler, None),
+                "hdnnp_part": (hdnnp4th.make_model_behler, HDNNP_PART_KW)}[kind]
     return params_from_jax(make(device="cpu", **(kw or dp_kw("hdnnp4th"))), tree)
 
 
@@ -151,13 +162,142 @@ def qeq(mesh, a, rhs):
     return _np(solve_qeq_batch_sharded(torch.as_tensor(a), torch.as_tensor(rhs), mesh))
 
 
-JOBS = {"aggregate": aggregate, "partitioned": partitioned, "dp": dp, "md": md, "qeq": qeq}
+def _gathered(mesh, pin, t):
+    """A per-node tensor of every rank's shard in the ORIGINAL node order."""
+    from gcnn_keras_tpu_torch.parallel.collectives import all_gather_tiled
+    from gcnn_keras_tpu_torch.parallel.partitioned import unshard_node_array
+    full = _np(all_gather_tiled(t.detach(), mesh))
+    return unshard_node_array(pin, full.reshape(pin.z.shape + full.shape[1:]))
+
+
+def _kernel_launches():
+    import chip_smoke
+    return {k: v for k, v in chip_smoke.kernel_counts().items() if v}
+
+
+def hdnnp(mesh, tree, pin, esp, e_target, f_target=None, q_target=None, steps=()):
+    """The partitioned HDNNP4th on this rank's shard: the energy, every
+    node's forces and charges (ORIGINAL order), and for each ``(name,
+    w_e, w_f, w_q)`` of ``steps`` one SGD(1.0) step's gradients and
+    metrics; the kernel wrappers' calls, the CG's rounds a solve."""
+    from gcnn_keras_tpu_torch.layers.conv import qeq_solver
+    from gcnn_keras_tpu_torch.parallel import partitioned as P
+    model = port_model("hdnnp_part", tree)
+    shard = P.rank_shard(pin, mesh, node_props={"esp": esp},
+                         global_props={"total_charge": np.zeros(1, np.float32)})
+    solves0, rounds0 = qeq_solver.solves, qeq_solver.rounds
+    e, f = P.make_partitioned_energy_force(model, mesh)(shard)
+    with torch.no_grad():
+        q = model(shard)["charge"]
+    out = {"energy": float(e), "force": _gathered(mesh, pin, f), "charge": _gathered(mesh, pin, q),
+           "cg_rounds_per_solve": (qeq_solver.rounds - rounds0)
+           / max(qeq_solver.solves - solves0, 1)}
+    n = len(pin.order)
+    for name, w_e, w_f, w_q in steps:
+        step = P.make_partitioned_train_step(model, mesh,
+                                             functools.partial(torch.optim.SGD, lr=1.0),
+                                             w_energy=w_e, w_force=w_f, w_charge=w_q)
+        state = step.init_state()
+        ft = np.zeros((n, 3), np.float32) if f_target is None else f_target
+        f_ref = torch.as_tensor(P.shard_node_array(pin, ft)[mesh.rank])
+        q_ref = (None if q_target is None
+                 else torch.as_tensor(P.shard_node_array(pin, q_target)[mesh.rank]))
+        grads, metrics, _ = step.grads(state, shard, e_target, f_ref, q_ref)
+        out[name] = {"grads": [_np(g) for g in grads],
+                     "metrics": {k: float(v) for k, v in metrics.items()}}
+    out["launches"] = _kernel_launches()
+    return out
+
+
+def acsf_layers(element_pair_mapping=False):
+    """The partitioned HDNNP4th's ACSF layers; ``element_pair_mapping``: G4
+    with its default pairs given explicitly, which takes the layer's own
+    plain route instead of the G4 kernel's plain version."""
+    from gcnn_keras_tpu_torch.layers.conv.acsf import ACSFG2, ACSFG4
+    g4 = ACSFG4.make_param_table(**HDNNP_PART_KW["g4_kwargs"])
+    if element_pair_mapping:
+        elems = np.sort(np.asarray(HDNNP_PART_KW["g4_kwargs"]["elements"]))
+        g4["element_pair_mapping"] = [(a, b) for i, a in enumerate(elems) for b in elems[i:]]
+    return ACSFG2(**ACSFG2.make_param_table(**HDNNP_PART_KW["g2_kwargs"])), ACSFG4(**g4)
+
+
+def acsf(mesh, pin):
+    """ACSFG2 and ACSFG4 (both plain routes) on this rank's shard, and the
+    gradient of each against fixed weights along this rank's positions."""
+    from gcnn_keras_tpu_torch.parallel import partitioned as P
+    shard = P.rank_shard(pin, mesh)
+    pos = shard.nodes["node_coordinates"].detach().requires_grad_(True)
+    b = shard.replace_nodes(node_coordinates=pos)
+    g2, g4 = acsf_layers()
+    _, g4_pairs = acsf_layers(element_pair_mapping=True)
+    out = {}
+    for name, layer in (("g2", g2), ("g4", g4), ("g4_pairs", g4_pairs)):
+        val = layer(b)
+        w = torch.linspace(-1.0, 1.0, val.numel()).reshape(val.shape)
+        (grad,) = torch.autograd.grad((val * w).sum(), pos)
+        out[name], out[f"grad_{name}"] = _np(val), _np(grad)
+    out["reasons"] = g4.kernel_reasons(shard)
+    out["launches"] = _kernel_launches()
+    return out
+
+
+def qeq_rows(mesh, system, qtot, tol, derivs):
+    """``solve_qeq_iterative_sharded`` of the float32 ``system`` (pos, sigma,
+    diag, chi, mask), and on the float64 ``derivs`` system its first and
+    second derivatives and its forward-mode tangent beside the
+    single-device ``_CGSolve``'s (through ``solve_qeq_iterative``)."""
+    from gcnn_keras_tpu_torch.layers.conv import qeq_solver as Q
+    pos, sig, diag, chi, mask = (torch.as_tensor(a) for a in system)
+    out = {"q": _np(Q.solve_qeq_iterative_sharded(pos, sig, diag, chi, qtot, mask, mesh,
+                                                  tol=tol))}
+    pos, sig, diag, chi, mask = (torch.as_tensor(a) for a in derivs)
+    rs = np.random.RandomState(11)
+    w = torch.as_tensor(rs.randn(len(chi)))
+    v = torch.as_tensor(rs.randn(len(chi), 3))
+    tangent = {k: torch.as_tensor(rs.randn(*t.shape)) for k, t in
+               (("pos", pos), ("sigma", sig), ("diag", diag))}
+
+    def derivatives(solve):
+        inputs = [t.clone().requires_grad_(True) for t in (pos, sig, diag, chi)]
+        q = solve(*inputs, 0.5, mask, tol=1e-13)
+        g = torch.autograd.grad((q * w).sum(), inputs, create_graph=True)
+        g2 = torch.autograd.grad((g[0] * v).sum(), inputs)
+        return [_np(t) for t in (q, *g, *g2)]
+
+    out["sharded"] = derivatives(lambda *a, **k: Q.solve_qeq_iterative_sharded(*a[:5], a[5],
+                                                                              mesh, **k))
+    out["single"] = derivatives(Q.solve_qeq_iterative)
+    # the row solve's jvp along this rank's rows of the tangents
+    import torch.autograd.forward_ad as fwad
+    m_loc = len(chi) // mesh.size
+    rows = slice(mesh.rank * m_loc, (mesh.rank + 1) * m_loc)
+    maskf = mask.to(pos.dtype)
+    b = torch.stack([chi * maskf, maskf], dim=-1)
+    with fwad.dual_level():
+        x = Q._RowsCGSolve.apply(b[rows], fwad.make_dual(pos[rows], tangent["pos"][rows]),
+                                 fwad.make_dual(sig[rows], tangent["sigma"][rows]),
+                                 fwad.make_dual(diag[rows], tangent["diag"][rows]),
+                                 maskf[rows], mesh, 1e-13, 10 * len(chi))
+        out["jvp_rows"] = _np(fwad.unpack_dual(x).tangent)
+        x1 = Q._CGSolve.apply(b[None], fwad.make_dual(pos, tangent["pos"])[None],
+                              fwad.make_dual(sig, tangent["sigma"])[None],
+                              fwad.make_dual(diag, tangent["diag"])[None], mask[None], 128,
+                              1e-13, 10 * len(chi))
+        out["jvp_single"] = _np(fwad.unpack_dual(x1).tangent[0, rows])
+    return out
+
+
+JOBS = {"aggregate": aggregate, "partitioned": partitioned, "dp": dp, "md": md, "qeq": qeq,
+        "hdnnp": hdnnp, "acsf": acsf, "qeq_rows": qeq_rows}
 
 
 def run_checks(mesh, spec):
     """Every job of ``spec`` (``{name: (job, kwargs)}``) on this rank, in
     order; returns ``{name: result}`` and the transport counts."""
     torch.manual_seed(0)
+    if any(job in ("hdnnp", "acsf") for job, _ in spec.values()):
+        import chip_smoke
+        chip_smoke.count_kernels_on_cpu()
     out = {name: JOBS[job](mesh, **kw) for name, (job, kw) in spec.items()}
     out["transport"] = {k: dict(v) for k, v in mesh.transport.items()}
     out["rank"] = mesh.rank
